@@ -1,16 +1,18 @@
 """autosmoothquant_tpu_torch — the PyTorch / NVIDIA Hopper port of
 ``autosmoothquant_tpu``.
 
-It serves W8A8 SmoothQuant checkpoints (the artifact that
-``autosmoothquant_tpu.convert.pipeline.save_quantized`` writes) on one H100.
+It serves the quantized checkpoints that
+``autosmoothquant_tpu.convert.pipeline.save_quantized`` writes (W8A8 int8,
+fp8 e4m3 dynamic or static, fp8 e5m2, W4A8 int4) on one H100.
 Plain tensor code is PyTorch; every Pallas kernel of the JAX package that the
 serving path runs has a hand-written CUDA counterpart under ``csrc/``, built
 with ``nvcc`` for ``sm_90a`` on first use (``kernels/_build.py``).
 
 Layout mirrors the JAX package so each counterpart is easy to find:
-  - ``quant/``    QuantConfig and the int8 quantization math
-  - ``kernels/``  int8 GEMM, fused add+RMSNorm+quant, flash attention:
-                  each a CUDA kernel beside its plain PyTorch version
+  - ``quant/``    QuantConfig and the int8 / fp8 / int4 quantization math
+  - ``kernels/``  int8, fp8 and int4 GEMMs, fused add+RMSNorm+quant, flash
+                  attention: each a CUDA kernel beside its plain PyTorch
+                  version
   - ``convert/``  safetensors reader, artifact loader, JAX-params carry-over
   - ``models/``   shared layers and the Llama family
   - ``serve/``    sampling and the static-batch generation engine

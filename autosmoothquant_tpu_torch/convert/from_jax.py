@@ -2,13 +2,23 @@
 
 The JAX params are a nested dict whose decoder-layer leaves are stacked
 ``[L, ...]`` and whose weights are ``[in, out]``. The port keeps a list of
-per-layer dicts and stores int8 weights ``[out, in]`` (``[N, K]``,
-K-contiguous: ``nn.Linear``'s layout and what the int8 GEMM reads), so each is
-transposed here, once. Float weights keep ``[in, out]``. Norm weights become
-f32, the type the fused norm kernel takes (the norms compute in f32 anyway).
+per-layer dicts and stores quantized weights ``[out, in]`` (``nn.Linear``'s
+layout), each transposed here, once:
+  - int8 and fp8 weights become ``[N, K]``, K-contiguous: the int8 and fp8
+    GEMMs stream one output column's bytes contiguously.
+  - int4 packed weights ``[K'/2, N]`` become ``[N, K'/2]`` and their group
+    scales ``[G, N]`` become ``[N, G]``, for the same reason: a warp of the
+    W4A8 kernel reads column n's packed bytes and its G scales as contiguous
+    runs. Split-K packing survives the transpose: byte r of column n still
+    holds rows r and r + K'/2.
+Scalar leaves (``dequant_scale``, ``quant_scale``, ``w_scale``,
+``input_scale``, ``output_scale``) and biases are carried as they are.
+Float weights keep ``[in, out]``. Norm weights become f32, the type the
+fused norm kernel takes (the norms compute in f32 anyway).
 
-Leaves may be numpy arrays (ml_dtypes bf16 is recognized by its dtype name
-and read through a uint16 view, with no import) or torch tensors.
+Leaves may be numpy arrays (ml_dtypes bf16 and fp8 are recognized by their
+dtype names and read through an integer view, with no import) or torch
+tensors.
 """
 
 from __future__ import annotations
@@ -18,27 +28,37 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from ..models.common import QUANT_DTYPES
+
 _NORMS = ("ln1", "ln2", "final_norm")
+# ml_dtypes names -> (integer view of the same width, torch dtype)
+_ML_DTYPES = {
+    "bfloat16": (np.int16, torch.bfloat16),
+    "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
+    "float8_e5m2": (np.uint8, torch.float8_e5m2),
+}
 
 
 def to_torch(a) -> torch.Tensor:
-    """A numpy array (ml_dtypes bf16 included) or tensor as a CPU tensor."""
+    """A numpy array (ml_dtypes bf16 and fp8 included) or tensor as a CPU
+    tensor."""
     if isinstance(a, torch.Tensor):
         return a
     a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
+    if a.dtype.name in _ML_DTYPES:
+        view, dtype = _ML_DTYPES[a.dtype.name]
         return torch.from_numpy(
-            np.ascontiguousarray(a).view(np.uint16).view(np.int16).copy()
-        ).view(torch.bfloat16)
+            np.ascontiguousarray(a).view(view).copy()).view(dtype)
     return torch.from_numpy(np.ascontiguousarray(a).copy())
 
 
 def _proj(p: Dict[str, Any], layer: Optional[int]) -> Dict[str, torch.Tensor]:
     out = {}
+    quant = p["w"].dtype in QUANT_DTYPES
     for key, t in p.items():
         if layer is not None:
             t = t[layer]
-        if key == "w" and t.dtype == torch.int8:
+        if quant and key in ("w", "w_scales"):
             t = t.t()
         out[key] = t.contiguous()
     return out
@@ -62,9 +82,9 @@ def _block(tree: Dict[str, Any], layer: Optional[int]):
 
 def params_from_jax(tree: Dict[str, Any], cfg=None, *,
                     device="cuda") -> Dict[str, Any]:
-    """JAX params (float or int8; fused q|k|v, gate|up or not) -> the port's
-    params on ``device``. ``cfg`` (a LlamaConfig), when given, is checked
-    against the layer count and supplies a tied lm_head."""
+    """JAX params (float, int8, fp8 or int4; fused q|k|v, gate|up or not) ->
+    the port's params on ``device``. ``cfg`` (a LlamaConfig), when given, is
+    checked against the layer count and supplies a tied lm_head."""
     from ..runtime import resolve_device
 
     dev = resolve_device(device)

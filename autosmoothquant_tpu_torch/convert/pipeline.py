@@ -6,8 +6,10 @@
   quant_config.json         the QuantConfig contract
   config.json               the HF model config (optional)
 
-The quantize pipeline itself (calibrate, smooth, quantize) is not ported yet;
-the port serves artifacts the JAX package wrote.
+Every format the JAX package writes loads: int8, fp8 (e4m3 dynamic or static,
+e5m2; the safetensors codes F8_E4M3 / F8_E5M2) and int4 (packed uint8 with
+its group scales). The quantize pipeline itself (calibrate, smooth, quantize)
+is not ported yet; the port serves artifacts the JAX package wrote.
 """
 
 from __future__ import annotations

@@ -27,6 +27,8 @@ _DTYPES = {
     "I8": (torch.int8, torch.int8),
     "U8": (torch.uint8, torch.uint8),
     "BOOL": (torch.bool, torch.bool),
+    "F8_E4M3": (torch.uint8, torch.float8_e4m3fn),
+    "F8_E5M2": (torch.uint8, torch.float8_e5m2),
 }
 
 

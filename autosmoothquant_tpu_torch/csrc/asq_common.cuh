@@ -50,3 +50,43 @@ __device__ __forceinline__ int asq_warp_sum_int(int v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
+
+// The GEMM epilogue the int8, fp8 and int4 kernels share:
+//   out[m, n] = act(acc * row_scale[m] * col_scale[n] + bias[n])
+// multiplied in the JAX order (acc * row) * col, then the bias added, with
+// explicit round-to-nearest intrinsics so nvcc cannot contract them into an
+// FMA: given the same acc, the output has the plain PyTorch version's bits.
+enum AsqOutKind { ASQ_OUT_F32 = 0, ASQ_OUT_BF16 = 1, ASQ_OUT_I8 = 2 };
+enum AsqAct { ASQ_ACT_NONE = 0, ASQ_ACT_RELU = 1, ASQ_ACT_SILU = 2 };
+
+struct AsqEpilogue {
+  const float* rs;  // row scale; rs_stride 0 broadcasts one value; null: 1
+  int rs_stride;
+  const float* cs;  // column scale; cs_stride 0 broadcasts one value; null: 1
+  int cs_stride;
+  const float* bias;  // [N] or nullptr
+  int act;
+  int out_kind;
+  void* out;  // [M, N]
+};
+
+__device__ __forceinline__ void asq_store(const AsqEpilogue& e, int m, int n,
+                                          int N, float acc) {
+  const float rs = e.rs != nullptr ? e.rs[m * e.rs_stride] : 1.f;
+  const float cs = e.cs != nullptr ? e.cs[n * e.cs_stride] : 1.f;
+  float v = __fmul_rn(__fmul_rn(acc, rs), cs);
+  if (e.bias != nullptr) v = __fadd_rn(v, e.bias[n]);
+  if (e.act == ASQ_ACT_RELU) {
+    v = fmaxf(v, 0.f);
+  } else if (e.act == ASQ_ACT_SILU) {
+    v = __fmul_rn(v, 1.f / (1.f + expf(-v)));
+  }
+  const size_t idx = static_cast<size_t>(m) * N + n;
+  if (e.out_kind == ASQ_OUT_F32) {
+    static_cast<float*>(e.out)[idx] = v;
+  } else if (e.out_kind == ASQ_OUT_BF16) {
+    static_cast<__nv_bfloat16*>(e.out)[idx] = __float2bfloat16_rn(v);
+  } else {
+    static_cast<int8_t*>(e.out)[idx] = asq_quant_int8(v);
+  }
+}

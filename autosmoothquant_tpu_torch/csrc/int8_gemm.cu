@@ -24,48 +24,13 @@
 //  - Ragged M, N and K edges are masked in the kernel (zero-filled words), so
 //    no shape or alignment is refused; the 16-byte and 4-byte load paths are
 //    taken only where K and the pointers allow them.
-//  - The epilogue multiplies in the JAX order (acc * row) * col, then adds the
-//    bias, with explicit round-to-nearest intrinsics so nvcc cannot contract
-//    them into an FMA: the f32 output equals the plain PyTorch version's bits.
+//  - The epilogue (asq_store, asq_common.cuh) multiplies in the JAX order
+//    (acc * row) * col, then adds the bias, with explicit round-to-nearest
+//    intrinsics: the f32 output equals the plain PyTorch version's bits.
 
 #include "asq_common.cuh"
 
 namespace {
-
-enum OutKind { OUT_F32 = 0, OUT_BF16 = 1, OUT_I8 = 2 };
-enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_SILU = 2 };
-
-struct Epilogue {
-  const float* rs;  // row scale; rs_stride 0 broadcasts one value; null: 1
-  int rs_stride;
-  const float* cs;  // column scale; cs_stride 0 broadcasts one value; null: 1
-  int cs_stride;
-  const float* bias;  // [N] or nullptr
-  int act;
-  int out_kind;
-  void* out;  // [M, N]
-};
-
-__device__ __forceinline__ void store(const Epilogue& e, int m, int n, int N,
-                                      int acc) {
-  const float rs = e.rs != nullptr ? e.rs[m * e.rs_stride] : 1.f;
-  const float cs = e.cs != nullptr ? e.cs[n * e.cs_stride] : 1.f;
-  float v = __fmul_rn(__fmul_rn(__int2float_rn(acc), rs), cs);
-  if (e.bias != nullptr) v = __fadd_rn(v, e.bias[n]);
-  if (e.act == ACT_RELU) {
-    v = fmaxf(v, 0.f);
-  } else if (e.act == ACT_SILU) {
-    v = __fmul_rn(v, 1.f / (1.f + expf(-v)));
-  }
-  const size_t idx = static_cast<size_t>(m) * N + n;
-  if (e.out_kind == OUT_F32) {
-    static_cast<float*>(e.out)[idx] = v;
-  } else if (e.out_kind == OUT_BF16) {
-    static_cast<__nv_bfloat16*>(e.out)[idx] = __float2bfloat16_rn(v);
-  } else {
-    static_cast<int8_t*>(e.out)[idx] = asq_quant_int8(v);
-  }
-}
 
 constexpr int kGemvMaxM = 8;
 constexpr int kGemvWarps = 8;
@@ -73,7 +38,7 @@ constexpr int kGemvWarps = 8;
 // One warp per output column n; all M (<= 8) rows at once.
 __global__ void __launch_bounds__(kGemvWarps * 32)
     gemv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                int M, int N, int K, bool vec16, Epilogue e) {
+                int M, int N, int K, bool vec16, AsqEpilogue e) {
   const int n = blockIdx.x * kGemvWarps + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (n >= N) return;
@@ -111,7 +76,7 @@ __global__ void __launch_bounds__(kGemvWarps * 32)
   for (int m = 0; m < kGemvMaxM; ++m) {
     if (m < M) {
       const int total = asq_warp_sum_int(acc[m]);
-      if (lane == m) store(e, m, n, N, total);
+      if (lane == m) asq_store(e, m, n, N, __int2float_rn(total));
     }
   }
 }
@@ -137,7 +102,7 @@ __device__ __forceinline__ int load_word(const int8_t* __restrict__ p, int row,
 
 __global__ void __launch_bounds__(256)
     gemm_tiled_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                      int M, int N, int K, bool al4, Epilogue e) {
+                      int M, int N, int K, bool al4, AsqEpilogue e) {
   __shared__ int As[kBM][kBKW + 1];
   __shared__ int Bs[kBN][kBKW + 1];
   const int tid = threadIdx.x;
@@ -176,7 +141,7 @@ __global__ void __launch_bounds__(256)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int m = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
-      if (m < M && n < N) store(e, m, n, N, acc[i][j]);
+      if (m < M && n < N) asq_store(e, m, n, N, __int2float_rn(acc[i][j]));
     }
   }
 }
@@ -191,7 +156,7 @@ ASQ_EXPORT int asq_int8_gemm(const void* x, const void* w_t, const void* row_sca
                              int rs_stride, const void* col_scale, int cs_stride,
                              const void* bias, void* out, int M, int N, int K,
                              int act, int out_kind, void* stream) {
-  Epilogue e{static_cast<const float*>(row_scale), rs_stride,
+  AsqEpilogue e{static_cast<const float*>(row_scale), rs_stride,
              static_cast<const float*>(col_scale), cs_stride,
              static_cast<const float*>(bias), act, out_kind, out};
   const auto xp = static_cast<const int8_t*>(x);

@@ -4,13 +4,14 @@
 Conventions carried over from the JAX package:
   - per-tensor activation scales live in norm weights (POST_NORM projections)
     or in a ``quant_scale`` leaf (SCALED projections), as device tensors
-  - norms run in f32; int8 projections go through the int8 GEMM kernel
+  - norms run in f32; int8, fp8 and int4 projections go through their GEMM
+    kernels (int4 and fp8 norms keep their weights: no scale is folded)
   - the KV cache layout is [B, S_max, H_kv, Dh]; an int8 cache carries f32
     per-token-per-head scales [B, S_max, H_kv]
 
 What differs: params are per-layer dicts, not stacked leaves under a scan;
-the KV cache is a list of per-layer objects written in place; int8 weights
-are [N, K] (see ``convert/from_jax.py``).
+the KV cache is a list of per-layer objects written in place; quantized
+weights are [N, K] (int4: [N, K'/2] packed; see ``convert/from_jax.py``).
 """
 
 from __future__ import annotations
@@ -22,7 +23,9 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.attention import flash_attention, flash_attention_banded
+from ..kernels.fp8 import fp8_matmul
 from ..kernels.gemm import int8_matmul
+from ..kernels.int4 import int4_matmul
 from ..quant import math as qmath
 from ..quant.config import PER_TENSOR, PER_TOKEN, QuantConfig
 
@@ -98,36 +101,75 @@ def float_linear(x: torch.Tensor, p: dict, out_dtype=None) -> torch.Tensor:
 
 def quant_linear(x: torch.Tensor, p: dict, cfg: QuantConfig, granularity: str,
                  kind: str = LinearKind.POST_NORM, out_dtype=None) -> torch.Tensor:
-    """One int8 projection. p: w int8 [N, K]; dequant_scale f32 (0-d, or [N]
-    for fused sections); quant_scale f32 0-d (SCALED per-tensor); bias f32
-    [N] optional."""
-    if cfg.type != "int8":
-        raise NotImplementedError(f"quant type {cfg.type!r} is not ported yet")
+    """One quantized projection, by ``cfg.type``. Leaves (weights [N, K],
+    see ``convert/from_jax.py``; bias f32 [N] optional in every format):
+
+    int8: w int8; dequant_scale f32 (0-d, or [N] for fused sections);
+          quant_scale f32 0-d (SCALED per-tensor).
+    fp8:  w e4m3fn or e5m2; w_scale f32 (0-d, or [N] for fused sections;
+          e4m3 only); input_scale (and optionally output_scale) f32 0-d for
+          the static scheme. A projection without input_scale (a fused one)
+          quantizes dynamically, as the JAX package's fused path does.
+    int4: w uint8 [N, K'/2] nibbles; w_scales f32 [N, G]. Activations are
+          not pre-quantized, so the granularity does not apply."""
     out_dtype = out_dtype or x.dtype
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    if granularity == PER_TOKEN:
-        q, tok_scale = qmath.quantize_act_per_token(x2)
-        out = int8_matmul(q, p["w"], row_scale=tok_scale,
-                          col_scale=p["dequant_scale"], bias=p.get("bias"),
-                          out_dtype=out_dtype)
-    else:
-        if kind == LinearKind.SCALED:
-            q = qmath.quantize_act_static(x2, p["quant_scale"])
+    bias = p.get("bias")
+    if cfg.type == "int4":
+        out = int4_matmul(x2, p["w"], p["w_scales"], bias, out_dtype=out_dtype)
+    elif cfg.type == "int8":
+        if granularity == PER_TOKEN:
+            q, tok_scale = qmath.quantize_act_per_token(x2)
+            out = int8_matmul(q, p["w"], row_scale=tok_scale,
+                              col_scale=p["dequant_scale"], bias=bias,
+                              out_dtype=out_dtype)
         else:
-            q = qmath.quantize_act_prescaled(x2)
-        out = int8_matmul(q, p["w"], col_scale=p["dequant_scale"],
-                          bias=p.get("bias"), out_dtype=out_dtype)
+            if kind == LinearKind.SCALED:
+                q = qmath.quantize_act_static(x2, p["quant_scale"])
+            else:
+                q = qmath.quantize_act_prescaled(x2)
+            out = int8_matmul(q, p["w"], col_scale=p["dequant_scale"],
+                              bias=bias, out_dtype=out_dtype)
+    elif cfg.type == "fp8_e5m2":
+        # scale-free cast of the activation (no clamp), as the weights were
+        out = fp8_matmul(x2.to(torch.float8_e5m2), p["w"], bias=bias,
+                         out_dtype=out_dtype)
+    elif cfg.type == "fp8_e4m3":
+        fdt = torch.float8_e4m3fn
+        if cfg.activation_scheme == "static" and "input_scale" in p:
+            q = qmath.quantize_fp8_static(x2, p["input_scale"], fdt)
+            out = fp8_matmul(q, p["w"], row_scale=p["input_scale"],
+                             col_scale=p["w_scale"], bias=bias,
+                             out_dtype=out_dtype)
+            if "output_scale" in p:
+                # the observer-tracked output re-quantization
+                qo = qmath.quantize_fp8_static(out, p["output_scale"], fdt)
+                out = (qo.float() * p["output_scale"]).to(out_dtype)
+        else:
+            if granularity == PER_TOKEN:
+                q, s = qmath.quantize_fp8_per_token(x2, fdt)
+            else:
+                q, s = qmath.quantize_fp8_per_tensor(x2, fdt)
+            out = fp8_matmul(q, p["w"], row_scale=s, col_scale=p["w_scale"],
+                             bias=bias, out_dtype=out_dtype)
+    else:
+        raise ValueError(f"unknown quant type {cfg.type!r}")
     return out.reshape(*lead, -1)
 
 
+# weight dtypes of quantized projections (uint8: nibble-packed int4)
+QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn, torch.float8_e5m2, torch.uint8)
+
+
 def is_quantized(p: dict) -> bool:
-    return p["w"].dtype == torch.int8
+    return p["w"].dtype in QUANT_DTYPES
 
 
 def linear(x, p, cfg: Optional[QuantConfig], granularity=PER_TENSOR,
            kind=LinearKind.POST_NORM, out_dtype=None):
-    """Float vs int8 by the weight's dtype."""
+    """Float or quantized by the weight's dtype: a projection that fp8
+    ignore patterns left float stays float."""
     if cfg is None or not is_quantized(p):
         return float_linear(x, p, out_dtype)
     return quant_linear(x, p, cfg, granularity, kind, out_dtype)
@@ -193,7 +235,7 @@ def make_kv_cache(num_layers: int, batch: int, max_len: int, num_kv_heads: int,
 def _quantize_kv(x: torch.Tensor):
     """[B, T, H, Dh] -> (int8, f32 scales [B, T, H]); absmax over Dh."""
     xf = x.float()
-    scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-8) / 127.0
+    scale = qmath.true_div(torch.clamp(xf.abs().amax(dim=-1), min=1e-8), 127.0)
     q = torch.clamp(torch.round(xf / scale[..., None]), -128, 127).to(torch.int8)
     return q, scale
 

@@ -9,11 +9,16 @@ Params (see ``convert/from_jax.py``):
                      "mlp": {"gate", "up", "down"} or {"gateup", "down"}}, ...],
      "final_norm": {"w": f32 [D]},
      "lm_head":    {"w": [D, V]}}          # kept float
-A projection is {"w": float [in, out]} or, quantized, {"w": int8 [out, in],
-"dequant_scale", ("quant_scale"), ("bias")}.
+A projection is {"w": float [in, out]} or, quantized ([out, in] weights):
+    int8  {"w": int8, "dequant_scale", ("quant_scale"), ("bias")}
+    fp8   {"w": e4m3fn or e5m2, ("w_scale"), ("input_scale"),
+           ("output_scale"), ("bias")}
+    int4  {"w": uint8 [out, in'/2] nibbles, "w_scales": f32 [out, G],
+           ("bias")}
+An fp8 projection that the artifact's ignore patterns exempted stays float.
 
-Not ported yet: int4/fp8 weights, calibration capture, smooth and quantize
-(the port serves artifacts the JAX package wrote).
+Not ported yet: calibration capture, smooth and quantize (the port serves
+artifacts the JAX package wrote).
 """
 
 from __future__ import annotations
@@ -216,31 +221,43 @@ def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
 
 def fuse_decode_projections(params) -> Dict[str, Any]:
     """Concatenate q|k|v and gate|up along the output dim so a layer runs 4
-    GEMMs instead of 7. Scalar int8 dequant scales expand to per-section
-    column vectors."""
+    GEMMs instead of 7, as the JAX package does for float, int8, fp8 and
+    int4 params. Quantized weights ([N, K], int4 [N, K'/2]) and int4 group
+    scales ([N, G]) join on dim 0, float weights ([in, out]) on dim 1, biases
+    end to end. Scalar int8 dequant scales and fp8 w_scales expand to
+    per-section column vectors; e5m2 carries none. A group whose sections
+    differ in weight type or leaves (an fp8 projection left float by the
+    ignore patterns) stays unfused. Static fp8 scales (input_scale,
+    output_scale) do not survive fusion: ``Engine`` does not fuse such
+    params."""
 
     def fuse(ps):
+        w0 = ps[0]["w"]
+        if any(p["w"].dtype != w0.dtype or set(p) != set(ps[0]) for p in ps):
+            return None
         quant = is_quantized(ps[0])
         out = {"w": torch.cat([p["w"] for p in ps], dim=0 if quant else 1)}
-        if all("bias" in p for p in ps):
+        if "bias" in ps[0]:
             out["bias"] = torch.cat([p["bias"] for p in ps])
-        if quant:
-            out["dequant_scale"] = torch.cat([
-                p["dequant_scale"].float().reshape(-1).expand(p["w"].shape[0])
-                for p in ps])
+        for key in ("dequant_scale", "w_scale"):
+            if key in ps[0]:
+                out[key] = torch.cat([
+                    p[key].float().reshape(-1).expand(p["w"].shape[0])
+                    for p in ps])
+        if "w_scales" in ps[0]:
+            out["w_scales"] = torch.cat([p["w_scales"] for p in ps], dim=0)
         return out
 
     layers = []
     for lp in params["layers"]:
-        if "qkv" in lp["attn"]:
-            layers.append(lp)
-            continue
-        layers.append({
-            **lp,
-            "attn": {"qkv": fuse([lp["attn"][n] for n in ("q", "k", "v")]),
-                     "o": lp["attn"]["o"]},
-            "mlp": {"gateup": fuse([lp["mlp"]["gate"], lp["mlp"]["up"]]),
-                    "down": lp["mlp"]["down"]},
-        })
+        attn, mlp = dict(lp["attn"]), dict(lp["mlp"])
+        if "qkv" not in attn:
+            qkv = fuse([attn[n] for n in ("q", "k", "v")])
+            if qkv is not None:
+                attn = {"qkv": qkv, "o": attn["o"]}
+        if "gateup" not in mlp:
+            gateup = fuse([mlp["gate"], mlp["up"]])
+            if gateup is not None:
+                mlp = {"gateup": gateup, "down": mlp["down"]}
+        layers.append({**lp, "attn": attn, "mlp": mlp})
     return {**params, "layers": layers}
-

@@ -55,14 +55,24 @@ def _truncate_at_stop(row, stop):
     return row[:cut]
 
 
+def _has_static_fp8_scales(params) -> bool:
+    layers = params.get("layers") or [{}]
+    return any("input_scale" in p for group in ("attn", "mlp")
+               for p in layers[0].get(group, {}).values())
+
+
 class Engine:
     """Generation over a model family module (forward / logits /
     init_kv_cache) on one device.
 
-    params: the port's params (float or int8, see convert/from_jax.py), on
-    ``device``; qcfg selects the quantized path. On one device the engine
-    always fuses q|k|v and gate|up (4 GEMMs a layer instead of 7), as the
-    JAX engine's auto setting does there."""
+    params: the port's params (float, int8, fp8 or int4, see
+    convert/from_jax.py), on ``device``; qcfg selects the quantized path. On
+    one device the engine fuses q|k|v and gate|up (4 GEMMs a layer instead
+    of 7), as the JAX engine's auto setting does there, except for params
+    that carry fp8-static ``input_scale`` leaves: fusion would drop those
+    frozen scales and the activations would silently re-quantize
+    dynamically, so such params run unfused (JAX
+    ``maybe_fuse_projections``)."""
 
     def __init__(self, model_mod, params, cfg, qcfg: Optional[QuantConfig] = None,
                  *, max_batch: int = 8, max_seq: int = 2048,
@@ -70,7 +80,8 @@ class Engine:
                  device="cuda"):
         self.device = resolve_device(device)
         self.model = model_mod
-        self.params = model_mod.fuse_decode_projections(params)
+        self.params = (params if _has_static_fp8_scales(params)
+                       else model_mod.fuse_decode_projections(params))
         self.cfg = cfg
         self.qcfg = qcfg
         self.max_batch = max_batch

@@ -1,38 +1,48 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch / H100 port's main path on one NVIDIA GPU and hold every
-kernel of that path against its plain PyTorch version.
+"""Drive the PyTorch / H100 port's main paths on one NVIDIA GPU and hold every
+kernel of those paths against its plain PyTorch version.
 
 Run from the root of a checkout, on a machine with one card:
 
     python3 chip_smoke.py
 
+The paths are Llama generation in three weight formats: W8A8 int8 (kernels
+K1 int8 GEMM, K2 add+RMSNorm+quant, K3 flash prefill), fp8 e4m3 / e5m2 (K4
+fp8 GEMM, K3) and W4A8 int4 (K5 int4 GEMM at M <= 64, K3).
+
 Phases (any failure ends the run with a nonzero exit code):
   device   the card's name and power limit
   build    nvcc builds autosmoothquant_tpu_torch/csrc/*.cu (one process per
            source, all started together) and prints the -Xptxas -v summary
-  kernels  each kernel against its plain version at the main path's shapes
-  e2e      a 2-layer TinyLlama-width W8A8 model on the card and, with the same
-           weights, on the CPU (plain versions): prefill logits agree within
-           the stated tolerance and greedy tokens are equal up to any near-tie
-  serve    the 22-layer TinyLlama-1.1B W8A8 model serves Engine.generate:
-           4 ragged prompts (banded prefill) and an equal-length batch
-           (causal prefill), greedy, 32 new tokens; finite logits, and every
-           kernel's launch count moved
+  kernels  each kernel against its plain version at the main paths' shapes
+  e2e      2-layer TinyLlama-width models on the card and, with the same
+           weights, on the CPU (plain versions), in W8A8, fp8 e4m3 dynamic,
+           fp8 e4m3 static (unfused), fp8 e5m2 and int4: prefill logits agree
+           within the stated limits and greedy tokens are equal up to any
+           near-tie
+  serve    the 22-layer TinyLlama-1.1B model serves Engine.generate in W8A8,
+           fp8 e4m3 dynamic and int4 (group 128): 4 ragged prompts (banded
+           prefill) and an equal-length batch (causal prefill), greedy;
+           finite logits, and each path's kernels' launch counts, set to 0
+           just before the path runs, moved
   timing   each kernel's time against its plain version, its library
-           yardstick and its bound; prefill time; decode tok/s of W8A8 and
-           bf16 at b1, prompt 128, s_max 512; peak device memory
+           yardstick and its bound; prefill time; decode tok/s of W8A8, fp8,
+           int4 and bf16 at b1, prompt 128, s_max 512, in turns; device
+           kernels a decode step; peak device memory
 
 Every phase runs, in this order. The last two lines of standard output are
 the kernel table ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
 
-Weights are random, drawn from seeded ``torch.Generator``s in the int8
+Weights are random, drawn from seeded ``torch.Generator``s. W8A8 uses the int8
 representation ``bench.py:build_params`` uses (uniform int8 weights, f32
-scales). The scales are chosen so activations keep unit scale through any
-depth: norm weights (which carry the folded input scale) are 32, so a
-quantized activation has an RMS near 32; each GEMM's dequant scale is
+scales), with scales chosen so activations keep unit scale through any depth:
+norm weights (which carry the folded input scale) are 32, so a quantized
+activation has an RMS near 32; each GEMM's dequant scale is
 1 / (sqrt(K) * 32 * 73.6), 73.6 being the RMS of a uniform int8 weight, so
 its output has unit variance; o_proj and down_proj quantize their inputs with
-a static scale of 1/64.
+a static scale of 1/64. fp8 and int4 draw float weights N(0, 1/K) (norm
+weights 1) and quantize them with the port's own ``quant/math`` on the
+device; the static fp8 input scale is 16 / 448 for every projection.
 """
 
 from __future__ import annotations
@@ -50,7 +60,7 @@ PHASES = ("device", "build", "kernels", "e2e", "serve", "timing")
 
 # NVIDIA H100 SXM data sheet (dense): HBM3 bandwidth and peak rates by type
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
+PEAK_OPS_PER_S = {"int8": 1979e12, "fp8": 1979e12, "bf16": 989e12, "f32": 67e12}
 
 # TinyLlama-1.1B (bench.py's default shape)
 TINYLLAMA = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5632,
@@ -60,6 +70,7 @@ GEMM_SHAPES = ((2048, 2560), (2048, 2048), (2048, 11264), (5632, 2048))  # (K, N
 GEMM_NAMES = ("qkv", "o", "gate|up", "down")
 INT8_RMS = 73.6     # RMS of an integer drawn uniformly from [-127, 127]
 ACT_RMS = 32.0      # RMS of a quantized activation (norm weight 32)
+STATIC_FP8_AMAX = 16.0  # the static fp8 input scale is this / 448
 
 
 class SmokeFailure(RuntimeError):
@@ -119,20 +130,22 @@ def draw_w8a8(cfg, seed, device):
                               * (2.0 / math.sqrt(D))).to(torch.bfloat16)}}
 
 
-def draw_bf16(cfg, seed, device):
-    """Random bf16 params ([in, out] float weights)."""
+def draw_float(cfg, seed, device, proj_dtype=None):
+    """Random float params ([in, out] weights N(0, 1/K), norm weights 1;
+    bf16 embedding and lm_head). Projections are bf16, or ``proj_dtype``."""
     import torch
 
+    proj_dtype = proj_dtype or torch.bfloat16
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     D, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     HD = cfg.num_attention_heads * cfg.head_dim
     KVD = cfg.num_key_value_heads * cfg.head_dim
 
-    def w(k, n, scale=None):
+    def w(k, n, scale=None, dtype=proj_dtype):
         s = scale if scale is not None else 1.0 / math.sqrt(k)
         return {"w": (torch.randn(k, n, generator=g, device=device) * s)
-                .to(torch.bfloat16)}
+                .to(dtype)}
 
     ones = lambda: {"w": torch.ones(D, dtype=torch.float32, device=device)}  # noqa: E731
     layers = [{"ln1": ones(),
@@ -143,7 +156,39 @@ def draw_bf16(cfg, seed, device):
     return {"embed": {"w": torch.randn(V, D, generator=g, device=device)
                       .to(torch.bfloat16)},
             "layers": layers, "final_norm": ones(),
-            "lm_head": w(D, V, scale=2.0 / math.sqrt(D))}
+            "lm_head": w(D, V, scale=2.0 / math.sqrt(D), dtype=torch.bfloat16)}
+
+
+def draw_quantized(cfg, qcfg, seed, device):
+    """Random fp8 or int4 params in the port's layout: draw_float's f32
+    weights quantized on ``device`` by the port's quant/math (fp8 e4m3:
+    per-tensor absmax scales, plus the static input scale for the static
+    scheme; e5m2: a scale-free cast; int4: group scales, K zero-padded to
+    the stored depth)."""
+    import torch
+
+    from autosmoothquant_tpu_torch.quant import math as Q
+
+    def proj(p):
+        w = p["w"]                                  # f32 [K, N]
+        if qcfg.type == "int4":
+            packed, scales = Q.quantize_weight_int4_grouped(w, qcfg.group_size)
+            return {"w": packed.t().contiguous(), "w_scales": scales.t().contiguous()}
+        wt = w.t().contiguous()                     # [N, K]
+        if qcfg.type == "fp8_e5m2":
+            return {"w": wt.to(torch.float8_e5m2)}
+        q, scale = Q.quantize_fp8_per_tensor(wt)
+        out = {"w": q, "w_scale": scale}
+        if qcfg.activation_scheme == "static":
+            out["input_scale"] = torch.tensor(STATIC_FP8_AMAX / Q.FP8_E4M3_MAX,
+                                              dtype=torch.float32, device=device)
+        return out
+
+    params = draw_float(cfg, seed, device, proj_dtype=torch.float32)
+    layers = [{**lp, "attn": {k: proj(v) for k, v in lp["attn"].items()},
+               "mlp": {k: proj(v) for k, v in lp["mlp"].items()}}
+              for lp in params["layers"]]
+    return {**params, "layers": layers}
 
 
 def to_device(node, device):
@@ -163,7 +208,12 @@ class Timer:
     """CUDA-event time of one call, averaged over ``iters`` launches, with
     the 50 MB L2 cache flushed before each by reading 128 MB (a read leaves
     no dirty lines whose write-back would land in the timed call), so
-    weights come from device memory as a decode step finds them."""
+    weights come from device memory as a decode step finds them. A spin
+    kernel of about 0.1 ms (``torch.cuda._sleep``) queued before the start
+    event keeps the card busy while the host enqueues the call, so the
+    events bracket device work, not the wrapper's Python and ctypes time."""
+
+    SPIN_CYCLES = 200_000
 
     def __init__(self, torch):
         self.torch = torch
@@ -177,6 +227,7 @@ class Timer:
         total = 0.0
         for _ in range(iters):
             self.flush.sum()
+            torch.cuda._sleep(self.SPIN_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -292,6 +343,107 @@ def run_flash(c, plain=False):
         return fn(c["q"], c["k"], c["v"], c["pos"], c["starts"], sm_scale=c["scale"])
     fn = A.flash_attention_plain if plain else A.flash_attention
     return fn(c["q"], c["k"], c["v"], sm_scale=c["scale"])
+
+
+FP8_VARIANTS = (
+    # (label, out dtype, per-row scale, per-column scale, bias)
+    ("bf16 scalar", "bf16", False, False, False),
+    ("f32 per-token+bias", "f32", True, False, True),
+    ("bf16 col-vector+bias", "bf16", False, True, True),
+    ("f32 per-token col-vector", "f32", True, True, False),
+)
+FP8_FORMATS = ("e4m3", "e5m2")
+
+
+def fp8_case(torch, m, k, n, fmt, variant, gen):
+    """fp8 operands as the main path makes them: e4m3 through the port's
+    per-tensor quantizer (activations and N(0, 1/K) weights), e5m2 by a
+    plain cast; scales as the variant says (a scalar 1 where it has none)."""
+    from autosmoothquant_tpu_torch.quant import math as Q
+
+    label, out, per_row, per_col, has_bias = variant
+    x = torch.randn(m, k, device="cuda", generator=gen)
+    w = torch.randn(n, k, device="cuda", generator=gen) / math.sqrt(k)
+    if fmt == "e4m3":
+        x, _ = Q.quantize_fp8_per_tensor(x)
+        w, _ = Q.quantize_fp8_per_tensor(w)
+    else:
+        x, w = x.to(torch.float8_e5m2), w.to(torch.float8_e5m2)
+    rs = (torch.rand(m, 1, device="cuda", generator=gen) + 0.5 if per_row
+          else torch.tensor(0.02, device="cuda"))
+    cs = (torch.rand(n, device="cuda", generator=gen) * 0.02 + 0.01 if per_col
+          else torch.tensor(0.015, device="cuda"))
+    bias = torch.randn(n, device="cuda", generator=gen) if has_bias else None
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[out]
+    return dict(x=x, w=w, rs=rs, cs=cs, bias=bias, dt=dt, out=out,
+                label=f"{fmt} {label}")
+
+
+def run_fp8(c, plain=False):
+    from autosmoothquant_tpu_torch.kernels.fp8 import fp8_matmul, fp8_matmul_plain
+
+    fn = fp8_matmul_plain if plain else fp8_matmul
+    return fn(c["x"], c["w"], c["rs"], c["cs"], c["bias"], out_dtype=c["dt"])
+
+
+def fp8_tolerance(torch, c, ref):
+    """The f32 sum's bound (each fp8 product is exact in f32; the plain
+    version sums in float64): 2 * K * 2**-24 * sum |x||w| per output, times
+    the scales, plus one bf16 step (2**-7 of the value) for bf16 outputs."""
+    k = c["x"].shape[1]
+    mag = c["x"].double().abs() @ c["w"].double().abs().t()
+    scale = (c["rs"].double().abs().reshape(-1, 1) if c["rs"].ndim else c["rs"].double())
+    scale = scale * (c["cs"].double().abs().reshape(1, -1) if c["cs"].ndim
+                     else c["cs"].double())
+    tol = 2 * k * 2.0 ** -24 * mag * scale + 1e-6
+    if c["out"] == "bf16":
+        tol = tol + ref.double().abs() * 2.0 ** -7
+    return tol
+
+
+def int4_case(torch, m, k, n, xdt, act, has_bias, gen):
+    """A group-128 int4 weight from N(0, 1/K) draws (K zero-padded to the
+    stored depth, e.g. 5632 -> 6144) and unit-RMS activations."""
+    from autosmoothquant_tpu_torch.quant import math as Q
+
+    w = torch.randn(k, n, device="cuda", generator=gen) / math.sqrt(k)
+    packed, scales = Q.quantize_weight_int4_grouped(w, 128)
+    x = torch.randn(m, k, device="cuda", generator=gen).to(xdt)
+    bias = torch.randn(n, device="cuda", generator=gen) if has_bias else None
+    out = torch.float32 if act == "silu" else xdt
+    label = (f"x {str(xdt).split('.')[-1]} -> {str(out).split('.')[-1]}"
+             f"{' silu' if act else ''}{'+bias' if has_bias else ''}")
+    return dict(x=x, packed=packed.t().contiguous(), scales=scales.t().contiguous(),
+                bias=bias, act=act, dt=out, label=label)
+
+
+def run_int4(c, plain=False):
+    from autosmoothquant_tpu_torch.kernels.int4 import int4_matmul, int4_matmul_plain
+
+    fn = int4_matmul_plain if plain else int4_matmul
+    return fn(c["x"], c["packed"], c["scales"], c["bias"], activation=c["act"],
+              out_dtype=c["dt"])
+
+
+def int4_tolerance(torch, c, ref):
+    """The per-token quantization is bit-exact and every 16-row partial is an
+    exact integer, so the bound is the f32 sum's over chunks:
+    2 * K' * 2**-24 * sum |x_q| |w_q| s_g, times tok_scale, plus one bf16 step
+    (2**-7 of the value) for bf16 outputs and 1e-6 for silu's own rounding."""
+    import torch.nn.functional as F
+
+    from autosmoothquant_tpu_torch.quant import math as Q
+
+    packed, scales = c["packed"], c["scales"]
+    kp = 2 * packed.shape[1]
+    q, ts = Q.quantize_act_per_token(F.pad(c["x"].float(), (0, kp - c["x"].shape[1])))
+    wq = torch.cat(Q.unpack_int4(packed), dim=1).double()
+    srep = scales.double().repeat_interleave(kp // scales.shape[1], dim=1)
+    mag = (q.double().abs() @ (wq.abs() * srep).t()) * ts.double()
+    tol = 2 * kp * 2.0 ** -24 * mag + 1e-6
+    if c["dt"] == torch.bfloat16:
+        tol = tol + ref.double().abs() * 2.0 ** -7
+    return tol
 
 
 def valid_rows(torch, c):
@@ -413,6 +565,57 @@ def phase_kernels(torch, results):
     for name, err in worst.items():
         results[name]["max_abs_err"] = err
 
+    # K4: M in {1, 4, 128} x the four projections x {e4m3, e5m2}, epilogues
+    # in rotation, plus ragged shapes that exercise the edge masking
+    cases = []
+    vi = 0
+    for m in (1, 4, 128):
+        for (k, n), pname in zip(GEMM_SHAPES, GEMM_NAMES):
+            for fmt in FP8_FORMATS:
+                cases.append((m, k, n, fmt, FP8_VARIANTS[vi % len(FP8_VARIANTS)], pname))
+                vi += 1
+    cases += [(3, 37, 100, "e4m3", FP8_VARIANTS[1], "ragged"),
+              (77, 70, 130, "e5m2", FP8_VARIANTS[2], "ragged")]
+    worst = 0.0
+    for m, k, n, fmt, variant, pname in cases:
+        c = fp8_case(torch, m, k, n, fmt, variant, gen)
+        out, ref = run_fp8(c), run_fp8(c, plain=True)
+        torch.cuda.synchronize()
+        err = float((out.double() - ref.double()).abs().max())
+        excess = float(((out.double() - ref.double()).abs()
+                        / fp8_tolerance(torch, c, ref)).max())
+        worst = max(worst, err)
+        log(f"  fp8_matmul {pname:7s} M={m:<4d} K={k:<5d} N={n:<6d} "
+            f"{c['label']:30s} max|err|={err:.3g} (<= f32-sum bound: "
+            f"{excess:.3g} of it) {'ok' if excess <= 1 else 'FAIL'}")
+        require(excess <= 1, f"fp8_matmul disagrees with its plain version at "
+                             f"M={m} K={k} N={n} {c['label']}")
+    results["fp8_matmul"]["max_abs_err"] = worst
+
+    # K5: M in {1, 4, 64} x the four projections, x in bf16 and f32, bias and
+    # silu in rotation; down_proj is stored at K' = 6144 for K = 5632
+    worst = 0.0
+    vi = 0
+    for m in (1, 4, 64):
+        for (k, n), pname in zip(GEMM_SHAPES, GEMM_NAMES):
+            for xdt in (torch.bfloat16, torch.float32):
+                act = "silu" if vi % 2 else None
+                c = int4_case(torch, m, k, n, xdt, act, vi % 3 != 2, gen)
+                vi += 1
+                out, ref = run_int4(c), run_int4(c, plain=True)
+                torch.cuda.synchronize()
+                err = float((out.double() - ref.double()).abs().max())
+                excess = float(((out.double() - ref.double()).abs()
+                                / int4_tolerance(torch, c, ref)).max())
+                worst = max(worst, err)
+                log(f"  int4_matmul {pname:7s} M={m:<4d} K={k:<5d} "
+                    f"(stored {2 * c['packed'].shape[1]}) N={n:<6d} {c['label']:24s} "
+                    f"max|err|={err:.3g} (<= f32-sum bound: {excess:.3g} of it) "
+                    f"{'ok' if excess <= 1 else 'FAIL'}")
+                require(excess <= 1, f"int4_matmul disagrees with its plain version "
+                                     f"at M={m} K={k} N={n} {c['label']}")
+    results["int4_matmul"]["max_abs_err"] = worst
+
 
 def tinyllama(L, layers):
     return L.LlamaConfig(**{**TINYLLAMA, "num_hidden_layers": layers})
@@ -425,31 +628,75 @@ def tinyllama(L, layers):
 E2E_LOGIT_TOL = 0.1        # max |card - CPU| over prefill logits
 E2E_LOGIT_MEAN_TOL = 1e-3  # mean |card - CPU| over prefill logits
 E2E_TIE_MARGIN = 0.02      # CPU top-2 logit margin that counts as a near-tie
+# (max, mean, near-tie margin) of the fp8 and int4 models (float-drawn
+# weights, logit std 2), set from this comparison's readings on an H100
+# (700 W) at about 2-3x them: fp8 e4m3 dynamic max 0.357, mean 0.0260;
+# static 0.249 / 0.0101; e5m2 0.456 / 0.0202; int4 0.00309 / 5.35e-5. Every
+# fp8 activation is rounded to 3 (e4m3) or 2 (e5m2) mantissa bits, so a
+# last-bit difference that lands a value on the other side of a rounding
+# boundary moves it by 1/16-1/4 of itself; such flips compound over the
+# layers (static e4m3: mean |hidden diff| 3e-5 after one layer, 0.005 after
+# two). fp8 tokens parted at CPU margins up to 0.1355, so the fp8 near-tie
+# margin is 0.3, below the logit noise measured; W8A8's 0.02 would call
+# measured noise a fault. int4 (W4A16 prefill in f32, W4A8 decode) reuses
+# E2E_TIE_MARGIN and parted nowhere
+E2E_QUANT_LIMITS = {"fp8 e4m3 dynamic": (0.8, 0.06, 0.3),
+                    "fp8 e4m3 static": (0.5, 0.03, 0.3),
+                    "fp8 e5m2": (0.9, 0.05, 0.3),
+                    "int4": (0.01, 3e-4, E2E_TIE_MARGIN)}
+
+
+def e2e_models(torch, cfg):
+    """(label, QuantConfig, CPU params, (max, mean, near-tie margin)) of each
+    format."""
+    from autosmoothquant_tpu_torch.quant.config import QuantConfig
+
+    out = [("W8A8", QuantConfig(type="int8"), draw_w8a8(cfg, seed=7, device="cpu"),
+            (E2E_LOGIT_TOL, E2E_LOGIT_MEAN_TOL, E2E_TIE_MARGIN))]
+    for label, qcfg in (
+            ("fp8 e4m3 dynamic", QuantConfig(type="fp8_e4m3")),
+            ("fp8 e4m3 static", QuantConfig(type="fp8_e4m3", activation_scheme="static")),
+            ("fp8 e5m2", QuantConfig(type="fp8_e5m2")),
+            ("int4", QuantConfig(type="int4"))):
+        out.append((label, qcfg, draw_quantized(cfg, qcfg, seed=7, device="cpu"),
+                    E2E_QUANT_LIMITS[label]))
+    return out
 
 
 def phase_e2e(torch):
-    """2 layers at TinyLlama width: card against CPU with the same weights,
-    f32 activations and KV cache so the comparison isolates the kernels.
+    """2 layers at TinyLlama width in each format: card against CPU with the
+    same weights, f32 activations and KV cache so the comparison isolates the
+    kernels.
 
-    A W8A8 model turns last-bit differences (a reduction summed in another
-    order) into whole int8 steps wherever a value sits near a rounding
-    boundary, so logits agree within E2E_LOGIT_TOL / E2E_LOGIT_MEAN_TOL, not
-    bit for bit. Greedy tokens must be equal, except that a row may part at
-    a step whose top-2 logit margin on the CPU is at most E2E_TIE_MARGIN (a
-    near-tie that either device may break either way)."""
+    A quantized model turns last-bit differences (a reduction summed in
+    another order) into whole quantization steps wherever a value sits near a
+    rounding boundary, so logits agree within each format's (max, mean)
+    limits, not bit for bit. Greedy tokens must be equal, except that a row
+    may part at a step whose top-2 logit margin on the CPU is at most the
+    format's near-tie margin (a near-tie that either device may break either
+    way: E2E_TIE_MARGIN for W8A8 and int4, wider for fp8, whose logit noise
+    is wider). Every format's readings are printed before any limit is
+    enforced."""
     from autosmoothquant_tpu_torch.models import llama as L
-    from autosmoothquant_tpu_torch.quant.config import QuantConfig
-    from autosmoothquant_tpu_torch.serve.engine import Engine, GenerationConfig
 
     cfg = tinyllama(L, 2)
-    qcfg = QuantConfig(type="int8")
-    params_cpu = draw_w8a8(cfg, seed=7, device="cpu")
-    params_gpu = to_device(params_cpu, "cuda")
     rng = torch.Generator().manual_seed(11)
     ragged = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
               for n in (48, 40, 33, 20)]
     equal = [torch.randint(0, cfg.vocab_size, (32,), generator=rng).tolist()
              for _ in range(2)]
+    failures = []
+    for label, qcfg, params_cpu, limits in e2e_models(torch, cfg):
+        failures += e2e_compare(torch, L, cfg, label, qcfg, params_cpu, limits,
+                                ragged, equal)
+    require(not failures, "; ".join(failures))
+
+
+def e2e_compare(torch, L, cfg, label, qcfg, params_cpu, limits, ragged, equal):
+    """One format's card-vs-CPU readings; returns the limits it broke."""
+    from autosmoothquant_tpu_torch.serve.engine import Engine, GenerationConfig
+
+    params_gpu = to_device(params_cpu, "cuda")
     gen_cfg = GenerationConfig(max_new_tokens=16)
     out, engines = {}, {}
     for dev, params in (("cpu", params_cpu), ("cuda", params_gpu)):
@@ -474,13 +721,18 @@ def phase_e2e(torch):
         out[dev] = dict(logits=lg[valid],
                         ragged=eng.generate(ragged, gen_cfg),
                         equal=eng.generate(equal, gen_cfg))
+    failures = []
     diff = (out["cuda"]["logits"] - out["cpu"]["logits"]).abs()
     err, mean_err = float(diff.max()), float(diff.mean())
-    log(f"  e2e 2-layer TinyLlama width, f32: prefill logits |card-cpu| max "
-        f"{err:.3g} (tolerance {E2E_LOGIT_TOL}), mean {mean_err:.3g} (tolerance "
-        f"{E2E_LOGIT_MEAN_TOL}); logit std {float(out['cpu']['logits'].std()):.3g}")
-    require(err <= E2E_LOGIT_TOL and mean_err <= E2E_LOGIT_MEAN_TOL,
-            f"prefill logits differ between card and CPU: max {err}, mean {mean_err}")
+    finite = bool(torch.isfinite(out["cuda"]["logits"]).all())
+    fused = "qkv" in engines["cuda"].params["layers"][0]["attn"]
+    log(f"  e2e {label} ({'fused' if fused else 'unfused'}) 2-layer TinyLlama "
+        f"width, f32: prefill logits |card-cpu| max {err:.3g} (limit {limits[0]}), "
+        f"mean {mean_err:.3g} (limit {limits[1]}); logit std "
+        f"{float(out['cpu']['logits'].std()):.3g}; finite {finite}")
+    if not (finite and err <= limits[0] and mean_err <= limits[1]):
+        failures.append(f"{label}: prefill logits differ between card and CPU: "
+                        f"max {err}, mean {mean_err}, finite {finite}")
 
     def cpu_margin(prompt, prefix):
         """top-1 minus top-2 logit of the CPU model after prompt + prefix."""
@@ -501,79 +753,113 @@ def phase_e2e(torch):
             if j == len(b):
                 continue
             margin = cpu_margin(prompts[i], b[:j])
-            log(f"  e2e {batch} row {i}: tokens part at step {j} "
+            log(f"  e2e {label} {batch} row {i}: tokens part at step {j} "
                 f"(card {a[j]}, cpu {b[j]}); CPU top-2 margin there {margin:.4g}"
-                f" (near-tie limit {E2E_TIE_MARGIN})")
-            require(margin <= E2E_TIE_MARGIN,
-                    f"greedy tokens part at step {j} of {batch} row {i} where "
-                    f"the CPU's margin {margin} is not a near-tie")
-    log(f"  e2e greedy tokens equal before any near-tie: {same}/{total} "
+                f" (near-tie limit {limits[2]})")
+            if margin > limits[2]:
+                failures.append(f"{label}: greedy tokens part at step {j} of "
+                                f"{batch} row {i} where the CPU's margin {margin} "
+                                f"is not a near-tie")
+    log(f"  e2e {label} greedy tokens equal before any near-tie: {same}/{total} "
         f"identical; ragged row 0 {out['cuda']['ragged'][0]}")
+    return failures
+
+
+def launch_counters():
+    """Every kernel wrapper of the port, by name (each counts its launches)."""
+    from autosmoothquant_tpu_torch.kernels.attention import (
+        flash_attention, flash_attention_banded)
+    from autosmoothquant_tpu_torch.kernels.fp8 import fp8_matmul
+    from autosmoothquant_tpu_torch.kernels.fused import fused_add_rmsnorm_quant
+    from autosmoothquant_tpu_torch.kernels.gemm import int8_matmul
+    from autosmoothquant_tpu_torch.kernels.int4 import int4_matmul
+
+    return {"int8_matmul": int8_matmul,
+            "fused_add_rmsnorm_quant": fused_add_rmsnorm_quant,
+            "flash_attention": flash_attention,
+            "flash_attention_banded": flash_attention_banded,
+            "fp8_matmul": fp8_matmul,
+            "int4_matmul": int4_matmul}
+
+
+# each path's kernels, and the count each must show after the serve run of
+# n new tokens for 2 batches of 4 prompts (22 layers, fused q|k|v and gate|up:
+# 4 GEMMs a layer per forward; 1 prefill + n - 1 decode forwards a batch;
+# one flash launch a layer per prefill). int4 prefills at M = 4 x 128 > 64,
+# which takes W4A16 (plain torch), so K5 runs on decode forwards only.
+SERVE_PATHS = {
+    "W8A8": (32, lambda n: {"int8_matmul": 4 * 22 * 2 * n,
+                            "fused_add_rmsnorm_quant": 22 * 2 * n,
+                            "flash_attention": 22, "flash_attention_banded": 22}),
+    "fp8 e4m3 dynamic": (16, lambda n: {"fp8_matmul": 4 * 22 * 2 * n,
+                                        "flash_attention": 22,
+                                        "flash_attention_banded": 22}),
+    "int4": (16, lambda n: {"int4_matmul": 4 * 22 * 2 * (n - 1),
+                            "flash_attention": 22, "flash_attention_banded": 22}),
+}
 
 
 def phase_serve(torch, results):
-    """The main path at full width, counted."""
-    from autosmoothquant_tpu_torch.kernels.attention import (
-        flash_attention, flash_attention_banded)
-    from autosmoothquant_tpu_torch.kernels.fused import fused_add_rmsnorm_quant
-    from autosmoothquant_tpu_torch.kernels.gemm import int8_matmul
+    """Each main path at full width, counted: the counts are set to 0 just
+    before the path runs and read just after."""
     from autosmoothquant_tpu_torch.models import llama as L
     from autosmoothquant_tpu_torch.quant.config import QuantConfig
     from autosmoothquant_tpu_torch.serve.engine import Engine, GenerationConfig
 
     cfg = tinyllama(L, 22)
-    qcfg = QuantConfig(type="int8")
-    params = draw_w8a8(cfg, seed=3, device="cuda")
-    eng = Engine(L, params, cfg, qcfg, max_batch=4, max_seq=512,
-                 kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
-                 device="cuda")
     rng = torch.Generator().manual_seed(5)
     ragged = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
               for n in (128, 96, 64, 33)]
     equal = [torch.randint(0, cfg.vocab_size, (128,), generator=rng).tolist()
              for _ in range(4)]
-    gen_cfg = GenerationConfig(max_new_tokens=32)
-    wrappers = {"int8_matmul": int8_matmul,
-                "fused_add_rmsnorm_quant": fused_add_rmsnorm_quant,
-                "flash_attention": flash_attention,
-                "flash_attention_banded": flash_attention_banded}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for w in wrappers.values():
-        w.launches = 0
-    t0 = time.perf_counter()
-    toks_r = eng.generate(ragged, gen_cfg)
-    finite_r = bool(torch.isfinite(eng.last_logits).all())
-    toks_e = eng.generate(equal, gen_cfg)
-    finite_e = bool(torch.isfinite(eng.last_logits).all())
-    wall = time.perf_counter() - t0
-    counts = {name: w.launches for name, w in wrappers.items()}
-    log(json.dumps({"launches": counts}))
-    log(f"  serve: 22-layer W8A8 TinyLlama, 2 batches x 4 prompts x 32 new "
-        f"tokens in {wall:.2f} s (first calls included); peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(f"  serve tokens (ragged row 0): {toks_r[0]}")
-    for name, n in counts.items():
-        results[name]["launches"] = n
-        require(n > 0, f"{name} was not launched on the main path")
-    require(finite_r and finite_e, "non-finite logits on the main path")
-    for toks in (toks_r, toks_e):
-        require(len(toks) == 4 and all(len(t) == 32 for t in toks),
-                "wrong number of generated tokens")
-        require(all(0 <= x < cfg.vocab_size for t in toks for x in t),
-                "token id out of range")
-    # expected counts: 4 GEMMs and 1 fused norm per layer per forward,
-    # one flash launch per layer per prefill
-    forwards = 2 * 32
-    require(counts["int8_matmul"] == 4 * 22 * forwards and
-            counts["fused_add_rmsnorm_quant"] == 22 * forwards and
-            counts["flash_attention"] == 22 and
-            counts["flash_attention_banded"] == 22,
-            f"unexpected launch counts {counts}")
-    return eng, params
+    wrappers = launch_counters()
+    engines = {}
+    for label, (n_new, expected) in SERVE_PATHS.items():
+        qcfg = {"W8A8": QuantConfig(type="int8"),
+                "fp8 e4m3 dynamic": QuantConfig(type="fp8_e4m3"),
+                "int4": QuantConfig(type="int4")}[label]
+        params = (draw_w8a8(cfg, seed=3, device="cuda") if label == "W8A8"
+                  else draw_quantized(cfg, qcfg, seed=3, device="cuda"))
+        eng = Engine(L, params, cfg, qcfg, max_batch=4, max_seq=512,
+                     kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
+                     device="cuda")
+        engines[label] = eng
+        gen_cfg = GenerationConfig(max_new_tokens=n_new)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        toks_r = eng.generate(ragged, gen_cfg)
+        finite_r = bool(torch.isfinite(eng.last_logits).all())
+        toks_e = eng.generate(equal, gen_cfg)
+        finite_e = bool(torch.isfinite(eng.last_logits).all())
+        wall = time.perf_counter() - t0
+        counts = {name: w.launches for name, w in wrappers.items()}
+        log(json.dumps({"path": label, "launches": counts}))
+        log(f"  serve: 22-layer {label} TinyLlama, 2 batches x 4 prompts x {n_new} "
+            f"new tokens in {wall:.2f} s (first calls included); peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        log(f"  serve {label} tokens (ragged row 0): {toks_r[0]}")
+        want = expected(n_new)
+        for name in want:
+            require(counts[name] > 0, f"{name} was not launched on the {label} path")
+            if results[name]["launches"] is None:   # K3: the W8A8 run's count
+                results[name]["launches"] = counts[name]
+        require(finite_r and finite_e, f"non-finite logits on the {label} path")
+        for toks in (toks_r, toks_e):
+            require(len(toks) == 4 and all(len(t) == n_new for t in toks),
+                    f"wrong number of generated tokens on the {label} path")
+            require(all(0 <= x < cfg.vocab_size for t in toks for x in t),
+                    f"token id out of range on the {label} path")
+        others = {k: v for k, v in counts.items() if k not in want}
+        require(all(counts[k] == v for k, v in want.items()) and not any(others.values()),
+                f"unexpected launch counts on the {label} path: {counts}, "
+                f"expected {want}")
+    return engines
 
 
-def phase_timing(torch, results, eng_w8a8):
+def phase_timing(torch, results, engines):
     import torch.nn.functional as F
 
     from autosmoothquant_tpu_torch.kernels.fused import (
@@ -659,6 +945,54 @@ def phase_timing(torch, results, eng_w8a8):
                                  bound_ms=b_ms, bound_by=b_by,
                                  shape=f"{desc} Hq=32 Hkv=4 D=64 bf16")
 
+    # K4 at decode (M = 1) and prefill (M = 128), e4m3, scalar scales, bf16
+    # out; library: torch._scaled_mm (cuBLAS fp8), which takes dimensions in
+    # multiples of 16 only, so none at M = 1
+    for m in (1, 128):
+        for (k, n), pname in zip(GEMM_SHAPES, GEMM_NAMES):
+            c = fp8_case(torch, m, k, n, "e4m3", FP8_VARIANTS[0], gen)
+            ms = timer.ms(lambda: run_fp8(c))
+            plain_ms = timer.ms(lambda: run_fp8(c, plain=True), iters=10)
+            lib_ms = None
+            if m % 16 == 0:
+                wt = c["w"].t()
+                try:
+                    lib_ms = timer.ms(lambda: torch._scaled_mm(
+                        c["x"], wt, scale_a=c["rs"], scale_b=c["cs"],
+                        out_dtype=torch.bfloat16))
+                except RuntimeError as e:   # a yardstick only: note the refusal
+                    log(f"    torch._scaled_mm refused M={m} K={k} N={n}: {e}")
+            nbytes = m * k + n * k + m * n * 2 + 8
+            b_ms, b_by = bound(nbytes, 2 * m * n * k, "fp8")
+            log(f"    fp8_matmul {pname:7s} M={m:<4d} K={k:<5d} N={n:<6d} "
+                f"kernel {ms:.4f} plain {plain_ms:.4f} library "
+                f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} bound {b_ms:.4f} ({b_by})")
+            if m == 1 and pname == "gate|up":
+                results["fp8_matmul"].update(
+                    ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                    bound_by=b_by, shape=f"decode gate|up M=1 K={k} N={n} e4m3 bf16")
+
+    # K5 at decode (M = 1) and its largest M (64), the main path's input types
+    # (f32 from the norms into qkv and gate|up, bf16 into o and down), bf16
+    # out. No library call computes W4A8: library null
+    for m in (1, 64):
+        for (k, n), pname in zip(GEMM_SHAPES, GEMM_NAMES):
+            xdt = torch.float32 if pname in ("qkv", "gate|up") else torch.bfloat16
+            c = int4_case(torch, m, k, n, xdt, None, False, gen)
+            c["dt"] = torch.bfloat16
+            ms = timer.ms(lambda: run_int4(c))
+            plain_ms = timer.ms(lambda: run_int4(c, plain=True), iters=10)
+            k2, g = c["packed"].shape[1], c["scales"].shape[1]
+            nbytes = k2 * n + 4 * g * n + m * k * c["x"].element_size() + m * n * 2
+            b_ms, b_by = bound(nbytes, 2 * m * n * 2 * k2, "int8")
+            log(f"    int4_matmul {pname:7s} M={m:<4d} K={k:<5d} (stored {2 * k2}) "
+                f"N={n:<6d} kernel {ms:.4f} plain {plain_ms:.4f} library null "
+                f"bound {b_ms:.4f} ({b_by})")
+            if m == 1 and pname == "gate|up":
+                results["int4_matmul"].update(
+                    ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                    bound_by=b_by, shape=f"decode gate|up M=1 K={k} N={n} x f32 -> bf16")
+
     # prefill and decode, end to end (host clock around synchronized work)
     cfg = tinyllama(L, 22)
     rng = torch.Generator().manual_seed(17)
@@ -687,30 +1021,38 @@ def phase_timing(torch, results, eng_w8a8):
             return best
         return steps / (gen_s(steps + 1) - gen_s(1))
 
-    eng_bf16 = Engine(L, draw_bf16(cfg, seed=4, device="cuda"), cfg, None,
-                      max_batch=1, max_seq=512, kv_dtype=torch.bfloat16,
-                      compute_dtype=torch.bfloat16, device="cuda")
-    eng_w8a8 = Engine(L, eng_w8a8.params, cfg, eng_w8a8.qcfg, max_batch=1,
-                      max_seq=512, kv_dtype=torch.bfloat16,
-                      compute_dtype=torch.bfloat16, device="cuda")
-    pf_i8, pf_bf = prefill_ms(eng_w8a8), prefill_ms(eng_bf16)
-    log(f"  prefill b1 T128 22 layers (+ last-token logits): W8A8 {pf_i8:.3f} ms,"
-        f" bf16 {pf_bf:.3f} ms")
+    b1 = {"bf16": Engine(L, draw_float(cfg, seed=4, device="cuda"), cfg, None,
+                         max_batch=1, max_seq=512, kv_dtype=torch.bfloat16,
+                         compute_dtype=torch.bfloat16, device="cuda")}
+    for label, key in (("w8a8", "W8A8"), ("fp8", "fp8 e4m3 dynamic"), ("int4", "int4")):
+        b1[label] = Engine(L, engines[key].params, cfg, engines[key].qcfg,
+                           max_batch=1, max_seq=512, kv_dtype=torch.bfloat16,
+                           compute_dtype=torch.bfloat16, device="cuda")
+    order = ("w8a8", "fp8", "int4", "bf16")
+    pf = {label: prefill_ms(b1[label]) for label in order}
+    log("  prefill b1 T128 22 layers (+ last-token logits): "
+        + ", ".join(f"{label} {pf[label]:.3f} ms" for label in order))
     tps = {}
-    for label, eng in (("w8a8", eng_w8a8), ("bf16", eng_bf16),
-                       ("w8a8", eng_w8a8), ("bf16", eng_bf16)):
-        tps.setdefault(label, []).append(decode_tps(eng))
-    i8, bf16v = max(tps["w8a8"]), max(tps["bf16"])
-    log(f"  decode b1 prompt 128 s_max 512, greedy, 64 steps (best of 3, "
-        f"two turns each): W8A8 {i8:.2f} tok/s {tps['w8a8']}, bf16 {bf16v:.2f} "
-        f"tok/s {tps['bf16']}, ratio {i8 / bf16v:.4f}")
+    for label in order + order[::-1]:
+        tps.setdefault(label, []).append(decode_tps(b1[label]))
+    best = {label: max(v) for label, v in tps.items()}
+    log(f"  decode b1 prompt 128 s_max 512, greedy, 64 steps (best of 3, two "
+        f"turns each, order {'/'.join(order + order[::-1])}): "
+        + ", ".join(f"{label} {best[label]:.2f} tok/s {tps[label]}" for label in order)
+        + f"; w8a8/bf16 {best['w8a8'] / best['bf16']:.4f}, fp8/bf16 "
+        f"{best['fp8'] / best['bf16']:.4f}, int4/bf16 {best['int4'] / best['bf16']:.4f}")
 
     # where one decode step's device time goes (profiler, device activity
-    # only), and the idle share against the unprofiled W8A8 step time above
+    # only), and the idle share against the unprofiled step time above
+    for label in ("w8a8", "fp8", "int4"):
+        profile_step(torch, L, cfg, b1[label], label, 1e3 / best[label])
+
+
+def profile_step(torch, L, cfg, eng, label, step_ms, steps=5):
+    """Device kernels and busy time of one b1 decode step at slot 128."""
     from torch.profiler import ProfilerActivity, profile
 
-    from autosmoothquant_tpu_torch.kernels.gemm import int8_matmul
-
+    wrappers = launch_counters()
     ids = torch.tensor([[1]], device="cuda")
     cache = L.init_kv_cache(cfg, 1, 512, torch.bfloat16, "cuda")
     valid = torch.zeros(1, 512, dtype=torch.bool, device="cuda")
@@ -719,28 +1061,27 @@ def phase_timing(torch, results, eng_w8a8):
 
     def step():
         with torch.inference_mode():
-            h, _ = L.forward(eng_w8a8.params, ids, cfg, eng_w8a8.qcfg,
+            h, _ = L.forward(eng.params, ids, cfg, eng.qcfg,
                              kv_cache=cache, cache_index=slot, kv_valid=valid,
                              positions=slot.reshape(1, 1),
                              compute_dtype=torch.bfloat16)
-            torch.argmax(L.logits(eng_w8a8.params, h)[:, 0], -1)
+            torch.argmax(L.logits(eng.params, h)[:, 0], -1)
     for _ in range(3):
         step()
     torch.cuda.synchronize()
-    steps = 5
-    step_ms = 1e3 / i8
-    k1_before = int8_matmul.launches
+    before = {name: w.launches for name, w in wrappers.items()}
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
-    k1_per_step = (int8_matmul.launches - k1_before) / steps
+    counted = {name: (w.launches - before[name]) / steps
+               for name, w in wrappers.items() if w.launches != before[name]}
     events = [e for e in prof.events() if e.device_type.name == "CUDA"]
     dev_us = sum(e.time_range.elapsed_us() for e in events) / steps if events else 0.0
-    log(f"  decode step (W8A8, b1): unprofiled {step_ms:.3f} ms; profiled: "
-        f"{len(events) / steps:.1f} device kernels per step "
-        f"({k1_per_step:g} int8_matmul launches counted on the host), device "
-        f"busy {dev_us / 1e3:.3f} ms per step"
+    log(f"  decode step ({label}, b1): unprofiled {step_ms:.3f} ms; profiled: "
+        f"{len(events) / steps:.1f} device kernels per step (wrapper launches "
+        f"counted on the host per step: {counted}), device busy "
+        f"{dev_us / 1e3:.3f} ms per step"
         + (f" (idle share {1 - dev_us / 1e3 / step_ms:.3f})" if events else
            " (profiler returned no device events: not measured)"))
     by_name = {}
@@ -748,7 +1089,7 @@ def phase_timing(torch, results, eng_w8a8):
         by_name.setdefault(e.name, [0, 0.0])
         by_name[e.name][0] += 1
         by_name[e.name][1] += e.time_range.elapsed_us()
-    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
+    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
         log(f"    {us / steps / 1e3:8.4f} ms/step  {n // steps:4d} launches/step  {name[:90]}")
 
 
@@ -776,6 +1117,10 @@ def main():
                             f"{PKG}/csrc/flash_attn.cu"),
         "flash_attention_banded": ("autosmoothquant_tpu/kernels/attention.py:141",
                                    f"{PKG}/csrc/flash_attn.cu"),
+        "fp8_matmul": ("autosmoothquant_tpu/kernels/fp8.py:92",
+                       f"{PKG}/csrc/fp8_gemm.cu"),
+        "int4_matmul": ("autosmoothquant_tpu/kernels/int4.py:68",
+                        f"{PKG}/csrc/int4_gemm.cu"),
     }
     results = {name: {"name": name, "route": "cuda", "source": src,
                       "replaces": rep, "launches": None, "max_abs_err": None,
@@ -785,7 +1130,7 @@ def main():
     t_start = time.perf_counter()
     try:
         name, smi_line = phase_device(torch)
-        eng = None
+        engines = None
         for phase in PHASES[1:]:
             log(f"== {phase}")
             t0 = time.perf_counter()
@@ -796,9 +1141,9 @@ def main():
             elif phase == "e2e":
                 phase_e2e(torch)
             elif phase == "serve":
-                eng, _ = phase_serve(torch, results)
+                engines = phase_serve(torch, results)
             elif phase == "timing":
-                phase_timing(torch, results, eng)
+                phase_timing(torch, results, engines)
             log(f"== {phase} done in {time.perf_counter() - t0:.1f} s")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -9,7 +9,12 @@ Tolerances as in chip_smoke.py: int8_matmul exact (f32 rtol 1e-6, silu
 1e-5, bf16 one rounding step); fused_add_rmsnorm_quant s equal, q within one
 step on <= 0.1% of elements; flash attention on valid rows, f32 atol 2e-5,
 bf16 atol 1.6e-2 + rtol 1e-2; a W8A8 model's logits, card against CPU, max
-0.2 and mean 1e-2."""
+0.2 and mean 1e-2. fp8_matmul (K4) and int4_matmul (K5): the plain versions
+sum exactly (float64), the kernels in f32, so the bound is twice the f32
+sum's, 2 * K * 2**-24 * sum |x||w| per output (int4: over the exact 16-row
+partials times their scales), plus one bf16 step (2**-7 of the value) for
+bf16 outputs; K5's per-token quantization is bit-exact, so it adds
+nothing."""
 
 import math
 
@@ -17,8 +22,11 @@ import pytest
 import torch
 
 from autosmoothquant_tpu_torch.kernels import attention as A
+from autosmoothquant_tpu_torch.kernels import fp8 as F8
 from autosmoothquant_tpu_torch.kernels import fused as F
 from autosmoothquant_tpu_torch.kernels import gemm as G
+from autosmoothquant_tpu_torch.kernels import int4 as I4
+from autosmoothquant_tpu_torch.quant import math as Q
 
 from test_torch_util import cuda_device  # noqa: F401  (fixture)
 
@@ -143,3 +151,148 @@ def test_w8a8_forward_on_the_card_matches_the_cpu(cuda_device, kv_dtype):
         diff = (card - cpu).abs()
         assert float(diff.max()) <= 0.2 and float(diff.mean()) <= 1e-2, (
             float(diff.max()), float(diff.mean()))
+
+
+def _fp8_operands(m, k, n, dtype, device, g):
+    """fp8 x [M, K] and w [N, K] spread over many decades (subnormals
+    included), through the port's own quantizers."""
+    def draw(shape):
+        v = torch.randn(shape, device=device, generator=g)
+        return v * torch.exp(torch.empty(shape, device=device).uniform_(-8, 2, generator=g))
+    if dtype == torch.float8_e5m2:
+        return draw((m, k)).to(dtype), draw((n, k)).to(dtype)
+    x, _ = Q.quantize_fp8_per_tensor(draw((m, k)), dtype)
+    w, _ = Q.quantize_fp8_per_tensor(draw((n, k)), dtype)
+    return x, w
+
+
+def _sum_bound(x, w):
+    return x.shape[1] * 2.0 ** -24 * (x.double().abs() @ w.double().abs().t())
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 2048, 2560), (4, 5632, 2048), (8, 2048, 11264),
+                                   (128, 2048, 2048), (3, 37, 100), (77, 70, 130)])
+@pytest.mark.parametrize("fmt", [torch.float8_e4m3fn, torch.float8_e5m2])
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
+def test_fp8_matmul_kernel_matches_plain(cuda_device, m, k, n, fmt, out):
+    g = _gen(m + k + n)
+    x, w = _fp8_operands(m, k, n, fmt, cuda_device, g)
+    rs = torch.rand(m, 1, device=cuda_device, generator=g) + 0.5
+    cs = torch.rand(n, device=cuda_device, generator=g) + 0.5
+    bias = torch.randn(n, device=cuda_device, generator=g)
+    before = F8.fp8_matmul.launches
+    got = F8.fp8_matmul(x, w, rs, cs, bias, out_dtype=out)
+    ref = F8.fp8_matmul_plain(x, w, rs, cs, bias, out_dtype=out)
+    torch.cuda.synchronize()
+    assert F8.fp8_matmul.launches == before + 1 and got.dtype == out
+    tol = _sum_bound(x, w) * 2 * (rs.double() * cs.double()) + 1e-6
+    if out == torch.bfloat16:
+        tol = tol + ref.double().abs() * 2.0 ** -7
+    assert bool(((got.double() - ref.double()).abs() <= tol).all())
+
+
+def test_fp8_matmul_scalar_scales_and_e5m2_without_scales(cuda_device):
+    g = _gen(3)
+    x, w = _fp8_operands(4, 2048, 2048, torch.float8_e4m3fn, cuda_device, g)
+    got = F8.fp8_matmul(x, w, torch.tensor(0.25, device=cuda_device),
+                        torch.tensor(0.5, device=cuda_device))
+    ref = F8.fp8_matmul_plain(x, w, torch.tensor(0.25, device=cuda_device),
+                              torch.tensor(0.5, device=cuda_device))
+    assert bool(((got.double() - ref.double()).abs()
+                 <= _sum_bound(x, w) * 0.25 + 1e-6).all())
+    x5, w5 = _fp8_operands(1, 2048, 256, torch.float8_e5m2, cuda_device, g)
+    got = F8.fp8_matmul(x5, w5)
+    ref = F8.fp8_matmul_plain(x5, w5)
+    assert bool(((got.double() - ref.double()).abs() <= _sum_bound(x5, w5) + 1e-6).all())
+
+
+def test_fp8_matmul_raises_on_wrong_dtype_or_device(cuda_device):
+    x = torch.zeros(2, 64, device=cuda_device).to(torch.float8_e4m3fn)
+    w = torch.zeros(8, 64, device=cuda_device).to(torch.float8_e4m3fn)
+    with pytest.raises(TypeError):
+        F8.fp8_matmul(x, w.to(torch.float8_e5m2))
+    with pytest.raises(ValueError):
+        F8.fp8_matmul(x, w.cpu())
+    with pytest.raises(ValueError):
+        F8.fp8_matmul(x, w, out_dtype=torch.int8)
+
+
+def _int4_operands(k, n, group, device, g):
+    w = torch.randn(k, n, device=device, generator=g)
+    packed, scales = Q.quantize_weight_int4_grouped(w, group)
+    return packed.t().contiguous(), scales.t().contiguous()
+
+
+@pytest.mark.parametrize("m,k,n,group", [(1, 2048, 2560, 128), (4, 5632, 2048, 128),
+                                         (64, 2048, 11264, 128), (9, 768, 256, 128),
+                                         (3, 512, 96, 64), (5, 96, 40, 8)])
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+def test_int4_matmul_kernel_matches_plain(cuda_device, m, k, n, group, xdt):
+    """K5 at TinyLlama shapes (down_proj stored at K' = 6144 for K = 5632),
+    a padded K = 768 -> 1024, and a group of 8 (the byte-wise loop)."""
+    g = _gen(m + k + n)
+    packed, scales = _int4_operands(k, n, group, cuda_device, g)
+    x = (torch.randn(m, k, device=cuda_device, generator=g) * 3).to(xdt)
+    bias = torch.randn(n, device=cuda_device, generator=g)
+    for act, out in ((None, xdt), ("silu", torch.float32)):
+        before = I4.int4_matmul.launches
+        got = I4.int4_matmul(x, packed, scales, bias, activation=act, out_dtype=out)
+        ref = I4.int4_matmul_plain(x, packed, scales, bias, activation=act, out_dtype=out)
+        torch.cuda.synchronize()
+        assert I4.int4_matmul.launches == before + 1 and got.dtype == out
+        # |partial| * scale summed over chunks, times tok_scale: the f32 sum's bound
+        q, ts = Q.quantize_act_per_token(torch.nn.functional.pad(
+            x.float(), (0, 2 * packed.shape[1] - k)))
+        wq = torch.cat(Q.unpack_int4(packed), dim=1).double()
+        srep = scales.double().repeat_interleave(2 * packed.shape[1] // scales.shape[1], 1)
+        mag = (q.double().abs() @ (wq.abs() * srep).t()) * ts.double()
+        tol = k * 2.0 ** -24 * mag * 2 + 1e-6
+        if out == torch.bfloat16:
+            tol = tol + ref.double().abs() * 2.0 ** -7
+        assert bool(((got.double() - ref.double()).abs() <= tol).all()), act
+
+
+def test_int4_matmul_prefill_route_launches_no_kernel(cuda_device):
+    """M > 64 is W4A16 in plain torch (bf16 product, f32 accumulation), as
+    the JAX package computes it outside its Pallas kernel."""
+    g = _gen(11)
+    packed, scales = _int4_operands(2048, 512, 128, cuda_device, g)
+    x = torch.randn(65, 2048, device=cuda_device, generator=g).to(torch.bfloat16)
+    before = I4.int4_matmul.launches
+    got = I4.int4_matmul(x, packed, scales)
+    assert I4.int4_matmul.launches == before
+    w = Q.dequantize_int4_grouped(packed.t(), scales.t(), torch.float32)
+    ref = x.float() @ w
+    torch.testing.assert_close(got.float(), ref, rtol=2e-2, atol=2e-2 * float(ref.abs().max()))
+
+
+def test_int4_matmul_raises_on_wrong_dtype_or_device(cuda_device):
+    g = _gen(12)
+    packed, scales = _int4_operands(256, 64, 128, cuda_device, g)
+    x = torch.zeros(2, 256, device=cuda_device)
+    with pytest.raises(TypeError):
+        I4.int4_matmul(x.to(torch.float16), packed, scales)
+    with pytest.raises(ValueError):
+        I4.int4_matmul(x, packed.cpu(), scales.cpu())
+    with pytest.raises(ValueError):
+        I4.int4_matmul(x, packed, scales, out_dtype=torch.int8)
+
+
+def test_quant_math_on_the_card_gives_the_cpus_bytes(cuda_device):
+    """Constants divide truly on the card too (PyTorch's CUDA division by a
+    Python scalar multiplies by the rounded reciprocal), so every quantizer
+    gives the CPU's bytes, and those are JAX's (tests/test_torch_quant_math)."""
+    g = torch.Generator().manual_seed(13)
+    x = torch.randn(64, 2048, generator=g) * torch.exp(
+        torch.empty(64, 2048).uniform_(-6, 4, generator=g))
+    for fn in (Q.quantize_act_per_token, Q.quantize_act_per_tensor_dynamic,
+               Q.quantize_fp8_per_tensor, Q.quantize_fp8_per_token,
+               Q.quantize_weight_per_tensor_absmax):
+        for a, b in zip(fn(x), fn(x.to(cuda_device))):
+            b = b.cpu()
+            if a.dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
+                a, b = a.view(torch.uint8), b.view(torch.uint8)
+            assert torch.equal(a, b), fn.__name__
+    for a, b in zip(Q.quantize_weight_int4_grouped(x.t().contiguous()),
+                    Q.quantize_weight_int4_grouped(x.t().contiguous().to(cuda_device))):
+        assert torch.equal(a, b.cpu())

@@ -130,3 +130,172 @@ def test_flash_attention_causal_is_banded_with_zero_offsets():
     a = TA.flash_attention(q, k, v, sm_scale=0.125)
     bnd = TA.flash_attention_banded(q, k, v, 0, None, sm_scale=0.125)
     torch.testing.assert_close(a, bnd, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# fp8 GEMM (K4's plain version) and int4 GEMM (K5's plain version, W4A16)
+# ---------------------------------------------------------------------------
+
+from autosmoothquant_tpu.kernels import fp8 as JF8            # noqa: E402
+from autosmoothquant_tpu.kernels import int4 as JI4           # noqa: E402
+from autosmoothquant_tpu.quant import math as JM              # noqa: E402
+from autosmoothquant_tpu_torch.kernels import fp8 as TF8      # noqa: E402
+from autosmoothquant_tpu_torch.kernels import int4 as TI4     # noqa: E402
+
+_F8 = {"e4m3": (jnp.float8_e4m3fn, torch.float8_e4m3fn),
+       "e5m2": (jnp.float8_e5m2, torch.float8_e5m2)}
+
+
+def _fp8_pair(m, k, n, fmt, seed, subnormals=True):
+    """fp8 x [M, K] and w [K, N] (JAX layout) as numpy. With ``subnormals``
+    the magnitudes spread over many decades, so both hold subnormal codes;
+    without, every magnitude is at least the format's smallest normal."""
+    jdt = _F8[fmt][0]
+    tiny = float(jnp.finfo(jdt).smallest_normal)
+    rng = np.random.default_rng(seed)
+
+    def draw(shape):
+        v = rng.normal(size=shape) * np.exp(rng.uniform(-12, 2, size=shape))
+        if not subnormals:
+            v = np.sign(v) * np.maximum(np.abs(v), tiny)
+        return np.asarray(jnp.asarray(v.astype(np.float32)).astype(jdt))
+    return draw((m, k)), draw((k, n))
+
+
+def _t8(a, fmt):
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.uint8).copy()).view(_F8[fmt][1])
+
+
+def _acc_tol(x, w):
+    """Every fp8 product is exact in f32, so only the sum order differs: the
+    bound is K * 2**-24 * sum |x||w| per output."""
+    mag = np.abs(x.astype(np.float32)) @ np.abs(w.astype(np.float32))
+    return x.shape[1] * 2.0 ** -24 * mag
+
+
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
+@pytest.mark.parametrize("m,k,n", [(8, 512, 512), (64, 1024, 512)])
+def test_fp8_matmul_plain_matches_stream_kernel(fmt, m, k, n):
+    """Against the TPU kernel in interpret mode at shapes its tile picker
+    takes (N a multiple of 512, K of 128, K >= 512, M <= 64); the scale
+    epilogue JAX applies after the kernel is applied to its output here in
+    the same order. Normal values only: the kernel's bit trick builds f32
+    subnormals for fp8 subnormal codes, and XLA on the CPU flushes those to
+    zero as the TPU does. Subnormals are held against the XLA path below."""
+    x, w = _fp8_pair(m, k, n, fmt, seed=m + k, subnormals=False)
+    acc = np.asarray(JF8.fp8_stream_matmul(jnp.asarray(x), jnp.asarray(w),
+                                           interpret=True))
+    rng = np.random.default_rng(k)
+    rs = (rng.random((m, 1)) + 0.5).astype(np.float32)
+    cs = (rng.random(n) + 0.5).astype(np.float32)
+    bias = rng.normal(size=n).astype(np.float32)
+    want = acc * rs * cs + bias
+    got = TF8.fp8_matmul(_t8(x, fmt), _t8(w.T, fmt), torch.from_numpy(rs),
+                         torch.from_numpy(cs), torch.from_numpy(bias))
+    tol = _acc_tol(x, w) * 2.0 * (rs * cs) + 1e-6
+    assert (np.abs(got.numpy() - want) <= tol).all()
+    raw = TF8.fp8_matmul_plain(_t8(x, fmt), _t8(w.T, fmt))
+    assert (np.abs(raw.numpy() - acc) <= _acc_tol(x, w) + 1e-30).all()
+
+
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
+@pytest.mark.parametrize("m,k,n,scales", [(1, 100, 30, "scalar"), (5, 64, 72, "per_token"),
+                                          (70, 200, 96, "col_vector")])
+def test_fp8_matmul_matches_jax_xla_path(fmt, m, k, n, scales):
+    """Shapes the stream kernel declines go through JAX's XLA fp8 dot."""
+    x, w = _fp8_pair(m, k, n, fmt, seed=m + n)
+    rng = np.random.default_rng(n)
+    rs, cs = np.float32(0.37), np.float32(1.9)
+    if scales == "per_token":
+        rs = (rng.random((m, 1)) + 0.5).astype(np.float32)
+    if scales == "col_vector":
+        cs = (rng.random(n) + 0.5).astype(np.float32)
+    bias = rng.normal(size=n).astype(np.float32)
+    for out_j, out_t in ((jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)):
+        j = JG.fp8_matmul(jnp.asarray(x), jnp.asarray(w), row_scale=jnp.asarray(rs),
+                          col_scale=jnp.asarray(cs), bias=jnp.asarray(bias),
+                          out_dtype=out_j)
+        t = TF8.fp8_matmul(_t8(x, fmt), _t8(w.T, fmt), torch.as_tensor(rs),
+                           torch.as_tensor(cs), torch.from_numpy(bias), out_dtype=out_t)
+        assert t.dtype == out_t
+        want = np.asarray(j.astype(jnp.float32))
+        tol = _acc_tol(x, w) * 2.0 * (np.abs(rs) * np.abs(cs)) + 1e-6
+        if out_t == torch.bfloat16:
+            tol = tol + np.abs(want) * 2.0 ** -8     # one bf16 rounding step
+        assert (np.abs(t.float().numpy() - want) <= tol).all()
+
+
+def test_fp8_matmul_checks_its_operands():
+    x = torch.zeros(2, 16).to(torch.float8_e4m3fn)
+    with pytest.raises(TypeError):
+        TF8.fp8_matmul(x, torch.zeros(4, 16).to(torch.float8_e5m2))
+    with pytest.raises(TypeError):
+        TF8.fp8_matmul(torch.zeros(2, 16, dtype=torch.int8), torch.zeros(4, 16, dtype=torch.int8))
+    with pytest.raises(ValueError):
+        TF8.fp8_matmul(x, torch.zeros(4, 8).to(torch.float8_e4m3fn))
+
+
+def _int4_weights(k, n, group, seed):
+    w = np.random.default_rng(seed).normal(size=(k, n)).astype(np.float32)
+    jp, js = JM.quantize_weight_int4_grouped(jnp.asarray(w), group)
+    return jp, js, torch.from_numpy(np.asarray(jp).T.copy()), \
+        torch.from_numpy(np.asarray(js).T.copy())
+
+
+def _int4_x(m, k, seed):
+    return (np.random.default_rng(seed).normal(size=(m, k)) * 2).astype(np.float32)
+
+
+@pytest.mark.parametrize("m,k,n,group,hk", [(64, 768, 256, 128, 512),
+                                            (16, 256, 128, 64, 64)])
+def test_int4_matmul_matches_pallas_kernel(m, k, n, group, hk):
+    """W4A8 (M <= 64) against the TPU kernel in interpret mode; K = 768 is
+    stored at K' = 1024, and x keeps its 768 columns on the port's side.
+    Tolerance: the group partials are exact in both; the f32 sum over groups
+    runs in another order (rtol 1e-5)."""
+    jp, js, tp, ts = _int4_weights(k, n, group, seed=k + n)
+    x = _int4_x(m, k, seed=m)
+    kp = 2 * jp.shape[0]
+    xp = np.concatenate([x, np.zeros((m, kp - k), np.float32)], axis=1)
+    tok = (np.maximum(np.abs(xp).max(-1, keepdims=True), 1e-8) / 127.0).astype(np.float32)
+    j = np.asarray(JI4._int4_matmul_pallas(
+        jnp.asarray(xp), jp[None], js[None], jnp.asarray(tok), 0, group=group,
+        block_m=8, block_n=128, block_hk=hk, interpret=True, a8=True))
+    t = TI4.int4_matmul(torch.from_numpy(x), tp, ts, out_dtype=torch.float32)
+    np.testing.assert_allclose(t.numpy(), j, rtol=1e-5, atol=1e-5 * np.abs(j).max())
+
+
+@pytest.mark.parametrize("m", [64, 65])
+@pytest.mark.parametrize("act", [None, "silu"])
+def test_int4_matmul_routes_on_m_like_jax(m, act):
+    """M = 64 takes W4A8 and M = 65 W4A16 in both packages (int4_matmul_xla
+    on the JAX side, on the CPU); K = 768 stored as 1024. W4A16 is an f32
+    product in both (rtol 1e-5, sums in another order)."""
+    jp, js, tp, ts = _int4_weights(768, 128, 128, seed=3)
+    x = _int4_x(m, 768, seed=4)
+    bias = np.random.default_rng(5).normal(size=128).astype(np.float32)
+    j = np.asarray(JI4.int4_matmul(jnp.asarray(x), jp, js, jnp.asarray(bias),
+                                   activation=act, out_dtype=jnp.float32))
+    t = TI4.int4_matmul(torch.from_numpy(x), tp, ts, torch.from_numpy(bias),
+                        activation=act, out_dtype=torch.float32)
+    np.testing.assert_allclose(t.numpy(), j, rtol=1e-5, atol=1e-5 * np.abs(j).max())
+    # the route really differs: W4A8 quantizes x, W4A16 does not
+    a8 = TI4.int4_matmul_plain(torch.from_numpy(x), tp, ts, torch.from_numpy(bias),
+                               activation=act, out_dtype=torch.float32)
+    a16 = TI4.int4_matmul_w4a16(torch.from_numpy(x), tp, ts, torch.from_numpy(bias),
+                                activation=act, out_dtype=torch.float32)
+    assert not torch.equal(a8, a16)
+    torch.testing.assert_close(t, a8 if m <= 64 else a16, rtol=0, atol=0)
+
+
+def test_int4_matmul_checks_its_operands():
+    _, _, tp, ts = _int4_weights(256, 64, 128, seed=0)
+    x = torch.zeros(2, 256)
+    with pytest.raises(TypeError):
+        TI4.int4_matmul(x, tp.to(torch.int8), ts)
+    with pytest.raises(TypeError):
+        TI4.int4_matmul(x.to(torch.int8), tp, ts)
+    with pytest.raises(ValueError):
+        TI4.int4_matmul(torch.zeros(2, 300), tp, ts)
+    with pytest.raises(ValueError):
+        TI4.int4_matmul(x, tp, ts[:5])

@@ -120,3 +120,113 @@ def test_quant_config_rejects_what_jax_rejects(bad):
         jcfg.QuantConfig.from_dict(bad)
     with pytest.raises(ValueError):
         tcfg.QuantConfig.from_dict(bad)
+
+
+# ---------------------------------------------------------------------------
+# fp8 and int4 (byte-equal to the JAX package)
+# ---------------------------------------------------------------------------
+
+_FP8 = {"e4m3": (torch.float8_e4m3fn, jnp.float8_e4m3fn),
+        "e5m2": (torch.float8_e5m2, jnp.float8_e5m2)}
+
+
+def _fp8_input(shape, seed, dtype):
+    """Normal draws over several decades, so that subnormal fp8 codes, the
+    saturating clamp and ties all occur."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=shape) * np.exp(rng.uniform(-9, 3, size=shape))
+    x = x.astype(np.float32)
+    return x if dtype == "f32" else x.astype(jnp.bfloat16).astype(np.float32)
+
+
+def _tbytes(t):
+    return t.contiguous().view(torch.uint8).numpy()
+
+
+def _jbytes(a):
+    return np.asarray(a).view(np.uint8)
+
+
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_fp8_quant_bytes_equal_jax(fmt, dtype):
+    tdt, jdt = _FP8[fmt]
+    x = _fp8_input((16, 96), seed=len(fmt) + len(dtype), dtype=dtype)
+    tx = torch.from_numpy(x).to(torch.float32 if dtype == "f32" else torch.bfloat16)
+    jx = jnp.asarray(x, jnp.float32 if dtype == "f32" else jnp.bfloat16)
+    q, s = tm.quantize_fp8_per_tensor(tx, tdt)
+    jq, js = jm.quantize_fp8_per_tensor(jx, jdt)
+    assert q.dtype == tdt
+    np.testing.assert_array_equal(_tbytes(q), _jbytes(jq))
+    _eq(s.numpy(), js)
+    q, s = tm.quantize_fp8_per_token(tx, tdt)
+    jq, js = jm.quantize_fp8_per_token(jx, jdt)
+    np.testing.assert_array_equal(_tbytes(q), _jbytes(jq))
+    _eq(s.numpy(), js)
+    static = np.float32(0.0125)
+    q = tm.quantize_fp8_static(tx, torch.tensor(static), tdt)
+    jq = jm.quantize_fp8_static(jx, static, jdt)
+    np.testing.assert_array_equal(_tbytes(q), _jbytes(jq))
+    sub = tm.FP8_E4M3_MAX if fmt == "e4m3" else tm.FP8_E5M2_MAX
+    assert sub == float(jnp.finfo(jdt).max)
+
+
+def test_fp8_empty_tensor_guard():
+    """The guard's amax of 16 (JAX's own reduction over an empty array raises
+    before its guard is reached, so this is held against the value)."""
+    q, s = tm.quantize_fp8_per_tensor(torch.zeros((0, 8)))
+    assert q.shape == (0, 8) and q.dtype == torch.float8_e4m3fn
+    _eq(s.numpy(), np.float32(16.0) / np.float32(448.0))
+
+
+@pytest.mark.parametrize("k", [256, 768, 2048, 5632, 11008, 13824])
+def test_int4_padded_k_matches_jax(k):
+    assert tm.int4_padded_k(k) == jm.int4_padded_k(k)
+    assert tm.int4_padded_k(k, 64) == jm.int4_padded_k(k, 64)
+
+
+def test_int4_padded_k_known_depths():
+    assert tm.int4_padded_k(5632) == 6144      # TinyLlama down_proj
+    assert tm.int4_padded_k(11008) == 12288    # Llama-7B down_proj
+
+
+@pytest.mark.parametrize("k,n,group,pad", [(768, 64, 128, True), (256, 48, 32, False),
+                                           (512, 40, 64, True)])
+def test_int4_quant_pack_bytes_equal_jax(k, n, group, pad):
+    w = np.random.default_rng(k + n).normal(size=(k, n)).astype(np.float32)
+    w[:, 0] = 0.0                                   # exercises the 1e-8 floor
+    p, s = tm.quantize_weight_int4_grouped(torch.from_numpy(w), group, pad=pad)
+    jp, js = jm.quantize_weight_int4_grouped(jnp.asarray(w), group, pad=pad)
+    assert p.dtype == torch.uint8 and p.shape == jp.shape
+    _eq(p.numpy(), jp)
+    _eq(s.numpy(), js)
+    lo, hi = tm.unpack_int4(p)
+    jlo, jhi = jm.unpack_int4(jp)
+    _eq(lo.numpy(), jlo)
+    _eq(hi.numpy(), jhi)
+    _eq(tm.dequantize_int4_grouped(p, s, torch.float32).numpy(),
+        jm.dequantize_int4_grouped(jp, js, jnp.float32))
+
+
+def test_int4_quant_rejects_what_jax_rejects():
+    w = np.zeros((96, 8), np.float32)
+    with pytest.raises(ValueError):
+        jm.quantize_weight_int4_grouped(jnp.asarray(w), 64)
+    with pytest.raises(ValueError):
+        tm.quantize_weight_int4_grouped(torch.from_numpy(w), 64)
+
+
+def test_fp8_per_token_zero_row_is_zero_not_nan():
+    """The one place the port departs from JAX's fp8 math: an all-zero row
+    (a left-pad row of the banded prefill) quantizes to 0 with scale 1, where
+    JAX's scale is 0 and its 0 / 0 gives NaN values; every other row stays byte-equal."""
+    x = _fp8_input((4, 32), seed=9, dtype="f32")
+    x[2] = 0.0
+    q, s = tm.quantize_fp8_per_token(torch.from_numpy(x))
+    jq, js = jm.quantize_fp8_per_token(jnp.asarray(x))
+    assert np.asarray(js)[2, 0] == 0.0
+    assert np.isnan(np.asarray(jq[2]).astype(np.float32)).all()
+    assert s[2, 0] == 1.0 and not q[2].float().any()
+    keep = [0, 1, 3]
+    np.testing.assert_array_equal(_tbytes(q)[keep], _jbytes(jq)[keep])
+    _eq(s.numpy()[keep], np.asarray(js)[keep])
