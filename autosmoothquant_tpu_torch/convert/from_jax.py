@@ -13,8 +13,11 @@ layout), each transposed here, once:
     holds rows r and r + K'/2.
 Scalar leaves (``dequant_scale``, ``quant_scale``, ``w_scale``,
 ``input_scale``, ``output_scale``) and biases are carried as they are.
-Float weights keep ``[in, out]``. Norm weights become f32, the type the
-fused norm kernel takes (the norms compute in f32 anyway).
+Float weights keep ``[in, out]``; a float projection's bias, which the JAX
+float params name ``"b"`` (OPT), becomes ``"bias"``, the name every linear
+reads (the quantized formats already use it). Norm weights and LayerNorm
+biases (``"w"``, ``"b"``) become f32, the type the fused norm kernels take
+(the norms compute in f32 anyway).
 
 Leaves may be numpy arrays (ml_dtypes bf16 and fp8 are recognized by their
 dtype names and read through an integer view, with no import) or torch
@@ -60,7 +63,7 @@ def _proj(p: Dict[str, Any], layer: Optional[int]) -> Dict[str, torch.Tensor]:
             t = t[layer]
         if quant and key in ("w", "w_scales"):
             t = t.t()
-        out[key] = t.contiguous()
+        out["bias" if key == "b" else key] = t.contiguous()
     return out
 
 
@@ -68,9 +71,8 @@ def _block(tree: Dict[str, Any], layer: Optional[int]):
     out = {}
     for key, sub in tree.items():
         if key in _NORMS:
-            t = sub["w"]
-            out[key] = {"w": (t[layer] if layer is not None else t)
-                        .float().contiguous()}
+            out[key] = {k: (t[layer] if layer is not None else t).float().contiguous()
+                        for k, t in sub.items()}
         elif isinstance(sub, dict) and "w" in sub:
             out[key] = _proj(sub, layer)
         elif isinstance(sub, dict):
@@ -82,9 +84,10 @@ def _block(tree: Dict[str, Any], layer: Optional[int]):
 
 def params_from_jax(tree: Dict[str, Any], cfg=None, *,
                     device="cuda") -> Dict[str, Any]:
-    """JAX params (float, int8, fp8 or int4; fused q|k|v, gate|up or not) ->
-    the port's params on ``device``. ``cfg`` (a LlamaConfig), when given, is
-    checked against the layer count and supplies a tied lm_head."""
+    """JAX params (Llama or OPT family; float, int8, fp8 or int4; fused
+    q|k|v, gate|up or not) -> the port's params on ``device``. ``cfg`` (a
+    family's config), when given, is checked against the layer count and
+    supplies a tied lm_head where it has ``tie_word_embeddings``."""
     from ..runtime import resolve_device
 
     dev = resolve_device(device)
@@ -95,7 +98,8 @@ def params_from_jax(tree: Dict[str, Any], cfg=None, *,
         raise ValueError(f"params hold {n_layers} layers, config says "
                          f"{cfg.num_hidden_layers}")
     top = _block({k: v for k, v in tree.items() if k != "layers"}, None)
-    if "lm_head" not in top and cfg is not None and cfg.tie_word_embeddings:
+    if ("lm_head" not in top and cfg is not None
+            and getattr(cfg, "tie_word_embeddings", False)):
         top["lm_head"] = {"w": top["embed"]["w"].t().contiguous()}
     params = {**top, "layers": [_block(stacked, i) for i in range(n_layers)]}
     return _map(lambda t: t.to(dev), params)

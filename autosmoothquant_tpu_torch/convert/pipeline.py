@@ -49,8 +49,11 @@ def read_artifact(path: str) -> Dict[str, Any]:
 
 def load_quantized(path: str, *, device="cuda"):
     """Returns (params, QuantConfig, config_dict-or-None), with params in the
-    port's layout on ``device`` (see ``convert/from_jax.py``)."""
-    from ..models.llama import LlamaConfig
+    port's layout on ``device`` (see ``convert/from_jax.py``). The family is
+    picked from ``config.json`` by ``models/registry.py`` and its config
+    built by that family's ``config_from_hf``; the caller serves with the
+    same module (``get_model_family(config_dict)``)."""
+    from ..models.registry import get_model_family
     from ..runtime import resolve_device
 
     dev = resolve_device(device)
@@ -62,5 +65,5 @@ def load_quantized(path: str, *, device="cuda"):
     if os.path.exists(cfg_path):
         with open(cfg_path, "r", encoding="utf-8") as f:
             config_dict = json.load(f)
-        cfg = LlamaConfig.from_hf(config_dict)
+        cfg = get_model_family(config_dict).config_from_hf(config_dict)
     return params_from_jax(tree, cfg, device=dev), qcfg, config_dict

@@ -1,9 +1,10 @@
-"""Fused residual-add + RMSNorm + int8 quantize: the port of
-``autosmoothquant_tpu/kernels/fused.py`` (``fused_add_rmsnorm_quant``).
+"""Fused residual-add + norm + int8 quantize: the port of
+``autosmoothquant_tpu/kernels/fused.py`` (``fused_add_rmsnorm_quant`` for the
+Llama family, ``fused_add_layernorm_quant`` for OPT).
 
-CUDA tensors launch ``csrc/add_rmsnorm_quant.cu`` (K2); CPU tensors run
-:func:`fused_add_rmsnorm_quant_plain`. The LayerNorm variant (OPT) is not
-ported yet.
+CUDA tensors launch ``csrc/add_rmsnorm_quant.cu`` (K2) or
+``csrc/add_layernorm_quant.cu`` (K6); CPU tensors run the ``*_plain``
+versions.
 """
 
 from __future__ import annotations
@@ -15,8 +16,6 @@ import torch
 from . import _build
 
 _P = ctypes.c_void_p
-_ARGTYPES = (_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-             ctypes.c_int, _P)
 _MAX_D = 12 * 1024  # the kernel keeps one f32 row in shared memory
 
 
@@ -30,35 +29,78 @@ def fused_add_rmsnorm_quant_plain(h: torch.Tensor, x: torch.Tensor,
     return s.to(h.dtype), q
 
 
+def _check(h, x, norm_vectors):
+    """The checks both wrappers share; raises on what the kernels refuse.
+    Returns True for CUDA tensors (launch), False for CPU ones (plain)."""
+    d = h.shape[-1] if h.ndim == 2 else None
+    if (h.shape != x.shape or h.ndim != 2
+            or any(v.shape != (d,) for v in norm_vectors)):
+        raise ValueError(f"shapes h {tuple(h.shape)}, x {tuple(x.shape)}, "
+                         f"norm vectors {[tuple(v.shape) for v in norm_vectors]}")
+    if not h.is_cuda:
+        return False
+    if h.dtype not in (torch.float32, torch.bfloat16) or x.dtype != h.dtype:
+        raise TypeError(f"h/x must share f32 or bf16, got {h.dtype}/{x.dtype}")
+    if any(v.dtype != torch.float32 for v in norm_vectors):
+        raise TypeError("gamma/beta must be f32 (norm weights are kept in f32)")
+    if d > _MAX_D:
+        raise ValueError(f"D={d} exceeds the kernel's {_MAX_D}")
+    return True
+
+
+def _launch(wrapper, lib, h, x, norm_vectors, eps):
+    h = h.contiguous()
+    x = x.contiguous()
+    vecs = [v.contiguous() for v in norm_vectors]
+    t, d = h.shape
+    out_h = torch.empty_like(h)
+    out_q = torch.empty((t, d), dtype=torch.int8, device=h.device)
+    argtypes = (_P,) * (4 + len(vecs)) + (ctypes.c_int, ctypes.c_int,
+                                          ctypes.c_float, ctypes.c_int, _P)
+    fn = _build.function(lib, f"asq_{lib}", argtypes)
+    rc = fn(h.data_ptr(), x.data_ptr(), *(v.data_ptr() for v in vecs),
+            out_h.data_ptr(), out_q.data_ptr(), t, d, float(eps),
+            int(h.dtype == torch.bfloat16), _build.stream_ptr(h))
+    _build.check(lib, rc, wrapper.__name__)
+    wrapper.launches += 1
+    return out_h, out_q
+
+
 def fused_add_rmsnorm_quant(h: torch.Tensor, x: torch.Tensor,
                             gamma: torch.Tensor, *, eps: float = 1e-6):
     """h, x: [T, D] (f32 or bf16); gamma: [D] with the per-tensor input scale
     folded in. Returns (h + x in h.dtype, int8 [T, D])."""
-    if h.shape != x.shape or h.ndim != 2 or gamma.shape != (h.shape[1],):
-        raise ValueError(f"shapes h {tuple(h.shape)}, x {tuple(x.shape)}, "
-                         f"gamma {tuple(gamma.shape)}")
-    if not h.is_cuda:
+    if not _check(h, x, (gamma,)):
         return fused_add_rmsnorm_quant_plain(h, x, gamma, eps=eps)
-    if h.dtype not in (torch.float32, torch.bfloat16) or x.dtype != h.dtype:
-        raise TypeError(f"h/x must share f32 or bf16, got {h.dtype}/{x.dtype}")
-    if gamma.dtype != torch.float32:
-        raise TypeError("gamma must be f32 (norm weights are kept in f32)")
-    t, d = h.shape
-    if d > _MAX_D:
-        raise ValueError(f"D={d} exceeds the kernel's {_MAX_D}")
-    h = h.contiguous()
-    x = x.contiguous()
-    gamma = gamma.contiguous()
-    out_h = torch.empty_like(h)
-    out_q = torch.empty((t, d), dtype=torch.int8, device=h.device)
-    fn = _build.function("add_rmsnorm_quant", "asq_add_rmsnorm_quant", _ARGTYPES)
-    rc = fn(h.data_ptr(), x.data_ptr(), gamma.data_ptr(), out_h.data_ptr(),
-            out_q.data_ptr(), t, d, float(eps), int(h.dtype == torch.bfloat16),
-            _build.stream_ptr(h))
-    _build.check("add_rmsnorm_quant", rc, "fused_add_rmsnorm_quant")
-    fused_add_rmsnorm_quant.launches += 1
-    return out_h, out_q
+    return _launch(fused_add_rmsnorm_quant, "add_rmsnorm_quant", h, x,
+                   (gamma,), eps)
 
 
-# launches of the CUDA kernel (plain CPU calls do not count)
+def fused_add_layernorm_quant_plain(h: torch.Tensor, x: torch.Tensor,
+                                    gamma: torch.Tensor, beta: torch.Tensor,
+                                    *, eps: float = 1e-5):
+    """Returns (h + x in h's dtype, int8 of round(layernorm(h + x) * gamma +
+    beta)); the variance is two-pass, the mean of the centred squares."""
+    s = h.float() + x.float()
+    c = s - s.mean(dim=-1, keepdim=True)
+    var = (c * c).mean(dim=-1, keepdim=True)
+    y = c * torch.rsqrt(var + eps) * gamma.float() + beta.float()
+    q = torch.clamp(torch.round(y), -128, 127).to(torch.int8)
+    return s.to(h.dtype), q
+
+
+def fused_add_layernorm_quant(h: torch.Tensor, x: torch.Tensor,
+                              gamma: torch.Tensor, beta: torch.Tensor, *,
+                              eps: float = 1e-5):
+    """h, x: [T, D] (f32 or bf16); gamma, beta: f32 [D], both with the
+    per-tensor input scale folded in (OPT's pre-LN block). Returns (h + x in
+    h.dtype, int8 [T, D])."""
+    if not _check(h, x, (gamma, beta)):
+        return fused_add_layernorm_quant_plain(h, x, gamma, beta, eps=eps)
+    return _launch(fused_add_layernorm_quant, "add_layernorm_quant", h, x,
+                   (gamma, beta), eps)
+
+
+# launches of the CUDA kernels (plain CPU calls do not count)
 fused_add_rmsnorm_quant.launches = 0
+fused_add_layernorm_quant.launches = 0

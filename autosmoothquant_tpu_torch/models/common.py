@@ -42,6 +42,17 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     return xf * torch.rsqrt(var + eps) * weight.float()
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """LayerNorm in f32 (OPT family), two-pass: the mean, then the mean of
+    the centred squares. For a per-tensor int8 consumer ``weight`` and
+    ``bias`` both hold the folded 1/input_scale."""
+    xf = x.float()
+    c = xf - xf.mean(dim=-1, keepdim=True)
+    var = (c * c).mean(dim=-1, keepdim=True)
+    return c * torch.rsqrt(var + eps) * weight.float() + bias.float()
+
+
 def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
                  dtype=torch.float32):
     """positions: int [...] -> cos/sin [..., head_dim] (HF rotate-half).
@@ -175,11 +186,14 @@ def linear(x, p, cfg: Optional[QuantConfig], granularity=PER_TENSOR,
     return quant_linear(x, p, cfg, granularity, kind, out_dtype)
 
 
-def linear_prequant(x_q: torch.Tensor, p: dict, compute_dtype) -> torch.Tensor:
+def linear_prequant(x_q: torch.Tensor, p: dict, compute_dtype,
+                    activation: Optional[str] = None) -> torch.Tensor:
     """Per-tensor int8 POST_NORM projection whose input is already int8 (from
-    the fused add+norm+quant kernel)."""
+    the fused add+norm+quant kernel); ``activation`` ("relu") goes into the
+    GEMM's epilogue."""
     return int8_matmul(x_q, p["w"], col_scale=p["dequant_scale"],
-                       bias=p.get("bias"), out_dtype=compute_dtype)
+                       bias=p.get("bias"), activation=activation,
+                       out_dtype=compute_dtype)
 
 
 def fused_block_enabled(qcfg: Optional[QuantConfig], capture: bool = False) -> bool:

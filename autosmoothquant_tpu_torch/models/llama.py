@@ -100,6 +100,9 @@ class LlamaConfig:
         )
 
 
+config_from_hf = LlamaConfig.from_hf
+
+
 def _layer_forward(h, lp, cfg: LlamaConfig, qcfg: Optional[QuantConfig], cos,
                    sin, mask, cache, cache_index, compute_dtype, *,
                    plain_causal=False, chunk0=False, banded=False,

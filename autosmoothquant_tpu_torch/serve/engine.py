@@ -68,10 +68,11 @@ class Engine:
     params: the port's params (float, int8, fp8 or int4, see
     convert/from_jax.py), on ``device``; qcfg selects the quantized path. On
     one device the engine fuses q|k|v and gate|up (4 GEMMs a layer instead
-    of 7), as the JAX engine's auto setting does there, except for params
-    that carry fp8-static ``input_scale`` leaves: fusion would drop those
-    frozen scales and the activations would silently re-quantize
-    dynamically, so such params run unfused (JAX
+    of 7) where the family has ``fuse_decode_projections`` (Llama; OPT has
+    none and is served unfused), as the JAX engine's auto setting does
+    there, except for params that carry fp8-static ``input_scale`` leaves:
+    fusion would drop those frozen scales and the activations would
+    silently re-quantize dynamically, so such params run unfused (JAX
     ``maybe_fuse_projections``)."""
 
     def __init__(self, model_mod, params, cfg, qcfg: Optional[QuantConfig] = None,
@@ -80,8 +81,9 @@ class Engine:
                  device="cuda"):
         self.device = resolve_device(device)
         self.model = model_mod
-        self.params = (params if _has_static_fp8_scales(params)
-                       else model_mod.fuse_decode_projections(params))
+        fuser = getattr(model_mod, "fuse_decode_projections", None)
+        self.params = (params if fuser is None or _has_static_fp8_scales(params)
+                       else fuser(params))
         self.cfg = cfg
         self.qcfg = qcfg
         self.max_batch = max_batch

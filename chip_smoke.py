@@ -8,27 +8,32 @@ Run from the root of a checkout, on a machine with one card:
 
 The paths are Llama generation in three weight formats: W8A8 int8 (kernels
 K1 int8 GEMM, K2 add+RMSNorm+quant, K3 flash prefill), fp8 e4m3 / e5m2 (K4
-fp8 GEMM, K3) and W4A8 int4 (K5 int4 GEMM at M <= 64, K3).
+fp8 GEMM, K3) and W4A8 int4 (K5 int4 GEMM at M <= 64, K3); and OPT-6.7B W8A8
+generation (K1, K6 add+LayerNorm+quant, K3).
 
 Phases (any failure ends the run with a nonzero exit code):
   device   the card's name and power limit
   build    nvcc builds autosmoothquant_tpu_torch/csrc/*.cu (one process per
            source, all started together) and prints the -Xptxas -v summary
   kernels  each kernel against its plain version at the main paths' shapes
-  e2e      2-layer TinyLlama-width models on the card and, with the same
-           weights, on the CPU (plain versions), in W8A8, fp8 e4m3 dynamic,
-           fp8 e4m3 static (unfused), fp8 e5m2 and int4: prefill logits agree
-           within the stated limits and greedy tokens are equal up to any
-           near-tie
+           (TinyLlama-1.1B and OPT-6.7B)
+  e2e      2-layer models on the card and, with the same weights, on the CPU
+           (plain versions): TinyLlama width in W8A8, fp8 e4m3 dynamic, fp8
+           e4m3 static (unfused), fp8 e5m2 and int4; OPT pre-LN W8A8 at
+           OPT-1.3B width and post-LN W8A8 with project_in/out at OPT-350m
+           width. Prefill logits agree within the stated limits and greedy
+           tokens are equal up to any near-tie
   serve    the 22-layer TinyLlama-1.1B model serves Engine.generate in W8A8,
-           fp8 e4m3 dynamic and int4 (group 128): 4 ragged prompts (banded
-           prefill) and an equal-length batch (causal prefill), greedy;
-           finite logits, and each path's kernels' launch counts, set to 0
-           just before the path runs, moved
+           fp8 e4m3 dynamic and int4 (group 128), and OPT-6.7B (full width
+           and depth) in W8A8: 4 ragged prompts (banded prefill) and an
+           equal-length batch (causal prefill), greedy; finite logits, and
+           each path's launch counts, set to 0 just before the path runs,
+           exactly as the path's shape says
   timing   each kernel's time against its plain version, its library
-           yardstick and its bound; prefill time; decode tok/s of W8A8, fp8,
-           int4 and bf16 at b1, prompt 128, s_max 512, in turns; device
-           kernels a decode step; peak device memory
+           yardstick and its bound; prefill time; decode tok/s at b1, prompt
+           128, s_max 512, in turns: TinyLlama W8A8, fp8, int4 and bf16, and
+           OPT-6.7B W8A8 and bf16; device kernels a decode step; peak device
+           memory
 
 Every phase runs, in this order. The last two lines of standard output are
 the kernel table ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
@@ -42,7 +47,13 @@ activation has an RMS near 32; each GEMM's dequant scale is
 its output has unit variance; o_proj and down_proj quantize their inputs with
 a static scale of 1/64. fp8 and int4 draw float weights N(0, 1/K) (norm
 weights 1) and quantize them with the port's own ``quant/math`` on the
-device; the static fp8 input scale is 16 / 448 for every projection.
+device; the static fp8 input scale is 16 / 448 for every projection. OPT
+draws the same way, with f32 linear biases of std 0.1 and LayerNorm
+weights near 1 and biases near 0 (times 32, the folded input scale, where a
+pre-LN norm feeds an int8 projection); a post-LN OPT's q/k/v and fc1,
+whose inputs are LayerNorm outputs with no norm to fold into, quantize with
+a static scale of 1/32. OPT-6.7B's shape is the public facebook/opt-6.7b
+config.json.
 """
 
 from __future__ import annotations
@@ -68,6 +79,20 @@ TINYLLAMA = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5632,
                  num_key_value_heads=4, max_position_embeddings=2048)
 GEMM_SHAPES = ((2048, 2560), (2048, 2048), (2048, 11264), (5632, 2048))  # (K, N)
 GEMM_NAMES = ("qkv", "o", "gate|up", "down")
+# OPT-6.7B (facebook/opt-6.7b config.json: pre-LN, ReLU, learned positions,
+# LayerNorm eps 1e-5), and the widths of OPT-1.3B and OPT-350m (post-LN,
+# word_embed_proj_dim 512) for the 2-layer card-vs-CPU comparisons
+OPT_6_7B = dict(vocab_size=50272, hidden_size=4096, word_embed_proj_dim=4096,
+                ffn_dim=16384, num_hidden_layers=32, num_attention_heads=32,
+                max_position_embeddings=2048, do_layer_norm_before=True)
+OPT_1_3B_2L = dict(vocab_size=50272, hidden_size=2048, word_embed_proj_dim=2048,
+                   ffn_dim=8192, num_hidden_layers=2, num_attention_heads=32,
+                   max_position_embeddings=2048, do_layer_norm_before=True)
+OPT_350M_2L = dict(vocab_size=50272, hidden_size=1024, word_embed_proj_dim=512,
+                   ffn_dim=4096, num_hidden_layers=2, num_attention_heads=16,
+                   max_position_embeddings=2048, do_layer_norm_before=False)
+OPT_GEMM_SHAPES = ((4096, 4096), (4096, 16384), (16384, 4096))  # (K, N)
+OPT_GEMM_NAMES = ("q|k|v|o", "fc1", "fc2")
 INT8_RMS = 73.6     # RMS of an integer drawn uniformly from [-127, 127]
 ACT_RMS = 32.0      # RMS of a quantized activation (norm weight 32)
 STATIC_FP8_AMAX = 16.0  # the static fp8 input scale is this / 448
@@ -159,26 +184,28 @@ def draw_float(cfg, seed, device, proj_dtype=None):
             "lm_head": w(D, V, scale=2.0 / math.sqrt(D), dtype=torch.bfloat16)}
 
 
-def draw_quantized(cfg, qcfg, seed, device):
-    """Random fp8 or int4 params in the port's layout: draw_float's f32
+def draw_quantized(cfg, qcfg, seed, device, draw_float=draw_float):
+    """Random fp8 or int4 params in the port's layout: ``draw_float``'s f32
     weights quantized on ``device`` by the port's quant/math (fp8 e4m3:
     per-tensor absmax scales, plus the static input scale for the static
     scheme; e5m2: a scale-free cast; int4: group scales, K zero-padded to
-    the stored depth)."""
+    the stored depth). Biases (OPT) are carried in f32."""
     import torch
 
     from autosmoothquant_tpu_torch.quant import math as Q
 
     def proj(p):
         w = p["w"]                                  # f32 [K, N]
+        bias = {"bias": p["bias"].float()} if "bias" in p else {}
         if qcfg.type == "int4":
             packed, scales = Q.quantize_weight_int4_grouped(w, qcfg.group_size)
-            return {"w": packed.t().contiguous(), "w_scales": scales.t().contiguous()}
+            return {"w": packed.t().contiguous(), "w_scales": scales.t().contiguous(),
+                    **bias}
         wt = w.t().contiguous()                     # [N, K]
         if qcfg.type == "fp8_e5m2":
-            return {"w": wt.to(torch.float8_e5m2)}
+            return {"w": wt.to(torch.float8_e5m2), **bias}
         q, scale = Q.quantize_fp8_per_tensor(wt)
-        out = {"w": q, "w_scale": scale}
+        out = {"w": q, "w_scale": scale, **bias}
         if qcfg.activation_scheme == "static":
             out["input_scale"] = torch.tensor(STATIC_FP8_AMAX / Q.FP8_E4M3_MAX,
                                               dtype=torch.float32, device=device)
@@ -189,6 +216,97 @@ def draw_quantized(cfg, qcfg, seed, device):
                "mlp": {k: proj(v) for k, v in lp["mlp"].items()}}
               for lp in params["layers"]]
     return {**params, "layers": layers}
+
+
+def _opt_common(cfg, randn):
+    """OPT's float leaves outside the layers: bf16 embeddings (tokens, and
+    positions at offset 2), the bf16 lm_head (logit std near 2), f32
+    final LayerNorm (pre-LN only) and the bf16 project_in / project_out
+    pair where word_embed_proj_dim differs from hidden_size."""
+    import torch
+
+    D, V, Dw = cfg.hidden_size, cfg.vocab_size, cfg.word_embed_proj_dim
+    bf = torch.bfloat16
+    out = {"embed": {"w": randn(V, Dw, dtype=bf)},
+           "embed_pos": {"w": randn(cfg.max_position_embeddings + 2, D, dtype=bf)},
+           "lm_head": {"w": randn(Dw, V, scale=2.0 / math.sqrt(Dw), dtype=bf)}}
+    if cfg.do_layer_norm_before:
+        out["final_norm"] = {"w": 1 + randn(D, scale=0.1), "b": randn(D, scale=0.1)}
+    if Dw != D:
+        out["project_in"] = {"w": randn(Dw, D, scale=1.0 / math.sqrt(Dw), dtype=bf)}
+        out["project_out"] = {"w": randn(D, Dw, scale=1.0 / math.sqrt(D), dtype=bf)}
+    return out
+
+
+def _randn(torch, g, device):
+    def randn(*shape, scale=1.0, dtype=None):
+        return (torch.randn(*shape, generator=g, device=device) * scale).to(
+            dtype or torch.float32)
+    return randn
+
+
+def draw_opt_w8a8(cfg, seed, device):
+    """Random W8A8 OPT params in the port's layout (int8 weights [N, K],
+    f32 biases and LayerNorm leaves), drawn one tensor at a time on
+    ``device``."""
+    import torch
+
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    randn = _randn(torch, g, device)
+    D, F = cfg.hidden_size, cfg.ffn_dim
+    pre_ln = cfg.do_layer_norm_before
+
+    def f32(x):
+        return torch.tensor(x, dtype=torch.float32, device=device)
+
+    def proj(k, n, quant_scale=None):
+        p = {"w": torch.randint(-127, 128, (n, k), dtype=torch.int8,
+                                device=device, generator=g),
+             "dequant_scale": f32(1.0 / (math.sqrt(k) * ACT_RMS * INT8_RMS)),
+             "bias": randn(n, scale=0.1)}
+        if quant_scale is not None:
+            p["quant_scale"] = f32(quant_scale)
+        return p
+
+    def norm():
+        fold = ACT_RMS if pre_ln else 1.0  # the folded 1 / input scale
+        return {"w": fold * (1 + randn(D, scale=0.1)), "b": fold * randn(D, scale=0.1)}
+
+    qkv = None if pre_ln else 1.0 / ACT_RMS  # post-LN: static scale, no fold
+    layers = [{"ln1": norm(),
+               "attn": {"q": proj(D, D, qkv), "k": proj(D, D, qkv),
+                        "v": proj(D, D, qkv), "o": proj(D, D, 1.0 / 64)},
+               "ln2": norm(),
+               "mlp": {"fc1": proj(D, F, qkv), "fc2": proj(F, D, 1.0 / 64)}}
+              for _ in range(cfg.num_hidden_layers)]
+    return {**_opt_common(cfg, randn), "layers": layers}
+
+
+def draw_opt_float(cfg, seed, device, proj_dtype=None):
+    """Random float OPT params: [in, out] projection weights N(0, 1/K) and
+    biases of std 0.1 in ``proj_dtype`` (bf16 by default), drawn one tensor
+    at a time on ``device`` (no f32 copy of the whole model)."""
+    import torch
+
+    proj_dtype = proj_dtype or torch.bfloat16
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    randn = _randn(torch, g, device)
+    D, F = cfg.hidden_size, cfg.ffn_dim
+
+    def w(k, n):
+        return {"w": randn(k, n, scale=1.0 / math.sqrt(k), dtype=proj_dtype),
+                "bias": randn(n, scale=0.1, dtype=proj_dtype)}
+
+    def norm():
+        return {"w": 1 + randn(D, scale=0.1), "b": randn(D, scale=0.1)}
+
+    layers = [{"ln1": norm(),
+               "attn": {"q": w(D, D), "k": w(D, D), "v": w(D, D), "o": w(D, D)},
+               "ln2": norm(), "mlp": {"fc1": w(D, F), "fc2": w(F, D)}}
+              for _ in range(cfg.num_hidden_layers)]
+    return {**_opt_common(cfg, randn), "layers": layers}
 
 
 def to_device(node, device):
@@ -293,6 +411,10 @@ GEMM_VARIANTS = (
     ("f32 silu+bias", "f32", False, True, True, "silu"),
     ("bf16 per-token col-vector", "bf16", True, True, False, None),
 )
+# OPT's projections: a scalar dequant scale, a bias, bf16 out (fc1 with ReLU)
+OPT_GEMM_VARIANTS = {"q|k|v|o": ("bf16 scalar+bias", "bf16", False, False, True, None),
+                     "fc1": ("bf16 scalar+bias relu", "bf16", False, False, True, "relu"),
+                     "fc2": ("bf16 scalar+bias", "bf16", False, False, True, None)}
 # tolerances of K1 against its plain version (the accumulator is exact in both;
 # the epilogue multiplies in one order with round-to-nearest in both)
 GEMM_TOL = {"f32": (1e-6, 0.0), "silu": (1e-5, 1e-6), "bf16": (2.0**-8, 0.0),
@@ -477,9 +599,23 @@ def flash_ops_bytes(torch, c):
     return 4 * d * pairs, nbytes
 
 
+def layernorm_case(torch, t, d, dtype, gen):
+    """K6's inputs as an OPT block gives them: h (the residual) with a common
+    offset of +20 and four outlier channels at +-50 sigma, x (the attention
+    output), and gamma, beta carrying the folded input scale (32)."""
+    h = torch.randn(t, d, device="cuda", generator=gen) + 20.0
+    cols = torch.randperm(d, device="cuda", generator=gen)[:4]
+    h[:, cols] += 50.0 * torch.tensor([1.0, -1.0, 1.0, -1.0], device="cuda")
+    x = torch.randn(t, d, device="cuda", generator=gen)
+    gamma = ACT_RMS * (1 + 0.1 * torch.randn(d, device="cuda", generator=gen))
+    beta = ACT_RMS * 0.1 * torch.randn(d, device="cuda", generator=gen)
+    return h.to(dtype), x.to(dtype), gamma, beta
+
+
 def phase_kernels(torch, results):
     """Every kernel against its plain version on the card."""
     from autosmoothquant_tpu_torch.kernels.fused import (
+        fused_add_layernorm_quant, fused_add_layernorm_quant_plain,
         fused_add_rmsnorm_quant, fused_add_rmsnorm_quant_plain)
 
     gen = torch.Generator(device="cuda")
@@ -496,6 +632,10 @@ def phase_kernels(torch, results):
     cases += [(3, 37, 100, GEMM_VARIANTS[2], "ragged"),
               (77, 70, 130, GEMM_VARIANTS[3], "ragged"),
               (9, 2048, 2560, GEMM_VARIANTS[0], "ragged")]
+    # OPT-6.7B: K = 16384 (fc2) and N = 16384 (fc1), with biases
+    cases += [(m, k, n, OPT_GEMM_VARIANTS[pname], f"opt {pname}")
+              for m in (1, 4, 128)
+              for (k, n), pname in zip(OPT_GEMM_SHAPES, OPT_GEMM_NAMES)]
     worst = 0.0
     for m, k, n, variant, pname in cases:
         c = gemm_case(torch, m, k, n, variant, gen)
@@ -505,7 +645,7 @@ def phase_kernels(torch, results):
         rtol, atol = GEMM_TOL[key]
         ok, err = _close(out, ref, rtol, atol)
         worst = max(worst, err)
-        log(f"  int8_matmul {pname:7s} M={m:<4d} K={k:<5d} N={n:<6d} "
+        log(f"  int8_matmul {pname:11s} M={m:<4d} K={k:<5d} N={n:<6d} "
             f"{c['label']:26s} max|err|={err:.3g} (rtol {rtol:g}, atol {atol:g})"
             f" {'ok' if ok else 'FAIL'}")
         require(ok, f"int8_matmul disagrees with its plain version at "
@@ -533,6 +673,30 @@ def phase_kernels(torch, results):
         require(ok, f"fused_add_rmsnorm_quant disagrees at T={t}")
     results["fused_add_rmsnorm_quant"]["max_abs_err"] = worst
 
+    # K6: T in {1, 128, 512} x D in {2048, 4096}, bf16 and f32, with a
+    # common offset of +20 and outlier channels at +-50 sigma (where a
+    # one-pass variance would cancel). s equal; q within one step on at most
+    # 0.1% of elements (the mean's and the variance's sum orders differ)
+    worst = 0.0
+    for d in (2048, 4096):
+        for t in (1, 128, 512):
+            for dt in (torch.bfloat16, torch.float32):
+                h, x, gamma, beta = layernorm_case(torch, t, d, dt, gen)
+                s, q = fused_add_layernorm_quant(h, x, gamma, beta, eps=1e-5)
+                s_ref, q_ref = fused_add_layernorm_quant_plain(h, x, gamma, beta, eps=1e-5)
+                torch.cuda.synchronize()
+                dq = (q.int() - q_ref.int()).abs()
+                frac = float((dq > 0).float().mean())
+                err = float(dq.max())
+                worst = max(worst, err)
+                ok = torch.equal(s, s_ref) and err <= 1 and frac <= 1e-3
+                log(f"  fused_add_layernorm_quant T={t:<4d} D={d} "
+                    f"{str(dt).split('.')[-1]}: s equal={torch.equal(s, s_ref)} "
+                    f"q max|diff|={err:g} on {frac:.3%} (<= 1 on <= 0.1%) "
+                    f"{'ok' if ok else 'FAIL'}")
+                require(ok, f"fused_add_layernorm_quant disagrees at T={t} D={d} {dt}")
+    results["fused_add_layernorm_quant"]["max_abs_err"] = worst
+
     # K3: causal and banded; valid rows only (a row with no valid key is 0 in
     # the kernel by design). bf16: output rounded to bf16 on both sides
     bf, f32 = torch.bfloat16, torch.float32
@@ -547,6 +711,10 @@ def phase_kernels(torch, results):
                                         pos=[0, 100, 256, 384], starts=[0, 10, 0, 300])),
         ("flash_attention_banded", dict(b=3, t=70, s=200, hq=8, hkv=8, d=128, dtype=f32,
                                         pos=[0, 50, 130], starts=[5, 0, 60])),
+        # OPT-6.7B: multi-head (Hq = Hkv = 32), D = 128, bf16
+        ("flash_attention", dict(b=1, t=128, s=128, hq=32, hkv=32, d=128, dtype=bf)),
+        ("flash_attention_banded", dict(b=4, t=128, s=512, hq=32, hkv=32, d=128, dtype=bf,
+                                        pos=[0, 0, 0, 0], starts=[0, 32, 64, 95])),
     ]
     worst = {"flash_attention": 0.0, "flash_attention_banded": 0.0}
     for name, kw in flash_cases:
@@ -644,6 +812,16 @@ E2E_QUANT_LIMITS = {"fp8 e4m3 dynamic": (0.8, 0.06, 0.3),
                     "fp8 e4m3 static": (0.5, 0.03, 0.3),
                     "fp8 e5m2": (0.9, 0.05, 0.3),
                     "int4": (0.01, 3e-4, E2E_TIE_MARGIN)}
+# (max, mean, near-tie margin) of the 2-layer W8A8 OPTs (logit std 2), set
+# from this comparison's readings on an H100 (700 W) at about 2-3x them:
+# pre-LN (OPT-1.3B width) max 0.0758, mean 0.00137, tokens 96/96 equal;
+# post-LN with project_in/out (OPT-350m width) max 0.112, mean 0.00232, one
+# parting at a CPU top-2 margin of 0.0014. Both read about 12x the TinyLlama
+# W8A8 model's mean by the same mechanism (a last-bit difference moving an
+# activation across an int8 rounding boundary); W8A8's 1e-3 would call
+# that noise a fault
+E2E_OPT_LIMITS = {"OPT pre-LN W8A8": (0.25, 7e-3, E2E_TIE_MARGIN),
+                  "OPT post-LN W8A8": (0.25, 7e-3, E2E_TIE_MARGIN)}
 
 
 def e2e_models(torch, cfg):
@@ -664,9 +842,10 @@ def e2e_models(torch, cfg):
 
 
 def phase_e2e(torch):
-    """2 layers at TinyLlama width in each format: card against CPU with the
-    same weights, f32 activations and KV cache so the comparison isolates the
-    kernels.
+    """2 layers at TinyLlama width in each format, and 2-layer W8A8 OPTs
+    (pre-LN at OPT-1.3B width, post-LN with project_in/out at OPT-350m
+    width): card against CPU with the same weights, f32 activations and KV
+    cache so the comparison isolates the kernels.
 
     A quantized model turns last-bit differences (a reduction summed in
     another order) into whole quantization steps wherever a value sits near a
@@ -678,6 +857,8 @@ def phase_e2e(torch):
     is wider). Every format's readings are printed before any limit is
     enforced."""
     from autosmoothquant_tpu_torch.models import llama as L
+    from autosmoothquant_tpu_torch.models import opt as O
+    from autosmoothquant_tpu_torch.quant.config import QuantConfig
 
     cfg = tinyllama(L, 2)
     rng = torch.Generator().manual_seed(11)
@@ -688,12 +869,21 @@ def phase_e2e(torch):
     failures = []
     for label, qcfg, params_cpu, limits in e2e_models(torch, cfg):
         failures += e2e_compare(torch, L, cfg, label, qcfg, params_cpu, limits,
-                                ragged, equal)
+                                ragged, equal, "2-layer TinyLlama width")
+    for label, shape in (("OPT pre-LN W8A8", OPT_1_3B_2L),
+                         ("OPT post-LN W8A8", OPT_350M_2L)):
+        ocfg = O.OPTConfig(**shape)
+        failures += e2e_compare(
+            torch, O, ocfg, label, QuantConfig(type="int8"),
+            draw_opt_w8a8(ocfg, seed=7, device="cpu"), E2E_OPT_LIMITS[label],
+            ragged, equal, f"2-layer, hidden {ocfg.hidden_size}")
     require(not failures, "; ".join(failures))
 
 
-def e2e_compare(torch, L, cfg, label, qcfg, params_cpu, limits, ragged, equal):
-    """One format's card-vs-CPU readings; returns the limits it broke."""
+def e2e_compare(torch, L, cfg, label, qcfg, params_cpu, limits, ragged, equal,
+                desc):
+    """One format's card-vs-CPU readings (L: the family module); returns the
+    limits it broke."""
     from autosmoothquant_tpu_torch.serve.engine import Engine, GenerationConfig
 
     params_gpu = to_device(params_cpu, "cuda")
@@ -726,8 +916,8 @@ def e2e_compare(torch, L, cfg, label, qcfg, params_cpu, limits, ragged, equal):
     err, mean_err = float(diff.max()), float(diff.mean())
     finite = bool(torch.isfinite(out["cuda"]["logits"]).all())
     fused = "qkv" in engines["cuda"].params["layers"][0]["attn"]
-    log(f"  e2e {label} ({'fused' if fused else 'unfused'}) 2-layer TinyLlama "
-        f"width, f32: prefill logits |card-cpu| max {err:.3g} (limit {limits[0]}), "
+    log(f"  e2e {label} ({'fused' if fused else 'unfused'}) {desc}, f32: "
+        f"prefill logits |card-cpu| max {err:.3g} (limit {limits[0]}), "
         f"mean {mean_err:.3g} (limit {limits[1]}); logit std "
         f"{float(out['cpu']['logits'].std()):.3g}; finite {finite}")
     if not (finite and err <= limits[0] and mean_err <= limits[1]):
@@ -770,7 +960,8 @@ def launch_counters():
     from autosmoothquant_tpu_torch.kernels.attention import (
         flash_attention, flash_attention_banded)
     from autosmoothquant_tpu_torch.kernels.fp8 import fp8_matmul
-    from autosmoothquant_tpu_torch.kernels.fused import fused_add_rmsnorm_quant
+    from autosmoothquant_tpu_torch.kernels.fused import (
+        fused_add_layernorm_quant, fused_add_rmsnorm_quant)
     from autosmoothquant_tpu_torch.kernels.gemm import int8_matmul
     from autosmoothquant_tpu_torch.kernels.int4 import int4_matmul
 
@@ -779,14 +970,17 @@ def launch_counters():
             "flash_attention": flash_attention,
             "flash_attention_banded": flash_attention_banded,
             "fp8_matmul": fp8_matmul,
-            "int4_matmul": int4_matmul}
+            "int4_matmul": int4_matmul,
+            "fused_add_layernorm_quant": fused_add_layernorm_quant}
 
 
 # each path's kernels, and the count each must show after the serve run of
-# n new tokens for 2 batches of 4 prompts (22 layers, fused q|k|v and gate|up:
-# 4 GEMMs a layer per forward; 1 prefill + n - 1 decode forwards a batch;
-# one flash launch a layer per prefill). int4 prefills at M = 4 x 128 > 64,
-# which takes W4A16 (plain torch), so K5 runs on decode forwards only.
+# n new tokens for 2 batches of 4 prompts (1 prefill + n - 1 decode forwards
+# a batch; one flash launch a layer per prefill). TinyLlama (22 layers) fuses
+# q|k|v and gate|up: 4 GEMMs a layer per forward. int4 prefills at
+# M = 4 x 128 > 64, which takes W4A16 (plain torch), so K5 runs on decode
+# forwards only. OPT-6.7B (32 layers) runs unfused: 6 GEMMs and one K6 a
+# layer per forward.
 SERVE_PATHS = {
     "W8A8": (32, lambda n: {"int8_matmul": 4 * 22 * 2 * n,
                             "fused_add_rmsnorm_quant": 22 * 2 * n,
@@ -796,31 +990,47 @@ SERVE_PATHS = {
                                         "flash_attention_banded": 22}),
     "int4": (16, lambda n: {"int4_matmul": 4 * 22 * 2 * (n - 1),
                             "flash_attention": 22, "flash_attention_banded": 22}),
+    "OPT-6.7B W8A8": (32, lambda n: {"int8_matmul": 6 * 32 * 2 * n,
+                                     "fused_add_layernorm_quant": 32 * 2 * n,
+                                     "flash_attention": 32,
+                                     "flash_attention_banded": 32}),
 }
+
+
+def serve_model(torch, label):
+    """(family module, config, QuantConfig, params on the card) of a serve
+    path."""
+    from autosmoothquant_tpu_torch.models import llama as L
+    from autosmoothquant_tpu_torch.models import opt as O
+    from autosmoothquant_tpu_torch.quant.config import QuantConfig
+
+    if label == "OPT-6.7B W8A8":
+        cfg = O.OPTConfig(**OPT_6_7B)
+        return O, cfg, QuantConfig(type="int8"), draw_opt_w8a8(cfg, seed=3, device="cuda")
+    cfg = tinyllama(L, 22)
+    qcfg = {"W8A8": QuantConfig(type="int8"),
+            "fp8 e4m3 dynamic": QuantConfig(type="fp8_e4m3"),
+            "int4": QuantConfig(type="int4")}[label]
+    params = (draw_w8a8(cfg, seed=3, device="cuda") if label == "W8A8"
+              else draw_quantized(cfg, qcfg, seed=3, device="cuda"))
+    return L, cfg, qcfg, params
 
 
 def phase_serve(torch, results):
     """Each main path at full width, counted: the counts are set to 0 just
     before the path runs and read just after."""
-    from autosmoothquant_tpu_torch.models import llama as L
-    from autosmoothquant_tpu_torch.quant.config import QuantConfig
     from autosmoothquant_tpu_torch.serve.engine import Engine, GenerationConfig
 
-    cfg = tinyllama(L, 22)
     rng = torch.Generator().manual_seed(5)
-    ragged = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
+    ragged = [torch.randint(0, 32000, (n,), generator=rng).tolist()
               for n in (128, 96, 64, 33)]
-    equal = [torch.randint(0, cfg.vocab_size, (128,), generator=rng).tolist()
+    equal = [torch.randint(0, 32000, (128,), generator=rng).tolist()
              for _ in range(4)]
     wrappers = launch_counters()
     engines = {}
     for label, (n_new, expected) in SERVE_PATHS.items():
-        qcfg = {"W8A8": QuantConfig(type="int8"),
-                "fp8 e4m3 dynamic": QuantConfig(type="fp8_e4m3"),
-                "int4": QuantConfig(type="int4")}[label]
-        params = (draw_w8a8(cfg, seed=3, device="cuda") if label == "W8A8"
-                  else draw_quantized(cfg, qcfg, seed=3, device="cuda"))
-        eng = Engine(L, params, cfg, qcfg, max_batch=4, max_seq=512,
+        model, cfg, qcfg, params = serve_model(torch, label)
+        eng = Engine(model, params, cfg, qcfg, max_batch=4, max_seq=512,
                      kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
                      device="cuda")
         engines[label] = eng
@@ -837,14 +1047,16 @@ def phase_serve(torch, results):
         wall = time.perf_counter() - t0
         counts = {name: w.launches for name, w in wrappers.items()}
         log(json.dumps({"path": label, "launches": counts}))
-        log(f"  serve: 22-layer {label} TinyLlama, 2 batches x 4 prompts x {n_new} "
-            f"new tokens in {wall:.2f} s (first calls included); peak memory "
+        log(f"  serve: {cfg.num_hidden_layers}-layer {label} "
+            f"{'' if label.startswith('OPT') else 'TinyLlama'}, 2 batches x 4 "
+            f"prompts x {n_new} new tokens in {wall:.2f} s (first calls "
+            f"included); peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         log(f"  serve {label} tokens (ragged row 0): {toks_r[0]}")
         want = expected(n_new)
         for name in want:
             require(counts[name] > 0, f"{name} was not launched on the {label} path")
-            if results[name]["launches"] is None:   # K3: the W8A8 run's count
+            if results[name]["launches"] is None:   # the first path that runs it
                 results[name]["launches"] = counts[name]
         require(finite_r and finite_e, f"non-finite logits on the {label} path")
         for toks in (toks_r, toks_e):
@@ -859,43 +1071,72 @@ def phase_serve(torch, results):
     return engines
 
 
+def pad_rows(torch, x, multiple):
+    """x with zero rows appended up to a multiple of ``multiple`` rows (at
+    least that many): the shapes torch._int_mm and torch._scaled_mm take."""
+    m = x.shape[0]
+    rows = max(multiple, -(-m // multiple) * multiple)
+    return torch.cat([x, x.new_zeros(rows - m, x.shape[1])]) if rows > m else x
+
+
+def int_mm_library(torch, c):
+    """The library yardstick of a K1 case: one torch._int_mm (x padded to 32
+    rows where M <= 16, which it refuses) and the case's epilogue in torch
+    ops on the first M rows."""
+    m = c["x"].shape[0]
+    xp = pad_rows(torch, c["x"], 32 if m <= 16 else 8)
+    wt = c["w"].t()
+
+    def lib():
+        out = torch._int_mm(xp, wt)[:m].float() * c["rs"] * c["cs"]
+        if c["bias"] is not None:
+            out = out + c["bias"]
+        if c["act"] == "relu":
+            out = torch.relu(out)
+        return out.to(c["dt"])
+    return lib
+
+
 def phase_timing(torch, results, engines):
     import torch.nn.functional as F
 
     from autosmoothquant_tpu_torch.kernels.fused import (
+        fused_add_layernorm_quant, fused_add_layernorm_quant_plain,
         fused_add_rmsnorm_quant, fused_add_rmsnorm_quant_plain)
-    from autosmoothquant_tpu_torch.models import llama as L
-    from autosmoothquant_tpu_torch.serve.engine import Engine, GenerationConfig
 
     timer = Timer(torch)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(99)
 
-    # K1 at decode (M = 1) and prefill (M = 128) shapes, main-path epilogues
+    # K1 at decode (M = 1) and prefill (M = 128): TinyLlama's fused
+    # projections and OPT-6.7B's, main-path epilogues. Library: one
+    # torch._int_mm (cuBLAS int8) and the epilogue in torch ops; _int_mm
+    # takes M > 16 only, so at M = 1 it runs on x zero-padded to 32 rows
+    # ("padded"), a yardstick for a decode GEMM
     log("  kernel timings (ms; bound = max(bytes / 3.35 TB/s, ops / peak))")
+    k1_shapes = ([(pname, k, n, GEMM_VARIANTS[0] if pname in ("qkv", "gate|up")
+                   else GEMM_VARIANTS[1])
+                  for (k, n), pname in zip(GEMM_SHAPES, GEMM_NAMES)]
+                 + [(f"opt {pname}", k, n, OPT_GEMM_VARIANTS[pname])
+                    for (k, n), pname in zip(OPT_GEMM_SHAPES, OPT_GEMM_NAMES)])
     for m in (1, 128):
-        for (k, n), pname in zip(GEMM_SHAPES, GEMM_NAMES):
-            variant = GEMM_VARIANTS[0] if pname in ("qkv", "gate|up") else GEMM_VARIANTS[1]
+        for pname, k, n, variant in k1_shapes:
             c = gemm_case(torch, m, k, n, variant, gen)
             ms = timer.ms(lambda: run_gemm(c))
             plain_ms = timer.ms(lambda: run_gemm(c, plain=True), iters=10)
-            lib_ms = None
-            if m > 16:
-                wt = c["w"].t()
-
-                def lib():
-                    acc = torch._int_mm(c["x"], wt)
-                    return (acc.float() * c["rs"] * c["cs"]).to(c["dt"])
-                lib_ms = timer.ms(lib)
-            nbytes = m * k + n * k + m * n * 2 + 4 * (n if c["cs"].ndim else 1)
+            lib_ms = timer.ms(int_mm_library(torch, c))
+            nbytes = (m * k + n * k + m * n * c["dt"].itemsize
+                      + 4 * (n if c["cs"].ndim else 1) + (4 * n if c["bias"] is not None else 0))
             b_ms, b_by = bound(nbytes, 2 * m * n * k, "int8")
-            log(f"    int8_matmul {pname:7s} M={m:<4d} K={k:<5d} N={n:<6d} "
-                f"kernel {ms:.4f} plain {plain_ms:.4f} library "
-                f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} bound {b_ms:.4f} ({b_by})")
+            padded = " (padded to M=32)" if m <= 16 else ""
+            log(f"    int8_matmul {pname:11s} M={m:<4d} K={k:<5d} N={n:<6d} "
+                f"kernel {ms:.4f} plain {plain_ms:.4f} library {lib_ms:.4f}{padded} "
+                f"bound {b_ms:.4f} ({b_by})")
             if m == 1 and pname == "gate|up":
                 results["int8_matmul"].update(
                     ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                    bound_by=b_by, shape=f"decode gate|up M=1 K={k} N={n} bf16")
+                    bound_by=b_by, shape=f"decode gate|up M=1 K={k} N={n} bf16; "
+                                         "library on x padded to M=32")
 
     # K2 at decode (T = 1) and prefill (T = 128)
     for t in (1, 128):
@@ -912,14 +1153,35 @@ def phase_timing(torch, results, engines):
                 ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
                 bound_by=b_by, shape="decode T=1 D=2048 bf16")
 
-    # K3: causal prefill (B1 T128, B4 T512) and banded ragged prefill
+    # K6 at decode (T = 1) and prefill (T = 128), OPT-6.7B's D = 4096, bf16.
+    # No library call computes the fusion: library null
+    for t in (1, 128):
+        h, x, gamma, beta = layernorm_case(torch, t, 4096, torch.bfloat16, gen)
+        ms = timer.ms(lambda: fused_add_layernorm_quant(h, x, gamma, beta, eps=1e-5))
+        plain_ms = timer.ms(lambda: fused_add_layernorm_quant_plain(h, x, gamma, beta,
+                                                                    eps=1e-5))
+        b_ms, b_by = bound(t * 4096 * (2 + 2 + 2 + 1) + 2 * 4096 * 4, 10 * t * 4096, "f32")
+        log(f"    fused_add_layernorm_quant T={t:<4d} D=4096 kernel {ms:.4f} plain "
+            f"{plain_ms:.4f} library null bound {b_ms:.5f} ({b_by})")
+        if t == 1:
+            results["fused_add_layernorm_quant"].update(
+                ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                bound_by=b_by, shape="decode T=1 D=4096 bf16")
+
+    # K3: causal prefill (B1 T128, B4 T512) and banded ragged prefill at
+    # TinyLlama's heads (32 / 4, D 64), and at OPT-6.7B's (32 / 32, D 128)
     bf = torch.bfloat16
     for name, kw in (
             ("flash_attention", dict(b=1, t=128, s=128)),
             ("flash_attention", dict(b=4, t=512, s=512)),
             ("flash_attention_banded", dict(b=4, t=128, s=512, pos=[0, 0, 0, 0],
-                                            starts=[0, 32, 64, 95]))):
-        c = flash_case(torch, hq=32, hkv=4, d=64, dtype=bf, gen=gen, **kw)
+                                            starts=[0, 32, 64, 95])),
+            ("flash_attention", dict(b=1, t=128, s=128, hq=32, hkv=32, d=128)),
+            ("flash_attention_banded", dict(b=4, t=128, s=512, pos=[0, 0, 0, 0],
+                                            starts=[0, 32, 64, 95], hq=32, hkv=32,
+                                            d=128))):
+        kw = {"hq": 32, "hkv": 4, "d": 64, **kw}
+        c = flash_case(torch, dtype=bf, gen=gen, **kw)
         ms = timer.ms(lambda: run_flash(c))
         plain_ms = timer.ms(lambda: run_flash(c, plain=True), iters=10)
         qt, kt, vt = (c[x].transpose(1, 2) for x in ("q", "k", "v"))
@@ -938,39 +1200,37 @@ def phase_timing(torch, results, engines):
         ops, nbytes = flash_ops_bytes(torch, c)
         b_ms, b_by = bound(nbytes, ops, "bf16")
         desc = " ".join(f"{k}={v}" for k, v in kw.items())
-        log(f"    {name} {desc} Hq=32 Hkv=4 D=64 bf16 kernel {ms:.4f} plain "
+        log(f"    {name} {desc} bf16 kernel {ms:.4f} plain "
             f"{plain_ms:.4f} library {lib_ms:.4f} bound {b_ms:.4f} ({b_by})")
-        if (name, kw["b"]) in (("flash_attention", 1), ("flash_attention_banded", 4)):
+        if (name, kw["b"], kw["d"]) in (("flash_attention", 1, 64),
+                                        ("flash_attention_banded", 4, 64)):
             results[name].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                 bound_ms=b_ms, bound_by=b_by,
-                                 shape=f"{desc} Hq=32 Hkv=4 D=64 bf16")
+                                 bound_ms=b_ms, bound_by=b_by, shape=f"{desc} bf16")
 
     # K4 at decode (M = 1) and prefill (M = 128), e4m3, scalar scales, bf16
     # out; library: torch._scaled_mm (cuBLAS fp8), which takes dimensions in
-    # multiples of 16 only, so none at M = 1
+    # multiples of 16 only, so at M = 1 it runs on x zero-padded to 16 rows
+    # ("padded")
     for m in (1, 128):
         for (k, n), pname in zip(GEMM_SHAPES, GEMM_NAMES):
             c = fp8_case(torch, m, k, n, "e4m3", FP8_VARIANTS[0], gen)
             ms = timer.ms(lambda: run_fp8(c))
             plain_ms = timer.ms(lambda: run_fp8(c, plain=True), iters=10)
-            lib_ms = None
-            if m % 16 == 0:
-                wt = c["w"].t()
-                try:
-                    lib_ms = timer.ms(lambda: torch._scaled_mm(
-                        c["x"], wt, scale_a=c["rs"], scale_b=c["cs"],
-                        out_dtype=torch.bfloat16))
-                except RuntimeError as e:   # a yardstick only: note the refusal
-                    log(f"    torch._scaled_mm refused M={m} K={k} N={n}: {e}")
+            wt = c["w"].t()
+            xp = pad_rows(torch, c["x"], 16)
+            lib_ms = timer.ms(lambda: torch._scaled_mm(
+                xp, wt, scale_a=c["rs"], scale_b=c["cs"], out_dtype=torch.bfloat16))
             nbytes = m * k + n * k + m * n * 2 + 8
             b_ms, b_by = bound(nbytes, 2 * m * n * k, "fp8")
+            padded = " (padded to M=16)" if m % 16 else ""
             log(f"    fp8_matmul {pname:7s} M={m:<4d} K={k:<5d} N={n:<6d} "
-                f"kernel {ms:.4f} plain {plain_ms:.4f} library "
-                f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} bound {b_ms:.4f} ({b_by})")
+                f"kernel {ms:.4f} plain {plain_ms:.4f} library {lib_ms:.4f}{padded} "
+                f"bound {b_ms:.4f} ({b_by})")
             if m == 1 and pname == "gate|up":
                 results["fp8_matmul"].update(
                     ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                    bound_by=b_by, shape=f"decode gate|up M=1 K={k} N={n} e4m3 bf16")
+                    bound_by=b_by, shape=f"decode gate|up M=1 K={k} N={n} e4m3 bf16; "
+                                         "library on x padded to M=16")
 
     # K5 at decode (M = 1) and its largest M (64), the main path's input types
     # (f32 from the norms into qkv and gate|up, bf16 into o and down), bf16
@@ -993,20 +1253,52 @@ def phase_timing(torch, results, engines):
                     ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
                     bound_by=b_by, shape=f"decode gate|up M=1 K={k} N={n} x f32 -> bf16")
 
-    # prefill and decode, end to end (host clock around synchronized work)
+    # prefill and decode, end to end (host clock around synchronized work):
+    # TinyLlama-1.1B in four formats, OPT-6.7B in W8A8 and bf16
+    from autosmoothquant_tpu_torch.models import llama as L
+    from autosmoothquant_tpu_torch.models import opt as O
+    from autosmoothquant_tpu_torch.serve.engine import Engine
+
+    def b1(model, cfg, params, qcfg):
+        return Engine(model, params, cfg, qcfg, max_batch=1, max_seq=512,
+                      kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
+                      device="cuda")
+
     cfg = tinyllama(L, 22)
+    engs = {"bf16": b1(L, cfg, draw_float(cfg, seed=4, device="cuda"), None)}
+    for label, key in (("w8a8", "W8A8"), ("fp8", "fp8 e4m3 dynamic"), ("int4", "int4")):
+        engs[label] = b1(L, cfg, engines[key].params, engines[key].qcfg)
+    end_to_end(torch, timer, L, cfg, engs, "TinyLlama-1.1B")
+    del engs
+
+    cfg = O.OPTConfig(**OPT_6_7B)
+    w8a8 = engines.pop("OPT-6.7B W8A8")
+    engs = {"w8a8": b1(O, cfg, w8a8.params, w8a8.qcfg),
+            "bf16": b1(O, cfg, draw_opt_float(cfg, seed=4, device="cuda"), None)}
+    end_to_end(torch, timer, O, cfg, engs, "OPT-6.7B")
+
+
+def end_to_end(torch, timer, M, cfg, engs, name):
+    """Prefill ms (b1, T128, plus the last token's logits) and decode tok/s
+    (b1, prompt 128, s_max 512, greedy, 64 steps: best of 3, two turns each
+    in the order given and back) of each b1 engine in ``engs`` (family
+    module M), each format's ratio to bf16, then the device's view of one
+    decode step of each format."""
+    from autosmoothquant_tpu_torch.serve.engine import GenerationConfig
+
     rng = torch.Generator().manual_seed(17)
-    prompt = [torch.randint(0, cfg.vocab_size, (128,), generator=rng).tolist()]
+    prompt = [torch.randint(0, 32000, (128,), generator=rng).tolist()]
+    layers = cfg.num_hidden_layers
 
     def prefill_ms(eng):
         ids = torch.tensor(prompt, device="cuda")
 
         def run():
-            cache = L.init_kv_cache(cfg, 1, 512, torch.bfloat16, "cuda")
+            cache = M.init_kv_cache(cfg, 1, 512, torch.bfloat16, "cuda")
             with torch.inference_mode():
-                h, _ = L.forward(eng.params, ids, cfg, eng.qcfg, kv_cache=cache,
+                h, _ = M.forward(eng.params, ids, cfg, eng.qcfg, kv_cache=cache,
                                  cache_index=0, compute_dtype=torch.bfloat16)
-                L.logits(eng.params, h[:, -1:])
+                M.logits(eng.params, h[:, -1:])
         return timer.ms(run, iters=5, warmup=2)
 
     def decode_tps(eng, steps=64):
@@ -1021,31 +1313,24 @@ def phase_timing(torch, results, engines):
             return best
         return steps / (gen_s(steps + 1) - gen_s(1))
 
-    b1 = {"bf16": Engine(L, draw_float(cfg, seed=4, device="cuda"), cfg, None,
-                         max_batch=1, max_seq=512, kv_dtype=torch.bfloat16,
-                         compute_dtype=torch.bfloat16, device="cuda")}
-    for label, key in (("w8a8", "W8A8"), ("fp8", "fp8 e4m3 dynamic"), ("int4", "int4")):
-        b1[label] = Engine(L, engines[key].params, cfg, engines[key].qcfg,
-                           max_batch=1, max_seq=512, kv_dtype=torch.bfloat16,
-                           compute_dtype=torch.bfloat16, device="cuda")
-    order = ("w8a8", "fp8", "int4", "bf16")
-    pf = {label: prefill_ms(b1[label]) for label in order}
-    log("  prefill b1 T128 22 layers (+ last-token logits): "
+    order = tuple(engs)
+    pf = {label: prefill_ms(engs[label]) for label in order}
+    log(f"  {name} prefill b1 T128 {layers} layers (+ last-token logits): "
         + ", ".join(f"{label} {pf[label]:.3f} ms" for label in order))
     tps = {}
     for label in order + order[::-1]:
-        tps.setdefault(label, []).append(decode_tps(b1[label]))
+        tps.setdefault(label, []).append(decode_tps(engs[label]))
     best = {label: max(v) for label, v in tps.items()}
-    log(f"  decode b1 prompt 128 s_max 512, greedy, 64 steps (best of 3, two "
-        f"turns each, order {'/'.join(order + order[::-1])}): "
+    log(f"  {name} decode b1 prompt 128 s_max 512, greedy, 64 steps (best of 3, "
+        f"two turns each, order {'/'.join(order + order[::-1])}): "
         + ", ".join(f"{label} {best[label]:.2f} tok/s {tps[label]}" for label in order)
-        + f"; w8a8/bf16 {best['w8a8'] / best['bf16']:.4f}, fp8/bf16 "
-        f"{best['fp8'] / best['bf16']:.4f}, int4/bf16 {best['int4'] / best['bf16']:.4f}")
+        + "; " + ", ".join(f"{label}/bf16 {best[label] / best['bf16']:.4f}"
+                           for label in order if label != "bf16"))
 
     # where one decode step's device time goes (profiler, device activity
     # only), and the idle share against the unprofiled step time above
-    for label in ("w8a8", "fp8", "int4"):
-        profile_step(torch, L, cfg, b1[label], label, 1e3 / best[label])
+    for label in order:
+        profile_step(torch, M, cfg, engs[label], f"{name} {label}", 1e3 / best[label])
 
 
 def profile_step(torch, L, cfg, eng, label, step_ms, steps=5):
@@ -1121,6 +1406,8 @@ def main():
                        f"{PKG}/csrc/fp8_gemm.cu"),
         "int4_matmul": ("autosmoothquant_tpu/kernels/int4.py:68",
                         f"{PKG}/csrc/int4_gemm.cu"),
+        "fused_add_layernorm_quant": ("autosmoothquant_tpu/kernels/fused.py:74",
+                                      f"{PKG}/csrc/add_layernorm_quant.cu"),
     }
     results = {name: {"name": name, "route": "cuda", "source": src,
                       "replaces": rep, "launches": None, "max_abs_err": None,

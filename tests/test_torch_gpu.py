@@ -6,8 +6,9 @@ where there is no card. On a machine with one:
     python -m pytest -m gpu tests/test_torch_gpu.py
 
 Tolerances as in chip_smoke.py: int8_matmul exact (f32 rtol 1e-6, silu
-1e-5, bf16 one rounding step); fused_add_rmsnorm_quant s equal, q within one
-step on <= 0.1% of elements; flash attention on valid rows, f32 atol 2e-5,
+1e-5, bf16 one rounding step); fused_add_rmsnorm_quant and
+fused_add_layernorm_quant s equal, q within one step on <= 0.1% of
+elements; flash attention on valid rows, f32 atol 2e-5,
 bf16 atol 1.6e-2 + rtol 1e-2; a W8A8 model's logits, card against CPU, max
 0.2 and mean 1e-2. fp8_matmul (K4) and int4_matmul (K5): the plain versions
 sum exactly (float64), the kernels in f32, so the bound is twice the f32
@@ -296,3 +297,74 @@ def test_quant_math_on_the_card_gives_the_cpus_bytes(cuda_device):
     for a, b in zip(Q.quantize_weight_int4_grouped(x.t().contiguous()),
                     Q.quantize_weight_int4_grouped(x.t().contiguous().to(cuda_device))):
         assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.parametrize("t", [1, 128, 512])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_add_layernorm_quant_kernel_matches_plain(cuda_device, t, dtype):
+    """K6 at OPT-6.7B's D = 4096, on chip_smoke.py's inputs: a common offset
+    of +20 and outlier channels at +-50 sigma."""
+    import chip_smoke
+
+    h, x, gamma, beta = chip_smoke.layernorm_case(torch, t, 4096, dtype, _gen(t))
+    before = F.fused_add_layernorm_quant.launches
+    s, q = F.fused_add_layernorm_quant(h, x, gamma, beta, eps=1e-5)
+    s_ref, q_ref = F.fused_add_layernorm_quant_plain(h, x, gamma, beta, eps=1e-5)
+    torch.cuda.synchronize()
+    assert F.fused_add_layernorm_quant.launches == before + 1
+    assert torch.equal(s, s_ref)
+    dq = (q.int() - q_ref.int()).abs()
+    assert int(dq.max()) <= 1 and float((dq > 0).float().mean()) <= 1e-3
+
+
+# (max, mean) of |card - CPU| over a 2-layer OPT's logits (std ~2): W8A8 as
+# the Llama test above; fp8 and int4 chip_smoke.py's limits for the 2-layer
+# TinyLlama-width models (fp8 e4m3 dynamic, int4)
+OPT_CARD_LIMITS = {"int8": (0.2, 1e-2), "fp8_e4m3": (0.8, 0.06), "int4": (0.01, 3e-4)}
+
+
+@pytest.mark.parametrize("qtype", list(OPT_CARD_LIMITS))
+def test_opt_forward_on_the_card_matches_the_cpu(cuda_device, qtype):
+    """A 2-layer pre-LN OPT (chip_smoke.py's random weights, nonzero biases)
+    on the card against the CPU with the same weights, f32 compute and KV
+    cache: ragged prefill (banded flash; K6 in W8A8) and one decode step."""
+    import chip_smoke
+    from autosmoothquant_tpu_torch.models import opt as O
+    from autosmoothquant_tpu_torch.quant.config import QuantConfig
+
+    cfg = O.OPTConfig(vocab_size=1024, hidden_size=256, word_embed_proj_dim=256,
+                      ffn_dim=512, num_hidden_layers=2, num_attention_heads=4,
+                      max_position_embeddings=256)
+    qcfg = QuantConfig(type=qtype)
+    params = (chip_smoke.draw_opt_w8a8(cfg, seed=1, device="cpu") if qtype == "int8"
+              else chip_smoke.draw_quantized(cfg, qcfg, seed=1, device="cpu",
+                                             draw_float=chip_smoke.draw_opt_float))
+    b, t, s_max = 3, 24, 64
+    ids = torch.randint(0, cfg.vocab_size, (b, t), generator=torch.Generator().manual_seed(2))
+    pads = torch.tensor([0, 5, 13], dtype=torch.int32)
+    positions = torch.clamp(torch.arange(t)[None, :] - pads[:, None], min=0)
+    col = torch.arange(s_max)[None, :]
+    kv_valid = (col >= pads[:, None]) & (col <= t)
+    valid_rows = torch.arange(t)[None, :] >= pads[:, None]
+    out, tok = {}, None
+    k6 = F.fused_add_layernorm_quant.launches
+    for dev in ("cpu", cuda_device):
+        p = chip_smoke.to_device(params, dev)
+        cache = O.init_kv_cache(cfg, b, s_max, torch.float32, dev)
+        with torch.inference_mode():
+            h, _ = O.forward(p, ids.to(dev), cfg, qcfg, kv_cache=cache, cache_index=0,
+                             pad_starts=pads.to(dev), positions=positions.to(dev))
+            pre = O.logits(p, h).cpu()
+            if tok is None:
+                tok = pre[:, -1].argmax(-1)
+            h, _ = O.forward(p, tok[:, None].to(dev), cfg, qcfg, kv_cache=cache,
+                             cache_index=t, kv_valid=kv_valid.to(dev),
+                             positions=(t - pads)[:, None].to(dev))
+            out[str(dev)] = (pre[valid_rows], O.logits(p, h)[:, 0].cpu())
+    assert F.fused_add_layernorm_quant.launches - k6 == (4 if qtype == "int8" else 0)
+    max_lim, mean_lim = OPT_CARD_LIMITS[qtype]
+    for cpu, card in zip(out["cpu"], out[str(cuda_device)]):
+        diff = (card - cpu).abs()
+        assert bool(torch.isfinite(card).all())
+        assert float(diff.max()) <= max_lim and float(diff.mean()) <= mean_lim, (
+            float(diff.max()), float(diff.mean()))

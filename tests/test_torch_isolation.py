@@ -36,8 +36,8 @@ def test_port_imports_no_jax_side_module():
     assert out["built"] == []
     for name in ("quant.config", "quant.math", "kernels.gemm", "kernels.fused",
                  "kernels.attention", "kernels.fp8", "kernels.int4",
-                 "convert.pipeline", "models.llama",
-                 "serve.engine", "serve.sampling"):
+                 "convert.pipeline", "models.llama", "models.opt",
+                 "models.registry", "serve.engine", "serve.sampling"):
         assert f"autosmoothquant_tpu_torch.{name}" in out["modules"]
 
 

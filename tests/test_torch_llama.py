@@ -29,7 +29,8 @@ from autosmoothquant_tpu_torch.models import common as TC
 from autosmoothquant_tpu_torch.models import llama as TL
 from autosmoothquant_tpu_torch.quant import math as tmath
 
-from test_torch_util import jax_llama, port_config, port_qcfg, to_numpy_tree
+from test_torch_util import (jax_llama, port_config, port_qcfg, run_jax_cached,
+                             run_port_cached, to_numpy_tree)
 
 ARMS = {
     "float": (None, jnp.float32, 1e-5),
@@ -50,67 +51,6 @@ ARMS = {
 PROMPT_LEN = {"int4_w4a16_prefill": 40}
 
 
-def _run_jax(JL, cfg, params, qcfg, ids, kv_dtype, pad_starts=None, positions=None):
-    """Prefill logits [B, T, V] and one greedy decode step's logits [B, V]."""
-    b, t = ids.shape
-
-    @jax.jit
-    def prefill(params, ids, cache):
-        h, cache, _ = JL.forward(params, ids, cfg, qcfg, kv_cache=cache,
-                                 cache_index=0, pad_starts=pad_starts,
-                                 positions=positions, compute_dtype=jnp.float32)
-        return JL.logits(params, h), cache
-
-    @jax.jit
-    def decode(params, tok, cache, pos, valid):
-        h, _, _ = JL.forward(params, tok[:, None], cfg, qcfg, kv_cache=cache,
-                             cache_index=t, kv_valid=valid, positions=pos,
-                             compute_dtype=jnp.float32)
-        return JL.logits(params, h)[:, 0]
-
-    cache = JL.init_kv_cache(cfg, b, 64, kv_dtype)
-    lg, cache = prefill(params, jnp.asarray(ids), cache)
-    tok = jnp.argmax(lg[:, -1], -1).astype(jnp.int32)
-    pos = jnp.asarray(_decode_positions(b, t, pad_starts))
-    valid = jnp.asarray(_decode_valid(b, t, pad_starts))
-    return (np.asarray(lg), np.asarray(decode(params, tok, cache, pos, valid)),
-            np.asarray(tok))
-
-
-def _pads(b, pad_starts):
-    return np.zeros(b, np.int32) if pad_starts is None else np.asarray(pad_starts)
-
-
-def _decode_positions(b, t, pad_starts):
-    return (t - _pads(b, pad_starts))[:, None].astype(np.int32)
-
-
-def _decode_valid(b, t, pad_starts):
-    """kv_valid after the decode slot t is marked: [pad_b, t] per row (the
-    Engine's mask; pad slots hold what the pad rows computed, which the
-    flash kernels and the eager path compute differently)."""
-    col = np.arange(64)[None, :]
-    return (col >= _pads(b, pad_starts)[:, None]) & (col <= t)
-
-
-def _run_port(cfg, params, qcfg, ids, kv_dtype, tok, pad_starts=None, positions=None):
-    b, t = ids.shape
-    cache = TL.init_kv_cache(cfg, b, 64, kv_dtype, "cpu")
-    ps = None if pad_starts is None else torch.from_numpy(np.asarray(pad_starts))
-    pos = None if positions is None else torch.from_numpy(np.asarray(positions))
-    with torch.inference_mode():
-        h, cache = TL.forward(params, torch.from_numpy(ids).long(), cfg, qcfg,
-                              kv_cache=cache, cache_index=0, pad_starts=ps,
-                              positions=pos, compute_dtype=torch.float32)
-        lg = TL.logits(params, h)
-        h, _ = TL.forward(params, torch.from_numpy(tok.copy()).long()[:, None],
-                          cfg, qcfg, kv_cache=cache, cache_index=t,
-                          kv_valid=torch.from_numpy(_decode_valid(b, t, pad_starts)),
-                          positions=torch.from_numpy(_decode_positions(b, t, pad_starts)),
-                          compute_dtype=torch.float32)
-        return lg.numpy(), TL.logits(params, h)[:, 0].numpy()
-
-
 def _port_kv(kv_dtype):
     return torch.int8 if kv_dtype == jnp.int8 else torch.float32
 
@@ -127,10 +67,10 @@ def test_forward_matches_jax(arm, fused, monkeypatch):
         params = JL.fuse_decode_projections(params)
     ids = np.random.default_rng(2).integers(
         0, cfg.vocab_size, (2, PROMPT_LEN.get(arm, 24))).astype(np.int32)
-    j_pre, j_dec, tok = _run_jax(JL, cfg, params, qcfg, ids, kv_dtype)
+    j_pre, j_dec, tok = run_jax_cached(JL, cfg, params, qcfg, ids, kv_dtype)
     tparams = params_from_jax(to_numpy_tree(params), device="cpu")
-    t_pre, t_dec = _run_port(port_config(cfg), tparams, port_qcfg(qcfg), ids,
-                             _port_kv(kv_dtype), tok)
+    t_pre, t_dec = run_port_cached(TL, port_config(cfg), tparams, port_qcfg(qcfg),
+                                   ids, _port_kv(kv_dtype), tok)
     np.testing.assert_allclose(t_pre, j_pre, atol=tol, rtol=0)
     np.testing.assert_allclose(t_dec, j_dec, atol=tol, rtol=0)
 
@@ -144,13 +84,13 @@ def test_ragged_prefill_matches_jax_on_valid_rows(arm):
     ids = np.random.default_rng(4).integers(0, cfg.vocab_size, (3, 20)).astype(np.int32)
     pads = np.asarray([0, 5, 13], np.int32)
     positions = np.maximum(np.arange(20)[None, :] - pads[:, None], 0).astype(np.int32)
-    j_pre, j_dec, tok = _run_jax(JL, cfg, params, qcfg, ids, kv_dtype,
-                                 pad_starts=jnp.asarray(pads),
-                                 positions=jnp.asarray(positions))
+    j_pre, j_dec, tok = run_jax_cached(JL, cfg, params, qcfg, ids, kv_dtype,
+                                       pad_starts=jnp.asarray(pads),
+                                       positions=jnp.asarray(positions))
     tparams = params_from_jax(to_numpy_tree(params), device="cpu")
-    t_pre, t_dec = _run_port(port_config(cfg), tparams, port_qcfg(qcfg), ids,
-                             _port_kv(kv_dtype), tok,
-                             pad_starts=pads, positions=positions)
+    t_pre, t_dec = run_port_cached(TL, port_config(cfg), tparams, port_qcfg(qcfg),
+                                   ids, _port_kv(kv_dtype), tok,
+                                   pad_starts=pads, positions=positions)
     valid = np.arange(20)[None, :] >= pads[:, None]
     np.testing.assert_allclose(t_pre[valid], j_pre[valid], atol=tol, rtol=0)
     np.testing.assert_allclose(t_dec, j_dec, atol=tol, rtol=0)

@@ -1,5 +1,8 @@
 """Shared helpers (no tests) of the tests that hold the PyTorch port against
-the JAX package: a tiny Llama config, JAX-built params, the card fixture."""
+the JAX package: tiny Llama and OPT configs, JAX-built params, a prefill +
+one decode step through either package, the card fixture."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -30,6 +33,131 @@ def jax_llama(qcfg_kwargs=None, seed=0):
     scales = JL.layer_scales(stats)
     qcfg = JQ(**qcfg_kwargs)
     return JL, cfg, JL.quantize(params, qcfg, scales), qcfg
+
+
+TINY_OPT = dict(vocab_size=256, hidden_size=128, word_embed_proj_dim=128,
+                ffn_dim=256, num_hidden_layers=2, num_attention_heads=4,
+                max_position_embeddings=128)
+
+
+def jax_opt(qcfg_kwargs=None, seed=0, **overrides):
+    """(JAX opt module, cfg, params, qcfg). Float params keep init_params'
+    zero biases (the JAX float path reads no "b"). Quantized params are
+    drawn with nonzero linear biases and LayerNorm weights and biases first
+    (init_params draws ones and zeros, which would leave the bias epilogue
+    and beta untested), then quantized with the layer scales a calibration
+    pass measures."""
+    import jax
+    import jax.numpy as jnp
+    from autosmoothquant_tpu.models import opt as JO
+    from autosmoothquant_tpu.quant.config import QuantConfig as JQ
+
+    cfg = JO.OPTConfig(**{**TINY_OPT, **overrides})
+    params = JO.init_params(cfg, jax.random.PRNGKey(seed))
+    if qcfg_kwargs is None:
+        return JO, cfg, params, None
+    rng = np.random.default_rng(seed)
+
+    def rand(like, scale, offset=0.0):
+        return jnp.asarray(offset + scale * rng.normal(size=like.shape), jnp.float32)
+
+    lay = params["layers"]
+    layers = {
+        "ln1": {"w": rand(lay["ln1"]["w"], 0.2, 1.0), "b": rand(lay["ln1"]["b"], 0.2)},
+        "ln2": {"w": rand(lay["ln2"]["w"], 0.2, 1.0), "b": rand(lay["ln2"]["b"], 0.2)},
+        "attn": {k: {**v, "b": rand(v["b"], 0.1)} for k, v in lay["attn"].items()},
+        "mlp": {k: {**v, "b": rand(v["b"], 0.1)} for k, v in lay["mlp"].items()},
+    }
+    params = {**params, "layers": layers,
+              "final_norm": {"w": rand(params["final_norm"]["w"], 0.2, 1.0),
+                             "b": rand(params["final_norm"]["b"], 0.2)}}
+    qcfg = JQ(**qcfg_kwargs)
+    scales = None
+    if qcfg.is_int8:
+        ids = jnp.asarray(rng.integers(0, cfg.vocab_size, size=(2, 32)), jnp.int32)
+        _, _, stats = JO.forward_jit(params, ids, cfg, capture_stats=True)
+        scales = JO.layer_scales(stats)
+    return JO, cfg, JO.quantize(params, qcfg, scales, cfg), qcfg
+
+
+def port_opt_config(cfg):
+    from autosmoothquant_tpu_torch.models.opt import OPTConfig
+
+    return OPTConfig(**dataclasses.asdict(cfg))
+
+
+S_MAX = 64  # cache slots of run_jax_cached / run_port_cached
+
+
+def _pads(b, pad_starts):
+    return np.zeros(b, np.int32) if pad_starts is None else np.asarray(pad_starts)
+
+
+def _decode_positions(b, t, pad_starts):
+    return (t - _pads(b, pad_starts))[:, None].astype(np.int32)
+
+
+def _decode_valid(b, t, pad_starts):
+    """kv_valid after the decode slot t is marked: [pad_b, t] per row (the
+    Engine's mask; pad slots hold what the pad rows computed, which the
+    flash kernels and the eager path compute differently)."""
+    col = np.arange(S_MAX)[None, :]
+    return (col >= _pads(b, pad_starts)[:, None]) & (col <= t)
+
+
+def run_jax_cached(JM, cfg, params, qcfg, ids, kv_dtype, pad_starts=None,
+                   positions=None):
+    """A JAX family module's prefill logits [B, T, V], one greedy decode
+    step's logits [B, V] and the token it decoded [B], f32 compute."""
+    import jax
+    import jax.numpy as jnp
+
+    b, t = ids.shape
+
+    @jax.jit
+    def prefill(params, ids, cache):
+        h, cache, _ = JM.forward(params, ids, cfg, qcfg, kv_cache=cache,
+                                 cache_index=0, pad_starts=pad_starts,
+                                 positions=positions, compute_dtype=jnp.float32)
+        return JM.logits(params, h), cache
+
+    @jax.jit
+    def decode(params, tok, cache, pos, valid):
+        h, _, _ = JM.forward(params, tok[:, None], cfg, qcfg, kv_cache=cache,
+                             cache_index=t, kv_valid=valid, positions=pos,
+                             compute_dtype=jnp.float32)
+        return JM.logits(params, h)[:, 0]
+
+    cache = JM.init_kv_cache(cfg, b, S_MAX, kv_dtype)
+    lg, cache = prefill(params, jnp.asarray(ids), cache)
+    tok = jnp.argmax(lg[:, -1], -1).astype(jnp.int32)
+    pos = jnp.asarray(_decode_positions(b, t, pad_starts))
+    valid = jnp.asarray(_decode_valid(b, t, pad_starts))
+    return (np.asarray(lg), np.asarray(decode(params, tok, cache, pos, valid)),
+            np.asarray(tok))
+
+
+def run_port_cached(TM, cfg, params, qcfg, ids, kv_dtype, tok, pad_starts=None,
+                    positions=None):
+    """The port's prefill logits and the logits of the decode step that
+    feeds ``tok`` (the JAX side's token), on the CPU."""
+    import torch
+
+    b, t = ids.shape
+    cache = TM.init_kv_cache(cfg, b, S_MAX, kv_dtype, "cpu")
+    ps = None if pad_starts is None else torch.from_numpy(np.asarray(pad_starts))
+    pos = None if positions is None else torch.from_numpy(np.asarray(positions))
+    with torch.inference_mode():
+        h, cache = TM.forward(params, torch.from_numpy(ids).long(), cfg, qcfg,
+                              kv_cache=cache, cache_index=0, pad_starts=ps,
+                              positions=pos, compute_dtype=torch.float32)
+        lg = TM.logits(params, h)
+        h, _ = TM.forward(params, torch.from_numpy(tok.copy()).long()[:, None],
+                          cfg, qcfg, kv_cache=cache, cache_index=t,
+                          kv_valid=torch.from_numpy(_decode_valid(b, t, pad_starts)),
+                          positions=torch.from_numpy(_decode_positions(b, t, pad_starts)),
+                          compute_dtype=torch.float32)
+        return lg.numpy(), TM.logits(params, h)[:, 0].numpy()
 
 
 def to_numpy_tree(tree):
