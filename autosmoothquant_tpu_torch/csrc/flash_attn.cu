@@ -12,25 +12,39 @@
 //   GQA: query head h reads kv head h / (Hq / Hkv); D in {64, 128}.
 //
 // What bounds it on an H100: at prefill lengths it is the score and value
-// products, 4 * B * Hq * (band area) * D operations; the bytes are q, k, v
-// and out read or written once. This first version runs on the CUDA cores in
-// f32 (tensor-core mma is a later change), so it sits far from that bound.
+// products, 4 * B * Hq * (band area) * D operations (989 TFLOP/s bf16 on the
+// tensor cores); the bytes are q, k, v and out read or written once. At
+// TinyLlama's B1 T128 the work is ~67 MFLOP and the kernel is latency-bound.
 //
-// Design:
-//  - A block owns one (batch row, kv head) and R = 64 consecutive rows of the
-//    flattened (position, group head) query space, so the K/V tiles it stages
-//    in shared memory (32 keys at a time, converted to f32) are shared by all
-//    Hq / Hkv query heads of the group, as the TPU kernel's head-inner grid
-//    shares them.
-//  - 8 warps, 8 query rows each, with the online-softmax state (max, sum,
-//    and the D-wide accumulator split across the 32 lanes) in registers.
-//  - For each 32-key tile a lane scores one key against the row (q from
-//    shared memory, broadcast), the warp reduces max and sum with shuffles,
-//    and the lanes then accumulate p_j * v_j over their own D / 32 columns.
-//  - Tiles outside the block's band are never loaded; tiles outside a row's
-//    band are skipped by that row's warp. Masked scores are -inf, so a row
-//    with no valid column ends with sum 0 and is written as 0 (the JAX
-//    kernel's l == 0 rule).
+// Both routes share the row space: a block owns one (batch row, kv head) and
+// 64 consecutive rows of the flattened (position, group head) query space, so
+// each K/V tile it stages in shared memory is shared by all Hq / Hkv query
+// heads of the group, as the TPU kernel's head-inner grid shares them. Tiles
+// outside the block's band are never loaded. A row with no valid column ends
+// with sum 0 and is written as 0 (the JAX kernel's l == 0 rule).
+//
+// bf16 (the main path): the FlashAttention-2 structure on mma.sync.
+//  - 4 warps x 16 query rows. Q fragments stay in registers (ldmatrix once).
+//  - 64-key K/V tiles double-buffered in shared memory with cp.async (16-byte
+//    copies, rows XOR-swizzled by 16-byte chunk so ldmatrix is conflict-free;
+//    keys past S are zero-filled).
+//  - S = Q K^T on mma.sync.m16n8k16 bf16 with f32 accumulation, operands by
+//    ldmatrix; the online softmax runs on the accumulator fragments (row max
+//    and sum across the 4 threads of a quad by shuffles, exp2f with log2(e)
+//    folded into the scale); P is rounded to bf16 and fed from registers as
+//    the A operand of O += P V, V loaded with ldmatrix.trans.
+//  - Each row masks its own columns (an m16 tile spans 2 positions x 8 heads
+//    at G = 8, 16 positions at G = 1); a warp skips a tile past its rows'
+//    band, while loads and barriers stay block-wide.
+//  - Blocks with the most causal tiles are launched first.
+//  mma.sync and not wgmma: at the main path's prefill lengths (T 128-512) a
+//  (batch, kv head) holds 128-4,096 query rows; a 64-row warpgroup fed by a
+//  TMA producer buys little there and costs much more code.
+//
+// f32 (the card tests; the main path computes in bf16): tensor cores would
+// round to TF32, so f32 keeps the CUDA-core kernel: 8 warps x 8 rows, 32-key
+// tiles converted to f32 in shared memory, one lane scores one key, the PV
+// product a shuffle-broadcast FMA loop.
 
 #include <math.h>
 
@@ -48,10 +62,11 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (kRows * D + 2 * kKeys * (D + 1));
 }
 
-template <typename T, int D>
+// f32: CUDA cores
+template <int D>
 __global__ void __launch_bounds__(kWarps * 32)
-    flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
+    flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out,
                  const int* __restrict__ pos, const int* __restrict__ starts,
                  int T_, int S, int Hq, int Hkv, float scale, int causal) {
   constexpr int DL = D / 32;  // accumulator columns per lane
@@ -74,7 +89,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     float val = 0.f;
     if (gr < rows_total) {
       const int t = static_cast<int>(gr / G), g = static_cast<int>(gr % G);
-      val = asq_to_float(q[((static_cast<long long>(b) * T_ + t) * Hq + kvh * G + g) * D + d]);
+      val = q[((static_cast<long long>(b) * T_ + t) * Hq + kvh * G + g) * D + d];
     }
     qs[i] = val;
   }
@@ -101,8 +116,8 @@ __global__ void __launch_bounds__(kWarps * 32)
       float kv_k = 0.f, kv_v = 0.f;
       if (col < S) {
         const long long a = ((static_cast<long long>(b) * S + col) * Hkv + kvh) * D + d;
-        kv_k = asq_to_float(k[a]);
-        kv_v = asq_to_float(v[a]);
+        kv_k = k[a];
+        kv_v = v[a];
       }
       ks[j * (D + 1) + d] = kv_k;
       vs[j * (D + 1) + d] = kv_v;
@@ -152,35 +167,323 @@ __global__ void __launch_bounds__(kWarps * 32)
     if (gr >= rows_total) continue;
     const int t = static_cast<int>(gr / G), g = static_cast<int>(gr % G);
     const float inv = l_i[rr] > 0.f ? 1.f / l_i[rr] : 0.f;
-    T* o = out + ((static_cast<long long>(b) * T_ + t) * Hq + kvh * G + g) * D;
+    float* o = out + ((static_cast<long long>(b) * T_ + t) * Hq + kvh * G + g) * D;
 #pragma unroll
-    for (int c = 0; c < DL; ++c) o[lane + 32 * c] = asq_from_float<T>(acc[rr][c] * inv);
+    for (int c = 0; c < DL; ++c) o[lane + 32 * c] = acc[rr][c] * inv;
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out,
-           const void* pos, const void* starts, int B, int T_, int S, int Hq,
-           int Hkv, float scale, int causal, cudaStream_t s) {
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* out,
+               const void* pos, const void* starts, int B, int T_, int S, int Hq,
+               int Hkv, float scale, int causal, cudaStream_t s) {
   constexpr size_t smem = smem_bytes<D>();
   if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(flash_kernel<T, D>,
+    cudaFuncSetAttribute(flash_kernel<D>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
   }
   const long long rows = static_cast<long long>(T_) * (Hq / Hkv);
   dim3 grid(static_cast<unsigned>((rows + kRows - 1) / kRows), Hkv, B);
-  flash_kernel<T, D><<<grid, kWarps * 32, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out),
+  flash_kernel<D><<<grid, kWarps * 32, smem, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out),
       static_cast<const int*>(pos), static_cast<const int*>(starts), T_, S, Hq,
       Hkv, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// bf16: tensor cores (mma.sync m16n8k16)
+// ---------------------------------------------------------------------------
+
+constexpr int kTcRows = 64;  // query rows a block: 4 warps x 16
+constexpr int kTcKeys = 64;  // keys a K/V tile
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; zeros where !valid (src is then not read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// c += a[16 x 16] * b[16 x 8], bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// byte offset of 16-byte chunk c of row r in a tile of rows D bf16 wide,
+// chunks XOR-swizzled by the row's low three bits
+template <int D>
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return static_cast<uint32_t>(r * (2 * D) + ((c ^ (r & 7)) << 4));
+}
+
+template <int D>
+constexpr int tc_smem_bytes() {
+  return (kTcRows + 4 * kTcKeys) * 2 * D;  // Q, then K[2] and V[2]
+}
+
+template <int D>
+__global__ void __launch_bounds__(128)
+    flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+                    const int* __restrict__ pos, const int* __restrict__ starts, int B, int T_,
+                    int S, int Hq, int Hkv, float scale_log2, int causal, int row_blocks) {
+  constexpr int kChunks = D / 8;  // 16-byte chunks a row
+  constexpr int kTile = kTcKeys * 2 * D;
+  extern __shared__ __align__(128) uint8_t smem_tc[];
+  const uint32_t sq = smem_u32(smem_tc);
+  const uint32_t sk = sq + kTcRows * 2 * D;  // K[buf] = sk + buf * kTile
+  const uint32_t sv = sk + 2 * kTile;        // V[buf] = sv + buf * kTile
+
+  // row blocks in descending order: the ones with the most causal tiles first
+  const int bh = blockIdx.x % (B * Hkv);
+  const int rb = row_blocks - 1 - static_cast<int>(blockIdx.x / (B * Hkv));
+  const int b = bh / Hkv, kvh = bh % Hkv;
+  const int G = Hq / Hkv;
+  const long long rows_total = static_cast<long long>(T_) * G;
+  const long long r0 = static_cast<long long>(rb) * kTcRows;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int p = pos != nullptr ? pos[b] : 0;
+  const int st = starts != nullptr ? starts[b] : 0;
+
+  for (int i = tid; i < kTcRows * kChunks; i += 128) {
+    const int r = i / kChunks, c = i % kChunks;
+    const long long gr = r0 + r;
+    const bool ok = gr < rows_total;
+    const long long t = ok ? gr / G : 0, g = ok ? gr % G : 0;
+    cp_async16(sq + swz<D>(r, c),
+               q + ((static_cast<long long>(b) * T_ + t) * Hq + kvh * G + g) * D + 8 * c, ok);
+  }
+  cp_async_commit();
+
+  // key columns any row of this block may need, as 64-key tiles
+  const long long r_last = min(r0 + kTcRows, rows_total) - 1;
+  const int col_hi = causal ? min(p + static_cast<int>(r_last / G), S - 1) : S - 1;
+  const int lo = causal ? max(st, 0) : 0;
+  const int j_first = lo / kTcKeys;
+  const int n_tiles = col_hi >= lo ? col_hi / kTcKeys - j_first + 1 : 0;
+
+  auto load_kv = [&](int tile, int buf) {
+    const int j0 = (j_first + tile) * kTcKeys;
+    for (int i = tid; i < kTcKeys * kChunks; i += 128) {
+      const int r = i / kChunks, c = i % kChunks;
+      const int col = j0 + r;
+      const bool ok = col < S;
+      const long long off =
+          ((static_cast<long long>(b) * S + (ok ? col : 0)) * Hkv + kvh) * D + 8 * c;
+      cp_async16(sk + buf * kTile + swz<D>(r, c), k + off, ok);
+      cp_async16(sv + buf * kTile + swz<D>(r, c), v + off, ok);
+    }
+  };
+  if (n_tiles > 0) load_kv(0, 0);
+  cp_async_commit();
+  cp_async_wait<1>();  // Q has landed
+  __syncthreads();
+
+  // this warp's 16 rows of Q as mma A fragments, one per 16 columns of D
+  uint32_t qa[D / 16][4];
+  {
+    const int r = warp * 16 + (lane % 8) + 8 * ((lane / 8) % 2);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) ldsm_x4(sq + swz<D>(r, 2 * kk + lane / 16), qa[kk]);
+  }
+
+  // this thread's rows: ra (accumulator rows lane / 4) and ra + 8
+  const long long ra = r0 + warp * 16 + lane / 4;
+  const int hi_a = causal ? min(p + static_cast<int>(ra / G), S - 1) : S - 1;
+  const int hi_b = causal ? min(p + static_cast<int>((ra + 8) / G), S - 1) : S - 1;
+  // the warp's smallest and largest last column
+  const long long wr0 = r0 + warp * 16;
+  const int w_hi_min = causal ? min(p + static_cast<int>(wr0 / G), S - 1) : S - 1;
+  const int w_hi_max = causal ? min(p + static_cast<int>((wr0 + 15) / G), S - 1) : S - 1;
+
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+  float o[D / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) load_kv(it + 1, (it + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int j0 = (j_first + it) * kTcKeys;
+    if (j0 <= w_hi_max) {  // some row of this warp sees a key of this tile
+      const uint32_t kb = sk + (it & 1) * kTile, vb = sv + (it & 1) * kTile;
+      float s[8][4];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+      // S = Q K^T: B fragments of key tiles 2 np and 2 np + 1 by one ldmatrix
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t kf[4];
+          ldsm_x4(kb + swz<D>(16 * np + (lane % 8) + 8 * (lane / 16), 2 * kk + (lane / 8) % 2),
+                  kf);
+          mma_bf16(s[2 * np], qa[kk], kf[0], kf[1]);
+          mma_bf16(s[2 * np + 1], qa[kk], kf[2], kf[3]);
+        }
+      }
+      if (j0 + kTcKeys - 1 > w_hi_min || j0 < lo) {  // some column is out of some row's band
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = j0 + 8 * nt + 2 * (lane % 4) + e;
+            if (col < lo || col > hi_a) s[nt][e] = -INFINITY;
+            if (col < lo || col > hi_b) s[nt][2 + e] = -INFINITY;
+          }
+        }
+      }
+      float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        mx_a = fmaxf(mx_a, fmaxf(s[nt][0], s[nt][1]));
+        mx_b = fmaxf(mx_b, fmaxf(s[nt][2], s[nt][3]));
+      }
+#pragma unroll
+      for (int o2 = 1; o2 <= 2; o2 <<= 1) {
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, o2));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, o2));
+      }
+      const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+      // a row with no valid key so far keeps m = -inf; its p are exp2(-inf) = 0
+      const float base_a = mn_a == -INFINITY ? 0.f : mn_a * scale_log2;
+      const float base_b = mn_b == -INFINITY ? 0.f : mn_b * scale_log2;
+      const float alpha_a = exp2f(m_a * scale_log2 - base_a);  // 0 on the first tile
+      const float alpha_b = exp2f(m_b * scale_log2 - base_b);
+      m_a = mn_a;
+      m_b = mn_b;
+      // P as the A fragments of the 4 16-key chunks: chunk kc is score tiles
+      // 2 kc (registers 0, 1) and 2 kc + 1 (2, 3), rows lane / 4 and + 8
+      uint32_t pa[4][4];
+      float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const float p0 = exp2f(fmaf(s[nt][0], scale_log2, -base_a));
+        const float p1 = exp2f(fmaf(s[nt][1], scale_log2, -base_a));
+        const float p2 = exp2f(fmaf(s[nt][2], scale_log2, -base_b));
+        const float p3 = exp2f(fmaf(s[nt][3], scale_log2, -base_b));
+        sum_a += p0 + p1;
+        sum_b += p2 + p3;
+        pa[nt / 2][2 * (nt % 2)] = pack_bf16(p0, p1);
+        pa[nt / 2][2 * (nt % 2) + 1] = pack_bf16(p2, p3);
+      }
+      l_a = l_a * alpha_a + sum_a;  // this thread's part of the row sum
+      l_b = l_b * alpha_b + sum_b;
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt) {
+        o[dt][0] *= alpha_a;
+        o[dt][1] *= alpha_a;
+        o[dt][2] *= alpha_b;
+        o[dt][3] *= alpha_b;
+      }
+      // O += P V: B fragments of d tiles 2 dp and 2 dp + 1 by one ldmatrix.trans
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) {
+#pragma unroll
+        for (int dp = 0; dp < D / 16; ++dp) {
+          uint32_t vf[4];
+          ldsm_x4_trans(vb + swz<D>(16 * kc + (lane % 8) + 8 * ((lane / 8) % 2),
+                                    2 * dp + lane / 16),
+                        vf);
+          mma_bf16(o[2 * dp], pa[kc], vf[0], vf[1]);
+          mma_bf16(o[2 * dp + 1], pa[kc], vf[2], vf[3]);
+        }
+      }
+    }
+    __syncthreads();  // before the next load overwrites this buffer
+  }
+
+#pragma unroll
+  for (int o2 = 1; o2 <= 2; o2 <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, o2);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, o2);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long long gr = ra + 8 * h;
+    if (gr >= rows_total) continue;
+    const float l = h == 0 ? l_a : l_b;
+    const float inv = l > 0.f ? 1.f / l : 0.f;
+    const long long t = gr / G, g = gr % G;
+    __nv_bfloat16* dst = out + ((static_cast<long long>(b) * T_ + t) * Hq + kvh * G + g) * D;
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt) {
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * dt + 2 * (lane % 4)) =
+          __floats2bfloat162_rn(o[dt][2 * h] * inv, o[dt][2 * h + 1] * inv);
+    }
+  }
+}
+
+template <int D>
+int launch_tc(const void* q, const void* k, const void* v, void* out, const void* pos,
+              const void* starts, int B, int T_, int S, int Hq, int Hkv, float scale,
+              int causal, cudaStream_t s) {
+  constexpr int smem = tc_smem_bytes<D>();
+  if (smem > 48 * 1024) {
+    cudaFuncSetAttribute(flash_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem);
+  }
+  const long long rows = static_cast<long long>(T_) * (Hq / Hkv);
+  const int row_blocks = static_cast<int>((rows + kTcRows - 1) / kTcRows);
+  const long long blocks = static_cast<long long>(row_blocks) * B * Hkv;
+  flash_tc_kernel<D><<<static_cast<unsigned>(blocks), 128, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+      static_cast<const int*>(pos), static_cast<const int*>(starts), B, T_, S, Hq, Hkv,
+      scale * 1.4426950408889634f, causal, row_blocks);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// pos, starts: int32 [B] or null (zeros). is_bf16: 0 f32, 1 bf16. D: 64 | 128.
+// pos, starts: int32 [B] or null (zeros). is_bf16: 0 f32 (CUDA cores), 1 bf16
+// (tensor cores; q, k, v 16-byte aligned). D: 64 | 128.
 ASQ_EXPORT int asq_flash_attention(const void* q, const void* k, const void* v,
                                    void* out, const void* pos, const void* starts,
                                    int B, int T_, int S, int Hq, int Hkv, int D,
@@ -189,12 +492,12 @@ ASQ_EXPORT int asq_flash_attention(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0 || T_ == 0) return 0;
   if (D == 64) {
-    return is_bf16 ? launch<__nv_bfloat16, 64>(q, k, v, out, pos, starts, B, T_, S, Hq, Hkv, scale, causal, s)
-                   : launch<float, 64>(q, k, v, out, pos, starts, B, T_, S, Hq, Hkv, scale, causal, s);
+    return is_bf16 ? launch_tc<64>(q, k, v, out, pos, starts, B, T_, S, Hq, Hkv, scale, causal, s)
+                   : launch_f32<64>(q, k, v, out, pos, starts, B, T_, S, Hq, Hkv, scale, causal, s);
   }
   if (D == 128) {
-    return is_bf16 ? launch<__nv_bfloat16, 128>(q, k, v, out, pos, starts, B, T_, S, Hq, Hkv, scale, causal, s)
-                   : launch<float, 128>(q, k, v, out, pos, starts, B, T_, S, Hq, Hkv, scale, causal, s);
+    return is_bf16 ? launch_tc<128>(q, k, v, out, pos, starts, B, T_, S, Hq, Hkv, scale, causal, s)
+                   : launch_f32<128>(q, k, v, out, pos, starts, B, T_, S, Hq, Hkv, scale, causal, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -14,27 +14,60 @@
 //
 // The TPU kernel exists because v5e has no fp8 unit: it rebuilds bf16 from
 // the bytes with integer tricks, only for M <= 64 and behind a flag. On
-// Hopper the conversion is native (cuda_fp8.h), so this kernel is the fp8
-// path for every M.
+// Hopper fp8 is native, so this file is the fp8 path for every M.
 //
-// What bounds it on an H100: at decode (M = 1..8) every weight byte is read
-// once and used M times, so the time is the N*K weight bytes over 3.35 TB/s.
-// At prefill it is compute: 2*M*N*K operations (1,979 TFLOP/s fp8 peak on the
-// tensor cores; this first kernel runs on CUDA cores).
+// What bounds it on an H100: at the main path's shapes (K 2048 / 5632, N
+// 2048-11264, M 1-512) the weight bytes. At M = 128 a projection carries
+// 1.1-5.9 GFLOP (0.5-3 us at the 1,979 TFLOP/s fp8 peak) but 4.2-23.1 MB of
+// weights (1.3-6.9 us at 3.35 TB/s): a weight stream that needs the tensor
+// cores only to keep up, read once, by enough SMs at once, with enough bytes
+// in flight.
 //
-// Design, simple first:
-//  - M <= 8: one warp per output column. Each lane streams 16-byte chunks of
-//    the weight row (coalesced, read once) and the matching x chunks (cached),
-//    converts pairs with __nv_cvt_fp8x2_to_halfraw2 (exact: every e4m3 and
-//    e5m2 value, subnormals included, is a half) and accumulates with fmaf. A
-//    product of two fp8 values is exact in f32, so only the summation order
-//    differs from the plain version; a warp shuffle reduces.
-//  - M > 8: 64x64 output tiles, 32-deep K steps converted to f32 into shared
-//    memory, 256 threads each holding a 4x4 block of f32 accumulators.
-//    Tensor cores (mma.sync .e4m3 / wgmma) are a later change.
-//  - Ragged M, N and K edges are masked in the kernel (zero bytes are +0).
-//  - The epilogue is asq_store (asq_common.cuh).
+// Three routes, chosen by the wrapper from the shape (never after a failure):
+//  - M <= 8 (decode): one warp per output column. Each lane streams 16-byte
+//    chunks of the weight row (coalesced, read once) and the matching x
+//    chunks (cached), converts pairs with __nv_cvt_fp8x2_to_halfraw2 (exact:
+//    every e4m3 and e5m2 value, subnormals included, is a half) and
+//    accumulates with fmaf. A product of two fp8 values is exact in f32; a
+//    warp shuffle reduces. (Issuing all of a lane's weight loads before
+//    converting any timed slower on the H100 at every TinyLlama shape.)
+//  - M > 8, K % 16 == 0 and both bases 16-byte aligned (what TMA takes):
+//    asq_fp8_gemm_tc, the tensor-core route. A block covers BM = 64 or 128
+//    rows (4 or 8 consumer warps of 16 rows, so each weight tile is read
+//    once for all of M <= 128) by BN = 64 columns, and walks K in 128-byte
+//    steps. One producer warp keeps a ring of 3 stages (x 128x128 + w 64x128
+//    bytes = 24 KB a stage) filled with TMA (cp.async.bulk.tensor + mbarrier,
+//    128-byte swizzle, zero fill past the edges). The consumer warpgroups
+//    (one per 64 rows) convert each w tile to f16 once, into shared memory
+//    in wgmma's K-major swizzled layout (cvt.rn.f16x2.e4m3x2 / e5m2x2:
+//    exact, every fp8 value is an f16); each warp loads its x fragments with
+//    ldmatrix and converts them in registers; wgmma.mma_async m64n64k16 f16
+//    (A from registers, B from shared memory) accumulates in f32. Two
+//    blocks fit on an SM (105 KB of shared memory each). Shapes with fewer
+//    output tiles than SMs split K; the partial sums go to an f32 workspace
+//    and a second small pass adds them in a fixed order before the
+//    epilogue.
+//  - Otherwise (ragged K such as 70, or an offset view): 64x64 CUDA-core
+//    tiles, K converted to f32 in shared memory.
+//
+// Why f16 and not fp8 wgmma: Hopper's fp8 wgmma keeps only about
+// 14 bits of its running sum (DeepSeek-V3 technical report, section 3.3).
+// Even with its partial sums added into f32 registers after every k32 step,
+// its error on the H100 did not shrink with K, and the 2-layer fp8 models'
+// card-vs-CPU logits broke their limits. f16 operands hold every fp8 value
+// exactly, and the f16 tensor cores accumulate in f32. The route stays a
+// weight stream at the main path's shapes.
+//
+// ldmatrix gives a lane bytes 4t..4t+3 (t = lane % 4) of a 16-byte row
+// chunk of x, while the f16 fragments hold K positions {2t, 2t+1} and
+// {2t+8, 2t+9}: position 2t + e carries k = 4t + e and 8 + 2t + e carries
+// k = 4t + 2 + e. The f16 copy of w is written in the same order, so the
+// products pair as in the plain sum.
+//
+// The epilogue is asq_store (asq_common.cuh) on each f32 sum, so given the
+// same accumulator the output has the plain version's bits.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is reached through the runtime
 #include <cuda_fp8.h>
 
 #include "asq_common.cuh"
@@ -69,6 +102,10 @@ __device__ __forceinline__ void fp8x16_to_float(const uint4& v, float* f) {
   fp8x4_to_float<F>(v.z, f + 8);
   fp8x4_to_float<F>(v.w, f + 12);
 }
+
+// ---------------------------------------------------------------------------
+// M <= 8: GEMV
+// ---------------------------------------------------------------------------
 
 constexpr int kGemvMaxM = 8;
 constexpr int kGemvWarps = 8;
@@ -119,6 +156,10 @@ __global__ void __launch_bounds__(kGemvWarps * 32)
     }
   }
 }
+
+// ---------------------------------------------------------------------------
+// M > 8, shapes TMA cannot take: CUDA-core tiles
+// ---------------------------------------------------------------------------
 
 constexpr int kBM = 64, kBN = 64, kBK = 32;
 
@@ -208,12 +249,344 @@ void launch(const uint8_t* x, const uint8_t* w, int M, int N, int K,
   }
 }
 
+// ---------------------------------------------------------------------------
+// M > 8, TMA-shaped: f16 tensor cores fed from fp8 tiles
+// ---------------------------------------------------------------------------
+
+constexpr int kTcBN = 64;      // output columns a block
+constexpr int kTcBK = 128;     // K bytes a stage: one 128-byte swizzle row
+constexpr int kTcStages = 3;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// TMA: the box at (c0 = k, c1 = row) of `map` into shared memory at dst
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0,
+                                            int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// two fp8 (byte 0 first) as an f16x2 register (byte 0 in the low half)
+template <__nv_fp8_interpretation_t F>
+__device__ __forceinline__ uint32_t fp8x2_to_f16x2(uint32_t v) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(static_cast<__nv_fp8x2_storage_t>(v), F);
+  return static_cast<uint32_t>(h.x) | (static_cast<uint32_t>(h.y) << 16);
+}
+
+// wgmma shared-memory descriptor of a K-major tile whose rows are 128 bytes
+// with the 128-byte swizzle: 8-row groups 1024 bytes apart. A K step inside
+// the row moves the start address.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d += A[64 x 16] * B[64 x 16]^T: A from registers (f16, each warp 16 rows
+// as mma.m16n8k16's A fragment), B f16 K-major in shared memory
+__device__ __forceinline__ void wgmma_f16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// shared-memory address of 16-byte chunk c of row r in a TMA tile with
+// 128-byte rows and the 128-byte swizzle
+__device__ __forceinline__ uint32_t sw128(uint32_t tile, int r, int c) {
+  return tile + r * 128 + ((c ^ (r & 7)) << 4);
+}
+
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void sts128(uint32_t addr, uint32_t a, uint32_t b, uint32_t c,
+                                       uint32_t d) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};" ::"r"(addr), "r"(a), "r"(b), "r"(c),
+               "r"(d)
+               : "memory");
+}
+
+// grid (N / 64, M / BM, split); 4 WG consumer warps of 16 rows (BM = 64 WG)
+// and one producer warp. Split z takes K tiles [z * per, (z + 1) * per);
+// with ws != null it writes its f32 sums to ws[z] instead of the epilogue.
+template <__nv_fp8_interpretation_t F, int WG>
+__global__ void __launch_bounds__(WG * 128 + 32)
+    gemm_tc_kernel(const __grid_constant__ CUtensorMap map_x,
+                   const __grid_constant__ CUtensorMap map_w, int M, int N, int k_tiles,
+                   int per, float* __restrict__ ws, AsqEpilogue e) {
+  constexpr int kBMtc = 64 * WG;
+  constexpr int kABytes = kBMtc * kTcBK, kBBytes = kTcBN * kTcBK;
+  constexpr int kStage = kABytes + kBBytes;
+  constexpr int kWf16 = kTcBN * kTcBK * 2;  // the w tile in f16
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t tiles = (smem_u32(smem_raw) + 1023u) & ~1023u;  // swizzle atoms: 1 KB aligned
+  const uint32_t wf0 = tiles + kTcStages * kStage;                // f16 copy b at wf0 + b kWf16
+  const uint32_t full0 = wf0 + 2 * kWf16;                         // full[s] = full0 + 8 s
+  const uint32_t empty0 = full0 + 8 * kTcStages;
+
+  const int n0 = blockIdx.x * kTcBN, m0 = blockIdx.y * kBMtc, split = blockIdx.z;
+  const int kt0 = split * per;
+  const int nk = max(0, min(k_tiles, kt0 + per) - kt0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kTcStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, WG * 4);  // one arrive per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == WG * 4) {  // producer
+    if (lane == 0) {
+      for (int i = 0; i < nk; ++i) {
+        const int s = i % kTcStages;
+        if (i >= kTcStages) mbar_wait(empty0 + 8 * s, ((i / kTcStages) & 1) ^ 1);
+        mbar_expect_tx(full0 + 8 * s, kStage);
+        const int k = (kt0 + i) * kTcBK;
+        tma_load_2d(tiles + s * kStage, &map_x, k, m0, full0 + 8 * s);
+        tma_load_2d(tiles + s * kStage + kABytes, &map_w, k, n0, full0 + 8 * s);
+      }
+    }
+    return;
+  }
+
+  // this warp's 16 rows of its warpgroup's 64: ldmatrix row addresses of
+  // the two x matrices of a 16-byte chunk (matrices 2, 3: the next chunk)
+  const int wg = warp / 4;
+  const int xr = 64 * wg + 16 * (warp % 4) + (lane % 8) + 8 * ((lane / 8) % 2);
+  const int xc = lane / 16;
+  float acc[32];
+#pragma unroll
+  for (int r = 0; r < 32; ++r) acc[r] = 0.f;
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % kTcStages;
+    mbar_wait(full0 + 8 * s, (i / kTcStages) & 1);
+    const uint32_t xt = tiles + s * kStage, wt = xt + kABytes, wf = wf0 + (i & 1) * kWf16;
+    // the w tile to f16 once for all warps, in the x fragments' K order, as
+    // wgmma's 128-byte-swizzled K-major layout (two 64-deep halves of 64
+    // rows x 128 bytes): the 16 fp8 of chunk j (words t = 0..3) become f16
+    // chunk 2j (k 4t, 4t + 1) and 2j + 1 (k 4t + 2, 4t + 3) of half j / 4.
+    // Double-buffered: a warp converting tile i + 1 has passed the barrier
+    // every warp reaches after its wgmma on tile i - 1 completed
+    for (int q = threadIdx.x; q < kTcBN * (kTcBK / 16); q += WG * 128) {
+      const int n = q / (kTcBK / 16), j = q % (kTcBK / 16);
+      const uint4 v = lds128(sw128(wt, n, j));
+      const uint32_t half = wf + (j / 4) * (kTcBN * 128);
+      sts128(sw128(half, n, 2 * (j % 4)), fp8x2_to_f16x2<F>(v.x & 0xffffu),
+             fp8x2_to_f16x2<F>(v.y & 0xffffu), fp8x2_to_f16x2<F>(v.z & 0xffffu),
+             fp8x2_to_f16x2<F>(v.w & 0xffffu));
+      sts128(sw128(half, n, 2 * (j % 4) + 1), fp8x2_to_f16x2<F>(v.x >> 16),
+             fp8x2_to_f16x2<F>(v.y >> 16), fp8x2_to_f16x2<F>(v.z >> 16),
+             fp8x2_to_f16x2<F>(v.w >> 16));
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // visible to wgmma
+    asm volatile("bar.sync 1, %0;" ::"n"(WG * 128) : "memory");   // consumers only
+    // this warp's x fragments of the 8 16-deep K steps, converted in registers
+    uint32_t a[kTcBK / 16][4];
+#pragma unroll
+    for (int j = 0; j < kTcBK / 16; j += 2) {
+      uint32_t xa[4];
+      ldsm_x4(sw128(xt, xr, j + xc), xa);  // rows g / g + 8 of chunks j, j + 1
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        a[j + h][0] = fp8x2_to_f16x2<F>(xa[2 * h] & 0xffffu);
+        a[j + h][1] = fp8x2_to_f16x2<F>(xa[2 * h + 1] & 0xffffu);
+        a[j + h][2] = fp8x2_to_f16x2<F>(xa[2 * h] >> 16);
+        a[j + h][3] = fp8x2_to_f16x2<F>(xa[2 * h + 1] >> 16);
+      }
+    }
+    fence_regs(acc);
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+    for (int j = 0; j < kTcBK / 16; ++j)
+      wgmma_f16_rs(acc, a[j], sw128_desc(wf + (j / 4) * (kTcBN * 128) + 32 * (j % 4)));
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * s);
+  }
+
+  // The epilogue goes through shared memory (the stage ring, free once every
+  // consumer is past its last tile): one runtime loop with coalesced stores
+  // and a single asq_store, where 32 unrolled ones per thread would let the
+  // compiler copy the epilogue once per combination of its branches.
+  // Accumulator layout of m64nN: acc[4 c + 2 h + q] sits at row 16 w +
+  // lane / 4 + 8 h of the warpgroup's 64 (w: the warp in it), column
+  // 8 c + 2 (lane % 4) + q.
+  constexpr int kLd = kTcBN + 1;  // padded row: conflict-light writes
+  float* const ep = reinterpret_cast<float*>(smem_raw + (tiles - smem_u32(smem_raw)));
+  asm volatile("bar.sync 1, %0;" ::"n"(WG * 128) : "memory");
+  const int r0 = 64 * wg + 16 * (warp % 4) + lane / 4;
+#pragma unroll
+  for (int c = 0; c < kTcBN / 8; ++c)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+        ep[(r0 + 8 * h) * kLd + 8 * c + 2 * (lane % 4) + q] = acc[4 * c + 2 * h + q];
+  asm volatile("bar.sync 1, %0;" ::"n"(WG * 128) : "memory");
+  for (int i = threadIdx.x; i < kBMtc * kTcBN; i += WG * 128) {
+    const int row = m0 + i / kTcBN, col = n0 + i % kTcBN;
+    if (row >= M || col >= N) continue;
+    const float v = ep[(i / kTcBN) * kLd + i % kTcBN];
+    if (ws != nullptr) {
+      ws[(static_cast<size_t>(split) * M + row) * N + col] = v;
+    } else {
+      asq_store(e, row, col, N, v);
+    }
+  }
+}
+
+// out = epilogue(sum over splits of ws[s]), the splits added in order
+__global__ void __launch_bounds__(256)
+    splitk_reduce_kernel(const float* __restrict__ ws, int splits, int M, int N,
+                         AsqEpilogue e) {
+  const size_t mn = static_cast<size_t>(M) * N;
+  const size_t i = static_cast<size_t>(blockIdx.x) * 256 + threadIdx.x;
+  if (i >= mn) return;
+  float v = ws[i];
+  for (int s = 1; s < splits; ++s) v += ws[s * mn + i];
+  asq_store(e, static_cast<int>(i / N), static_cast<int>(i % N), N, v);
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled lives in libcuda, not in the runtime: it is looked up
+// through cudart's entry-point query, so the library links against cudart only
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                     &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// [rows, K] bytes, K-contiguous, in boxes of 128 bytes x box_rows rows
+bool make_map(CUtensorMap* map, const void* base, int rows, int K, int box_rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kTcBK), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <__nv_fp8_interpretation_t F, int WG>
+int launch_tc(const void* x, const void* w, int M, int N, int K, int split, float* ws,
+              const AsqEpilogue& e, cudaStream_t s) {
+  constexpr int kBMtc = 64 * WG;
+  constexpr int smem =
+      kTcStages * (kBMtc + kTcBN) * kTcBK + 2 * kTcBN * kTcBK * 2 + 16 * kTcStages + 1024;
+  CUtensorMap map_x, map_w;
+  if (!make_map(&map_x, x, M, K, kBMtc) || !make_map(&map_w, w, N, K, kTcBN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = gemm_tc_kernel<F, WG>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int k_tiles = (K + kTcBK - 1) / kTcBK;
+  const int per = (k_tiles + split - 1) / split;
+  const dim3 grid((N + kTcBN - 1) / kTcBN, (M + kBMtc - 1) / kBMtc, split);
+  kernel<<<grid, WG * 128 + 32, smem, s>>>(map_x, map_w, M, N, k_tiles, per,
+                                           split > 1 ? ws : nullptr, e);
+  if (split > 1) {
+    const size_t mn = static_cast<size_t>(M) * N;
+    splitk_reduce_kernel<<<static_cast<unsigned>((mn + 255) / 256), 256, 0, s>>>(ws, split, M,
+                                                                                 N, e);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <__nv_fp8_interpretation_t F>
+int launch_tc_fmt(const void* x, const void* w, int M, int N, int K, int split, float* ws,
+                  const AsqEpilogue& e, cudaStream_t s) {
+  return M <= 64 ? launch_tc<F, 1>(x, w, M, N, K, split, ws, e, s)
+                 : launch_tc<F, 2>(x, w, M, N, K, split, ws, e, s);
+}
+
 }  // namespace
 
 // x [M, K] fp8, w_t [N, K] fp8 (fmt 0: e4m3fn, 1: e5m2), row_scale
 // (rs_stride 0: one value, 1: [M]; null: 1), col_scale (cs_stride 0: one
 // value, 1: [N]; null: 1), bias [N] f32 or null, out [M, N] (out_kind 0: f32,
-// 1: bf16).
+// 1: bf16). The GEMV for M <= 8, CUDA-core tiles above.
 ASQ_EXPORT int asq_fp8_gemm(const void* x, const void* w_t, const void* row_scale,
                             int rs_stride, const void* col_scale, int cs_stride,
                             const void* bias, void* out, int M, int N, int K,
@@ -231,4 +604,24 @@ ASQ_EXPORT int asq_fp8_gemm(const void* x, const void* w_t, const void* row_scal
     launch<__NV_E5M2>(xp, wp, M, N, K, align, e, s);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core route: arguments as asq_fp8_gemm, plus split (K splits;
+// ws holds split * M * N f32 where split > 1). Needs M > 8, K % 16 == 0 and
+// 16-byte aligned x and w_t.
+ASQ_EXPORT int asq_fp8_gemm_tc(const void* x, const void* w_t, const void* row_scale,
+                               int rs_stride, const void* col_scale, int cs_stride,
+                               const void* bias, void* out, int M, int N, int K, int fmt,
+                               int out_kind, int split, void* ws, void* stream) {
+  const uintptr_t align = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w_t);
+  if (M <= kGemvMaxM || K % 16 != 0 || align % 16 != 0 || split < 1 ||
+      (split > 1 && ws == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  AsqEpilogue e{static_cast<const float*>(row_scale), rs_stride,
+                static_cast<const float*>(col_scale), cs_stride,
+                static_cast<const float*>(bias), ASQ_ACT_NONE, out_kind, out};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* wsp = static_cast<float*>(ws);
+  return fmt == 0 ? launch_tc_fmt<__NV_E4M3>(x, w_t, M, N, K, split, wsp, e, s)
+                  : launch_tc_fmt<__NV_E5M2>(x, w_t, M, N, K, split, wsp, e, s);
 }

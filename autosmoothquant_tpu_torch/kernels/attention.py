@@ -2,10 +2,12 @@
 ``autosmoothquant_tpu/kernels/attention.py`` (``flash_attention`` and
 ``flash_attention_banded``).
 
-Both entry points launch the one CUDA kernel ``csrc/flash_attn.cu`` (K3) for
+Both entry points launch the CUDA kernel ``csrc/flash_attn.cu`` (K3) for
 CUDA tensors, and keep separate launch counts so a run shows which prefill
-route it took; CPU tensors run the plain versions. Layout as in the JAX
-package: q [B, T, Hq, D], k/v [B, S, Hkv, D], GQA with Hq % Hkv == 0.
+route it took; CPU tensors run the plain versions. K3 computes bf16 on the
+tensor cores (``mma.sync``, P rounded to bf16 before the value product) and
+f32 on the CUDA cores (tensor cores would round f32 to TF32). Layout as in
+the JAX package: q [B, T, Hq, D], k/v [B, S, Hkv, D], GQA with Hq % Hkv == 0.
 
 A query row with no valid key is written as 0, as the TPU kernels write it
 (the eager ``attend`` averages such rows instead; callers compare valid rows).
@@ -67,7 +69,10 @@ def _launch(wrapper, q, k, v, pos, starts, sm_scale, causal):
     s, hkv = k.shape[1], k.shape[2]
     if d not in _HEAD_DIMS:
         raise ValueError(f"head_dim {d} not in {_HEAD_DIMS}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # contiguous, with 16-byte aligned bases (the bf16 route's cp.async
+    # copies 16 bytes at a time); a fresh allocation is aligned
+    q, k, v = (t.contiguous() if t.data_ptr() % 16 == 0 else t.clone(
+        memory_format=torch.contiguous_format) for t in (q, k, v))
     out = torch.empty_like(q)
     fn = _build.function("flash_attn", "asq_flash_attention", _ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -2,10 +2,14 @@
 ``autosmoothquant_tpu/kernels/gemm.py:fp8_matmul`` and of the TPU kernel it
 streams through, ``kernels/fp8.py:_fp8_kernel``.
 
-``fp8_matmul`` launches the CUDA kernel ``csrc/fp8_gemm.cu`` (K4) for CUDA
-tensors, at every M, and runs :func:`fp8_matmul_plain` for CPU tensors; there
-is no other route. The TPU gates its kernel to M <= 64 and an opt-in flag only
-because v5e has no fp8 unit; Hopper converts fp8 natively. Weights are
+``fp8_matmul`` launches the CUDA kernels of ``csrc/fp8_gemm.cu`` (K4) for
+CUDA tensors, at every M, and runs :func:`fp8_matmul_plain` for CPU tensors.
+On the card it picks one of three routes from the shape alone
+(:func:`route`): the GEMV for M <= 8; the tensor-core route (TMA, the fp8
+tiles converted to f16 for ``wgmma`` with f32 accumulation, K split where
+the output has too few tiles to fill the SMs) where TMA takes the operands
+(K % 16 == 0, 16-byte aligned bases); CUDA-core tiles otherwise. The TPU gates its kernel to M <= 64 and an opt-in flag only
+because v5e has no fp8 unit; Hopper has fp8 tensor cores. Weights are
 ``[N, K]`` fp8 (e4m3fn or e5m2), K-contiguous, transposed once at load
 (``convert/from_jax.py``).
 """
@@ -26,6 +30,37 @@ _OUT_KINDS = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = (_P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P)
+_TC_ARGTYPES = (_P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P)
+
+GEMV_MAX_M = 8
+_TC_BM = 64      # rows a consumer warpgroup covers (a block: 64, or 128 for M > 64)
+_TC_BN = 64      # columns a block covers
+_TC_BK = 128     # K bytes a pipeline stage holds
+_SMS = 132       # streaming multiprocessors of an H100 SXM
+
+
+def route(m: int, k: int, *tensors: torch.Tensor) -> str:
+    """K4's route for an [m, k] @ [n, k].T product: "gemv" (M <= 8), "tc"
+    (the tensor-core route: TMA needs K % 16 == 0 and 16-byte aligned
+    bases) or "tiles" (CUDA-core tiles for what TMA cannot take)."""
+    if m <= GEMV_MAX_M:
+        return "gemv"
+    if k % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors):
+        return "tc"
+    return "tiles"
+
+
+def tc_split(m: int, n: int, k: int) -> int:
+    """K splits of the tensor-core route: enough (m, n) blocks x splits to
+    start one block on every SM, no split empty. Blocks are 64 x 64 for
+    M <= 64 and 128 x 64 above (one weight tile read once for all of M <=
+    128)."""
+    bm = _TC_BM if m <= _TC_BM else 2 * _TC_BM
+    tiles = -(-m // bm) * -(-n // _TC_BN)
+    k_tiles = -(-k // _TC_BK)
+    split = max(1, min(k_tiles, -(-_SMS // tiles)))
+    per = -(-k_tiles // split)
+    return -(-k_tiles // per)
 
 
 def fp8_matmul_plain(x_f8: torch.Tensor, w_t: torch.Tensor, row_scale=1.0,
@@ -88,16 +123,27 @@ def fp8_matmul(x_f8: torch.Tensor, w_t: torch.Tensor, row_scale=1.0,
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     if m == 0 or n == 0:
         return out
-    fn = _build.function("fp8_gemm", "asq_fp8_gemm", _ARGTYPES)
-    rc = fn(x_f8.data_ptr(), w_t.data_ptr(), _build.ptr(rs),
+    args = (x_f8.data_ptr(), w_t.data_ptr(), _build.ptr(rs),
             int(rs is not None and rs.ndim), _build.ptr(cs),
             int(cs is not None and cs.ndim), _build.ptr(bias), out.data_ptr(),
-            m, n, k, _FORMATS[x_f8.dtype], _OUT_KINDS[out_dtype],
-            _build.stream_ptr(x_f8))
-    _build.check("fp8_gemm", rc, "fp8_matmul")
+            m, n, k, _FORMATS[x_f8.dtype], _OUT_KINDS[out_dtype])
+    if route(m, k, x_f8, w_t) == "tc":
+        split = tc_split(m, n, k)
+        ws = (torch.empty(split * m * n, dtype=torch.float32, device=dev)
+              if split > 1 else None)
+        fn = _build.function("fp8_gemm", "asq_fp8_gemm_tc", _TC_ARGTYPES)
+        rc = fn(*args, split, _build.ptr(ws), _build.stream_ptr(x_f8))
+        _build.check("fp8_gemm", rc, "fp8_matmul")
+        fp8_matmul.tc_launches += 1
+    else:
+        fn = _build.function("fp8_gemm", "asq_fp8_gemm", _ARGTYPES)
+        rc = fn(*args, _build.stream_ptr(x_f8))
+        _build.check("fp8_gemm", rc, "fp8_matmul")
     fp8_matmul.launches += 1
     return out
 
 
-# launches of the CUDA kernel (plain CPU calls do not count)
+# launches of the CUDA kernels, every route (plain CPU calls do not count),
+# and of the tensor-core route alone
 fp8_matmul.launches = 0
+fp8_matmul.tc_launches = 0

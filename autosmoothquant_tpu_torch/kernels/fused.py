@@ -17,6 +17,11 @@ from . import _build
 
 _P = ctypes.c_void_p
 _MAX_D = 12 * 1024  # the kernel keeps one f32 row in shared memory
+# h, x, the norm vectors (gamma; gamma and beta), out_h, out_q, rows, D, eps,
+# is_bf16, stream
+_TAIL = (ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, _P)
+_ARGTYPES = {"add_rmsnorm_quant": (_P,) * 5 + _TAIL,
+             "add_layernorm_quant": (_P,) * 6 + _TAIL}
 
 
 def fused_add_rmsnorm_quant_plain(h: torch.Tensor, x: torch.Tensor,
@@ -55,9 +60,7 @@ def _launch(wrapper, lib, h, x, norm_vectors, eps):
     t, d = h.shape
     out_h = torch.empty_like(h)
     out_q = torch.empty((t, d), dtype=torch.int8, device=h.device)
-    argtypes = (_P,) * (4 + len(vecs)) + (ctypes.c_int, ctypes.c_int,
-                                          ctypes.c_float, ctypes.c_int, _P)
-    fn = _build.function(lib, f"asq_{lib}", argtypes)
+    fn = _build.function(lib, f"asq_{lib}", _ARGTYPES[lib])
     rc = fn(h.data_ptr(), x.data_ptr(), *(v.data_ptr() for v in vecs),
             out_h.data_ptr(), out_q.data_ptr(), t, d, float(eps),
             int(h.dtype == torch.bfloat16), _build.stream_ptr(h))

@@ -8,15 +8,16 @@ Run from the root of a checkout, on a machine with one card:
 
 The paths are Llama generation in three weight formats: W8A8 int8 (kernels
 K1 int8 GEMM, K2 add+RMSNorm+quant, K3 flash prefill), fp8 e4m3 / e5m2 (K4
-fp8 GEMM, K3) and W4A8 int4 (K5 int4 GEMM at M <= 64, K3); and OPT-6.7B W8A8
-generation (K1, K6 add+LayerNorm+quant, K3).
+fp8 GEMM: its GEMV at decode, its tensor-core route at prefill; K3) and W4A8
+int4 (K5 int4 GEMM at M <= 64, K3); and OPT-6.7B W8A8 generation (K1, K6
+add+LayerNorm+quant, K3).
 
 Phases (any failure ends the run with a nonzero exit code):
   device   the card's name and power limit
   build    nvcc builds autosmoothquant_tpu_torch/csrc/*.cu (one process per
            source, all started together) and prints the -Xptxas -v summary
   kernels  each kernel against its plain version at the main paths' shapes
-           (TinyLlama-1.1B and OPT-6.7B)
+           (TinyLlama-1.1B and OPT-6.7B), K4 on each of its routes
   e2e      2-layer models on the card and, with the same weights, on the CPU
            (plain versions): TinyLlama width in W8A8, fp8 e4m3 dynamic, fp8
            e4m3 static (unfused), fp8 e5m2 and int4; OPT pre-LN W8A8 at
@@ -32,8 +33,8 @@ Phases (any failure ends the run with a nonzero exit code):
   timing   each kernel's time against its plain version, its library
            yardstick and its bound; prefill time; decode tok/s at b1, prompt
            128, s_max 512, in turns: TinyLlama W8A8, fp8, int4 and bf16, and
-           OPT-6.7B W8A8 and bf16; device kernels a decode step; peak device
-           memory
+           OPT-6.7B W8A8 and bf16; device busy time and top kernels of one
+           prefill and of one decode step; peak device memory
 
 Every phase runs, in this order. The last two lines of standard output are
 the kernel table ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
@@ -327,11 +328,13 @@ class Timer:
     the 50 MB L2 cache flushed before each by reading 128 MB (a read leaves
     no dirty lines whose write-back would land in the timed call), so
     weights come from device memory as a decode step finds them. A spin
-    kernel of about 0.1 ms (``torch.cuda._sleep``) queued before the start
+    kernel of about 0.5 ms (``torch.cuda._sleep``) queued before the start
     event keeps the card busy while the host enqueues the call, so the
-    events bracket device work, not the wrapper's Python and ctypes time."""
+    events bracket device work, not the wrapper's Python and ctypes time
+    (0.1 ms did not cover a slow host: K2 at T = 1 once read 0.065 ms
+    against its usual 0.0074)."""
 
-    SPIN_CYCLES = 200_000
+    SPIN_CYCLES = 1_000_000
 
     def __init__(self, torch):
         self.torch = torch
@@ -521,6 +524,26 @@ def fp8_tolerance(torch, c, ref):
     if c["out"] == "bf16":
         tol = tol + ref.double().abs() * 2.0 ** -7
     return tol
+
+
+def fp8_spread_case(torch, m, k, n, fmt, gen):
+    """fp8 operands spread over ten decades (subnormals included) through the
+    port's quantizer, unit scales, f32 out: where the accumulation's
+    rounding shows most."""
+    from autosmoothquant_tpu_torch.quant import math as Q
+
+    def draw(shape):
+        v = torch.randn(shape, device="cuda", generator=gen)
+        return v * torch.exp(torch.empty(shape, device="cuda").uniform_(-8, 2, generator=gen))
+    dt = torch.float8_e4m3fn if fmt == "e4m3" else torch.float8_e5m2
+    if fmt == "e5m2":
+        x, w = draw((m, k)).to(dt), draw((n, k)).to(dt)
+    else:
+        x = Q.quantize_fp8_per_tensor(draw((m, k)), dt)[0]
+        w = Q.quantize_fp8_per_tensor(draw((n, k)), dt)[0]
+    one = torch.tensor(1.0, device="cuda")
+    return dict(x=x, w=w, rs=one, cs=one, bias=None, dt=torch.float32, out="f32",
+                label=f"{fmt} ten decades")
 
 
 def int4_case(torch, m, k, n, xdt, act, has_bias, gen):
@@ -715,6 +738,14 @@ def phase_kernels(torch, results):
         ("flash_attention", dict(b=1, t=128, s=128, hq=32, hkv=32, d=128, dtype=bf)),
         ("flash_attention_banded", dict(b=4, t=128, s=512, hq=32, hkv=32, d=128, dtype=bf,
                                         pos=[0, 0, 0, 0], starts=[0, 32, 64, 95])),
+        # bf16 tensor-core route at T and S not multiples of its 64-row and
+        # 64-key tiles, G in {1, 4, 8}, and rows with no valid key
+        ("flash_attention", dict(b=2, t=100, s=100, hq=32, hkv=8, d=128, dtype=bf)),
+        ("flash_attention", dict(b=2, t=200, s=200, hq=32, hkv=4, d=64, dtype=bf)),
+        ("flash_attention_banded", dict(b=3, t=70, s=200, hq=8, hkv=8, d=128, dtype=bf,
+                                        pos=[0, 50, 130], starts=[5, 0, 60])),
+        ("flash_attention_banded", dict(b=2, t=100, s=300, hq=16, hkv=4, d=64, dtype=bf,
+                                        pos=[3, 150], starts=[40, 120])),
     ]
     worst = {"flash_attention": 0.0, "flash_attention_banded": 0.0}
     for name, kw in flash_cases:
@@ -724,41 +755,77 @@ def phase_kernels(torch, results):
         rows = valid_rows(torch, c)
         rtol, atol = tol[kw["dtype"]]
         ok, err = _close(out[rows], ref[rows], rtol, atol)
+        masked_zero = int(torch.count_nonzero(out[~rows])) == 0
         worst[name] = max(worst[name], err)
         desc = ", ".join(f"{k}={v}" for k, v in kw.items() if k != "dtype")
         log(f"  {name} {desc} {str(kw['dtype']).split('.')[-1]}: "
-            f"max|err|={err:.3g} on valid rows (rtol {rtol:g}, atol {atol:g}) "
-            f"{'ok' if ok else 'FAIL'}")
-        require(ok, f"{name} disagrees with its plain version ({desc})")
+            f"max|err|={err:.3g} on valid rows (rtol {rtol:g}, atol {atol:g}); "
+            f"{int((~rows).sum())} rows with no valid key all 0: {masked_zero} "
+            f"{'ok' if ok and masked_zero else 'FAIL'}")
+        require(ok and masked_zero, f"{name} disagrees with its plain version ({desc})")
     for name, err in worst.items():
         results[name]["max_abs_err"] = err
 
-    # K4: M in {1, 4, 128} x the four projections x {e4m3, e5m2}, epilogues
-    # in rotation, plus ragged shapes that exercise the edge masking
+    # K4: M in {1, 4, 9, 64, 65, 128, 129, 512} x the four projections x
+    # {e4m3, e5m2}, epilogues in rotation, plus ragged shapes that exercise
+    # the edge masking and each route; M > 8 with K % 16 == 0 must take the
+    # tensor-core route
+    from autosmoothquant_tpu_torch.kernels.fp8 import fp8_matmul, route
+
+
     cases = []
     vi = 0
-    for m in (1, 4, 128):
+    for m in (1, 4, 9, 64, 65, 128, 129, 512):
         for (k, n), pname in zip(GEMM_SHAPES, GEMM_NAMES):
             for fmt in FP8_FORMATS:
                 cases.append((m, k, n, fmt, FP8_VARIANTS[vi % len(FP8_VARIANTS)], pname))
                 vi += 1
     cases += [(3, 37, 100, "e4m3", FP8_VARIANTS[1], "ragged"),
-              (77, 70, 130, "e5m2", FP8_VARIANTS[2], "ragged")]
+              (77, 70, 130, "e5m2", FP8_VARIANTS[2], "ragged"),
+              (20, 48, 100, "e4m3", FP8_VARIANTS[3], "ragged"),
+              (9, 2048, 130, "e5m2", FP8_VARIANTS[0], "ragged")]
     worst = 0.0
     for m, k, n, fmt, variant, pname in cases:
         c = fp8_case(torch, m, k, n, fmt, variant, gen)
+        how = route(m, k, c["x"], c["w"])
+        tc_before = fp8_matmul.tc_launches
         out, ref = run_fp8(c), run_fp8(c, plain=True)
         torch.cuda.synchronize()
+        tc = fp8_matmul.tc_launches - tc_before == 1
+        require(tc == (how == "tc") and (how == "tc") == (m > 8 and k % 16 == 0),
+                f"fp8_matmul took route {how} (tensor-core launch {tc}) at M={m} K={k}")
         err = float((out.double() - ref.double()).abs().max())
         excess = float(((out.double() - ref.double()).abs()
                         / fp8_tolerance(torch, c, ref)).max())
         worst = max(worst, err)
-        log(f"  fp8_matmul {pname:7s} M={m:<4d} K={k:<5d} N={n:<6d} "
-            f"{c['label']:30s} max|err|={err:.3g} (<= f32-sum bound: "
-            f"{excess:.3g} of it) {'ok' if excess <= 1 else 'FAIL'}")
+        log(f"  fp8_matmul {pname:7s} M={m:<4d} K={k:<5d} N={n:<6d} {how:5s} "
+            f"{c['label']:30s} max|err|={err:.3g} (<= its bound: {excess:.3g} of it) "
+            f"{'ok' if excess <= 1 else 'FAIL'}")
         require(excess <= 1, f"fp8_matmul disagrees with its plain version at "
                              f"M={m} K={k} N={n} {c['label']}")
     results["fp8_matmul"]["max_abs_err"] = worst
+
+    # K4 on operands spread over ten decades, where the sum's rounding shows
+    # most, on each route: the largest error / sum |x||w| and the largest
+    # share of the f32 sum's bound
+    spread = [(m, k, n, fmt) for m in (4, 9, 128, 512) for (k, n) in GEMM_SHAPES
+              for fmt in FP8_FORMATS]
+    spread += [(20, 48, 100, "e4m3"), (64, 256, 512, "e5m2"), (77, 70, 130, "e4m3")]
+    rel, share = {}, {}
+    for m, k, n, fmt in spread:
+        c = fp8_spread_case(torch, m, k, n, fmt, gen)
+        how = route(m, k, c["x"], c["w"])
+        out, ref = run_fp8(c), run_fp8(c, plain=True)
+        mag = c["x"].double().abs() @ c["w"].double().abs().t()
+        diff = (out.double() - ref.double()).abs()
+        rel[how] = max(rel.get(how, 0.0), float((diff / (mag + 1e-30)).max()))
+        excess = float((diff / fp8_tolerance(torch, c, ref)).max())
+        share[how] = max(share.get(how, 0.0), excess)
+        require(excess <= 1, f"fp8_matmul disagrees with its plain version on ten-decade "
+                             f"operands at M={m} K={k} N={n} {fmt}")
+    for how in rel:
+        log(f"  fp8_matmul {how:5s} route, ten-decade operands: max error / sum|x||w| "
+            f"{rel[how]:.3g}, {share[how]:.3g} of the f32 sum's bound")
 
     # K5: M in {1, 4, 64} x the four projections, x in bf16 and f32, bias and
     # silu in rotation; down_proj is stored at K' = 6144 for K = 5632
@@ -956,7 +1023,9 @@ def e2e_compare(torch, L, cfg, label, qcfg, params_cpu, limits, ragged, equal,
 
 
 def launch_counters():
-    """Every kernel wrapper of the port, by name (each counts its launches)."""
+    """Every launch count of the port, by name: (wrapper, attribute). Each
+    kernel wrapper counts its launches; fp8_matmul_tc counts K4's
+    tensor-core route alone (its launches are in fp8_matmul's too)."""
     from autosmoothquant_tpu_torch.kernels.attention import (
         flash_attention, flash_attention_banded)
     from autosmoothquant_tpu_torch.kernels.fp8 import fp8_matmul
@@ -965,27 +1034,41 @@ def launch_counters():
     from autosmoothquant_tpu_torch.kernels.gemm import int8_matmul
     from autosmoothquant_tpu_torch.kernels.int4 import int4_matmul
 
-    return {"int8_matmul": int8_matmul,
-            "fused_add_rmsnorm_quant": fused_add_rmsnorm_quant,
-            "flash_attention": flash_attention,
-            "flash_attention_banded": flash_attention_banded,
-            "fp8_matmul": fp8_matmul,
-            "int4_matmul": int4_matmul,
-            "fused_add_layernorm_quant": fused_add_layernorm_quant}
+    counters = {"int8_matmul": int8_matmul,
+                "fused_add_rmsnorm_quant": fused_add_rmsnorm_quant,
+                "flash_attention": flash_attention,
+                "flash_attention_banded": flash_attention_banded,
+                "fp8_matmul": fp8_matmul,
+                "int4_matmul": int4_matmul,
+                "fused_add_layernorm_quant": fused_add_layernorm_quant}
+    counters = {name: (w, "launches") for name, w in counters.items()}
+    counters["fp8_matmul_tc"] = (fp8_matmul, "tc_launches")
+    return counters
+
+
+def read_counts(counters):
+    return {name: getattr(w, attr) for name, (w, attr) in counters.items()}
+
+
+def reset_counts(counters):
+    for w, attr in counters.values():
+        setattr(w, attr, 0)
 
 
 # each path's kernels, and the count each must show after the serve run of
 # n new tokens for 2 batches of 4 prompts (1 prefill + n - 1 decode forwards
 # a batch; one flash launch a layer per prefill). TinyLlama (22 layers) fuses
-# q|k|v and gate|up: 4 GEMMs a layer per forward. int4 prefills at
-# M = 4 x 128 > 64, which takes W4A16 (plain torch), so K5 runs on decode
-# forwards only. OPT-6.7B (32 layers) runs unfused: 6 GEMMs and one K6 a
-# layer per forward.
+# q|k|v and gate|up: 4 GEMMs a layer per forward. fp8 prefills at
+# M = 4 x 128, every one of them on K4's tensor-core route; decode (M = 4)
+# takes K4's GEMV. int4 prefills at M = 4 x 128 > 64, which takes W4A16
+# (plain torch), so K5 runs on decode forwards only. OPT-6.7B (32 layers)
+# runs unfused: 6 GEMMs and one K6 a layer per forward.
 SERVE_PATHS = {
     "W8A8": (32, lambda n: {"int8_matmul": 4 * 22 * 2 * n,
                             "fused_add_rmsnorm_quant": 22 * 2 * n,
                             "flash_attention": 22, "flash_attention_banded": 22}),
     "fp8 e4m3 dynamic": (16, lambda n: {"fp8_matmul": 4 * 22 * 2 * n,
+                                        "fp8_matmul_tc": 4 * 22 * 2,
                                         "flash_attention": 22,
                                         "flash_attention_banded": 22}),
     "int4": (16, lambda n: {"int4_matmul": 4 * 22 * 2 * (n - 1),
@@ -1026,7 +1109,7 @@ def phase_serve(torch, results):
               for n in (128, 96, 64, 33)]
     equal = [torch.randint(0, 32000, (128,), generator=rng).tolist()
              for _ in range(4)]
-    wrappers = launch_counters()
+    counters = launch_counters()
     engines = {}
     for label, (n_new, expected) in SERVE_PATHS.items():
         model, cfg, qcfg, params = serve_model(torch, label)
@@ -1037,15 +1120,14 @@ def phase_serve(torch, results):
         gen_cfg = GenerationConfig(max_new_tokens=n_new)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for w in wrappers.values():
-            w.launches = 0
+        reset_counts(counters)
         t0 = time.perf_counter()
         toks_r = eng.generate(ragged, gen_cfg)
         finite_r = bool(torch.isfinite(eng.last_logits).all())
         toks_e = eng.generate(equal, gen_cfg)
         finite_e = bool(torch.isfinite(eng.last_logits).all())
         wall = time.perf_counter() - t0
-        counts = {name: w.launches for name, w in wrappers.items()}
+        counts = read_counts(counters)
         log(json.dumps({"path": label, "launches": counts}))
         log(f"  serve: {cfg.num_hidden_layers}-layer {label} "
             f"{'' if label.startswith('OPT') else 'TinyLlama'}, 2 batches x 4 "
@@ -1056,8 +1138,10 @@ def phase_serve(torch, results):
         want = expected(n_new)
         for name in want:
             require(counts[name] > 0, f"{name} was not launched on the {label} path")
-            if results[name]["launches"] is None:   # the first path that runs it
-                results[name]["launches"] = counts[name]
+            if name in results and results[name]["launches"] is None:
+                results[name]["launches"] = counts[name]  # the first path that runs it
+        if "fp8_matmul_tc" in want:
+            results["fp8_matmul"]["tc_launches"] = counts["fp8_matmul_tc"]
         require(finite_r and finite_e, f"non-finite logits on the {label} path")
         for toks in (toks_r, toks_e):
             require(len(toks) == 4 and all(len(t) == n_new for t in toks),
@@ -1202,16 +1286,21 @@ def phase_timing(torch, results, engines):
         desc = " ".join(f"{k}={v}" for k, v in kw.items())
         log(f"    {name} {desc} bf16 kernel {ms:.4f} plain "
             f"{plain_ms:.4f} library {lib_ms:.4f} bound {b_ms:.4f} ({b_by})")
+        row = dict(shape=f"{desc} bf16", ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=b_ms, bound_by=b_by)
+        results[name].setdefault("rows", []).append(row)
         if (name, kw["b"], kw["d"]) in (("flash_attention", 1, 64),
                                         ("flash_attention_banded", 4, 64)):
-            results[name].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                 bound_ms=b_ms, bound_by=b_by, shape=f"{desc} bf16")
+            results[name].update(row)
 
-    # K4 at decode (M = 1) and prefill (M = 128), e4m3, scalar scales, bf16
+    # K4 at decode (M = 1, the GEMV), prefill (M = 128) and a b4 ragged
+    # prefill (M = 512) (the tensor-core route), e4m3, scalar scales, bf16
     # out; library: torch._scaled_mm (cuBLAS fp8), which takes dimensions in
     # multiples of 16 only, so at M = 1 it runs on x zero-padded to 16 rows
-    # ("padded")
-    for m in (1, 128):
+    # ("padded"). Every row goes into the kernel table
+    from autosmoothquant_tpu_torch.kernels.fp8 import route, tc_split
+
+    for m in (1, 128, 512):
         for (k, n), pname in zip(GEMM_SHAPES, GEMM_NAMES):
             c = fp8_case(torch, m, k, n, "e4m3", FP8_VARIANTS[0], gen)
             ms = timer.ms(lambda: run_fp8(c))
@@ -1223,14 +1312,19 @@ def phase_timing(torch, results, engines):
             nbytes = m * k + n * k + m * n * 2 + 8
             b_ms, b_by = bound(nbytes, 2 * m * n * k, "fp8")
             padded = " (padded to M=16)" if m % 16 else ""
-            log(f"    fp8_matmul {pname:7s} M={m:<4d} K={k:<5d} N={n:<6d} "
+            how = route(m, k, c["x"], c["w"])
+            if how == "tc":
+                how += f", split {tc_split(m, n, k)}"
+            log(f"    fp8_matmul {pname:7s} M={m:<4d} K={k:<5d} N={n:<6d} ({how}) "
                 f"kernel {ms:.4f} plain {plain_ms:.4f} library {lib_ms:.4f}{padded} "
-                f"bound {b_ms:.4f} ({b_by})")
+                f"(kernel/library {ms / lib_ms:.2f}) bound {b_ms:.4f} ({b_by})")
+            row = dict(shape=f"{pname} M={m} K={k} N={n} e4m3 bf16 ({how})"
+                       + ("; library on x padded to M=16" if padded else ""),
+                       ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                       bound_by=b_by)
+            results["fp8_matmul"].setdefault("rows", []).append(row)
             if m == 1 and pname == "gate|up":
-                results["fp8_matmul"].update(
-                    ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                    bound_by=b_by, shape=f"decode gate|up M=1 K={k} N={n} e4m3 bf16; "
-                                         "library on x padded to M=16")
+                results["fp8_matmul"].update(row)
 
     # K5 at decode (M = 1) and its largest M (64), the main path's input types
     # (f32 from the norms into qkv and gate|up, bf16 into o and down), bf16
@@ -1317,6 +1411,18 @@ def end_to_end(torch, timer, M, cfg, engs, name):
     pf = {label: prefill_ms(engs[label]) for label in order}
     log(f"  {name} prefill b1 T128 {layers} layers (+ last-token logits): "
         + ", ".join(f"{label} {pf[label]:.3f} ms" for label in order))
+    # where one prefill's device time goes
+    ids = torch.tensor(prompt, device="cuda")
+    for label in order:
+        eng = engs[label]
+
+        def run():
+            cache = M.init_kv_cache(cfg, 1, 512, torch.bfloat16, "cuda")
+            with torch.inference_mode():
+                h, _ = M.forward(eng.params, ids, cfg, eng.qcfg, kv_cache=cache,
+                                 cache_index=0, compute_dtype=torch.bfloat16)
+                M.logits(eng.params, h[:, -1:])
+        device_profile(torch, run, f"prefill ({name} {label}, b1 T128)", pf[label], reps=3)
     tps = {}
     for label in order + order[::-1]:
         tps.setdefault(label, []).append(decode_tps(engs[label]))
@@ -1335,9 +1441,6 @@ def end_to_end(torch, timer, M, cfg, engs, name):
 
 def profile_step(torch, L, cfg, eng, label, step_ms, steps=5):
     """Device kernels and busy time of one b1 decode step at slot 128."""
-    from torch.profiler import ProfilerActivity, profile
-
-    wrappers = launch_counters()
     ids = torch.tensor([[1]], device="cuda")
     cache = L.init_kv_cache(cfg, 1, 512, torch.bfloat16, "cuda")
     valid = torch.zeros(1, 512, dtype=torch.bool, device="cuda")
@@ -1351,23 +1454,36 @@ def profile_step(torch, L, cfg, eng, label, step_ms, steps=5):
                              positions=slot.reshape(1, 1),
                              compute_dtype=torch.bfloat16)
             torch.argmax(L.logits(eng.params, h)[:, 0], -1)
-    for _ in range(3):
+    for _ in range(2):
         step()
+    device_profile(torch, step, f"decode step ({label}, b1)", step_ms, reps=steps)
+
+
+def device_profile(torch, fn, what, wall_ms, reps):
+    """Profile ``reps`` calls of ``fn`` (device activity only) and log, per
+    call, the device kernels, the wrapper launches counted on the host, the
+    device-busy ms and its idle share against ``wall_ms`` (the unprofiled
+    time of one call), and the ten kernels that take the most time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    counters = launch_counters()
+    fn()
     torch.cuda.synchronize()
-    before = {name: w.launches for name, w in wrappers.items()}
+    before = read_counts(counters)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            step()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-    counted = {name: (w.launches - before[name]) / steps
-               for name, w in wrappers.items() if w.launches != before[name]}
+    after = read_counts(counters)
+    counted = {name: (after[name] - before[name]) / reps
+               for name in after if after[name] != before[name]}
     events = [e for e in prof.events() if e.device_type.name == "CUDA"]
-    dev_us = sum(e.time_range.elapsed_us() for e in events) / steps if events else 0.0
-    log(f"  decode step ({label}, b1): unprofiled {step_ms:.3f} ms; profiled: "
-        f"{len(events) / steps:.1f} device kernels per step (wrapper launches "
-        f"counted on the host per step: {counted}), device busy "
-        f"{dev_us / 1e3:.3f} ms per step"
-        + (f" (idle share {1 - dev_us / 1e3 / step_ms:.3f})" if events else
+    dev_us = sum(e.time_range.elapsed_us() for e in events) / reps if events else 0.0
+    log(f"  {what}: unprofiled {wall_ms:.3f} ms; profiled: "
+        f"{len(events) / reps:.1f} device kernels per call (wrapper launches "
+        f"counted on the host per call: {counted}), device busy "
+        f"{dev_us / 1e3:.3f} ms per call"
+        + (f" (idle share {1 - dev_us / 1e3 / wall_ms:.3f})" if events else
            " (profiler returned no device events: not measured)"))
     by_name = {}
     for e in events:
@@ -1375,7 +1491,7 @@ def profile_step(torch, L, cfg, eng, label, step_ms, steps=5):
         by_name[e.name][0] += 1
         by_name[e.name][1] += e.time_range.elapsed_us()
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
-        log(f"    {us / steps / 1e3:8.4f} ms/step  {n // steps:4d} launches/step  {name[:90]}")
+        log(f"    {us / reps / 1e3:8.4f} ms/call  {n / reps:6.1f} launches/call  {name[:90]}")
 
 
 def main():

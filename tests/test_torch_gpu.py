@@ -96,6 +96,43 @@ def test_flash_attention_kernel_matches_plain(cuda_device, dtype, d):
     torch.testing.assert_close(got.float(), ref.float(), rtol=rtol, atol=atol)
 
 
+@pytest.mark.parametrize("t", [100, 200])
+@pytest.mark.parametrize("hq,hkv", [(8, 8), (16, 4), (32, 4)])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_bf16_tensor_core_route(cuda_device, t, hq, hkv, d):
+    """K3's bf16 route (mma.sync, P rounded to bf16 before P V) at T not a
+    multiple of its 64-row and 64-key tiles, G = Hq / Hkv in {1, 4, 8};
+    the bf16 tolerance as above."""
+    g = _gen(t + hq + d)
+    q = torch.randn(2, t, hq, d, device=cuda_device, generator=g).to(torch.bfloat16)
+    k = torch.randn(2, t, hkv, d, device=cuda_device, generator=g).to(torch.bfloat16)
+    v = torch.randn(2, t, hkv, d, device=cuda_device, generator=g).to(torch.bfloat16)
+    before = A.flash_attention.launches
+    got = A.flash_attention(q, k, v, sm_scale=d ** -0.5)
+    ref = A.flash_attention_plain(q, k, v, sm_scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert A.flash_attention.launches == before + 1
+    torch.testing.assert_close(got.float(), ref.float(), rtol=1e-2, atol=1.6e-2)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_banded_bf16_fully_masked_rows_are_zero(cuda_device, d):
+    """Rows whose band is empty (pos_b + i < starts_b: the left padding of a
+    ragged prefill) come out 0 on the tensor-core route; the others match."""
+    g = _gen(d + 1)
+    q = torch.randn(3, 100, 16, d, device=cuda_device, generator=g).to(torch.bfloat16)
+    k = torch.randn(3, 300, 4, d, device=cuda_device, generator=g).to(torch.bfloat16)
+    v = torch.randn(3, 300, 4, d, device=cuda_device, generator=g).to(torch.bfloat16)
+    pos = torch.tensor([0, 3, 150], dtype=torch.int32, device=cuda_device)
+    starts = torch.tensor([70, 40, 120], dtype=torch.int32, device=cuda_device)
+    got = A.flash_attention_banded(q, k, v, pos, starts, sm_scale=d ** -0.5)
+    ref = A.flash_attention_banded_plain(q, k, v, pos, starts, sm_scale=d ** -0.5)
+    rows = (pos[:, None] + torch.arange(100, device=cuda_device)[None]) >= starts[:, None]
+    assert int((~rows).sum()) == 70 + 37
+    torch.testing.assert_close(got[rows].float(), ref[rows].float(), rtol=1e-2, atol=1.6e-2)
+    assert torch.count_nonzero(got[~rows]) == 0
+
+
 def test_flash_attention_banded_kernel_matches_plain(cuda_device):
     g = _gen(7)
     q = torch.randn(4, 128, 32, 64, device=cuda_device, generator=g).to(torch.bfloat16)
@@ -171,25 +208,43 @@ def _sum_bound(x, w):
     return x.shape[1] * 2.0 ** -24 * (x.double().abs() @ w.double().abs().t())
 
 
+def _check_fp8(m, k, n, fmt, out, device):
+    g = _gen(m + k + n)
+    x, w = _fp8_operands(m, k, n, fmt, device, g)
+    rs = torch.rand(m, 1, device=device, generator=g) + 0.5
+    cs = torch.rand(n, device=device, generator=g) + 0.5
+    bias = torch.randn(n, device=device, generator=g)
+    tc = F8.route(m, k, x, w) == "tc"
+    before, tc_before = F8.fp8_matmul.launches, F8.fp8_matmul.tc_launches
+    got = F8.fp8_matmul(x, w, rs, cs, bias, out_dtype=out)
+    ref = F8.fp8_matmul_plain(x, w, rs, cs, bias, out_dtype=out)
+    torch.cuda.synchronize()
+    assert F8.fp8_matmul.launches == before + 1 and got.dtype == out
+    assert F8.fp8_matmul.tc_launches == tc_before + int(tc)
+    tol = _sum_bound(x, w) * 2 * (rs.double() * cs.double()) + 1e-6
+    if out == torch.bfloat16:
+        tol = tol + ref.double().abs() * 2.0 ** -7
+    assert bool(((got.double() - ref.double()).abs() <= tol).all())
+    return tc
+
+
 @pytest.mark.parametrize("m,k,n", [(1, 2048, 2560), (4, 5632, 2048), (8, 2048, 11264),
                                    (128, 2048, 2048), (3, 37, 100), (77, 70, 130)])
 @pytest.mark.parametrize("fmt", [torch.float8_e4m3fn, torch.float8_e5m2])
 @pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
 def test_fp8_matmul_kernel_matches_plain(cuda_device, m, k, n, fmt, out):
-    g = _gen(m + k + n)
-    x, w = _fp8_operands(m, k, n, fmt, cuda_device, g)
-    rs = torch.rand(m, 1, device=cuda_device, generator=g) + 0.5
-    cs = torch.rand(n, device=cuda_device, generator=g) + 0.5
-    bias = torch.randn(n, device=cuda_device, generator=g)
-    before = F8.fp8_matmul.launches
-    got = F8.fp8_matmul(x, w, rs, cs, bias, out_dtype=out)
-    ref = F8.fp8_matmul_plain(x, w, rs, cs, bias, out_dtype=out)
-    torch.cuda.synchronize()
-    assert F8.fp8_matmul.launches == before + 1 and got.dtype == out
-    tol = _sum_bound(x, w) * 2 * (rs.double() * cs.double()) + 1e-6
-    if out == torch.bfloat16:
-        tol = tol + ref.double().abs() * 2.0 ** -7
-    assert bool(((got.double() - ref.double()).abs() <= tol).all())
+    _check_fp8(m, k, n, fmt, out, cuda_device)
+
+
+@pytest.mark.parametrize("m", [9, 63, 64, 65, 128, 129, 512])
+@pytest.mark.parametrize("k,n", [(2048, 2560), (5632, 2048)])
+@pytest.mark.parametrize("fmt", [torch.float8_e4m3fn, torch.float8_e5m2])
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
+def test_fp8_matmul_tensor_core_route(cuda_device, m, k, n, fmt, out):
+    """Every M > 8 with K % 16 == 0 takes the tensor-core route (TMA, the
+    fp8 tiles converted to f16 for wgmma): one or two consumer warpgroups,
+    split K (qkv, down) or not, rows past M masked."""
+    assert _check_fp8(m, k, n, fmt, out, cuda_device)
 
 
 def test_fp8_matmul_scalar_scales_and_e5m2_without_scales(cuda_device):

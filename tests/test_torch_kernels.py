@@ -235,6 +235,42 @@ def test_fp8_matmul_checks_its_operands():
         TF8.fp8_matmul(x, torch.zeros(4, 8).to(torch.float8_e4m3fn))
 
 
+@pytest.mark.parametrize("m,k,want", [(1, 2048, "gemv"), (8, 5632, "gemv"), (9, 2048, "tc"),
+                                      (128, 5632, "tc"), (512, 2048, "tc"), (20, 48, "tc"),
+                                      (77, 70, "tiles"), (16, 40, "tiles")])
+def test_fp8_route_is_chosen_by_shape(m, k, want):
+    """K4's route depends on the shape and alignment only: every main-path
+    prefill shape (K 2048 / 5632, M > 8) takes the tensor-core route."""
+    x = torch.zeros(m, k).to(torch.float8_e4m3fn)
+    w = torch.zeros(64, k).to(torch.float8_e4m3fn)
+    assert TF8.route(m, k, x, w) == want
+
+
+def test_fp8_route_takes_tiles_for_a_misaligned_view():
+    """TMA needs 16-byte aligned bases; an offset view goes to the tiles."""
+    buf = torch.zeros(130 * 2048 + 8).to(torch.float8_e4m3fn)
+    x = buf[8:].view(130, 2048)
+    w = torch.zeros(64, 2048).to(torch.float8_e4m3fn)
+    assert x.is_contiguous() and TF8.route(130, 2048, x, w) == "tiles"
+    assert TF8.route(130, 2048, buf[:-8].view(130, 2048), w) == "tc"
+
+
+@pytest.mark.parametrize("m", [9, 64, 65, 128, 129, 512])
+@pytest.mark.parametrize("k,n", [(2048, 2560), (2048, 2048), (2048, 11264), (5632, 2048)])
+def test_fp8_tc_split_fills_the_card_and_leaves_no_split_empty(m, k, n):
+    """The tensor-core route's K splits (TinyLlama's projections): at least
+    ~one block per SM where K allows it, every split non-empty, no split
+    where the (M, N) tiles alone fill the SMs."""
+    bm = 64 if m <= 64 else 128
+    tiles = -(-m // bm) * -(-n // 64)
+    k_tiles = -(-k // 128)
+    split = TF8.tc_split(m, n, k)
+    per = -(-k_tiles // split)
+    assert 1 <= split <= k_tiles and (split - 1) * per < k_tiles
+    assert tiles * split >= min(128, tiles * k_tiles)
+    assert split == 1 or tiles < 132
+
+
 def _int4_weights(k, n, group, seed):
     w = np.random.default_rng(seed).normal(size=(k, n)).astype(np.float32)
     jp, js = JM.quantize_weight_int4_grouped(jnp.asarray(w), group)
