@@ -67,10 +67,10 @@
 // The epilogue is asq_store (asq_common.cuh) on each f32 sum, so given the
 // same accumulator the output has the plain version's bits.
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is reached through the runtime
 #include <cuda_fp8.h>
 
 #include "asq_common.cuh"
+#include "asq_tma.cuh"
 
 namespace {
 
@@ -257,72 +257,11 @@ constexpr int kTcBN = 64;      // output columns a block
 constexpr int kTcBK = 128;     // K bytes a stage: one 128-byte swizzle row
 constexpr int kTcStages = 3;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-// wait until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// TMA: the box at (c0 = k, c1 = row) of `map` into shared memory at dst
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0,
-                                            int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
 // two fp8 (byte 0 first) as an f16x2 register (byte 0 in the low half)
 template <__nv_fp8_interpretation_t F>
 __device__ __forceinline__ uint32_t fp8x2_to_f16x2(uint32_t v) {
   const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(static_cast<__nv_fp8x2_storage_t>(v), F);
   return static_cast<uint32_t>(h.x) | (static_cast<uint32_t>(h.y) << 16);
-}
-
-// wgmma shared-memory descriptor of a K-major tile whose rows are 128 bytes
-// with the 128-byte swizzle: 8-row groups 1024 bytes apart. A K step inside
-// the row moves the start address.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d += A[64 x 16] * B[64 x 16]^T: A from registers (f16, each warp 16 rows
@@ -342,28 +281,6 @@ __device__ __forceinline__ void wgmma_f16_rs(float (&d)[32], const uint32_t (&a)
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
         "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// shared-memory address of 16-byte chunk c of row r in a TMA tile with
-// 128-byte rows and the 128-byte swizzle
-__device__ __forceinline__ uint32_t sw128(uint32_t tile, int r, int c) {
-  return tile + r * 128 + ((c ^ (r & 7)) << 4);
-}
-
-__device__ __forceinline__ uint4 lds128(uint32_t addr) {
-  uint4 v;
-  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-               : "r"(addr)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void sts128(uint32_t addr, uint32_t a, uint32_t b, uint32_t c,
-                                       uint32_t d) {
-  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};" ::"r"(addr), "r"(a), "r"(b), "r"(c),
-               "r"(d)
-               : "memory");
 }
 
 // grid (N / 64, M / BM, split); 4 WG consumer warps of 16 rows (BM = 64 WG)
@@ -511,43 +428,6 @@ __global__ void __launch_bounds__(256)
   float v = ws[i];
   for (int s = 1; s < splits; ++s) v += ws[s * mn + i];
   asq_store(e, static_cast<int>(i / N), static_cast<int>(i % N), N, v);
-}
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled lives in libcuda, not in the runtime: it is looked up
-// through cudart's entry-point query, so the library links against cudart only
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                     &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// [rows, K] bytes, K-contiguous, in boxes of 128 bytes x box_rows rows
-bool make_map(CUtensorMap* map, const void* base, int rows, int K, int box_rows) {
-  const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K)};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kTcBK), static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <__nv_fp8_interpretation_t F, int WG>

@@ -2,7 +2,7 @@
 
 Each ``csrc/<name>.cu`` is compiled by its own ``nvcc`` process (all started
 together) into ``_build/lib<name>-<hash>.so`` inside this package, wherever
-it lies, where ``<hash>`` covers the source, the shared header and the flags, so
+it lies, where ``<hash>`` covers the source, the shared headers and the flags, so
 a changed source rebuilds and an unchanged one is reused. The libraries have a
 plain C interface and are loaded with ``ctypes``: pointers and the stream go
 as ``c_void_p``, and every entry point returns ``cudaGetLastError()``.
@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = ("int8_gemm", "add_rmsnorm_quant", "flash_attn", "fp8_gemm", "int4_gemm",
            "add_layernorm_quant")
-HEADERS = ("asq_common.cuh",)
+HEADERS = ("asq_common.cuh", "asq_tma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

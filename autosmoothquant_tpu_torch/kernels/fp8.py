@@ -8,10 +8,11 @@ On the card it picks one of three routes from the shape alone
 (:func:`route`): the GEMV for M <= 8; the tensor-core route (TMA, the fp8
 tiles converted to f16 for ``wgmma`` with f32 accumulation, K split where
 the output has too few tiles to fill the SMs) where TMA takes the operands
-(K % 16 == 0, 16-byte aligned bases); CUDA-core tiles otherwise. The TPU gates its kernel to M <= 64 and an opt-in flag only
-because v5e has no fp8 unit; Hopper has fp8 tensor cores. Weights are
-``[N, K]`` fp8 (e4m3fn or e5m2), K-contiguous, transposed once at load
-(``convert/from_jax.py``).
+(K % 16 == 0, 16-byte aligned bases); CUDA-core tiles otherwise. K1 and K4
+share the rule and the tile sizes (``gemm.route``, ``gemm.tc_split``). The
+TPU gates its kernel to M <= 64 and an opt-in flag only because v5e has no
+fp8 unit; Hopper has fp8 tensor cores. Weights are ``[N, K]`` fp8 (e4m3fn
+or e5m2), K-contiguous, transposed once at load (``convert/from_jax.py``).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .gemm import _as_vector
+from .gemm import _as_vector, route, tc_split
 
 _FORMATS = {torch.float8_e4m3fn: 0, torch.float8_e5m2: 1}
 _OUT_KINDS = {torch.float32: 0, torch.bfloat16: 1}
@@ -31,36 +32,6 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = (_P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P)
 _TC_ARGTYPES = (_P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P)
-
-GEMV_MAX_M = 8
-_TC_BM = 64      # rows a consumer warpgroup covers (a block: 64, or 128 for M > 64)
-_TC_BN = 64      # columns a block covers
-_TC_BK = 128     # K bytes a pipeline stage holds
-_SMS = 132       # streaming multiprocessors of an H100 SXM
-
-
-def route(m: int, k: int, *tensors: torch.Tensor) -> str:
-    """K4's route for an [m, k] @ [n, k].T product: "gemv" (M <= 8), "tc"
-    (the tensor-core route: TMA needs K % 16 == 0 and 16-byte aligned
-    bases) or "tiles" (CUDA-core tiles for what TMA cannot take)."""
-    if m <= GEMV_MAX_M:
-        return "gemv"
-    if k % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors):
-        return "tc"
-    return "tiles"
-
-
-def tc_split(m: int, n: int, k: int) -> int:
-    """K splits of the tensor-core route: enough (m, n) blocks x splits to
-    start one block on every SM, no split empty. Blocks are 64 x 64 for
-    M <= 64 and 128 x 64 above (one weight tile read once for all of M <=
-    128)."""
-    bm = _TC_BM if m <= _TC_BM else 2 * _TC_BM
-    tiles = -(-m // bm) * -(-n // _TC_BN)
-    k_tiles = -(-k // _TC_BK)
-    split = max(1, min(k_tiles, -(-_SMS // tiles)))
-    per = -(-k_tiles // split)
-    return -(-k_tiles // per)
 
 
 def fp8_matmul_plain(x_f8: torch.Tensor, w_t: torch.Tensor, row_scale=1.0,

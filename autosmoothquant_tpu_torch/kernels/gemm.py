@@ -1,11 +1,15 @@
 """int8 GEMM with fused dequant epilogue: the port of
 ``autosmoothquant_tpu/kernels/gemm.py`` (``int8_matmul``).
 
-``int8_matmul`` launches the CUDA kernel ``csrc/int8_gemm.cu`` (K1) for CUDA
-tensors and runs :func:`int8_matmul_plain` for CPU tensors; there is no other
-route. Weights are ``[N, K]`` int8, K-contiguous (``nn.Linear``'s layout):
-the JAX package's ``[K, N]`` leaves are transposed once when they are loaded
-(``convert/from_jax.py``), never per call.
+``int8_matmul`` launches the CUDA kernels of ``csrc/int8_gemm.cu`` (K1) for
+CUDA tensors and runs :func:`int8_matmul_plain` for CPU tensors. On the card
+it picks one of three routes from the shape alone (:func:`route`): the GEMV
+for M <= 8; the tensor-core route (TMA and int8 ``wgmma`` with int32
+accumulation, K split where the output has too few tiles to fill the SMs)
+where TMA takes the operands (K % 16 == 0, 16-byte aligned bases); CUDA-core
+tiles otherwise. Weights are ``[N, K]`` int8, K-contiguous (``nn.Linear``'s
+layout): the JAX package's ``[K, N]`` leaves are transposed once when they
+are loaded (``convert/from_jax.py``), never per call.
 """
 
 from __future__ import annotations
@@ -26,6 +30,38 @@ _OUT_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = (_P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P)
+_TC_ARGTYPES = (_P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P)
+
+GEMV_MAX_M = 8
+_TC_BM = 64      # rows a consumer warpgroup covers (a block: 64, or 128 for M > 64)
+_TC_BN = 64      # columns a block covers
+_TC_BK = 128     # K bytes a pipeline stage holds
+_SMS = 132       # streaming multiprocessors of an H100 SXM
+
+
+def route(m: int, k: int, *tensors: torch.Tensor) -> str:
+    """The route of K1 and of K4 (``fp8.py``) for an [m, k] @ [n, k].T
+    product: "gemv" (M <= 8), "tc" (the tensor-core route: TMA needs
+    K % 16 == 0 and 16-byte aligned bases) or "tiles" (CUDA-core tiles for
+    what TMA cannot take)."""
+    if m <= GEMV_MAX_M:
+        return "gemv"
+    if k % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors):
+        return "tc"
+    return "tiles"
+
+
+def tc_split(m: int, n: int, k: int) -> int:
+    """K splits of K1's and K4's tensor-core routes: enough (m, n) blocks x
+    splits to start one block on every SM, no split empty. Blocks are
+    64 x 64 for M <= 64 and 128 x 64 above (one weight tile read once for
+    all of M <= 128)."""
+    bm = _TC_BM if m <= _TC_BM else 2 * _TC_BM
+    tiles = -(-m // bm) * -(-n // _TC_BN)
+    k_tiles = -(-k // _TC_BK)
+    split = max(1, min(k_tiles, -(-_SMS // tiles)))
+    per = -(-k_tiles // split)
+    return -(-k_tiles // per)
 
 
 def _as_vector(scale, n: int, device, name: str):
@@ -106,16 +142,27 @@ def int8_matmul(x_q: torch.Tensor, w_t: torch.Tensor, row_scale=1.0,
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     if m == 0 or n == 0:
         return out
-    fn = _build.function("int8_gemm", "asq_int8_gemm", _ARGTYPES)
-    rc = fn(x_q.data_ptr(), w_t.data_ptr(), _build.ptr(rs),
+    args = (x_q.data_ptr(), w_t.data_ptr(), _build.ptr(rs),
             int(rs is not None and rs.ndim), _build.ptr(cs),
             int(cs is not None and cs.ndim), _build.ptr(bias), out.data_ptr(),
-            m, n, k, _ACTS[activation], _OUT_KINDS[out_dtype],
-            _build.stream_ptr(x_q))
-    _build.check("int8_gemm", rc, "int8_matmul")
+            m, n, k, _ACTS[activation], _OUT_KINDS[out_dtype])
+    if route(m, k, x_q, w_t) == "tc":
+        split = tc_split(m, n, k)
+        ws = (torch.empty(split * m * n, dtype=torch.int32, device=dev)
+              if split > 1 else None)
+        fn = _build.function("int8_gemm", "asq_int8_gemm_tc", _TC_ARGTYPES)
+        rc = fn(*args, split, _build.ptr(ws), _build.stream_ptr(x_q))
+        _build.check("int8_gemm", rc, "int8_matmul")
+        int8_matmul.tc_launches += 1
+    else:
+        fn = _build.function("int8_gemm", "asq_int8_gemm", _ARGTYPES)
+        rc = fn(*args, _build.stream_ptr(x_q))
+        _build.check("int8_gemm", rc, "int8_matmul")
     int8_matmul.launches += 1
     return out
 
 
-# launches of the CUDA kernel (plain CPU calls do not count)
+# launches of the CUDA kernels, every route (plain CPU calls do not count),
+# and of the tensor-core route alone
 int8_matmul.launches = 0
+int8_matmul.tc_launches = 0

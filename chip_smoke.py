@@ -7,7 +7,8 @@ Run from the root of a checkout, on a machine with one card:
     python3 chip_smoke.py
 
 The paths are Llama generation in three weight formats: W8A8 int8 (kernels
-K1 int8 GEMM, K2 add+RMSNorm+quant, K3 flash prefill), fp8 e4m3 / e5m2 (K4
+K1 int8 GEMM: its GEMV at decode, its tensor-core route at prefill; K2
+add+RMSNorm+quant, K3 flash prefill), fp8 e4m3 / e5m2 (K4
 fp8 GEMM: its GEMV at decode, its tensor-core route at prefill; K3) and W4A8
 int4 (K5 int4 GEMM at M <= 64, K3); and OPT-6.7B W8A8 generation (K1, K6
 add+LayerNorm+quant, K3).
@@ -17,7 +18,7 @@ Phases (any failure ends the run with a nonzero exit code):
   build    nvcc builds autosmoothquant_tpu_torch/csrc/*.cu (one process per
            source, all started together) and prints the -Xptxas -v summary
   kernels  each kernel against its plain version at the main paths' shapes
-           (TinyLlama-1.1B and OPT-6.7B), K4 on each of its routes
+           (TinyLlama-1.1B and OPT-6.7B), K1 and K4 on each of their routes
   e2e      2-layer models on the card and, with the same weights, on the CPU
            (plain versions): TinyLlama width in W8A8, fp8 e4m3 dynamic, fp8
            e4m3 static (unfused), fp8 e5m2 and int4; OPT pre-LN W8A8 at
@@ -644,31 +645,46 @@ def phase_kernels(torch, results):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
 
-    # K1: M in {1, 4, 128} x the four projections, epilogues in rotation,
-    # plus ragged shapes that exercise the edge masking
+    # K1: M in {1, 4, 9, 65, 128, 512} x the four projections, epilogues in
+    # rotation, plus ragged shapes and an offset view that exercise the edge
+    # masking and the CUDA-core tiles; M > 8 with K % 16 == 0 and aligned
+    # bases must take the tensor-core route
+    from autosmoothquant_tpu_torch.kernels.gemm import int8_matmul, route
+
     cases = []
     vi = 0
-    for m in (1, 4, 128):
+    for m in (1, 4, 9, 65, 128, 512):
         for (k, n), pname in zip(GEMM_SHAPES, GEMM_NAMES):
             cases.append((m, k, n, GEMM_VARIANTS[vi % len(GEMM_VARIANTS)], pname))
             vi += 1
     cases += [(3, 37, 100, GEMM_VARIANTS[2], "ragged"),
               (77, 70, 130, GEMM_VARIANTS[3], "ragged"),
-              (9, 2048, 2560, GEMM_VARIANTS[0], "ragged")]
+              (9, 2048, 2560, GEMM_VARIANTS[0], "ragged"),
+              (130, 2048, 2560, GEMM_VARIANTS[4], "offset view")]
     # OPT-6.7B: K = 16384 (fc2) and N = 16384 (fc1), with biases
     cases += [(m, k, n, OPT_GEMM_VARIANTS[pname], f"opt {pname}")
-              for m in (1, 4, 128)
+              for m in (1, 4, 9, 65, 128, 512)
               for (k, n), pname in zip(OPT_GEMM_SHAPES, OPT_GEMM_NAMES)]
     worst = 0.0
     for m, k, n, variant, pname in cases:
         c = gemm_case(torch, m, k, n, variant, gen)
+        if pname == "offset view":  # x 8 bytes past an aligned base: no TMA
+            buf = torch.empty(m * k + 8, dtype=torch.int8, device="cuda")
+            c["x"] = buf[8:].view(m, k).copy_(c["x"])
+        how = route(m, k, c["x"], c["w"])
+        tc_before = int8_matmul.tc_launches
         out, ref = run_gemm(c), run_gemm(c, plain=True)
         torch.cuda.synchronize()
+        tc = int8_matmul.tc_launches - tc_before == 1
+        want_tc = m > 8 and k % 16 == 0 and pname != "offset view"
+        require(tc == (how == "tc") and (how == "tc") == want_tc,
+                f"int8_matmul took route {how} (tensor-core launch {tc}) at M={m} K={k} "
+                f"{pname}")
         key = "silu" if c["act"] == "silu" else c["out"]
         rtol, atol = GEMM_TOL[key]
         ok, err = _close(out, ref, rtol, atol)
         worst = max(worst, err)
-        log(f"  int8_matmul {pname:11s} M={m:<4d} K={k:<5d} N={n:<6d} "
+        log(f"  int8_matmul {pname:11s} M={m:<4d} K={k:<5d} N={n:<6d} {how:5s} "
             f"{c['label']:26s} max|err|={err:.3g} (rtol {rtol:g}, atol {atol:g})"
             f" {'ok' if ok else 'FAIL'}")
         require(ok, f"int8_matmul disagrees with its plain version at "
@@ -770,8 +786,7 @@ def phase_kernels(torch, results):
     # {e4m3, e5m2}, epilogues in rotation, plus ragged shapes that exercise
     # the edge masking and each route; M > 8 with K % 16 == 0 must take the
     # tensor-core route
-    from autosmoothquant_tpu_torch.kernels.fp8 import fp8_matmul, route
-
+    from autosmoothquant_tpu_torch.kernels.fp8 import fp8_matmul
 
     cases = []
     vi = 0
@@ -1024,8 +1039,9 @@ def e2e_compare(torch, L, cfg, label, qcfg, params_cpu, limits, ragged, equal,
 
 def launch_counters():
     """Every launch count of the port, by name: (wrapper, attribute). Each
-    kernel wrapper counts its launches; fp8_matmul_tc counts K4's
-    tensor-core route alone (its launches are in fp8_matmul's too)."""
+    kernel wrapper counts its launches; int8_matmul_tc and fp8_matmul_tc
+    count K1's and K4's tensor-core routes alone (their launches are in
+    int8_matmul's and fp8_matmul's too)."""
     from autosmoothquant_tpu_torch.kernels.attention import (
         flash_attention, flash_attention_banded)
     from autosmoothquant_tpu_torch.kernels.fp8 import fp8_matmul
@@ -1042,6 +1058,7 @@ def launch_counters():
                 "int4_matmul": int4_matmul,
                 "fused_add_layernorm_quant": fused_add_layernorm_quant}
     counters = {name: (w, "launches") for name, w in counters.items()}
+    counters["int8_matmul_tc"] = (int8_matmul, "tc_launches")
     counters["fp8_matmul_tc"] = (fp8_matmul, "tc_launches")
     return counters
 
@@ -1058,13 +1075,14 @@ def reset_counts(counters):
 # each path's kernels, and the count each must show after the serve run of
 # n new tokens for 2 batches of 4 prompts (1 prefill + n - 1 decode forwards
 # a batch; one flash launch a layer per prefill). TinyLlama (22 layers) fuses
-# q|k|v and gate|up: 4 GEMMs a layer per forward. fp8 prefills at
-# M = 4 x 128, every one of them on K4's tensor-core route; decode (M = 4)
-# takes K4's GEMV. int4 prefills at M = 4 x 128 > 64, which takes W4A16
+# q|k|v and gate|up: 4 GEMMs a layer per forward. W8A8 and fp8 prefill at
+# M = 4 x 128, every GEMM on K1's or K4's tensor-core route; decode (M = 4)
+# takes the GEMV. int4 prefills at M = 4 x 128 > 64, which takes W4A16
 # (plain torch), so K5 runs on decode forwards only. OPT-6.7B (32 layers)
 # runs unfused: 6 GEMMs and one K6 a layer per forward.
 SERVE_PATHS = {
     "W8A8": (32, lambda n: {"int8_matmul": 4 * 22 * 2 * n,
+                            "int8_matmul_tc": 4 * 22 * 2,
                             "fused_add_rmsnorm_quant": 22 * 2 * n,
                             "flash_attention": 22, "flash_attention_banded": 22}),
     "fp8 e4m3 dynamic": (16, lambda n: {"fp8_matmul": 4 * 22 * 2 * n,
@@ -1074,6 +1092,7 @@ SERVE_PATHS = {
     "int4": (16, lambda n: {"int4_matmul": 4 * 22 * 2 * (n - 1),
                             "flash_attention": 22, "flash_attention_banded": 22}),
     "OPT-6.7B W8A8": (32, lambda n: {"int8_matmul": 6 * 32 * 2 * n,
+                                     "int8_matmul_tc": 6 * 32 * 2,
                                      "fused_add_layernorm_quant": 32 * 2 * n,
                                      "flash_attention": 32,
                                      "flash_attention_banded": 32}),
@@ -1140,8 +1159,9 @@ def phase_serve(torch, results):
             require(counts[name] > 0, f"{name} was not launched on the {label} path")
             if name in results and results[name]["launches"] is None:
                 results[name]["launches"] = counts[name]  # the first path that runs it
-        if "fp8_matmul_tc" in want:
-            results["fp8_matmul"]["tc_launches"] = counts["fp8_matmul_tc"]
+        for kernel in ("int8_matmul", "fp8_matmul"):
+            if f"{kernel}_tc" in want and results[kernel].get("tc_launches") is None:
+                results[kernel]["tc_launches"] = counts[f"{kernel}_tc"]
         require(finite_r and finite_e, f"non-finite logits on the {label} path")
         for toks in (toks_r, toks_e):
             require(len(toks) == 4 and all(len(t) == n_new for t in toks),
@@ -1192,35 +1212,48 @@ def phase_timing(torch, results, engines):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(99)
 
-    # K1 at decode (M = 1) and prefill (M = 128): TinyLlama's fused
-    # projections and OPT-6.7B's, main-path epilogues. Library: one
-    # torch._int_mm (cuBLAS int8) and the epilogue in torch ops; _int_mm
-    # takes M > 16 only, so at M = 1 it runs on x zero-padded to 32 rows
-    # ("padded"), a yardstick for a decode GEMM
+    # K1 at decode (M = 1, the GEMV), prefill (M = 128) and a b4 prefill
+    # (M = 512) (the tensor-core route): TinyLlama's fused projections and
+    # OPT-6.7B's, main-path epilogues. Library: one torch._int_mm (cuBLAS
+    # int8) and the epilogue in torch ops; _int_mm takes M > 16 only, so at
+    # M = 1 it runs on x zero-padded to 32 rows ("padded"), a yardstick for a
+    # decode GEMM. torch._int_mm alone ("product") is timed beside it: the
+    # part of the yardstick a fused epilogue cannot save. Every row goes into
+    # the kernel table
+    from autosmoothquant_tpu_torch.kernels import gemm as K1
+
     log("  kernel timings (ms; bound = max(bytes / 3.35 TB/s, ops / peak))")
     k1_shapes = ([(pname, k, n, GEMM_VARIANTS[0] if pname in ("qkv", "gate|up")
                    else GEMM_VARIANTS[1])
                   for (k, n), pname in zip(GEMM_SHAPES, GEMM_NAMES)]
                  + [(f"opt {pname}", k, n, OPT_GEMM_VARIANTS[pname])
                     for (k, n), pname in zip(OPT_GEMM_SHAPES, OPT_GEMM_NAMES)])
-    for m in (1, 128):
+    for m in (1, 128, 512):
         for pname, k, n, variant in k1_shapes:
             c = gemm_case(torch, m, k, n, variant, gen)
             ms = timer.ms(lambda: run_gemm(c))
             plain_ms = timer.ms(lambda: run_gemm(c, plain=True), iters=10)
             lib_ms = timer.ms(int_mm_library(torch, c))
+            xp, wt = pad_rows(torch, c["x"], 32 if m <= 16 else 8), c["w"].t()
+            product_ms = timer.ms(lambda: torch._int_mm(xp, wt))
             nbytes = (m * k + n * k + m * n * c["dt"].itemsize
                       + 4 * (n if c["cs"].ndim else 1) + (4 * n if c["bias"] is not None else 0))
             b_ms, b_by = bound(nbytes, 2 * m * n * k, "int8")
             padded = " (padded to M=32)" if m <= 16 else ""
-            log(f"    int8_matmul {pname:11s} M={m:<4d} K={k:<5d} N={n:<6d} "
+            how = K1.route(m, k, c["x"], c["w"])
+            if how == "tc":
+                how += f", split {K1.tc_split(m, n, k)}"
+            log(f"    int8_matmul {pname:11s} M={m:<4d} K={k:<5d} N={n:<6d} ({how}) "
                 f"kernel {ms:.4f} plain {plain_ms:.4f} library {lib_ms:.4f}{padded} "
-                f"bound {b_ms:.4f} ({b_by})")
+                f"(kernel/library {ms / lib_ms:.2f}; product {product_ms:.4f}, kernel/product "
+                f"{ms / product_ms:.2f}) bound {b_ms:.4f} ({b_by})")
+            row = dict(shape=f"{pname} M={m} K={k} N={n} {c['label']} ({how})"
+                       + ("; library on x padded to M=32" if padded else ""),
+                       ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                       bound_by=b_by, product_ms=product_ms)
+            results["int8_matmul"].setdefault("rows", []).append(row)
             if m == 1 and pname == "gate|up":
-                results["int8_matmul"].update(
-                    ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                    bound_by=b_by, shape=f"decode gate|up M=1 K={k} N={n} bf16; "
-                                         "library on x padded to M=32")
+                results["int8_matmul"].update(row)
 
     # K2 at decode (T = 1) and prefill (T = 128)
     for t in (1, 128):

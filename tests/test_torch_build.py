@@ -19,6 +19,7 @@ KERNELS = Path(_build.__file__).resolve().parent
 # (library, C entry point, the argtypes its wrapper declares)
 BINDINGS = [
     ("int8_gemm", "asq_int8_gemm", gemm._ARGTYPES),
+    ("int8_gemm", "asq_int8_gemm_tc", gemm._TC_ARGTYPES),
     ("add_rmsnorm_quant", "asq_add_rmsnorm_quant", fused._ARGTYPES["add_rmsnorm_quant"]),
     ("flash_attn", "asq_flash_attention", attention._ARGTYPES),
     ("fp8_gemm", "asq_fp8_gemm", fp8._ARGTYPES),

@@ -70,6 +70,90 @@ def test_int8_matmul_silu(cuda_device):
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
 
 
+def _int8_case(m, k, n, device, seed):
+    g = _gen(seed)
+    x = torch.randint(-128, 128, (m, k), dtype=torch.int8, device=device, generator=g)
+    w = torch.randint(-127, 128, (n, k), dtype=torch.int8, device=device, generator=g)
+    rs = torch.rand(m, 1, device=device, generator=g) + 0.5
+    cs = (torch.rand(n, device=device, generator=g) + 0.5) / (64 * math.sqrt(k))
+    bias = torch.randn(n, device=device, generator=g)
+    return x, w, rs, cs, bias
+
+
+def _tc_check(x, w, rs, cs, bias, act, dt):
+    """One K1 call that must take the tensor-core route: f32 and int8
+    outputs bit-equal to the plain version, bf16 within one rounding step,
+    silu within its tolerance."""
+    m, k = x.shape
+    assert G.route(m, k, x, w) == "tc"
+    before, tc_before = G.int8_matmul.launches, G.int8_matmul.tc_launches
+    got = G.int8_matmul(x, w, rs, cs, bias, activation=act, out_dtype=dt)
+    ref = G.int8_matmul_plain(x, w, rs, cs, bias, activation=act, out_dtype=dt)
+    torch.cuda.synchronize()
+    assert G.int8_matmul.launches == before + 1
+    assert G.int8_matmul.tc_launches == tc_before + 1 and got.dtype == dt
+    if act == "silu":
+        torch.testing.assert_close(got.float(), ref.float(), rtol=1e-5, atol=1e-6)
+    elif dt == torch.bfloat16:
+        torch.testing.assert_close(got.float(), ref.float(), rtol=2.0 ** -8, atol=0)
+    else:
+        assert torch.equal(got, ref)
+    return got
+
+
+@pytest.mark.parametrize("m", [9, 63, 64, 65, 128, 129, 512])
+@pytest.mark.parametrize("k,n", [(2048, 2560), (5632, 2048), (16384, 4096)])
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16, torch.int8])
+def test_int8_matmul_tensor_core_route(cuda_device, m, k, n, out):
+    """Every M > 8 with K % 16 == 0 takes K1's tensor-core route (TMA, int8
+    wgmma): one or two consumer warpgroups, split K or not, rows past M
+    masked; per-token and column-vector scales and a bias."""
+    x, w, rs, cs, bias = _int8_case(m, k, n, cuda_device, m + k + n)
+    if out == torch.int8:
+        cs = cs * 40  # outputs spread over the int8 range
+    _tc_check(x, w, rs, cs, bias, "relu" if out == torch.int8 else None, out)
+
+
+@pytest.mark.parametrize("m", [9, 65, 128, 512])
+@pytest.mark.parametrize("act", ["silu", "relu"])
+def test_int8_matmul_tensor_core_route_activations(cuda_device, m, act):
+    x, w, rs, cs, bias = _int8_case(m, 5632, 2048, cuda_device, m)
+    _tc_check(x, w, rs, cs, bias, act, torch.float32)
+
+
+@pytest.mark.parametrize("m,k,n", [(128, 16384, 4096), (129, 5632, 2048), (9, 2048, 2560),
+                                   (512, 2048, 2048)])
+def test_int8_matmul_split_k_gives_the_unsplit_bits(cuda_device, m, k, n):
+    """The int32 partial sums of a split K add exactly: the same product
+    forced to one split has the same bits."""
+    from autosmoothquant_tpu_torch.kernels import _build
+
+    x, w, rs, cs, bias = _int8_case(m, k, n, cuda_device, 7)
+    split = G.tc_split(m, n, k)
+    assert split > 1
+    got = _tc_check(x, w, rs, cs, bias, None, torch.float32)
+    one = torch.empty_like(got)
+    fn = _build.function("int8_gemm", "asq_int8_gemm_tc", G._TC_ARGTYPES)
+    rc = fn(x.data_ptr(), w.data_ptr(), rs.data_ptr(), 1, cs.data_ptr(), 1, bias.data_ptr(),
+            one.data_ptr(), m, n, k, 0, 0, 1, None, _build.stream_ptr(x))
+    torch.cuda.synchronize()
+    assert rc == 0 and torch.equal(got, one)
+
+
+def test_int8_matmul_misaligned_view_takes_the_tiles(cuda_device):
+    """TMA needs 16-byte aligned bases: an offset view goes to the
+    CUDA-core tiles, with the plain version's bits."""
+    x, w, rs, cs, bias = _int8_case(130, 2048, 256, cuda_device, 11)
+    buf = torch.empty(130 * 2048 + 8, dtype=torch.int8, device=cuda_device)
+    xv = buf[8:].view(130, 2048).copy_(x)
+    assert G.route(130, 2048, xv, w) == "tiles"
+    before, tc_before = G.int8_matmul.launches, G.int8_matmul.tc_launches
+    got = G.int8_matmul(xv, w, rs, cs, bias)
+    torch.cuda.synchronize()
+    assert G.int8_matmul.launches == before + 1 and G.int8_matmul.tc_launches == tc_before
+    assert torch.equal(got, G.int8_matmul_plain(x, w, rs, cs, bias))
+
+
 @pytest.mark.parametrize("t", [1, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_fused_add_rmsnorm_quant_kernel_matches_plain(cuda_device, t, dtype):

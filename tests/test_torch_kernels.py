@@ -67,6 +67,56 @@ def test_int8_matmul_plain_is_exact_and_takes_ragged_shapes():
         TG.int8_matmul(torch.from_numpy(x), torch.from_numpy(w[:, :5]))
 
 
+# K1's main-path shapes: TinyLlama's K (q|k|v, o, gate|up: 2048; down: 5632)
+# and OPT-6.7B's (q/k/v/o, fc1: 4096; fc2: 16384), with their N
+_K1_SHAPES = [(2048, 2560), (2048, 2048), (2048, 11264), (5632, 2048),
+              (4096, 4096), (4096, 16384), (16384, 4096)]
+
+
+@pytest.mark.parametrize("m", [1, 8, 9, 64, 65, 128, 129, 512])
+@pytest.mark.parametrize("k", [2048, 5632, 4096, 16384])
+def test_int8_route_is_chosen_by_shape(m, k):
+    """K1's route depends on the shape and alignment only: the GEMV for
+    M <= 8, and every main-path prefill shape (M > 8) takes the tensor-core
+    route."""
+    x = torch.zeros(m, k, dtype=torch.int8)
+    w = torch.zeros(64, k, dtype=torch.int8)
+    assert TG.route(m, k, x, w) == ("gemv" if m <= 8 else "tc")
+
+
+@pytest.mark.parametrize("m,k", [(77, 70), (16, 40), (9, 2050)])
+def test_int8_route_takes_tiles_for_ragged_k(m, k):
+    x = torch.zeros(m, k, dtype=torch.int8)
+    assert TG.route(m, k, x, torch.zeros(64, k, dtype=torch.int8)) == "tiles"
+
+
+def test_int8_route_takes_tiles_for_a_misaligned_view():
+    """TMA needs 16-byte aligned bases; an offset view goes to the tiles."""
+    buf = torch.zeros(130 * 2048 + 8, dtype=torch.int8)
+    x = buf[8:].view(130, 2048)
+    w = torch.zeros(64, 2048, dtype=torch.int8)
+    assert x.is_contiguous() and TG.route(130, 2048, x, w) == "tiles"
+    assert TG.route(130, 2048, buf[:-8].view(130, 2048), w) == "tc"
+    assert TG.route(130, 2048, w.new_zeros(130, 2048), buf[8:8 + 64 * 2048].view(64, 2048)) \
+        == "tiles"
+
+
+@pytest.mark.parametrize("m", [9, 64, 65, 128, 129, 512])
+@pytest.mark.parametrize("k,n", _K1_SHAPES)
+def test_int8_tc_split_fills_the_card_and_leaves_no_split_empty(m, k, n):
+    """The tensor-core route's K splits: at least ~one block per SM where K
+    allows it, every split non-empty, no split where the (M, N) tiles alone
+    fill the SMs."""
+    bm = 64 if m <= 64 else 128
+    tiles = -(-m // bm) * -(-n // 64)
+    k_tiles = -(-k // 128)
+    split = TG.tc_split(m, n, k)
+    per = -(-k_tiles // split)
+    assert 1 <= split <= k_tiles and (split - 1) * per < k_tiles
+    assert tiles * split >= min(128, tiles * k_tiles)
+    assert split == 1 or tiles < 132
+
+
 @pytest.mark.parametrize("t,d", [(256, 128), (16, 256)])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_fused_add_rmsnorm_quant_matches_pallas(t, d, dtype):
