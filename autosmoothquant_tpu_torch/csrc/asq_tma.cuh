@@ -1,6 +1,7 @@
-// Hopper helpers the tensor-core GEMMs share (K1 int8_gemm.cu, K4
-// fp8_gemm.cu): mbarriers, TMA 2-D loads and their tensor maps, ldmatrix,
-// 128-byte-swizzle addressing and wgmma shared-memory descriptors.
+// Hopper helpers the tensor-core kernels share (K1 int8_gemm.cu, K3
+// flash_attn.cu, K4 fp8_gemm.cu, K5 int4_gemm.cu): mbarriers, TMA 2-D loads
+// and their tensor maps, cp.async, ldmatrix, 128-byte-swizzle addressing and
+// wgmma shared-memory descriptors.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is reached through the runtime
@@ -48,6 +49,28 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       " [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
       : "memory");
+}
+
+// 16 bytes global -> shared; zeros where !valid (src is then not read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid = true) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes global -> shared
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {

@@ -9,7 +9,15 @@
 // causal prefill is pos = starts = 0 with S = T.
 //
 //   q [B, T, Hq, D], k/v [B, S, Hkv, D], out [B, T, Hq, D]; f32 or bf16;
-//   GQA: query head h reads kv head h / (Hq / Hkv); D in {64, 128}.
+//   GQA: query head h reads kv head h / (Hq / Hkv); D <= 128 (a multiple of
+//   8 for bf16; the wrapper zero-pads any other D to one).
+//
+// The kernels are built for a compute width DP of 64 or 128 and read any
+// D <= DP as it lies: columns D .. DP of the shared-memory tiles are zero
+// (they add 0 to every score, and their output columns are not stored), so
+// OPT-2.7B's D = 80 runs the DP = 128 kernel with no padded copy of q, k, v
+// (three padded copies took twice the kernel's own time on an H100,
+// chip_smoke.py's K3 timing row at D = 80).
 //
 // What bounds it on an H100: at prefill lengths it is the score and value
 // products, 4 * B * Hq * (band area) * D operations (989 TFLOP/s bf16 on the
@@ -49,6 +57,7 @@
 #include <math.h>
 
 #include "asq_common.cuh"
+#include "asq_tma.cuh"
 
 namespace {
 
@@ -68,7 +77,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
                  const int* __restrict__ pos, const int* __restrict__ starts,
-                 int T_, int S, int Hq, int Hkv, float scale, int causal) {
+                 int T_, int S, int Hq, int Hkv, int dh, float scale, int causal) {
   constexpr int DL = D / 32;  // accumulator columns per lane
   extern __shared__ float smem[];
   float* qs = smem;                    // [kRows][D]
@@ -87,9 +96,9 @@ __global__ void __launch_bounds__(kWarps * 32)
     const int r = i / D, d = i % D;
     const long long gr = r0 + r;
     float val = 0.f;
-    if (gr < rows_total) {
+    if (gr < rows_total && d < dh) {
       const int t = static_cast<int>(gr / G), g = static_cast<int>(gr % G);
-      val = q[((static_cast<long long>(b) * T_ + t) * Hq + kvh * G + g) * D + d];
+      val = q[((static_cast<long long>(b) * T_ + t) * Hq + kvh * G + g) * dh + d];
     }
     qs[i] = val;
   }
@@ -114,8 +123,8 @@ __global__ void __launch_bounds__(kWarps * 32)
     for (int i = threadIdx.x; i < kKeys * D; i += kWarps * 32) {
       const int j = i / D, d = i % D, col = j0 + j;
       float kv_k = 0.f, kv_v = 0.f;
-      if (col < S) {
-        const long long a = ((static_cast<long long>(b) * S + col) * Hkv + kvh) * D + d;
+      if (col < S && d < dh) {
+        const long long a = ((static_cast<long long>(b) * S + col) * Hkv + kvh) * dh + d;
         kv_k = k[a];
         kv_v = v[a];
       }
@@ -167,16 +176,17 @@ __global__ void __launch_bounds__(kWarps * 32)
     if (gr >= rows_total) continue;
     const int t = static_cast<int>(gr / G), g = static_cast<int>(gr % G);
     const float inv = l_i[rr] > 0.f ? 1.f / l_i[rr] : 0.f;
-    float* o = out + ((static_cast<long long>(b) * T_ + t) * Hq + kvh * G + g) * D;
+    float* o = out + ((static_cast<long long>(b) * T_ + t) * Hq + kvh * G + g) * dh;
 #pragma unroll
-    for (int c = 0; c < DL; ++c) o[lane + 32 * c] = acc[rr][c] * inv;
+    for (int c = 0; c < DL; ++c)
+      if (lane + 32 * c < dh) o[lane + 32 * c] = acc[rr][c] * inv;
   }
 }
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* out,
                const void* pos, const void* starts, int B, int T_, int S, int Hq,
-               int Hkv, float scale, int causal, cudaStream_t s) {
+               int Hkv, int dh, float scale, int causal, cudaStream_t s) {
   constexpr size_t smem = smem_bytes<D>();
   if (smem > 48 * 1024) {
     cudaFuncSetAttribute(flash_kernel<D>,
@@ -189,7 +199,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out),
       static_cast<const int*>(pos), static_cast<const int*>(starts), T_, S, Hq,
-      Hkv, scale, causal);
+      Hkv, dh, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -199,33 +209,6 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
 
 constexpr int kTcRows = 64;  // query rows a block: 4 warps x 16
 constexpr int kTcKeys = 64;  // keys a K/V tile
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; zeros where !valid (src is then not read)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
 
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
@@ -266,8 +249,10 @@ __global__ void __launch_bounds__(128)
     flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
                     const int* __restrict__ pos, const int* __restrict__ starts, int B, int T_,
-                    int S, int Hq, int Hkv, float scale_log2, int causal, int row_blocks) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks a row
+                    int S, int Hq, int Hkv, int dh, float scale_log2, int causal,
+                    int row_blocks) {
+  constexpr int kChunks = D / 8;  // 16-byte chunks a tile row
+  const int chunks = dh / 8;      // of them, the ones the row has (the rest are zero)
   constexpr int kTile = kTcKeys * 2 * D;
   extern __shared__ __align__(128) uint8_t smem_tc[];
   const uint32_t sq = smem_u32(smem_tc);
@@ -288,10 +273,10 @@ __global__ void __launch_bounds__(128)
   for (int i = tid; i < kTcRows * kChunks; i += 128) {
     const int r = i / kChunks, c = i % kChunks;
     const long long gr = r0 + r;
-    const bool ok = gr < rows_total;
+    const bool ok = gr < rows_total && c < chunks;
     const long long t = ok ? gr / G : 0, g = ok ? gr % G : 0;
-    cp_async16(sq + swz<D>(r, c),
-               q + ((static_cast<long long>(b) * T_ + t) * Hq + kvh * G + g) * D + 8 * c, ok);
+    const long long row = (static_cast<long long>(b) * T_ + t) * Hq + kvh * G + g;
+    cp_async16(sq + swz<D>(r, c), q + row * dh + 8 * (ok ? c : 0), ok);
   }
   cp_async_commit();
 
@@ -307,9 +292,9 @@ __global__ void __launch_bounds__(128)
     for (int i = tid; i < kTcKeys * kChunks; i += 128) {
       const int r = i / kChunks, c = i % kChunks;
       const int col = j0 + r;
-      const bool ok = col < S;
+      const bool ok = col < S && c < chunks;
       const long long off =
-          ((static_cast<long long>(b) * S + (ok ? col : 0)) * Hkv + kvh) * D + 8 * c;
+          ((static_cast<long long>(b) * S + (ok ? col : 0)) * Hkv + kvh) * dh + 8 * (ok ? c : 0);
       cp_async16(sk + buf * kTile + swz<D>(r, c), k + off, ok);
       cp_async16(sv + buf * kTile + swz<D>(r, c), v + off, ok);
     }
@@ -451,18 +436,19 @@ __global__ void __launch_bounds__(128)
     const float l = h == 0 ? l_a : l_b;
     const float inv = l > 0.f ? 1.f / l : 0.f;
     const long long t = gr / G, g = gr % G;
-    __nv_bfloat16* dst = out + ((static_cast<long long>(b) * T_ + t) * Hq + kvh * G + g) * D;
+    __nv_bfloat16* dst = out + ((static_cast<long long>(b) * T_ + t) * Hq + kvh * G + g) * dh;
 #pragma unroll
     for (int dt = 0; dt < D / 8; ++dt) {
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * dt + 2 * (lane % 4)) =
-          __floats2bfloat162_rn(o[dt][2 * h] * inv, o[dt][2 * h + 1] * inv);
+      if (dt < chunks)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * dt + 2 * (lane % 4)) =
+            __floats2bfloat162_rn(o[dt][2 * h] * inv, o[dt][2 * h + 1] * inv);
     }
   }
 }
 
 template <int D>
 int launch_tc(const void* q, const void* k, const void* v, void* out, const void* pos,
-              const void* starts, int B, int T_, int S, int Hq, int Hkv, float scale,
+              const void* starts, int B, int T_, int S, int Hq, int Hkv, int dh, float scale,
               int causal, cudaStream_t s) {
   constexpr int smem = tc_smem_bytes<D>();
   if (smem > 48 * 1024) {
@@ -475,7 +461,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, const void
   flash_tc_kernel<D><<<static_cast<unsigned>(blocks), 128, smem, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      static_cast<const int*>(pos), static_cast<const int*>(starts), B, T_, S, Hq, Hkv,
+      static_cast<const int*>(pos), static_cast<const int*>(starts), B, T_, S, Hq, Hkv, dh,
       scale * 1.4426950408889634f, causal, row_blocks);
   return static_cast<int>(cudaGetLastError());
 }
@@ -483,7 +469,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, const void
 }  // namespace
 
 // pos, starts: int32 [B] or null (zeros). is_bf16: 0 f32 (CUDA cores), 1 bf16
-// (tensor cores; q, k, v 16-byte aligned). D: 64 | 128.
+// (tensor cores; q, k, v 16-byte aligned, D a multiple of 8). D <= 128: the
+// kernel of compute width 64 serves D <= 64, that of 128 the rest.
 ASQ_EXPORT int asq_flash_attention(const void* q, const void* k, const void* v,
                                    void* out, const void* pos, const void* starts,
                                    int B, int T_, int S, int Hq, int Hkv, int D,
@@ -491,13 +478,13 @@ ASQ_EXPORT int asq_flash_attention(const void* q, const void* k, const void* v,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0 || T_ == 0) return 0;
-  if (D == 64) {
-    return is_bf16 ? launch_tc<64>(q, k, v, out, pos, starts, B, T_, S, Hq, Hkv, scale, causal, s)
-                   : launch_f32<64>(q, k, v, out, pos, starts, B, T_, S, Hq, Hkv, scale, causal, s);
+  if (D < 1 || D > 128 || (is_bf16 && D % 8 != 0)) return static_cast<int>(cudaErrorInvalidValue);
+  if (D <= 64) {
+    return is_bf16
+               ? launch_tc<64>(q, k, v, out, pos, starts, B, T_, S, Hq, Hkv, D, scale, causal, s)
+               : launch_f32<64>(q, k, v, out, pos, starts, B, T_, S, Hq, Hkv, D, scale, causal, s);
   }
-  if (D == 128) {
-    return is_bf16 ? launch_tc<128>(q, k, v, out, pos, starts, B, T_, S, Hq, Hkv, scale, causal, s)
-                   : launch_f32<128>(q, k, v, out, pos, starts, B, T_, S, Hq, Hkv, scale, causal, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return is_bf16
+             ? launch_tc<128>(q, k, v, out, pos, starts, B, T_, S, Hq, Hkv, D, scale, causal, s)
+             : launch_f32<128>(q, k, v, out, pos, starts, B, T_, S, Hq, Hkv, D, scale, causal, s);
 }

@@ -11,6 +11,11 @@ the JAX package: q [B, T, Hq, D], k/v [B, S, Hkv, D], GQA with Hq % Hkv == 0.
 
 A query row with no valid key is written as 0, as the TPU kernels write it
 (the eager ``attend`` averages such rows instead; callers compare valid rows).
+
+K3 is built for compute widths of 64 and 128 and reads any D <= 128 (OPT-2.7B's
+80) as it lies, its shared-memory tiles zero past D. Its bf16 route copies
+16 bytes at a time, so a D that is not a multiple of 8 is zero-padded to one
+first (:func:`_pad_head_dim`) and the output cut back; D > 128 raises.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import ctypes
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
@@ -26,7 +32,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
              _I, _I, _P)
-_HEAD_DIMS = (64, 128)
+_MAX_HEAD_DIM = 128
 
 
 def _band_attention_plain(q, k, v, pos, starts, sm_scale, causal):
@@ -60,15 +66,29 @@ def _check(q, k, v):
         raise ValueError(f"Hq={hq} is not a multiple of Hkv={k.shape[2]}")
 
 
+def _pad_head_dim(q, k, v):
+    """q, k, v zero-padded along D to a multiple of 8 (unchanged where D is
+    one). Exact: a padded dim adds 0 to every score and its output columns
+    are cut off; the caller's sm_scale stays (it is never recomputed from
+    the padded D)."""
+    d = q.shape[-1]
+    if d > _MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d} exceeds the kernel's {_MAX_HEAD_DIM}")
+    dp = -(-d // 8) * 8
+    if dp == d:
+        return q, k, v
+    return tuple(F.pad(t, (0, dp - d)) for t in (q, k, v))
+
+
 def _launch(wrapper, q, k, v, pos, starts, sm_scale, causal):
     if q.dtype not in (torch.float32, torch.bfloat16) or not (
             k.dtype == v.dtype == q.dtype):
         raise TypeError(f"q/k/v must share f32 or bf16: {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")
+    d_true = q.shape[3]
+    q, k, v = _pad_head_dim(q, k, v)
     b, t, hq, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {_HEAD_DIMS}")
     # contiguous, with 16-byte aligned bases (the bf16 route's cp.async
     # copies 16 bytes at a time); a fresh allocation is aligned
     q, k, v = (t.contiguous() if t.data_ptr() % 16 == 0 else t.clone(
@@ -81,7 +101,7 @@ def _launch(wrapper, q, k, v, pos, starts, sm_scale, causal):
             _build.stream_ptr(q))
     _build.check("flash_attn", rc, wrapper.__name__)
     wrapper.launches += 1
-    return out
+    return out if d == d_true else out[..., :d_true].contiguous()
 
 
 def flash_attention_plain(q, k, v, *, sm_scale: float, causal: bool = True):

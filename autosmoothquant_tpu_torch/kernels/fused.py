@@ -3,8 +3,8 @@
 Llama family, ``fused_add_layernorm_quant`` for OPT).
 
 CUDA tensors launch ``csrc/add_rmsnorm_quant.cu`` (K2) or
-``csrc/add_layernorm_quant.cu`` (K6); CPU tensors run the ``*_plain``
-versions.
+``csrc/add_layernorm_quant.cu`` (K6; its route by :func:`layernorm_route`);
+CPU tensors run the ``*_plain`` versions.
 """
 
 from __future__ import annotations
@@ -16,12 +16,27 @@ import torch
 from . import _build
 
 _P = ctypes.c_void_p
-_MAX_D = 12 * 1024  # the kernel keeps one f32 row in shared memory
+# the widest row the kernels take: K2 and K6's rows route keep one f32 row in
+# shared memory, K6's vector route up to 3 chunks of 8 in each of 512 threads
+_MAX_D = 12 * 1024
 # h, x, the norm vectors (gamma; gamma and beta), out_h, out_q, rows, D, eps,
 # is_bf16, stream
 _TAIL = (ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, _P)
 _ARGTYPES = {"add_rmsnorm_quant": (_P,) * 5 + _TAIL,
              "add_layernorm_quant": (_P,) * 6 + _TAIL}
+_RMSNORM_ENTRY = "asq_add_rmsnorm_quant"
+# K6's entry point by its route (:func:`layernorm_route`)
+_LAYERNORM_ENTRIES = {"vector": "asq_add_layernorm_quant_vec",
+                      "rows": "asq_add_layernorm_quant"}
+
+
+def layernorm_route(d: int, *tensors: torch.Tensor) -> str:
+    """K6's route for rows of ``d`` elements: "vector" (the row in
+    registers, 16-byte loads and stores: D % 8 == 0 and every operand
+    16-byte aligned) or "rows" (the row in shared memory, any D)."""
+    if d % 8 == 0 and d <= _MAX_D and all(t.data_ptr() % 16 == 0 for t in tensors):
+        return "vector"
+    return "rows"
 
 
 def fused_add_rmsnorm_quant_plain(h: torch.Tensor, x: torch.Tensor,
@@ -53,14 +68,13 @@ def _check(h, x, norm_vectors):
     return True
 
 
-def _launch(wrapper, lib, h, x, norm_vectors, eps):
-    h = h.contiguous()
-    x = x.contiguous()
-    vecs = [v.contiguous() for v in norm_vectors]
+def _launch(wrapper, lib, entry, h, x, vecs, eps):
+    """Launch ``entry`` of ``csrc/<lib>.cu`` on contiguous h, x and norm
+    vectors."""
     t, d = h.shape
     out_h = torch.empty_like(h)
     out_q = torch.empty((t, d), dtype=torch.int8, device=h.device)
-    fn = _build.function(lib, f"asq_{lib}", _ARGTYPES[lib])
+    fn = _build.function(lib, entry, _ARGTYPES[lib])
     rc = fn(h.data_ptr(), x.data_ptr(), *(v.data_ptr() for v in vecs),
             out_h.data_ptr(), out_q.data_ptr(), t, d, float(eps),
             int(h.dtype == torch.bfloat16), _build.stream_ptr(h))
@@ -75,8 +89,8 @@ def fused_add_rmsnorm_quant(h: torch.Tensor, x: torch.Tensor,
     folded in. Returns (h + x in h.dtype, int8 [T, D])."""
     if not _check(h, x, (gamma,)):
         return fused_add_rmsnorm_quant_plain(h, x, gamma, eps=eps)
-    return _launch(fused_add_rmsnorm_quant, "add_rmsnorm_quant", h, x,
-                   (gamma,), eps)
+    return _launch(fused_add_rmsnorm_quant, "add_rmsnorm_quant", _RMSNORM_ENTRY,
+                   h.contiguous(), x.contiguous(), (gamma.contiguous(),), eps)
 
 
 def fused_add_layernorm_quant_plain(h: torch.Tensor, x: torch.Tensor,
@@ -100,7 +114,9 @@ def fused_add_layernorm_quant(h: torch.Tensor, x: torch.Tensor,
     h.dtype, int8 [T, D])."""
     if not _check(h, x, (gamma, beta)):
         return fused_add_layernorm_quant_plain(h, x, gamma, beta, eps=eps)
-    return _launch(fused_add_layernorm_quant, "add_layernorm_quant", h, x,
+    h, x, gamma, beta = (v.contiguous() for v in (h, x, gamma, beta))
+    entry = _LAYERNORM_ENTRIES[layernorm_route(h.shape[1], h, x, gamma, beta)]
+    return _launch(fused_add_layernorm_quant, "add_layernorm_quant", entry, h, x,
                    (gamma, beta), eps)
 
 

@@ -52,10 +52,11 @@ def route(m: int, k: int, *tensors: torch.Tensor) -> str:
 
 
 def tc_split(m: int, n: int, k: int) -> int:
-    """K splits of K1's and K4's tensor-core routes: enough (m, n) blocks x
-    splits to start one block on every SM, no split empty. Blocks are
-    64 x 64 for M <= 64 and 128 x 64 above (one weight tile read once for
-    all of M <= 128)."""
+    """K splits of K1's and K4's tensor-core routes, and of K5's (``int4.py``,
+    with k the packed bytes K'/2): enough (m, n) blocks x splits to start one
+    block on every SM, no split empty. Blocks are 64 x 64 for M <= 64 and
+    128 x 64 above (one weight tile read once for all of M <= 128), and a K
+    stage is 128 bytes."""
     bm = _TC_BM if m <= _TC_BM else 2 * _TC_BM
     tiles = -(-m // bm) * -(-n // _TC_BN)
     k_tiles = -(-k // _TC_BK)

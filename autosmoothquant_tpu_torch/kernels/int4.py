@@ -1,12 +1,17 @@
 """int4 weight GEMM over split-K nibble-packed weights: the port of
 ``autosmoothquant_tpu/kernels/int4.py`` (``int4_matmul``).
 
-Routing follows the JAX package exactly, on M, the row count of the
-flattened ``[B*T, K]`` input (``_A8_MAX_M``):
-  - M <= 64 (decode at any batch up to 64): W4A8. x is quantized per token
-    to int8 and multiplied against the nibbles group by group. CUDA tensors
-    launch ``csrc/int4_gemm.cu`` (K5); CPU tensors run
-    :func:`int4_matmul_plain`.
+Routing follows the JAX package on M, the row count of the flattened
+``[B*T, K]`` input (``_A8_MAX_M``):
+  - M <= 64 (decode at any batch up to 64, prompts of up to 64 tokens in
+    all): W4A8. x is quantized per token to int8 and multiplied against the
+    nibbles group by group. CUDA tensors launch ``csrc/int4_gemm.cu`` (K5)
+    on one of three routes, picked by :func:`route` from the shape alone:
+    "gemv" (M <= 4 for f32 x, M <= 2 for bf16: one launch, the quantize
+    fused in), "tc" (9 <= M: int8 tensor cores after a quantize launch, K
+    split by :func:`tc_split` where the output has few tiles; counted apart
+    in ``int4_matmul.tc_launches``) or "tiles" (CUDA-core columns after a
+    quantize launch, for the shapes the other two do not take). CPU tensors run :func:`int4_matmul_plain`.
   - M > 64 (prefill): W4A16, :func:`int4_matmul_w4a16`: the weight is
     dequantized and one matrix product runs, in bf16 with f32 accumulation on
     the card when x is bf16 and in f32 otherwise (the JAX package: bf16 on
@@ -30,16 +35,51 @@ import torch.nn.functional as F
 
 from ..quant import math as qmath
 from . import _build
-from .gemm import _ACTS
+from .gemm import _ACTS, tc_split
 
 # M at or below this takes W4A8 (K5 on the card); above it W4A16
 _A8_MAX_M = 64
+# the largest M the GEMV takes, by x's dtype. Every GEMV block quantizes all
+# M rows itself, so its prologue grows with M; past these M it loses to the
+# tiles route's one quantize launch (an H100, chip_smoke.py's K5 timing rows
+# beside tiles_route_ms), and sooner for bf16 rows, whose prologue costs more
+GEMV_MAX_M = {torch.float32: 4, torch.bfloat16: 2}
+# the tensor cores from this M on (one 64-row block tile; below it the tiles)
+_TC_MIN_M = 9
+# x_q bytes (M * K') a GEMV block keeps in shared memory (int4_gemm.cu)
+_GEMV_MAX_XQ = 64 * 1024
 
 _OUT_KINDS = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# x, x_is_bf16, packed, scales, bias, out, [xq, ts,] M, N, K, K2, G, act,
+# out_kind, [split, ws,] stream
 _ARGTYPES = (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)
+_GEMV_ARGTYPES = (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)
+_TC_ARGTYPES = (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P)
+
+
+def route(m: int, k2: int, group: int, x_dtype: torch.dtype,
+          *tensors: torch.Tensor) -> str:
+    """The route of an [m, K] x (of ``x_dtype``) times packed [N, k2]
+    product with groups of ``group`` rows: "w4a16" (M > 64, plain torch),
+    "gemv" (M <= ``GEMV_MAX_M[x_dtype]`` where x_q fits in a block's shared
+    memory), "tc" (the tensor cores, M >= 9: a group of 32 rows or a
+    multiple, so each 32-byte mma step lies inside one group, k2 a multiple
+    of the group, so a step's low and high halves end their groups together,
+    and 16-byte aligned ``tensors``, the packed weight, for cp.async) or
+    "tiles" (CUDA-core columns, for the rest). The tensor-core route's K
+    walk has the tile of K1's (``tc_split``: 128 packed bytes a stage, one
+    64-row block for all M <= 64)."""
+    if m > _A8_MAX_M:
+        return "w4a16"
+    if m <= GEMV_MAX_M[x_dtype] and k2 % 2 == 0 and m * 2 * k2 <= _GEMV_MAX_XQ:
+        return "gemv"
+    if (m >= _TC_MIN_M and group % 32 == 0 and k2 % group == 0
+            and all(t.data_ptr() % 16 == 0 for t in tensors)):
+        return "tc"
+    return "tiles"
 
 
 def _epilogue(out, bias, activation, out_dtype):
@@ -146,18 +186,35 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     if m == 0 or n == 0:
         return out
-    xq = torch.empty((m, 2 * k2), dtype=torch.int8, device=dev)
-    tok_scale = torch.empty((m,), dtype=torch.float32, device=dev)
-    fn = _build.function("int4_gemm", "asq_int4_gemm", _ARGTYPES)
-    rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), packed.data_ptr(),
-            scales.data_ptr(), _build.ptr(bias), out.data_ptr(), xq.data_ptr(),
-            tok_scale.data_ptr(), m, n, k, k2, scales.shape[1],
-            _ACTS[activation], _OUT_KINDS[out_dtype], _build.stream_ptr(x))
+    g = scales.shape[1]
+    head = (x.data_ptr(), int(x.dtype == torch.bfloat16), packed.data_ptr(),
+            scales.data_ptr(), _build.ptr(bias), out.data_ptr())
+    tail = (m, n, k, k2, g, _ACTS[activation], _OUT_KINDS[out_dtype])
+    how = route(m, k2, 2 * k2 // g, x.dtype, packed)
+    if how == "gemv":
+        fn = _build.function("int4_gemm", "asq_int4_gemv", _GEMV_ARGTYPES)
+        rc = fn(*head, *tail, _build.stream_ptr(x))
+    else:
+        xq = torch.empty((m, 2 * k2), dtype=torch.int8, device=dev)
+        tok_scale = torch.empty((m,), dtype=torch.float32, device=dev)
+        scratch = (xq.data_ptr(), tok_scale.data_ptr())
+        if how == "tc":
+            split = tc_split(m, n, k2)
+            ws = (torch.empty(split * m * n, dtype=torch.float32, device=dev)
+                  if split > 1 else None)
+            fn = _build.function("int4_gemm", "asq_int4_gemm_tc", _TC_ARGTYPES)
+            rc = fn(*head, *scratch, *tail, split, _build.ptr(ws), _build.stream_ptr(x))
+        else:
+            fn = _build.function("int4_gemm", "asq_int4_gemm", _ARGTYPES)
+            rc = fn(*head, *scratch, *tail, _build.stream_ptr(x))
     _build.check("int4_gemm", rc, "int4_matmul")
     int4_matmul.launches += 1
+    if how == "tc":
+        int4_matmul.tc_launches += 1
     return out
 
 
-# calls that launched K5 on the card (each launches its quantize and its GEMM
-# kernel; plain CPU calls and the W4A16 route do not count)
+# calls that launched K5 on the card, every route (plain CPU calls and the
+# W4A16 route do not count), and those of the tensor-core route alone
 int4_matmul.launches = 0
+int4_matmul.tc_launches = 0

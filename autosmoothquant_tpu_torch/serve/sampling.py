@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from ..quant import math as qmath
+
 
 def _thresholds_per_row(scaled: torch.Tensor, top_k: torch.Tensor,
                         top_p: torch.Tensor) -> torch.Tensor:
@@ -58,7 +60,7 @@ def sample(logits: torch.Tensor, generator: torch.Generator = None,
     logits = logits.float()
     if temperature == 0.0:
         return torch.argmax(logits, dim=-1)
-    scaled = logits / temperature
+    scaled = qmath.true_div(logits, temperature)
     if top_k > 0 or top_p < 1.0:
         b = scaled.shape[0]
         thresh = _thresholds_per_row(

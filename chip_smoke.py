@@ -10,15 +10,17 @@ The paths are Llama generation in three weight formats: W8A8 int8 (kernels
 K1 int8 GEMM: its GEMV at decode, its tensor-core route at prefill; K2
 add+RMSNorm+quant, K3 flash prefill), fp8 e4m3 / e5m2 (K4
 fp8 GEMM: its GEMV at decode, its tensor-core route at prefill; K3) and W4A8
-int4 (K5 int4 GEMM at M <= 64, K3); and OPT-6.7B W8A8 generation (K1, K6
-add+LayerNorm+quant, K3).
+int4 (K5 int4 GEMM at M <= 64: its one-launch GEMV at decode, its
+tensor-core route at a prefill of <= 64 tokens in all; K3); and OPT-6.7B
+W8A8 generation (K1, K6 add+LayerNorm+quant, K3).
 
 Phases (any failure ends the run with a nonzero exit code):
   device   the card's name and power limit
   build    nvcc builds autosmoothquant_tpu_torch/csrc/*.cu (one process per
            source, all started together) and prints the -Xptxas -v summary
   kernels  each kernel against its plain version at the main paths' shapes
-           (TinyLlama-1.1B and OPT-6.7B), K1 and K4 on each of their routes
+           (TinyLlama-1.1B and OPT-6.7B), K1, K4 and K5 on each of their
+           routes, K6 at OPT widths up to OPT-66B's, K3 at D = 80 too
   e2e      2-layer models on the card and, with the same weights, on the CPU
            (plain versions): TinyLlama width in W8A8, fp8 e4m3 dynamic, fp8
            e4m3 static (unfused), fp8 e5m2 and int4; OPT pre-LN W8A8 at
@@ -28,14 +30,20 @@ Phases (any failure ends the run with a nonzero exit code):
   serve    the 22-layer TinyLlama-1.1B model serves Engine.generate in W8A8,
            fp8 e4m3 dynamic and int4 (group 128), and OPT-6.7B (full width
            and depth) in W8A8: 4 ragged prompts (banded prefill) and an
-           equal-length batch (causal prefill), greedy; finite logits, and
-           each path's launch counts, set to 0 just before the path runs,
-           exactly as the path's shape says
-  timing   each kernel's time against its plain version, its library
-           yardstick and its bound; prefill time; decode tok/s at b1, prompt
-           128, s_max 512, in turns: TinyLlama W8A8, fp8, int4 and bf16, and
-           OPT-6.7B W8A8 and bf16; device busy time and top kernels of one
-           prefill and of one decode step; peak device memory
+           equal-length batch (causal prefill), greedy, and for int4 a third
+           batch of 4 short ragged prompts (64 rows: K5's tensor cores);
+           finite logits, and each path's launch counts, set to 0 just
+           before the path runs, exactly as the path's shape says
+  timing   the launch floor (a one-element kernel); each kernel's time
+           against its plain version, its library yardstick and its bound
+           (K5 and K6 beside their earlier designs, the tiles / rows routes, and
+           K5 up to 4 rows beside its GEMV; K3 at D = 80 beside what padded
+           copies of its operands would cost);
+           prefill time; decode tok/s at b1, prompt 128, s_max 512, in turns:
+           TinyLlama W8A8, fp8, int4 and bf16, and OPT-6.7B W8A8 and bf16;
+           device busy time and top kernels of one prefill (T 128; TinyLlama
+           bf16, W8A8 and int4 at T 64 too) and of one decode step; peak
+           device memory
 
 Every phase runs, in this order. The last two lines of standard output are
 the kernel table ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
@@ -63,6 +71,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -325,7 +334,9 @@ def to_device(node, device):
 
 
 class Timer:
-    """CUDA-event time of one call, averaged over ``iters`` launches, with
+    """CUDA-event time of one call, the median of ``iters`` launches (a mean
+    let one host stall longer than the spin below move a 0.013 ms kernel's
+    reading to 0.060 ms), with
     the 50 MB L2 cache flushed before each by reading 128 MB (a read leaves
     no dirty lines whose write-back would land in the timed call), so
     weights come from device memory as a decode step finds them. A spin
@@ -346,7 +357,7 @@ class Timer:
         for _ in range(warmup):
             fn()
         torch.cuda.synchronize()
-        total = 0.0
+        times = []
         for _ in range(iters):
             self.flush.sum()
             torch.cuda._sleep(self.SPIN_CYCLES)
@@ -356,8 +367,8 @@ class Timer:
             fn()
             end.record()
             end.synchronize()
-            total += start.elapsed_time(end)
-        return total / iters
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
 
 
 def bound(nbytes, ops, kind):
@@ -712,12 +723,16 @@ def phase_kernels(torch, results):
         require(ok, f"fused_add_rmsnorm_quant disagrees at T={t}")
     results["fused_add_rmsnorm_quant"]["max_abs_err"] = worst
 
-    # K6: T in {1, 128, 512} x D in {2048, 4096}, bf16 and f32, with a
-    # common offset of +20 and outlier channels at +-50 sigma (where a
+    # K6: T in {1, 128, 512} x D in {2048, 4096} and the widths of OPT-13B,
+    # -30B and -66B (5120, 7168, 9216), all on the vector route, and 2056
+    # (a last chunk of 8 alone) and 2052 (the rows route), bf16 and f32, with
+    # a common offset of +20 and outlier channels at +-50 sigma (where a
     # one-pass variance would cancel). s equal; q within one step on at most
     # 0.1% of elements (the mean's and the variance's sum orders differ)
+    from autosmoothquant_tpu_torch.kernels.fused import layernorm_route
+
     worst = 0.0
-    for d in (2048, 4096):
+    for d in (2048, 4096, 5120, 7168, 9216, 2056, 2052):
         for t in (1, 128, 512):
             for dt in (torch.bfloat16, torch.float32):
                 h, x, gamma, beta = layernorm_case(torch, t, d, dt, gen)
@@ -729,7 +744,10 @@ def phase_kernels(torch, results):
                 err = float(dq.max())
                 worst = max(worst, err)
                 ok = torch.equal(s, s_ref) and err <= 1 and frac <= 1e-3
-                log(f"  fused_add_layernorm_quant T={t:<4d} D={d} "
+                how = layernorm_route(d, h, x, gamma, beta)
+                require(how == ("vector" if d % 8 == 0 else "rows"),
+                        f"fused_add_layernorm_quant took route {how} at D={d}")
+                log(f"  fused_add_layernorm_quant T={t:<4d} D={d} {how:6s} "
                     f"{str(dt).split('.')[-1]}: s equal={torch.equal(s, s_ref)} "
                     f"q max|diff|={err:g} on {frac:.3%} (<= 1 on <= 0.1%) "
                     f"{'ok' if ok else 'FAIL'}")
@@ -762,6 +780,13 @@ def phase_kernels(torch, results):
                                         pos=[0, 50, 130], starts=[5, 0, 60])),
         ("flash_attention_banded", dict(b=2, t=100, s=300, hq=16, hkv=4, d=64, dtype=bf,
                                         pos=[3, 150], starts=[40, 120])),
+        # OPT-2.7B's heads (32 of D = 80, zero-padded to 128 in the wrapper)
+        ("flash_attention", dict(b=1, t=128, s=128, hq=32, hkv=32, d=80, dtype=bf)),
+        ("flash_attention", dict(b=2, t=100, s=100, hq=8, hkv=8, d=80, dtype=f32)),
+        ("flash_attention_banded", dict(b=4, t=128, s=512, hq=32, hkv=32, d=80, dtype=bf,
+                                        pos=[0, 0, 0, 0], starts=[0, 32, 64, 95])),
+        ("flash_attention_banded", dict(b=3, t=70, s=200, hq=8, hkv=8, d=80, dtype=f32,
+                                        pos=[0, 50, 130], starts=[5, 0, 60])),
     ]
     worst = {"flash_attention": 0.0, "flash_attention_banded": 0.0}
     for name, kw in flash_cases:
@@ -771,7 +796,8 @@ def phase_kernels(torch, results):
         rows = valid_rows(torch, c)
         rtol, atol = tol[kw["dtype"]]
         ok, err = _close(out[rows], ref[rows], rtol, atol)
-        masked_zero = int(torch.count_nonzero(out[~rows])) == 0
+        masked_zero = (int(torch.count_nonzero(out[~rows])) == 0
+                       and out.shape == c["q"].shape)
         worst[name] = max(worst[name], err)
         desc = ", ".join(f"{k}={v}" for k, v in kw.items() if k != "dtype")
         log(f"  {name} {desc} {str(kw['dtype']).split('.')[-1]}: "
@@ -842,24 +868,35 @@ def phase_kernels(torch, results):
         log(f"  fp8_matmul {how:5s} route, ten-decade operands: max error / sum|x||w| "
             f"{rel[how]:.3g}, {share[how]:.3g} of the f32 sum's bound")
 
-    # K5: M in {1, 4, 64} x the four projections, x in bf16 and f32, bias and
-    # silu in rotation; down_proj is stored at K' = 6144 for K = 5632
+    # K5: M in {1, 2, 4, 8} (the one-launch GEMV up to 4 f32 or 2 bf16 rows,
+    # the CUDA-core columns past that) and {9, 16, 33, 64} (the tensor cores,
+    # split K on q|k|v, o and down) x the four projections, x in bf16 and
+    # f32, bias and silu in rotation; down_proj is stored at K' = 6144 for
+    # K = 5632. The route is checked through tc_launches
+    from autosmoothquant_tpu_torch.kernels import int4 as K5
+
     worst = 0.0
     vi = 0
-    for m in (1, 4, 64):
+    for m in (1, 2, 4, 8, 9, 16, 33, 64):
         for (k, n), pname in zip(GEMM_SHAPES, GEMM_NAMES):
             for xdt in (torch.bfloat16, torch.float32):
                 act = "silu" if vi % 2 else None
                 c = int4_case(torch, m, k, n, xdt, act, vi % 3 != 2, gen)
                 vi += 1
+                how = K5.route(m, c["packed"].shape[1], 128, xdt, c["packed"])
+                want = ("gemv" if m <= K5.GEMV_MAX_M[xdt] else "tiles" if m <= 8 else "tc")
+                tc_before = K5.int4_matmul.tc_launches
                 out, ref = run_int4(c), run_int4(c, plain=True)
                 torch.cuda.synchronize()
+                tc = K5.int4_matmul.tc_launches - tc_before == 1
+                require(tc == (how == "tc") and how == want,
+                        f"int4_matmul took route {how} (tensor-core launch {tc}) at M={m}")
                 err = float((out.double() - ref.double()).abs().max())
                 excess = float(((out.double() - ref.double()).abs()
                                 / int4_tolerance(torch, c, ref)).max())
                 worst = max(worst, err)
                 log(f"  int4_matmul {pname:7s} M={m:<4d} K={k:<5d} "
-                    f"(stored {2 * c['packed'].shape[1]}) N={n:<6d} {c['label']:24s} "
+                    f"(stored {2 * c['packed'].shape[1]}) N={n:<6d} {how:5s} {c['label']:24s} "
                     f"max|err|={err:.3g} (<= f32-sum bound: {excess:.3g} of it) "
                     f"{'ok' if excess <= 1 else 'FAIL'}")
                 require(excess <= 1, f"int4_matmul disagrees with its plain version "
@@ -1039,9 +1076,9 @@ def e2e_compare(torch, L, cfg, label, qcfg, params_cpu, limits, ragged, equal,
 
 def launch_counters():
     """Every launch count of the port, by name: (wrapper, attribute). Each
-    kernel wrapper counts its launches; int8_matmul_tc and fp8_matmul_tc
-    count K1's and K4's tensor-core routes alone (their launches are in
-    int8_matmul's and fp8_matmul's too)."""
+    kernel wrapper counts its launches; int8_matmul_tc, fp8_matmul_tc and
+    int4_matmul_tc count K1's, K4's and K5's tensor-core routes alone (their
+    launches are in int8_matmul's, fp8_matmul's and int4_matmul's too)."""
     from autosmoothquant_tpu_torch.kernels.attention import (
         flash_attention, flash_attention_banded)
     from autosmoothquant_tpu_torch.kernels.fp8 import fp8_matmul
@@ -1060,6 +1097,7 @@ def launch_counters():
     counters = {name: (w, "launches") for name, w in counters.items()}
     counters["int8_matmul_tc"] = (int8_matmul, "tc_launches")
     counters["fp8_matmul_tc"] = (fp8_matmul, "tc_launches")
+    counters["int4_matmul_tc"] = (int4_matmul, "tc_launches")
     return counters
 
 
@@ -1077,25 +1115,32 @@ def reset_counts(counters):
 # a batch; one flash launch a layer per prefill). TinyLlama (22 layers) fuses
 # q|k|v and gate|up: 4 GEMMs a layer per forward. W8A8 and fp8 prefill at
 # M = 4 x 128, every GEMM on K1's or K4's tensor-core route; decode (M = 4)
-# takes the GEMV. int4 prefills at M = 4 x 128 > 64, which takes W4A16
-# (plain torch), so K5 runs on decode forwards only. OPT-6.7B (32 layers)
-# runs unfused: 6 GEMMs and one K6 a layer per forward.
+# takes the GEMV. int4 prefills those two batches at M = 4 x 128 > 64, which
+# takes W4A16 (plain torch), and serves a third, short ragged batch
+# (SHORT_PROMPTS, 4 x 16 = 64 rows: every prefill GEMM on K5's tensor
+# cores, banded flash); its decode forwards (M = 4) take K5's GEMV on the
+# f32 inputs of q|k|v and gate|up and its columns on the bf16 inputs of o
+# and down, one count a GEMM. OPT-6.7B (32 layers) runs unfused: 6 GEMMs and
+# one K6 a layer per forward. Entry: (new tokens, counts, whether the short
+# batch runs).
+SHORT_PROMPTS = (16, 12, 9, 5)
 SERVE_PATHS = {
     "W8A8": (32, lambda n: {"int8_matmul": 4 * 22 * 2 * n,
                             "int8_matmul_tc": 4 * 22 * 2,
                             "fused_add_rmsnorm_quant": 22 * 2 * n,
-                            "flash_attention": 22, "flash_attention_banded": 22}),
+                            "flash_attention": 22, "flash_attention_banded": 22}, False),
     "fp8 e4m3 dynamic": (16, lambda n: {"fp8_matmul": 4 * 22 * 2 * n,
                                         "fp8_matmul_tc": 4 * 22 * 2,
                                         "flash_attention": 22,
-                                        "flash_attention_banded": 22}),
-    "int4": (16, lambda n: {"int4_matmul": 4 * 22 * 2 * (n - 1),
-                            "flash_attention": 22, "flash_attention_banded": 22}),
+                                        "flash_attention_banded": 22}, False),
+    "int4": (16, lambda n: {"int4_matmul": 4 * 22 * (3 * (n - 1) + 1),
+                            "int4_matmul_tc": 4 * 22,
+                            "flash_attention": 22, "flash_attention_banded": 2 * 22}, True),
     "OPT-6.7B W8A8": (32, lambda n: {"int8_matmul": 6 * 32 * 2 * n,
                                      "int8_matmul_tc": 6 * 32 * 2,
                                      "fused_add_layernorm_quant": 32 * 2 * n,
                                      "flash_attention": 32,
-                                     "flash_attention_banded": 32}),
+                                     "flash_attention_banded": 32}, False),
 }
 
 
@@ -1128,9 +1173,10 @@ def phase_serve(torch, results):
               for n in (128, 96, 64, 33)]
     equal = [torch.randint(0, 32000, (128,), generator=rng).tolist()
              for _ in range(4)]
+    short = [torch.randint(0, 32000, (n,), generator=rng).tolist() for n in SHORT_PROMPTS]
     counters = launch_counters()
     engines = {}
-    for label, (n_new, expected) in SERVE_PATHS.items():
+    for label, (n_new, expected, with_short) in SERVE_PATHS.items():
         model, cfg, qcfg, params = serve_model(torch, label)
         eng = Engine(model, params, cfg, qcfg, max_batch=4, max_seq=512,
                      kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
@@ -1145,11 +1191,15 @@ def phase_serve(torch, results):
         finite_r = bool(torch.isfinite(eng.last_logits).all())
         toks_e = eng.generate(equal, gen_cfg)
         finite_e = bool(torch.isfinite(eng.last_logits).all())
+        batches = [toks_r, toks_e]
+        if with_short:
+            batches.append(eng.generate(short, gen_cfg))
+            finite_e = finite_e and bool(torch.isfinite(eng.last_logits).all())
         wall = time.perf_counter() - t0
         counts = read_counts(counters)
         log(json.dumps({"path": label, "launches": counts}))
         log(f"  serve: {cfg.num_hidden_layers}-layer {label} "
-            f"{'' if label.startswith('OPT') else 'TinyLlama'}, 2 batches x 4 "
+            f"{'' if label.startswith('OPT') else 'TinyLlama'}, {len(batches)} batches x 4 "
             f"prompts x {n_new} new tokens in {wall:.2f} s (first calls "
             f"included); peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1159,11 +1209,11 @@ def phase_serve(torch, results):
             require(counts[name] > 0, f"{name} was not launched on the {label} path")
             if name in results and results[name]["launches"] is None:
                 results[name]["launches"] = counts[name]  # the first path that runs it
-        for kernel in ("int8_matmul", "fp8_matmul"):
+        for kernel in ("int8_matmul", "fp8_matmul", "int4_matmul"):
             if f"{kernel}_tc" in want and results[kernel].get("tc_launches") is None:
                 results[kernel]["tc_launches"] = counts[f"{kernel}_tc"]
         require(finite_r and finite_e, f"non-finite logits on the {label} path")
-        for toks in (toks_r, toks_e):
+        for toks in batches:
             require(len(toks) == 4 and all(len(t) == n_new for t in toks),
                     f"wrong number of generated tokens on the {label} path")
             require(all(0 <= x < cfg.vocab_size for t in toks for x in t),
@@ -1211,6 +1261,12 @@ def phase_timing(torch, results, engines):
     timer = Timer(torch)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(99)
+
+    # the launch floor: the Timer's reading of a kernel that does nothing to
+    # speak of (one element), which tells a kernel at the floor from a slow one
+    one = torch.zeros(1, device="cuda")
+    floor_ms = timer.ms(lambda: one.add_(1.0))
+    log(f"  launch floor (Timer, one-element add_): {floor_ms:.4f} ms")
 
     # K1 at decode (M = 1, the GEMV), prefill (M = 128) and a b4 prefill
     # (M = 512) (the tensor-core route): TinyLlama's fused projections and
@@ -1270,23 +1326,39 @@ def phase_timing(torch, results, engines):
                 ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
                 bound_by=b_by, shape="decode T=1 D=2048 bf16")
 
-    # K6 at decode (T = 1) and prefill (T = 128), OPT-6.7B's D = 4096, bf16.
-    # No library call computes the fusion: library null
-    for t in (1, 128):
+    # K6 at decode (T = 1), prefill (T = 128) and a b4 prefill (T = 512),
+    # OPT-6.7B's D = 4096, bf16, on the vector route, beside the rows route
+    # (the earlier design, called through its entry point). No library call
+    # computes the fusion: library null
+    from autosmoothquant_tpu_torch.kernels import _build
+    from autosmoothquant_tpu_torch.kernels import fused as K6
+
+    rows_fn = _build.function("add_layernorm_quant", "asq_add_layernorm_quant",
+                              K6._ARGTYPES["add_layernorm_quant"])
+    for t in (1, 128, 512):
         h, x, gamma, beta = layernorm_case(torch, t, 4096, torch.bfloat16, gen)
         ms = timer.ms(lambda: fused_add_layernorm_quant(h, x, gamma, beta, eps=1e-5))
         plain_ms = timer.ms(lambda: fused_add_layernorm_quant_plain(h, x, gamma, beta,
                                                                     eps=1e-5))
+        out_h, out_q = torch.empty_like(h), torch.empty(h.shape, dtype=torch.int8, device="cuda")
+        rows_ms = timer.ms(lambda: rows_fn(
+            h.data_ptr(), x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out_h.data_ptr(),
+            out_q.data_ptr(), t, 4096, 1e-5, 1, _build.stream_ptr(h)))
         b_ms, b_by = bound(t * 4096 * (2 + 2 + 2 + 1) + 2 * 4096 * 4, 10 * t * 4096, "f32")
-        log(f"    fused_add_layernorm_quant T={t:<4d} D=4096 kernel {ms:.4f} plain "
-            f"{plain_ms:.4f} library null bound {b_ms:.5f} ({b_by})")
+        log(f"    fused_add_layernorm_quant T={t:<4d} D=4096 ({K6.layernorm_route(4096, h)}) "
+            f"kernel {ms:.4f} (rows route {rows_ms:.4f}) plain {plain_ms:.4f} library null "
+            f"bound {b_ms:.5f} ({b_by}); launch floor {floor_ms:.4f}")
+        row = dict(shape=f"T={t} D=4096 bf16", ms=ms, plain_ms=plain_ms, library_ms=None,
+                   bound_ms=b_ms, bound_by=b_by, rows_route_ms=rows_ms)
+        results["fused_add_layernorm_quant"].setdefault("rows", []).append(row)
         if t == 1:
-            results["fused_add_layernorm_quant"].update(
-                ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-                bound_by=b_by, shape="decode T=1 D=4096 bf16")
+            results["fused_add_layernorm_quant"].update(row, shape="decode T=1 D=4096 bf16")
 
     # K3: causal prefill (B1 T128, B4 T512) and banded ragged prefill at
-    # TinyLlama's heads (32 / 4, D 64), and at OPT-6.7B's (32 / 32, D 128)
+    # TinyLlama's heads (32 / 4, D 64), at OPT-6.7B's (32 / 32, D 128), and
+    # causal B1 T128 at OPT-2.7B's (32 / 32, D 80: read as it lies by the
+    # kernel of compute width 128; beside it, "pad copies": the three
+    # zero-padded copies to D 128 that the kernel's zero-filled tiles save)
     bf = torch.bfloat16
     for name, kw in (
             ("flash_attention", dict(b=1, t=128, s=128)),
@@ -1296,7 +1368,8 @@ def phase_timing(torch, results, engines):
             ("flash_attention", dict(b=1, t=128, s=128, hq=32, hkv=32, d=128)),
             ("flash_attention_banded", dict(b=4, t=128, s=512, pos=[0, 0, 0, 0],
                                             starts=[0, 32, 64, 95], hq=32, hkv=32,
-                                            d=128))):
+                                            d=128)),
+            ("flash_attention", dict(b=1, t=128, s=128, hq=32, hkv=32, d=80))):
         kw = {"hq": 32, "hkv": 4, "d": 64, **kw}
         c = flash_case(torch, dtype=bf, gen=gen, **kw)
         ms = timer.ms(lambda: run_flash(c))
@@ -1317,10 +1390,15 @@ def phase_timing(torch, results, engines):
         ops, nbytes = flash_ops_bytes(torch, c)
         b_ms, b_by = bound(nbytes, ops, "bf16")
         desc = " ".join(f"{k}={v}" for k, v in kw.items())
-        log(f"    {name} {desc} bf16 kernel {ms:.4f} plain "
-            f"{plain_ms:.4f} library {lib_ms:.4f} bound {b_ms:.4f} ({b_by})")
         row = dict(shape=f"{desc} bf16", ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                    bound_ms=b_ms, bound_by=b_by)
+        pad = ""
+        if kw["d"] % 64:
+            row["pad_copies_ms"] = timer.ms(lambda: [F.pad(c[x], (0, 128 - kw["d"]))
+                                                     for x in ("q", "k", "v")])
+            pad = f" (pad copies {row['pad_copies_ms']:.4f})"
+        log(f"    {name} {desc} bf16 kernel {ms:.4f}{pad} plain "
+            f"{plain_ms:.4f} library {lib_ms:.4f} bound {b_ms:.4f} ({b_by})")
         results[name].setdefault("rows", []).append(row)
         if (name, kw["b"], kw["d"]) in (("flash_attention", 1, 64),
                                         ("flash_attention_banded", 4, 64)):
@@ -1359,10 +1437,18 @@ def phase_timing(torch, results, engines):
             if m == 1 and pname == "gate|up":
                 results["fp8_matmul"].update(row)
 
-    # K5 at decode (M = 1) and its largest M (64), the main path's input types
-    # (f32 from the norms into qkv and gate|up, bf16 into o and down), bf16
-    # out. No library call computes W4A8: library null
-    for m in (1, 64):
+    # K5 at decode (M = 1), at the GEMV's row limits (M = 2 for bf16 x, 4
+    # for f32) and past them (3 for bf16, 8: the CUDA-core columns), at M = 16 and
+    # its largest M (64: the tensor cores), the main path's input types (f32
+    # from the norms into qkv and gate|up, bf16 into o and down), bf16 out,
+    # beside the "tiles" route (the earlier design: a quantize launch, then a warp
+    # a column) and, up to 4 rows, the GEMV, each called through its entry
+    # point. No library call computes W4A8: library null
+    from autosmoothquant_tpu_torch.kernels import int4 as K5
+
+    tiles_fn = _build.function("int4_gemm", "asq_int4_gemm", K5._ARGTYPES)
+    gemv_fn = _build.function("int4_gemm", "asq_int4_gemv", K5._GEMV_ARGTYPES)
+    for m in (1, 2, 3, 4, 8, 16, 64):
         for (k, n), pname in zip(GEMM_SHAPES, GEMM_NAMES):
             xdt = torch.float32 if pname in ("qkv", "gate|up") else torch.bfloat16
             c = int4_case(torch, m, k, n, xdt, None, False, gen)
@@ -1370,15 +1456,35 @@ def phase_timing(torch, results, engines):
             ms = timer.ms(lambda: run_int4(c))
             plain_ms = timer.ms(lambda: run_int4(c, plain=True), iters=10)
             k2, g = c["packed"].shape[1], c["scales"].shape[1]
+            out = torch.empty(m, n, dtype=torch.bfloat16, device="cuda")
+            xq = torch.empty(m, 2 * k2, dtype=torch.int8, device="cuda")
+            ts = torch.empty(m, device="cuda")
+            operands = (c["x"].data_ptr(), int(xdt == torch.bfloat16), c["packed"].data_ptr(),
+                        c["scales"].data_ptr(), None, out.data_ptr())
+            tiles_ms = timer.ms(lambda: tiles_fn(*operands, xq.data_ptr(), ts.data_ptr(),
+                                                 m, n, k, k2, g, 0, 1, _build.stream_ptr(out)))
+            gemv_ms = (timer.ms(lambda: gemv_fn(*operands, m, n, k, k2, g, 0, 1,
+                                                _build.stream_ptr(out)))
+                       if m <= max(K5.GEMV_MAX_M.values()) else None)
             nbytes = k2 * n + 4 * g * n + m * k * c["x"].element_size() + m * n * 2
             b_ms, b_by = bound(nbytes, 2 * m * n * 2 * k2, "int8")
+            how = K5.route(m, k2, 2 * k2 // g, xdt, c["packed"])
+            if how == "tc":
+                how += f", split {K5.tc_split(m, n, k2)}"
+            beside = f"tiles route {tiles_ms:.4f}"
+            if gemv_ms is not None:
+                beside += f", gemv route {gemv_ms:.4f}"
             log(f"    int4_matmul {pname:7s} M={m:<4d} K={k:<5d} (stored {2 * k2}) "
-                f"N={n:<6d} kernel {ms:.4f} plain {plain_ms:.4f} library null "
-                f"bound {b_ms:.4f} ({b_by})")
+                f"N={n:<6d} ({how}) kernel {ms:.4f} ({beside}) plain "
+                f"{plain_ms:.4f} library null bound {b_ms:.4f} ({b_by}); kernel/bound "
+                f"{ms / b_ms:.2f}")
+            row = dict(shape=f"{pname} M={m} K={k} N={n} x {str(xdt).split('.')[-1]} -> bf16 "
+                       f"({how})", ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                       bound_by=b_by, tiles_route_ms=tiles_ms, gemv_route_ms=gemv_ms)
+            results["int4_matmul"].setdefault("rows", []).append(row)
             if m == 1 and pname == "gate|up":
                 results["int4_matmul"].update(
-                    ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-                    bound_by=b_by, shape=f"decode gate|up M=1 K={k} N={n} x f32 -> bf16")
+                    row, shape=f"decode gate|up M=1 K={k} N={n} x f32 -> bf16 (gemv)")
 
     # prefill and decode, end to end (host clock around synchronized work):
     # TinyLlama-1.1B in four formats, OPT-6.7B in W8A8 and bf16
@@ -1395,7 +1501,7 @@ def phase_timing(torch, results, engines):
     engs = {"bf16": b1(L, cfg, draw_float(cfg, seed=4, device="cuda"), None)}
     for label, key in (("w8a8", "W8A8"), ("fp8", "fp8 e4m3 dynamic"), ("int4", "int4")):
         engs[label] = b1(L, cfg, engines[key].params, engines[key].qcfg)
-    end_to_end(torch, timer, L, cfg, engs, "TinyLlama-1.1B")
+    end_to_end(torch, timer, L, cfg, engs, "TinyLlama-1.1B", short=("bf16", "w8a8", "int4"))
     del engs
 
     cfg = O.OPTConfig(**OPT_6_7B)
@@ -1405,20 +1511,21 @@ def phase_timing(torch, results, engines):
     end_to_end(torch, timer, O, cfg, engs, "OPT-6.7B")
 
 
-def end_to_end(torch, timer, M, cfg, engs, name):
+def end_to_end(torch, timer, M, cfg, engs, name, short=()):
     """Prefill ms (b1, T128, plus the last token's logits) and decode tok/s
     (b1, prompt 128, s_max 512, greedy, 64 steps: best of 3, two turns each
     in the order given and back) of each b1 engine in ``engs`` (family
     module M), each format's ratio to bf16, then the device's view of one
-    decode step of each format."""
+    prefill and of one decode step of each format; the formats in ``short``
+    also get a b1 T64 prefill (int4: 64 rows, K5's tensor cores)."""
     from autosmoothquant_tpu_torch.serve.engine import GenerationConfig
 
     rng = torch.Generator().manual_seed(17)
     prompt = [torch.randint(0, 32000, (128,), generator=rng).tolist()]
     layers = cfg.num_hidden_layers
 
-    def prefill_ms(eng):
-        ids = torch.tensor(prompt, device="cuda")
+    def prefill_fn(eng, t=128):
+        ids = torch.tensor([prompt[0][:t]], device="cuda")
 
         def run():
             cache = M.init_kv_cache(cfg, 1, 512, torch.bfloat16, "cuda")
@@ -1426,7 +1533,10 @@ def end_to_end(torch, timer, M, cfg, engs, name):
                 h, _ = M.forward(eng.params, ids, cfg, eng.qcfg, kv_cache=cache,
                                  cache_index=0, compute_dtype=torch.bfloat16)
                 M.logits(eng.params, h[:, -1:])
-        return timer.ms(run, iters=5, warmup=2)
+        return run
+
+    def prefill_ms(eng, t=128):
+        return timer.ms(prefill_fn(eng, t), iters=5, warmup=2)
 
     def decode_tps(eng, steps=64):
         def gen_s(n):
@@ -1445,17 +1555,13 @@ def end_to_end(torch, timer, M, cfg, engs, name):
     log(f"  {name} prefill b1 T128 {layers} layers (+ last-token logits): "
         + ", ".join(f"{label} {pf[label]:.3f} ms" for label in order))
     # where one prefill's device time goes
-    ids = torch.tensor(prompt, device="cuda")
     for label in order:
-        eng = engs[label]
-
-        def run():
-            cache = M.init_kv_cache(cfg, 1, 512, torch.bfloat16, "cuda")
-            with torch.inference_mode():
-                h, _ = M.forward(eng.params, ids, cfg, eng.qcfg, kv_cache=cache,
-                                 cache_index=0, compute_dtype=torch.bfloat16)
-                M.logits(eng.params, h[:, -1:])
-        device_profile(torch, run, f"prefill ({name} {label}, b1 T128)", pf[label], reps=3)
+        device_profile(torch, prefill_fn(engs[label]), f"prefill ({name} {label}, b1 T128)",
+                       pf[label], reps=3)
+    for label in short:
+        pf64 = prefill_ms(engs[label], 64)
+        device_profile(torch, prefill_fn(engs[label], 64), f"prefill ({name} {label}, b1 T64)",
+                       pf64, reps=3)
     tps = {}
     for label in order + order[::-1]:
         tps.setdefault(label, []).append(decode_tps(engs[label]))

@@ -25,7 +25,11 @@ BINDINGS = [
     ("fp8_gemm", "asq_fp8_gemm", fp8._ARGTYPES),
     ("fp8_gemm", "asq_fp8_gemm_tc", fp8._TC_ARGTYPES),
     ("int4_gemm", "asq_int4_gemm", int4._ARGTYPES),
+    ("int4_gemm", "asq_int4_gemv", int4._GEMV_ARGTYPES),
+    ("int4_gemm", "asq_int4_gemm_tc", int4._TC_ARGTYPES),
     ("add_layernorm_quant", "asq_add_layernorm_quant", fused._ARGTYPES["add_layernorm_quant"]),
+    ("add_layernorm_quant", "asq_add_layernorm_quant_vec",
+     fused._ARGTYPES["add_layernorm_quant"]),
 ]
 
 _EXPORT = re.compile(r"ASQ_EXPORT\s+int\s+(\w+)\s*\(([^)]*)\)", re.S)
@@ -91,4 +95,9 @@ def test_every_wrapper_call_names_a_bound_entry_point():
                 assert isinstance(lib, (ast.Constant, ast.Name)), path.name
                 if isinstance(lib, ast.Constant) and isinstance(node.args[1], ast.Constant):
                     assert (lib.value, node.args[1].value) in bound, path.name
-    assert calls >= len(BINDINGS) - 1  # fused.py binds both norms through one call
+    # fused.py binds both norms and both of K6's routes through one call,
+    # with the entry point passed in; its names are module constants
+    assert calls >= len(BINDINGS) - 2
+    assert ("add_rmsnorm_quant", fused._RMSNORM_ENTRY) in bound
+    for entry in fused._LAYERNORM_ENTRIES.values():
+        assert ("add_layernorm_quant", entry) in bound

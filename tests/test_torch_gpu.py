@@ -15,7 +15,7 @@ sum exactly (float64), the kernels in f32, so the bound is twice the f32
 sum's, 2 * K * 2**-24 * sum |x||w| per output (int4: over the exact 16-row
 partials times their scales), plus one bf16 step (2**-7 of the value) for
 bf16 outputs; K5's per-token quantization is bit-exact, so it adds
-nothing."""
+nothing (its tensor-core split adds f32 partials, within the same bound)."""
 
 import math
 
@@ -392,6 +392,169 @@ def test_int4_matmul_kernel_matches_plain(cuda_device, m, k, n, group, xdt):
         assert bool(((got.double() - ref.double()).abs() <= tol).all()), act
 
 
+# TinyLlama's int4 projections (K, N): q|k|v, o, gate|up, down (K' 6144)
+_K5_SHAPES = [(2048, 2560), (2048, 2048), (2048, 11264), (5632, 2048)]
+
+
+def _int4_tol(x, packed, scales, ref, out):
+    """The f32 sum's bound over exact group partials (module docstring)."""
+    k = x.shape[1]
+    q, ts = Q.quantize_act_per_token(torch.nn.functional.pad(
+        x.float(), (0, 2 * packed.shape[1] - k)))
+    wq = torch.cat(Q.unpack_int4(packed), dim=1).double()
+    srep = scales.double().repeat_interleave(2 * packed.shape[1] // scales.shape[1], 1)
+    mag = (q.double().abs() @ (wq.abs() * srep).t()) * ts.double()
+    tol = 2 * packed.shape[1] * 2.0 ** -24 * mag * 2 + 1e-6
+    if out == torch.bfloat16:
+        tol = tol + ref.double().abs() * 2.0 ** -7
+    return tol
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 8, 9, 16, 33, 63, 64])
+@pytest.mark.parametrize("k,n", _K5_SHAPES)
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+def test_int4_matmul_routes_at_tinyllama_shapes(cuda_device, m, k, n, xdt):
+    """K5's one-launch GEMV (M <= 4 for f32 x, 2 for bf16), its CUDA-core
+    columns (the rest of M <= 8) and its tensor-core route (9 <= M <= 64,
+    counted in tc_launches; split K on q|k|v, o and down) at the main path's
+    shapes: out in x's dtype with a bias, and f32 with silu, each within the
+    f32 sum's bound."""
+    g = _gen(m + k + n)
+    packed, scales = _int4_operands(k, n, 128, cuda_device, g)
+    x = (torch.randn(m, k, device=cuda_device, generator=g) * 3).to(xdt)
+    bias = torch.randn(n, device=cuda_device, generator=g)
+    how = I4.route(m, packed.shape[1], 128, xdt, packed)
+    assert how == ("gemv" if m <= I4.GEMV_MAX_M[xdt] else "tiles" if m <= 8 else "tc")
+    for act, out in ((None, xdt), ("silu", torch.float32), (None, torch.bfloat16)):
+        before, tc_before = I4.int4_matmul.launches, I4.int4_matmul.tc_launches
+        got = I4.int4_matmul(x, packed, scales, bias, activation=act, out_dtype=out)
+        ref = I4.int4_matmul_plain(x, packed, scales, bias, activation=act, out_dtype=out)
+        torch.cuda.synchronize()
+        assert I4.int4_matmul.launches == before + 1 and got.dtype == out
+        assert I4.int4_matmul.tc_launches == tc_before + int(how == "tc")
+        tol = _int4_tol(x, packed, scales, ref, out)
+        assert bool(((got.double() - ref.double()).abs() <= tol).all()), (act, out)
+
+
+def test_int4_matmul_odd_group_count_takes_the_columns(cuda_device):
+    """K' = 192 in G = 3 groups of 64 (K'/2 = 96 is no multiple of the
+    group): the route is "tiles", which agrees with the plain version, and
+    the tensor-core entry point refuses the shape."""
+    g = _gen(192)
+    packed = torch.randint(0, 256, (128, 96), device=cuda_device, generator=g).to(torch.uint8)
+    scales = torch.rand(128, 3, device=cuda_device, generator=g) + 0.01
+    x = torch.randn(33, 192, device=cuda_device, generator=g)
+    assert I4.route(33, 96, 64, x.dtype, packed) == "tiles"
+    before, tc_before = I4.int4_matmul.launches, I4.int4_matmul.tc_launches
+    got = I4.int4_matmul(x, packed, scales, out_dtype=torch.float32)
+    ref = I4.int4_matmul_plain(x, packed, scales, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert I4.int4_matmul.launches == before + 1 and I4.int4_matmul.tc_launches == tc_before
+    tol = _int4_tol(x, packed, scales, ref, torch.float32)
+    assert bool(((got.double() - ref.double()).abs() <= tol).all())
+    from autosmoothquant_tpu_torch.kernels import _build
+
+    fn = _build.function("int4_gemm", "asq_int4_gemm_tc", I4._TC_ARGTYPES)
+    xq = torch.empty(33, 192, dtype=torch.int8, device=cuda_device)
+    ts = torch.empty(33, device=cuda_device)
+    rc = fn(x.data_ptr(), 0, packed.data_ptr(), scales.data_ptr(), None, got.data_ptr(),
+            xq.data_ptr(), ts.data_ptr(), 33, 128, 192, 96, 3, 0, 0, 1, None,
+            _build.stream_ptr(x))
+    assert rc != 0
+
+
+def _int4_tc_raw(x, packed, scales, split):
+    """One call of K5's tensor-core entry point with its scratch returned:
+    (out f32, x_q, tok_scale)."""
+    from autosmoothquant_tpu_torch.kernels import _build
+
+    m, k = x.shape
+    n, k2 = packed.shape
+    out = torch.empty(m, n, device=x.device)
+    xq = torch.empty(m, 2 * k2, dtype=torch.int8, device=x.device)
+    ts = torch.empty(m, device=x.device)
+    ws = torch.empty(split * m * n, device=x.device) if split > 1 else None
+    fn = _build.function("int4_gemm", "asq_int4_gemm_tc", I4._TC_ARGTYPES)
+    rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), packed.data_ptr(), scales.data_ptr(),
+            None, out.data_ptr(), xq.data_ptr(), ts.data_ptr(), m, n, k, k2, scales.shape[1],
+            0, 0, split, _build.ptr(ws), _build.stream_ptr(x))
+    torch.cuda.synchronize()
+    assert rc == 0
+    return out, xq, ts
+
+
+@pytest.mark.parametrize("m,k,n", [(33, 2048, 2560), (64, 5632, 2048), (16, 2048, 2048)])
+def test_int4_tc_split_agrees_with_one_split(cuda_device, m, k, n):
+    """Split K adds f32 partials in a fixed order: the same product forced to
+    one split agrees within the f32 sum's bound, and a repeat of the split
+    product has the same bits."""
+    g = _gen(m + n)
+    packed, scales = _int4_operands(k, n, 128, cuda_device, g)
+    x = torch.randn(m, k, device=cuda_device, generator=g)
+    split = I4.tc_split(m, n, packed.shape[1])
+    assert split > 1
+    got, _, _ = _int4_tc_raw(x, packed, scales, split)
+    one, _, _ = _int4_tc_raw(x, packed, scales, 1)
+    again, _, _ = _int4_tc_raw(x, packed, scales, split)
+    assert torch.equal(got, again)
+    ref = I4.int4_matmul_plain(x, packed, scales, out_dtype=torch.float32)
+    tol = _int4_tol(x, packed, scales, ref, torch.float32)
+    assert bool(((one.double() - got.double()).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+def test_int4_tc_quantize_is_bit_exact(cuda_device, xdt):
+    """tok_scale and x_q of the tensor-core route's quantize launch equal the
+    port's quant.math (which is JAX's) bit for bit, zero past K."""
+    g = _gen(21)
+    packed, scales = _int4_operands(5632, 256, 128, cuda_device, g)
+    x = (torch.randn(40, 5632, device=cuda_device, generator=g)
+         * torch.exp(torch.randn(40, 1, device=cuda_device, generator=g))).to(xdt)
+    _, xq, ts = _int4_tc_raw(x, packed, scales, 1)
+    q, scale = Q.quantize_act_per_token(torch.nn.functional.pad(x.float(), (0, 6144 - 5632)))
+    assert torch.equal(xq, q) and torch.equal(ts, scale[:, 0])
+
+
+def _int4_identity(kp, device):
+    """A packed int4 weight with N = K' columns, column n holding +1 at row
+    n and 0 elsewhere, scales 1 (group 128): out[m, n] = x_q[m, n] * tok_scale[m]
+    with a single rounding, so the output shows x_q and tok_scale exactly."""
+    k2 = kp // 2
+    n = torch.arange(kp, device=device)[:, None]
+    b = torch.arange(k2, device=device)[None, :]
+    lo = torch.where(b == n, 9, 8)
+    hi = torch.where(b + k2 == n, 9, 8)
+    packed = (lo | (hi << 4)).to(torch.uint8)
+    return packed, torch.ones(kp, kp // 128, device=device)
+
+
+@pytest.mark.parametrize("m", [1, 2, 4, 5, 8, 33])
+@pytest.mark.parametrize("k", [2048, 5632])
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+def test_int4_quantize_is_bit_exact_on_every_route(cuda_device, m, k, xdt):
+    """The GEMV's fused quantize (a product with the reciprocal, the true
+    division near rounding ties) and the quantize launch of the other
+    routes give quant.math's x_q and tok_scale bit for bit: through an
+    identity weight the f32 output is x_q * tok_scale, rounded once. One row
+    is built of near ties (x / tok_scale within an ulp or two of k + 0.5)."""
+    g = _gen(m + k)
+    kp = -(-k // 256) * 256
+    x = torch.randn(m, k, device=cuda_device, generator=g) * 3
+    ts0 = torch.tensor(100.0 / 127.0, device=cuda_device)
+    ties = (torch.randint(-126, 126, (k,), device=cuda_device, generator=g) + 0.5) * ts0
+    x[0] = torch.nextafter(ties, ties + torch.randint(-1, 2, (k,), device=cuda_device,
+                                                       generator=g) * 1e3)
+    x[0, 0] = 100.0
+    x = x.to(xdt)
+    packed, scales = _int4_identity(kp, cuda_device)
+    before = I4.int4_matmul.tc_launches
+    got = I4.int4_matmul(x, packed, scales, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert I4.int4_matmul.tc_launches == before + int(m > 8)
+    q, ts = Q.quantize_act_per_token(torch.nn.functional.pad(x.float(), (0, kp - k)))
+    assert torch.equal(got, q.float() * ts)
+
+
 def test_int4_matmul_prefill_route_launches_no_kernel(cuda_device):
     """M > 64 is W4A16 in plain torch (bf16 product, f32 accumulation), as
     the JAX package computes it outside its Pallas kernel."""
@@ -454,6 +617,70 @@ def test_fused_add_layernorm_quant_kernel_matches_plain(cuda_device, t, dtype):
     assert torch.equal(s, s_ref)
     dq = (q.int() - q_ref.int()).abs()
     assert int(dq.max()) <= 1 and float((dq > 0).float().mean()) <= 1e-3
+
+
+@pytest.mark.parametrize("d", [2048, 4096, 5120, 7168, 9216, 2056])
+@pytest.mark.parametrize("t", [1, 128, 512])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_add_layernorm_quant_vector_route(cuda_device, d, t, dtype):
+    """K6 with the row in registers at OPT's widths (2048 to 9216) and a
+    ragged 2056 (one chunk of 8 past a multiple of 256): s equal, q within
+    one step on <= 0.1% of elements."""
+    import chip_smoke
+
+    h, x, gamma, beta = chip_smoke.layernorm_case(torch, t, d, dtype, _gen(t + d))
+    assert F.layernorm_route(d, h, x, gamma, beta) == "vector"
+    s, q = F.fused_add_layernorm_quant(h, x, gamma, beta, eps=1e-5)
+    s_ref, q_ref = F.fused_add_layernorm_quant_plain(h, x, gamma, beta, eps=1e-5)
+    torch.cuda.synchronize()
+    assert torch.equal(s, s_ref)
+    dq = (q.int() - q_ref.int()).abs()
+    assert int(dq.max()) <= 1 and float((dq > 0).float().mean()) <= 1e-3
+
+
+@pytest.mark.parametrize("d", [80, 96, 76, 40])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("banded", [False, True])
+def test_flash_attention_padded_head_dims(cuda_device, d, dtype, banded):
+    """K3 at D = 80 and 96 (read as they lie, tiles zero past D up to the
+    compute width 128), 40 (width 64) and 76 (padded to 80 in the wrapper),
+    the caller's sm_scale kept, against plain, causal and banded, at the
+    usual tolerances; the output keeps D."""
+    g = _gen(d + banded)
+    s = 200 if banded else 100
+    q = torch.randn(3, 100, 8, d, device=cuda_device, generator=g).to(dtype)
+    k = torch.randn(3, s, 4, d, device=cuda_device, generator=g).to(dtype)
+    v = torch.randn(3, s, 4, d, device=cuda_device, generator=g).to(dtype)
+    atol, rtol = (1.6e-2, 1e-2) if dtype == torch.bfloat16 else (2e-5, 1e-5)
+    if banded:
+        pos = torch.tensor([0, 40, 90], dtype=torch.int32, device=cuda_device)
+        starts = torch.tensor([5, 0, 60], dtype=torch.int32, device=cuda_device)
+        got = A.flash_attention_banded(q, k, v, pos, starts, sm_scale=d ** -0.5)
+        ref = A.flash_attention_banded_plain(q, k, v, pos, starts, sm_scale=d ** -0.5)
+        rows = (pos[:, None] + torch.arange(100, device=cuda_device)[None]) >= starts[:, None]
+    else:
+        got = A.flash_attention(q, k, v, sm_scale=d ** -0.5)
+        ref = A.flash_attention_plain(q, k, v, sm_scale=d ** -0.5)
+        rows = torch.ones(3, 100, dtype=torch.bool, device=cuda_device)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and got.is_contiguous()
+    torch.testing.assert_close(got[rows].float(), ref[rows].float(), rtol=rtol, atol=atol)
+
+
+def test_sample_divides_by_the_true_quotient(cuda_device, monkeypatch):
+    """Sampled decode scales the logits by IEEE division on the card too,
+    the CPU's (and JAX's) quotient bit for bit."""
+    from autosmoothquant_tpu_torch.serve import sampling as S
+
+    logits = torch.randn(4, 32000, generator=torch.Generator().manual_seed(5)) * 7
+    seen = {}
+
+    def capture(scaled, generator):
+        seen["scaled"] = scaled
+        return torch.zeros(scaled.shape[0], dtype=torch.int64, device=scaled.device)
+    monkeypatch.setattr(S, "_gumbel_argmax", capture)
+    S.sample(logits.to(cuda_device), torch.Generator(device=cuda_device), temperature=0.7)
+    assert torch.equal(seen["scaled"].cpu(), logits / 0.7)
 
 
 # (max, mean) of |card - CPU| over a 2-layer OPT's logits (std ~2): W8A8 as

@@ -5,7 +5,9 @@ Tolerances: int8_matmul f32 out rtol 1e-6 (one f32 rounding of the exact
 int32 accumulator, then two scale products) and int8 out equal;
 fused_add_rmsnorm_quant s equal and q within one step on <= 0.1% of elements
 (the f32 sum of squares runs in another order); flash attention f32 atol 1e-5
-on valid rows (a row with no valid key is 0 in both kernels)."""
+on valid rows (a row with no valid key is 0 in both kernels). Route and
+split rules (K1, K4, K5, K6) and K3's head-dim padding are checked on the
+shapes alone."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -385,3 +387,139 @@ def test_int4_matmul_checks_its_operands():
         TI4.int4_matmul(torch.zeros(2, 300), tp, ts)
     with pytest.raises(ValueError):
         TI4.int4_matmul(x, tp, ts[:5])
+
+
+# K5's main-path shapes (K'/2, N): TinyLlama's q|k|v, o, gate|up and down
+# (K' 2048, and 6144 for K = 5632), and an OPT-6.7B-sized q|k|v|o and fc2
+_K5_SHAPES = [(1024, 2560), (1024, 2048), (1024, 11264), (3072, 2048), (2048, 4096),
+              (8192, 4096)]
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 8, 9, 33, 64, 65])
+@pytest.mark.parametrize("group", [8, 64, 128])
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+def test_int4_route_is_chosen_by_shape(m, group, xdt):
+    """K5's route depends on the shape, x's dtype and alignment only: the
+    GEMV for M <= 4 (f32 x) or M <= 2 (bf16), the CUDA-core columns for the
+    rest of M <= 8, the tensor cores for 9 <= M <= 64 where each 32-byte mma
+    step lies inside one group (group % 32 == 0), the columns for the other
+    groups, W4A16 above 64 rows."""
+    packed = torch.zeros(256, 1024, dtype=torch.uint8)
+    gemv_max = {torch.float32: 4, torch.bfloat16: 2}[xdt]
+    want = ("w4a16" if m > 64 else "gemv" if m <= gemv_max else "tiles" if m <= 8
+            else "tc" if group % 32 == 0 else "tiles")
+    assert TI4.route(m, 1024, group, xdt, packed) == want
+
+
+def test_int4_route_takes_tiles_for_a_misaligned_view():
+    """cp.async copies 16-byte chunks of the packed rows: an offset view goes
+    to the CUDA-core columns, an aligned one to the tensor cores."""
+    buf = torch.zeros(256 * 1024 + 8, dtype=torch.uint8)
+    view = buf[8:].view(256, 1024)
+    f32 = torch.float32
+    assert view.is_contiguous() and TI4.route(33, 1024, 128, f32, view) == "tiles"
+    assert TI4.route(33, 1024, 128, f32, buf[:-8].view(256, 1024)) == "tc"
+    assert TI4.route(4, 1024, 128, f32, view) == "gemv"  # the GEMV takes any base
+
+
+def test_int4_route_takes_tiles_where_the_halves_split_groups_apart():
+    """The tensor cores close a group's two int32 partials together, at the
+    low half's group boundaries: K'/2 must be a multiple of the group, or
+    the high half's groups would end elsewhere. K' = 192 in G = 3 groups of
+    64 (K'/2 = 96) goes to the columns; K' = 256 in 4 groups to the tensor
+    cores."""
+    packed = torch.zeros(64, 96, dtype=torch.uint8)
+    assert TI4.route(33, 96, 64, torch.float32, packed) == "tiles"
+    assert TI4.route(33, 128, 64, torch.float32, packed) == "tc"
+    assert TI4.route(33, 96, 32, torch.float32, packed) == "tc"
+
+
+def test_int4_gemv_needs_x_q_to_fit_in_shared_memory():
+    """A GEMV block keeps x_q [M, K'] in shared memory: past 64 KB the
+    shape goes to the CUDA-core columns."""
+    packed = torch.zeros(64, 16, dtype=torch.uint8)
+    f32 = torch.float32
+    assert TI4.route(4, 8192, 128, f32, packed) == "gemv"       # 4 x 16384 = 64 KB
+    assert TI4.route(4, 8320, 128, f32, packed) == "tiles"
+    assert TI4.route(1, 8320, 128, f32, packed) == "gemv"
+    assert TI4.route(2, 1023, 8, f32, packed) == "tiles"        # K' % 4 != 0
+
+
+@pytest.mark.parametrize("m", [9, 16, 33, 64])
+@pytest.mark.parametrize("k2,n", _K5_SHAPES)
+def test_int4_tc_split_fills_the_card_and_leaves_no_split_empty(m, k2, n):
+    """K5's tensor-core splits: one 64-row block covers all M <= 64, a K
+    stage is 128 packed bytes; at least ~one block per SM where K allows it,
+    every split non-empty, no split where the column tiles alone fill the
+    SMs."""
+    tiles = -(-n // 64)
+    k_steps = -(-k2 // 128)
+    split = TI4.tc_split(m, n, k2)
+    per = -(-k_steps // split)
+    assert 1 <= split <= k_steps and (split - 1) * per < k_steps
+    assert tiles * split >= min(128, tiles * k_steps)
+    assert split == 1 or tiles < 132
+
+
+@pytest.mark.parametrize("d", [80, 96])
+@pytest.mark.parametrize("banded", [False, True])
+def test_flash_head_dim_padding_is_exact(d, banded):
+    """K3 reads D = 80 and 96 as they lie into tiles zero past D up to its
+    compute width (128), with the caller's sm_scale: plain attention on
+    q/k/v zero-padded to 128, cut back to D, equals plain attention on the
+    unpadded ones on valid rows. The wrapper's own padding (a D that is not
+    a multiple of 8: d - 2 here, padded to d) is exact the same way."""
+    b, t, s, hq, hkv = 3, 40, 96 if banded else 40, 8, 4
+    q, k, v = (torch.from_numpy(a) for a in _qkv(b, t, s, hq, hkv, d, seed=d))
+    assert all(a is b for a, b in zip(TA._pad_head_dim(q, k, v), (q, k, v)))
+    odd = tuple(x[..., :d - 2].contiguous() for x in (q, k, v))
+    odd_padded = TA._pad_head_dim(*odd)
+    assert all(x.shape[-1] == d and not x[..., d - 2:].any() for x in odd_padded)
+    scale = d ** -0.5
+    if banded:
+        pos = torch.tensor([0, 20, 50], dtype=torch.int32)
+        starts = torch.tensor([0, 9, 30], dtype=torch.int32)
+        rows = (pos[:, None] + torch.arange(t)[None]) >= starts[:, None]
+
+        def attend(*qkv):
+            return TA.flash_attention_banded_plain(*qkv, pos, starts, sm_scale=scale)
+    else:
+        rows = torch.ones(b, t, dtype=torch.bool)
+
+        def attend(*qkv):
+            return TA.flash_attention_plain(*qkv, sm_scale=scale)
+    for unpadded, padded in (((q, k, v), tuple(torch.nn.functional.pad(x, (0, 128 - d))
+                                                   for x in (q, k, v))),
+                             (odd, odd_padded)):
+        dt = unpadded[0].shape[-1]
+        ref, got = attend(*unpadded), attend(*padded)
+        torch.testing.assert_close(got[..., :dt][rows], ref[rows], rtol=1e-6, atol=1e-6)
+        assert not got[..., dt:].any()
+
+
+def test_flash_head_dim_padding_keeps_the_built_dims_and_raises_past_128():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 8, 2, 2, 64, seed=1))
+    assert all(a is b for a, b in zip(TA._pad_head_dim(q, k, v), (q, k, v)))
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 8, 2, 2, 160, seed=1))
+    with pytest.raises(ValueError):
+        TA._pad_head_dim(q, k, v)
+
+
+@pytest.mark.parametrize("d,want", [(2048, "vector"), (4096, "vector"), (12288, "vector"),
+                                    (2056, "vector"), (4094, "rows"), (100, "rows"),
+                                    (12296, "rows")])
+def test_layernorm_route_is_chosen_by_shape(d, want):
+    """K6 keeps the row in registers where D is a multiple of 8 (16-byte
+    vectors) up to 12288; other D keep the shared-memory rows route."""
+    h = torch.zeros(4, d)
+    g = torch.zeros(d)
+    assert TF.layernorm_route(d, h, h, g, g) == want
+
+
+def test_layernorm_route_takes_rows_for_a_misaligned_view():
+    buf = torch.zeros(4 * 2048 + 2, dtype=torch.bfloat16)
+    h = buf[2:].view(4, 2048)
+    g = torch.zeros(2048)
+    assert h.is_contiguous() and TF.layernorm_route(2048, h, h, g, g) == "rows"
+    assert TF.layernorm_route(2048, buf[:-2].view(4, 2048), h.contiguous(), g, g) == "rows"
+    assert TF.layernorm_route(2048, h.clone(), h.clone(), g, g) == "vector"

@@ -215,6 +215,32 @@ def test_cacheless_forward_matches_jax(over, monkeypatch):
     np.testing.assert_allclose(TO.logits(tparams, th).numpy(), j, atol=3e-2, rtol=0)
 
 
+@pytest.mark.parametrize("ragged", [False, True], ids=["equal", "ragged"])
+def test_head_dim_80_matches_jax(ragged, monkeypatch):
+    """An OPT-2.7B-shaped head (hidden 160 over 2 heads: D = 80, which K3
+    runs zero-padded to 128 on the card) in W8A8, prefill and one decode
+    step against the JAX OPT, at the int8 tolerance."""
+    monkeypatch.setenv("ASQ_FUSED_BLOCK", "force")
+    jax.clear_caches()
+    JO, cfg, params, qcfg = jax_opt({"type": "int8"}, seed=12, hidden_size=160,
+                                    word_embed_proj_dim=160, num_attention_heads=2)
+    assert cfg.hidden_size // cfg.num_attention_heads == 80
+    ids = np.random.default_rng(13).integers(0, cfg.vocab_size, (3, 20)).astype(np.int32)
+    kw = {}
+    valid = np.ones((3, 20), bool)
+    if ragged:
+        pads = np.asarray([0, 4, 11], np.int32)
+        kw = dict(pad_starts=pads,
+                  positions=np.maximum(np.arange(20)[None, :] - pads[:, None], 0).astype(np.int32))
+        valid = np.arange(20)[None, :] >= pads[:, None]
+    j_pre, j_dec, tok = run_jax_cached(JO, cfg, params, qcfg, ids, jnp.float32,
+                                       **{k: jnp.asarray(v) for k, v in kw.items()})
+    tcfg, tparams, tq = _port(JO, cfg, params, qcfg)
+    t_pre, t_dec = run_port_cached(TO, tcfg, tparams, tq, ids, torch.float32, tok, **kw)
+    np.testing.assert_allclose(t_pre[valid], j_pre[valid], atol=3e-2, rtol=0)
+    np.testing.assert_allclose(t_dec, j_dec, atol=3e-2, rtol=0)
+
+
 def test_fused_and_unfused_routes_give_the_same_logits(monkeypatch):
     """The pre-LN int8 block through K6 (plain version here) with ReLU in
     fc1's epilogue equals the unfused chain (layer_norm, a POST_NORM fc1,

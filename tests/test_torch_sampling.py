@@ -84,3 +84,19 @@ def test_generator_makes_draws_reproducible():
     b = TS.sample(logits, torch.Generator().manual_seed(5), 1.0)
     c = TS.sample(logits, torch.Generator().manual_seed(6), 1.0)
     assert torch.equal(a, b) and not torch.equal(a, c)
+
+
+def test_temperature_divides_truly_like_jax(monkeypatch):
+    """The logits are divided by the temperature as IEEE division rounds it,
+    the JAX package's quotient bit for bit (on the card, PyTorch would
+    multiply by the rounded reciprocal for a Python-scalar divisor)."""
+    logits = (np.random.default_rng(3).normal(size=(4, 4096)) * 7).astype(np.float32)
+    seen = {}
+
+    def capture(scaled, generator):
+        seen["scaled"] = scaled
+        return torch.zeros(scaled.shape[0], dtype=torch.int64)
+    monkeypatch.setattr(TS, "_gumbel_argmax", capture)
+    TS.sample(torch.from_numpy(logits), torch.Generator().manual_seed(0), temperature=0.7)
+    want = np.asarray(jnp.asarray(logits) / 0.7)
+    np.testing.assert_array_equal(seen["scaled"].numpy(), want)
