@@ -70,12 +70,22 @@ struct AsqEpilogue {
   void* out;  // [M, N]
 };
 
-__device__ __forceinline__ void asq_store(const AsqEpilogue& e, int m, int n,
-                                          int N, float acc) {
-  const float rs = e.rs != nullptr ? e.rs[m * e.rs_stride] : 1.f;
-  const float cs = e.cs != nullptr ? e.cs[n * e.cs_stride] : 1.f;
-  float v = __fmul_rn(__fmul_rn(acc, rs), cs);
-  if (e.bias != nullptr) v = __fadd_rn(v, e.bias[n]);
+// The operands asq_store reads for output (m, n): row scale, column scale
+// and bias (1, 1 and 0 where absent). A kernel may load them before its main
+// loop, so their device-memory round trip does not follow the last product.
+struct AsqOperands {
+  float rs, cs, bias;
+};
+
+__device__ __forceinline__ AsqOperands asq_operands(const AsqEpilogue& e, int m, int n) {
+  return {e.rs != nullptr ? e.rs[m * e.rs_stride] : 1.f,
+          e.cs != nullptr ? e.cs[n * e.cs_stride] : 1.f, e.bias != nullptr ? e.bias[n] : 0.f};
+}
+
+__device__ __forceinline__ void asq_store(const AsqEpilogue& e, const AsqOperands& o, int m,
+                                          int n, int N, float acc) {
+  float v = __fmul_rn(__fmul_rn(acc, o.rs), o.cs);
+  if (e.bias != nullptr) v = __fadd_rn(v, o.bias);
   if (e.act == ASQ_ACT_RELU) {
     v = fmaxf(v, 0.f);
   } else if (e.act == ASQ_ACT_SILU) {
@@ -89,4 +99,9 @@ __device__ __forceinline__ void asq_store(const AsqEpilogue& e, int m, int n,
   } else {
     static_cast<int8_t*>(e.out)[idx] = asq_quant_int8(v);
   }
+}
+
+__device__ __forceinline__ void asq_store(const AsqEpilogue& e, int m, int n, int N,
+                                          float acc) {
+  asq_store(e, asq_operands(e, m, n), m, n, N, acc);
 }

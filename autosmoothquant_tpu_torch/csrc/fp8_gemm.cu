@@ -23,14 +23,19 @@
 // cores only to keep up, read once, by enough SMs at once, with enough bytes
 // in flight.
 //
-// Three routes, chosen by the wrapper from the shape (never after a failure):
-//  - M <= 8 (decode): one warp per output column. Each lane streams 16-byte
-//    chunks of the weight row (coalesced, read once) and the matching x
-//    chunks (cached), converts pairs with __nv_cvt_fp8x2_to_halfraw2 (exact:
-//    every e4m3 and e5m2 value, subnormals included, is a half) and
-//    accumulates with fmaf. A product of two fp8 values is exact in f32; a
-//    warp shuffle reduces. (Issuing all of a lane's weight loads before
-//    converting any timed slower on the H100 at every TinyLlama shape.)
+// Four routes, chosen by the wrapper from the shape (kernels/fp8.py uses
+// kernels/gemm.py:route; never after a failure):
+//  - M <= 8 (decode), K % 16 == 0 and 16-byte aligned bases: "gemv",
+//    asq_fp8_gemv, the GEMV of asq_gemv.cuh (a block owns 16 weight rows,
+//    its warps split K, the bytes stream through a cp.async ring,
+//    x is read and converted once a block). Each fp8 pair becomes an f16
+//    pair (cvt.rn.f16x2.e4m3x2 / e5m2x2: exact) and mma.sync.m16n8k16 f16
+//    takes the weights as A and the <= 8 rows of x as B, accumulating in
+//    f32 as the tensor-core route's wgmma does; the warps' partial sums
+//    are added in a fixed order.
+//  - M <= 8 otherwise (ragged K, an offset view): "gemv_ragged", one warp
+//    per output column, a lane taking every 32nd value with fmaf; a warp
+//    shuffle reduces. A product of two fp8 values is exact in f32.
 //  - M > 8, K % 16 == 0 and both bases 16-byte aligned (what TMA takes):
 //    asq_fp8_gemm_tc, the tensor-core route. A block covers BM = 64 or 128
 //    rows (4 or 8 consumer warps of 16 rows, so each weight tile is read
@@ -47,8 +52,8 @@
 //    output tiles than SMs split K; the partial sums go to an f32 workspace
 //    and a second small pass adds them in a fixed order before the
 //    epilogue.
-//  - Otherwise (ragged K such as 70, or an offset view): 64x64 CUDA-core
-//    tiles, K converted to f32 in shared memory.
+//  - M > 8 otherwise (ragged K such as 70, or an offset view): 64x64
+//    CUDA-core tiles, K converted to f32 in shared memory.
 //
 // Why f16 and not fp8 wgmma: Hopper's fp8 wgmma keeps only about
 // 14 bits of its running sum (DeepSeek-V3 technical report, section 3.3).
@@ -70,6 +75,7 @@
 #include <cuda_fp8.h>
 
 #include "asq_common.cuh"
+#include "asq_gemv.cuh"
 #include "asq_tma.cuh"
 
 namespace {
@@ -95,12 +101,11 @@ __device__ __forceinline__ void fp8x4_to_float(unsigned w, float* f) {
   f[3] = fb.y;
 }
 
+// two fp8 (byte 0 first) as an f16x2 register (byte 0 in the low half)
 template <__nv_fp8_interpretation_t F>
-__device__ __forceinline__ void fp8x16_to_float(const uint4& v, float* f) {
-  fp8x4_to_float<F>(v.x, f);
-  fp8x4_to_float<F>(v.y, f + 4);
-  fp8x4_to_float<F>(v.z, f + 8);
-  fp8x4_to_float<F>(v.w, f + 12);
+__device__ __forceinline__ uint32_t fp8x2_to_f16x2(uint32_t v) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(static_cast<__nv_fp8x2_storage_t>(v), F);
+  return static_cast<uint32_t>(h.x) | (static_cast<uint32_t>(h.y) << 16);
 }
 
 // ---------------------------------------------------------------------------
@@ -108,45 +113,47 @@ __device__ __forceinline__ void fp8x16_to_float(const uint4& v, float* f) {
 // ---------------------------------------------------------------------------
 
 constexpr int kGemvMaxM = 8;
-constexpr int kGemvWarps = 8;
 
-// One warp per output column n; all M (<= 8) rows at once.
+// "gemv": one 64-byte K step of the lane's 16 bytes of weight rows g and
+// g + 8 and of x row g, as four m16n8k16 f16 products, one per word: the
+// word's bytes 0-1 fill A's a0 / a1 (rows g / g + 8, K 2t, 2t + 1) and B's
+// b0 (x row g, K 2t, 2t + 1), bytes 2-3 fill a2 / a3 and b1 (K 2t + 8,
+// 2t + 9), so every weight value meets its x value
 template <__nv_fp8_interpretation_t F>
-__global__ void __launch_bounds__(kGemvWarps * 32)
-    gemv_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
-                int M, int N, int K, bool vec16, AsqEpilogue e) {
-  const int n = blockIdx.x * kGemvWarps + threadIdx.x / 32;
+struct Fp8Gemv {
+  using Acc = float;
+  __device__ static void step(float (&acc)[4], const uint4& w0, const uint4& w1, const uint4& x) {
+    const uint32_t a[4] = {w0.x, w0.y, w0.z, w0.w}, b[4] = {w1.x, w1.y, w1.z, w1.w};
+    const uint32_t c[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      gemv_mma(acc, fp8x2_to_f16x2<F>(a[j] & 0xffffu), fp8x2_to_f16x2<F>(b[j] & 0xffffu),
+               fp8x2_to_f16x2<F>(a[j] >> 16), fp8x2_to_f16x2<F>(b[j] >> 16),
+               fp8x2_to_f16x2<F>(c[j] & 0xffffu), fp8x2_to_f16x2<F>(c[j] >> 16));
+  }
+  __device__ static float value(float acc) { return acc; }
+};
+
+constexpr int kRaggedWarps = 8;
+
+// "gemv_ragged": one warp per output column n; all M (<= 8) rows at once
+template <__nv_fp8_interpretation_t F>
+__global__ void __launch_bounds__(kRaggedWarps * 32)
+    gemv_ragged_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
+                       int M, int N, int K, AsqEpilogue e) {
+  const int n = blockIdx.x * kRaggedWarps + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (n >= N) return;
   const uint8_t* wr = w + static_cast<size_t>(n) * K;
   float acc[kGemvMaxM];
 #pragma unroll
   for (int m = 0; m < kGemvMaxM; ++m) acc[m] = 0.f;
-  if (vec16) {
-    for (int k = lane * 16; k < K; k += 32 * 16) {
-      float wf[16];
-      fp8x16_to_float<F>(*reinterpret_cast<const uint4*>(wr + k), wf);
+  for (int k = lane; k < K; k += 32) {
+    const float wv = fp8_to_float<F>(wr[k]);
 #pragma unroll
-      for (int m = 0; m < kGemvMaxM; ++m) {
-        if (m < M) {
-          float xf[16];
-          fp8x16_to_float<F>(*reinterpret_cast<const uint4*>(
-                                 x + static_cast<size_t>(m) * K + k), xf);
-          float a = acc[m];
-#pragma unroll
-          for (int i = 0; i < 16; ++i) a = fmaf(xf[i], wf[i], a);
-          acc[m] = a;
-        }
-      }
-    }
-  } else {
-    for (int k = lane; k < K; k += 32) {
-      const float wv = fp8_to_float<F>(wr[k]);
-#pragma unroll
-      for (int m = 0; m < kGemvMaxM; ++m)
-        if (m < M)
-          acc[m] = fmaf(fp8_to_float<F>(x[static_cast<size_t>(m) * K + k]), wv, acc[m]);
-    }
+    for (int m = 0; m < kGemvMaxM; ++m)
+      if (m < M)
+        acc[m] = fmaf(fp8_to_float<F>(x[static_cast<size_t>(m) * K + k]), wv, acc[m]);
   }
 #pragma unroll
   for (int m = 0; m < kGemvMaxM; ++m) {
@@ -239,9 +246,8 @@ template <__nv_fp8_interpretation_t F>
 void launch(const uint8_t* x, const uint8_t* w, int M, int N, int K,
             uintptr_t align, const AsqEpilogue& e, cudaStream_t s) {
   if (M <= kGemvMaxM) {
-    const bool vec16 = (K % 16 == 0) && (align % 16 == 0);
-    const int blocks = (N + kGemvWarps - 1) / kGemvWarps;
-    gemv_kernel<F><<<blocks, kGemvWarps * 32, 0, s>>>(x, w, M, N, K, vec16, e);
+    const int blocks = (N + kRaggedWarps - 1) / kRaggedWarps;
+    gemv_ragged_kernel<F><<<blocks, kRaggedWarps * 32, 0, s>>>(x, w, M, N, K, e);
   } else {
     const bool al4 = (K % 4 == 0) && (align % 4 == 0);
     dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
@@ -256,13 +262,6 @@ void launch(const uint8_t* x, const uint8_t* w, int M, int N, int K,
 constexpr int kTcBN = 64;      // output columns a block
 constexpr int kTcBK = 128;     // K bytes a stage: one 128-byte swizzle row
 constexpr int kTcStages = 3;
-
-// two fp8 (byte 0 first) as an f16x2 register (byte 0 in the low half)
-template <__nv_fp8_interpretation_t F>
-__device__ __forceinline__ uint32_t fp8x2_to_f16x2(uint32_t v) {
-  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(static_cast<__nv_fp8x2_storage_t>(v), F);
-  return static_cast<uint32_t>(h.x) | (static_cast<uint32_t>(h.y) << 16);
-}
 
 // d += A[64 x 16] * B[64 x 16]^T: A from registers (f16, each warp 16 rows
 // as mma.m16n8k16's A fragment), B f16 K-major in shared memory
@@ -466,7 +465,7 @@ int launch_tc_fmt(const void* x, const void* w, int M, int N, int K, int split, 
 // x [M, K] fp8, w_t [N, K] fp8 (fmt 0: e4m3fn, 1: e5m2), row_scale
 // (rs_stride 0: one value, 1: [M]; null: 1), col_scale (cs_stride 0: one
 // value, 1: [N]; null: 1), bias [N] f32 or null, out [M, N] (out_kind 0: f32,
-// 1: bf16). The GEMV for M <= 8, CUDA-core tiles above.
+// 1: bf16). The ragged GEMV for M <= 8, CUDA-core tiles above.
 ASQ_EXPORT int asq_fp8_gemm(const void* x, const void* w_t, const void* row_scale,
                             int rs_stride, const void* col_scale, int cs_stride,
                             const void* bias, void* out, int M, int N, int K,
@@ -484,6 +483,21 @@ ASQ_EXPORT int asq_fp8_gemm(const void* x, const void* w_t, const void* row_scal
     launch<__NV_E5M2>(xp, wp, M, N, K, align, e, s);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The "gemv" route: arguments as asq_fp8_gemm, plus blocks (of 16 weight
+// rows, kernels/gemm.py:gemv_blocks; they must cover N). Needs M <= 8,
+// K % 16 == 0 and 16-byte aligned x and w_t.
+ASQ_EXPORT int asq_fp8_gemv(const void* x, const void* w_t, const void* row_scale,
+                            int rs_stride, const void* col_scale, int cs_stride,
+                            const void* bias, void* out, int M, int N, int K, int fmt,
+                            int out_kind, int blocks, void* stream) {
+  AsqEpilogue e{static_cast<const float*>(row_scale), rs_stride,
+                static_cast<const float*>(col_scale), cs_stride,
+                static_cast<const float*>(bias), ASQ_ACT_NONE, out_kind, out};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return fmt == 0 ? launch_gemv_mma<Fp8Gemv<__NV_E4M3>>(x, w_t, M, N, K, blocks, e, s)
+                  : launch_gemv_mma<Fp8Gemv<__NV_E5M2>>(x, w_t, M, N, K, blocks, e, s);
 }
 
 // The tensor-core route: arguments as asq_fp8_gemm, plus split (K splits;

@@ -17,10 +17,15 @@
 // us): a weight stream at M = 128 that needs the tensor cores to keep up,
 // bound by the operations at M = 512.
 //
-// Three routes, chosen by the wrapper from the shape (never after a failure):
-//  - M <= 8 (decode): one warp per output column. Each lane streams 16-byte
-//    chunks of the weight row (coalesced, read once) and the matching x
-//    chunks (a few KB, cached) and accumulates with __dp4a; a warp shuffle
+// Four routes, chosen by the wrapper from the shape (kernels/gemm.py:route,
+// never after a failure):
+//  - M <= 8 (decode), K % 16 == 0 and 16-byte aligned bases: "gemv",
+//    asq_int8_gemv, the GEMV of asq_gemv.cuh (a block owns 16 weight rows,
+//    its warps split K, the bytes stream through a cp.async ring,
+//    x is read once a block, and mma.sync.m16n8k32.s32.s8.s8 takes the
+//    weights as A and the <= 8 rows of x as B); exact int32 sums.
+//  - M <= 8 otherwise (ragged K, an offset view): "gemv_ragged", one warp
+//    per output column, a lane taking every 32nd byte; a warp shuffle
 //    reduces.
 //  - M > 8, K % 16 == 0 and both bases 16-byte aligned (what TMA takes):
 //    asq_int8_gemm_tc, the tensor-core route. A block covers BM = 64 or 128
@@ -37,10 +42,10 @@
 //    SMs split K: the int32 partial sums go to a workspace and a second
 //    pass adds them (integer addition is exact, so the order does not
 //    matter) before the epilogue.
-//  - Otherwise (ragged K such as 70, or an offset view): 64x64 output tiles,
-//    64-byte K steps staged in shared memory, 256 threads each holding a 4x4
-//    block of int32 accumulators (__dp4a). Edges are masked (zero-filled
-//    words), so no shape or alignment is refused.
+//  - M > 8 otherwise (ragged K such as 70, or an offset view): 64x64 output
+//    tiles, 64-byte K steps staged in shared memory, 256 threads each
+//    holding a 4x4 block of int32 accumulators (__dp4a). Edges are masked
+//    (zero-filled words), so no shape or alignment is refused.
 //
 // |acc| <= 128 * 127 * K stays below 2**31 for K < 132,000, so the int32 sum
 // is exact on every route. The epilogue (asq_store, asq_common.cuh)
@@ -49,49 +54,45 @@
 // output equals the plain PyTorch version's bits.
 
 #include "asq_common.cuh"
+#include "asq_gemv.cuh"
 #include "asq_tma.cuh"
 
 namespace {
 
 constexpr int kGemvMaxM = 8;
-constexpr int kGemvWarps = 8;
 
-// One warp per output column n; all M (<= 8) rows at once.
-__global__ void __launch_bounds__(kGemvWarps * 32)
-    gemv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                int M, int N, int K, bool vec16, AsqEpilogue e) {
-  const int n = blockIdx.x * kGemvWarps + threadIdx.x / 32;
+// "gemv": one 64-byte K step of the lane's 16 bytes of weight rows g and
+// g + 8 and of x row g, as two m16n8k32 products: A fragment words a0 / a2
+// (row g, K 4t.. / 16 + 4t..) and a1 / a3 (row g + 8), B words b0 / b1 (x
+// row g, K 4t.. / 16 + 4t..) take bytes 0-3 / 4-7 of the lane's chunks,
+// then bytes 8-11 / 12-15, so every weight byte meets its x byte
+struct Int8Gemv {
+  using Acc = int;
+  __device__ static void step(int (&acc)[4], const uint4& w0, const uint4& w1, const uint4& x) {
+    gemv_mma(acc, w0.x, w1.x, w0.y, w1.y, x.x, x.y);
+    gemv_mma(acc, w0.z, w1.z, w0.w, w1.w, x.z, x.w);
+  }
+  __device__ static float value(int acc) { return __int2float_rn(acc); }
+};
+
+constexpr int kRaggedWarps = 8;
+
+// "gemv_ragged": one warp per output column n; all M (<= 8) rows at once
+__global__ void __launch_bounds__(kRaggedWarps * 32)
+    gemv_ragged_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                       int M, int N, int K, AsqEpilogue e) {
+  const int n = blockIdx.x * kRaggedWarps + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (n >= N) return;
   const int8_t* wr = w + static_cast<size_t>(n) * K;
   int acc[kGemvMaxM];
 #pragma unroll
   for (int m = 0; m < kGemvMaxM; ++m) acc[m] = 0;
-  if (vec16) {
-#pragma unroll 4
-    for (int k = lane * 16; k < K; k += 32 * 16) {
-      const int4 wv = *reinterpret_cast<const int4*>(wr + k);
+  for (int k = lane; k < K; k += 32) {
+    const int wv = wr[k];
 #pragma unroll
-      for (int m = 0; m < kGemvMaxM; ++m) {
-        if (m < M) {
-          const int4 xv = *reinterpret_cast<const int4*>(
-              x + static_cast<size_t>(m) * K + k);
-          int a = acc[m];
-          a = __dp4a(xv.x, wv.x, a);
-          a = __dp4a(xv.y, wv.y, a);
-          a = __dp4a(xv.z, wv.z, a);
-          a = __dp4a(xv.w, wv.w, a);
-          acc[m] = a;
-        }
-      }
-    }
-  } else {
-    for (int k = lane; k < K; k += 32) {
-      const int wv = wr[k];
-#pragma unroll
-      for (int m = 0; m < kGemvMaxM; ++m)
-        if (m < M) acc[m] += static_cast<int>(x[static_cast<size_t>(m) * K + k]) * wv;
-    }
+    for (int m = 0; m < kGemvMaxM; ++m)
+      if (m < M) acc[m] += static_cast<int>(x[static_cast<size_t>(m) * K + k]) * wv;
   }
 #pragma unroll
   for (int m = 0; m < kGemvMaxM; ++m) {
@@ -334,8 +335,8 @@ int launch_tc(const void* x, const void* w, int M, int N, int K, int split, int*
 // x [M, K] int8, w_t [N, K] int8, row_scale (rs_stride 0: one value, 1: [M];
 // null: 1), col_scale (cs_stride 0: one value, 1: [N]; null: 1), bias [N] f32
 // or null, out [M, N].
-// act: 0 none, 1 relu, 2 silu; out_kind: 0 f32, 1 bf16, 2 int8. The GEMV
-// for M <= 8, CUDA-core tiles above.
+// act: 0 none, 1 relu, 2 silu; out_kind: 0 f32, 1 bf16, 2 int8. The
+// ragged GEMV for M <= 8, CUDA-core tiles above.
 ASQ_EXPORT int asq_int8_gemm(const void* x, const void* w_t, const void* row_scale,
                              int rs_stride, const void* col_scale, int cs_stride,
                              const void* bias, void* out, int M, int N, int K,
@@ -348,15 +349,28 @@ ASQ_EXPORT int asq_int8_gemm(const void* x, const void* w_t, const void* row_sca
   const uintptr_t align = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w_t);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M <= kGemvMaxM) {
-    const bool vec16 = (K % 16 == 0) && (align % 16 == 0);
-    const int blocks = (N + kGemvWarps - 1) / kGemvWarps;
-    gemv_kernel<<<blocks, kGemvWarps * 32, 0, s>>>(xp, wp, M, N, K, vec16, e);
+    const int blocks = (N + kRaggedWarps - 1) / kRaggedWarps;
+    gemv_ragged_kernel<<<blocks, kRaggedWarps * 32, 0, s>>>(xp, wp, M, N, K, e);
   } else {
     const bool al4 = (K % 4 == 0) && (align % 4 == 0);
     dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
     gemm_tiled_kernel<<<grid, 256, 0, s>>>(xp, wp, M, N, K, al4, e);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The "gemv" route: arguments as asq_int8_gemm, plus blocks (of 16 weight
+// rows, kernels/gemm.py:gemv_blocks; they must cover N). Needs M <= 8,
+// K % 16 == 0 and 16-byte aligned x and w_t.
+ASQ_EXPORT int asq_int8_gemv(const void* x, const void* w_t, const void* row_scale,
+                             int rs_stride, const void* col_scale, int cs_stride,
+                             const void* bias, void* out, int M, int N, int K, int act,
+                             int out_kind, int blocks, void* stream) {
+  AsqEpilogue e{static_cast<const float*>(row_scale), rs_stride,
+                static_cast<const float*>(col_scale), cs_stride,
+                static_cast<const float*>(bias), act, out_kind, out};
+  return launch_gemv_mma<Int8Gemv>(x, w_t, M, N, K, blocks, e,
+                                   static_cast<cudaStream_t>(stream));
 }
 
 // The tensor-core route: arguments as asq_int8_gemm, plus split (K splits;

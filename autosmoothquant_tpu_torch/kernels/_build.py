@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = ("int8_gemm", "add_rmsnorm_quant", "flash_attn", "fp8_gemm", "int4_gemm",
            "add_layernorm_quant")
-HEADERS = ("asq_common.cuh", "asq_tma.cuh")
+HEADERS = ("asq_common.cuh", "asq_gemv.cuh", "asq_tma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -4,12 +4,16 @@ streams through, ``kernels/fp8.py:_fp8_kernel``.
 
 ``fp8_matmul`` launches the CUDA kernels of ``csrc/fp8_gemm.cu`` (K4) for
 CUDA tensors, at every M, and runs :func:`fp8_matmul_plain` for CPU tensors.
-On the card it picks one of three routes from the shape alone
-(:func:`route`): the GEMV for M <= 8; the tensor-core route (TMA, the fp8
-tiles converted to f16 for ``wgmma`` with f32 accumulation, K split where
-the output has too few tiles to fill the SMs) where TMA takes the operands
-(K % 16 == 0, 16-byte aligned bases); CUDA-core tiles otherwise. K1 and K4
-share the rule and the tile sizes (``gemm.route``, ``gemm.tc_split``). The
+On the card it picks one of four routes from the shape alone
+(:func:`route`). Where K % 16 == 0 and the bases are 16-byte aligned: the
+GEMV for M <= 8 (``csrc/asq_gemv.cuh``: a cp.async ring, x read and
+converted once a block, the fp8 pairs converted exactly to f16 for
+``mma.sync`` with f32 accumulation, the weights as A), and for M > 8 the
+tensor-core route (TMA, the fp8 tiles converted to f16 for ``wgmma`` with
+f32 accumulation, K split where the output has too few tiles to fill the
+SMs). Otherwise a ragged GEMV (M <= 8) or CUDA-core tiles. K1 and K4 share
+the rule, the grids and the tile sizes (``gemm.route``,
+``gemm.gemv_blocks``, ``gemm.tc_split``). The
 TPU gates its kernel to M <= 64 and an opt-in flag only because v5e has no
 fp8 unit; Hopper has fp8 tensor cores. Weights are ``[N, K]`` fp8 (e4m3fn
 or e5m2), K-contiguous, transposed once at load (``convert/from_jax.py``).
@@ -23,7 +27,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .gemm import _as_vector, route, tc_split
+from .gemm import _as_vector, gemv_blocks, route, tc_split
 
 _FORMATS = {torch.float8_e4m3fn: 0, torch.float8_e5m2: 1}
 _OUT_KINDS = {torch.float32: 0, torch.bfloat16: 1}
@@ -32,6 +36,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = (_P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P)
 _TC_ARGTYPES = (_P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P)
+_GEMV_ARGTYPES = (_P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P)
 
 
 def fp8_matmul_plain(x_f8: torch.Tensor, w_t: torch.Tensor, row_scale=1.0,
@@ -98,7 +103,13 @@ def fp8_matmul(x_f8: torch.Tensor, w_t: torch.Tensor, row_scale=1.0,
             int(rs is not None and rs.ndim), _build.ptr(cs),
             int(cs is not None and cs.ndim), _build.ptr(bias), out.data_ptr(),
             m, n, k, _FORMATS[x_f8.dtype], _OUT_KINDS[out_dtype])
-    if route(m, k, x_f8, w_t) == "tc":
+    how = route(m, k, x_f8, w_t)
+    if how == "gemv":
+        fn = _build.function("fp8_gemm", "asq_fp8_gemv", _GEMV_ARGTYPES)
+        rc = fn(*args, gemv_blocks(n), _build.stream_ptr(x_f8))
+        _build.check("fp8_gemm", rc, "fp8_matmul")
+        fp8_matmul.gemv_launches += 1
+    elif how == "tc":
         split = tc_split(m, n, k)
         ws = (torch.empty(split * m * n, dtype=torch.float32, device=dev)
               if split > 1 else None)
@@ -115,6 +126,7 @@ def fp8_matmul(x_f8: torch.Tensor, w_t: torch.Tensor, row_scale=1.0,
 
 
 # launches of the CUDA kernels, every route (plain CPU calls do not count),
-# and of the tensor-core route alone
+# and of the "gemv" and tensor-core routes alone
 fp8_matmul.launches = 0
+fp8_matmul.gemv_launches = 0
 fp8_matmul.tc_launches = 0

@@ -3,13 +3,16 @@
 
 ``int8_matmul`` launches the CUDA kernels of ``csrc/int8_gemm.cu`` (K1) for
 CUDA tensors and runs :func:`int8_matmul_plain` for CPU tensors. On the card
-it picks one of three routes from the shape alone (:func:`route`): the GEMV
-for M <= 8; the tensor-core route (TMA and int8 ``wgmma`` with int32
-accumulation, K split where the output has too few tiles to fill the SMs)
-where TMA takes the operands (K % 16 == 0, 16-byte aligned bases); CUDA-core
-tiles otherwise. Weights are ``[N, K]`` int8, K-contiguous (``nn.Linear``'s
-layout): the JAX package's ``[K, N]`` leaves are transposed once when they
-are loaded (``convert/from_jax.py``), never per call.
+it picks one of four routes from the shape alone (:func:`route`). Where
+K % 16 == 0 and the bases are 16-byte aligned: the GEMV for M <= 8
+(``csrc/asq_gemv.cuh``: a cp.async ring, x read once a block, int8
+``mma.sync`` with the weights as A; its grid from :func:`gemv_blocks`), and
+for M > 8 the tensor-core route (TMA and int8 ``wgmma`` with int32
+accumulation, K split where the output has too few tiles to fill the SMs).
+Otherwise a ragged GEMV (M <= 8) or CUDA-core tiles. Weights are
+``[N, K]`` int8, K-contiguous (``nn.Linear``'s layout): the JAX package's
+``[K, N]`` leaves are transposed once when they are loaded
+(``convert/from_jax.py``), never per call.
 """
 
 from __future__ import annotations
@@ -31,8 +34,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = (_P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P)
 _TC_ARGTYPES = (_P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P)
+_GEMV_ARGTYPES = (_P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P)
 
 GEMV_MAX_M = 8
+GEMV_ROWS = 16   # weight rows (output columns) a GEMV block owns
 _TC_BM = 64      # rows a consumer warpgroup covers (a block: 64, or 128 for M > 64)
 _TC_BN = 64      # columns a block covers
 _TC_BK = 128     # K bytes a pipeline stage holds
@@ -41,14 +46,22 @@ _SMS = 132       # streaming multiprocessors of an H100 SXM
 
 def route(m: int, k: int, *tensors: torch.Tensor) -> str:
     """The route of K1 and of K4 (``fp8.py``) for an [m, k] @ [n, k].T
-    product: "gemv" (M <= 8), "tc" (the tensor-core route: TMA needs
-    K % 16 == 0 and 16-byte aligned bases) or "tiles" (CUDA-core tiles for
-    what TMA cannot take)."""
+    product. Where K % 16 == 0 and every base is 16-byte aligned (16-byte
+    copies of a row, and TMA's tiles, need both): "gemv" for M <= 8, "tc"
+    (the tensor-core route) above. Otherwise "gemv_ragged" (M <= 8) or
+    "tiles" (CUDA-core tiles)."""
+    aligned = k % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
     if m <= GEMV_MAX_M:
-        return "gemv"
-    if k % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors):
-        return "tc"
-    return "tiles"
+        return "gemv" if aligned else "gemv_ragged"
+    return "tc" if aligned else "tiles"
+
+
+def gemv_blocks(n: int) -> int:
+    """The grid of the GEMV of K1 and K4 (``csrc/asq_gemv.cuh``) for N
+    weight rows: one block per 16 rows, so every column is one block's.
+    Its 8 warps split K and its shared memory (a 48 KB ring of 4 steps,
+    never all of x) does not depend on the shape: four blocks an SM."""
+    return -(-n // GEMV_ROWS)
 
 
 def tc_split(m: int, n: int, k: int) -> int:
@@ -147,7 +160,13 @@ def int8_matmul(x_q: torch.Tensor, w_t: torch.Tensor, row_scale=1.0,
             int(rs is not None and rs.ndim), _build.ptr(cs),
             int(cs is not None and cs.ndim), _build.ptr(bias), out.data_ptr(),
             m, n, k, _ACTS[activation], _OUT_KINDS[out_dtype])
-    if route(m, k, x_q, w_t) == "tc":
+    how = route(m, k, x_q, w_t)
+    if how == "gemv":
+        fn = _build.function("int8_gemm", "asq_int8_gemv", _GEMV_ARGTYPES)
+        rc = fn(*args, gemv_blocks(n), _build.stream_ptr(x_q))
+        _build.check("int8_gemm", rc, "int8_matmul")
+        int8_matmul.gemv_launches += 1
+    elif how == "tc":
         split = tc_split(m, n, k)
         ws = (torch.empty(split * m * n, dtype=torch.int32, device=dev)
               if split > 1 else None)
@@ -164,6 +183,7 @@ def int8_matmul(x_q: torch.Tensor, w_t: torch.Tensor, row_scale=1.0,
 
 
 # launches of the CUDA kernels, every route (plain CPU calls do not count),
-# and of the tensor-core route alone
+# and of the "gemv" and tensor-core routes alone
 int8_matmul.launches = 0
+int8_matmul.gemv_launches = 0
 int8_matmul.tc_launches = 0

@@ -36,14 +36,15 @@ Phases (any failure ends the run with a nonzero exit code):
            before the path runs, exactly as the path's shape says
   timing   the launch floor (a one-element kernel); each kernel's time
            against its plain version, its library yardstick and its bound
-           (K5 and K6 beside their earlier designs, the tiles / rows routes, and
+           (K1 and K4 at M = 1, 2, 4 and 8 on their GEMV too; K5 and K6
+           beside their earlier designs, the tiles / rows routes, and
            K5 up to 4 rows beside its GEMV; K3 at D = 80 beside what padded
            copies of its operands would cost);
            prefill time; decode tok/s at b1, prompt 128, s_max 512, in turns:
            TinyLlama W8A8, fp8, int4 and bf16, and OPT-6.7B W8A8 and bf16;
            device busy time and top kernels of one prefill (T 128; TinyLlama
-           bf16, W8A8 and int4 at T 64 too) and of one decode step; peak
-           device memory
+           bf16, W8A8 and int4 at T 64 too) and of one decode step (with
+           the device ms of K1's and K4's GEMV in it); peak device memory
 
 Every phase runs, in this order. The last two lines of standard output are
 the kernel table ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
@@ -371,6 +372,15 @@ class Timer:
         return statistics.median(times)
 
 
+def gemm_bytes(c):
+    """Bytes a K1 or K4 case must move: x, w, the scales and the bias read
+    once, the output written once."""
+    m, k = c["x"].shape
+    n = c["w"].shape[0]
+    return (m * k + n * k + m * n * c["dt"].itemsize + 4 * (c["rs"].numel() + c["cs"].numel())
+            + (4 * n if c["bias"] is not None else 0))
+
+
 def bound(nbytes, ops, kind):
     """(bound ms, "bytes" | "operations") on an H100 at its published peaks."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -656,25 +666,28 @@ def phase_kernels(torch, results):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
 
-    # K1: M in {1, 4, 9, 65, 128, 512} x the four projections, epilogues in
-    # rotation, plus ragged shapes and an offset view that exercise the edge
-    # masking and the CUDA-core tiles; M > 8 with K % 16 == 0 and aligned
-    # bases must take the tensor-core route
+    # K1: M in {1, 4, 8, 9, 65, 128, 512} x the four projections, epilogues
+    # in rotation, plus ragged shapes and offset views that exercise the edge
+    # masking, the ragged GEMV and the CUDA-core tiles; with K % 16 == 0 and
+    # aligned bases, M <= 8 must take the GEMV and M > 8 the tensor-core
+    # route (checked through the route counters)
     from autosmoothquant_tpu_torch.kernels.gemm import int8_matmul, route
 
     cases = []
     vi = 0
-    for m in (1, 4, 9, 65, 128, 512):
+    for m in (1, 4, 8, 9, 65, 128, 512):
         for (k, n), pname in zip(GEMM_SHAPES, GEMM_NAMES):
             cases.append((m, k, n, GEMM_VARIANTS[vi % len(GEMM_VARIANTS)], pname))
             vi += 1
     cases += [(3, 37, 100, GEMM_VARIANTS[2], "ragged"),
               (77, 70, 130, GEMM_VARIANTS[3], "ragged"),
               (9, 2048, 2560, GEMM_VARIANTS[0], "ragged"),
-              (130, 2048, 2560, GEMM_VARIANTS[4], "offset view")]
+              (5, 2064, 100, GEMM_VARIANTS[4], "ragged"),
+              (130, 2048, 2560, GEMM_VARIANTS[4], "offset view"),
+              (4, 2048, 2560, GEMM_VARIANTS[5], "offset view")]
     # OPT-6.7B: K = 16384 (fc2) and N = 16384 (fc1), with biases
     cases += [(m, k, n, OPT_GEMM_VARIANTS[pname], f"opt {pname}")
-              for m in (1, 4, 9, 65, 128, 512)
+              for m in (1, 4, 8, 9, 65, 128, 512)
               for (k, n), pname in zip(OPT_GEMM_SHAPES, OPT_GEMM_NAMES)]
     worst = 0.0
     for m, k, n, variant, pname in cases:
@@ -683,19 +696,21 @@ def phase_kernels(torch, results):
             buf = torch.empty(m * k + 8, dtype=torch.int8, device="cuda")
             c["x"] = buf[8:].view(m, k).copy_(c["x"])
         how = route(m, k, c["x"], c["w"])
-        tc_before = int8_matmul.tc_launches
+        tc_before, gemv_before = int8_matmul.tc_launches, int8_matmul.gemv_launches
         out, ref = run_gemm(c), run_gemm(c, plain=True)
         torch.cuda.synchronize()
         tc = int8_matmul.tc_launches - tc_before == 1
-        want_tc = m > 8 and k % 16 == 0 and pname != "offset view"
-        require(tc == (how == "tc") and (how == "tc") == want_tc,
-                f"int8_matmul took route {how} (tensor-core launch {tc}) at M={m} K={k} "
-                f"{pname}")
+        gemv = int8_matmul.gemv_launches - gemv_before == 1
+        aligned = k % 16 == 0 and pname != "offset view"
+        want = ("gemv" if m <= 8 else "tc") if aligned else ("gemv_ragged" if m <= 8 else "tiles")
+        require(tc == (how == "tc") and gemv == (how == "gemv") and how == want,
+                f"int8_matmul took route {how} (tensor-core launch {tc}, GEMV launch "
+                f"{gemv}) at M={m} K={k} {pname}; expected {want}")
         key = "silu" if c["act"] == "silu" else c["out"]
         rtol, atol = GEMM_TOL[key]
         ok, err = _close(out, ref, rtol, atol)
         worst = max(worst, err)
-        log(f"  int8_matmul {pname:11s} M={m:<4d} K={k:<5d} N={n:<6d} {how:5s} "
+        log(f"  int8_matmul {pname:11s} M={m:<4d} K={k:<5d} N={n:<6d} {how:11s} "
             f"{c['label']:26s} max|err|={err:.3g} (rtol {rtol:g}, atol {atol:g})"
             f" {'ok' if ok else 'FAIL'}")
         require(ok, f"int8_matmul disagrees with its plain version at "
@@ -808,15 +823,15 @@ def phase_kernels(torch, results):
     for name, err in worst.items():
         results[name]["max_abs_err"] = err
 
-    # K4: M in {1, 4, 9, 64, 65, 128, 129, 512} x the four projections x
+    # K4: M in {1, 4, 8, 9, 64, 65, 128, 129, 512} x the four projections x
     # {e4m3, e5m2}, epilogues in rotation, plus ragged shapes that exercise
-    # the edge masking and each route; M > 8 with K % 16 == 0 must take the
-    # tensor-core route
+    # the edge masking and each route; with K % 16 == 0, M <= 8 must take
+    # the GEMV and M > 8 the tensor-core route
     from autosmoothquant_tpu_torch.kernels.fp8 import fp8_matmul
 
     cases = []
     vi = 0
-    for m in (1, 4, 9, 64, 65, 128, 129, 512):
+    for m in (1, 4, 8, 9, 64, 65, 128, 129, 512):
         for (k, n), pname in zip(GEMM_SHAPES, GEMM_NAMES):
             for fmt in FP8_FORMATS:
                 cases.append((m, k, n, fmt, FP8_VARIANTS[vi % len(FP8_VARIANTS)], pname))
@@ -824,22 +839,27 @@ def phase_kernels(torch, results):
     cases += [(3, 37, 100, "e4m3", FP8_VARIANTS[1], "ragged"),
               (77, 70, 130, "e5m2", FP8_VARIANTS[2], "ragged"),
               (20, 48, 100, "e4m3", FP8_VARIANTS[3], "ragged"),
-              (9, 2048, 130, "e5m2", FP8_VARIANTS[0], "ragged")]
+              (9, 2048, 130, "e5m2", FP8_VARIANTS[0], "ragged"),
+              (7, 2064, 100, "e4m3", FP8_VARIANTS[1], "ragged")]
     worst = 0.0
     for m, k, n, fmt, variant, pname in cases:
         c = fp8_case(torch, m, k, n, fmt, variant, gen)
         how = route(m, k, c["x"], c["w"])
-        tc_before = fp8_matmul.tc_launches
+        tc_before, gemv_before = fp8_matmul.tc_launches, fp8_matmul.gemv_launches
         out, ref = run_fp8(c), run_fp8(c, plain=True)
         torch.cuda.synchronize()
         tc = fp8_matmul.tc_launches - tc_before == 1
-        require(tc == (how == "tc") and (how == "tc") == (m > 8 and k % 16 == 0),
-                f"fp8_matmul took route {how} (tensor-core launch {tc}) at M={m} K={k}")
+        gemv = fp8_matmul.gemv_launches - gemv_before == 1
+        want = ("gemv" if m <= 8 else "tc") if k % 16 == 0 else (
+            "gemv_ragged" if m <= 8 else "tiles")
+        require(tc == (how == "tc") and gemv == (how == "gemv") and how == want,
+                f"fp8_matmul took route {how} (tensor-core launch {tc}, GEMV launch "
+                f"{gemv}) at M={m} K={k}; expected {want}")
         err = float((out.double() - ref.double()).abs().max())
         excess = float(((out.double() - ref.double()).abs()
                         / fp8_tolerance(torch, c, ref)).max())
         worst = max(worst, err)
-        log(f"  fp8_matmul {pname:7s} M={m:<4d} K={k:<5d} N={n:<6d} {how:5s} "
+        log(f"  fp8_matmul {pname:7s} M={m:<4d} K={k:<5d} N={n:<6d} {how:11s} "
             f"{c['label']:30s} max|err|={err:.3g} (<= its bound: {excess:.3g} of it) "
             f"{'ok' if excess <= 1 else 'FAIL'}")
         require(excess <= 1, f"fp8_matmul disagrees with its plain version at "
@@ -849,7 +869,7 @@ def phase_kernels(torch, results):
     # K4 on operands spread over ten decades, where the sum's rounding shows
     # most, on each route: the largest error / sum |x||w| and the largest
     # share of the f32 sum's bound
-    spread = [(m, k, n, fmt) for m in (4, 9, 128, 512) for (k, n) in GEMM_SHAPES
+    spread = [(m, k, n, fmt) for m in (1, 4, 8, 9, 128, 512) for (k, n) in GEMM_SHAPES
               for fmt in FP8_FORMATS]
     spread += [(20, 48, 100, "e4m3"), (64, 256, 512, "e5m2"), (77, 70, 130, "e4m3")]
     rel, share = {}, {}
@@ -865,7 +885,7 @@ def phase_kernels(torch, results):
         require(excess <= 1, f"fp8_matmul disagrees with its plain version on ten-decade "
                              f"operands at M={m} K={k} N={n} {fmt}")
     for how in rel:
-        log(f"  fp8_matmul {how:5s} route, ten-decade operands: max error / sum|x||w| "
+        log(f"  fp8_matmul {how:11s} route, ten-decade operands: max error / sum|x||w| "
             f"{rel[how]:.3g}, {share[how]:.3g} of the f32 sum's bound")
 
     # K5: M in {1, 2, 4, 8} (the one-launch GEMV up to 4 f32 or 2 bf16 rows,
@@ -1077,8 +1097,10 @@ def e2e_compare(torch, L, cfg, label, qcfg, params_cpu, limits, ragged, equal,
 def launch_counters():
     """Every launch count of the port, by name: (wrapper, attribute). Each
     kernel wrapper counts its launches; int8_matmul_tc, fp8_matmul_tc and
-    int4_matmul_tc count K1's, K4's and K5's tensor-core routes alone (their
-    launches are in int8_matmul's, fp8_matmul's and int4_matmul's too)."""
+    int4_matmul_tc count K1's, K4's and K5's tensor-core routes alone, and
+    int8_matmul_gemv and fp8_matmul_gemv K1's and K4's "gemv" routes alone
+    (their launches are in int8_matmul's, fp8_matmul's and int4_matmul's
+    too)."""
     from autosmoothquant_tpu_torch.kernels.attention import (
         flash_attention, flash_attention_banded)
     from autosmoothquant_tpu_torch.kernels.fp8 import fp8_matmul
@@ -1098,7 +1120,15 @@ def launch_counters():
     counters["int8_matmul_tc"] = (int8_matmul, "tc_launches")
     counters["fp8_matmul_tc"] = (fp8_matmul, "tc_launches")
     counters["int4_matmul_tc"] = (int4_matmul, "tc_launches")
+    counters["int8_matmul_gemv"] = (int8_matmul, "gemv_launches")
+    counters["fp8_matmul_gemv"] = (fp8_matmul, "gemv_launches")
     return counters
+
+
+# what each count of launch_counters() counts, for the serve phase's messages
+COUNTED = {"int8_matmul_tc": "K1's tensor-core route", "fp8_matmul_tc": "K4's tensor-core route",
+           "int4_matmul_tc": "K5's tensor-core route", "int8_matmul_gemv": "K1's GEMV route",
+           "fp8_matmul_gemv": "K4's GEMV route"}
 
 
 def read_counts(counters):
@@ -1115,7 +1145,8 @@ def reset_counts(counters):
 # a batch; one flash launch a layer per prefill). TinyLlama (22 layers) fuses
 # q|k|v and gate|up: 4 GEMMs a layer per forward. W8A8 and fp8 prefill at
 # M = 4 x 128, every GEMM on K1's or K4's tensor-core route; decode (M = 4)
-# takes the GEMV. int4 prefills those two batches at M = 4 x 128 > 64, which
+# takes the GEMV ("gemv": K % 16 == 0, aligned bases), counted apart too.
+# int4 prefills those two batches at M = 4 x 128 > 64, which
 # takes W4A16 (plain torch), and serves a third, short ragged batch
 # (SHORT_PROMPTS, 4 x 16 = 64 rows: every prefill GEMM on K5's tensor
 # cores, banded flash); its decode forwards (M = 4) take K5's GEMV on the
@@ -1127,10 +1158,12 @@ SHORT_PROMPTS = (16, 12, 9, 5)
 SERVE_PATHS = {
     "W8A8": (32, lambda n: {"int8_matmul": 4 * 22 * 2 * n,
                             "int8_matmul_tc": 4 * 22 * 2,
+                            "int8_matmul_gemv": 4 * 22 * 2 * (n - 1),
                             "fused_add_rmsnorm_quant": 22 * 2 * n,
                             "flash_attention": 22, "flash_attention_banded": 22}, False),
     "fp8 e4m3 dynamic": (16, lambda n: {"fp8_matmul": 4 * 22 * 2 * n,
                                         "fp8_matmul_tc": 4 * 22 * 2,
+                                        "fp8_matmul_gemv": 4 * 22 * 2 * (n - 1),
                                         "flash_attention": 22,
                                         "flash_attention_banded": 22}, False),
     "int4": (16, lambda n: {"int4_matmul": 4 * 22 * (3 * (n - 1) + 1),
@@ -1138,6 +1171,7 @@ SERVE_PATHS = {
                             "flash_attention": 22, "flash_attention_banded": 2 * 22}, True),
     "OPT-6.7B W8A8": (32, lambda n: {"int8_matmul": 6 * 32 * 2 * n,
                                      "int8_matmul_tc": 6 * 32 * 2,
+                                     "int8_matmul_gemv": 6 * 32 * 2 * (n - 1),
                                      "fused_add_layernorm_quant": 32 * 2 * n,
                                      "flash_attention": 32,
                                      "flash_attention_banded": 32}, False),
@@ -1210,18 +1244,22 @@ def phase_serve(torch, results):
             if name in results and results[name]["launches"] is None:
                 results[name]["launches"] = counts[name]  # the first path that runs it
         for kernel in ("int8_matmul", "fp8_matmul", "int4_matmul"):
-            if f"{kernel}_tc" in want and results[kernel].get("tc_launches") is None:
-                results[kernel]["tc_launches"] = counts[f"{kernel}_tc"]
+            for route in ("tc", "gemv"):
+                if (f"{kernel}_{route}" in want
+                        and results[kernel].get(f"{route}_launches") is None):
+                    results[kernel][f"{route}_launches"] = counts[f"{kernel}_{route}"]
         require(finite_r and finite_e, f"non-finite logits on the {label} path")
         for toks in batches:
             require(len(toks) == 4 and all(len(t) == n_new for t in toks),
                     f"wrong number of generated tokens on the {label} path")
             require(all(0 <= x < cfg.vocab_size for t in toks for x in t),
                     f"token id out of range on the {label} path")
-        others = {k: v for k, v in counts.items() if k not in want}
-        require(all(counts[k] == v for k, v in want.items()) and not any(others.values()),
-                f"unexpected launch counts on the {label} path: {counts}, "
-                f"expected {want}")
+        for name, count in want.items():
+            require(counts[name] == count,
+                    f"{name} ({COUNTED.get(name, 'every route')}) launched {counts[name]} "
+                    f"times on the {label} path; expected {count}")
+        others = {k: v for k, v in counts.items() if k not in want and v}
+        require(not others, f"unexpected launches on the {label} path: {others}")
     return engines
 
 
@@ -1268,14 +1306,14 @@ def phase_timing(torch, results, engines):
     floor_ms = timer.ms(lambda: one.add_(1.0))
     log(f"  launch floor (Timer, one-element add_): {floor_ms:.4f} ms")
 
-    # K1 at decode (M = 1, the GEMV), prefill (M = 128) and a b4 prefill
-    # (M = 512) (the tensor-core route): TinyLlama's fused projections and
-    # OPT-6.7B's, main-path epilogues. Library: one torch._int_mm (cuBLAS
-    # int8) and the epilogue in torch ops; _int_mm takes M > 16 only, so at
-    # M = 1 it runs on x zero-padded to 32 rows ("padded"), a yardstick for a
-    # decode GEMM. torch._int_mm alone ("product") is timed beside it: the
-    # part of the yardstick a fused epilogue cannot save. Every row goes into
-    # the kernel table
+    # K1 at decode (M = 1, 2, 4, 8: the GEMV), prefill (M = 128) and a b4
+    # prefill (M = 512) (the tensor-core route): TinyLlama's fused
+    # projections and OPT-6.7B's, main-path epilogues. Library: one
+    # torch._int_mm (cuBLAS int8) and the epilogue in torch ops; _int_mm
+    # takes M > 16 only, so at M <= 8 it runs on x zero-padded to 32 rows
+    # ("padded"), a yardstick for a decode GEMM. torch._int_mm alone
+    # ("product") is timed beside it: the part of the yardstick a fused
+    # epilogue cannot save. Every row goes into the kernel table
     from autosmoothquant_tpu_torch.kernels import gemm as K1
 
     log("  kernel timings (ms; bound = max(bytes / 3.35 TB/s, ops / peak))")
@@ -1284,7 +1322,7 @@ def phase_timing(torch, results, engines):
                   for (k, n), pname in zip(GEMM_SHAPES, GEMM_NAMES)]
                  + [(f"opt {pname}", k, n, OPT_GEMM_VARIANTS[pname])
                     for (k, n), pname in zip(OPT_GEMM_SHAPES, OPT_GEMM_NAMES)])
-    for m in (1, 128, 512):
+    for m in (1, 2, 4, 8, 128, 512):
         for pname, k, n, variant in k1_shapes:
             c = gemm_case(torch, m, k, n, variant, gen)
             ms = timer.ms(lambda: run_gemm(c))
@@ -1292,13 +1330,13 @@ def phase_timing(torch, results, engines):
             lib_ms = timer.ms(int_mm_library(torch, c))
             xp, wt = pad_rows(torch, c["x"], 32 if m <= 16 else 8), c["w"].t()
             product_ms = timer.ms(lambda: torch._int_mm(xp, wt))
-            nbytes = (m * k + n * k + m * n * c["dt"].itemsize
-                      + 4 * (n if c["cs"].ndim else 1) + (4 * n if c["bias"] is not None else 0))
-            b_ms, b_by = bound(nbytes, 2 * m * n * k, "int8")
+            b_ms, b_by = bound(gemm_bytes(c), 2 * m * n * k, "int8")
             padded = " (padded to M=32)" if m <= 16 else ""
             how = K1.route(m, k, c["x"], c["w"])
             if how == "tc":
                 how += f", split {K1.tc_split(m, n, k)}"
+            elif how == "gemv":
+                how += f" {K1.gemv_blocks(n)} blocks"
             log(f"    int8_matmul {pname:11s} M={m:<4d} K={k:<5d} N={n:<6d} ({how}) "
                 f"kernel {ms:.4f} plain {plain_ms:.4f} library {lib_ms:.4f}{padded} "
                 f"(kernel/library {ms / lib_ms:.2f}; product {product_ms:.4f}, kernel/product "
@@ -1404,14 +1442,14 @@ def phase_timing(torch, results, engines):
                                         ("flash_attention_banded", 4, 64)):
             results[name].update(row)
 
-    # K4 at decode (M = 1, the GEMV), prefill (M = 128) and a b4 ragged
-    # prefill (M = 512) (the tensor-core route), e4m3, scalar scales, bf16
-    # out; library: torch._scaled_mm (cuBLAS fp8), which takes dimensions in
-    # multiples of 16 only, so at M = 1 it runs on x zero-padded to 16 rows
-    # ("padded"). Every row goes into the kernel table
-    from autosmoothquant_tpu_torch.kernels.fp8 import route, tc_split
+    # K4 at decode (M = 1, 2, 4, 8: the GEMV), prefill (M = 128) and a b4
+    # ragged prefill (M = 512) (the tensor-core route), e4m3, scalar scales,
+    # bf16 out; library: torch._scaled_mm (cuBLAS fp8), which takes
+    # dimensions in multiples of 16 only, so at M <= 8 it runs on x
+    # zero-padded to 16 rows ("padded"). Every row goes into the kernel table
+    from autosmoothquant_tpu_torch.kernels.fp8 import gemv_blocks, route, tc_split
 
-    for m in (1, 128, 512):
+    for m in (1, 2, 4, 8, 128, 512):
         for (k, n), pname in zip(GEMM_SHAPES, GEMM_NAMES):
             c = fp8_case(torch, m, k, n, "e4m3", FP8_VARIANTS[0], gen)
             ms = timer.ms(lambda: run_fp8(c))
@@ -1420,12 +1458,13 @@ def phase_timing(torch, results, engines):
             xp = pad_rows(torch, c["x"], 16)
             lib_ms = timer.ms(lambda: torch._scaled_mm(
                 xp, wt, scale_a=c["rs"], scale_b=c["cs"], out_dtype=torch.bfloat16))
-            nbytes = m * k + n * k + m * n * 2 + 8
-            b_ms, b_by = bound(nbytes, 2 * m * n * k, "fp8")
+            b_ms, b_by = bound(gemm_bytes(c), 2 * m * n * k, "fp8")
             padded = " (padded to M=16)" if m % 16 else ""
             how = route(m, k, c["x"], c["w"])
             if how == "tc":
                 how += f", split {tc_split(m, n, k)}"
+            elif how == "gemv":
+                how += f" {gemv_blocks(n)} blocks"
             log(f"    fp8_matmul {pname:7s} M={m:<4d} K={k:<5d} N={n:<6d} ({how}) "
                 f"kernel {ms:.4f} plain {plain_ms:.4f} library {lib_ms:.4f}{padded} "
                 f"(kernel/library {ms / lib_ms:.2f}) bound {b_ms:.4f} ({b_by})")
@@ -1501,23 +1540,25 @@ def phase_timing(torch, results, engines):
     engs = {"bf16": b1(L, cfg, draw_float(cfg, seed=4, device="cuda"), None)}
     for label, key in (("w8a8", "W8A8"), ("fp8", "fp8 e4m3 dynamic"), ("int4", "int4")):
         engs[label] = b1(L, cfg, engines[key].params, engines[key].qcfg)
-    end_to_end(torch, timer, L, cfg, engs, "TinyLlama-1.1B", short=("bf16", "w8a8", "int4"))
+    end_to_end(torch, timer, L, cfg, engs, "TinyLlama-1.1B", results,
+               short=("bf16", "w8a8", "int4"))
     del engs
 
     cfg = O.OPTConfig(**OPT_6_7B)
     w8a8 = engines.pop("OPT-6.7B W8A8")
     engs = {"w8a8": b1(O, cfg, w8a8.params, w8a8.qcfg),
             "bf16": b1(O, cfg, draw_opt_float(cfg, seed=4, device="cuda"), None)}
-    end_to_end(torch, timer, O, cfg, engs, "OPT-6.7B")
+    end_to_end(torch, timer, O, cfg, engs, "OPT-6.7B", results)
 
 
-def end_to_end(torch, timer, M, cfg, engs, name, short=()):
+def end_to_end(torch, timer, M, cfg, engs, name, results, short=()):
     """Prefill ms (b1, T128, plus the last token's logits) and decode tok/s
     (b1, prompt 128, s_max 512, greedy, 64 steps: best of 3, two turns each
     in the order given and back) of each b1 engine in ``engs`` (family
     module M), each format's ratio to bf16, then the device's view of one
     prefill and of one decode step of each format; the formats in ``short``
-    also get a b1 T64 prefill (int4: 64 rows, K5's tensor cores)."""
+    also get a b1 T64 prefill (int4: 64 rows, K5's tensor cores). The
+    decode profiles' GEMV device ms go into ``results``."""
     from autosmoothquant_tpu_torch.serve.engine import GenerationConfig
 
     rng = torch.Generator().manual_seed(17)
@@ -1573,13 +1614,19 @@ def end_to_end(torch, timer, M, cfg, engs, name, short=()):
                            for label in order if label != "bf16"))
 
     # where one decode step's device time goes (profiler, device activity
-    # only), and the idle share against the unprofiled step time above
+    # only), and the idle share against the unprofiled step time above; the
+    # GEMV's share goes into the kernel table
     for label in order:
-        profile_step(torch, M, cfg, engs[label], f"{name} {label}", 1e3 / best[label])
+        gemv_ms = profile_step(torch, M, cfg, engs[label], f"{name} {label}",
+                               1e3 / best[label])
+        kernel = {"w8a8": "int8_matmul", "fp8": "fp8_matmul"}.get(label)
+        if kernel:
+            results[kernel].setdefault("decode_step_gemv_device_ms", {})[name] = gemv_ms
 
 
 def profile_step(torch, L, cfg, eng, label, step_ms, steps=5):
-    """Device kernels and busy time of one b1 decode step at slot 128."""
+    """Device kernels and busy time of one b1 decode step at slot 128;
+    returns the device ms of K1's and K4's GEMV in it."""
     ids = torch.tensor([[1]], device="cuda")
     cache = L.init_kv_cache(cfg, 1, 512, torch.bfloat16, "cuda")
     valid = torch.zeros(1, 512, dtype=torch.bool, device="cuda")
@@ -1595,14 +1642,15 @@ def profile_step(torch, L, cfg, eng, label, step_ms, steps=5):
             torch.argmax(L.logits(eng.params, h)[:, 0], -1)
     for _ in range(2):
         step()
-    device_profile(torch, step, f"decode step ({label}, b1)", step_ms, reps=steps)
+    return device_profile(torch, step, f"decode step ({label}, b1)", step_ms, reps=steps)
 
 
 def device_profile(torch, fn, what, wall_ms, reps):
     """Profile ``reps`` calls of ``fn`` (device activity only) and log, per
     call, the device kernels, the wrapper launches counted on the host, the
     device-busy ms and its idle share against ``wall_ms`` (the unprofiled
-    time of one call), and the ten kernels that take the most time."""
+    time of one call), and the ten kernels that take the most time. Returns
+    the device ms per call of K1's and K4's GEMV."""
     from torch.profiler import ProfilerActivity, profile
 
     counters = launch_counters()
@@ -1631,6 +1679,12 @@ def device_profile(torch, fn, what, wall_ms, reps):
         by_name[e.name][1] += e.time_range.elapsed_us()
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
         log(f"    {us / reps / 1e3:8.4f} ms/call  {n / reps:6.1f} launches/call  {name[:90]}")
+    gemv = [(n, us) for name, (n, us) in by_name.items() if "gemv_mma_kernel" in name]
+    gemv_ms = sum(us for _, us in gemv) / reps / 1e3
+    if gemv:
+        log(f"    K1/K4 GEMV (gemv_mma_kernel): {gemv_ms:.4f} ms/call, "
+            f"{sum(n for n, _ in gemv) / reps:.1f} launches/call")
+    return gemv_ms
 
 
 def main():

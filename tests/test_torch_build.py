@@ -20,10 +20,12 @@ KERNELS = Path(_build.__file__).resolve().parent
 BINDINGS = [
     ("int8_gemm", "asq_int8_gemm", gemm._ARGTYPES),
     ("int8_gemm", "asq_int8_gemm_tc", gemm._TC_ARGTYPES),
+    ("int8_gemm", "asq_int8_gemv", gemm._GEMV_ARGTYPES),
     ("add_rmsnorm_quant", "asq_add_rmsnorm_quant", fused._ARGTYPES["add_rmsnorm_quant"]),
     ("flash_attn", "asq_flash_attention", attention._ARGTYPES),
     ("fp8_gemm", "asq_fp8_gemm", fp8._ARGTYPES),
     ("fp8_gemm", "asq_fp8_gemm_tc", fp8._TC_ARGTYPES),
+    ("fp8_gemm", "asq_fp8_gemv", fp8._GEMV_ARGTYPES),
     ("int4_gemm", "asq_int4_gemm", int4._ARGTYPES),
     ("int4_gemm", "asq_int4_gemv", int4._GEMV_ARGTYPES),
     ("int4_gemm", "asq_int4_gemm_tc", int4._TC_ARGTYPES),

@@ -141,17 +141,20 @@ def test_int8_matmul_split_k_gives_the_unsplit_bits(cuda_device, m, k, n):
 
 
 def test_int8_matmul_misaligned_view_takes_the_tiles(cuda_device):
-    """TMA needs 16-byte aligned bases: an offset view goes to the
-    CUDA-core tiles, with the plain version's bits."""
+    """TMA needs 16-byte aligned bases: an offset view of x or of w goes to
+    the CUDA-core tiles, with the plain version's bits."""
     x, w, rs, cs, bias = _int8_case(130, 2048, 256, cuda_device, 11)
     buf = torch.empty(130 * 2048 + 8, dtype=torch.int8, device=cuda_device)
     xv = buf[8:].view(130, 2048).copy_(x)
-    assert G.route(130, 2048, xv, w) == "tiles"
-    before, tc_before = G.int8_matmul.launches, G.int8_matmul.tc_launches
-    got = G.int8_matmul(xv, w, rs, cs, bias)
-    torch.cuda.synchronize()
-    assert G.int8_matmul.launches == before + 1 and G.int8_matmul.tc_launches == tc_before
-    assert torch.equal(got, G.int8_matmul_plain(x, w, rs, cs, bias))
+    wbuf = torch.empty(256 * 2048 + 8, dtype=torch.int8, device=cuda_device)
+    wv = wbuf[8:].view(256, 2048).copy_(w)
+    for xa, wa in ((xv, w), (x, wv)):
+        assert G.route(130, 2048, xa, wa) == "tiles"
+        before, tc_before = G.int8_matmul.launches, G.int8_matmul.tc_launches
+        got = G.int8_matmul(xa, wa, rs, cs, bias)
+        torch.cuda.synchronize()
+        assert G.int8_matmul.launches == before + 1 and G.int8_matmul.tc_launches == tc_before
+        assert torch.equal(got, G.int8_matmul_plain(x, w, rs, cs, bias))
 
 
 @pytest.mark.parametrize("t", [1, 128])
@@ -355,6 +358,167 @@ def test_fp8_matmul_raises_on_wrong_dtype_or_device(cuda_device):
         F8.fp8_matmul(x, w.cpu())
     with pytest.raises(ValueError):
         F8.fp8_matmul(x, w, out_dtype=torch.int8)
+
+
+# K1's and K4's GEMV (M <= 8): the main-path shapes, TinyLlama-1.1B's four
+# projections and OPT-6.7B's three, as (K, N)
+_GEMV_SHAPES = [(2048, 2560), (2048, 2048), (2048, 11264), (5632, 2048),
+                (4096, 4096), (4096, 16384), (16384, 4096)]
+# (out dtype, activation, per-token scale, bias), in rotation
+_GEMV_EPILOGUES = [(torch.float32, None, True, True), (torch.bfloat16, None, False, False),
+                   (torch.int8, "relu", False, False), (torch.float32, "silu", True, True),
+                   (torch.bfloat16, "relu", True, True), (torch.int8, None, True, True)]
+
+
+def _gemv_int8_check(x, w, rs, cs, bias, act, dt, want="gemv"):
+    """One K1 call that must take route ``want``: f32 and int8 outputs
+    bit-equal to the plain version, bf16 within one rounding step, silu
+    within its tolerance (the int32 sums are exact on every route)."""
+    m, k = x.shape
+    assert G.route(m, k, x, w) == want
+    before, gemv_before = G.int8_matmul.launches, G.int8_matmul.gemv_launches
+    got = G.int8_matmul(x, w, rs, cs, bias, activation=act, out_dtype=dt)
+    ref = G.int8_matmul_plain(x.contiguous(), w.contiguous(), rs, cs, bias, activation=act,
+                              out_dtype=dt)
+    torch.cuda.synchronize()
+    assert G.int8_matmul.launches == before + 1 and got.dtype == dt
+    assert G.int8_matmul.gemv_launches == gemv_before + int(want == "gemv")
+    if act == "silu":
+        torch.testing.assert_close(got.float(), ref.float(), rtol=1e-5, atol=1e-6)
+    elif dt == torch.bfloat16:
+        torch.testing.assert_close(got.float(), ref.float(), rtol=2.0 ** -8, atol=0)
+    else:
+        assert torch.equal(got, ref)
+    return got
+
+
+def _gemv_epilogue_case(m, k, n, device, i):
+    dt, act, per_row, has_bias = _GEMV_EPILOGUES[i % len(_GEMV_EPILOGUES)]
+    x, w, rs, cs, bias = _int8_case(m, k, n, device, 100 * m + i)
+    if dt == torch.int8:
+        cs = cs * 40  # outputs spread over the int8 range
+    return x, w, rs if per_row else 1.0, cs, bias if has_bias else None, act, dt
+
+
+@pytest.mark.parametrize("m", list(range(1, 9)))
+@pytest.mark.parametrize("shape", range(len(_GEMV_SHAPES)))
+def test_int8_gemv_every_m_at_main_path_shapes(cuda_device, m, shape):
+    """K1's GEMV at every M <= 8 (a wrong fragment mapping passes at M=1)
+    and every main-path shape, epilogues in rotation: the plain version's
+    bits."""
+    k, n = _GEMV_SHAPES[shape]
+    _gemv_int8_check(*_gemv_epilogue_case(m, k, n, cuda_device, m + shape))
+
+
+@pytest.mark.parametrize("m", [1, 3, 8])
+@pytest.mark.parametrize("i", range(len(_GEMV_EPILOGUES)))
+def test_int8_gemv_epilogues(cuda_device, m, i):
+    """f32, bf16 and int8 out; no activation, relu, silu; bias and
+    per-token scales or neither."""
+    _gemv_int8_check(*_gemv_epilogue_case(m, 2048, 2560, cuda_device, i))
+
+
+@pytest.mark.parametrize("m,k,n,want", [
+    (3, 2064, 100, "gemv"),      # K % 64 != 0: a last step of one chunk a lane; N % 8 != 0
+    (8, 48, 37, "gemv"),         # one step: seven warps hold nothing
+    (1, 16, 1, "gemv"),
+    (5, 4096, 4104, "gemv"),     # a last block of 8 rows
+    (3, 37, 100, "gemv_ragged"),  # K % 16 != 0
+    (8, 2056, 130, "gemv_ragged")])
+def test_int8_gemv_edges(cuda_device, m, k, n, want):
+    x, w, rs, cs, bias = _int8_case(m, k, n, cuda_device, k + n)
+    _gemv_int8_check(x, w, rs, cs, bias, None, torch.float32, want)
+
+
+def test_int8_gemv_offset_views(cuda_device):
+    """An 8-byte offset view of x or of w takes the ragged GEMV; a 16-byte
+    offset view is aligned and takes the GEMV. The plain version's bits."""
+    x, w, rs, cs, bias = _int8_case(4, 2048, 2560, cuda_device, 3)
+    for off, want in ((8, "gemv_ragged"), (16, "gemv")):
+        buf = torch.empty(x.numel() + off, dtype=torch.int8, device=cuda_device)
+        xv = buf[off:].view(4, 2048).copy_(x)
+        _gemv_int8_check(xv, w, rs, cs, bias, None, torch.float32, want)
+        buf = torch.empty(w.numel() + off, dtype=torch.int8, device=cuda_device)
+        wv = buf[off:].view(2560, 2048).copy_(w)
+        _gemv_int8_check(x, wv, rs, cs, bias, None, torch.float32, want)
+
+
+def _gemv_fp8_check(x, w, rs, cs, bias, out, want="gemv"):
+    """One K4 call that must take route ``want``, within the f32 sum's
+    bound of the exact (float64) plain version."""
+    m, k = x.shape
+    assert F8.route(m, k, x, w) == want
+    before, gemv_before = F8.fp8_matmul.launches, F8.fp8_matmul.gemv_launches
+    got = F8.fp8_matmul(x, w, rs, cs, bias, out_dtype=out)
+    ref = F8.fp8_matmul_plain(x, w, rs, cs, bias, out_dtype=out)
+    torch.cuda.synchronize()
+    assert F8.fp8_matmul.launches == before + 1 and got.dtype == out
+    assert F8.fp8_matmul.gemv_launches == gemv_before + int(want == "gemv")
+    scale = torch.as_tensor(rs, device=x.device).double().abs() * torch.as_tensor(
+        cs, device=x.device).double().abs()
+    tol = _sum_bound(x, w) * 2 * scale + 1e-6
+    if out == torch.bfloat16:
+        tol = tol + ref.double().abs() * 2.0 ** -7
+    assert bool(((got.double() - ref.double()).abs() <= tol).all())
+    return got
+
+
+@pytest.mark.parametrize("m", list(range(1, 9)))
+@pytest.mark.parametrize("shape", range(len(_GEMV_SHAPES)))
+@pytest.mark.parametrize("fmt", [torch.float8_e4m3fn, torch.float8_e5m2])
+def test_fp8_gemv_every_m_at_main_path_shapes(cuda_device, m, shape, fmt):
+    """K4's GEMV at every M <= 8 and every main-path shape, on operands
+    spread over ten e-folds of magnitude (subnormals included), per-token
+    and per-column scales, a bias, f32 or bf16 out in rotation."""
+    k, n = _GEMV_SHAPES[shape]
+    g = _gen(m + 10 * shape)
+    x, w = _fp8_operands(m, k, n, fmt, cuda_device, g)
+    rs = torch.rand(m, 1, device=cuda_device, generator=g) + 0.5
+    cs = torch.rand(n, device=cuda_device, generator=g) + 0.5
+    bias = torch.randn(n, device=cuda_device, generator=g)
+    out = (torch.float32, torch.bfloat16)[(m + shape) % 2]
+    _gemv_fp8_check(x, w, rs, cs, bias, out)
+
+
+@pytest.mark.parametrize("m", [1, 4, 8])
+@pytest.mark.parametrize("fmt", [torch.float8_e4m3fn, torch.float8_e5m2])
+def test_fp8_gemv_ten_decade_operands_unit_scales(cuda_device, m, fmt):
+    """Unit scales and f32 out, where the accumulation's rounding shows
+    most: within the f32 sum's bound at TinyLlama's down_proj (K = 5632)."""
+    g = _gen(m)
+    x, w = _fp8_operands(m, 5632, 2048, fmt, cuda_device, g)
+    _gemv_fp8_check(x, w, 1.0, 1.0, None, torch.float32)
+
+
+@pytest.mark.parametrize("m,k,n,want", [(3, 2064, 100, "gemv"), (8, 48, 37, "gemv"),
+                                        (5, 4096, 4104, "gemv"), (3, 37, 100, "gemv_ragged"),
+                                        (8, 2056, 130, "gemv_ragged")])
+def test_fp8_gemv_edges(cuda_device, m, k, n, want):
+    g = _gen(k + n)
+    x, w = _fp8_operands(m, k, n, torch.float8_e4m3fn, cuda_device, g)
+    _gemv_fp8_check(x, w, 0.5, 0.25, None, torch.float32, want)
+
+
+def test_fp8_gemv_offset_view_takes_the_ragged_gemv(cuda_device):
+    g = _gen(5)
+    x, w = _fp8_operands(4, 2048, 2048, torch.float8_e5m2, cuda_device, g)
+    buf = torch.empty(x.numel() + 8, dtype=torch.uint8, device=cuda_device)
+    xv = buf[8:].view(torch.float8_e5m2).view(4, 2048)
+    xv.copy_(x)
+    _gemv_fp8_check(xv, w, 1.0, 1.0, None, torch.float32, "gemv_ragged")
+
+
+@pytest.mark.parametrize("k,n", [(5632, 2048), (16384, 4096)])
+def test_gemv_gives_the_same_bits_every_call(cuda_device, k, n):
+    """No atomics: K4's f32 sums (and K1's) are added in a fixed order, so
+    two calls give equal bits."""
+    g = _gen(k)
+    x, w = _fp8_operands(8, k, n, torch.float8_e4m3fn, cuda_device, g)
+    first = _gemv_fp8_check(x, w, 1.0, 1.0, None, torch.float32)
+    assert torch.equal(first, _gemv_fp8_check(x, w, 1.0, 1.0, None, torch.float32))
+    xi, wi, rs, cs, bias = _int8_case(8, k, n, cuda_device, n)
+    first = _gemv_int8_check(xi, wi, rs, cs, bias, None, torch.float32)
+    assert torch.equal(first, _gemv_int8_check(xi, wi, rs, cs, bias, None, torch.float32))
 
 
 def _int4_operands(k, n, group, device, g):

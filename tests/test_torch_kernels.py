@@ -9,6 +9,10 @@ on valid rows (a row with no valid key is 0 in both kernels). Route and
 split rules (K1, K4, K5, K6) and K3's head-dim padding are checked on the
 shapes alone."""
 
+import math
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -92,8 +96,22 @@ def test_int8_route_takes_tiles_for_ragged_k(m, k):
     assert TG.route(m, k, x, torch.zeros(64, k, dtype=torch.int8)) == "tiles"
 
 
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("k,want", [(2048, "gemv"), (16, "gemv"), (2064, "gemv"),
+                                    (70, "gemv_ragged"), (2056, "gemv_ragged"),
+                                    (37, "gemv_ragged")])
+def test_gemv_route_needs_16_byte_rows(m, k, want):
+    """M <= 8 takes the GEMV where every row starts on 16 bytes (K % 16 ==
+    0, aligned bases), the ragged GEMV otherwise; K1 and K4 alike."""
+    for dt in (torch.int8, torch.float8_e4m3fn):
+        x, w = torch.zeros(m, k).to(dt), torch.zeros(64, k).to(dt)
+        assert TG.route(m, k, x, w) == want
+        assert TF8.route(m, k, x, w) == want
+
+
 def test_int8_route_takes_tiles_for_a_misaligned_view():
-    """TMA needs 16-byte aligned bases; an offset view goes to the tiles."""
+    """TMA needs 16-byte aligned bases; an offset view goes to the tiles,
+    and at M <= 8 to the ragged GEMV."""
     buf = torch.zeros(130 * 2048 + 8, dtype=torch.int8)
     x = buf[8:].view(130, 2048)
     w = torch.zeros(64, 2048, dtype=torch.int8)
@@ -101,6 +119,59 @@ def test_int8_route_takes_tiles_for_a_misaligned_view():
     assert TG.route(130, 2048, buf[:-8].view(130, 2048), w) == "tc"
     assert TG.route(130, 2048, w.new_zeros(130, 2048), buf[8:8 + 64 * 2048].view(64, 2048)) \
         == "tiles"
+    assert TG.route(4, 2048, buf[8:8 + 4 * 2048].view(4, 2048), w) == "gemv_ragged"
+    assert TG.route(4, 2048, buf[16:16 + 4 * 2048].view(4, 2048), w) == "gemv"
+    assert TG.route(4, 2048, w[:4], buf[8:8 + 64 * 2048].view(64, 2048)) == "gemv_ragged"
+
+
+_GEMV_HEADER = (Path(TG.__file__).resolve().parents[1] / "csrc" / "asq_gemv.cuh").read_text()
+
+
+def _gemv_constant(name):
+    """A ``constexpr int`` of ``csrc/asq_gemv.cuh``: a product of numbers
+    and of the constants defined before it."""
+    consts = {}
+    for key, expr in re.findall(r"constexpr int (\w+) = ([\w\s*]+);", _GEMV_HEADER):
+        consts[key] = math.prod(int(f) if f.isdigit() else consts[f]
+                                for f in (t.strip() for t in expr.split("*")))
+    return consts[name]
+
+
+@pytest.mark.parametrize("n", [1, 9, 15, 16, 17, 2048, 2560, 4104, 11264, 16384])
+def test_gemv_blocks_cover_every_column_once(n):
+    """ceil(N / 16) blocks of 16 weight rows: every column is one block's,
+    and no block is empty."""
+    blocks = TG.gemv_blocks(n)
+    assert TG.GEMV_ROWS == _gemv_constant("kGemvRows")
+    assert blocks * TG.GEMV_ROWS >= n > (blocks - 1) * TG.GEMV_ROWS
+
+
+_SMEM_PER_SM = 228 * 1024  # an H100 SM's shared memory (a block may use 227 KB)
+
+
+def test_gemv_ring_fits_four_blocks_an_sm():
+    """The GEMV's shared memory does not depend on the shape: a ring of 4
+    steps, each a 16-byte slot of x and of two weight rows for every
+    thread (x is never held whole, so no M or K overflows it), and the
+    warps' partial sums; with the 1 KB the card reserves a block, four
+    blocks fit an SM, as ``__launch_bounds__(256, 4)`` asks, and a lane
+    keeps all of its steps in flight up to K = 2048."""
+    threads, warps = _gemv_constant("kGemvThreads"), _gemv_constant("kGemvWarps")
+    ring = _gemv_constant("kGemvRingBytes")
+    assert ring == _gemv_constant("kGemvStages") * 3 * threads * 16 == 48 * 1024
+    partial_sums = warps * 32 * 4 * 4
+    assert 4 * (ring + partial_sums + 1024) <= _SMEM_PER_SM
+    in_flight = _gemv_constant("kGemvStages") * warps * _gemv_constant("kGemvStep")
+    assert in_flight == 2048
+
+
+@pytest.mark.parametrize("k,n", _K1_SHAPES)
+def test_gemv_blocks_at_the_main_path_shapes(k, n):
+    """Every main-path N is a multiple of 16: whole blocks, 128 (TinyLlama's
+    o and down) to 1,024 (OPT-6.7B's fc1), so most grids are resident at
+    once (four blocks an SM on 132 SMs)."""
+    blocks = TG.gemv_blocks(n)
+    assert blocks * 16 == n and 128 <= blocks <= 1024
 
 
 @pytest.mark.parametrize("m", [9, 64, 65, 128, 129, 512])
@@ -289,7 +360,8 @@ def test_fp8_matmul_checks_its_operands():
 
 @pytest.mark.parametrize("m,k,want", [(1, 2048, "gemv"), (8, 5632, "gemv"), (9, 2048, "tc"),
                                       (128, 5632, "tc"), (512, 2048, "tc"), (20, 48, "tc"),
-                                      (77, 70, "tiles"), (16, 40, "tiles")])
+                                      (77, 70, "tiles"), (16, 40, "tiles"),
+                                      (3, 37, "gemv_ragged"), (8, 2056, "gemv_ragged")])
 def test_fp8_route_is_chosen_by_shape(m, k, want):
     """K4's route depends on the shape and alignment only: every main-path
     prefill shape (K 2048 / 5632, M > 8) takes the tensor-core route."""
@@ -305,6 +377,7 @@ def test_fp8_route_takes_tiles_for_a_misaligned_view():
     w = torch.zeros(64, 2048).to(torch.float8_e4m3fn)
     assert x.is_contiguous() and TF8.route(130, 2048, x, w) == "tiles"
     assert TF8.route(130, 2048, buf[:-8].view(130, 2048), w) == "tc"
+    assert TF8.route(8, 2048, buf[8:8 + 8 * 2048].view(8, 2048), w) == "gemv_ragged"
 
 
 @pytest.mark.parametrize("m", [9, 64, 65, 128, 129, 512])
