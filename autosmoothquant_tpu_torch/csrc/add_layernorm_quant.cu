@@ -25,7 +25,7 @@
 // correctly rounded) rather than rsqrtf, and rounding is half to even
 // (rintf), which keeps q within one step of the plain version where rounding
 // ties are close. Two routes, chosen by the wrapper from the shape
-// (kernels/fused.py:layernorm_route):
+// (kernels/fused.py:norm_route, shared with K2):
 //  - vector (D % 8 == 0, 16-byte aligned operands, D <= 12288): the row
 //    lives in registers. A thread owns V chunks of 8 elements (V = 1..3,
 //    a template; up to 512 threads; the last chunks predicated). It issues
@@ -95,60 +95,13 @@ __global__ void __launch_bounds__(kThreads)
 // vector: the row in registers
 // ---------------------------------------------------------------------------
 
-constexpr int kVecMaxThreads = 512;
-constexpr int kVecMaxV = 3;  // chunks of 8 a thread: D <= 8 * 3 * 512 = 12288
-
-__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
-}
-
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8]) {
-  uint32_t w[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const __nv_bfloat162 b = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    w[i] = *reinterpret_cast<const uint32_t*>(&b);
-  }
-  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-}
-
-// The block's sum of v (blockDim.x a multiple of 32), returned to every
-// thread, in a fixed order; each call needs its own `part`.
-__device__ __forceinline__ float vec_block_sum(float v, float* part) {
-  v = asq_warp_sum(v);
-  if (threadIdx.x % 32 == 0) part[threadIdx.x / 32] = v;
-  __syncthreads();
-  float total = 0.f;
-  for (int w = 0; w < static_cast<int>(blockDim.x / 32); ++w) total = __fadd_rn(total, part[w]);
-  return total;
-}
-
 template <typename T, int V>
-__global__ void __launch_bounds__(kVecMaxThreads)
+__global__ void __launch_bounds__(kAsqRowMaxThreads)
     add_layernorm_quant_vec_kernel(const T* __restrict__ h, const T* __restrict__ x,
                                    const float* __restrict__ gamma,
                                    const float* __restrict__ beta, T* __restrict__ out_h,
                                    int8_t* __restrict__ out_q, int D, float eps) {
-  __shared__ float part[2][kVecMaxThreads / 32];
+  __shared__ float part[2][kAsqRowMaxThreads / 32];
   const int chunks = D / 8;
   const size_t base = static_cast<size_t>(blockIdx.x) * D;
   float hv[V][8], xv[V][8], gm[V][8], bt[V][8];
@@ -158,10 +111,10 @@ __global__ void __launch_bounds__(kVecMaxThreads)
     const int c = threadIdx.x + v * blockDim.x;
     on[v] = c < chunks;
     if (on[v]) {
-      load8(h + base + 8 * c, hv[v]);
-      load8(x + base + 8 * c, xv[v]);
-      load8(gamma + 8 * c, gm[v]);
-      load8(beta + 8 * c, bt[v]);
+      asq_load8(h + base + 8 * c, hv[v]);
+      asq_load8(x + base + 8 * c, xv[v]);
+      asq_load8(gamma + 8 * c, gm[v]);
+      asq_load8(beta + 8 * c, bt[v]);
     }
   }
   float local = 0.f;
@@ -173,9 +126,9 @@ __global__ void __launch_bounds__(kVecMaxThreads)
       hv[v][e] = __fadd_rn(hv[v][e], xv[v][e]);  // s, in place of h
       local = __fadd_rn(local, hv[v][e]);
     }
-    store8(out_h + base + 8 * (threadIdx.x + v * blockDim.x), hv[v]);
+    asq_store8(out_h + base + 8 * (threadIdx.x + v * blockDim.x), hv[v]);
   }
-  const float mean = vec_block_sum(local, part[0]) / static_cast<float>(D);
+  const float mean = asq_block_sum(local, part[0]) / static_cast<float>(D);
   local = 0.f;
 #pragma unroll
   for (int v = 0; v < V; ++v) {
@@ -186,29 +139,25 @@ __global__ void __launch_bounds__(kVecMaxThreads)
       local = __fadd_rn(local, __fmul_rn(c, c));
     }
   }
-  const float var = vec_block_sum(local, part[1]) / static_cast<float>(D);
+  const float var = asq_block_sum(local, part[1]) / static_cast<float>(D);
   const float inv = 1.f / sqrtf(__fadd_rn(var, eps));
 #pragma unroll
   for (int v = 0; v < V; ++v) {
     if (!on[v]) continue;
-    uint32_t w[2] = {0u, 0u};
+    float y[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       const float c = __fsub_rn(hv[v][e], mean);
-      const float y = __fadd_rn(__fmul_rn(__fmul_rn(c, inv), gm[v][e]), bt[v][e]);
-      w[e / 4] |= static_cast<uint32_t>(static_cast<uint8_t>(asq_quant_int8(y))) << (8 * (e % 4));
+      y[e] = __fadd_rn(__fmul_rn(__fmul_rn(c, inv), gm[v][e]), bt[v][e]);
     }
-    *reinterpret_cast<uint2*>(out_q + base + 8 * (threadIdx.x + v * blockDim.x)) =
-        make_uint2(w[0], w[1]);
+    asq_store8_int8(out_q + base + 8 * (threadIdx.x + v * blockDim.x), y);
   }
 }
 
 template <typename T>
 int launch_vec(const void* h, const void* x, const void* gamma, const void* beta,
                void* out_h, void* out_q, int rows, int D, float eps, cudaStream_t s) {
-  const int chunks = D / 8;
-  const int V = (chunks + kVecMaxThreads - 1) / kVecMaxThreads;
-  const int threads = ((chunks + V - 1) / V + 31) / 32 * 32;
+  const auto [V, threads] = asq_row_shape(D);
   const auto hp = static_cast<const T*>(h);
   const auto xp = static_cast<const T*>(x);
   const auto gp = static_cast<const float*>(gamma);
@@ -266,10 +215,7 @@ ASQ_EXPORT int asq_add_layernorm_quant_vec(const void* h, const void* x,
                                            const void* gamma, const void* beta,
                                            void* out_h, void* out_q, int rows, int D,
                                            float eps, int is_bf16, void* stream) {
-  const uintptr_t align = reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(x) |
-                          reinterpret_cast<uintptr_t>(gamma) | reinterpret_cast<uintptr_t>(beta) |
-                          reinterpret_cast<uintptr_t>(out_h) | reinterpret_cast<uintptr_t>(out_q);
-  if (D % 8 != 0 || D > 8 * kVecMaxV * kVecMaxThreads || align % 16 != 0)
+  if (!asq_row_vec_ok(D, {h, x, gamma, beta, out_h, out_q}))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows == 0) return 0;

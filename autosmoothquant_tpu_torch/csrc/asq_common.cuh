@@ -5,6 +5,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <initializer_list>
+
 #define ASQ_EXPORT extern "C" __attribute__((visibility("default")))
 
 // Every library exports the CUDA error text for the codes its entry points
@@ -49,6 +51,94 @@ __device__ __forceinline__ int asq_warp_sum_int(int v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// ---------------------------------------------------------------------------
+// A row held in registers, 8 elements a chunk (K2's and K6's vector routes)
+// ---------------------------------------------------------------------------
+
+// A thread owns V chunks of 8 (V = 1..kAsqRowMaxV, a template argument of
+// the kernel) and a block up to kAsqRowMaxThreads threads: rows of D % 8 == 0
+// elements up to kAsqRowMaxD.
+constexpr int kAsqRowMaxThreads = 512;
+constexpr int kAsqRowMaxV = 3;
+constexpr int kAsqRowMaxD = 8 * kAsqRowMaxV * kAsqRowMaxThreads;  // 12288
+
+struct AsqRowShape {
+  int V, threads;  // chunks a thread; threads a block (a multiple of 32)
+};
+
+inline AsqRowShape asq_row_shape(int D) {
+  const int chunks = D / 8;
+  const int V = (chunks + kAsqRowMaxThreads - 1) / kAsqRowMaxThreads;
+  return {V, ((chunks + V - 1) / V + 31) / 32 * 32};
+}
+
+// Whether a vector route takes rows of D elements at these addresses
+// (every one 16-byte aligned).
+inline bool asq_row_vec_ok(int D, std::initializer_list<const void*> ptrs) {
+  uintptr_t align = 0;
+  for (const void* p : ptrs) align |= reinterpret_cast<uintptr_t>(p);
+  return D % 8 == 0 && D <= kAsqRowMaxD && align % 16 == 0;
+}
+
+// 8 elements from a 16-byte aligned address: two float4s (f32) or one
+// 16-byte vector (bf16), widened to f32.
+__device__ __forceinline__ void asq_load8(const float* p, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+__device__ __forceinline__ void asq_load8(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+// 8 elements to a 16-byte aligned address, rounded to nearest for bf16.
+__device__ __forceinline__ void asq_store8(float* p, const float (&v)[8]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+__device__ __forceinline__ void asq_store8(__nv_bfloat16* p, const float (&v)[8]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 b = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    w[i] = *reinterpret_cast<const uint32_t*>(&b);
+  }
+  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// The int8 of 8 values (round half to even, clamped) as one 8-byte store to
+// an 8-byte aligned address.
+__device__ __forceinline__ void asq_store8_int8(int8_t* p, const float (&y)[8]) {
+  uint32_t w[2] = {0u, 0u};
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    w[e / 4] |= static_cast<uint32_t>(static_cast<uint8_t>(asq_quant_int8(y[e]))) << (8 * (e % 4));
+  *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+}
+
+// The block's sum of v (blockDim.x a multiple of 32), returned to every
+// thread, in a fixed order: a warp shuffle, then one exchange through
+// shared memory (one barrier). Each call needs its own `part` (blockDim.x /
+// 32 floats), since no barrier follows the reads.
+__device__ __forceinline__ float asq_block_sum(float v, float* part) {
+  v = asq_warp_sum(v);
+  if (threadIdx.x % 32 == 0) part[threadIdx.x / 32] = v;
+  __syncthreads();
+  float total = 0.f;
+  for (int w = 0; w < static_cast<int>(blockDim.x / 32); ++w) total = __fadd_rn(total, part[w]);
+  return total;
 }
 
 // The GEMM epilogue the int8, fp8 and int4 kernels share:

@@ -3,8 +3,8 @@
 Llama family, ``fused_add_layernorm_quant`` for OPT).
 
 CUDA tensors launch ``csrc/add_rmsnorm_quant.cu`` (K2) or
-``csrc/add_layernorm_quant.cu`` (K6; its route by :func:`layernorm_route`);
-CPU tensors run the ``*_plain`` versions.
+``csrc/add_layernorm_quant.cu`` (K6), each on the route :func:`norm_route`
+gives; CPU tensors run the ``*_plain`` versions.
 """
 
 from __future__ import annotations
@@ -16,24 +16,25 @@ import torch
 from . import _build
 
 _P = ctypes.c_void_p
-# the widest row the kernels take: K2 and K6's rows route keep one f32 row in
-# shared memory, K6's vector route up to 3 chunks of 8 in each of 512 threads
+# the widest row the kernels take: the rows routes keep one f32 row in shared
+# memory, the vector routes up to 3 chunks of 8 in each of 512 threads
 _MAX_D = 12 * 1024
 # h, x, the norm vectors (gamma; gamma and beta), out_h, out_q, rows, D, eps,
 # is_bf16, stream
 _TAIL = (ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, _P)
 _ARGTYPES = {"add_rmsnorm_quant": (_P,) * 5 + _TAIL,
              "add_layernorm_quant": (_P,) * 6 + _TAIL}
-_RMSNORM_ENTRY = "asq_add_rmsnorm_quant"
-# K6's entry point by its route (:func:`layernorm_route`)
-_LAYERNORM_ENTRIES = {"vector": "asq_add_layernorm_quant_vec",
-                      "rows": "asq_add_layernorm_quant"}
+# each library's entry point by its route (:func:`norm_route`)
+_ENTRIES = {"add_rmsnorm_quant": {"vector": "asq_add_rmsnorm_quant_vec",
+                                  "rows": "asq_add_rmsnorm_quant"},
+            "add_layernorm_quant": {"vector": "asq_add_layernorm_quant_vec",
+                                    "rows": "asq_add_layernorm_quant"}}
 
 
-def layernorm_route(d: int, *tensors: torch.Tensor) -> str:
-    """K6's route for rows of ``d`` elements: "vector" (the row in
-    registers, 16-byte loads and stores: D % 8 == 0 and every operand
-    16-byte aligned) or "rows" (the row in shared memory, any D)."""
+def norm_route(d: int, *tensors: torch.Tensor) -> str:
+    """K2's and K6's route for rows of ``d`` elements: "vector" (the row in
+    registers, 16-byte loads and stores: D % 8 == 0, D <= 12288 and every
+    operand 16-byte aligned) or "rows" (the row in shared memory, any D)."""
     if d % 8 == 0 and d <= _MAX_D and all(t.data_ptr() % 16 == 0 for t in tensors):
         return "vector"
     return "rows"
@@ -68,18 +69,21 @@ def _check(h, x, norm_vectors):
     return True
 
 
-def _launch(wrapper, lib, entry, h, x, vecs, eps):
-    """Launch ``entry`` of ``csrc/<lib>.cu`` on contiguous h, x and norm
-    vectors."""
+def _launch(wrapper, lib, h, x, vecs, eps):
+    """Launch ``csrc/<lib>.cu`` on contiguous h, x and norm vectors, on the
+    route :func:`norm_route` gives for them and the outputs."""
     t, d = h.shape
     out_h = torch.empty_like(h)
     out_q = torch.empty((t, d), dtype=torch.int8, device=h.device)
-    fn = _build.function(lib, entry, _ARGTYPES[lib])
+    how = norm_route(d, h, x, *vecs, out_h, out_q)
+    fn = _build.function(lib, _ENTRIES[lib][how], _ARGTYPES[lib])
     rc = fn(h.data_ptr(), x.data_ptr(), *(v.data_ptr() for v in vecs),
             out_h.data_ptr(), out_q.data_ptr(), t, d, float(eps),
             int(h.dtype == torch.bfloat16), _build.stream_ptr(h))
     _build.check(lib, rc, wrapper.__name__)
     wrapper.launches += 1
+    if how == "vector":
+        wrapper.vec_launches += 1
     return out_h, out_q
 
 
@@ -89,8 +93,8 @@ def fused_add_rmsnorm_quant(h: torch.Tensor, x: torch.Tensor,
     folded in. Returns (h + x in h.dtype, int8 [T, D])."""
     if not _check(h, x, (gamma,)):
         return fused_add_rmsnorm_quant_plain(h, x, gamma, eps=eps)
-    return _launch(fused_add_rmsnorm_quant, "add_rmsnorm_quant", _RMSNORM_ENTRY,
-                   h.contiguous(), x.contiguous(), (gamma.contiguous(),), eps)
+    return _launch(fused_add_rmsnorm_quant, "add_rmsnorm_quant", h.contiguous(),
+                   x.contiguous(), (gamma.contiguous(),), eps)
 
 
 def fused_add_layernorm_quant_plain(h: torch.Tensor, x: torch.Tensor,
@@ -115,11 +119,12 @@ def fused_add_layernorm_quant(h: torch.Tensor, x: torch.Tensor,
     if not _check(h, x, (gamma, beta)):
         return fused_add_layernorm_quant_plain(h, x, gamma, beta, eps=eps)
     h, x, gamma, beta = (v.contiguous() for v in (h, x, gamma, beta))
-    entry = _LAYERNORM_ENTRIES[layernorm_route(h.shape[1], h, x, gamma, beta)]
-    return _launch(fused_add_layernorm_quant, "add_layernorm_quant", entry, h, x,
+    return _launch(fused_add_layernorm_quant, "add_layernorm_quant", h, x,
                    (gamma, beta), eps)
 
 
-# launches of the CUDA kernels (plain CPU calls do not count)
-fused_add_rmsnorm_quant.launches = 0
-fused_add_layernorm_quant.launches = 0
+# launches of the CUDA kernels (plain CPU calls do not count), and of the
+# vector route alone (counted in launches too)
+for _wrapper in (fused_add_rmsnorm_quant, fused_add_layernorm_quant):
+    _wrapper.launches = 0
+    _wrapper.vec_launches = 0

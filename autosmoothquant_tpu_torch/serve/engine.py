@@ -5,18 +5,32 @@ Ragged prompts are left-padded to one length, so every row's next cache slot
 is the same. Prefill routes by padding: unpadded prompts take causal flash
 attention, ragged ones banded flash attention with each row's pad length as
 its first valid column. Decode then runs one token a step against the KV
-cache, which is written in place. The decode loop reads nothing back to the
-host: the slot index is a device tensor, scales stay on the device, and the
-tokens come back once, at the end. Every step has the same shapes, so a later
-change can capture it in a CUDA graph.
+cache, which is written in place, and reads nothing back to the host: the
+tokens come back once, at the end.
 
-Not ported yet: meshes, draft models and speculative decoding.
+Decode is one step function over static device buffers, the port of the
+JAX engine's ``lax.scan`` over ``_decode_fn``'s step. On a CUDA device the
+engine captures that step once per graph key in a ``torch.cuda.CUDAGraph``
+and replays it, one graph launch a token instead of some 1,300-2,300 kernel
+launches; on the CPU (and on the card with ``cuda_graph=False``) the same
+function runs eagerly on the same buffers.
+
+What differs from the JAX engine, which allocates a cache per call: a graph
+replays fixed addresses, so the engine owns its state for its lifetime
+(:class:`Engine` lists it), the KV cache of ``max_batch`` x ``max_seq`` above
+all. A call copies its prompt state into the first ``b`` rows; slots left
+from an earlier, longer call are masked by ``kv_valid``, which every call
+resets (a masked score is -1e30, whose probability is exactly 0).
+
+Not ported yet: meshes, draft models and speculative decoding. Prefill stays
+eager.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+import time
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -41,6 +55,13 @@ class GenerationConfig:
     return_logprobs: bool = False
 
 
+def device_config(gen_cfg: GenerationConfig) -> GenerationConfig:
+    """``gen_cfg`` with the fields only the host reads (max_new_tokens,
+    eos_token_id, stop) cleared: what a decode graph's key holds, as the
+    JAX engine's ``dev_cfg`` is its static config."""
+    return dataclasses.replace(gen_cfg, max_new_tokens=0, eos_token_id=None, stop=None)
+
+
 def _truncate_at_stop(row, stop):
     """Cut at the first occurrence of any stop sequence (stop stripped)."""
     cut = len(row)
@@ -61,6 +82,35 @@ def _has_static_fp8_scales(params) -> bool:
                for p in layers[0].get(group, {}).values())
 
 
+def _tensors(layer) -> list:
+    """A cache layer's tensors in field order (``dataclasses.astuple`` would
+    copy them)."""
+    return [getattr(layer, f.name) for f in dataclasses.fields(layer)]
+
+
+@dataclasses.dataclass
+class _Rows:
+    """Views of the engine's static buffers over the first ``b`` rows (slices
+    of the leading dimension: contiguous, with the buffers' own bases)."""
+
+    cache: list
+    kv_valid: torch.Tensor   # bool [b, max_seq]
+    pads: torch.Tensor       # int32 [b]: left-pad lengths
+    tok: torch.Tensor        # int64 [b]: the token the next step feeds
+    seen: torch.Tensor       # bool [b, V]: tokens seen (repetition penalty)
+    out_tok: torch.Tensor    # int64 [b, max_seq]: token emitted at each position
+    out_lp: torch.Tensor     # f32 [b, max_seq]: its logprob (return_logprobs)
+    logits: torch.Tensor     # f32 [b, V]: the last step's raw logits
+
+
+@dataclasses.dataclass
+class CapturedStep:
+    """One graph key's captured decode step."""
+
+    graph: "torch.cuda.CUDAGraph"
+    capture_ms: float        # host time of the capture alone
+
+
 class Engine:
     """Generation over a model family module (forward / logits /
     init_kv_cache) on one device.
@@ -73,13 +123,46 @@ class Engine:
     there, except for params that carry fp8-static ``input_scale`` leaves:
     fusion would drop those frozen scales and the activations would
     silently re-quantize dynamically, so such params run unfused (JAX
-    ``maybe_fuse_projections``)."""
+    ``maybe_fuse_projections``).
+
+    State held on ``device`` for the engine's lifetime, allocated here: the
+    KV cache of ``max_batch`` x ``max_seq`` (``model.init_kv_cache``; 2 x
+    layers x max_batch x max_seq x kv heads x head dim x the KV dtype's
+    bytes: OPT-6.7B in bf16 at max_batch 4 and max_seq 512 holds 1.07 GB,
+    ``kv_cache_bytes``), ``kv_valid``, the pad lengths, the next token, the
+    slot, ``seen`` [max_batch, vocab] for the repetition penalty, the token
+    and logprob outputs [max_batch, max_seq] and the last logits [max_batch,
+    vocab], plus the captured graphs and their memory pool.
+
+    cuda_graph: None takes True on a CUDA device and False on the CPU; True
+    on a CPU device raises ValueError. True captures the decode step in a
+    CUDA graph per key: the batch size and the ``GenerationConfig`` with its
+    host-only fields (max_new_tokens, eos_token_id, stop) cleared, as the
+    JAX engine's ``dev_cfg`` clears them from its static config. The key
+    keeps the values of temperature, top_k, top_p and repetition_penalty,
+    which the captured ops hold as constants (the JAX engine recompiles for
+    each too). All graphs share one memory pool. False runs the same step
+    eagerly, so graph and eager decode can be held against each other; it
+    is no fallback: a capture or replay that fails raises. Every graph
+    registers the engine's generator (``CUDAGraph.register_generator_state``,
+    which a torch without it fails on), so a sampled key's seed gives the
+    eager loop's tokens.
+
+    The kernels' launch counters (``kernels/counters.py``) count host
+    launches: prefill, the warm-up step and the capture (which records its
+    launches), and nothing for a replay, which launches without Python."""
 
     def __init__(self, model_mod, params, cfg, qcfg: Optional[QuantConfig] = None,
                  *, max_batch: int = 8, max_seq: int = 2048,
                  kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
-                 device="cuda"):
+                 device="cuda", cuda_graph: Optional[bool] = None):
         self.device = resolve_device(device)
+        on_card = self.device.type == "cuda"
+        if cuda_graph is None:
+            cuda_graph = on_card
+        elif cuda_graph and not on_card:
+            raise ValueError(f"cuda_graph=True needs a CUDA device, not {self.device}")
+        self.cuda_graph = cuda_graph
         self.model = model_mod
         fuser = getattr(model_mod, "fuse_decode_projections", None)
         self.params = (params if fuser is None or _has_static_fp8_scales(params)
@@ -93,22 +176,109 @@ class Engine:
         # the last decode step's logits [B, V] (a device tensor, for checks)
         self.last_logits = None
 
-    def _pick(self, logits, gen_cfg: GenerationConfig, generator, seen, rp):
-        """(token [B], seen, logprob [B] or None) for one step's logits."""
+        dev, rows, vocab = self.device, (max_batch, max_seq), cfg.vocab_size
+        self.kv_cache = model_mod.init_kv_cache(cfg, max_batch, max_seq, kv_dtype, dev)
+        self._kv_valid = torch.zeros(rows, dtype=torch.bool, device=dev)
+        self._pads = torch.zeros(max_batch, dtype=torch.int32, device=dev)
+        self._tok = torch.zeros(max_batch, dtype=torch.int64, device=dev)
+        self._slot = torch.zeros((), dtype=torch.int64, device=dev)
+        self._seen = torch.zeros((max_batch, vocab), dtype=torch.bool, device=dev)
+        self._out_tok = torch.zeros(rows, dtype=torch.int64, device=dev)
+        self._out_lp = torch.zeros(rows, dtype=torch.float32, device=dev)
+        self._logits = torch.zeros((max_batch, vocab), dtype=torch.float32, device=dev)
+        self._generator = torch.Generator(device=dev)
+        # the captured steps by key, the memory pool they share, the side
+        # stream of warm-up and capture, and the replays run so far
+        self.graphs: Dict[tuple, CapturedStep] = {}
+        self.graph_pool = torch.cuda.graph_pool_handle() if cuda_graph else None
+        self._stream = torch.cuda.Stream(dev) if cuda_graph else None
+        self.replays = 0
+
+    @property
+    def kv_cache_bytes(self) -> int:
+        return sum(t.numel() * t.element_size() for layer in self.kv_cache
+                   for t in _tensors(layer))
+
+    def _rows(self, b: int) -> _Rows:
+        cache = [type(layer)(*(t[:b] for t in _tensors(layer))) for layer in self.kv_cache]
+        return _Rows(cache, self._kv_valid[:b], self._pads[:b], self._tok[:b], self._seen[:b],
+                     self._out_tok[:b], self._out_lp[:b], self._logits[:b])
+
+    def _emit(self, rows: _Rows, logits, dev_cfg: GenerationConfig, col) -> None:
+        """Pick the next token of each row from ``logits`` [b, V]; write it
+        (and its logprob under the raw logits, when asked) at position
+        ``col`` (a device index) and into ``rows.tok``, and keep the raw
+        logits."""
         from .sampling import apply_repetition_penalty, sample
 
         raw = logits
-        if rp is not None:
-            logits = apply_repetition_penalty(logits, seen, rp)
-        tok = sample(logits, generator, gen_cfg.temperature, gen_cfg.top_k,
-                     gen_cfg.top_p)
-        if rp is not None:
-            seen = seen.scatter(1, tok[:, None], True)
-        lp = None
-        if gen_cfg.return_logprobs:
-            lp = torch.gather(torch.log_softmax(raw.float(), -1), 1,
-                              tok[:, None])[:, 0]
-        return tok, seen, lp
+        rp = dev_cfg.repetition_penalty != 1.0
+        if rp:
+            penalty = torch.full((logits.shape[0],), dev_cfg.repetition_penalty,
+                                 dtype=torch.float32, device=logits.device)
+            logits = apply_repetition_penalty(logits, rows.seen, penalty)
+        generator = self._generator if dev_cfg.temperature > 0.0 else None
+        tok = sample(logits, generator, dev_cfg.temperature, dev_cfg.top_k, dev_cfg.top_p)
+        if rp:
+            rows.seen.scatter_(1, tok[:, None], True)
+        col = col.reshape(1)
+        rows.out_tok.index_copy_(1, col, tok[:, None])
+        if dev_cfg.return_logprobs:
+            rows.out_lp.index_copy_(1, col, torch.gather(
+                torch.log_softmax(raw.float(), -1), 1, tok[:, None]))
+        rows.tok.copy_(tok)
+        rows.logits.copy_(raw)
+
+    def _step(self, rows: _Rows, dev_cfg: GenerationConfig) -> None:
+        """One decode step over the static buffers, the body the graphs
+        capture: mark the slot valid, run the model on the last token at
+        the slot, pick the next token and write it one position on, and
+        advance the slot."""
+        slot = self._slot
+        rows.kv_valid.index_fill_(1, slot.reshape(1), True)
+        h, _ = self.model.forward(
+            self.params, rows.tok[:, None], self.cfg, self.qcfg, kv_cache=rows.cache,
+            cache_index=slot, kv_valid=rows.kv_valid,
+            positions=(slot - rows.pads)[:, None], compute_dtype=self.compute_dtype)
+        self._emit(rows, self.model.logits(self.params, h)[:, 0], dev_cfg, slot + 1)
+        slot += 1
+
+    def _capture(self, rows: _Rows, dev_cfg: GenerationConfig) -> CapturedStep:
+        """Run decode step 1 eagerly on the side stream (the warm-up: the
+        0-d constants of ``quant.math``, the kernels' libraries and cuBLAS's
+        handle and workspace come into being on first use, which a capture
+        may not do), then capture the step (recorded, not run). Captured
+        launches keep their operands' addresses: the GEMVs that b <= 8 takes
+        read the static buffers above, and the tensor-core routes of K1 and
+        K4 (b > 8) bake their TMA maps of those addresses into the graph, so
+        replay reads the buffers it was captured on either way."""
+        current = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(current)
+        with torch.cuda.stream(self._stream):
+            self._step(rows, dev_cfg)
+        current.wait_stream(self._stream)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self._generator)
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph, pool=self.graph_pool, stream=self._stream):
+            self._step(rows, dev_cfg)
+        return CapturedStep(graph, (time.perf_counter() - t0) * 1e3)
+
+    def _decode(self, rows: _Rows, b: int, dev_cfg: GenerationConfig, steps: int) -> None:
+        if steps <= 0:
+            return
+        if not self.cuda_graph:
+            for _ in range(steps):
+                self._step(rows, dev_cfg)
+            return
+        key = (b, dev_cfg)
+        captured = self.graphs.get(key)
+        if captured is None:
+            captured = self.graphs[key] = self._capture(rows, dev_cfg)
+            steps -= 1  # the warm-up ran step 1
+        for _ in range(steps):
+            captured.graph.replay()
+        self.replays += steps
 
     @torch.inference_mode()
     def generate(self, prompts: Sequence[Sequence[int]],
@@ -126,10 +296,13 @@ class Engine:
             raise ValueError("empty prompt")
         max_len = max(len(p) for p in prompts)
         n = gen_cfg.max_new_tokens
+        if n < 1:
+            raise ValueError(f"max_new_tokens={n}; the engine emits at least one token")
         if max_len + n > self.max_seq:
             raise ValueError(
                 f"prompt ({max_len} tokens) + max_new_tokens ({n}) exceeds "
                 f"max_seq={self.max_seq}; truncate the prompt or raise max_seq")
+        dev_cfg = device_config(gen_cfg)
         dev = self.device
         ids = np.zeros((b, max_len), np.int64)
         pad_lens = np.zeros((b,), np.int32)
@@ -142,49 +315,31 @@ class Engine:
         positions = np.maximum(
             np.arange(max_len, dtype=np.int32)[None, :] - pad_lens[:, None], 0)
         padded = bool(pad_lens.max() > 0)
-        ids_t = torch.from_numpy(ids).to(dev)
-        pads_t = torch.from_numpy(pad_lens).to(dev)
-        kv_valid = torch.from_numpy(valid).to(dev)
+
+        # the call's prompt state into the first b rows of the static buffers
+        rows = self._rows(b)
+        rows.kv_valid.copy_(torch.from_numpy(valid))
+        rows.pads.copy_(torch.from_numpy(pad_lens))
+        self._slot.fill_(max_len)
+        if dev_cfg.repetition_penalty != 1.0:
+            seen = np.zeros((b, self.cfg.vocab_size), bool)
+            for i, p in enumerate(prompts):
+                seen[i, p] = True
+            rows.seen.copy_(torch.from_numpy(seen))
+        if dev_cfg.temperature > 0.0:
+            self._generator.manual_seed(seed)
 
         model, cfg, qcfg, cdt = self.model, self.cfg, self.qcfg, self.compute_dtype
-        cache = model.init_kv_cache(cfg, b, self.max_seq, self.kv_dtype, dev)
-        h, cache = model.forward(
-            self.params, ids_t, cfg, qcfg, kv_cache=cache, cache_index=0,
-            pad_starts=pads_t if padded else None,
+        h, _ = model.forward(
+            self.params, torch.from_numpy(ids).to(dev), cfg, qcfg, kv_cache=rows.cache,
+            cache_index=0, pad_starts=rows.pads if padded else None,
             positions=torch.from_numpy(positions).to(dev), compute_dtype=cdt)
-        logits = model.logits(self.params, h[:, -1:, :])[:, 0]
+        self._emit(rows, model.logits(self.params, h[:, -1:, :])[:, 0], dev_cfg, self._slot)
+        self._decode(rows, b, dev_cfg, n - 1)
+        self.last_logits = rows.logits.clone()
 
-        generator = None
-        if gen_cfg.temperature > 0.0:
-            generator = torch.Generator(device=dev)
-            generator.manual_seed(seed)
-        rp = seen = None
-        if gen_cfg.repetition_penalty != 1.0:
-            rp = torch.full((b,), gen_cfg.repetition_penalty,
-                            dtype=torch.float32, device=dev)
-            seen_np = np.zeros((b, cfg.vocab_size), bool)
-            for i, p in enumerate(prompts):
-                seen_np[i, p] = True
-            seen = torch.from_numpy(seen_np).to(dev)
-
-        tok, seen, lp = self._pick(logits, gen_cfg, generator, seen, rp)
-        toks, lps = [tok], [lp]
-        slot = torch.full((), max_len, dtype=torch.int64, device=dev)
-        for _ in range(n - 1):
-            kv_valid.index_fill_(1, slot.reshape(1), True)
-            h, cache = model.forward(
-                self.params, tok[:, None], cfg, qcfg, kv_cache=cache,
-                cache_index=slot, kv_valid=kv_valid,
-                positions=(slot - pads_t)[:, None], compute_dtype=cdt)
-            logits = model.logits(self.params, h)[:, 0]
-            tok, seen, lp = self._pick(logits, gen_cfg, generator, seen, rp)
-            toks.append(tok)
-            lps.append(lp)
-            slot += 1
-        self.last_logits = logits
-
-        out = torch.stack(toks, dim=1).cpu().tolist()
-        out_lps = (torch.stack(lps, dim=1).cpu().tolist()
+        out = rows.out_tok[:, max_len:max_len + n].cpu().tolist()
+        out_lps = (rows.out_lp[:, max_len:max_len + n].cpu().tolist()
                    if gen_cfg.return_logprobs else None)
         results = []
         for i in range(b):

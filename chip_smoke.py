@@ -8,19 +8,21 @@ Run from the root of a checkout, on a machine with one card:
 
 The paths are Llama generation in three weight formats: W8A8 int8 (kernels
 K1 int8 GEMM: its GEMV at decode, its tensor-core route at prefill; K2
-add+RMSNorm+quant, K3 flash prefill), fp8 e4m3 / e5m2 (K4
-fp8 GEMM: its GEMV at decode, its tensor-core route at prefill; K3) and W4A8
-int4 (K5 int4 GEMM at M <= 64: its one-launch GEMV at decode, its
+add+RMSNorm+quant on its vector route, K3 flash prefill), fp8 e4m3 / e5m2
+(K4 fp8 GEMM: its GEMV at decode, its tensor-core route at prefill; K3) and
+W4A8 int4 (K5 int4 GEMM at M <= 64: its one-launch GEMV at decode, its
 tensor-core route at a prefill of <= 64 tokens in all; K3); and OPT-6.7B
-W8A8 generation (K1, K6 add+LayerNorm+quant, K3).
+W8A8 generation (K1, K6 add+LayerNorm+quant, K3). Decode replays a CUDA
+graph of one step (``Engine``'s default on the card).
 
 Phases (any failure ends the run with a nonzero exit code):
   device   the card's name and power limit
   build    nvcc builds autosmoothquant_tpu_torch/csrc/*.cu (one process per
            source, all started together) and prints the -Xptxas -v summary
   kernels  each kernel against its plain version at the main paths' shapes
-           (TinyLlama-1.1B and OPT-6.7B), K1, K4 and K5 on each of their
-           routes, K6 at OPT widths up to OPT-66B's, K3 at D = 80 too
+           (TinyLlama-1.1B and OPT-6.7B), K1, K2, K4, K5 and K6 on each of
+           their routes, K2 at Llama-2-7B's and -70B's widths too, K6 at OPT
+           widths up to OPT-66B's, K3 at D = 80 too
   e2e      2-layer models on the card and, with the same weights, on the CPU
            (plain versions): TinyLlama width in W8A8, fp8 e4m3 dynamic, fp8
            e4m3 static (unfused), fp8 e5m2 and int4; OPT pre-LN W8A8 at
@@ -32,39 +34,44 @@ Phases (any failure ends the run with a nonzero exit code):
            and depth) in W8A8: 4 ragged prompts (banded prefill) and an
            equal-length batch (causal prefill), greedy, and for int4 a third
            batch of 4 short ragged prompts (64 rows: K5's tensor cores);
-           finite logits, and each path's launch counts, set to 0 just
-           before the path runs, exactly as the path's shape says
+           finite logits, one captured graph and the replays the batches
+           need, and each path's launch counts, set to 0 just before the
+           path runs, exactly as the path's shape says (host launches: the
+           prefills, the warm-up step and the capture), and the device's
+           launches a graph replay, from a profile of replays, exactly one
+           step's. Then the ragged batch
+           again on an eager twin (cuda_graph=False, the same params): equal
+           tokens and bit-equal last logits; and on W8A8 one sampled run
+           (temperature 0.8, top_p 0.9, seed 7) equal in graph and eager
   timing   the launch floor (a one-element kernel); each kernel's time
            against its plain version, its library yardstick and its bound
-           (K1 and K4 at M = 1, 2, 4 and 8 on their GEMV too; K5 and K6
-           beside their earlier designs, the tiles / rows routes, and
-           K5 up to 4 rows beside its GEMV; K3 at D = 80 beside what padded
-           copies of its operands would cost);
-           prefill time; decode tok/s at b1, prompt 128, s_max 512, in turns:
-           TinyLlama W8A8, fp8, int4 and bf16, and OPT-6.7B W8A8 and bf16;
-           device busy time and top kernels of one prefill (T 128; TinyLlama
-           bf16, W8A8 and int4 at T 64 too) and of one decode step (with
-           the device ms of K1's and K4's GEMV in it); peak device memory
+           (K1 and K4 at M = 1, 2, 4 and 8 on their GEMV too; K2, K5 and K6
+           beside their earlier designs, the rows / tiles routes, and K5 up
+           to 4 rows beside its GEMV; K3 at D = 80 beside what padded copies
+           of its operands would cost); prefill time; decode tok/s at b1,
+           prompt 128, s_max 512, graph and eager in paired turns: TinyLlama
+           W8A8, fp8, int4 and bf16, and OPT-6.7B W8A8 and bf16, each graph
+           turn with its replay ms and the speed it ran at; device busy
+           time and top kernels of one prefill (T 128; TinyLlama bf16, W8A8
+           and int4 at T 64 too), of one eager decode step and of one graph
+           replay (with the device ms of K1's and K4's GEMV in it); each
+           graph's capture time and pool memory; peak device memory
 
 Every phase runs, in this order. The last two lines of standard output are
 the kernel table ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
 
-Weights are random, drawn from seeded ``torch.Generator``s. W8A8 uses the int8
-representation ``bench.py:build_params`` uses (uniform int8 weights, f32
-scales), with scales chosen so activations keep unit scale through any depth:
-norm weights (which carry the folded input scale) are 32, so a quantized
-activation has an RMS near 32; each GEMM's dequant scale is
-1 / (sqrt(K) * 32 * 73.6), 73.6 being the RMS of a uniform int8 weight, so
-its output has unit variance; o_proj and down_proj quantize their inputs with
-a static scale of 1/64. fp8 and int4 draw float weights N(0, 1/K) (norm
-weights 1) and quantize them with the port's own ``quant/math`` on the
-device; the static fp8 input scale is 16 / 448 for every projection. OPT
-draws the same way, with f32 linear biases of std 0.1 and LayerNorm
-weights near 1 and biases near 0 (times 32, the folded input scale, where a
-pre-LN norm feeds an int8 projection); a post-LN OPT's q/k/v and fc1,
-whose inputs are LayerNorm outputs with no norm to fold into, quantize with
-a static scale of 1/32. OPT-6.7B's shape is the public facebook/opt-6.7b
-config.json.
+Weights are random, drawn from seeded ``torch.Generator``s. The Llama
+models' W8A8 and bf16 weights come from the port's bench arm
+(``autosmoothquant_tpu_torch/bench.py``, which says how their scales keep
+activations at unit scale through any depth). fp8 and int4 draw float
+weights N(0, 1/K) (norm weights 1) and quantize them with the port's own
+``quant/math`` on the device; the static fp8 input scale is 16 / 448 for
+every projection. OPT draws its W8A8 weights the same way as the Llama
+ones, with f32 linear biases of std 0.1 and LayerNorm weights near 1 and
+biases near 0 (times 32, the folded input scale, where a pre-LN norm feeds
+an int8 projection); a post-LN OPT's q/k/v and fc1, whose inputs are
+LayerNorm outputs with no norm to fold into, quantize with a static scale
+of 1/32. OPT-6.7B's shape is the public facebook/opt-6.7b config.json.
 """
 
 from __future__ import annotations
@@ -72,12 +79,22 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
 import time
 
-ROOT = os.path.dirname(os.path.abspath(__file__))
+# the port's Llama weights, drawn as the bench arm draws them (which also
+# puts torch in this module); run beside anything but the package, this
+# import fails, and the script with it
+from autosmoothquant_tpu_torch.bench import (
+    ACT_RMS, INT8_RMS, PRESETS, decode_tps, draw_float, draw_w8a8)
+# every launch count of the port by name (kernels/counters.py): host
+# launches, a graph's capture included and its replays, which launch without
+# Python, not; device launches come from a profile (device_counts)
+from autosmoothquant_tpu_torch.kernels.counters import launch_counters, read_counts
+
 PKG = "autosmoothquant_tpu_torch"
 PHASES = ("device", "build", "kernels", "e2e", "serve", "timing")
 
@@ -86,9 +103,7 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"int8": 1979e12, "fp8": 1979e12, "bf16": 989e12, "f32": 67e12}
 
 # TinyLlama-1.1B (bench.py's default shape)
-TINYLLAMA = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5632,
-                 num_hidden_layers=22, num_attention_heads=32,
-                 num_key_value_heads=4, max_position_embeddings=2048)
+TINYLLAMA = PRESETS["tinyllama"]
 GEMM_SHAPES = ((2048, 2560), (2048, 2048), (2048, 11264), (5632, 2048))  # (K, N)
 GEMM_NAMES = ("qkv", "o", "gate|up", "down")
 # OPT-6.7B (facebook/opt-6.7b config.json: pre-LN, ReLU, learned positions,
@@ -105,9 +120,13 @@ OPT_350M_2L = dict(vocab_size=50272, hidden_size=1024, word_embed_proj_dim=512,
                    max_position_embeddings=2048, do_layer_norm_before=False)
 OPT_GEMM_SHAPES = ((4096, 4096), (4096, 16384), (16384, 4096))  # (K, N)
 OPT_GEMM_NAMES = ("q|k|v|o", "fc1", "fc2")
-INT8_RMS = 73.6     # RMS of an integer drawn uniformly from [-127, 127]
-ACT_RMS = 32.0      # RMS of a quantized activation (norm weight 32)
 STATIC_FP8_AMAX = 16.0  # the static fp8 input scale is this / 448
+# K3's two wrappers launch the same kernels: a profile reads their sum
+FLASH = "flash_attention+flash_attention_banded"
+# a graph's decode step runs at one of two speeds, the slower 10-16% slower
+# with gaps between its kernels (PERF.md); a replay that takes more than
+# this times the fastest replay of its graph in a run ran at the slower
+SLOW_BY = 1.05
 
 
 class SmokeFailure(RuntimeError):
@@ -126,74 +145,6 @@ def log(*a):
 # ---------------------------------------------------------------------------
 # weights
 # ---------------------------------------------------------------------------
-
-
-def draw_w8a8(cfg, seed, device):
-    """Random W8A8 params in the port's layout (int8 weights [N, K])."""
-    import torch
-
-    g = torch.Generator(device=device)
-    g.manual_seed(seed)
-    D, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
-    HD = cfg.num_attention_heads * cfg.head_dim
-    KVD = cfg.num_key_value_heads * cfg.head_dim
-
-    def f32(x):
-        return torch.tensor(x, dtype=torch.float32, device=device)
-
-    def proj(k, n, scaled=False):
-        p = {"w": torch.randint(-127, 128, (n, k), dtype=torch.int8,
-                                device=device, generator=g),
-             "dequant_scale": f32(1.0 / (math.sqrt(k) * ACT_RMS * INT8_RMS))}
-        if scaled:
-            p["quant_scale"] = f32(1.0 / 64)
-        return p
-
-    def norm():
-        return {"w": torch.full((D,), ACT_RMS, dtype=torch.float32, device=device)}
-
-    layers = [{"ln1": norm(),
-               "attn": {"q": proj(D, HD), "k": proj(D, KVD), "v": proj(D, KVD),
-                        "o": proj(HD, D, scaled=True)},
-               "ln2": norm(),
-               "mlp": {"gate": proj(D, I), "up": proj(D, I),
-                       "down": proj(I, D, scaled=True)}}
-              for _ in range(cfg.num_hidden_layers)]
-    return {"embed": {"w": torch.randn(V, D, generator=g, device=device)
-                      .to(torch.bfloat16)},
-            "layers": layers,
-            "final_norm": {"w": torch.ones(D, dtype=torch.float32, device=device)},
-            "lm_head": {"w": (torch.randn(D, V, generator=g, device=device)
-                              * (2.0 / math.sqrt(D))).to(torch.bfloat16)}}
-
-
-def draw_float(cfg, seed, device, proj_dtype=None):
-    """Random float params ([in, out] weights N(0, 1/K), norm weights 1;
-    bf16 embedding and lm_head). Projections are bf16, or ``proj_dtype``."""
-    import torch
-
-    proj_dtype = proj_dtype or torch.bfloat16
-    g = torch.Generator(device=device)
-    g.manual_seed(seed)
-    D, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
-    HD = cfg.num_attention_heads * cfg.head_dim
-    KVD = cfg.num_key_value_heads * cfg.head_dim
-
-    def w(k, n, scale=None, dtype=proj_dtype):
-        s = scale if scale is not None else 1.0 / math.sqrt(k)
-        return {"w": (torch.randn(k, n, generator=g, device=device) * s)
-                .to(dtype)}
-
-    ones = lambda: {"w": torch.ones(D, dtype=torch.float32, device=device)}  # noqa: E731
-    layers = [{"ln1": ones(),
-               "attn": {"q": w(D, HD), "k": w(D, KVD), "v": w(D, KVD), "o": w(HD, D)},
-               "ln2": ones(),
-               "mlp": {"gate": w(D, I), "up": w(D, I), "down": w(I, D)}}
-              for _ in range(cfg.num_hidden_layers)]
-    return {"embed": {"w": torch.randn(V, D, generator=g, device=device)
-                      .to(torch.bfloat16)},
-            "layers": layers, "final_norm": ones(),
-            "lm_head": w(D, V, scale=2.0 / math.sqrt(D), dtype=torch.bfloat16)}
 
 
 def draw_quantized(cfg, qcfg, seed, device, draw_float=draw_float):
@@ -644,6 +595,15 @@ def flash_ops_bytes(torch, c):
     return 4 * d * pairs, nbytes
 
 
+def rmsnorm_case(torch, t, d, dtype, gen):
+    """K2's inputs: h (the residual) and x (the attention output) of std 2
+    and 1, gamma near 32 (the folded input scale)."""
+    h = (torch.randn(t, d, device="cuda", generator=gen) * 2).to(dtype)
+    x = torch.randn(t, d, device="cuda", generator=gen).to(dtype)
+    gamma = ACT_RMS * (1 + 0.1 * torch.randn(d, device="cuda", generator=gen))
+    return h, x, gamma
+
+
 def layernorm_case(torch, t, d, dtype, gen):
     """K6's inputs as an OPT block gives them: h (the residual) with a common
     offset of +20 and four outlier channels at +-50 sigma, x (the attention
@@ -717,25 +677,41 @@ def phase_kernels(torch, results):
                     f"M={m} K={k} N={n} {c['label']}")
     results["int8_matmul"]["max_abs_err"] = worst
 
-    # K2: T in {1, 128}, D = 2048, bf16. s must be equal; q may differ by one
-    # step on at most 0.1% of elements (the norm's sum order differs)
+    # K2: the vector route at T in {1, 3, 128, 512} x D = 2048 (TinyLlama)
+    # and T = 1 at D = 4096 and 8192 (Llama-2-7B, -70B), bf16 and f32; the
+    # rows route at D = 2052 and on h one element past a 16-byte boundary.
+    # The route is checked through vec_launches. s must be equal; q may
+    # differ by one step on at most 0.1% of elements (the norm's sum order
+    # differs)
+    from autosmoothquant_tpu_torch.kernels.fused import norm_route
+
+    k2_cases = ([(t, 2048, "vector") for t in (1, 3, 128, 512)]
+                + [(1, 4096, "vector"), (1, 8192, "vector"), (64, 2052, "rows"),
+                   (64, 2048, "misaligned")])
     worst = 0.0
-    for t in (1, 128):
-        h = (torch.randn(t, 2048, device="cuda", generator=gen) * 2).to(torch.bfloat16)
-        x = torch.randn(t, 2048, device="cuda", generator=gen).to(torch.bfloat16)
-        gamma = ACT_RMS * (1 + 0.1 * torch.randn(2048, device="cuda", generator=gen))
-        s, q = fused_add_rmsnorm_quant(h, x, gamma, eps=1e-5)
-        s_ref, q_ref = fused_add_rmsnorm_quant_plain(h, x, gamma, eps=1e-5)
-        torch.cuda.synchronize()
-        dq = (q.int() - q_ref.int()).abs()
-        frac = float((dq > 0).float().mean())
-        err = float(dq.max())
-        worst = max(worst, err)
-        ok = torch.equal(s, s_ref) and err <= 1 and frac <= 1e-3
-        log(f"  fused_add_rmsnorm_quant T={t:<4d} D=2048 bf16: s equal="
-            f"{torch.equal(s, s_ref)} q max|diff|={err:g} on {frac:.2%} "
-            f"(<= 1 on <= 0.1%) {'ok' if ok else 'FAIL'}")
-        require(ok, f"fused_add_rmsnorm_quant disagrees at T={t}")
+    for t, d, want in k2_cases:
+        for dt in (torch.bfloat16, torch.float32):
+            h, x, gamma = rmsnorm_case(torch, t, d, dt, gen)
+            if want == "misaligned":
+                buf = torch.empty(h.numel() + 1, dtype=dt, device="cuda")
+                h = buf[1:].view(h.shape).copy_(h)
+            vec_before = fused_add_rmsnorm_quant.vec_launches
+            s, q = fused_add_rmsnorm_quant(h, x, gamma, eps=1e-5)
+            s_ref, q_ref = fused_add_rmsnorm_quant_plain(h, x, gamma, eps=1e-5)
+            torch.cuda.synchronize()
+            how = "vector" if fused_add_rmsnorm_quant.vec_launches > vec_before else "rows"
+            require(how == norm_route(d, h, x, gamma) == ("vector" if want == "vector" else "rows"),
+                    f"fused_add_rmsnorm_quant took route {how} at T={t} D={d} ({want})")
+            dq = (q.int() - q_ref.int()).abs()
+            frac = float((dq > 0).float().mean())
+            err = float(dq.max())
+            worst = max(worst, err)
+            ok = torch.equal(s, s_ref) and err <= 1 and frac <= 1e-3
+            log(f"  fused_add_rmsnorm_quant T={t:<4d} D={d:<5d} {how:6s}"
+                f"{' (misaligned h)' if want == 'misaligned' else ''} "
+                f"{str(dt).split('.')[-1]}: s equal={torch.equal(s, s_ref)} q max|diff|={err:g} "
+                f"on {frac:.3%} (<= 1 on <= 0.1%) {'ok' if ok else 'FAIL'}")
+            require(ok, f"fused_add_rmsnorm_quant disagrees at T={t} D={d} {dt} ({want})")
     results["fused_add_rmsnorm_quant"]["max_abs_err"] = worst
 
     # K6: T in {1, 128, 512} x D in {2048, 4096} and the widths of OPT-13B,
@@ -744,7 +720,7 @@ def phase_kernels(torch, results):
     # a common offset of +20 and outlier channels at +-50 sigma (where a
     # one-pass variance would cancel). s equal; q within one step on at most
     # 0.1% of elements (the mean's and the variance's sum orders differ)
-    from autosmoothquant_tpu_torch.kernels.fused import layernorm_route
+    from autosmoothquant_tpu_torch.kernels.fused import norm_route
 
     worst = 0.0
     for d in (2048, 4096, 5120, 7168, 9216, 2056, 2052):
@@ -759,7 +735,7 @@ def phase_kernels(torch, results):
                 err = float(dq.max())
                 worst = max(worst, err)
                 ok = torch.equal(s, s_ref) and err <= 1 and frac <= 1e-3
-                how = layernorm_route(d, h, x, gamma, beta)
+                how = norm_route(d, h, x, gamma, beta)
                 require(how == ("vector" if d % 8 == 0 else "rows"),
                         f"fused_add_layernorm_quant took route {how} at D={d}")
                 log(f"  fused_add_layernorm_quant T={t:<4d} D={d} {how:6s} "
@@ -1094,45 +1070,13 @@ def e2e_compare(torch, L, cfg, label, qcfg, params_cpu, limits, ragged, equal,
     return failures
 
 
-def launch_counters():
-    """Every launch count of the port, by name: (wrapper, attribute). Each
-    kernel wrapper counts its launches; int8_matmul_tc, fp8_matmul_tc and
-    int4_matmul_tc count K1's, K4's and K5's tensor-core routes alone, and
-    int8_matmul_gemv and fp8_matmul_gemv K1's and K4's "gemv" routes alone
-    (their launches are in int8_matmul's, fp8_matmul's and int4_matmul's
-    too)."""
-    from autosmoothquant_tpu_torch.kernels.attention import (
-        flash_attention, flash_attention_banded)
-    from autosmoothquant_tpu_torch.kernels.fp8 import fp8_matmul
-    from autosmoothquant_tpu_torch.kernels.fused import (
-        fused_add_layernorm_quant, fused_add_rmsnorm_quant)
-    from autosmoothquant_tpu_torch.kernels.gemm import int8_matmul
-    from autosmoothquant_tpu_torch.kernels.int4 import int4_matmul
-
-    counters = {"int8_matmul": int8_matmul,
-                "fused_add_rmsnorm_quant": fused_add_rmsnorm_quant,
-                "flash_attention": flash_attention,
-                "flash_attention_banded": flash_attention_banded,
-                "fp8_matmul": fp8_matmul,
-                "int4_matmul": int4_matmul,
-                "fused_add_layernorm_quant": fused_add_layernorm_quant}
-    counters = {name: (w, "launches") for name, w in counters.items()}
-    counters["int8_matmul_tc"] = (int8_matmul, "tc_launches")
-    counters["fp8_matmul_tc"] = (fp8_matmul, "tc_launches")
-    counters["int4_matmul_tc"] = (int4_matmul, "tc_launches")
-    counters["int8_matmul_gemv"] = (int8_matmul, "gemv_launches")
-    counters["fp8_matmul_gemv"] = (fp8_matmul, "gemv_launches")
-    return counters
-
-
 # what each count of launch_counters() counts, for the serve phase's messages
 COUNTED = {"int8_matmul_tc": "K1's tensor-core route", "fp8_matmul_tc": "K4's tensor-core route",
            "int4_matmul_tc": "K5's tensor-core route", "int8_matmul_gemv": "K1's GEMV route",
-           "fp8_matmul_gemv": "K4's GEMV route"}
-
-
-def read_counts(counters):
-    return {name: getattr(w, attr) for name, (w, attr) in counters.items()}
+           "fp8_matmul_gemv": "K4's GEMV route",
+           "fused_add_rmsnorm_quant_vec": "K2's vector route",
+           "fused_add_layernorm_quant_vec": "K6's vector route",
+           FLASH: "K3, both wrappers"}
 
 
 def reset_counts(counters):
@@ -1140,42 +1084,117 @@ def reset_counts(counters):
         setattr(w, attr, 0)
 
 
-# each path's kernels, and the count each must show after the serve run of
-# n new tokens for 2 batches of 4 prompts (1 prefill + n - 1 decode forwards
-# a batch; one flash launch a layer per prefill). TinyLlama (22 layers) fuses
-# q|k|v and gate|up: 4 GEMMs a layer per forward. W8A8 and fp8 prefill at
-# M = 4 x 128, every GEMM on K1's or K4's tensor-core route; decode (M = 4)
-# takes the GEMV ("gemv": K % 16 == 0, aligned bases), counted apart too.
-# int4 prefills those two batches at M = 4 x 128 > 64, which
-# takes W4A16 (plain torch), and serves a third, short ragged batch
+# each path's kernels and their counts in the serve run: 2 batches of 4
+# prompts (int4: 3), each 1 prefill and n - 1 decode forwards. Entry: (new
+# tokens n, the counts of the batches' prefills, the counts of one decode
+# forward of one batch, whether the short batch runs). TinyLlama (22 layers)
+# fuses q|k|v and gate|up: 4 GEMMs a layer per forward. W8A8 and fp8
+# prefill at M = 4 x 128, every GEMM on K1's or K4's tensor-core route, one
+# flash launch a layer (banded for the ragged batch, causal for the equal
+# one); decode (M = 4) takes the GEMV ("gemv": K % 16 == 0, aligned bases),
+# counted apart too. int4 prefills those two batches at M = 4 x 128 > 64,
+# which takes W4A16 (plain torch), and serves a third, short ragged batch
 # (SHORT_PROMPTS, 4 x 16 = 64 rows: every prefill GEMM on K5's tensor
 # cores, banded flash); its decode forwards (M = 4) take K5's GEMV on the
 # f32 inputs of q|k|v and gate|up and its columns on the bf16 inputs of o
 # and down, one count a GEMM. OPT-6.7B (32 layers) runs unfused: 6 GEMMs and
-# one K6 a layer per forward. Entry: (new tokens, counts, whether the short
-# batch runs).
+# one K6 a layer per forward. The host launches two decode forwards, for the
+# path's one graph key: the warm-up step and the capture, which records the
+# step. The replays launch the rest without Python; a profile of replays
+# reads the device's launches of one (replay_counts)
 SHORT_PROMPTS = (16, 12, 9, 5)
 SERVE_PATHS = {
-    "W8A8": (32, lambda n: {"int8_matmul": 4 * 22 * 2 * n,
-                            "int8_matmul_tc": 4 * 22 * 2,
-                            "int8_matmul_gemv": 4 * 22 * 2 * (n - 1),
-                            "fused_add_rmsnorm_quant": 22 * 2 * n,
-                            "flash_attention": 22, "flash_attention_banded": 22}, False),
-    "fp8 e4m3 dynamic": (16, lambda n: {"fp8_matmul": 4 * 22 * 2 * n,
-                                        "fp8_matmul_tc": 4 * 22 * 2,
-                                        "fp8_matmul_gemv": 4 * 22 * 2 * (n - 1),
-                                        "flash_attention": 22,
-                                        "flash_attention_banded": 22}, False),
-    "int4": (16, lambda n: {"int4_matmul": 4 * 22 * (3 * (n - 1) + 1),
-                            "int4_matmul_tc": 4 * 22,
-                            "flash_attention": 22, "flash_attention_banded": 2 * 22}, True),
-    "OPT-6.7B W8A8": (32, lambda n: {"int8_matmul": 6 * 32 * 2 * n,
-                                     "int8_matmul_tc": 6 * 32 * 2,
-                                     "int8_matmul_gemv": 6 * 32 * 2 * (n - 1),
-                                     "fused_add_layernorm_quant": 32 * 2 * n,
-                                     "flash_attention": 32,
-                                     "flash_attention_banded": 32}, False),
+    "W8A8": (32, {"int8_matmul": 88 * 2, "int8_matmul_tc": 88 * 2,
+                  "fused_add_rmsnorm_quant": 22 * 2, "fused_add_rmsnorm_quant_vec": 22 * 2,
+                  "flash_attention": 22, "flash_attention_banded": 22},
+             {"int8_matmul": 88, "int8_matmul_gemv": 88,
+              "fused_add_rmsnorm_quant": 22, "fused_add_rmsnorm_quant_vec": 22}, False),
+    "fp8 e4m3 dynamic": (16, {"fp8_matmul": 88 * 2, "fp8_matmul_tc": 88 * 2,
+                              "flash_attention": 22, "flash_attention_banded": 22},
+                         {"fp8_matmul": 88, "fp8_matmul_gemv": 88}, False),
+    "int4": (16, {"int4_matmul": 88, "int4_matmul_tc": 88,
+                  "flash_attention": 22, "flash_attention_banded": 2 * 22},
+             {"int4_matmul": 88}, True),
+    "OPT-6.7B W8A8": (32, {"int8_matmul": 192 * 2, "int8_matmul_tc": 192 * 2,
+                           "fused_add_layernorm_quant": 32 * 2,
+                           "fused_add_layernorm_quant_vec": 32 * 2,
+                           "flash_attention": 32, "flash_attention_banded": 32},
+                      {"int8_matmul": 192, "int8_matmul_gemv": 192,
+                       "fused_add_layernorm_quant": 32,
+                       "fused_add_layernorm_quant_vec": 32}, False),
 }
+
+
+def serve_counts(prefill, step, forwards):
+    """The counts of the prefills and ``forwards`` decode forwards."""
+    return {k: prefill.get(k, 0) + forwards * step.get(k, 0) for k in {**prefill, **step}}
+
+
+# how a profile names the kernels each count counts (the demangled names of
+# csrc/'s __global__ functions): one device launch for each launch its
+# wrapper counts. K1 and K4 share kernel names and differ in their template
+# and argument types; a split-K reduce and int4's row quantizer are second
+# kernels of a counted launch and are read nowhere; K3's two wrappers launch
+# the same kernels, so a profile reads the sum of their counts (FLASH)
+_K4 = r"<.*__nv_fp8_interpretation_t"
+DEVICE_READS = {
+    "int8_matmul": (r"\bgemv_mma_kernel<.*Int8Gemv|\bgemm_tc_kernel<\d+>"
+                    r"|\b(gemv_ragged|gemm_tiled)_kernel\(signed char"),
+    "int8_matmul_tc": r"\bgemm_tc_kernel<\d+>",
+    "int8_matmul_gemv": r"\bgemv_mma_kernel<.*Int8Gemv",
+    "fp8_matmul": r"\b(gemv_mma|gemm_tc|gemv_ragged|gemm_tiled)_kernel" + _K4,
+    "fp8_matmul_tc": r"\bgemm_tc_kernel" + _K4,
+    "fp8_matmul_gemv": r"\bgemv_mma_kernel<.*Fp8Gemv",
+    "int4_matmul": r"\bw4a8_(gemv_|tc_)?kernel[<(]",
+    "int4_matmul_tc": r"\bw4a8_tc_kernel[<(]",
+    "fused_add_rmsnorm_quant": r"\badd_rmsnorm_quant(_vec)?_kernel<",
+    "fused_add_rmsnorm_quant_vec": r"\badd_rmsnorm_quant_vec_kernel<",
+    "fused_add_layernorm_quant": r"\badd_layernorm_quant(_vec)?_kernel<",
+    "fused_add_layernorm_quant_vec": r"\badd_layernorm_quant_vec_kernel<",
+    FLASH: r"\bflash_(tc_)?kernel<",
+}
+
+
+def replay_counts(torch, graph, reps=5):
+    """{count of DEVICE_READS: device launches a replay of ``graph``}, from a
+    profile (CUDA activity) of ``reps`` replays, begun after 100 one-element
+    kernels. On an H100 a profile came back now and then without a run of
+    consecutive kernels: the first ones of a prefill at its start, or a
+    third of the warm-up step on the engine's side stream in a profile of a
+    whole serve call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    graph.replay()
+    warm = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(100):
+            warm.add_(1.0)
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            graph.replay()
+        torch.cuda.synchronize()
+    counts = device_counts(prof)
+    require(all(n % reps == 0 for n in counts.values()),
+            f"a profile of {reps} replays read {counts}: not {reps} alike")
+    return {name: n // reps for name, n in counts.items()}
+
+
+def device_counts(prof):
+    """{count of DEVICE_READS: launches} of the CUDA kernels in a profile."""
+    import collections
+
+    names = collections.Counter(e.name for e in prof.events()
+                                if e.device_type.name == "CUDA")
+    return {count: sum(n for name, n in names.items() if re.search(rx, name))
+            for count, rx in DEVICE_READS.items()}
+
+
+def as_device_reads(counts):
+    """``counts`` keyed as DEVICE_READS keys them (K3's two as FLASH)."""
+    out = {k: v for k, v in counts.items() if not k.startswith("flash_attention")}
+    out[FLASH] = counts.get("flash_attention", 0) + counts.get("flash_attention_banded", 0)
+    return out
 
 
 def serve_model(torch, label):
@@ -1199,7 +1218,16 @@ def serve_model(torch, label):
 
 def phase_serve(torch, results):
     """Each main path at full width, counted: the counts are set to 0 just
-    before the path runs and read just after."""
+    before the path runs and read just after. Decode replays a CUDA graph
+    (the engine's default on the card): one capture for the path's key (b 4,
+    greedy), the rest replays. The host counts hold the prefills, the
+    warm-up step and the capture (which records one step's launches); a
+    profile of replays of the path's graph gives the device's launches a
+    replay, which must be the step's own. Then, outside the counted run, a
+    second engine with cuda_graph=False on the same params serves the ragged
+    batch again: greedy tokens equal and last logits bit-equal. On the W8A8 path one
+    sampled run (temperature 0.8, top_p 0.9, seed 7) gives equal tokens in
+    graph and eager decode."""
     from autosmoothquant_tpu_torch.serve.engine import Engine, GenerationConfig
 
     rng = torch.Generator().manual_seed(5)
@@ -1210,19 +1238,21 @@ def phase_serve(torch, results):
     short = [torch.randint(0, 32000, (n,), generator=rng).tolist() for n in SHORT_PROMPTS]
     counters = launch_counters()
     engines = {}
-    for label, (n_new, expected, with_short) in SERVE_PATHS.items():
+    for label, (n_new, prefill, step, with_short) in SERVE_PATHS.items():
         model, cfg, qcfg, params = serve_model(torch, label)
-        eng = Engine(model, params, cfg, qcfg, max_batch=4, max_seq=512,
-                     kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
-                     device="cuda")
-        engines[label] = eng
+
+        def engine(graph):
+            return Engine(model, params, cfg, qcfg, max_batch=4, max_seq=512,
+                          kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
+                          device="cuda", cuda_graph=graph)
+        eng = engines[label] = engine(True)
         gen_cfg = GenerationConfig(max_new_tokens=n_new)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts(counters)
         t0 = time.perf_counter()
         toks_r = eng.generate(ragged, gen_cfg)
-        finite_r = bool(torch.isfinite(eng.last_logits).all())
+        logits_r = eng.last_logits
         toks_e = eng.generate(equal, gen_cfg)
         finite_e = bool(torch.isfinite(eng.last_logits).all())
         batches = [toks_r, toks_e]
@@ -1231,24 +1261,37 @@ def phase_serve(torch, results):
             finite_e = finite_e and bool(torch.isfinite(eng.last_logits).all())
         wall = time.perf_counter() - t0
         counts = read_counts(counters)
-        log(json.dumps({"path": label, "launches": counts}))
+        (captured,) = eng.graphs.values()
+        per_replay = replay_counts(torch, captured.graph)
+        log(json.dumps({"path": label, "host launches": counts,
+                        "device launches a replay": per_replay}))
         log(f"  serve: {cfg.num_hidden_layers}-layer {label} "
             f"{'' if label.startswith('OPT') else 'TinyLlama'}, {len(batches)} batches x 4 "
-            f"prompts x {n_new} new tokens in {wall:.2f} s (first calls "
-            f"included); peak memory "
+            f"prompts x {n_new} new tokens in {wall:.2f} s (first calls included); "
+            f"{eng.replays} graph replays, capture {captured.capture_ms:.1f} ms, "
+            f"pool {graph_pool_mib(torch, eng)} MiB; KV cache "
+            f"{eng.kv_cache_bytes / 2**30:.3f} GiB; peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         log(f"  serve {label} tokens (ragged row 0): {toks_r[0]}")
-        want = expected(n_new)
+        want = serve_counts(prefill, step, 2)
+        want_replay = as_device_reads(step)
         for name in want:
             require(counts[name] > 0, f"{name} was not launched on the {label} path")
-            if name in results and results[name]["launches"] is None:
-                results[name]["launches"] = counts[name]  # the first path that runs it
-        for kernel in ("int8_matmul", "fp8_matmul", "int4_matmul"):
-            for route in ("tc", "gemv"):
-                if (f"{kernel}_{route}" in want
-                        and results[kernel].get(f"{route}_launches") is None):
-                    results[kernel][f"{route}_launches"] = counts[f"{kernel}_{route}"]
-        require(finite_r and finite_e, f"non-finite logits on the {label} path")
+        for name in results:
+            if name in want and results[name]["launches"] is None:  # the first path
+                results[name]["launches"] = counts[name]
+                results[name]["launches_a_replay"] = per_replay[
+                    FLASH if name.startswith("flash_attention") else name]
+                results[name]["replays"] = eng.replays
+        for kernel, route in (("int8_matmul", "tc"), ("int8_matmul", "gemv"),
+                              ("fp8_matmul", "tc"), ("fp8_matmul", "gemv"),
+                              ("int4_matmul", "tc"), ("fused_add_rmsnorm_quant", "vec"),
+                              ("fused_add_layernorm_quant", "vec")):
+            if (f"{kernel}_{route}" in want
+                    and results[kernel].get(f"{route}_launches") is None):
+                results[kernel][f"{route}_launches"] = counts[f"{kernel}_{route}"]
+        require(bool(torch.isfinite(logits_r).all()) and finite_e,
+                f"non-finite logits on the {label} path")
         for toks in batches:
             require(len(toks) == 4 and all(len(t) == n_new for t in toks),
                     f"wrong number of generated tokens on the {label} path")
@@ -1257,9 +1300,36 @@ def phase_serve(torch, results):
         for name, count in want.items():
             require(counts[name] == count,
                     f"{name} ({COUNTED.get(name, 'every route')}) launched {counts[name]} "
-                    f"times on the {label} path; expected {count}")
+                    f"times from the host on the {label} path; expected {count}")
         others = {k: v for k, v in counts.items() if k not in want and v}
         require(not others, f"unexpected launches on the {label} path: {others}")
+        for name, got in per_replay.items():
+            require(got == want_replay.get(name, 0),
+                    f"{name} ({COUNTED.get(name, 'every route')}): {got} device launches a "
+                    f"graph replay on the {label} path; expected {want_replay.get(name, 0)}")
+        replays = len(batches) * (n_new - 1) - 1  # one capture; its warm-up ran step 1
+        require(len(eng.graphs) == 1 and eng.replays == replays,
+                f"{label}: {len(eng.graphs)} graphs and {eng.replays} replays; expected 1 "
+                f"and {replays}")
+
+        # the same ragged batch decoded eagerly, on the same params
+        eager = engine(False)
+        toks_x = eager.generate(ragged, gen_cfg)
+        same_logits = torch.equal(eager.last_logits, logits_r)
+        diff = float((eager.last_logits - logits_r).abs().max())
+        log(f"  serve {label} graph vs eager (ragged batch): tokens equal "
+            f"{toks_x == toks_r}, last logits bit-equal {same_logits} (max |diff| {diff:g})")
+        require(toks_x == toks_r and same_logits,
+                f"{label}: graph and eager decode differ (tokens equal {toks_x == toks_r}, "
+                f"max |logit diff| {diff})")
+        if label == "W8A8":
+            sampled = GenerationConfig(max_new_tokens=n_new, temperature=0.8, top_p=0.9)
+            got = [e.generate(ragged, sampled, seed=7) for e in (eng, eager)]
+            log(f"  serve {label} sampled (temperature 0.8, top_p 0.9, seed 7): graph and "
+                f"eager tokens equal {got[0] == got[1]}; graph row 0 {got[0][0]}")
+            require(got[0] == got[1] and len(eng.graphs) == 2,
+                    f"{label}: sampled graph and eager decode differ for one seed")
+        del eager
     return engines
 
 
@@ -1349,28 +1419,38 @@ def phase_timing(torch, results, engines):
             if m == 1 and pname == "gate|up":
                 results["int8_matmul"].update(row)
 
-    # K2 at decode (T = 1) and prefill (T = 128)
-    for t in (1, 128):
-        h = torch.randn(t, 2048, device="cuda", generator=gen).to(torch.bfloat16)
-        x = torch.randn(t, 2048, device="cuda", generator=gen).to(torch.bfloat16)
-        gamma = torch.full((2048,), ACT_RMS, device="cuda")
+    # K2 at decode (T = 1), prefill (T = 128) and a b4 prefill (T = 512) at
+    # TinyLlama's D = 2048, and at decode at Llama-2-7B's and -70B's widths
+    # (4096, 8192), bf16, on the vector route, beside the rows route (the
+    # earlier design, called through its entry point). No library call
+    # computes the fusion: library null
+    from autosmoothquant_tpu_torch.kernels import _build
+    from autosmoothquant_tpu_torch.kernels import fused as K6
+
+    rms_rows_fn = _build.function("add_rmsnorm_quant", "asq_add_rmsnorm_quant",
+                                  K6._ARGTYPES["add_rmsnorm_quant"])
+    for t, d in ((1, 2048), (128, 2048), (512, 2048), (1, 4096), (1, 8192)):
+        h, x, gamma = rmsnorm_case(torch, t, d, torch.bfloat16, gen)
         ms = timer.ms(lambda: fused_add_rmsnorm_quant(h, x, gamma, eps=1e-5))
         plain_ms = timer.ms(lambda: fused_add_rmsnorm_quant_plain(h, x, gamma, eps=1e-5))
-        b_ms, b_by = bound(t * 2048 * (2 + 2 + 2 + 1) + 2048 * 4, 6 * t * 2048, "f32")
-        log(f"    fused_add_rmsnorm_quant T={t:<4d} D=2048 kernel {ms:.4f} plain "
-            f"{plain_ms:.4f} library null bound {b_ms:.5f} ({b_by})")
-        if t == 1:
-            results["fused_add_rmsnorm_quant"].update(
-                ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-                bound_by=b_by, shape="decode T=1 D=2048 bf16")
+        out_h, out_q = torch.empty_like(h), torch.empty(h.shape, dtype=torch.int8, device="cuda")
+        rows_ms = timer.ms(lambda: rms_rows_fn(
+            h.data_ptr(), x.data_ptr(), gamma.data_ptr(), out_h.data_ptr(), out_q.data_ptr(),
+            t, d, 1e-5, 1, _build.stream_ptr(h)))
+        b_ms, b_by = bound(t * d * (2 + 2 + 2 + 1) + d * 4, 6 * t * d, "f32")
+        log(f"    fused_add_rmsnorm_quant T={t:<4d} D={d:<5d} ({K6.norm_route(d, h, x, gamma)}) "
+            f"kernel {ms:.4f} (rows route {rows_ms:.4f}) plain {plain_ms:.4f} library null "
+            f"bound {b_ms:.5f} ({b_by}); launch floor {floor_ms:.4f}")
+        row = dict(shape=f"T={t} D={d} bf16", ms=ms, plain_ms=plain_ms, library_ms=None,
+                   bound_ms=b_ms, bound_by=b_by, rows_route_ms=rows_ms)
+        results["fused_add_rmsnorm_quant"].setdefault("rows", []).append(row)
+        if (t, d) == (1, 2048):
+            results["fused_add_rmsnorm_quant"].update(row, shape="decode T=1 D=2048 bf16")
 
     # K6 at decode (T = 1), prefill (T = 128) and a b4 prefill (T = 512),
     # OPT-6.7B's D = 4096, bf16, on the vector route, beside the rows route
     # (the earlier design, called through its entry point). No library call
     # computes the fusion: library null
-    from autosmoothquant_tpu_torch.kernels import _build
-    from autosmoothquant_tpu_torch.kernels import fused as K6
-
     rows_fn = _build.function("add_layernorm_quant", "asq_add_layernorm_quant",
                               K6._ARGTYPES["add_layernorm_quant"])
     for t in (1, 128, 512):
@@ -1383,7 +1463,7 @@ def phase_timing(torch, results, engines):
             h.data_ptr(), x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out_h.data_ptr(),
             out_q.data_ptr(), t, 4096, 1e-5, 1, _build.stream_ptr(h)))
         b_ms, b_by = bound(t * 4096 * (2 + 2 + 2 + 1) + 2 * 4096 * 4, 10 * t * 4096, "f32")
-        log(f"    fused_add_layernorm_quant T={t:<4d} D=4096 ({K6.layernorm_route(4096, h)}) "
+        log(f"    fused_add_layernorm_quant T={t:<4d} D=4096 ({K6.norm_route(4096, h)}) "
             f"kernel {ms:.4f} (rows route {rows_ms:.4f}) plain {plain_ms:.4f} library null "
             f"bound {b_ms:.5f} ({b_by}); launch floor {floor_ms:.4f}")
         row = dict(shape=f"T={t} D=4096 bf16", ms=ms, plain_ms=plain_ms, library_ms=None,
@@ -1532,9 +1612,12 @@ def phase_timing(torch, results, engines):
     from autosmoothquant_tpu_torch.serve.engine import Engine
 
     def b1(model, cfg, params, qcfg):
-        return Engine(model, params, cfg, qcfg, max_batch=1, max_seq=512,
-                      kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
-                      device="cuda")
+        """A b1 engine that decodes from a CUDA graph and its eager twin on
+        the same params."""
+        return {mode: Engine(model, params, cfg, qcfg, max_batch=1, max_seq=512,
+                             kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
+                             device="cuda", cuda_graph=mode == "graph")
+                for mode in ("graph", "eager")}
 
     cfg = tinyllama(L, 22)
     engs = {"bf16": b1(L, cfg, draw_float(cfg, seed=4, device="cuda"), None)}
@@ -1553,14 +1636,18 @@ def phase_timing(torch, results, engines):
 
 def end_to_end(torch, timer, M, cfg, engs, name, results, short=()):
     """Prefill ms (b1, T128, plus the last token's logits) and decode tok/s
-    (b1, prompt 128, s_max 512, greedy, 64 steps: best of 3, two turns each
-    in the order given and back) of each b1 engine in ``engs`` (family
-    module M), each format's ratio to bf16, then the device's view of one
-    prefill and of one decode step of each format; the formats in ``short``
-    also get a b1 T64 prefill (int4: 64 rows, K5's tensor cores). The
-    decode profiles' GEMV device ms go into ``results``."""
-    from autosmoothquant_tpu_torch.serve.engine import GenerationConfig
-
+    (b1, prompt 128, s_max 512, greedy, 64 steps: ``bench.decode_tps``, best
+    of 3) of each format in ``engs`` (family module M; per format a graph
+    and an eager engine on the same params), in paired turns: the formats in
+    the order given, each graph then eager, and back, each eager then
+    graph, each graph turn followed by a reading of its replays' speed. Then the
+    device's view of one prefill, of one eager decode step and of one graph
+    replay of each format, the idle shares against the measured step times,
+    and each graph's capture time and pool memory; the formats in ``short``
+    also get a b1 T64 prefill (int4: 64 rows, K5's tensor cores). Last,
+    every graph turn with the speed it ran at (SLOW_BY), the best turn of
+    each speed and the ratios to bf16 within one speed. The device ms of the
+    GEMV, K2 and K6 in a replay go into ``results``."""
     rng = torch.Generator().manual_seed(17)
     prompt = [torch.randint(0, 32000, (128,), generator=rng).tolist()]
     layers = cfg.num_hidden_layers
@@ -1579,54 +1666,159 @@ def end_to_end(torch, timer, M, cfg, engs, name, results, short=()):
     def prefill_ms(eng, t=128):
         return timer.ms(prefill_fn(eng, t), iters=5, warmup=2)
 
-    def decode_tps(eng, steps=64):
-        def gen_s(n):
-            eng.generate(prompt, GenerationConfig(max_new_tokens=n))  # warm
-            best = float("inf")
-            for _ in range(3):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                eng.generate(prompt, GenerationConfig(max_new_tokens=n))
-                best = min(best, time.perf_counter() - t0)
-            return best
-        return steps / (gen_s(steps + 1) - gen_s(1))
-
     order = tuple(engs)
-    pf = {label: prefill_ms(engs[label]) for label in order}
+    pf = {label: prefill_ms(engs[label]["graph"]) for label in order}
     log(f"  {name} prefill b1 T128 {layers} layers (+ last-token logits): "
         + ", ".join(f"{label} {pf[label]:.3f} ms" for label in order))
     # where one prefill's device time goes
     for label in order:
-        device_profile(torch, prefill_fn(engs[label]), f"prefill ({name} {label}, b1 T128)",
-                       pf[label], reps=3)
+        device_profile(torch, prefill_fn(engs[label]["graph"]),
+                       f"prefill ({name} {label}, b1 T128)", pf[label], reps=3)
     for label in short:
-        pf64 = prefill_ms(engs[label], 64)
-        device_profile(torch, prefill_fn(engs[label], 64), f"prefill ({name} {label}, b1 T64)",
-                       pf64, reps=3)
-    tps = {}
-    for label in order + order[::-1]:
-        tps.setdefault(label, []).append(decode_tps(engs[label]))
-    best = {label: max(v) for label, v in tps.items()}
-    log(f"  {name} decode b1 prompt 128 s_max 512, greedy, 64 steps (best of 3, "
-        f"two turns each, order {'/'.join(order + order[::-1])}): "
-        + ", ".join(f"{label} {best[label]:.2f} tok/s {tps[label]}" for label in order)
-        + "; " + ", ".join(f"{label}/bf16 {best[label] / best['bf16']:.4f}"
+        pf64 = prefill_ms(engs[label]["graph"], 64)
+        device_profile(torch, prefill_fn(engs[label]["graph"], 64),
+                       f"prefill ({name} {label}, b1 T64)", pf64, reps=3)
+    # the speed each graph turn's replays run at, read right after the turn:
+    # a graph's step runs at one of two speeds (PERF.md)
+    tps = {label: {"graph": [], "eager": []} for label in order}
+    turn_state = {label: [] for label in order}
+    for modes, labels in ((("graph", "eager"), order), (("eager", "graph"), order[::-1])):
+        for label in labels:
+            for mode in modes:
+                tps[label][mode].append(decode_tps(engs[label][mode], prompt))
+                if mode == "graph":
+                    (captured,) = engs[label]["graph"].graphs.values()
+                    turn_state[label].append(replay_state(torch, captured.graph))
+    eager = {label: max(tps[label]["eager"]) for label in order}
+    log(f"  {name} decode b1 prompt 128 s_max 512, greedy, 64 steps, eager (best of 3, "
+        f"two turns each, paired with graph turns): "
+        + ", ".join(f"{label} {eager[label]:.2f} tok/s {tps[label]['eager']}"
+                    for label in order)
+        + "; " + ", ".join(f"{label}/bf16 {eager[label] / eager['bf16']:.4f}"
                            for label in order if label != "bf16"))
 
     # where one decode step's device time goes (profiler, device activity
-    # only), and the idle share against the unprofiled step time above; the
-    # GEMV's share goes into the kernel table
+    # only), eager and replayed, and the idle share against the measured
+    # step time of each mode; the GEMV's share of a replay goes into the
+    # kernel table
+    busy, replay_ms = {}, {}
     for label in order:
-        gemv_ms = profile_step(torch, M, cfg, engs[label], f"{name} {label}",
-                               1e3 / best[label])
-        kernel = {"w8a8": "int8_matmul", "fp8": "fp8_matmul"}.get(label)
-        if kernel:
-            results[kernel].setdefault("decode_step_gemv_device_ms", {})[name] = gemv_ms
+        graph_eng = engs[label]["graph"]
+        (captured,) = graph_eng.graphs.values()
+        log(f"  {name} {label} decode graph: capture {captured.capture_ms:.1f} ms, pool "
+            f"{graph_pool_mib(torch, graph_eng)} MiB")
+        profile_step(torch, M, cfg, engs[label]["eager"], f"{name} {label}, eager",
+                     1e3 / eager[label])
+        replay_ms[label] = timed_replays(torch, captured.graph)
+        log(f"  {name} {label} graph replay alone (CUDA events over 50 replays): "
+            f"{replay_ms[label]:.3f} ms a step")
+        ours, busy[label] = device_profile(
+            torch, captured.graph.replay, f"decode step ({name} {label}, b1, graph replay)",
+            replay_ms[label], reps=5)
+        for kernel, short in (("int8_matmul", "gemv_mma_kernel"),
+                              ("fp8_matmul", "gemv_mma_kernel"),
+                              ("fused_add_rmsnorm_quant", "add_rmsnorm_quant_vec_kernel"),
+                              ("fused_add_layernorm_quant", "add_layernorm_quant_vec_kernel")):
+            if (kernel, label) in (("int8_matmul", "w8a8"), ("fp8_matmul", "fp8"),
+                                   ("fused_add_rmsnorm_quant", "w8a8"),
+                                   ("fused_add_layernorm_quant", "w8a8")) and short in ours:
+                results[kernel].setdefault("decode_step_device_ms", {})[name] = ours[short]
+
+    # every graph turn with its replays' speed: "slow" where a replay took
+    # more than SLOW_BY times the fastest replay of the format in this run
+    # (the turns' and the profile's readings), "fast" otherwise; the idle
+    # share against the profiled busy time beside it. The figures are the
+    # best turn of each speed, and a ratio to bf16 is taken between turns
+    # of one speed only
+    best = {}
+    for label in order:
+        best[label] = {}
+        fastest = min([r for r, _, _ in turn_state[label]] + [replay_ms[label]])
+        for i, (t, (r, smi, running)) in enumerate(zip(tps[label]["graph"],
+                                                       turn_state[label])):
+            speed = "slow" if r > SLOW_BY * fastest else "fast"
+            best[label][speed] = max(best[label].get(speed, 0.0), t)
+            log(f"  {name} {label} graph turn {i + 1}: {t:.2f} tok/s; then a replay "
+                f"{r:.3f} ms (fastest {fastest:.3f}; idle {1 - busy[label] / r:.3f} against "
+                f"busy {busy[label]:.3f}): {speed}; nvidia-smi sm, mem clocks, power, pstate: "
+                f"{smi} (read {'while the replays ran' if running else 'after they ended'})")
+    for speed in ("fast", "slow"):
+        got = [label for label in order if speed in best[label]]
+        if not got:
+            continue
+        ratios = [f"{label}/bf16 {best[label][speed] / best['bf16'][speed]:.4f}"
+                  for label in got if label != "bf16" and "bf16" in got]
+        log(f"  {name} decode b1 prompt 128 s_max 512, greedy, 64 steps, graph, {speed} "
+            f"turns (best of 3 each, best turn): "
+            + ", ".join(f"{label} {best[label][speed]:.2f} tok/s" for label in got)
+            + ("; " + ", ".join(ratios) if ratios else "")
+            + "; graph / eager " + ", ".join(
+                f"{label} {best[label][speed] / eager[label]:.3f}" for label in got))
 
 
-def profile_step(torch, L, cfg, eng, label, step_ms, steps=5):
-    """Device kernels and busy time of one b1 decode step at slot 128;
-    returns the device ms of K1's and K4's GEMV in it."""
+def port_kernel_names():
+    """The names of the port's CUDA kernels, read from its sources."""
+    from autosmoothquant_tpu_torch.kernels import _build
+
+    names = set()
+    for path in _build.CSRC.iterdir():
+        text = path.read_text()
+        for i in (m.end() for m in re.finditer(r"__global__", text)):
+            names.update(re.findall(r"\b(\w+_kernel)\s*\(", text[i:i + 200])[:1])
+    return names
+
+
+def timed_replays(torch, graph, n=50):
+    """Device ms of one replay of ``graph``: CUDA events around ``n``
+    replays, after ten to warm up."""
+    for _ in range(10):
+        graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def replay_state(torch, graph, n=60):
+    """The speed ``graph``'s replays run at now: ms a replay (CUDA events
+    around ``n`` replays, after ten to warm up), and the card's clocks,
+    power and performance state as nvidia-smi reads them while they run
+    (with whether they were still running when it returned)."""
+    for _ in range(10):
+        graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        graph.replay()
+    end.record()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,pstate",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    running = not end.query()
+    end.synchronize()
+    return start.elapsed_time(end) / n, smi.stdout.strip(), running
+
+
+def graph_pool_mib(torch, eng):
+    """The memory of the segments in the engine's graph pool, in MiB (the
+    caching allocator's snapshot), or "not measured" where the snapshot does
+    not name the pools."""
+    segments = torch.cuda.memory_snapshot()
+    if not segments or "segment_pool_id" not in segments[0]:
+        return "not measured"
+    pool = tuple(eng.graph_pool)
+    return round(sum(s["total_size"] for s in segments
+                     if tuple(s["segment_pool_id"]) == pool) / 2**20, 1)
+
+
+def decode_step_fn(torch, L, cfg, eng):
+    """One eager b1 decode step at slot 128 (forward and argmax), on its own
+    cache."""
     ids = torch.tensor([[1]], device="cuda")
     cache = L.init_kv_cache(cfg, 1, 512, torch.bfloat16, "cuda")
     valid = torch.zeros(1, 512, dtype=torch.bool, device="cuda")
@@ -1640,17 +1832,24 @@ def profile_step(torch, L, cfg, eng, label, step_ms, steps=5):
                              positions=slot.reshape(1, 1),
                              compute_dtype=torch.bfloat16)
             torch.argmax(L.logits(eng.params, h)[:, 0], -1)
+    return step
+
+
+def profile_step(torch, L, cfg, eng, label, step_ms, steps=5):
+    """Device kernels and busy time of one eager b1 decode step."""
+    step = decode_step_fn(torch, L, cfg, eng)
     for _ in range(2):
         step()
-    return device_profile(torch, step, f"decode step ({label}, b1)", step_ms, reps=steps)
+    device_profile(torch, step, f"decode step ({label}, b1)", step_ms, reps=steps)
 
 
 def device_profile(torch, fn, what, wall_ms, reps):
     """Profile ``reps`` calls of ``fn`` (device activity only) and log, per
     call, the device kernels, the wrapper launches counted on the host, the
     device-busy ms and its idle share against ``wall_ms`` (the unprofiled
-    time of one call), and the ten kernels that take the most time. Returns
-    the device ms per call of K1's and K4's GEMV."""
+    time of one call), the ten kernels that take the most time and the
+    port's own kernels. Returns {port kernel name: device ms per call} and
+    the device-busy ms per call."""
     from torch.profiler import ProfilerActivity, profile
 
     counters = launch_counters()
@@ -1679,12 +1878,20 @@ def device_profile(torch, fn, what, wall_ms, reps):
         by_name[e.name][1] += e.time_range.elapsed_us()
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
         log(f"    {us / reps / 1e3:8.4f} ms/call  {n / reps:6.1f} launches/call  {name[:90]}")
-    gemv = [(n, us) for name, (n, us) in by_name.items() if "gemv_mma_kernel" in name]
-    gemv_ms = sum(us for _, us in gemv) / reps / 1e3
-    if gemv:
-        log(f"    K1/K4 GEMV (gemv_mma_kernel): {gemv_ms:.4f} ms/call, "
-            f"{sum(n for n, _ in gemv) / reps:.1f} launches/call")
-    return gemv_ms
+    # the port's own kernels (the __global__ functions of csrc/), by name
+    # without template arguments
+    ours, port = {}, port_kernel_names()
+    for name, (n, us) in by_name.items():
+        short = name.split("<")[0].split("::")[-1].split("(")[0]
+        if short in port:
+            ours.setdefault(short, [0, 0.0])
+            ours[short][0] += n
+            ours[short][1] += us
+    if ours:
+        log("    the port's kernels: " + ", ".join(
+            f"{k} {us / reps / 1e3:.4f} ms / {n / reps:.1f} launches"
+            for k, (n, us) in sorted(ours.items(), key=lambda kv: -kv[1][1])))
+    return {k: us / reps / 1e3 for k, (n, us) in ours.items()}, dev_us / 1e3
 
 
 def main():
@@ -1694,11 +1901,6 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; this needs one "
               "NVIDIA GPU", file=sys.stderr)
         return 2
-    if not os.path.isdir(os.path.join(ROOT, PKG, "csrc")):
-        print(f"chip_smoke: {PKG}/ is not beside chip_smoke.py; run it from "
-              "a checkout of the repository", file=sys.stderr)
-        return 2
-    sys.path.insert(0, ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 

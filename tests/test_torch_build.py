@@ -22,6 +22,7 @@ BINDINGS = [
     ("int8_gemm", "asq_int8_gemm_tc", gemm._TC_ARGTYPES),
     ("int8_gemm", "asq_int8_gemv", gemm._GEMV_ARGTYPES),
     ("add_rmsnorm_quant", "asq_add_rmsnorm_quant", fused._ARGTYPES["add_rmsnorm_quant"]),
+    ("add_rmsnorm_quant", "asq_add_rmsnorm_quant_vec", fused._ARGTYPES["add_rmsnorm_quant"]),
     ("flash_attn", "asq_flash_attention", attention._ARGTYPES),
     ("fp8_gemm", "asq_fp8_gemm", fp8._ARGTYPES),
     ("fp8_gemm", "asq_fp8_gemm_tc", fp8._TC_ARGTYPES),
@@ -97,9 +98,10 @@ def test_every_wrapper_call_names_a_bound_entry_point():
                 assert isinstance(lib, (ast.Constant, ast.Name)), path.name
                 if isinstance(lib, ast.Constant) and isinstance(node.args[1], ast.Constant):
                     assert (lib.value, node.args[1].value) in bound, path.name
-    # fused.py binds both norms and both of K6's routes through one call,
-    # with the entry point passed in; its names are module constants
-    assert calls >= len(BINDINGS) - 2
-    assert ("add_rmsnorm_quant", fused._RMSNORM_ENTRY) in bound
-    for entry in fused._LAYERNORM_ENTRIES.values():
-        assert ("add_layernorm_quant", entry) in bound
+    # fused.py binds both norms and both routes of each through one call,
+    # with the library and entry point passed in; its names are module
+    # constants
+    assert calls >= len(BINDINGS) - 3
+    for lib, entries in fused._ENTRIES.items():
+        for entry in entries.values():
+            assert (lib, entry) in bound

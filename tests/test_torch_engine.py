@@ -77,6 +77,8 @@ def test_engine_checks_its_inputs(engines):
         te.generate([[1] * 60], TE.GenerationConfig(max_new_tokens=10))
     with pytest.raises(ValueError):
         te.generate([[1]] * 5)
+    with pytest.raises(ValueError, match="max_new_tokens"):
+        te.generate([[1]], TE.GenerationConfig(max_new_tokens=0))
 
 
 def test_default_device_raises_without_a_card():
@@ -139,3 +141,80 @@ def test_fp8_static_stays_unfused_in_both_engines(quant_engines):
     for lp in te.params["layers"]:
         assert ("qkv" in lp["attn"]) != static and ("gateup" in lp["mlp"]) != static
         assert ("input_scale" in lp["attn"]["o"]) == static
+
+
+# three calls in a row on one engine: ragged (b 3), a longer equal-length
+# batch (b 4), a shorter ragged batch (b 2); each reuses the static buffers
+# (the KV cache rows, kv_valid, the token and logprob outputs) the last left
+SUCCESSIVE = [RAGGED,
+              [[9, 8, 7, 6, 5, 4, 3, 2, 1, 10, 11, 12, 13, 14, 15, 16]] * 2
+              + [[2] * 16, [400 + i for i in range(16)]],
+              [[3, 1, 4], [1, 5, 9, 2, 6]]]
+
+
+def test_successive_calls_of_different_b_equal_jax(engines):
+    je, te = engines
+    for prompts, n in zip(SUCCESSIVE, (10, 14, 6)):
+        assert (te.generate(prompts, TE.GenerationConfig(max_new_tokens=n))
+                == je.generate(prompts, JE.GenerationConfig(max_new_tokens=n)))
+
+
+def test_eos_stop_logprobs_and_penalty_after_a_longer_call_equal_jax(engines):
+    """After a call that filled more cache slots and rows than the next one
+    uses, eos and stop truncation, logprobs and the repetition penalty
+    still give JAX's results."""
+    je, te = engines
+    te.generate(SUCCESSIVE[1], TE.GenerationConfig(max_new_tokens=30, repetition_penalty=1.3))
+    free = je.generate(RAGGED, JE.GenerationConfig(max_new_tokens=10))
+    kw = dict(max_new_tokens=10, eos_token_id=free[0][3],
+              stop=((free[1][4], free[1][5]),), return_logprobs=True)
+    t = te.generate(RAGGED, TE.GenerationConfig(**kw))
+    j = je.generate(RAGGED, JE.GenerationConfig(**kw))
+    for (tt, tl), (jt, jl) in zip(t, j):
+        assert tt == jt
+        np.testing.assert_allclose(tl, jl, atol=1e-4, rtol=0)
+    kw = dict(max_new_tokens=8, repetition_penalty=1.3)
+    assert (te.generate(RAGGED, TE.GenerationConfig(**kw))
+            == je.generate(RAGGED, JE.GenerationConfig(**kw)))
+
+
+def _engine(params_t, cfg, qcfg, **kw):
+    return TE.Engine(TL, params_t, port_config(cfg), port_qcfg(qcfg), max_batch=4,
+                     max_seq=64, kv_dtype=torch.float32, compute_dtype=torch.float32,
+                     device="cpu", **kw)
+
+
+@pytest.mark.parametrize("qtype", [None, "int8"], ids=["float", "int8"])
+def test_slots_left_by_an_earlier_call_change_nothing(qtype):
+    """An engine that served a longer, wider batch first gives a fresh
+    engine's tokens and bit-equal last logits: the stale cache slots and
+    rows are masked (score -1e30, probability exactly 0)."""
+    _, cfg, params, qcfg = jax_llama({"type": qtype} if qtype else None, seed=13)
+    params_t = params_from_jax(to_numpy_tree(params), device="cpu")
+    fresh, used = _engine(params_t, cfg, qcfg), _engine(params_t, cfg, qcfg)
+    used.generate(SUCCESSIVE[1], TE.GenerationConfig(max_new_tokens=40))
+    gc = TE.GenerationConfig(max_new_tokens=12)
+    for prompts in (SUCCESSIVE[2], RAGGED):
+        assert used.generate(prompts, gc) == fresh.generate(prompts, gc)
+        assert torch.equal(used.last_logits, fresh.last_logits)
+
+
+def test_cuda_graph_needs_a_cuda_device():
+    _, cfg, params, _ = jax_llama(None, seed=0)
+    params_t = params_from_jax(to_numpy_tree(params), device="cpu")
+    with pytest.raises(ValueError, match="cuda_graph"):
+        _engine(params_t, cfg, None, cuda_graph=True)
+    eng = _engine(params_t, cfg, None)
+    assert eng.cuda_graph is False and eng.graph_pool is None
+    assert eng.kv_cache_bytes == 2 * 2 * 4 * 64 * 2 * 64 * 4  # 2 layers, k and v, f32
+
+
+def test_graph_key_drops_the_host_only_fields():
+    """eos, stop and max_new_tokens do not make a new graph; the sampling
+    fields, whose values the captured ops hold, do."""
+    key = TE.device_config
+    base = key(TE.GenerationConfig())
+    assert key(TE.GenerationConfig(max_new_tokens=3, eos_token_id=2, stop=((1, 2),))) == base
+    for kw in (dict(temperature=0.8), dict(top_k=5), dict(top_p=0.9),
+               dict(repetition_penalty=1.2), dict(return_logprobs=True)):
+        assert key(TE.GenerationConfig(**kw)) != base

@@ -171,6 +171,55 @@ def test_fused_add_rmsnorm_quant_kernel_matches_plain(cuda_device, t, dtype):
     assert int(dq.max()) <= 1 and float((dq > 0).float().mean()) <= 1e-3
 
 
+def _rmsnorm_inputs(t, d, dtype, seed, device):
+    g = _gen(seed)
+    h = (torch.randn(t, d, device=device, generator=g) * 2).to(dtype)
+    x = torch.randn(t, d, device=device, generator=g).to(dtype)
+    gamma = 32 * (1 + 0.1 * torch.randn(d, device=device, generator=g))
+    return h, x, gamma
+
+
+@pytest.mark.parametrize("t,d", [(1, 2048), (3, 2048), (128, 2048), (512, 2048),
+                                 (1, 4096), (1, 8192), (2, 12288)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_add_rmsnorm_quant_vector_route(cuda_device, t, d, dtype):
+    """K2 with the row in registers at TinyLlama's, Llama-2-7B's and
+    Llama-2-70B's widths and the route's limit: one launch on the vector
+    route, s equal, q within one step on <= 0.1% of elements."""
+    h, x, gamma = _rmsnorm_inputs(t, d, dtype, t + d, cuda_device)
+    before, vec_before = F.fused_add_rmsnorm_quant.launches, F.fused_add_rmsnorm_quant.vec_launches
+    s, q = F.fused_add_rmsnorm_quant(h, x, gamma, eps=1e-5)
+    s_ref, q_ref = F.fused_add_rmsnorm_quant_plain(h, x, gamma, eps=1e-5)
+    torch.cuda.synchronize()
+    assert F.fused_add_rmsnorm_quant.launches == before + 1
+    assert F.fused_add_rmsnorm_quant.vec_launches == vec_before + 1
+    assert torch.equal(s, s_ref)
+    dq = (q.int() - q_ref.int()).abs()
+    assert int(dq.max()) <= 1 and float((dq > 0).float().mean()) <= 1e-3
+
+
+@pytest.mark.parametrize("case", ["d2052", "misaligned"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_add_rmsnorm_quant_rows_route(cuda_device, case, dtype):
+    """K2's rows route where the vector route cannot go: D = 2052 (no
+    multiple of 8) and h one element past a 16-byte boundary."""
+    d = 2052 if case == "d2052" else 2048
+    h, x, gamma = _rmsnorm_inputs(64, d, dtype, 7, cuda_device)
+    if case == "misaligned":
+        buf = torch.empty(h.numel() + 1, dtype=dtype, device=cuda_device)
+        h = buf[1:].view(h.shape).copy_(h)
+    assert F.norm_route(d, h, x, gamma) == "rows"
+    before, vec_before = F.fused_add_rmsnorm_quant.launches, F.fused_add_rmsnorm_quant.vec_launches
+    s, q = F.fused_add_rmsnorm_quant(h, x, gamma, eps=1e-5)
+    s_ref, q_ref = F.fused_add_rmsnorm_quant_plain(h, x, gamma, eps=1e-5)
+    torch.cuda.synchronize()
+    assert F.fused_add_rmsnorm_quant.launches == before + 1
+    assert F.fused_add_rmsnorm_quant.vec_launches == vec_before
+    assert torch.equal(s, s_ref)
+    dq = (q.int() - q_ref.int()).abs()
+    assert int(dq.max()) <= 1 and float((dq > 0).float().mean()) <= 1e-3
+
+
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64), (torch.float32, 128)])
 def test_flash_attention_kernel_matches_plain(cuda_device, dtype, d):
     g = _gen(d)
@@ -793,7 +842,7 @@ def test_fused_add_layernorm_quant_vector_route(cuda_device, d, t, dtype):
     import chip_smoke
 
     h, x, gamma, beta = chip_smoke.layernorm_case(torch, t, d, dtype, _gen(t + d))
-    assert F.layernorm_route(d, h, x, gamma, beta) == "vector"
+    assert F.norm_route(d, h, x, gamma, beta) == "vector"
     s, q = F.fused_add_layernorm_quant(h, x, gamma, beta, eps=1e-5)
     s_ref, q_ref = F.fused_add_layernorm_quant_plain(h, x, gamma, beta, eps=1e-5)
     torch.cuda.synchronize()
@@ -898,3 +947,106 @@ def test_opt_forward_on_the_card_matches_the_cpu(cuda_device, qtype):
         assert bool(torch.isfinite(card).all())
         assert float(diff.max()) <= max_lim and float(diff.mean()) <= mean_lim, (
             float(diff.max()), float(diff.mean()))
+
+
+def _graph_model(label):
+    """(family module, config, QuantConfig, params on the card): 2 layers at
+    TinyLlama-1.1B's width (W8A8, fp8 e4m3 dynamic, int4) or OPT-1.3B's
+    (W8A8), chip_smoke.py's random weights."""
+    import chip_smoke
+    from autosmoothquant_tpu_torch.models import llama as L
+    from autosmoothquant_tpu_torch.models import opt as O
+    from autosmoothquant_tpu_torch.quant.config import QuantConfig
+
+    if label == "OPT W8A8":
+        cfg = O.OPTConfig(**chip_smoke.OPT_1_3B_2L)
+        return O, cfg, QuantConfig(type="int8"), chip_smoke.draw_opt_w8a8(cfg, 5, "cuda")
+    cfg = chip_smoke.tinyllama(L, 2)
+    qcfg = QuantConfig(type={"W8A8": "int8", "fp8": "fp8_e4m3", "int4": "int4"}[label])
+    params = (chip_smoke.draw_w8a8(cfg, 5, "cuda") if label == "W8A8"
+              else chip_smoke.draw_quantized(cfg, qcfg, 5, "cuda"))
+    return L, cfg, qcfg, params
+
+
+def _graph_and_eager(label):
+    from autosmoothquant_tpu_torch.serve.engine import Engine
+
+    M, cfg, qcfg, params = _graph_model(label)
+    return {g: Engine(M, params, cfg, qcfg, max_batch=4, max_seq=256,
+                      kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
+                      device="cuda", cuda_graph=g) for g in (True, False)}
+
+
+@pytest.mark.parametrize("label", ["W8A8", "fp8", "int4", "OPT W8A8"])
+def test_graph_decode_equals_eager(cuda_device, label):
+    """Decode replayed from a CUDA graph against the eager loop on the same
+    params, over two calls of different b (a ragged 4-row batch, then an
+    equal 2-row one, each its own graph): equal greedy tokens and bit-equal
+    last logits. On the host the graph's call launches its prefill, the
+    warm-up step and the capture, the eager call its prefill and every step;
+    a profile of replays of the graph shows, for every port kernel, the
+    device launches of one step as those host counts give it."""
+    import chip_smoke
+    from autosmoothquant_tpu_torch.kernels.counters import launch_counters, read_counts
+    from autosmoothquant_tpu_torch.serve.engine import GenerationConfig, device_config
+
+    engs = _graph_and_eager(label)
+    counters = launch_counters()
+    rng = torch.Generator().manual_seed(3)
+    batches = ([torch.randint(0, 32000, (n,), generator=rng).tolist() for n in (40, 33, 20, 9)],
+               [torch.randint(0, 32000, (24,), generator=rng).tolist() for _ in range(2)])
+    n = 12
+    for prompts in batches:
+        got = {}
+        for graph, eng in engs.items():
+            before = read_counts(counters)
+            toks = eng.generate(prompts, GenerationConfig(max_new_tokens=n))
+            after = read_counts(counters)
+            got[graph] = (toks, eng.last_logits,
+                          {k: after[k] - before[k] for k in after if after[k] != before[k]})
+        (toks, logits, host), (toks_x, logits_x, host_x) = got[True], got[False]
+        assert toks == toks_x
+        assert torch.equal(logits, logits_x)
+        # prefill + 2 decode forwards from the host, against prefill + n - 1
+        assert host.keys() == host_x.keys()
+        step = {k: (host_x[k] - host[k]) // (n - 3) for k in host}
+        assert all(host_x[k] - host[k] == (n - 3) * step[k] for k in host)
+        captured = engs[True].graphs[(len(prompts), device_config(GenerationConfig()))]
+        assert chip_smoke.replay_counts(torch, captured.graph) == chip_smoke.as_device_reads(
+            {**dict.fromkeys(chip_smoke.DEVICE_READS, 0), **step})
+        if label == "W8A8":
+            k2, k2_vec = "fused_add_rmsnorm_quant", "fused_add_rmsnorm_quant_vec"
+            assert step[k2_vec] == step[k2] == 2
+            assert host[k2_vec] == host[k2] == 2 * 3
+    assert engs[True].replays == 2 * (n - 2) and len(engs[True].graphs) == 2
+    assert engs[False].replays == 0 and not engs[False].graphs
+
+
+def test_graph_replays_a_captured_key_without_capturing_again(cuda_device):
+    """A second call with the same b and device config (eos, stop and
+    max_new_tokens differ) replays every decode step of the graph it has."""
+    from autosmoothquant_tpu_torch.serve.engine import GenerationConfig
+
+    eng = _graph_and_eager("W8A8")[True]
+    prompts = [[5, 6, 7, 8], [9, 10, 11, 12]]
+    first = eng.generate(prompts, GenerationConfig(max_new_tokens=10))
+    again = eng.generate(prompts, GenerationConfig(max_new_tokens=14, eos_token_id=-1,
+                                                   stop=((-5,),)))
+    assert len(eng.graphs) == 1 and eng.replays == 8 + 13
+    assert again[0][:10] == first[0] and again[1][:10] == first[1]
+
+
+def test_sampled_graph_decode_equals_eager_for_a_seed(cuda_device):
+    """temperature 0.8, top_p 0.9, seed 7: the graph (the engine's generator
+    registered with it) gives the eager loop's tokens; the same seed again
+    gives them again, another seed others."""
+    from autosmoothquant_tpu_torch.serve.engine import GenerationConfig
+
+    engs = _graph_and_eager("W8A8")
+    prompts = [[5, 9, 1, 77, 3, 8, 100], [7, 7, 2], [300, 1, 2, 3]]
+    gc = GenerationConfig(max_new_tokens=16, temperature=0.8, top_p=0.9)
+    got = {g: eng.generate(prompts, gc, seed=7) for g, eng in engs.items()}
+    assert got[True] == got[False]
+    assert engs[True].generate(prompts, gc, seed=7) == got[True]
+    assert engs[True].generate(prompts, gc, seed=8) != got[True]
+    assert engs[True].replays == 14 + 15 + 15

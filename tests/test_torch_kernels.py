@@ -586,13 +586,47 @@ def test_layernorm_route_is_chosen_by_shape(d, want):
     vectors) up to 12288; other D keep the shared-memory rows route."""
     h = torch.zeros(4, d)
     g = torch.zeros(d)
-    assert TF.layernorm_route(d, h, h, g, g) == want
+    assert TF.norm_route(d, h, h, g, g) == want
 
 
 def test_layernorm_route_takes_rows_for_a_misaligned_view():
     buf = torch.zeros(4 * 2048 + 2, dtype=torch.bfloat16)
     h = buf[2:].view(4, 2048)
     g = torch.zeros(2048)
-    assert h.is_contiguous() and TF.layernorm_route(2048, h, h, g, g) == "rows"
-    assert TF.layernorm_route(2048, buf[:-2].view(4, 2048), h.contiguous(), g, g) == "rows"
-    assert TF.layernorm_route(2048, h.clone(), h.clone(), g, g) == "vector"
+    assert h.is_contiguous() and TF.norm_route(2048, h, h, g, g) == "rows"
+    assert TF.norm_route(2048, buf[:-2].view(4, 2048), h.contiguous(), g, g) == "rows"
+    assert TF.norm_route(2048, h.clone(), h.clone(), g, g) == "vector"
+
+
+def _rmsnorm_entry(h, x, gamma):
+    """The entry point K2's wrapper launches for these operands and outputs
+    like the ones it allocates."""
+    d = h.shape[1]
+    out_h, out_q = torch.empty_like(h), torch.empty(h.shape, dtype=torch.int8)
+    return TF._ENTRIES["add_rmsnorm_quant"][TF.norm_route(d, h, x, gamma, out_h, out_q)]
+
+
+@pytest.mark.parametrize("t,d,dtype,want", [
+    (1, 2048, torch.bfloat16, "vector"), (128, 2048, torch.bfloat16, "vector"),
+    (3, 2048, torch.float32, "vector"), (1, 4096, torch.bfloat16, "vector"),
+    (1, 8192, torch.bfloat16, "vector"), (1, 12288, torch.float32, "vector"),
+    (4, 2052, torch.bfloat16, "rows"), (4, 100, torch.float32, "rows")])
+def test_rmsnorm_route_is_chosen_by_shape(t, d, dtype, want):
+    """K2 takes the vector route at the Llama widths (TinyLlama 2048,
+    Llama-2-7B 4096, Llama-2-70B 8192, up to 12288) and the rows route where
+    D is no multiple of 8."""
+    h = torch.zeros(t, d, dtype=dtype)
+    entry = _rmsnorm_entry(h, h.clone(), torch.zeros(d))
+    assert entry == {"vector": "asq_add_rmsnorm_quant_vec", "rows": "asq_add_rmsnorm_quant"}[want]
+
+
+def test_rmsnorm_route_takes_rows_for_a_misaligned_operand():
+    """An operand 4 bytes past a 16-byte boundary (a contiguous view into a
+    larger buffer) sends K2 to the rows route; gamma as well as h and x."""
+    buf = torch.zeros(2 * 2048 + 2, dtype=torch.bfloat16)
+    h = buf[2:].view(2, 2048)
+    g = torch.zeros(2048 + 1)
+    assert _rmsnorm_entry(h, h.clone(), g[:2048]) == "asq_add_rmsnorm_quant"
+    assert _rmsnorm_entry(h.clone(), h, g[:2048]) == "asq_add_rmsnorm_quant"
+    assert _rmsnorm_entry(h.clone(), h.clone(), g[1:]) == "asq_add_rmsnorm_quant"
+    assert _rmsnorm_entry(h.clone(), h.clone(), g[:2048]) == "asq_add_rmsnorm_quant_vec"
