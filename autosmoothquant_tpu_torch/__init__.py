@@ -16,7 +16,8 @@ Layout mirrors the JAX package so each counterpart is easy to find:
                   beside its plain PyTorch version
   - ``convert/``  safetensors reader, artifact loader, JAX-params carry-over
   - ``models/``   shared layers, the Llama and OPT families, the registry
-  - ``serve/``    sampling and the static-batch generation engine
+  - ``serve/``    sampling, the static-batch generation engine and the
+                  continuous-batching engine
 
 Dispatch has no flag: a tensor on the CPU goes to the plain version, a CUDA
 tensor to the kernel. Entry points default to ``device="cuda"`` and raise

@@ -227,7 +227,9 @@ class QuantKVCacheLayer:
 
 
 KVCache = List[Union[KVCacheLayer, QuantKVCacheLayer]]
-CacheIndex = Union[int, torch.Tensor]  # int, or a 0-d int tensor on the device
+# int, a 0-d int tensor on the device (every row at one offset), or an int
+# [B] tensor on the device (each row at its own offset: continuous batching)
+CacheIndex = Union[int, torch.Tensor]
 
 
 def make_kv_cache(num_layers: int, batch: int, max_len: int, num_kv_heads: int,
@@ -254,22 +256,40 @@ def _quantize_kv(x: torch.Tensor):
     return q, scale
 
 
+def _is_vector_index(cache_index: CacheIndex) -> bool:
+    return isinstance(cache_index, torch.Tensor) and cache_index.ndim == 1
+
+
 def cache_slots(cache_index: CacheIndex, batch: int, t: int,
                 device=None) -> torch.Tensor:
-    """Cache-slot indices [B, T] of the tokens being written (a scalar
-    cache_index: every row writes at the same offset)."""
+    """Cache-slot indices [B, T] of the tokens being written: a scalar
+    cache_index writes every row at the same offset, an int [B] one each row
+    at its own."""
     if isinstance(cache_index, torch.Tensor):
         device = cache_index.device
     ar = torch.arange(t, dtype=torch.int32, device=device)
+    if _is_vector_index(cache_index):
+        return cache_index[:, None] + ar[None, :]
     return (cache_index + ar)[None, :].expand(batch, t)
 
 
 def _write(buf: torch.Tensor, val: torch.Tensor, cache_index: CacheIndex) -> None:
     """Write val [B, T, ...] into buf [B, S, ...] at cache_index, in place.
-    A device-tensor index stays on the device (no host read)."""
+    A device-tensor index stays on the device (no host read). A vector index
+    scatters row b to slots [index_b, index_b + T) (JAX ``_write``'s
+    per-row scatter) through one ``index_copy_`` into buf's [B * S, ...]
+    view; every slot must be < S, since a CUDA index out of bounds is a
+    device assert (JAX drops such writes: callers give a parked row a
+    scratch slot instead)."""
     t = val.shape[1]
     if isinstance(cache_index, int):
         buf[:, cache_index:cache_index + t] = val
+    elif _is_vector_index(cache_index):
+        b, s = buf.shape[:2]
+        rows = torch.arange(b, device=buf.device)[:, None] * s
+        flat = (rows + cache_slots(cache_index, b, t)).reshape(-1)
+        buf.view(b * s, *buf.shape[2:]).index_copy_(
+            0, flat, val.reshape(b * t, *val.shape[2:]).to(buf.dtype))
     else:
         idx = cache_index.reshape(1).long() + torch.arange(t, device=buf.device)
         buf.index_copy_(1, idx, val.to(buf.dtype))
@@ -308,26 +328,31 @@ def cache_update_and_read_raw(cache, k, v, cache_index):
 
 
 def cache_mask_and_routing(kv_cache, cache_index: CacheIndex, b: int, t: int,
-                           kv_valid, pad_starts, sliding_window: int = 0):
+                           kv_valid, pad_starts, sliding_window: int = 0,
+                           kv_window: Optional[int] = None):
     """The cached-forward prologue: (slots, mask, chunk0, chunkN).
 
     slots [B, T]: cache slots being written (the rope positions when there is
-    no padding). chunk0: prefill into an empty cache (index 0, no pads, no
-    kv_valid) -> causal flash attention over the chunk. chunkN: any other
-    multi-token chunk at a scalar index with no kv_valid -> banded flash
-    attention over the cache rows, pad_starts as each row's first valid
-    column. mask (bool [B, 1, T, S_max]) is built only for the eager route
-    that reads it; window only for t == 1."""
+    no padding), per row for a vector cache_index. chunk0: prefill into an
+    empty cache (index 0, no pads, no kv_valid) -> causal flash attention
+    over the chunk. chunkN: any other multi-token chunk at a scalar index
+    with no kv_valid -> banded flash attention over the cache rows,
+    pad_starts as each row's first valid column. mask (bool [B, 1, T, S]) is
+    built only for the eager route that reads it, over the first
+    ``kv_window`` cache columns where given (else all S_max), per row: col <=
+    slot, and col > slot - window with a sliding window."""
     if kv_cache is None:
         raise ValueError("cache_mask_and_routing needs a cache")
     slots = cache_slots(cache_index, b, t, kv_cache.k.device)
+    scalar = not _is_vector_index(cache_index)
     chunk0 = (kv_valid is None and t > 1 and pad_starts is None
               and (not sliding_window or t <= sliding_window)
               and isinstance(cache_index, int) and cache_index == 0)
-    chunkN = kv_valid is None and t > 1 and not sliding_window and not chunk0
+    chunkN = (kv_valid is None and t > 1 and scalar and not sliding_window
+              and not chunk0)
     mask = None
     if not (chunk0 or chunkN):
-        s_max = kv_cache.k.shape[1]
+        s_max = kv_window or kv_cache.k.shape[1]
         col = torch.arange(s_max, dtype=torch.int32,
                            device=kv_cache.k.device)[None, None, None, :]
         sl = slots[:, None, :, None]
@@ -337,7 +362,7 @@ def cache_mask_and_routing(kv_cache, cache_index: CacheIndex, b: int, t: int,
         if kv_valid is None and pad_starts is not None:
             mask = mask & (col >= pad_starts.reshape(-1, 1, 1, 1))
         if kv_valid is not None:
-            mask = mask & kv_valid[:, None, None, :]
+            mask = mask & kv_valid[:, None, None, :s_max]
     return slots, mask, chunk0, chunkN
 
 
@@ -368,7 +393,8 @@ def _dequant_kv(x: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
 
 def update_and_attend(q, k, v, cache, cache_index: CacheIndex, mask, scale: float,
                       compute_dtype, *, plain_causal=False, chunk0_causal=False,
-                      banded=False, banded_starts=None):
+                      banded=False, banded_starts=None,
+                      kv_window: Optional[int] = None):
     """Cache write + attention for one layer (the contiguous-cache routes of
     the JAX ``update_and_attend``). q/k/v: [B, T, H(kv), Dh] after RoPE.
 
@@ -376,8 +402,11 @@ def update_and_attend(q, k, v, cache, cache_index: CacheIndex, mask, scale: floa
     chunk attends to itself through causal flash attention; with an int8
     cache it sees the int8 round trip, as later decode steps will.
     banded: a multi-token chunk against the cache rows (ragged left-padded
-    prompts): banded flash attention over the dequantized rows.
-    Otherwise (decode): eager attention over the raw cache."""
+    prompts, later prefill chunks): banded flash attention over the
+    dequantized rows.
+    Otherwise (decode): eager attention over the raw cache, its first
+    ``kv_window`` columns where given (the mask's width): columns past every
+    row's slot are masked, so the window changes no result."""
     b, t = q.shape[:2]
     quant = isinstance(cache, QuantKVCacheLayer)
     if chunk0_causal and t > 1 and cache is not None:
@@ -403,6 +432,10 @@ def update_and_attend(q, k, v, cache, cache_index: CacheIndex, mask, scale: floa
                                      banded_starts, sm_scale=scale)
         return out.to(q.dtype)
     k_all, v_all, ks, vs = cache_update_and_read_raw(cache, k, v, cache_index)
+    if kv_window is not None:
+        k_all, v_all = k_all[:, :kv_window], v_all[:, :kv_window]
+        if ks is not None:
+            ks, vs = ks[:, :kv_window], vs[:, :kv_window]
     return attend(q, k_all, v_all, mask, scale, plain_causal=plain_causal,
                   k_scale=ks, v_scale=vs)
 

@@ -106,7 +106,7 @@ config_from_hf = LlamaConfig.from_hf
 def _layer_forward(h, lp, cfg: LlamaConfig, qcfg: Optional[QuantConfig], cos,
                    sin, mask, cache, cache_index, compute_dtype, *,
                    plain_causal=False, chunk0=False, banded=False,
-                   banded_starts=None):
+                   banded_starts=None, kv_window=None):
     """One decoder layer; h: [B, T, D] in compute_dtype. The cache (if any)
     is written in place."""
     b, t, d = h.shape
@@ -131,7 +131,8 @@ def _layer_forward(h, lp, cfg: LlamaConfig, qcfg: Optional[QuantConfig], cos,
     ctx = update_and_attend(q, k, v, cache, cache_index, mask,
                             1.0 / math.sqrt(hd), compute_dtype,
                             plain_causal=plain_causal, chunk0_causal=chunk0,
-                            banded=banded, banded_starts=banded_starts)
+                            banded=banded, banded_starts=banded_starts,
+                            kv_window=kv_window)
     attn_out = linear(ctx.reshape(b, t, n_q * hd), lp["attn"]["o"], qcfg,
                       qcfg.out if qcfg else PER_TENSOR, LinearKind.SCALED,
                       out_dtype=compute_dtype)
@@ -176,13 +177,17 @@ def forward(params, input_ids: torch.Tensor, cfg: LlamaConfig,
             pad_starts: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None,
             attention_mask: Optional[torch.Tensor] = None,
+            kv_window: Optional[int] = None,
             compute_dtype=torch.float32):
     """Run the decoder stack. input_ids: int [B, T].
 
     kv_cache: None, or the list from ``init_kv_cache``, written in place at
-    slots [cache_index, cache_index + T); cache_index is an int or a 0-d int
-    tensor on the device. kv_valid: bool [B, S_max] of valid cache slots
-    (decode). pad_starts: int32 [B] left-pad lengths (ragged prefill).
+    slots [cache_index, cache_index + T); cache_index is an int, a 0-d int
+    tensor on the device, or an int [B] tensor on the device (each row at
+    its own slot; positions then [B, T], e.g. ``cache_index[:, None]``).
+    kv_valid: bool [B, S_max] of valid cache slots (decode). pad_starts:
+    int32 [B] left-pad lengths (ragged prefill). kv_window: a static bound
+    on the cache columns decode attention reads (above every row's slot).
     Returns (hidden [B, T, D], kv_cache)."""
     b, t = input_ids.shape
     h = params["embed"]["w"][input_ids].to(compute_dtype)
@@ -190,7 +195,7 @@ def forward(params, input_ids: torch.Tensor, cfg: LlamaConfig,
     if kv_cache is not None:
         slots, mask, chunk0, chunkN = cache_mask_and_routing(
             kv_cache[0], cache_index, b, t, kv_valid, pad_starts,
-            cfg.sliding_window)
+            cfg.sliding_window, kv_window)
         if positions is None:
             positions = slots
     else:
@@ -202,7 +207,7 @@ def forward(params, input_ids: torch.Tensor, cfg: LlamaConfig,
             h, lp, cfg, quant_config, cos, sin, mask,
             kv_cache[i] if kv_cache is not None else None, cache_index,
             compute_dtype, plain_causal=plain_causal, chunk0=chunk0,
-            banded=chunkN, banded_starts=pad_starts)
+            banded=chunkN, banded_starts=pad_starts, kv_window=kv_window)
     h = rms_norm(h, params["final_norm"]["w"], cfg.rms_norm_eps).to(compute_dtype)
     return h, kv_cache
 

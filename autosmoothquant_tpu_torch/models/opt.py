@@ -95,7 +95,7 @@ config_from_hf = OPTConfig.from_hf
 
 def _layer_forward(h, lp, cfg: OPTConfig, qcfg: Optional[QuantConfig], mask,
                    cache, cache_index, compute_dtype, *, plain_causal=False,
-                   chunk0=False, banded=False, banded_starts=None):
+                   chunk0=False, banded=False, banded_starts=None, kv_window=None):
     """One decoder layer; h: [B, T, D] in compute_dtype. The cache (if any)
     is written in place."""
     b, t, d = h.shape
@@ -117,7 +117,8 @@ def _layer_forward(h, lp, cfg: OPTConfig, qcfg: Optional[QuantConfig], mask,
     ctx = update_and_attend(q, k, v, cache, cache_index, mask,
                             1.0 / math.sqrt(hd), compute_dtype,
                             plain_causal=plain_causal, chunk0_causal=chunk0,
-                            banded=banded, banded_starts=banded_starts)
+                            banded=banded, banded_starts=banded_starts,
+                            kv_window=kv_window)
     attn_out = linear(ctx.reshape(b, t, d), lp["attn"]["o"], qcfg,
                       qcfg.out if qcfg else PER_TENSOR, LinearKind.SCALED,
                       out_dtype=compute_dtype)
@@ -163,14 +164,17 @@ def forward(params, input_ids: torch.Tensor, cfg: OPTConfig,
             pad_starts: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None,
             attention_mask: Optional[torch.Tensor] = None,
+            kv_window: Optional[int] = None,
             compute_dtype=torch.float32):
     """Run the decoder stack (HF OPTDecoder.forward). input_ids: int [B, T].
 
     Arguments as ``models/llama.py:forward``: kv_cache None or the list from
-    ``init_kv_cache``, written in place at [cache_index, cache_index + T);
-    kv_valid bool [B, S_max] (decode); pad_starts int32 [B] (ragged
-    prefill); positions int [B, T] index the learned position table at
-    ``positions + POS_OFFSET``. Returns (hidden [B, T, Dw], kv_cache)."""
+    ``init_kv_cache``, written in place at [cache_index, cache_index + T)
+    (cache_index scalar or per row); kv_valid bool [B, S_max] (decode);
+    pad_starts int32 [B] (ragged prefill); positions int [B, T] index the
+    learned position table at ``positions + POS_OFFSET``; kv_window bounds
+    the cache columns decode attention reads. Returns (hidden [B, T, Dw],
+    kv_cache)."""
     b, t = input_ids.shape
     h = params["embed"]["w"][input_ids].to(compute_dtype)
     if "project_in" in params:
@@ -178,7 +182,7 @@ def forward(params, input_ids: torch.Tensor, cfg: OPTConfig,
     chunk0 = chunkN = plain_causal = False
     if kv_cache is not None:
         slots, mask, chunk0, chunkN = cache_mask_and_routing(
-            kv_cache[0], cache_index, b, t, kv_valid, pad_starts)
+            kv_cache[0], cache_index, b, t, kv_valid, pad_starts, 0, kv_window)
         if positions is None:
             positions = slots  # no padding: the slot is the position
     else:
@@ -190,7 +194,7 @@ def forward(params, input_ids: torch.Tensor, cfg: OPTConfig,
             h, lp, cfg, quant_config, mask,
             kv_cache[i] if kv_cache is not None else None, cache_index,
             compute_dtype, plain_causal=plain_causal, chunk0=chunk0,
-            banded=chunkN, banded_starts=pad_starts)
+            banded=chunkN, banded_starts=pad_starts, kv_window=kv_window)
     if cfg.do_layer_norm_before and "final_norm" in params:
         h = layer_norm(h, params["final_norm"]["w"], params["final_norm"]["b"],
                        cfg.layer_norm_eps)

@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -82,6 +82,23 @@ def _has_static_fp8_scales(params) -> bool:
                for p in layers[0].get(group, {}).values())
 
 
+def maybe_fuse_projections(model_mod, params, fuse: Optional[bool] = None):
+    """``params`` with q|k|v and gate|up fused where the family has
+    ``fuse_decode_projections`` (JAX ``maybe_fuse_projections`` on one
+    device). fuse: None fuses where it can, False never, True requires it.
+    Params with fp8-static ``input_scale`` leaves stay unfused (fusion would
+    drop those frozen scales and the activations would silently re-quantize
+    dynamically); with fuse=True they raise ValueError."""
+    fuser = getattr(model_mod, "fuse_decode_projections", None)
+    if fuse is False or fuser is None:
+        return params
+    if _has_static_fp8_scales(params):
+        if fuse:
+            raise ValueError("fused projections would drop the fp8-static input scales")
+        return params
+    return fuser(params)
+
+
 def _tensors(layer) -> list:
     """A cache layer's tensors in field order (``dataclasses.astuple`` would
     copy them)."""
@@ -111,7 +128,94 @@ class CapturedStep:
     capture_ms: float        # host time of the capture alone
 
 
-class Engine:
+def graph_mode(device: torch.device, cuda_graph: Optional[bool]) -> bool:
+    """An engine's ``cuda_graph`` argument resolved: None is True on a CUDA
+    device and False on the CPU; True on a CPU device raises ValueError."""
+    if cuda_graph is None:
+        return device.type == "cuda"
+    if cuda_graph and device.type != "cuda":
+        raise ValueError(f"cuda_graph=True needs a CUDA device, not {device}")
+    return bool(cuda_graph)
+
+
+class StepGraphs:
+    """An engine's decode steps: captured as a CUDA graph per key and
+    replayed (``capture``), or run eagerly. The pattern of both engines (this
+    module's and ``serve/batching.py``'s). The graphs share one memory pool
+    (``pool``) and the engine's generator, which each registers
+    (``CUDAGraph.register_generator_state``, which a torch without it fails
+    on), so a sampled key's seed gives the eager loop's tokens. ``graphs``
+    holds the captures by key, ``replays`` counts the replays run."""
+
+    def __init__(self, device: torch.device, generator: torch.Generator,
+                 capture: bool):
+        self.graphs: Dict[object, CapturedStep] = {}
+        self.pool = torch.cuda.graph_pool_handle() if capture else None
+        self.replays = 0
+        self._device = device
+        self._generator = generator
+        self._stream = torch.cuda.Stream(device) if capture else None
+
+    def _capture(self, step: Callable[[], None]) -> CapturedStep:
+        """Run ``step`` once eagerly on the side stream (the warm-up: the 0-d
+        constants of ``quant.math``, the kernels' libraries and cuBLAS's
+        handle and workspace come into being on first use, which a capture
+        may not do), then capture it (recorded, not run). Captured launches
+        keep their operands' addresses: the GEMVs read the engine's static
+        buffers, and the tensor-core routes of K1 and K4 bake their TMA maps
+        of those addresses into the graph, so replay reads the buffers it
+        was captured on either way."""
+        current = torch.cuda.current_stream(self._device)
+        self._stream.wait_stream(current)
+        with torch.cuda.stream(self._stream):
+            step()
+        current.wait_stream(self._stream)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self._generator)
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph, pool=self.pool, stream=self._stream):
+            step()
+        return CapturedStep(graph, (time.perf_counter() - t0) * 1e3)
+
+    def run(self, key, step: Callable[[], None], steps: int) -> None:
+        """``steps`` decode steps under ``key``. Eager: ``step`` ``steps``
+        times. Captured: a key's first call runs step 1 eagerly (its warm-up)
+        and captures ``step``; every other step replays the key's graph. A
+        capture or replay that fails raises."""
+        if self._stream is None:
+            for _ in range(steps):
+                step()
+            return
+        captured = self.graphs.get(key)
+        if captured is None:
+            captured = self.graphs[key] = self._capture(step)
+            steps -= 1
+        for _ in range(steps):
+            captured.graph.replay()
+        self.replays += steps
+
+
+class GraphedSteps:
+    """What an engine shows of its :class:`StepGraphs` (``self._graphs``)."""
+
+    _graphs: StepGraphs
+
+    @property
+    def graphs(self) -> Dict[object, CapturedStep]:
+        """The captured steps by key (none when decode runs eagerly)."""
+        return self._graphs.graphs
+
+    @property
+    def graph_pool(self):
+        """The memory pool the graphs share (None when decode runs eagerly)."""
+        return self._graphs.pool
+
+    @property
+    def replays(self) -> int:
+        return self._graphs.replays
+
+
+class Engine(GraphedSteps):
     """Generation over a model family module (forward / logits /
     init_kv_cache) on one device.
 
@@ -141,12 +245,10 @@ class Engine:
     JAX engine's ``dev_cfg`` clears them from its static config. The key
     keeps the values of temperature, top_k, top_p and repetition_penalty,
     which the captured ops hold as constants (the JAX engine recompiles for
-    each too). All graphs share one memory pool. False runs the same step
-    eagerly, so graph and eager decode can be held against each other; it
-    is no fallback: a capture or replay that fails raises. Every graph
-    registers the engine's generator (``CUDAGraph.register_generator_state``,
-    which a torch without it fails on), so a sampled key's seed gives the
-    eager loop's tokens.
+    each too). The graphs are a :class:`StepGraphs` (one memory pool, the
+    engine's generator registered with every graph). False runs the same
+    step eagerly, so graph and eager decode can be held against each other;
+    it is no fallback: a capture or replay that fails raises.
 
     The kernels' launch counters (``kernels/counters.py``) count host
     launches: prefill, the warm-up step and the capture (which records its
@@ -157,16 +259,9 @@ class Engine:
                  kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
                  device="cuda", cuda_graph: Optional[bool] = None):
         self.device = resolve_device(device)
-        on_card = self.device.type == "cuda"
-        if cuda_graph is None:
-            cuda_graph = on_card
-        elif cuda_graph and not on_card:
-            raise ValueError(f"cuda_graph=True needs a CUDA device, not {self.device}")
-        self.cuda_graph = cuda_graph
+        self.cuda_graph = cuda_graph = graph_mode(self.device, cuda_graph)
         self.model = model_mod
-        fuser = getattr(model_mod, "fuse_decode_projections", None)
-        self.params = (params if fuser is None or _has_static_fp8_scales(params)
-                       else fuser(params))
+        self.params = maybe_fuse_projections(model_mod, params)
         self.cfg = cfg
         self.qcfg = qcfg
         self.max_batch = max_batch
@@ -187,12 +282,7 @@ class Engine:
         self._out_lp = torch.zeros(rows, dtype=torch.float32, device=dev)
         self._logits = torch.zeros((max_batch, vocab), dtype=torch.float32, device=dev)
         self._generator = torch.Generator(device=dev)
-        # the captured steps by key, the memory pool they share, the side
-        # stream of warm-up and capture, and the replays run so far
-        self.graphs: Dict[tuple, CapturedStep] = {}
-        self.graph_pool = torch.cuda.graph_pool_handle() if cuda_graph else None
-        self._stream = torch.cuda.Stream(dev) if cuda_graph else None
-        self.replays = 0
+        self._graphs = StepGraphs(dev, self._generator, cuda_graph)
 
     @property
     def kv_cache_bytes(self) -> int:
@@ -243,42 +333,9 @@ class Engine:
         self._emit(rows, self.model.logits(self.params, h)[:, 0], dev_cfg, slot + 1)
         slot += 1
 
-    def _capture(self, rows: _Rows, dev_cfg: GenerationConfig) -> CapturedStep:
-        """Run decode step 1 eagerly on the side stream (the warm-up: the
-        0-d constants of ``quant.math``, the kernels' libraries and cuBLAS's
-        handle and workspace come into being on first use, which a capture
-        may not do), then capture the step (recorded, not run). Captured
-        launches keep their operands' addresses: the GEMVs that b <= 8 takes
-        read the static buffers above, and the tensor-core routes of K1 and
-        K4 (b > 8) bake their TMA maps of those addresses into the graph, so
-        replay reads the buffers it was captured on either way."""
-        current = torch.cuda.current_stream(self.device)
-        self._stream.wait_stream(current)
-        with torch.cuda.stream(self._stream):
-            self._step(rows, dev_cfg)
-        current.wait_stream(self._stream)
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self._generator)
-        t0 = time.perf_counter()
-        with torch.cuda.graph(graph, pool=self.graph_pool, stream=self._stream):
-            self._step(rows, dev_cfg)
-        return CapturedStep(graph, (time.perf_counter() - t0) * 1e3)
-
     def _decode(self, rows: _Rows, b: int, dev_cfg: GenerationConfig, steps: int) -> None:
-        if steps <= 0:
-            return
-        if not self.cuda_graph:
-            for _ in range(steps):
-                self._step(rows, dev_cfg)
-            return
-        key = (b, dev_cfg)
-        captured = self.graphs.get(key)
-        if captured is None:
-            captured = self.graphs[key] = self._capture(rows, dev_cfg)
-            steps -= 1  # the warm-up ran step 1
-        for _ in range(steps):
-            captured.graph.replay()
-        self.replays += steps
+        if steps > 0:
+            self._graphs.run((b, dev_cfg), lambda: self._step(rows, dev_cfg), steps)
 
     @torch.inference_mode()
     def generate(self, prompts: Sequence[Sequence[int]],

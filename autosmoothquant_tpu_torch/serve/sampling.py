@@ -53,6 +53,24 @@ def _gumbel_argmax(scaled: torch.Tensor, generator: torch.Generator) -> torch.Te
     return torch.argmax(scaled - torch.log(-torch.log(u)), dim=-1)
 
 
+def sample_per_row(logits: torch.Tensor, generator: torch.Generator,
+                   temperature: torch.Tensor, top_k: torch.Tensor,
+                   top_p: torch.Tensor) -> torch.Tensor:
+    """[B, V] logits -> [B] int64 tokens under per-row parameters ([B]
+    tensors on the logits' device: f32 temperature, int top_k, f32 top_p),
+    so one step serves a batch that mixes greedy and sampled rows. A row with
+    temperature 0 takes the argmax; one draw from ``generator`` serves the
+    whole batch."""
+    logits = logits.float()
+    greedy = torch.argmax(logits, dim=-1)
+    use = temperature > 0.0
+    scaled = logits / torch.where(use, temperature, 1.0)[:, None]
+    thresh = _thresholds_per_row(scaled, top_k, top_p)
+    drawn = _gumbel_argmax(scaled.masked_fill(scaled < thresh, float("-inf")),
+                           generator)
+    return torch.where(use, drawn, greedy)
+
+
 def sample(logits: torch.Tensor, generator: torch.Generator = None,
            temperature: float = 0.0, top_k: int = 0,
            top_p: float = 1.0) -> torch.Tensor:

@@ -6,7 +6,8 @@ Run from the root of a checkout, on a machine with one card:
 
     python3 chip_smoke.py
 
-The paths are Llama generation in three weight formats: W8A8 int8 (kernels
+The paths are Llama generation in three weight formats (and W8A8 through
+the continuous-batching engine too): W8A8 int8 (kernels
 K1 int8 GEMM: its GEMV at decode, its tensor-core route at prefill; K2
 add+RMSNorm+quant on its vector route, K3 flash prefill), fp8 e4m3 / e5m2
 (K4 fp8 GEMM: its GEMV at decode, its tensor-core route at prefill; K3) and
@@ -43,6 +44,25 @@ Phases (any failure ends the run with a nonzero exit code):
            again on an eager twin (cuda_graph=False, the same params): equal
            tokens and bit-equal last logits; and on W8A8 one sampled run
            (temperature 0.8, top_p 0.9, seed 7) equal in graph and eager
+  batching the 22-layer TinyLlama W8A8 through ContinuousEngine (max_batch
+           8, max_seq 1024, steps_per_sync 8, prefill_chunk 64): a 96-token
+           prefix registered and 12 requests (4 on the prefix, a
+           prefix-only one, one cancelled mid-decode, one with eos, one
+           with a stop sequence, 2 sampled, 2 plain), counted: host launches
+           exactly as the schedule implies (K1's tensor cores and K2 per
+           prefill forward, K3 causal per registration and first chunk, K3
+           banded per later chunk and prefix suffix, each captured key's
+           warm-up step and capture on K1's GEMV), every captured key's
+           replay 88 Int8 GEMV + 22 K2 on the device; an eager twin's
+           tokens equal on every request and its last logits bit-equal;
+           greedy tokens equal the static Engine's b1 tokens up to their
+           first parting, logits within BATCH_LOGIT_NOISE of its at every
+           step to it, and equal on every request at max_batch 1. Then saturating
+           streams (32 requests, prompt 128, 128 new tokens, greedy) at
+           max_batch 8 and 16, W8A8 and bf16, in paired turns: tok/s across
+           the batch, replay ms a step, its idle share and speed tag,
+           host ms a tick, prefill ms per admission; at max_batch 16 a
+           replay runs K1 on its tensor cores (88 + 22 K2 on the device)
   timing   the launch floor (a one-element kernel); each kernel's time
            against its plain version, its library yardstick and its bound
            (K1 and K4 at M = 1, 2, 4 and 8 on their GEMV too; K2, K5 and K6
@@ -76,6 +96,7 @@ of 1/32. OPT-6.7B's shape is the public facebook/opt-6.7b config.json.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -96,7 +117,7 @@ from autosmoothquant_tpu_torch.bench import (
 from autosmoothquant_tpu_torch.kernels.counters import launch_counters, read_counts
 
 PKG = "autosmoothquant_tpu_torch"
-PHASES = ("device", "build", "kernels", "e2e", "serve", "timing")
+PHASES = ("device", "build", "kernels", "e2e", "serve", "batching", "timing")
 
 # NVIDIA H100 SXM data sheet (dense): HBM3 bandwidth and peak rates by type
 HBM_BYTES_PER_S = 3.35e12
@@ -1333,6 +1354,452 @@ def phase_serve(torch, results):
     return engines
 
 
+# ---------------------------------------------------------------------------
+# continuous batching
+# ---------------------------------------------------------------------------
+
+# the correctness run: ContinuousEngine at full TinyLlama width in W8A8, a
+# 96-token prefix registered, 12 requests in six groups over 8 slots
+BATCHING = dict(max_batch=8, max_seq=1024, steps_per_sync=8, prefill_chunk=64)
+PREFIX_LEN = 96
+CANCEL_AFTER = 10   # tokens the cancelled request has when it is cancelled
+# the timing streams: 32 requests, prompt 128, 128 new tokens, greedy,
+# whole-prompt admission, at max_batch 8 and 16
+STREAM = dict(requests=32, prompt=128, new_tokens=128, max_seq=512)
+# max |logit diff| between a request's logits at max_batch 8 and the static
+# engine's b1 logits at every step up to the first parting of their tokens
+# (logit std 2), set from this comparison's readings on an H100 (700 W): max
+# 0.2164 over 10 requests, 3 of them parting at top-2 margins 0.0068, 0.0253
+# and 0.0961, at about 1.6x. A wrong slot, mask or cache row moves logits by
+# whole units
+BATCH_LOGIT_NOISE = 0.35
+# a stream turn whose main graph's replay idles more than this share of its
+# time against the profiled busy time ran "gapped", else "dense" (PERF.md)
+GAPPED_IDLE = 0.05
+
+
+def batching_requests(torch):
+    """The correctness run's prefix and requests, [(uid, prompt, submit
+    kwargs)]: 4 prompts that start with the prefix, a prefix-only prompt,
+    one to cancel mid-decode, one with an eos_token_id and one with a stop
+    sequence (both set later from the static engine's tokens), 2 sampled
+    (fixed engine seed) and 2 plain ones; prompts of 17-300 tokens, budgets
+    8-64."""
+    rng = torch.Generator().manual_seed(23)
+
+    def toks(n):
+        return torch.randint(0, 32000, (n,), generator=rng).tolist()
+    prefix = toks(PREFIX_LEN)
+    reqs = [(f"prefix{i}", prefix + toks(n), dict(max_new_tokens=budget, prefix="sys"))
+            for i, (n, budget) in enumerate(((20, 64), (60, 16), (130, 32), (204, 8)))]
+    reqs += [("prefix_only", list(prefix), dict(max_new_tokens=24, prefix="sys")),
+             ("cancel", toks(17), dict(max_new_tokens=64)),
+             ("eos", toks(45), dict(max_new_tokens=40)),
+             ("stop", toks(77), dict(max_new_tokens=40)),
+             ("sampled0", toks(33), dict(max_new_tokens=32, temperature=0.8, top_p=0.9)),
+             ("sampled1", toks(150), dict(max_new_tokens=24, temperature=1.0, top_k=50)),
+             ("plain0", toks(300), dict(max_new_tokens=48)),
+             ("plain1", toks(64), dict(max_new_tokens=12))]
+    return prefix, reqs
+
+
+def chunk_routes(n, pos, chunk, max_seq):
+    """The K3 wrapper of each prefill forward that chunked admission runs
+    for a prompt of ``n`` tokens from slot ``pos``: chunks of ``chunk``,
+    then the last power-of-two window ending at the prompt's end (at least
+    32, the overlap re-fed); a chunk at slot 0 is causal, any other
+    banded."""
+    routes = []
+    while pos < n:
+        if n - pos >= chunk:
+            start, pos = pos, pos + chunk
+        else:
+            bucket = 32
+            while bucket < n - pos:
+                bucket *= 2
+            bucket = min(bucket, max_seq)
+            start, pos = (n - bucket if n >= bucket else 0), n
+        routes.append("flash_attention" if start == 0 else "flash_attention_banded")
+    return routes
+
+
+def batching_counts(reqs, graphs, layers=22):
+    """The host launches the correctness run's schedule implies: every
+    prefill forward (the prefix's registration, causal; each chunk) runs 4
+    GEMMs a layer on K1's tensor cores and K2 once a layer, and K3 once a
+    layer (causal or banded); each captured key's warm-up step and capture
+    record one decode step at M = 8 (K1's GEMV, K2)."""
+    routes = ["flash_attention"]  # the registration
+    for _, prompt, kw in reqs:
+        if kw.get("prefix") is None:
+            routes += chunk_routes(len(prompt), 0, BATCHING["prefill_chunk"],
+                                   BATCHING["max_seq"])
+        elif len(prompt) > PREFIX_LEN:
+            routes += chunk_routes(len(prompt), PREFIX_LEN, BATCHING["prefill_chunk"],
+                                   BATCHING["max_seq"])
+    fwd, steps = len(routes), 2 * graphs
+    return {"int8_matmul": 4 * layers * (fwd + steps), "int8_matmul_tc": 4 * layers * fwd,
+            "int8_matmul_gemv": 4 * layers * steps,
+            "fused_add_rmsnorm_quant": layers * (fwd + steps),
+            "fused_add_rmsnorm_quant_vec": layers * (fwd + steps),
+            "flash_attention": layers * routes.count("flash_attention"),
+            "flash_attention_banded": layers * routes.count("flash_attention_banded")}
+
+
+def park(eng):
+    """Park every row of a ContinuousEngine's decode buffers (slot max_seq,
+    the scratch slot; inactive) before replaying its graphs by hand (a
+    profile): a replay then writes only the scratch slot, and no row's slot
+    moves. The next tick copies the slot arrays in anew."""
+    eng._lens.fill_(eng.max_seq)
+    eng._active.zero_()
+
+
+def drive(eng, prefix, reqs):
+    """The correctness run on ``eng``: register the prefix, submit the
+    requests, tick until every one is done, cancelling "cancel" once it has
+    CANCEL_AFTER tokens. Returns ({uid: tokens}, ticks)."""
+    eng.register_prefix("sys", prefix)
+    handles = {uid: eng.submit(uid, p, **kw) for uid, p, kw in reqs}
+    ticks = 0
+    while not all(h.done for h in handles.values()):
+        eng.step()
+        ticks += 1
+        c = handles["cancel"]
+        if not c.done and len(c.output) >= CANCEL_AFTER:
+            require(eng.cancel("cancel"), "cancel found no request")
+        require(ticks < 1000, "the correctness run did not finish in 1000 ticks")
+    require(len(handles["cancel"].output) < handles["cancel"].max_new_tokens,
+            "the request to cancel ran to its budget")
+    return {uid: list(h.output) for uid, h in handles.items()}, ticks
+
+
+def static_logits(torch, eng, prompt, gen_cfg):
+    """The static engine's b1 generate of ``prompt`` on ``eng`` (an eager
+    Engine, whose ``_emit`` sees every step's raw logits; eager decode gives
+    the graph's bits): (tokens, [logits [V] of each step])."""
+    seen = []
+    emit = eng._emit
+
+    def recording(rows, logits, dev_cfg, col):
+        seen.append(logits[0].float().clone())
+        return emit(rows, logits, dev_cfg, col)
+    eng._emit = recording
+    try:
+        toks = eng.generate([prompt], gen_cfg)[0]
+    finally:
+        del eng._emit
+    return toks, seen
+
+
+def record_logits(eng):
+    """Make an eager ContinuousEngine record each request's raw logits at
+    each of its steps: {uid: [logits [V] of step 0 (the prefill's), 1, ...]}
+    (the steps a tick runs past a request's end are recorded too)."""
+    rec = {}
+    first, step = eng._first_token, eng._decode_step
+
+    def first_token(last_logits, req, row):
+        rec[req.uid] = [last_logits.float().clone()]
+        return first(last_logits, req, row)
+
+    def decode_step(*key):
+        step(*key)
+        for row, r in enumerate(eng.slot_req):
+            if r is not None:
+                rec[r.uid].append(eng._logits[row].clone())
+    eng._first_token, eng._decode_step = first_token, decode_step
+    return rec
+
+
+def margin(logits):
+    top = logits.topk(2).values
+    return float(top[0] - top[1])
+
+
+def phase_batching(torch, results, engines):
+    """ContinuousEngine at full TinyLlama-1.1B width in W8A8 (the serve
+    phase's params), counted: the correctness run (BATCHING, 12 requests)
+    on a graph engine with the counts set to 0 just before and read just
+    after, then on an eager twin. Host counts exactly as the schedule
+    implies (batching_counts), both K3 wrappers launched; every captured
+    key's replay launches 88 Int8 GEMV and 22 K2 on the device; graph and
+    eager tokens equal on every request (sampled ones too) and last logits
+    bit-equal. Greedy tokens equal the static Engine's b1 generate of the
+    same prompt up to their first parting, with logits within
+    BATCH_LOGIT_NOISE of the static engine's at every step to it (the
+    near-tie statistic of PERF.md §2's W8A8 rule printed beside), and equal
+    on every request at max_batch 1. Then the timing streams (batching_timing)."""
+    from autosmoothquant_tpu_torch.models import llama as L
+    from autosmoothquant_tpu_torch.serve.batching import ContinuousEngine
+    from autosmoothquant_tpu_torch.serve.engine import Engine, GenerationConfig
+
+    cfg, qcfg, params = tinyllama(L, 22), engines["W8A8"].qcfg, engines["W8A8"].params
+    prefix, reqs = batching_requests(torch)
+    # the static engine's b1 tokens and per-step logits of each greedy
+    # request (an eager twin of the serve phase's engine, max_batch 1); the
+    # eos token (the first new token from step 5 on) and the stop pair
+    # (steps 8-9) come from them, and those two requests run again with them
+    static_x = Engine(L, params, cfg, qcfg, max_batch=1, max_seq=512,
+                      kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
+                      device="cuda", cuda_graph=False)
+    gen = {uid: GenerationConfig(max_new_tokens=kw["max_new_tokens"])
+           for uid, _, kw in reqs if "temperature" not in kw}
+    prompts = {uid: p for uid, p, _ in reqs}
+    ref = {uid: static_logits(torch, static_x, prompts[uid], g) for uid, g in gen.items()}
+    toks = ref["eos"][0]
+    eos = next((t for i, t in enumerate(toks) if i >= 5 and t not in toks[:i]), None)
+    require(eos is not None, f"no new token after step 5 to end on: {toks}")
+    stop = ref["stop"][0][8:10]
+    extra = {"eos": dict(eos_token_id=eos), "stop": dict(stop=[stop])}
+    reqs = [(uid, p, {**kw, **extra.get(uid, {})}) for uid, p, kw in reqs]
+    for uid, kw in (("eos", dict(eos_token_id=eos)), ("stop", dict(stop=(tuple(stop),)))):
+        ref[uid] = static_logits(torch, static_x, prompts[uid],
+                                 dataclasses.replace(gen[uid], **kw))
+    del static_x
+
+    def engine(graph):
+        return ContinuousEngine(L, params, cfg, qcfg, kv_dtype=torch.bfloat16,
+                                compute_dtype=torch.bfloat16, seed=7, device="cuda",
+                                cuda_graph=graph, **BATCHING)
+    counters = launch_counters()
+    eng = engine(True)
+    torch.cuda.synchronize()
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    out, ticks = drive(eng, prefix, reqs)
+    wall = time.perf_counter() - t0
+    counts = read_counts(counters)
+    logits = eng.last_logits
+    want = batching_counts(reqs, len(eng.graphs))
+    log(json.dumps({"path": "continuous W8A8", "host launches": counts,
+                    "expected": want}))
+    log(f"  batching: 22-layer TinyLlama W8A8, {len(reqs)} requests (prefix {PREFIX_LEN} "
+        f"tokens), max_batch {BATCHING['max_batch']}, max_seq {BATCHING['max_seq']}, "
+        f"steps_per_sync {BATCHING['steps_per_sync']}, prefill_chunk "
+        f"{BATCHING['prefill_chunk']}: {ticks} ticks in {wall:.2f} s (captures included); "
+        f"{len(eng.graphs)} graphs {sorted(eng.graphs)}, {eng.replays} replays, captures "
+        + ", ".join(f"{c.capture_ms:.1f}" for c in eng.graphs.values())
+        + f" ms; pool {graph_pool_mib(torch, eng)} MiB; KV pool "
+        f"{eng.kv_cache_bytes / 2**30:.3f} GiB; prefill tokens "
+        f"{eng.prefill_tokens_processed}, decode tokens {eng.decode_tokens_generated}")
+    require(bool(torch.isfinite(logits).all()), "non-finite logits on the continuous path")
+    for uid, toks in out.items():
+        require(all(0 <= t < cfg.vocab_size for t in toks), f"{uid}: token out of range")
+    for name in ("flash_attention", "flash_attention_banded"):
+        require(counts[name] > 0, f"{name} was not launched on the continuous path")
+    for name, count in want.items():
+        require(counts[name] == count,
+                f"{name} ({COUNTED.get(name, 'every route')}) launched {counts[name]} times "
+                f"from the host on the continuous path; the schedule implies {count}")
+    others = {k: v for k, v in counts.items() if k not in want and v}
+    require(not others, f"unexpected launches on the continuous path: {others}")
+    step = {**dict.fromkeys(DEVICE_READS, 0), "int8_matmul": 88, "int8_matmul_gemv": 88,
+            "fused_add_rmsnorm_quant": 22, "fused_add_rmsnorm_quant_vec": 22}
+    park(eng)
+    for key, captured in eng.graphs.items():
+        per_replay = replay_counts(torch, captured.graph)
+        log(f"  batching graph {key}: device launches a replay {per_replay}")
+        require(per_replay == step, f"graph {key}: {per_replay} device launches a replay; "
+                f"expected {step}")
+    for name in ("int8_matmul", "fused_add_rmsnorm_quant", "flash_attention",
+                 "flash_attention_banded"):
+        results[name]["continuous_launches"] = counts[name]
+        results[name]["continuous_launches_a_replay"] = step.get(name, 0)
+
+    # the same requests on an eager twin, which records every request's
+    # logits at each step
+    eager = engine(False)
+    rec = record_logits(eager)
+    out_x, _ = drive(eager, prefix, reqs)
+    same_logits = torch.equal(eager.last_logits, logits)
+    diff = float((eager.last_logits - logits).abs().max())
+    log(f"  batching graph vs eager: tokens equal on {sum(out_x[u] == out[u] for u in out)}/"
+        f"{len(out)} requests (2 sampled), last logits bit-equal {same_logits} "
+        f"(max |diff| {diff:g}); sampled0 {out['sampled0'][:12]}")
+    require(out_x == out and same_logits,
+            f"continuous graph and eager decode differ (tokens equal {out_x == out}, "
+            f"max |logit diff| {diff})")
+    del eager
+
+    # greedy tokens against the static engine's b1 tokens. At max_batch 8
+    # a row's logits differ from b1's by W8A8 noise (torch's reductions, the
+    # norms' means and decode attention's products, sum in another order
+    # for 8 rows than for 1, and a last-bit difference moves an int8
+    # activation): tokens must be equal up to the first parting, and the
+    # logits at every step up to it within BATCH_LOGIT_NOISE of the static
+    # engine's (a wrong slot, mask or cache row moves them by whole units);
+    # the W8A8 near-tie statistic (the static engine's top-2 margin <= 0.02
+    # at or before the parting) is reported beside it
+    full, noise = 0, 0.0
+    for uid, p, kw in reqs:
+        if uid not in ref:
+            continue
+        a, (b, sl) = out[uid], ref[uid]
+        if uid == "cancel":
+            b = b[:len(a)]
+        j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        steps = min(len(a), len(b)) if j is None else j + 1
+        d = max(float((rec[uid][i] - sl[i]).abs().max()) for i in range(steps))
+        noise = max(noise, d)
+        if j is None:
+            require(len(a) == len(b), f"{uid}: {len(a)} tokens, the static engine {len(b)}")
+            full += 1
+        else:
+            tie = next((i for i in range(j + 1) if margin(sl[i]) <= E2E_TIE_MARGIN), None)
+            log(f"  batching {uid}: tokens part from the static engine's at step {j} "
+                f"(continuous {a[j]}, static {b[j]}); static top-2 margin there "
+                f"{margin(sl[j]):.4f}, first <= {E2E_TIE_MARGIN} at step {tie}; max |logit "
+                f"diff| to the parting {d:.4f}")
+        require(d <= BATCH_LOGIT_NOISE,
+                f"{uid}: continuous logits differ from the static engine's by {d} within "
+                f"{steps} steps (limit {BATCH_LOGIT_NOISE})")
+    log(f"  batching greedy at max_batch 8 vs the static engine b1: {full}/{len(ref)} "
+        f"requests matched in full; max |logit diff| {noise:.4f} over every compared step "
+        f"(limit {BATCH_LOGIT_NOISE})")
+
+    # at max_batch 1 the continuous engine computes the static engine's
+    # bits: every greedy request's tokens equal, no near-tie allowed
+    b1 = ContinuousEngine(L, params, cfg, qcfg, kv_dtype=torch.bfloat16,
+                          compute_dtype=torch.bfloat16, device="cuda",
+                          **{**BATCHING, "max_batch": 1})
+    out1, _ = drive(b1, prefix, [r for r in reqs if r[0] in ref])
+    same = [uid for uid in ref
+            if out1[uid] == (ref[uid][0][:len(out1[uid])] if uid == "cancel" else ref[uid][0])]
+    log(f"  batching greedy at max_batch 1 vs the static engine b1: tokens equal on "
+        f"{len(same)}/{len(ref)} requests")
+    require(len(same) == len(ref), f"max_batch 1: tokens differ from the static engine's on "
+            f"{sorted(set(ref) - set(same))}")
+    del b1
+    batching_timing(torch, results, L, cfg, params, qcfg)
+
+
+def instrument(torch, eng):
+    """Wrap ``eng``'s step runner and admission for a stream's readings:
+    CUDA events around each tick's replays (not a capture's tick, which also
+    runs the warm-up step) by graph key, and the host time of admissions
+    (synchronized: an admission reads its first token back)."""
+    stats = {"replays": {}, "admit_s": 0.0, "admitted": 0}
+    graphs, run, admit = eng._graphs, eng._graphs.run, eng._admit
+
+    def timed_run(key, step, steps):
+        if key not in graphs.graphs:
+            return run(key, step, steps)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        run(key, step, steps)
+        end.record()
+        stats["replays"].setdefault(key, []).append((start, end, steps))
+
+    def timed_admit():
+        waiting = len(eng.waiting)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        admit()
+        torch.cuda.synchronize()
+        stats["admit_s"] += time.perf_counter() - t0
+        stats["admitted"] += waiting - len(eng.waiting)
+    graphs.run = timed_run
+    eng._admit = timed_admit
+    return stats
+
+
+def stream(torch, eng, stats, rng_seed):
+    """One saturating stream: STREAM's requests submitted at once, run to the
+    end. Returns the turn's readings: tok/s across the batch (decode tokens
+    over the stream's wall time, admissions included), replay ms a step of
+    the graph that ran most, host ms a tick outside the replays and the
+    admissions, prefill ms per admission, the ticks and the captures made."""
+    rng = torch.Generator().manual_seed(rng_seed)
+    stats.update(replays={}, admit_s=0.0, admitted=0)
+    graphs_before, tokens_before = len(eng.graphs), eng.decode_tokens_generated
+    for i in range(STREAM["requests"]):
+        eng.submit(i, torch.randint(0, 32000, (STREAM["prompt"],), generator=rng).tolist(),
+                   max_new_tokens=STREAM["new_tokens"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ticks = 0
+    while eng.waiting or any(r is not None for r in eng.slot_req):
+        eng.step()
+        ticks += 1
+    wall = time.perf_counter() - t0
+    tokens = eng.decode_tokens_generated - tokens_before
+    require(tokens == STREAM["requests"] * STREAM["new_tokens"],
+            f"a stream decoded {tokens} tokens")
+    replay_ms = {key: (sum(s.elapsed_time(e) for s, e, _ in ev), sum(n for *_, n in ev))
+                 for key, ev in stats["replays"].items()}
+    main = max(replay_ms, key=lambda k: replay_ms[k][1])
+    replays_ms = sum(ms for ms, _ in replay_ms.values())
+    return dict(tok_s=tokens / wall, main=main, replay_ms=replay_ms[main][0] / replay_ms[main][1],
+                host_ms_tick=(wall * 1e3 - stats["admit_s"] * 1e3 - replays_ms) / ticks,
+                prefill_ms=stats["admit_s"] * 1e3 / max(stats["admitted"], 1),
+                ticks=ticks, captures=len(eng.graphs) - graphs_before, wall_s=wall)
+
+
+def batching_timing(torch, results, L, cfg, w8a8, qcfg):
+    """The saturating streams at max_batch 8 and 16 for W8A8 and bf16, each
+    engine warmed by one stream (its captures), then timed in paired turns
+    (W8A8, bf16, bf16, W8A8). Each turn: tok/s across the batch, replay ms
+    a step, host ms a tick outside the replays, prefill ms per admission;
+    after the turns a profile of 5 replays of each engine's main graph gives
+    its busy ms, and each turn its idle share and speed tag (dense or
+    gapped). At max_batch 16 a W8A8 replay launches 88 K1 tensor-core GEMMs
+    and 22 K2 on the device."""
+    from autosmoothquant_tpu_torch.serve.batching import ContinuousEngine
+
+    params = {"w8a8": (w8a8, qcfg), "bf16": (draw_float(cfg, seed=4, device="cuda"), None)}
+    for max_batch in (8, 16):
+        engs = {fmt: ContinuousEngine(L, p, cfg, q, max_batch=max_batch,
+                                      max_seq=STREAM["max_seq"], steps_per_sync=8,
+                                      kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
+                                      device="cuda")
+                for fmt, (p, q) in params.items()}
+        stats = {fmt: instrument(torch, e) for fmt, e in engs.items()}
+        for fmt, e in engs.items():
+            warm = stream(torch, e, stats[fmt], 0)
+            log(f"  batching stream b{max_batch} {fmt} warm-up: {warm['tok_s']:.1f} tok/s, "
+                f"{warm['captures']} captures")
+        turns = {fmt: [] for fmt in engs}
+        for i, fmt in enumerate(("w8a8", "bf16", "bf16", "w8a8")):
+            turns[fmt].append(stream(torch, engs[fmt], stats[fmt], 1 + i))
+        for fmt, e in engs.items():
+            key = turns[fmt][-1]["main"]
+            park(e)
+            _, busy = device_profile(
+                torch, e.graphs[key].graph.replay,
+                f"continuous decode step (TinyLlama {fmt}, b{max_batch}, graph {key})",
+                turns[fmt][-1]["replay_ms"], reps=5)
+            for i, t in enumerate(turns[fmt]):
+                idle = 1 - busy / t["replay_ms"]
+                t["speed"] = "gapped" if idle > GAPPED_IDLE else "dense"
+                log(f"  batching stream b{max_batch} {fmt} turn {i + 1}: {t['tok_s']:.1f} "
+                    f"tok/s ({STREAM['requests']} requests x {STREAM['new_tokens']} tokens, "
+                    f"prompt {STREAM['prompt']}, {t['ticks']} ticks, {t['wall_s']:.3f} s); "
+                    f"replay {t['replay_ms']:.3f} ms a step (graph {t['main']}; busy "
+                    f"{busy:.3f}, idle {idle:.3f}: {t['speed']}); host {t['host_ms_tick']:.3f}"
+                    f" ms a tick outside the replays and admissions; prefill "
+                    f"{t['prefill_ms']:.3f} ms per admission; captures {t['captures']}")
+        for speed in ("dense", "gapped"):
+            best = {fmt: max((t["tok_s"] for t in ts if t["speed"] == speed), default=None)
+                    for fmt, ts in turns.items()}
+            if all(best.values()):
+                log(f"  batching stream b{max_batch} {speed} turns (best): w8a8 "
+                    f"{best['w8a8']:.1f}, bf16 {best['bf16']:.1f} tok/s; w8a8/bf16 "
+                    f"{best['w8a8'] / best['bf16']:.4f}")
+        if max_batch == 16:
+            e = engs["w8a8"]
+            park(e)
+            per_replay = replay_counts(torch, e.graphs[turns["w8a8"][-1]["main"]].graph)
+            want = {**dict.fromkeys(DEVICE_READS, 0), "int8_matmul": 88,
+                    "int8_matmul_tc": 88, "fused_add_rmsnorm_quant": 22,
+                    "fused_add_rmsnorm_quant_vec": 22}
+            log(f"  batching b16 W8A8 graph: device launches a replay {per_replay}")
+            require(per_replay == want, f"b16 W8A8 replay: {per_replay}; expected {want}")
+            results["int8_matmul"]["continuous_b16_tc_launches_a_replay"] = per_replay[
+                "int8_matmul_tc"]
+        del engs, stats
+
+
 def pad_rows(torch, x, multiple):
     """x with zero rows appended up to a multiple of ``multiple`` rows (at
     least that many): the shapes torch._int_mm and torch._scaled_mm take."""
@@ -1940,6 +2407,8 @@ def main():
                 phase_e2e(torch)
             elif phase == "serve":
                 engines = phase_serve(torch, results)
+            elif phase == "batching":
+                phase_batching(torch, results, engines)
             elif phase == "timing":
                 phase_timing(torch, results, engines)
             log(f"== {phase} done in {time.perf_counter() - t0:.1f} s")

@@ -1050,3 +1050,89 @@ def test_sampled_graph_decode_equals_eager_for_a_seed(cuda_device):
     assert engs[True].generate(prompts, gc, seed=7) == got[True]
     assert engs[True].generate(prompts, gc, seed=8) != got[True]
     assert engs[True].replays == 14 + 15 + 15
+
+
+def _continuous(graph, max_batch=4, seed=7):
+    from autosmoothquant_tpu_torch.serve.batching import ContinuousEngine
+
+    M, cfg, qcfg, params = _graph_model("W8A8")
+    return ContinuousEngine(M, params, cfg, qcfg, max_batch=max_batch, max_seq=256,
+                            steps_per_sync=4, prefill_chunk=32, kv_dtype=torch.bfloat16,
+                            compute_dtype=torch.bfloat16, seed=seed, device="cuda",
+                            cuda_graph=graph)
+
+
+def _continuous_requests(n_plain):
+    """A registered prefix and requests: two that start with it, n_plain
+    plain ones (chunked), a sampled one."""
+    rng = torch.Generator().manual_seed(9)
+
+    def toks(n):
+        return torch.randint(0, 32000, (n,), generator=rng).tolist()
+    prefix = toks(40)
+    reqs = [(f"p{i}", prefix + toks(7 + 20 * i), dict(max_new_tokens=12, prefix="sys"))
+            for i in range(2)]
+    reqs += [(f"r{i}", toks(5 + 7 * i), dict(max_new_tokens=6 + 2 * i))
+             for i in range(n_plain)]
+    reqs.append(("s", toks(21), dict(max_new_tokens=14, temperature=0.8, top_p=0.9)))
+    return prefix, reqs
+
+
+def _serve(eng, prefix, reqs):
+    eng.register_prefix("sys", prefix)
+    for uid, p, kw in reqs:
+        eng.submit(uid, p, **kw)
+    return eng.run()
+
+
+@pytest.mark.parametrize("max_batch", [4, 16], ids=["b4-gemv", "b16-tensor-cores"])
+def test_continuous_graph_decode_equals_eager(cuda_device, max_batch):
+    """The continuous engine at 2-layer TinyLlama width (W8A8): decode
+    replayed from CUDA graphs against the eager loop on the same params and
+    requests (chunked, prefixed, one sampled, more requests than slots):
+    equal tokens, bit-equal last logits. A replay launches one step's port
+    kernels on the device: 8 int8 GEMMs (the GEMV at max_batch 4, the tensor
+    cores at 16, where the step's M is 16) and 2 K2."""
+    import chip_smoke
+
+    prefix, reqs = _continuous_requests(max_batch + 3)
+    got = {g: (_serve(e, prefix, reqs), e.last_logits, e)
+           for g, e in ((g, _continuous(g, max_batch)) for g in (True, False))}
+    assert got[True][0] == got[False][0]
+    assert torch.equal(got[True][1], got[False][1])
+    eng = got[True][2]
+    assert eng.graphs and eng.replays > 0 and not got[False][2].graphs
+    route = "int8_matmul_gemv" if max_batch <= 8 else "int8_matmul_tc"
+    want = {**dict.fromkeys(chip_smoke.DEVICE_READS, 0), "int8_matmul": 8, route: 8,
+            "fused_add_rmsnorm_quant": 2, "fused_add_rmsnorm_quant_vec": 2}
+    chip_smoke.park(eng)
+    for captured in eng.graphs.values():
+        assert chip_smoke.replay_counts(torch, captured.graph) == want
+
+
+def test_continuous_step_writes_below_the_pool_edge(cuda_device, monkeypatch):
+    """Every cache index the decode step writes is < the pool's slot count
+    (max_seq + 1): a parked row (free, or mid-prefill) writes at the scratch
+    slot max_seq, never past it (a CUDA index out of bounds is a device
+    assert). Read from the eager step's per-row writes; the graph engine
+    then serves the same requests with rows parked throughout."""
+    from autosmoothquant_tpu_torch.models import common as C
+
+    seen = []
+    write = C._write
+
+    def spy(buf, val, cache_index):
+        if C._is_vector_index(cache_index):
+            slots = C.cache_slots(cache_index, val.shape[0], val.shape[1])
+            seen.append((int(slots.max()), int(slots.min()), buf.shape[1]))
+        return write(buf, val, cache_index)
+    monkeypatch.setattr(C, "_write", spy)
+    prefix, reqs = _continuous_requests(1)
+    eager = _continuous(False)
+    out = _serve(eager, prefix, reqs)
+    assert seen and all(0 <= lo and hi < size for hi, lo, size in seen)
+    assert max(hi for hi, _, _ in seen) == eager.max_seq  # the scratch slot was written
+    monkeypatch.setattr(C, "_write", write)
+    graph = _continuous(True)
+    assert _serve(graph, prefix, reqs) == out
+    torch.cuda.synchronize()

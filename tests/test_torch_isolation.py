@@ -37,7 +37,7 @@ def test_port_imports_no_jax_side_module():
     for name in ("quant.config", "quant.math", "kernels.gemm", "kernels.fused",
                  "kernels.attention", "kernels.fp8", "kernels.int4",
                  "convert.pipeline", "models.llama", "models.opt",
-                 "models.registry", "serve.engine", "serve.sampling"):
+                 "models.registry", "serve.engine", "serve.sampling", "serve.batching"):
         assert f"autosmoothquant_tpu_torch.{name}" in out["modules"]
 
 

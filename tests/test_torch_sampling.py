@@ -100,3 +100,62 @@ def test_temperature_divides_truly_like_jax(monkeypatch):
     TS.sample(torch.from_numpy(logits), torch.Generator().manual_seed(0), temperature=0.7)
     want = np.asarray(jnp.asarray(logits) / 0.7)
     np.testing.assert_array_equal(seen["scaled"].numpy(), want)
+
+
+# sample_per_row: per-row parameters, one step for a mixed batch
+
+ROW_TEMPS = np.asarray([0.0, 0.8, 0.0, 1.0, 0.5], np.float32)
+ROW_TOPK = np.asarray([0, 5, 3, 0, 40], np.int64)
+ROW_TOPP = np.asarray([1.0, 0.9, 0.5, 0.7, 1.5], np.float32)
+
+
+def test_sample_per_row_greedy_rows_are_the_argmax_and_thresholds_equal_jax(monkeypatch):
+    """Rows at temperature 0 take the argmax, bit for bit; the sampled rows'
+    filtered logits (per-row temperature, then the per-row top-k / top-p
+    threshold) are JAX's ``sample_per_row`` operands bit for bit."""
+    logits = (np.random.default_rng(5).normal(size=(5, 300)) * 3).astype(np.float32)
+    seen = {}
+
+    def capture(masked, generator):
+        seen["masked"] = masked
+        return torch.zeros(masked.shape[0], dtype=torch.int64)
+    monkeypatch.setattr(TS, "_gumbel_argmax", capture)
+    tok = TS.sample_per_row(torch.from_numpy(logits), torch.Generator().manual_seed(0),
+                            torch.from_numpy(ROW_TEMPS), torch.from_numpy(ROW_TOPK),
+                            torch.from_numpy(ROW_TOPP))
+    greedy = ROW_TEMPS == 0
+    np.testing.assert_array_equal(tok.numpy()[greedy], logits.argmax(-1)[greedy])
+    assert (tok.numpy()[~greedy] == 0).all()
+    lg = jnp.asarray(logits)
+    scaled = lg / jnp.where(jnp.asarray(ROW_TEMPS) > 0, jnp.asarray(ROW_TEMPS), 1.0)[:, None]
+    th = JS._thresholds_per_row(scaled, jnp.asarray(ROW_TOPK, jnp.int32),
+                                jnp.asarray(ROW_TOPP))
+    want = np.asarray(jnp.where(scaled < th, -jnp.inf, scaled))
+    np.testing.assert_array_equal(seen["masked"].numpy(), want)
+    # and JAX's own sample_per_row picks the same greedy rows
+    j = JS.sample_per_row(lg, jax.random.PRNGKey(0), jnp.asarray(ROW_TEMPS),
+                          jnp.asarray(ROW_TOPK, jnp.int32), jnp.asarray(ROW_TOPP))
+    np.testing.assert_array_equal(np.asarray(j)[greedy], logits.argmax(-1)[greedy])
+
+
+def test_sample_per_row_frequencies_follow_each_rows_filtered_softmax():
+    """Two parameter sets in one batch (20,000 rows each): each row's draws
+    follow the softmax its own filter leaves (chi-square at p = 0.001)."""
+    logits = torch.tensor([2.0, 1.5, 1.0, 0.5, 0.0, -0.5, -1.0, -2.0])
+    n = 20000
+    params = [(1.0, 0, 0.8), (0.7, 3, 1.0)]
+    temps = torch.tensor([p[0] for p in params]).repeat_interleave(n)
+    topk = torch.tensor([p[1] for p in params]).repeat_interleave(n)
+    topp = torch.tensor([p[2] for p in params]).repeat_interleave(n)
+    toks = TS.sample_per_row(logits.expand(2 * n, 8), torch.Generator().manual_seed(6),
+                             temps, topk, topp)
+    for i, (temperature, top_k, top_p) in enumerate(params):
+        counts = torch.bincount(toks[i * n:(i + 1) * n], minlength=8).double().numpy()
+        scaled = jnp.asarray(logits.numpy())[None] / temperature
+        th = JS._thresholds_per_row(scaled, jnp.asarray([top_k], jnp.int32),
+                                    jnp.asarray([top_p], jnp.float32))
+        probs = np.asarray(jax.nn.softmax(jnp.where(scaled < th, -jnp.inf, scaled), -1)
+                           )[0].astype(np.float64)
+        support = probs > 0
+        assert counts[~support].sum() == 0
+        assert _chi2(counts[support], probs[support]) < _CHI2_999[int(support.sum()) - 1]

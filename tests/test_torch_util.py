@@ -15,16 +15,25 @@ SCALE_KEYS = ("attn_input_scale", "q_output_scale", "k_output_scale",
               "down_input_scale")
 
 
-def jax_llama(qcfg_kwargs=None, seed=0):
+def jax_llama(qcfg_kwargs=None, seed=0, **overrides):
     """(JAX llama module, cfg, params) — float, or int8 quantized with the
-    layer scales a calibration pass over random ids measures."""
+    layer scales a calibration pass over random ids measures. ``overrides``
+    set config fields (the variants: attention_bias, sliding_window,
+    hidden_act); q/k/v biases are redrawn with std 0.5, large enough to move
+    the logits (init_params draws std 0.02)."""
     import jax
     import jax.numpy as jnp
     from autosmoothquant_tpu.models import llama as JL
     from autosmoothquant_tpu.quant.config import QuantConfig as JQ
 
-    cfg = JL.LlamaConfig(**TINY)
+    cfg = JL.LlamaConfig(**{**TINY, **overrides})
     params = JL.init_params(cfg, jax.random.PRNGKey(seed))
+    if cfg.attention_bias:
+        rng = np.random.default_rng(seed)
+        attn = {k: ({**p, "bias": jnp.asarray(0.5 * rng.normal(size=p["bias"].shape),
+                                              jnp.float32)} if "bias" in p else p)
+                for k, p in params["layers"]["attn"].items()}
+        params = {**params, "layers": {**params["layers"], "attn": attn}}
     if qcfg_kwargs is None:
         return JL, cfg, params, None
     ids = jnp.asarray(np.random.default_rng(seed).integers(
@@ -169,10 +178,7 @@ def to_numpy_tree(tree):
 def port_config(cfg):
     from autosmoothquant_tpu_torch.models.llama import LlamaConfig
 
-    return LlamaConfig(**{f: getattr(cfg, f) for f in (
-        "vocab_size", "hidden_size", "intermediate_size", "num_hidden_layers",
-        "num_attention_heads", "num_key_value_heads", "max_position_embeddings",
-        "rms_norm_eps", "rope_theta")})
+    return LlamaConfig(**dataclasses.asdict(cfg))
 
 
 def port_qcfg(qcfg):
@@ -190,3 +196,100 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
     return torch.device("cuda")
+
+
+# continuous batching: the JAX and the port ContinuousEngine on one arm's
+# params (tests/test_torch_batching*.py)
+
+ARMS = ("float", "int8", "opt_int8")
+MAX_SEQ = 128  # TINY_OPT's max_position_embeddings bounds the OPT arm
+KV = ("f32", "int8")
+
+
+def _kv_dtypes(kv):
+    import jax.numpy as jnp
+    import torch
+
+    return {"f32": (jnp.float32, torch.float32), "int8": (jnp.int8, torch.int8)}[kv]
+
+
+def batching_models():
+    """arm -> (JAX module, cfg, params, port module, port cfg, port params,
+    qcfgs (JAX, port)), built once per arm (a module fixture returns it).
+    ``.jax_engines`` keeps the JAX engines by configuration: each compiles
+    its own steps, and an idle engine serves the next request set as a new
+    one would (its counters are read as differences)."""
+    from autosmoothquant_tpu_torch.convert.from_jax import params_from_jax
+    from autosmoothquant_tpu_torch.models import llama as TL
+    from autosmoothquant_tpu_torch.models import opt as TO
+
+    built = {}
+
+    def get(arm):
+        if arm not in built:
+            if arm == "opt_int8":
+                JM, cfg, params, qcfg = jax_opt({"type": "int8"}, seed=21)
+                TM, tcfg = TO, port_opt_config(cfg)
+            else:
+                JM, cfg, params, qcfg = jax_llama({"type": "int8"} if arm == "int8" else None,
+                                                  seed=21)
+                TM, tcfg = TL, port_config(cfg)
+            built[arm] = (JM, cfg, params, TM, tcfg,
+                          params_from_jax(to_numpy_tree(params), device="cpu"),
+                          (qcfg, port_qcfg(qcfg)))
+        return built[arm]
+    get.jax_engines = {}
+    return get
+
+
+def port(models, arm, kv="f32", **kw):
+    """A port ContinuousEngine on the arm's params (CPU, f32 compute)."""
+    import torch
+    from autosmoothquant_tpu_torch.serve.batching import ContinuousEngine
+
+    *_, TM, tcfg, tparams, (_, tq) = models(arm)
+    kw = {"max_batch": 2, "max_seq": MAX_SEQ, **kw}
+    return ContinuousEngine(TM, tparams, tcfg, tq, kv_dtype=_kv_dtypes(kv)[1],
+                            compute_dtype=torch.float32, device="cpu", **kw)
+
+
+def pair(models, arm, kv="f32", **kw):
+    """A JAX ContinuousEngine (an idle one of this configuration, where one
+    was built) and a new port one on the arm's params."""
+    import jax.numpy as jnp
+    from autosmoothquant_tpu.serve.batching import ContinuousEngine
+
+    key = (arm, kv, tuple(sorted(kw.items())))
+    je = models.jax_engines.get(key)
+    if je is None:
+        JM, cfg, params, *_, (jq, _) = models(arm)
+        je = models.jax_engines[key] = ContinuousEngine(
+            JM, params, cfg, jq, kv_dtype=_kv_dtypes(kv)[0], compute_dtype=jnp.float32,
+            **{"max_batch": 2, "max_seq": MAX_SEQ, **kw})
+    return je, port(models, arm, kv, **kw)
+
+
+def _counts(e):
+    return e.prefill_tokens_processed, e.decode_tokens_generated
+
+
+def run_both(je, te, reqs):
+    """Run a request set, [(uid, prompt, submit kwargs)], through both
+    engines: equal outputs, equal counter increments, and logprobs (where
+    asked) within atol 1e-4. Returns the port's outputs."""
+    before = _counts(te), _counts(je)
+    treqs = [te.submit(uid, p, **kw) for uid, p, kw in reqs]
+    jreqs = [je.submit(uid, p, **kw) for uid, p, kw in reqs]
+    got, want = te.run(), je.run()
+    assert got == want
+    assert ([a - b for a, b in zip(_counts(te), before[0])]
+            == [a - b for a, b in zip(_counts(je), before[1])])
+    for t, j in zip(treqs, jreqs):
+        assert t.done and j.done
+        np.testing.assert_allclose(t.logprobs, j.logprobs, atol=1e-4, rtol=0)
+    return got
+
+
+def prompts_of(seed, lengths, hi=250):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, hi, size=n).tolist() for n in lengths]
