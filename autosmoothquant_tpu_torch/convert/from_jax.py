@@ -22,6 +22,9 @@ biases (``"w"``, ``"b"``) become f32, the type the fused norm kernels take
 Leaves may be numpy arrays (ml_dtypes bf16 and fp8 are recognized by their
 dtype names and read through an integer view, with no import) or torch
 tensors.
+
+``params_to_jax`` is the inverse, for the artifact writer
+(``convert/pipeline.py:save_quantized``).
 """
 
 from __future__ import annotations
@@ -103,6 +106,33 @@ def params_from_jax(tree: Dict[str, Any], cfg=None, *,
         top["lm_head"] = {"w": top["embed"]["w"].t().contiguous()}
     params = {**top, "layers": [_block(stacked, i) for i in range(n_layers)]}
     return _map(lambda t: t.to(dev), params)
+
+
+def params_to_jax(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's params (unfused, as ``params_from_jax`` gives them) in the
+    layout ``params_from_jax`` reads, as CPU tensors: decoder-layer leaves
+    stacked ``[L, ...]``, quantized weights back to ``[K, N]`` (int4 packed
+    ``[K'/2, N]``, group scales ``[G, N]``). A float projection's bias keeps
+    the name ``"bias"``, the one every linear of both packages reads, so the
+    round trip through ``params_from_jax`` is exact."""
+    host = _map(lambda t: t.detach().cpu(), params)
+    top = {k: _untranspose(v) for k, v in host.items() if k != "layers"}
+    return {**top, "layers": _stack([_untranspose(lp) for lp in host["layers"]])}
+
+
+def _untranspose(node):
+    if isinstance(node, dict) and "w" in node and node["w"].dtype in QUANT_DTYPES:
+        return {k: t.t().contiguous() if k in ("w", "w_scales") else t
+                for k, t in node.items()}
+    if isinstance(node, dict):
+        return {k: _untranspose(v) for k, v in node.items()}
+    return node
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
 
 
 def _map(fn, node):

@@ -123,7 +123,12 @@ class ContinuousEngine(GraphedSteps):
     the CPU; True on the CPU raises ValueError. True captures the decode
     step per key (sampling, penalize, want_lp, kv_window) and replays it;
     False runs it eagerly on the same buffers (the twin that graph decode is
-    held against); a failed capture raises."""
+    held against); a failed capture raises.
+
+    ``register_prefix``, ``drop_prefix``, ``cancel``, ``reset_slots`` and
+    ``step`` run under ``torch.inference_mode()`` whatever the calling
+    thread's grad mode (it is thread-local): ``serve/api.py`` calls them from
+    its scheduler thread."""
 
     def __init__(self, model_mod, params, cfg, qcfg: Optional[QuantConfig] = None,
                  *, max_batch: int = 8, max_seq: int = 2048,
@@ -281,6 +286,7 @@ class ContinuousEngine(GraphedSteps):
         self._prefixes[prefix_id] = (cache, len(toks), last, toks)
         self._touch_prefix(prefix_id)
 
+    @torch.inference_mode()
     def drop_prefix(self, prefix_id) -> None:
         self._prefixes.pop(prefix_id, None)
         self._prefix_lru.pop(prefix_id, None)
@@ -318,6 +324,7 @@ class ContinuousEngine(GraphedSteps):
         self.temps[row] = 0.0
         self.reppens[row] = 1.0
 
+    @torch.inference_mode()
     def cancel(self, uid) -> bool:
         """Abort a request wherever it is (waiting, admitting, decoding), set
         its ``done``; True if found."""
@@ -339,6 +346,7 @@ class ContinuousEngine(GraphedSteps):
                 found = True
         return found
 
+    @torch.inference_mode()
     def reset_slots(self) -> None:
         """Evict every request, waiting, admitting or decoding (error
         recovery), each marked done."""

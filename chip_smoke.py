@@ -62,7 +62,26 @@ Phases (any failure ends the run with a nonzero exit code):
            max_batch 8 and 16, W8A8 and bf16, in paired turns: tok/s across
            the batch, replay ms a step, its idle share and speed tag,
            host ms a tick, prefill ms per admission; at max_batch 16 a
-           replay runs K1 on its tensor cores (88 + 22 K2 on the device)
+           replay runs K1 on its tensor cores (88 + 22 K2 on the device).
+           Also the first op (layer, name) where a row's eager decode step
+           at max_batch 8 differs from the same row alone, on the same
+           inputs (locate_batch_variance)
+  http     the serving entry points on that W8A8 TinyLlama: the artifact
+           written by the port's save_quantized (with a tokenizer.model by
+           its write_model_proto) and read back by load_any_quantized bit
+           for bit; the test_model CLI in its own process equal to
+           Engine.generate; serve() in process over a graph ContinuousEngine
+           (max_batch 8, max_seq 512): every route with the reference's wire
+           shape, streamed equal to plain, requests one at a time equal to
+           the engine driven directly, 16 concurrent ones with logprobs by
+           the batching phase's rule against the static engine, K1 (GEMV
+           and tensor cores), K2 and K3 (causal and banded) launched, each
+           graph's replay 88 Int8 GEMV + 22 K2 on the device; the
+           serve_model CLI in
+           its own process: one reply equal to the in-process server's, the
+           batching phase's stream from 32 client threads (tok/s, time to
+           first token p50 / p95, against the direct stream), SIGINT exits 0
+           with no traceback
   timing   the launch floor (a one-element kernel); each kernel's time
            against its plain version, its library yardstick and its bound
            (K1 and K4 at M = 1, 2, 4 and 8 on their GEMV too; K2, K5 and K6
@@ -104,6 +123,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 # the port's Llama weights, drawn as the bench arm draws them (which also
@@ -117,7 +137,8 @@ from autosmoothquant_tpu_torch.bench import (
 from autosmoothquant_tpu_torch.kernels.counters import launch_counters, read_counts
 
 PKG = "autosmoothquant_tpu_torch"
-PHASES = ("device", "build", "kernels", "e2e", "serve", "batching", "timing")
+ROOT = os.path.dirname(os.path.abspath(__file__))
+PHASES = ("device", "build", "kernels", "e2e", "serve", "batching", "http", "timing")
 
 # NVIDIA H100 SXM data sheet (dense): HBM3 bandwidth and peak rates by type
 HBM_BYTES_PER_S = 3.35e12
@@ -1529,7 +1550,10 @@ def phase_batching(torch, results, engines):
     same prompt up to their first parting, with logits within
     BATCH_LOGIT_NOISE of the static engine's at every step to it (the
     near-tie statistic of PERF.md §2's W8A8 rule printed beside), and equal
-    on every request at max_batch 1. Then the timing streams (batching_timing)."""
+    on every request at max_batch 1. Then the op where a row's decode step
+    at max_batch 8 first parts from the same row alone
+    (locate_batch_variance), and the timing streams (batching_timing), whose
+    readings it returns."""
     from autosmoothquant_tpu_torch.models import llama as L
     from autosmoothquant_tpu_torch.serve.batching import ContinuousEngine
     from autosmoothquant_tpu_torch.serve.engine import Engine, GenerationConfig
@@ -1671,7 +1695,125 @@ def phase_batching(torch, results, engines):
     require(len(same) == len(ref), f"max_batch 1: tokens differ from the static engine's on "
             f"{sorted(set(ref) - set(same))}")
     del b1
-    batching_timing(torch, results, L, cfg, params, qcfg)
+    locate_batch_variance(torch, L, cfg, qcfg, params)
+    return batching_timing(torch, results, L, cfg, params, qcfg)
+
+
+# where a row's decode step depends on the batch: the ops of a Llama decoder
+# layer by the names models/llama.py calls them, and attend, which
+# update_and_attend calls in models/common.py
+VARIANCE_PROBES = {"llama": ("rms_norm", "linear", "apply_rope", "update_and_attend",
+                             "fused_add_rmsnorm_quant", "linear_prequant", "activation"),
+                   "common": ("attend",)}
+VARIANCE_SLOTS = (100, 37, 250, 5, 180, 64, 128, 12)   # each row's cache slot
+
+
+def attend_steps(torch, q, k, v, mask, scale):
+    """The steps of ``models/common.py:attend`` on a bf16 cache (decode's
+    route), by name: the score product, the mask, the softmax, the bf16
+    rounding of the probabilities and the value product."""
+    b, tq, h, dh = q.shape
+    h_kv = k.shape[2]
+    qf = q.float().reshape(b, tq, h_kv, h // h_kv, dh)
+    out = {"scores einsum": torch.einsum("bqkgd,bskd->bkgqs", qf, k.float()) * scale}
+    out["mask"] = out["scores einsum"].masked_fill(~mask[:, :, None], -1e30)
+    out["softmax"] = torch.softmax(out["mask"], dim=-1)
+    out["probs bf16"] = out["softmax"].to(torch.bfloat16).float()
+    out["values einsum"] = torch.einsum("bkgqs,bskd->bqkgd", out["probs bf16"], v.float())
+    return out
+
+
+def locate_batch_variance(torch, L, cfg, qcfg, params, rows=8, draws=8):
+    """One eager decode step as the continuous engine runs it (each row at
+    its own slot, a 256-column window, bf16) at max_batch ``rows`` and for
+    its row 0 alone, on the same inputs (random bf16 K/V in a cache of 257
+    slots, random tokens), for ``draws`` seeded draws of them. Every probe
+    (VARIANCE_PROBES) records its output's row 0 in call order with its
+    layer; the first record where the two steps differ names the op that
+    depends on the batch. Attend's steps are compared too, on the recorded
+    inputs of layer 0's call. Prints, per draw, the probes that differ and
+    the logits' difference; returns {(layer, op) first to differ: draws}."""
+    import collections
+    import importlib
+
+    from autosmoothquant_tpu_torch.serve.engine import _tensors, maybe_fuse_projections
+
+    params = maybe_fuse_projections(L, params)
+    mods = {name: importlib.import_module(f"autosmoothquant_tpu_torch.models.{name}")
+            for name in VARIANCE_PROBES}
+    lens = torch.tensor(VARIANCE_SLOTS[:rows], device="cuda")
+
+    def step(pool, tok, b):
+        rec, attend_in, layer = [], [], [0]
+        saved = {}
+
+        def probe(mod, name):
+            fn = saved[(mod, name)] = getattr(mod, name)
+
+            def wrapped(*a, **kw):
+                out = fn(*a, **kw)
+                if name == "attend" and not attend_in:
+                    attend_in.append(a)
+                outs = out if isinstance(out, tuple) else (out,)
+                rec.append((layer[0], name, [o[:1].float().clone() for o in outs
+                                             if torch.is_tensor(o)]))
+                return out
+            setattr(mod, name, wrapped)
+
+        layer_forward = L._layer_forward
+
+        def counted(*a, **kw):
+            out = layer_forward(*a, **kw)
+            layer[0] += 1
+            return out
+        for mod, names in VARIANCE_PROBES.items():
+            for name in names:
+                probe(mods[mod], name)
+        L._layer_forward = counted
+        cache = [type(c)(*(t[:b].clone() for t in _tensors(c))) for c in pool]
+        try:
+            with torch.inference_mode():
+                h, _ = L.forward(params, tok[:b, None], cfg, qcfg, kv_cache=cache,
+                                 cache_index=lens[:b], positions=lens[:b, None],
+                                 kv_window=256, compute_dtype=torch.bfloat16)
+                rec.append((layer[0], "logits", [L.logits(params, h)[:1, 0].clone()]))
+        finally:
+            L._layer_forward = layer_forward
+            for (mod, name), fn in saved.items():
+                setattr(mod, name, fn)
+        return rec, attend_in[0]
+
+    firsts = collections.Counter()
+    for seed in range(draws):
+        g = torch.Generator(device="cuda")
+        g.manual_seed(31 + seed)
+        pool = L.init_kv_cache(cfg, rows, 257, torch.bfloat16, "cuda")
+        for layer in pool:
+            for t in _tensors(layer):
+                t.copy_(torch.randn(t.shape, generator=g, device="cuda"))
+        tok = torch.randint(0, cfg.vocab_size, (rows,), generator=g, device="cuda")
+        (wide, (q, k, v, mask, scale)), (alone, _) = step(pool, tok, rows), step(pool, tok, 1)
+        require([r[:2] for r in wide] == [r[:2] for r in alone],
+                "the batch-variance locator's two steps ran different ops")
+        differ = [(layer, name, max(float((x - y).abs().max()) for x, y in zip(a, b)))
+                  for (layer, name, a), (_, _, b) in zip(wide, alone)
+                  if not all(torch.equal(x, y) for x, y in zip(a, b))]
+        logits = differ[-1][2] if differ and differ[-1][1] == "logits" else 0.0
+        if differ:
+            firsts[differ[0][:2]] += 1
+        with torch.inference_mode():
+            parts = {b: attend_steps(torch, q[:b], k[:b], v[:b], mask[:b], scale)
+                     for b in (rows, 1)}
+        log(f"  batch variance draw {seed}, one decode step, row 0 at max_batch {rows} vs "
+            f"alone: {len(differ)} of {len(wide)} probes differ; the first eight (layer, op, "
+            f"max |diff|): " + ", ".join(f"L{la} {n} {d:.3g}" for la, n, d in differ[:8])
+            + f"; logits max |diff| {logits:.4g}; inside layer 0's attend: " + ", ".join(
+                f"{name} {float((parts[rows][name][:1] - parts[1][name]).abs().max()):.3g}"
+                for name in parts[1]))
+    log(f"  batch variance: the first op to differ, over {draws} draws: "
+        + (", ".join(f"layer {la} {n} in {c}" for (la, n), c in firsts.most_common())
+           or "none (every probe equal)"))
+    return dict(firsts)
 
 
 def instrument(torch, eng):
@@ -1744,9 +1886,10 @@ def batching_timing(torch, results, L, cfg, w8a8, qcfg):
     after the turns a profile of 5 replays of each engine's main graph gives
     its busy ms, and each turn its idle share and speed tag (dense or
     gapped). At max_batch 16 a W8A8 replay launches 88 K1 tensor-core GEMMs
-    and 22 K2 on the device."""
+    and 22 K2 on the device. Returns {max_batch: {format: [turns]}}."""
     from autosmoothquant_tpu_torch.serve.batching import ContinuousEngine
 
+    readings = {}
     params = {"w8a8": (w8a8, qcfg), "bf16": (draw_float(cfg, seed=4, device="cuda"), None)}
     for max_batch in (8, 16):
         engs = {fmt: ContinuousEngine(L, p, cfg, q, max_batch=max_batch,
@@ -1759,7 +1902,7 @@ def batching_timing(torch, results, L, cfg, w8a8, qcfg):
             warm = stream(torch, e, stats[fmt], 0)
             log(f"  batching stream b{max_batch} {fmt} warm-up: {warm['tok_s']:.1f} tok/s, "
                 f"{warm['captures']} captures")
-        turns = {fmt: [] for fmt in engs}
+        turns = readings[max_batch] = {fmt: [] for fmt in engs}
         for i, fmt in enumerate(("w8a8", "bf16", "bf16", "w8a8")):
             turns[fmt].append(stream(torch, engs[fmt], stats[fmt], 1 + i))
         for fmt, e in engs.items():
@@ -1798,6 +1941,481 @@ def batching_timing(torch, results, L, cfg, w8a8, qcfg):
             results["int8_matmul"]["continuous_b16_tc_launches_a_replay"] = per_replay[
                 "int8_matmul_tc"]
         del engs, stats
+    return readings
+
+
+# ---------------------------------------------------------------------------
+# the serving entry points: the artifact on disk, the CLIs, the HTTP facade
+# ---------------------------------------------------------------------------
+
+# the in-process server's engine, and serve_model's flags for the same
+HTTP_ENGINE = dict(max_batch=8, max_seq=512, steps_per_sync=8)
+SERVE_FLAGS = ("--port", "0", "--max-batch", "8", "--max-seq", "512", "--steps-per-sync",
+               "8", "--prefill-chunk", "0")
+HTTP_CONCURRENT = 16      # greedy requests with logprobs sent at once
+HTTP_NEW = 24             # their new tokens
+CLI_NEW = 32              # test_model's new tokens
+HTTP_TIMEOUT = 300        # seconds: any one HTTP call, a subprocess's start
+# the HTTP stream: the batching phase's STREAM through serve_model from this
+# many client threads, each sending one streamed greedy request
+HTTP_CLIENTS = STREAM["requests"]
+TOKENIZER_CHARS = "".join(chr(c) for c in range(33, 127))
+
+
+def tinyllama_config_dict():
+    """TinyLlama-1.1B's HF config.json fields the port reads."""
+    return {"architectures": ["LlamaForCausalLM"], "model_type": "llama", **TINYLLAMA,
+            "rms_norm_eps": 1e-6, "rope_theta": 10000.0, "tie_word_embeddings": False}
+
+
+def write_tokenizer(path, vocab):
+    """``path``/tokenizer.model by the port's ``write_model_proto``: <unk>,
+    <s>, </s>, the space piece and printable ASCII, then "[i]" for every id
+    i up to ``vocab``, so any token the model emits decodes, and the decode
+    of a token list is the concatenation of its pieces' (no byte pieces, no
+    space piece past id 3)."""
+    from autosmoothquant_tpu_torch.utils.sp_tokenizer import write_model_proto
+
+    pieces = [("<unk>", 0.0, 2), ("<s>", 0.0, 3), ("</s>", 0.0, 3), ("▁", -1.0, 1)]
+    pieces += [(ch, -2.0, 1) for ch in TOKENIZER_CHARS]
+    pieces += [(f"[{i}]", -3.0, 1) for i in range(len(pieces), vocab)]
+    with open(os.path.join(path, "tokenizer.model"), "wb") as f:
+        f.write(write_model_proto(pieces, "bpe"))
+
+
+def leaves(node, path=""):
+    if isinstance(node, dict):
+        return [x for k, v in node.items() for x in leaves(v, f"{path}/{k}")]
+    if isinstance(node, list):
+        return [x for i, v in enumerate(node) for x in leaves(v, f"{path}/{i}")]
+    return [(path, node)]
+
+
+def http(port, path, payload=None, timeout=HTTP_TIMEOUT):
+    """(status, JSON reply) of a GET (payload None) or POST."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def sse(port, path, payload, timeout=HTTP_TIMEOUT):
+    """A streamed POST: ([(event, data string)], seconds from the send to
+    the first data event that carries tokens, to the end)."""
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    events, event, first = [], "data", None
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        require(r.status == 200, f"{path} stream answered {r.status}")
+        for raw in r:
+            line = raw.decode().rstrip("\n")
+            if line.startswith("event: "):
+                event = line[len("event: "):]
+            elif line.startswith("data: "):
+                data = line[len("data: "):]
+                if first is None and data != "[DONE]" and tokens_of(data):
+                    first = time.perf_counter() - t0
+                events.append((event, data))
+                event = "data"
+    total = time.perf_counter() - t0
+    return events, total if first is None else first, total
+
+
+def tokens_of(data):
+    """The token ids a streamed event carries (/generate's or /v1's)."""
+    d = json.loads(data)
+    return d.get("tokens") or (d.get("choices") or [{}])[0].get("tokens")
+
+
+def has_keys(reply, keys, what):
+    require(set(reply) == set(keys), f"{what}: keys {sorted(reply)}, expected {sorted(keys)}")
+
+
+STATS_KEYS = ("ok", "active", "admitting", "waiting", "max_batch", "prefixes",
+              "max_prefixes", "prefill_tokens", "decode_tokens", "decode_tok_per_s")
+
+
+def check_routes(port, prompts, prefix):
+    """Every route answers 200 with the reference's wire shape; greedy
+    streamed replies equal the plain ones."""
+    p = prompts[0]
+    status, gen = http(port, "/generate", {"prompt": p, "max_new_tokens": HTTP_NEW})
+    require(status == 200, f"/generate answered {status}: {gen}")
+    has_keys(gen, ("tokens", "text"), "/generate")
+    require(len(gen["tokens"]) == HTTP_NEW and isinstance(gen["text"], str),
+            f"/generate: {gen}")
+    events, _, _ = sse(port, "/generate", {"prompt": p, "max_new_tokens": HTTP_NEW,
+                                           "stream": True})
+    done = json.loads(events[-1][1])
+    streamed = [t for ev, d in events[:-1] for t in json.loads(d)["tokens"]]
+    require(events[-1][0] == "done" and done["tokens"] == gen["tokens"]
+            and done["text"] == gen["text"] and streamed == gen["tokens"][:len(streamed)],
+            "/generate: the streamed reply differs from the plain one")
+    body = {"prompt": p, "max_tokens": HTTP_NEW, "temperature": 0.0}
+    status, cmpl = http(port, "/v1/completions", body)
+    require(status == 200, f"/v1/completions answered {status}: {cmpl}")
+    has_keys(cmpl, ("id", "object", "created", "model", "choices", "usage"), "/v1/completions")
+    has_keys(cmpl["choices"][0], ("index", "text", "tokens", "logprobs", "finish_reason"),
+             "/v1/completions choice")
+    require(cmpl["object"] == "text_completion" and cmpl["choices"][0]["tokens"]
+            == gen["tokens"] and cmpl["choices"][0]["text"] == gen["text"],
+            "/v1/completions differs from /generate")
+    events, _, _ = sse(port, "/v1/completions", {**body, "stream": True})
+    chunks = [json.loads(d) for _, d in events[:-1]]
+    require(events[-1][1] == "[DONE]"
+            and [t for c in chunks for t in c["choices"][0]["tokens"]] == gen["tokens"]
+            and "".join(c["choices"][0]["text"] for c in chunks) == gen["text"]
+            and chunks[-1]["choices"][0]["finish_reason"] == "length",
+            "/v1/completions: the streamed reply differs from the plain one")
+    status, chat = http(port, "/v1/chat/completions", {
+        "messages": [{"role": "user", "content": "Hello there"}], "max_tokens": 8,
+        "temperature": 0.0})
+    require(status == 200 and chat["object"] == "chat.completion"
+            and len(chat["choices"][0]["tokens"]) == 8, f"/v1/chat/completions: {chat}")
+    has_keys(chat["choices"][0], ("index", "message", "tokens", "logprobs", "finish_reason"),
+             "/v1/chat/completions choice")
+    status, tok = http(port, "/tokenize", {"text": "Hello there"})
+    require(status == 200 and tok["count"] == len(tok["tokens"]) > 0, f"/tokenize: {tok}")
+    status, detok = http(port, "/detokenize", {"tokens": tok["tokens"]})
+    # an HF tokenizer's decode keeps <s>; the in-repo runtime's drops it
+    require(status == 200 and detok["text"].endswith("Hello there"), f"/detokenize: {detok}")
+    status, reg = http(port, "/prefix", {"id": "sys", "tokens": prefix})
+    require(status == 200 and reg == {"ok": True, "id": "sys", "prefix_tokens": len(prefix)},
+            f"/prefix: {status} {reg}")
+    on_prefix = prefix + prompts[1][:40]
+    status, hit = http(port, "/generate", {"prompt": on_prefix, "max_new_tokens": 8,
+                                           "prefix": "sys"})
+    require(status == 200 and len(hit["tokens"]) == 8, f"/generate on a prefix: {hit}")
+    status, drop = http(port, "/prefix", {"id": "sys", "drop": True})
+    require(status == 200 and drop == {"ok": True, "id": "sys", "dropped": True},
+            f"/prefix drop: {status} {drop}")
+    status, stats = http(port, "/stats")
+    require(status == 200, f"/stats answered {status}")
+    has_keys(stats, STATS_KEYS, "/stats")
+    status, models = http(port, "/v1/models")
+    require(status == 200 and models["data"][0]["owned_by"] == "autosmoothquant-tpu",
+            f"/v1/models: {models}")
+    log(f"  http routes: /generate {gen['tokens'][:8]}..., streamed equal; /v1/completions "
+        f"plain and streamed equal /generate; chat {chat['choices'][0]['tokens']}; tokenize "
+        f"{tok['count']} tokens round trip; prefix {len(prefix)} tokens registered, a "
+        f"request on it {hit['tokens']}, dropped; /stats {stats}")
+
+
+def concurrent(port, prompts):
+    """The prompts sent at once from one thread each: {i: reply}."""
+    replies = {}
+
+    def one(i, p):
+        replies[i] = http(port, "/generate", {"prompt": p, "max_new_tokens": HTTP_NEW,
+                                              "logprobs": True})
+    threads = [threading.Thread(target=one, args=(i, p)) for i, p in enumerate(prompts)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(HTTP_TIMEOUT)
+    return replies
+
+
+def check_concurrent(torch, replies, static, static_x, prompts):
+    """The batching phase's rule against the static b1 engine: each
+    reply's tokens equal the static engine's up to a parting, and the chosen
+    token's logprob within BATCH_LOGIT_NOISE of the static engine's at every
+    step before it; a parting's static top-2 margin is printed (the static
+    engine's eager twin records its logits)."""
+    from autosmoothquant_tpu_torch.serve.engine import GenerationConfig
+
+    full, noise = 0, 0.0
+    for i, p in enumerate(prompts):
+        status, out = replies[i]
+        require(status == 200, f"concurrent request {i}: {status} {out}")
+        want, want_lp = static[i]
+        got, got_lp = out["tokens"], out["logprobs"]
+        j = next((j for j, (x, y) in enumerate(zip(got, want)) if x != y), None)
+        upto = len(got) if j is None else j
+        d = max((abs(a - b) for a, b in zip(got_lp[:upto], want_lp[:upto])), default=0.0)
+        noise = max(noise, d)
+        require(d <= BATCH_LOGIT_NOISE, f"concurrent request {i}: logprobs differ from the "
+                f"static engine's by {d} before any parting (limit {BATCH_LOGIT_NOISE})")
+        if j is None:
+            require(len(got) == len(want), f"concurrent request {i}: {len(got)} tokens")
+            full += 1
+            continue
+        _, seen = static_logits(torch, static_x, p, GenerationConfig(max_new_tokens=j + 1))
+        log(f"  http concurrent request {i}: tokens part from the static engine's at step {j} "
+            f"(served {got[j]}, static {want[j]}); static top-2 margin there "
+            f"{margin(seen[j]):.4f}; max |logprob diff| before it {d:.4f}")
+    log(f"  http {len(prompts)} concurrent greedy requests vs the static engine b1: {full}/"
+        f"{len(prompts)} equal in full; max |logprob diff| before any parting {noise:.4f} "
+        f"(limit {BATCH_LOGIT_NOISE})")
+
+
+def start_cli_server(path, tok_dir):
+    """serve_model as users start it, in its own process: (process, port,
+    stderr file)."""
+    import tempfile
+
+    err = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", f"{PKG}.cli.serve_model", "--quantized-model-path", path,
+         "--tokenizer-path", tok_dir, *SERVE_FLAGS],
+        stdout=subprocess.PIPE, stderr=err, text=True, cwd=ROOT)
+    deadline = time.time() + HTTP_TIMEOUT
+    first = []
+    reader = threading.Thread(target=lambda: first.append(proc.stdout.readline()), daemon=True)
+    reader.start()
+    reader.join(HTTP_TIMEOUT)
+    line = first[0] if first else ""
+    found = re.search(r"on [\d.]+:(\d+) ", line)
+    if not found:
+        proc.kill()
+        err.seek(0)
+        require(False, f"serve_model printed {line!r}; stderr: {err.read()[-3000:]}")
+    port = int(found.group(1))
+    while time.time() < deadline:
+        try:
+            if http(port, "/health", timeout=10)[0] == 200:
+                return proc, port, err
+        except OSError:
+            time.sleep(0.5)
+    proc.kill()
+    require(False, f"serve_model did not answer /health within {HTTP_TIMEOUT} s")
+
+
+def client_stream(port, seed):
+    """STREAM through HTTP: STREAM's requests, each from its own client
+    thread, streamed and greedy. Returns (tok/s across the batch, time to
+    first token p50 and p95 in s, host wall s)."""
+    import torch
+
+    rng = torch.Generator().manual_seed(seed)
+    prompts = [torch.randint(0, TINYLLAMA["vocab_size"], (STREAM["prompt"],),
+                             generator=rng).tolist() for _ in range(HTTP_CLIENTS)]
+    got = {}
+
+    def one(i):
+        got[i] = sse(port, "/generate", {"prompt": prompts[i], "stream": True,
+                                         "max_new_tokens": STREAM["new_tokens"]})
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(HTTP_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(HTTP_TIMEOUT)
+    wall = time.perf_counter() - t0
+    require(len(got) == HTTP_CLIENTS and all(ev[-1][0] == "done" for ev, _, _ in got.values()),
+            f"{HTTP_CLIENTS - len(got)} streamed requests failed to finish; last events "
+            f"{[ev[-1] for ev, _, _ in got.values() if ev[-1][0] != 'done'][:3]}")
+    tokens = sum(len(json.loads(ev[-1][1])["tokens"]) for ev, _, _ in got.values())
+    require(tokens == HTTP_CLIENTS * STREAM["new_tokens"], f"the HTTP stream gave {tokens} tokens")
+    ttft = sorted(first for _, first, _ in got.values())
+    return tokens / wall, statistics.median(ttft), ttft[math.ceil(0.95 * len(ttft)) - 1], wall
+
+
+def served_stream(torch, eng, port):
+    """STREAM through the in-process server, its engine instrumented as the
+    batching phase instruments the direct stream (CUDA events around each
+    tick's replays, the host clock around each synchronized admission):
+    tok/s across the batch, prefill ms per admission and replay ms a step
+    of the graph that ran most, for a like-for-like reading of what the
+    handler threads cost the scheduler thread."""
+    stats = instrument(torch, eng)
+    try:
+        tps, _, _, _ = client_stream(port, 2)
+    finally:
+        del eng._admit, eng._graphs.run
+    replay = {key: (sum(s.elapsed_time(e) for s, e, _ in ev), sum(n for *_, n in ev))
+              for key, ev in stats["replays"].items()}
+    main = max(replay, key=lambda k: replay[k][1])
+    return dict(tok_s=tps, prefill_ms=stats["admit_s"] * 1e3 / max(stats["admitted"], 1),
+                admitted=stats["admitted"], replay_ms=replay[main][0] / replay[main][1])
+
+
+def phase_http(torch, results, direct, smi_line):
+    """The serving entry points at TinyLlama-1.1B's full width and depth in
+    W8A8 (the serve phase's weights, drawn again from their seed), counted:
+    the artifact written by the port's save_quantized and read back bit for
+    bit; test_model in its own process against Engine.generate; the HTTP
+    facade in process over a graph ContinuousEngine (every route, requests
+    one at a time exact against the engine driven directly, concurrent ones
+    by the batching phase's rule against the static engine, K1 GEMV and
+    tensor cores, K2, K3 causal and banded launched, a replay of each graph
+    88 Int8 GEMV + 22 K2 on the device); serve_model in its own process (one
+    reply equal to the in-process server's, the batching phase's stream from
+    32 client threads, SIGINT exits 0 with no traceback)."""
+    import signal
+    import tempfile
+
+    from autosmoothquant_tpu_torch.convert.from_jax import params_to_jax
+    from autosmoothquant_tpu_torch.convert.pipeline import load_any_quantized, save_quantized
+    from autosmoothquant_tpu_torch.models import llama as L
+    from autosmoothquant_tpu_torch.quant.config import QuantConfig
+    from autosmoothquant_tpu_torch.serve.api import serve
+    from autosmoothquant_tpu_torch.serve.batching import ContinuousEngine
+    from autosmoothquant_tpu_torch.serve.engine import Engine, GenerationConfig
+    from autosmoothquant_tpu_torch.utils.tokenizer import load_tokenizer
+
+    cfg = tinyllama(L, 22)
+    tmp = tempfile.TemporaryDirectory(prefix="asq_http_")
+    path = tmp.name
+    drawn = draw_w8a8(cfg, seed=3, device="cuda")
+    t0 = time.perf_counter()
+    save_quantized(path, params_to_jax(drawn), QuantConfig(type="int8"),
+                   config_dict=tinyllama_config_dict())
+    write_tokenizer(path, cfg.vocab_size)
+    saved_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params, qcfg, config = load_any_quantized(path, device="cuda")
+    loaded_s = time.perf_counter() - t0
+    a, b = dict(leaves(drawn)), dict(leaves(params))
+    require(set(a) == set(b), f"the artifact's params have other leaves: {set(a) ^ set(b)}")
+    unequal = [p for p, x in a.items() if x.dtype != b[p].dtype or not torch.equal(x, b[p])]
+    require(not unequal, f"the artifact gave back other tensors: {unequal[:5]}")
+    size = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+    log(f"  http artifact: {size / 2**30:.3f} GiB written in {saved_s:.1f} s, read back in "
+        f"{loaded_s:.1f} s, {len(b)} tensors bit-equal to the drawn ones; "
+        f"config {config['architectures']}, quant {qcfg.type}")
+    del drawn
+
+    # the static b1 engine: test_model's reference and the concurrent
+    # requests' (run before any server thread exists: one thread on the card)
+    rng = torch.Generator().manual_seed(41)
+
+    def toks(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
+    cli_prompt = toks(40)
+    prefix = toks(96)
+    alone = [toks(n) for n in (17, 60, 128, 33)]
+    together = [toks(16 + 7 * i) for i in range(HTTP_CONCURRENT)]
+    static = Engine(L, params, cfg, qcfg, max_batch=1, max_seq=512, kv_dtype=torch.bfloat16,
+                    compute_dtype=torch.bfloat16, device="cuda")
+    cli_want = static.generate([cli_prompt], GenerationConfig(max_new_tokens=CLI_NEW))[0]
+    ref = [static.generate([p], GenerationConfig(max_new_tokens=HTTP_NEW,
+                                                 return_logprobs=True))[0] for p in together]
+    del static
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"{PKG}.cli.test_model", "--quantized-model-path", path,
+         "--prompt-ids", ",".join(map(str, cli_prompt)), "--max-new-tokens", str(CLI_NEW),
+         "--max-seq", "512"], capture_output=True, text=True, timeout=HTTP_TIMEOUT, cwd=ROOT)
+    require(proc.returncode == 0, f"test_model exited {proc.returncode}: {proc.stderr[-3000:]}")
+    cli_got = [int(t) for t in proc.stdout.strip().splitlines()[-1].split()]
+    log(f"  http test_model (own process, {time.perf_counter() - t0:.1f} s): {cli_got[:12]}...; "
+        f"equal to Engine.generate in process: {cli_got == cli_want}")
+    require(cli_got == cli_want, f"test_model printed {cli_got}; Engine.generate {cli_want}")
+
+    # the facade in process, counted from the engine's construction
+    counters = launch_counters()
+    torch.cuda.synchronize()
+    reset_counts(counters)
+    eng = ContinuousEngine(L, params, cfg, qcfg, kv_dtype=torch.bfloat16,
+                           compute_dtype=torch.bfloat16, device="cuda", **HTTP_ENGINE)
+    api, httpd = serve(eng, port=0, tokenizer=load_tokenizer(path))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    port = httpd.server_address[1]
+    try:
+        status, warm = http(port, "/generate", {"prompt": alone[0], "max_new_tokens": 8})
+        require(status == 200, f"the warm-up request answered {status}: {warm}")
+        check_routes(port, alone, prefix)
+        one_by_one = {}
+        for i, p in enumerate(alone):
+            status, out = http(port, "/generate", {"prompt": p, "max_new_tokens": HTTP_NEW})
+            require(status == 200, f"request {i} answered {status}: {out}")
+            one_by_one[i] = out["tokens"]
+        t0 = time.perf_counter()
+        replies = concurrent(port, together)
+        concurrent_s = time.perf_counter() - t0
+        counts = read_counts(counters)
+        served = served_stream(torch, eng, port)
+        status, stats = http(port, "/stats")
+    finally:
+        httpd.shutdown()
+        api.stop()
+        httpd.server_close()
+    require(api.fatal is None, f"the server lost the device: {api.fatal}")
+    log(json.dumps({"path": "http W8A8", "host launches": counts}))
+    for name in ("int8_matmul_gemv", "int8_matmul_tc", "fused_add_rmsnorm_quant",
+                 "flash_attention", "flash_attention_banded"):
+        require(counts[name] > 0, f"{name} ({COUNTED.get(name, 'every route')}) was not "
+                f"launched on the HTTP path")
+    for name in ("int8_matmul", "fused_add_rmsnorm_quant", "flash_attention",
+                 "flash_attention_banded"):
+        results[name]["http_launches"] = counts[name]
+    static_x = Engine(L, params, cfg, qcfg, max_batch=1, max_seq=512,
+                      kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16, device="cuda",
+                      cuda_graph=False)
+    check_concurrent(torch, replies, ref, static_x, together)
+    del static_x
+    for i, p in enumerate(alone):
+        eng.submit(f"direct{i}", p, max_new_tokens=HTTP_NEW)
+        direct_toks = eng.run()[f"direct{i}"]
+        require(direct_toks == one_by_one[i], f"request {i}: the server answered "
+                f"{one_by_one[i]}, the engine driven directly {direct_toks}")
+    log(f"  http in process: every request answered 200 (/stats {stats}); one at a time "
+        f"{len(alone)}/{len(alone)} equal to the engine driven directly; {HTTP_CONCURRENT} "
+        f"concurrent in {concurrent_s:.2f} s; {len(eng.graphs)} graphs {sorted(eng.graphs)}, "
+        f"{eng.replays} replays")
+    step = {**dict.fromkeys(DEVICE_READS, 0), "int8_matmul": 88, "int8_matmul_gemv": 88,
+            "fused_add_rmsnorm_quant": 22, "fused_add_rmsnorm_quant_vec": 22}
+    park(eng)
+    for key, captured in eng.graphs.items():
+        per_replay = replay_counts(torch, captured.graph)
+        log(f"  http graph {key}: device launches a replay {per_replay}")
+        require(per_replay == step, f"http graph {key}: {per_replay}; expected {step}")
+    results["int8_matmul"]["http_launches_a_replay"] = 88
+    del eng, api, httpd
+
+    # serve_model in its own process, as users start it
+    t0 = time.perf_counter()
+    server, port, err = start_cli_server(path, path)
+    started_s = time.perf_counter() - t0
+    try:
+        status, out = http(port, "/generate", {"prompt": alone[0], "max_new_tokens": HTTP_NEW})
+        require(status == 200 and out["tokens"] == one_by_one[0],
+                f"serve_model answered {status} {out}; in process {one_by_one[0]}")
+        tps, p50, p95, wall = client_stream(port, 1)
+        status, stats = http(port, "/stats")
+    finally:
+        server.send_signal(signal.SIGINT)
+        try:
+            rc = server.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            server.kill()
+            rc = "killed after 120 s"
+        err.seek(0)
+        stderr = err.read()
+        tmp.cleanup()
+    best = {speed: max((t["tok_s"] for t in direct[8]["w8a8"] if t["speed"] == speed),
+                       default=None) for speed in ("dense", "gapped")}
+    direct_tps = max(v for v in best.values() if v)
+    turns = direct[8]["w8a8"]
+    log(f"  http stream in process, instrumented as the batching phase's direct stream: "
+        f"{served['tok_s']:.1f} tok/s; prefill {served['prefill_ms']:.3f} ms per admission "
+        f"({served['admitted']} admissions); replay {served['replay_ms']:.3f} ms a step; the "
+        f"direct stream's turns (batching phase): " + "; ".join(
+            f"{t['tok_s']:.1f} tok/s, prefill {t['prefill_ms']:.3f} ms per admission, replay "
+            f"{t['replay_ms']:.3f} ms" for t in turns) + f" [{smi_line}]")
+    log(f"  http serve_model (own process): up in {started_s:.1f} s, one reply equal to the "
+        f"in-process server's; /stats after the stream {stats}")
+    log(f"  http stream through serve_model ({HTTP_CLIENTS} client threads, prompt "
+        f"{STREAM['prompt']}, {STREAM['new_tokens']} new tokens, greedy, streamed; max_batch "
+        f"8): {tps:.1f} tok/s across the batch; time to first token p50 {p50 * 1e3:.1f} ms, "
+        f"p95 {p95 * 1e3:.1f} ms; wall {wall:.3f} s; the direct stream (batching phase, b8 "
+        f"W8A8, best turn; dense {best['dense']}, gapped {best['gapped']}) {direct_tps:.1f} "
+        f"tok/s; HTTP / direct {tps / direct_tps:.4f}; the facade's share of wall time "
+        f"{1 - tps / direct_tps:.4f} [{smi_line}]")
+    require(rc == 0, f"serve_model exited {rc} on SIGINT; stderr: {stderr[-3000:]}")
+    require("Traceback" not in stderr, f"serve_model's stderr holds a traceback: {stderr[-3000:]}")
 
 
 def pad_rows(torch, x, multiple):
@@ -2395,7 +3013,7 @@ def main():
     t_start = time.perf_counter()
     try:
         name, smi_line = phase_device(torch)
-        engines = None
+        engines = direct = None
         for phase in PHASES[1:]:
             log(f"== {phase}")
             t0 = time.perf_counter()
@@ -2408,7 +3026,9 @@ def main():
             elif phase == "serve":
                 engines = phase_serve(torch, results)
             elif phase == "batching":
-                phase_batching(torch, results, engines)
+                direct = phase_batching(torch, results, engines)
+            elif phase == "http":
+                phase_http(torch, results, direct, smi_line)
             elif phase == "timing":
                 phase_timing(torch, results, engines)
             log(f"== {phase} done in {time.perf_counter() - t0:.1f} s")

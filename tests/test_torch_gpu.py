@@ -1136,3 +1136,32 @@ def test_continuous_step_writes_below_the_pool_edge(cuda_device, monkeypatch):
     graph = _continuous(True)
     assert _serve(graph, prefix, reqs) == out
     torch.cuda.synchronize()
+
+
+def test_serve_on_the_card_answers_generate_as_the_engine(cuda_device):
+    """The HTTP facade over a graph ContinuousEngine on the card (2-layer
+    TinyLlama width, W8A8): after one warm-up request (its capture runs on
+    the scheduler thread), each /generate reply, one request at a time,
+    equals the same engine driven directly with that one request once the
+    scheduler has stopped: the same graph at the same batch shape, so the
+    same bits."""
+    from autosmoothquant_tpu_torch.serve.api import serve
+
+    from test_torch_util import http_post, start_server, stop_server
+
+    eng = _continuous(True)
+    _, reqs = _continuous_requests(3)
+    api, httpd, port = start_server(serve, eng)
+    try:
+        assert http_post(port, "/generate", {"prompt": [1, 2, 3], "max_new_tokens": 4})[0] == 200
+        replies = {}
+        for uid, p, kw in reqs[2:5]:
+            status, out = http_post(port, "/generate", {"prompt": p, **kw})
+            assert status == 200
+            replies[uid] = out["tokens"]
+    finally:
+        stop_server(api, httpd)
+    assert api.fatal is None and eng.graphs
+    for uid, p, kw in reqs[2:5]:
+        eng.submit(uid, p, **kw)
+        assert eng.run()[uid] == replies[uid]

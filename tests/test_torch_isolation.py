@@ -37,7 +37,9 @@ def test_port_imports_no_jax_side_module():
     for name in ("quant.config", "quant.math", "kernels.gemm", "kernels.fused",
                  "kernels.attention", "kernels.fp8", "kernels.int4",
                  "convert.pipeline", "models.llama", "models.opt",
-                 "models.registry", "serve.engine", "serve.sampling", "serve.batching"):
+                 "models.registry", "serve.engine", "serve.sampling", "serve.batching",
+                 "serve.api", "utils.tokenizer", "utils.sp_tokenizer", "cli.serve_model",
+                 "cli.test_model"):
         assert f"autosmoothquant_tpu_torch.{name}" in out["modules"]
 
 

@@ -293,3 +293,113 @@ def run_both(je, te, reqs):
 def prompts_of(seed, lengths, hi=250):
     rng = np.random.default_rng(seed)
     return [rng.integers(1, hi, size=n).tolist() for n in lengths]
+
+
+# HTTP helpers of the serving tests (tests/test_torch_api*.py,
+# test_torch_openai_api.py, test_torch_cli.py); every call has a timeout
+
+API_TINY = dict(vocab_size=128, hidden_size=64, intermediate_size=128,
+                num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                max_position_embeddings=128)
+
+
+def port_tiny(seed=0, **shape):
+    """(port llama module, port cfg, f32 params on the CPU) drawn by the
+    bench arm's ``draw_float`` (N(0, 1/K) weights) at ``shape`` (default
+    API_TINY): the facade's tests need the port's engine, not JAX's weights."""
+    import torch
+    from autosmoothquant_tpu_torch.bench import draw_float
+    from autosmoothquant_tpu_torch.models import llama as TL
+
+    cfg = TL.LlamaConfig(**(shape or API_TINY))
+    return TL, cfg, draw_float(cfg, seed, "cpu", proj_dtype=torch.float32)
+
+
+def port_continuous(TL, cfg, params, qcfg=None, **kw):
+    """A port ContinuousEngine on the CPU in f32 (max_batch 4, max_seq 64
+    unless given)."""
+    import torch
+    from autosmoothquant_tpu_torch.serve.batching import ContinuousEngine
+
+    kw = {"max_batch": 4, "max_seq": 64, **kw}
+    return ContinuousEngine(TL, params, cfg, qcfg, kv_dtype=torch.float32,
+                            compute_dtype=torch.float32, device="cpu", **kw)
+
+
+def start_server(serve, eng, **kw):
+    """``serve(eng, port=0, **kw)`` with its HTTP loop on a daemon thread:
+    (api, httpd, port). Stop with ``stop_server(api, httpd)``."""
+    import threading
+
+    api, httpd = serve(eng, port=0, **kw)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return api, httpd, httpd.server_address[1]
+
+
+def stop_server(api, httpd):
+    httpd.shutdown()
+    api.stop()
+    httpd.server_close()
+
+
+def http_post(port, path, payload, timeout=120):
+    """(status, JSON reply) of a POST."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def http_get(port, path, timeout=30):
+    import json
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def http_stream(port, path, payload, timeout=120):
+    """The ``data:`` payloads of an SSE reply, in order, as (event, data
+    string) pairs (event "data" where the block names none)."""
+    import json
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        assert r.headers["Content-Type"].startswith("text/event-stream")
+        body = r.read().decode()
+    out = []
+    for block in body.strip().split("\n\n"):
+        lines = dict(line.split(": ", 1) for line in block.split("\n") if ": " in line)
+        out.append((lines.get("event", "data"), lines["data"]))
+    return out
+
+
+class ToyTok:
+    """Char-level round-trip tokenizer (printable ASCII -> ids 2..97), the
+    one of tests/test_openai_api.py."""
+
+    class _Enc(list):
+        @property
+        def input_ids(self):
+            return list(self)
+
+    def __call__(self, text):
+        return self._Enc((ord(ch) - 32) % 96 + 2 for ch in text)
+
+    def decode(self, ids):
+        return "".join(chr((i - 2) % 96 + 32) for i in ids)
