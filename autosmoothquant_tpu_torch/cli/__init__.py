@@ -13,8 +13,10 @@ from __future__ import annotations
 def refuse_unported(args) -> None:
     """NotImplementedError for each parsed flag that asks for a feature the
     port does not have: tensor parallelism (``--tp`` > 1), speculative
-    decoding (``--speculative-gamma`` > 0) and the paged engine (``--paged``,
-    ``--no-auto-prefix``). ``--tp`` 0 or 1 is the one card."""
+    decoding (``--speculative-gamma`` > 0) and the paged engine's automatic
+    prefix sharing (``--paged`` without ``--no-auto-prefix``, the JAX CLI's
+    default). ``--tp`` 0 or 1 is the one card; ``--paged --no-auto-prefix``
+    serves the paged engine with explicit prefixes."""
     if args.tp > 1:
         raise NotImplementedError(
             f"--tp {args.tp}: tensor-parallel serving is not ported yet "
@@ -23,10 +25,11 @@ def refuse_unported(args) -> None:
         raise NotImplementedError(
             f"--speculative-gamma {args.speculative_gamma}: speculative decoding is "
             "not ported yet (ROADMAP Queue 1, item 14)")
-    if getattr(args, "paged", False) or getattr(args, "no_auto_prefix", False):
+    if getattr(args, "paged", False) and not getattr(args, "no_auto_prefix", False):
         raise NotImplementedError(
-            "--paged / --no-auto-prefix: the block-paged engine is not ported yet "
-            "(ROADMAP Queue 1, item 8)")
+            "--paged: the paged engine's automatic prefix radix tree (on by default) is "
+            "not ported yet (ROADMAP Queue 1, item 8b); add --no-auto-prefix for the "
+            "paged engine with explicit prefixes")
 
 
 def load(path: str, device):

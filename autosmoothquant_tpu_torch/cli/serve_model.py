@@ -10,9 +10,13 @@ with its flags.
   curl -s localhost:8000/v1/completions -d '{"prompt": "Hello", "max_tokens": 32}'
 
 It prints the address it bound (``--port 0`` takes a free port) and serves
-until SIGINT, then exits 0. ``--tp`` above 1, ``--speculative-gamma`` above 0,
-``--paged`` and ``--no-auto-prefix`` raise NotImplementedError naming their
-ROADMAP items (``cli/__init__.py:refuse_unported``).
+until SIGINT, then exits 0. ``--paged --no-auto-prefix`` serves the
+block-paged engine (``serve/paged.py:PagedEngine``, ``--block-size`` tokens a
+page, ``--num-pages`` pages or the contiguous pool's capacity) with explicit
+prefixes. ``--tp`` above 1, ``--speculative-gamma`` above 0 and ``--paged``
+alone (automatic prefix sharing, the JAX CLI's default) raise
+NotImplementedError naming their ROADMAP items
+(``cli/__init__.py:refuse_unported``).
 """
 
 from __future__ import annotations
@@ -44,12 +48,14 @@ def parse_args(argv=None):
     p.add_argument("--speculative-ngram", type=int, default=3)
     p.add_argument("--no-adaptive-gamma", action="store_true")
     p.add_argument("--paged", action="store_true",
-                   help="the block-paged KV engine (refused: not ported)")
+                   help="the block-paged KV engine (needs --no-auto-prefix)")
     p.add_argument("--block-size", type=int, default=64,
                    help="paged engine page size (tokens)")
-    p.add_argument("--num-pages", type=int, default=0, help="paged engine total pages")
+    p.add_argument("--num-pages", type=int, default=0,
+                   help="paged engine total pages (0 = the contiguous pool's capacity)")
     p.add_argument("--no-auto-prefix", action="store_true",
-                   help="the paged engine's automatic prefix sharing off (refused)")
+                   help="the paged engine's automatic prefix sharing off (explicit "
+                        "prefixes only; automatic sharing is not ported)")
     p.add_argument("--model-id", default=None,
                    help="name reported by /v1/models and completion envelopes "
                         "(default: checkpoint directory name)")
@@ -62,6 +68,7 @@ def build(args, *, device="cuda", compute_dtype=torch.bfloat16, kv_dtype=None):
     int8 always wins) let a caller run the plain versions on the CPU."""
     from ..serve.api import serve
     from ..serve.batching import ContinuousEngine
+    from ..serve.paged import PagedEngine
     from . import load, refuse_unported
 
     refuse_unported(args)
@@ -73,13 +80,17 @@ def build(args, *, device="cuda", compute_dtype=torch.bfloat16, kv_dtype=None):
         tokenizer = load_tokenizer(args.tokenizer_path)
     if args.kv_dtype == "int8":
         kv_dtype = torch.int8
-    eng = ContinuousEngine(
-        model_mod, params, cfg, qcfg, max_batch=args.max_batch, max_seq=args.max_seq,
-        kv_dtype=kv_dtype or torch.bfloat16, compute_dtype=compute_dtype,
-        steps_per_sync=args.steps_per_sync, prefill_chunk=args.prefill_chunk or None,
-        seed=args.seed, speculative_gamma=args.speculative_gamma,
-        speculative_ngram=args.speculative_ngram,
-        speculative_adaptive=not args.no_adaptive_gamma, device=device)
+    kw = dict(max_batch=args.max_batch, max_seq=args.max_seq,
+              kv_dtype=kv_dtype or torch.bfloat16, compute_dtype=compute_dtype,
+              steps_per_sync=args.steps_per_sync, prefill_chunk=args.prefill_chunk or None,
+              seed=args.seed, speculative_gamma=args.speculative_gamma,
+              speculative_ngram=args.speculative_ngram,
+              speculative_adaptive=not args.no_adaptive_gamma, device=device)
+    if args.paged:
+        eng = PagedEngine(model_mod, params, cfg, qcfg, block_size=args.block_size,
+                          num_pages=args.num_pages or None, auto_prefix=False, **kw)
+    else:
+        eng = ContinuousEngine(model_mod, params, cfg, qcfg, **kw)
     model_id = (args.model_id or Path(args.quantized_model_path).name
                 or "autosmoothquant-tpu")
     api, httpd = serve(eng, host=args.host, port=args.port, tokenizer=tokenizer,

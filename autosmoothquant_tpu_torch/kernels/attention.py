@@ -1,6 +1,8 @@
-"""Flash attention for prefill: the port of
+"""Attention kernels: flash attention for prefill, the port of
 ``autosmoothquant_tpu/kernels/attention.py`` (``flash_attention`` and
-``flash_attention_banded``).
+``flash_attention_banded``), and the port's own decode attention
+(``decode_attention``, one query token a row over a contiguous cache or
+block-paged pages; the JAX package runs decode attention as XLA ops).
 
 Both entry points launch the CUDA kernel ``csrc/flash_attn.cu`` (K3) for
 CUDA tensors, and keep separate launch counts so a run shows which prefill
@@ -153,3 +155,167 @@ def flash_attention_banded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # launches of the CUDA kernel per entry point (plain CPU calls do not count)
 flash_attention.launches = 0
 flash_attention_banded.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# decode attention (csrc/decode_attn.cu)
+# ---------------------------------------------------------------------------
+
+# q, k, v, k_scale, v_scale, table, pos, kv_valid, out, scores, then B, Hq,
+# Hkv, D, kv_rows, table_cols, pos_stride, valid_stride, n_cols, window,
+# scale, kv_kind, q_bf16, round_p, stream
+_DECODE_ARGTYPES = (_P,) * 10 + (_I,) * 10 + (ctypes.c_float, _I, _I, _I, _P)
+_KV_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# the shared memory the wrapper lets a launch take (a block may have 227 KB,
+# the kernel's static arrays included)
+_DECODE_MAX_SMEM = 220 * 1024
+
+
+def decode_smem_bytes(g: int, d: int, n_cols: int) -> int:
+    """The shared memory ``csrc/decode_attn.cu`` takes for G query heads a kv
+    head, head dim D and ``n_cols`` score columns kept there (0: the scores
+    in a global workspace): q, the score rows and the key groups' partial
+    outputs, in f32."""
+    key_groups = 512 // (32 if d <= 64 else 64)
+    return 4 * (g * d + g * n_cols + key_groups * g * d)
+
+
+def gather_pages(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Pages [N, bs, ...] read through table [B, M] as contiguous rows [B,
+    M * bs, ...]: block j of row b is page table[b, j]."""
+    b, m = table.shape
+    return pages[table.long()].reshape(b, m * pages.shape[1], *pages.shape[2:])
+
+
+def _decode_pos(pos, b: int, device) -> torch.Tensor:
+    return torch.as_tensor(pos, device=device).long().reshape(-1).expand(b)
+
+
+def decode_attention_plain(q, k, v, pos, *, scale: float, k_scale=None, v_scale=None,
+                           table=None, kv_valid=None, window: int = 0,
+                           kv_window: Optional[int] = None) -> torch.Tensor:
+    """``models/common.py:attend`` at one query token a row (JAX
+    ``common.py:attend`` at T = 1), over the first ``kv_window`` columns of
+    the rows (paged: the pages gathered into rows first), with the mask the
+    engines build: column <= pos, > pos - window (window > 0) and kv_valid.
+    f32 softmax; on the bf16 path (neither q nor the cache f32) the
+    probabilities are rounded to bf16 before the value product."""
+    b, hq, d = q.shape
+    if table is not None:
+        k, v = gather_pages(k, table), gather_pages(v, table)
+        if k_scale is not None:
+            k_scale, v_scale = gather_pages(k_scale, table), gather_pages(v_scale, table)
+    n = kv_window or k.shape[1]
+    k, v = k[:, :n], v[:, :n]
+    hkv = k.shape[2]
+    bf16 = not (q.dtype == torch.float32 or k.dtype == torch.float32)
+    p = _decode_pos(pos, b, q.device)[:, None]
+    col = torch.arange(n, device=q.device)[None, :]
+    mask = col <= p
+    if window:
+        mask = mask & (col > p - window)
+    if kv_valid is not None:
+        mask = mask & kv_valid[:, :n]
+    # the eager attend's ops at one query ([B, 1, Hkv, G, D])
+    qf = q.float().reshape(b, 1, hkv, hq // hkv, d)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float()) * scale
+    if k_scale is not None:
+        scores = scores * k_scale[:, :n].float().permute(0, 2, 1)[:, :, None, None, :]
+    scores = scores.masked_fill(~mask[:, None, None, None, :], -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    if v_scale is not None:
+        probs = probs * v_scale[:, :n].float().permute(0, 2, 1)[:, :, None, None, :]
+    if bf16:
+        probs = probs.to(torch.bfloat16).float()
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.float())
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos, *,
+                     scale: float, k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None,
+                     table: Optional[torch.Tensor] = None,
+                     kv_valid: Optional[torch.Tensor] = None, window: int = 0,
+                     kv_window: Optional[int] = None) -> torch.Tensor:
+    """Attention of one query token a row, q [B, Hq, D], over its cache.
+    Contiguous: k, v [B, S, Hkv, D]; paged (``table`` int32 [B, M]): k, v
+    [N, bs, Hkv, D] pages, key j of row b in page table[b, j // bs]. An int8
+    cache passes its f32 scales ([B, S, Hkv], or [N, bs, Hkv] pages). pos:
+    each row's position (int, 0-d or [B]); keys 0..pos are attended, within
+    ``window`` positions (a sliding window, 0: none) and where kv_valid
+    (bool [B, >= kv_window]) holds; the first ``kv_window`` columns are
+    scanned (default: all). Returns [B, Hq, D] in q's dtype.
+
+    CUDA tensors launch ``csrc/decode_attn.cu``, whose sums run in an order
+    set by key position alone, so a row's result does not depend on the
+    batch; what it refuses raises. The score rows live in shared memory
+    while they fit beside q and the partial outputs, else (long contexts) in
+    a workspace allocated here, with the same bits. A row with no valid key
+    comes out 0 from the kernel (the plain version averages it)."""
+    b, hq, d = q.shape
+    hkv = k.shape[2]
+    if (k.shape != v.shape or k.ndim != 4 or k.shape[3] != d or hq % hkv
+            or (table is None and k.shape[0] != b)
+            or (table is not None and (table.ndim != 2 or table.shape[0] != b))):
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, "
+                         f"table {None if table is None else tuple(table.shape)}")
+    if (k_scale is None) != (k.dtype != torch.int8) or (k_scale is None) != (v_scale is None):
+        raise ValueError("an int8 cache needs k_scale and v_scale, any other none")
+    if not q.is_cuda:
+        return decode_attention_plain(q, k, v, pos, scale=scale, k_scale=k_scale,
+                                      v_scale=v_scale, table=table, kv_valid=kv_valid,
+                                      window=window, kv_window=kv_window)
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype not in _KV_KINDS \
+            or v.dtype != k.dtype:
+        raise TypeError(f"q {q.dtype} (f32 or bf16), cache {k.dtype}/{v.dtype} "
+                        "(f32, bf16 or int8)")
+    if d % 8 or d > _MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d}: the kernel takes D % 8 == 0 up to {_MAX_HEAD_DIM}")
+    kv_rows = k.shape[1]
+    n_cols = kv_window or (kv_rows if table is None else table.shape[1] * kv_rows)
+    g = hq // hkv
+    if g > 64 or decode_smem_bytes(g, d, 0) > _DECODE_MAX_SMEM:
+        raise ValueError(f"G={g}, D={d}: past the kernel's shared memory "
+                         f"({_DECODE_MAX_SMEM} bytes)")
+    # a choice by shape alone, and either place gives the same bits
+    scores = None
+    if decode_smem_bytes(g, d, n_cols) > _DECODE_MAX_SMEM:
+        scores = torch.empty(b * hq * n_cols, dtype=torch.float32, device=q.device)
+    tensors = [q, k, v] + [t for t in (k_scale, v_scale, table) if t is not None]
+    if not all(t.is_contiguous() for t in tensors) or any(
+            t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k, v, the scales and the table must be contiguous, and q, k, "
+                         "v 16-byte aligned")
+    pos = torch.as_tensor(pos, device=q.device)
+    if pos.dtype != torch.int64:
+        pos = pos.long()
+    if pos.ndim > 1 or pos.numel() not in (1, b):
+        raise ValueError(f"pos {tuple(pos.shape)}: an int, 0-d or [B]")
+    pos_stride = pos.stride(0) if pos.numel() == b > 1 else 0
+    if kv_valid is not None and (kv_valid.dtype != torch.bool or kv_valid.stride(-1) != 1
+                                 or kv_valid.shape[0] != b or kv_valid.shape[1] < n_cols):
+        raise ValueError(f"kv_valid {kv_valid.dtype} {tuple(kv_valid.shape)}: bool [B, "
+                         f">= {n_cols}] with unit column stride")
+    if table is not None and table.dtype != torch.int32:
+        raise TypeError(f"table must be int32, got {table.dtype}")
+    out = torch.empty_like(q)
+    fn = _build.function("decode_attn", "asq_decode_attention", _DECODE_ARGTYPES)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _build.ptr(k_scale),
+            _build.ptr(v_scale), _build.ptr(table), pos.data_ptr(), _build.ptr(kv_valid),
+            out.data_ptr(), _build.ptr(scores), b, hq, hkv, d, kv_rows,
+            table.shape[1] if table is not None else 0, pos_stride,
+            kv_valid.stride(0) if kv_valid is not None else 0, n_cols, int(window),
+            float(scale), _KV_KINDS[k.dtype], int(q.dtype == torch.bfloat16),
+            int(q.dtype != torch.float32 and k.dtype != torch.float32),
+            _build.stream_ptr(q))
+    _build.check("decode_attn", rc, "decode_attention")
+    decode_attention.launches += 1
+    if table is not None:
+        decode_attention.paged_launches += 1
+    return out
+
+
+# launches of the CUDA kernel (plain CPU calls do not count); the paged
+# addressing's alone in paged_launches (counted in launches too)
+decode_attention.launches = 0
+decode_attention.paged_launches = 0

@@ -20,21 +20,25 @@ def launch_counters() -> Counters:
     launch of the kernel; ``int8_matmul_tc``, ``fp8_matmul_tc`` and
     ``int4_matmul_tc`` count K1's, K4's and K5's tensor-core routes alone,
     ``int8_matmul_gemv`` and ``fp8_matmul_gemv`` K1's and K4's "gemv" routes,
-    and ``fused_add_rmsnorm_quant_vec`` and ``fused_add_layernorm_quant_vec``
-    K2's and K6's vector routes (each also in its kernel's count)."""
-    from .attention import flash_attention, flash_attention_banded
+    ``fused_add_rmsnorm_quant_vec`` and ``fused_add_layernorm_quant_vec``
+    K2's and K6's vector routes, ``rmsnorm_quant_norm`` the norm's mode
+    without the quantize (the final norm) and ``decode_attention_paged``
+    decode attention through a page table (each also in its kernel's
+    count)."""
+    from .attention import decode_attention, flash_attention, flash_attention_banded
     from .fp8 import fp8_matmul
-    from .fused import fused_add_layernorm_quant, fused_add_rmsnorm_quant
+    from .fused import fused_add_layernorm_quant, fused_add_rmsnorm_quant, rmsnorm_quant
     from .gemm import int8_matmul
     from .int4 import int4_matmul
 
     wrappers = (int8_matmul, fused_add_rmsnorm_quant, flash_attention,
                 flash_attention_banded, fp8_matmul, int4_matmul,
-                fused_add_layernorm_quant)
+                fused_add_layernorm_quant, rmsnorm_quant, decode_attention)
     counters = {w.__name__: (w, "launches") for w in wrappers}
     for w, route in ((int8_matmul, "tc"), (fp8_matmul, "tc"), (int4_matmul, "tc"),
                      (int8_matmul, "gemv"), (fp8_matmul, "gemv"),
-                     (fused_add_rmsnorm_quant, "vec"), (fused_add_layernorm_quant, "vec")):
+                     (fused_add_rmsnorm_quant, "vec"), (fused_add_layernorm_quant, "vec"),
+                     (rmsnorm_quant, "norm"), (decode_attention, "paged")):
         counters[f"{w.__name__}_{route}"] = (w, f"{route}_launches")
     return counters
 

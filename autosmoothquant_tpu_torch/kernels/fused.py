@@ -1,10 +1,14 @@
 """Fused residual-add + norm + int8 quantize: the port of
 ``autosmoothquant_tpu/kernels/fused.py`` (``fused_add_rmsnorm_quant`` for the
-Llama family, ``fused_add_layernorm_quant`` for OPT).
+Llama family, ``fused_add_layernorm_quant`` for OPT), and the port's own
+RMSNorm + int8 quantize without the add (``rmsnorm_quant``: the first norm
+of a Llama layer and, without the quantize, the final norm; the JAX package
+leaves these to XLA).
 
 CUDA tensors launch ``csrc/add_rmsnorm_quant.cu`` (K2) or
 ``csrc/add_layernorm_quant.cu`` (K6), each on the route :func:`norm_route`
-gives; CPU tensors run the ``*_plain`` versions.
+gives, or ``csrc/rmsnorm_quant.cu``; CPU tensors run the ``*_plain``
+versions.
 """
 
 from __future__ import annotations
@@ -123,8 +127,69 @@ def fused_add_layernorm_quant(h: torch.Tensor, x: torch.Tensor,
                    (gamma, beta), eps)
 
 
+# x, gamma, out, rows, D, eps, is_bf16, quantize, stream
+_RMS_ARGTYPES = (_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                 ctypes.c_int, _P)
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm in f32 (JAX ``models/common.py:rms_norm``): x * rsqrt(mean(x^2)
+    + eps) * weight, torch's mean. For a per-tensor int8 consumer ``weight``
+    already holds the folded 1/input_scale, so the output is in int8 units."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return xf * torch.rsqrt(var + eps) * weight.float()
+
+
+def rmsnorm_quant_plain(x: torch.Tensor, gamma: torch.Tensor, *, eps: float = 1e-6,
+                        quantize: bool = True) -> torch.Tensor:
+    """The two ops it fuses, as JAX and the port ran them before
+    (:func:`rms_norm`, then ``quantize_act_prescaled``): int8 of
+    round-half-even(rms_norm(x)) clamped (``quantize``), else the norm in x's
+    dtype. The kernel sums the squares in an order of its own (set by D
+    alone), so its int8 may sit one step from this where y lies within a
+    last bit of a rounding boundary."""
+    y = rms_norm(x, gamma, eps)
+    if quantize:
+        return torch.clamp(torch.round(y), -128, 127).to(torch.int8)
+    return y.to(x.dtype)
+
+
+def rmsnorm_quant(x: torch.Tensor, gamma: torch.Tensor, *, eps: float = 1e-6,
+                  quantize: bool = True) -> torch.Tensor:
+    """x: [T, D] (f32 or bf16); gamma: f32 [D] (with the per-tensor input
+    scale folded in where the output feeds an int8 GEMM). Returns int8 [T, D]
+    of round(rmsnorm(x) * gamma) (``quantize``), or rmsnorm(x) * gamma in
+    x's dtype. A row's bits do not depend on T. CUDA tensors launch
+    ``csrc/rmsnorm_quant.cu`` (D % 8 == 0, D <= 12288; anything else raises);
+    counted in ``launches``, the unquantized mode in ``norm_launches`` too."""
+    if x.ndim != 2 or gamma.shape != (x.shape[1],):
+        raise ValueError(f"shapes x {tuple(x.shape)}, gamma {tuple(gamma.shape)}")
+    if not x.is_cuda:
+        return rmsnorm_quant_plain(x, gamma, eps=eps, quantize=quantize)
+    t, d = x.shape
+    if x.dtype not in (torch.float32, torch.bfloat16) or gamma.dtype != torch.float32:
+        raise TypeError(f"x must be f32 or bf16 and gamma f32, got {x.dtype}/{gamma.dtype}")
+    if d % 8 or d > _MAX_D:
+        raise ValueError(f"D={d}: the kernel takes D % 8 == 0 up to {_MAX_D}")
+    # contiguous, with 16-byte aligned bases (a fresh allocation is aligned)
+    x, gamma = (v.contiguous() if v.data_ptr() % 16 == 0 else v.clone(
+        memory_format=torch.contiguous_format) for v in (x, gamma))
+    out = torch.empty((t, d), dtype=torch.int8 if quantize else x.dtype, device=x.device)
+    fn = _build.function("rmsnorm_quant", "asq_rmsnorm_quant", _RMS_ARGTYPES)
+    rc = fn(x.data_ptr(), gamma.data_ptr(), out.data_ptr(), t, d, float(eps),
+            int(x.dtype == torch.bfloat16), int(quantize), _build.stream_ptr(x))
+    _build.check("rmsnorm_quant", rc, "rmsnorm_quant")
+    rmsnorm_quant.launches += 1
+    if not quantize:
+        rmsnorm_quant.norm_launches += 1
+    return out
+
+
 # launches of the CUDA kernels (plain CPU calls do not count), and of the
 # vector route alone (counted in launches too)
 for _wrapper in (fused_add_rmsnorm_quant, fused_add_layernorm_quant):
     _wrapper.launches = 0
     _wrapper.vec_launches = 0
+rmsnorm_quant.launches = 0
+rmsnorm_quant.norm_launches = 0

@@ -22,24 +22,18 @@ from typing import List, Optional, Union
 import torch
 import torch.nn.functional as F
 
-from ..kernels.attention import flash_attention, flash_attention_banded
+from ..kernels.attention import (decode_attention, flash_attention, flash_attention_banded,
+                                 gather_pages)
 from ..kernels.fp8 import fp8_matmul
+from ..kernels.fused import rms_norm  # noqa: F401  (the family modules' norm)
 from ..kernels.gemm import int8_matmul
 from ..kernels.int4 import int4_matmul
 from ..quant import math as qmath
 from ..quant.config import PER_TENSOR, PER_TOKEN, QuantConfig
 
 # ---------------------------------------------------------------------------
-# Norms and rotary embeddings
+# Norms and rotary embeddings (rms_norm: kernels/fused.py)
 # ---------------------------------------------------------------------------
-
-
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
-    """RMSNorm in f32. For a per-tensor int8 consumer ``weight`` already holds
-    the folded 1/input_scale, so the output is in int8 units."""
-    xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
-    return xf * torch.rsqrt(var + eps) * weight.float()
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -227,6 +221,66 @@ class QuantKVCacheLayer:
 
 
 KVCache = List[Union[KVCacheLayer, QuantKVCacheLayer]]
+
+
+@dataclasses.dataclass
+class PagedLayer:
+    """One layer's view of a paged pool: pages [N, bs, H_kv, Dh] (int8 pages
+    with f32 scale pages [N, bs, H_kv]) and the block table int32 [B, M]."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    table: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+
+@dataclasses.dataclass
+class PagedKVPool:
+    """Block-paged KV store (JAX ``common.py:PagedKVPool``): a page holds
+    ``block_size`` consecutive tokens of one sequence, and row b's virtual
+    block j lives in page ``table[b, j]``, so full prefix blocks can be
+    shared between rows by pointing several table rows at one page. Mutable:
+    the engine writes pages and refills the table in place.
+
+    k, v:  [L, N, bs, H_kv, Dh]
+    table: int32 [B, M]; the engine's scratch pages come first (page 0 on).
+    Indexing gives a layer's :class:`PagedLayer` (views)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    table: torch.Tensor
+
+    def __len__(self) -> int:
+        return self.k.shape[0]
+
+    def __getitem__(self, layer: int) -> PagedLayer:
+        return PagedLayer(self.k[layer], self.v[layer], self.table)
+
+
+@dataclasses.dataclass
+class QuantPagedKVPool:
+    """int8 block-paged KV store (JAX ``common.py:QuantPagedKVPool``):
+    :class:`PagedKVPool` with per-token-per-head absmax scales in scale pages.
+
+    k, v:             int8 [L, N, bs, H_kv, Dh]
+    k_scale, v_scale: f32  [L, N, bs, H_kv]
+    table:            int32 [B, M]"""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: torch.Tensor
+    v_scale: torch.Tensor
+    table: torch.Tensor
+
+    def __len__(self) -> int:
+        return self.k.shape[0]
+
+    def __getitem__(self, layer: int) -> PagedLayer:
+        return PagedLayer(self.k[layer], self.v[layer], self.table,
+                          self.k_scale[layer], self.v_scale[layer])
+
+
 # int, a 0-d int tensor on the device (every row at one offset), or an int
 # [B] tensor on the device (each row at its own offset: continuous batching)
 CacheIndex = Union[int, torch.Tensor]
@@ -340,16 +394,32 @@ def cache_mask_and_routing(kv_cache, cache_index: CacheIndex, b: int, t: int,
     pad_starts as each row's first valid column. mask (bool [B, 1, T, S]) is
     built only for the eager route that reads it, over the first
     ``kv_window`` cache columns where given (else all S_max), per row: col <=
-    slot, and col > slot - window with a sliding window."""
+    slot, and col > slot - window with a sliding window. A decode step (T =
+    1) builds none: decode attention takes the slots and the window itself,
+    and ``mask`` is then the bool [B, S] of columns it may read (kv_valid,
+    or the columns from each row's pad_starts on) or None for all. A paged
+    layer (:class:`PagedLayer`) masks by key position inside its attention:
+    slots only, and kv_valid and pad_starts must be None (paged rows are
+    unpadded)."""
     if kv_cache is None:
         raise ValueError("cache_mask_and_routing needs a cache")
+    if isinstance(kv_cache, PagedLayer):
+        if kv_valid is not None or pad_starts is not None:
+            raise ValueError("a paged KV pool serves unpadded rows: no kv_valid or "
+                             "pad_starts")
+        return cache_slots(cache_index, b, t, kv_cache.k.device), None, False, False
     slots = cache_slots(cache_index, b, t, kv_cache.k.device)
+    if t == 1:
+        valid = kv_valid
+        if valid is None and pad_starts is not None:
+            col = torch.arange(kv_cache.k.shape[1], device=kv_cache.k.device)
+            valid = col[None, :] >= pad_starts.reshape(-1, 1)
+        return slots, valid, False, False
     scalar = not _is_vector_index(cache_index)
-    chunk0 = (kv_valid is None and t > 1 and pad_starts is None
+    chunk0 = (kv_valid is None and pad_starts is None
               and (not sliding_window or t <= sliding_window)
               and isinstance(cache_index, int) and cache_index == 0)
-    chunkN = (kv_valid is None and t > 1 and scalar and not sliding_window
-              and not chunk0)
+    chunkN = kv_valid is None and scalar and not sliding_window and not chunk0
     mask = None
     if not (chunk0 or chunkN):
         s_max = kv_window or kv_cache.k.shape[1]
@@ -394,9 +464,9 @@ def _dequant_kv(x: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
 def update_and_attend(q, k, v, cache, cache_index: CacheIndex, mask, scale: float,
                       compute_dtype, *, plain_causal=False, chunk0_causal=False,
                       banded=False, banded_starts=None,
-                      kv_window: Optional[int] = None):
-    """Cache write + attention for one layer (the contiguous-cache routes of
-    the JAX ``update_and_attend``). q/k/v: [B, T, H(kv), Dh] after RoPE.
+                      kv_window: Optional[int] = None, sliding_window: int = 0):
+    """Cache write + attention for one layer (the routes of the JAX
+    ``update_and_attend``). q/k/v: [B, T, H(kv), Dh] after RoPE.
 
     chunk0_causal: prefill into an empty cache. The cache is written, then the
     chunk attends to itself through causal flash attention; with an int8
@@ -404,10 +474,16 @@ def update_and_attend(q, k, v, cache, cache_index: CacheIndex, mask, scale: floa
     banded: a multi-token chunk against the cache rows (ragged left-padded
     prompts, later prefill chunks): banded flash attention over the
     dequantized rows.
-    Otherwise (decode): eager attention over the raw cache, its first
-    ``kv_window`` columns where given (the mask's width): columns past every
-    row's slot are masked, so the window changes no result."""
+    A decode step (T = 1): decode attention over the raw cache at each row's
+    slot (``kernels/attention.py:decode_attention``), its first ``kv_window``
+    columns where given, ``mask`` the bool [B, S] of readable columns or
+    None (``cache_mask_and_routing``), ``sliding_window`` its window.
+    A paged layer (:class:`PagedLayer`): :func:`paged_update_and_attend`.
+    Otherwise: eager attention over the cache under ``mask``."""
     b, t = q.shape[:2]
+    if isinstance(cache, PagedLayer):
+        return paged_update_and_attend(q, k, v, cache, cache_index, scale, compute_dtype,
+                                       kv_window=kv_window, sliding_window=sliding_window)
     quant = isinstance(cache, QuantKVCacheLayer)
     if chunk0_causal and t > 1 and cache is not None:
         if quant:
@@ -432,12 +508,181 @@ def update_and_attend(q, k, v, cache, cache_index: CacheIndex, mask, scale: floa
                                      banded_starts, sm_scale=scale)
         return out.to(q.dtype)
     k_all, v_all, ks, vs = cache_update_and_read_raw(cache, k, v, cache_index)
+    if t == 1 and cache is not None:
+        out = decode_attention(q[:, 0], k_all, v_all, cache_index, scale=scale,
+                               k_scale=ks, v_scale=vs, kv_valid=mask,
+                               window=sliding_window, kv_window=kv_window)
+        return out[:, None]
     if kv_window is not None:
         k_all, v_all = k_all[:, :kv_window], v_all[:, :kv_window]
         if ks is not None:
             ks, vs = ks[:, :kv_window], vs[:, :kv_window]
     return attend(q, k_all, v_all, mask, scale, plain_causal=plain_causal,
                   k_scale=ks, v_scale=vs)
+
+
+# ---------------------------------------------------------------------------
+# Paged attention
+# ---------------------------------------------------------------------------
+
+
+def make_paged_pool(num_layers: int, num_pages: int, block_size: int, num_kv_heads: int,
+                    head_dim: int, table: torch.Tensor, dtype, device):
+    """dtype torch.int8 -> :class:`QuantPagedKVPool` (scales 1); anything
+    else -> :class:`PagedKVPool` (zeros). ``table`` is the pool's block
+    table, on ``device``."""
+    shape = (num_layers, num_pages, block_size, num_kv_heads, head_dim)
+    if dtype == torch.int8:
+        return QuantPagedKVPool(
+            k=torch.zeros(shape, dtype=torch.int8, device=device),
+            v=torch.zeros(shape, dtype=torch.int8, device=device),
+            k_scale=torch.ones(shape[:-1], dtype=torch.float32, device=device),
+            v_scale=torch.ones(shape[:-1], dtype=torch.float32, device=device),
+            table=table)
+    return PagedKVPool(k=torch.zeros(shape, dtype=dtype, device=device),
+                       v=torch.zeros(shape, dtype=dtype, device=device), table=table)
+
+
+def paged_slots(table: torch.Tensor, positions: torch.Tensor, block_size: int) -> torch.Tensor:
+    """The flat slots [B * T] of absolute token positions [B, T] in a paged
+    layer's [N * bs, ...] view, routed through table [B, M]. A block index
+    past the table reads its last column (JAX clamps the gather too); the
+    engines keep that column on the scratch page, where writes past a row's
+    blocks land (a CUDA index out of bounds would be a device assert)."""
+    blk = torch.clamp(torch.div(positions, block_size, rounding_mode="floor"),
+                      max=table.shape[1] - 1).long()
+    pid = torch.gather(table.long(), 1, blk)
+    return (pid * block_size + torch.remainder(positions, block_size)).reshape(-1)
+
+
+def _paged_write(pages: torch.Tensor, val: torch.Tensor, slots: torch.Tensor) -> None:
+    """Write val [B, T, H(, D)] into pages [N, bs, H(, D)] at ``slots``
+    (:func:`paged_slots`), in place: one ``index_copy_`` into the pages'
+    [N * bs, ...] view (JAX ``common.py:_paged_write``)."""
+    pages.view(-1, *pages.shape[2:]).index_copy_(
+        0, slots, val.reshape(-1, *val.shape[2:]).to(pages.dtype))
+
+
+def paged_attend_plain(q, k_pages, v_pages, table, pos_q, scale: float, compute_dtype,
+                       m_used: Optional[int] = None, ks_pages=None, vs_pages=None,
+                       sliding_window: int = 0) -> torch.Tensor:
+    """JAX ``common.py:paged_attend``: an online-softmax scan over virtual
+    blocks. q [B, T, Hq, D] (after RoPE); k_pages / v_pages [N, bs, Hkv, D]
+    (a layer's pages); table [B, M]; pos_q [B, T] the queries' absolute
+    positions (key position <= query position; within ``sliding_window``
+    where > 0); ks_pages / vs_pages the int8 pages' scales [N, bs, Hkv],
+    factored out of the products; the first ``m_used`` blocks are scanned."""
+    b, t, hq, d = q.shape
+    bs, hkv = k_pages.shape[1], k_pages.shape[2]
+    m = table.shape[1] if m_used is None else min(m_used, table.shape[1])
+    g = hq // hkv
+    qf = (q.float() * scale).reshape(b, t, hkv, g, d)
+    neg = torch.tensor(-1e30, dtype=torch.float32, device=q.device)
+    mx = torch.full((b, t, hkv, g), -1e30, dtype=torch.float32, device=q.device)
+    s = torch.zeros((b, t, hkv, g), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, t, hkv, g, d), dtype=torch.float32, device=q.device)
+    for j in range(m):
+        pid = table[:, j].long()
+        kb = k_pages[pid].float()                                  # [B, bs, Hkv, D]
+        vb = v_pages[pid].float()
+        sc = torch.einsum("bthgd,bshd->bthgs", qf, kb)             # [B, T, Hkv, G, bs]
+        if ks_pages is not None:
+            sc = sc * ks_pages[pid].permute(0, 2, 1)[:, None, :, None, :]
+        posk = j * bs + torch.arange(bs, device=q.device)
+        valid = posk[None, None, :] <= pos_q[:, :, None]           # [B, T, bs]
+        if sliding_window:
+            valid = valid & (posk[None, None, :] > pos_q[:, :, None] - sliding_window)
+        sc = torch.where(valid[:, :, None, None, :], sc, neg)
+        nmx = torch.maximum(mx, sc.amax(dim=-1))
+        corr = torch.exp(mx - nmx)
+        p = torch.exp(sc - nmx[..., None])
+        s = s * corr + p.sum(dim=-1)
+        if vs_pages is not None:
+            p = p * vs_pages[pid].permute(0, 2, 1)[:, None, :, None, :]
+        acc = acc * corr[..., None] + torch.einsum("bthgs,bshd->bthgd", p, vb)
+        mx = nmx
+    out = acc / torch.clamp(s, min=1e-30)[..., None]
+    return out.reshape(b, t, hq, d).to(compute_dtype)
+
+
+def paged_attend(q, layer: PagedLayer, cache_index: CacheIndex, pos_q, scale: float,
+                 compute_dtype, kv_window: Optional[int] = None,
+                 sliding_window: int = 0) -> torch.Tensor:
+    """Attention of q [B, T, Hq, D] at positions pos_q [B, T] over a paged
+    layer whose pages already hold the chunk (write, then attend). CPU:
+    :func:`paged_attend_plain` for any T, its scan bounded by
+    ceil(kv_window / bs) blocks. Card: T = 1 is decode attention through the
+    page table (one kernel); T > 1 (a suffix or a chunk) is
+    :func:`paged_gather_attend`."""
+    b, t = q.shape[:2]
+    bs = layer.k.shape[1]
+    if not q.is_cuda:
+        m_used = -(-kv_window // bs) if kv_window is not None else None
+        return paged_attend_plain(q, layer.k, layer.v, layer.table, pos_q, scale,
+                                  compute_dtype, m_used, layer.k_scale, layer.v_scale,
+                                  sliding_window)
+    if t == 1:
+        out = decode_attention(q[:, 0], layer.k, layer.v, cache_index, scale=scale,
+                               k_scale=layer.k_scale, v_scale=layer.v_scale,
+                               table=layer.table, window=sliding_window,
+                               kv_window=kv_window)
+        return out[:, None]
+    return paged_gather_attend(q, layer, cache_index, pos_q, scale, kv_window,
+                               sliding_window)
+
+
+def paged_gather_attend(q, layer: PagedLayer, cache_index: CacheIndex, pos_q, scale: float,
+                        kv_window: Optional[int] = None,
+                        sliding_window: int = 0) -> torch.Tensor:
+    """The card's route for a chunk of T > 1 (a suffix, a prefill chunk):
+    each row's mapped pages gathered into contiguous rows (a copy at
+    admission only), then banded flash attention from column 0 (rows at one
+    scalar position), or, with a sliding window or rows at their own
+    positions, the eager attention under the mask the contiguous engine
+    builds for them (``cache_mask_and_routing``): key column <= pos_q, and
+    > pos_q - window, over the first ``kv_window`` columns."""
+    k_rows, v_rows = gather_pages(layer.k, layer.table), gather_pages(layer.v, layer.table)
+    if _is_vector_index(cache_index) or sliding_window:
+        n = min(kv_window or k_rows.shape[1], k_rows.shape[1])
+        col = torch.arange(n, device=q.device)[None, None, None, :]
+        sl = pos_q[:, None, :, None]
+        mask = col <= sl
+        if sliding_window:
+            mask = mask & (col > sl - sliding_window)
+        ks = vs = None
+        if layer.k_scale is not None:
+            ks = gather_pages(layer.k_scale, layer.table)[:, :n]
+            vs = gather_pages(layer.v_scale, layer.table)[:, :n]
+        return attend(q, k_rows[:, :n], v_rows[:, :n], mask, scale, k_scale=ks, v_scale=vs)
+    ct = torch.float32 if q.dtype == torch.float32 else torch.bfloat16
+    if layer.k_scale is not None:
+        k_rows = _dequant_kv(k_rows, gather_pages(layer.k_scale, layer.table), ct)
+        v_rows = _dequant_kv(v_rows, gather_pages(layer.v_scale, layer.table), ct)
+    out = flash_attention_banded(q.to(ct), k_rows.to(ct), v_rows.to(ct), cache_index, 0,
+                                 sm_scale=scale)
+    return out.to(q.dtype)
+
+
+def paged_update_and_attend(q, k, v, layer: PagedLayer, cache_index: CacheIndex,
+                            scale: float, compute_dtype, kv_window: Optional[int] = None,
+                            sliding_window: int = 0) -> torch.Tensor:
+    """Write the chunk's K/V (int8 pages: quantized, with their scales) into
+    the layer's pages at slots cache_index + [0, T), then :func:`paged_attend`
+    (JAX ``common.py:paged_update_and_attend``)."""
+    b, t = q.shape[:2]
+    pos = cache_slots(cache_index, b, t, q.device)
+    slots = paged_slots(layer.table, pos, layer.k.shape[1])
+    if layer.k_scale is not None:
+        kq, ks = _quantize_kv(k)
+        vq, vs = _quantize_kv(v)
+        for pages, val in ((layer.k, kq), (layer.v, vq), (layer.k_scale, ks),
+                           (layer.v_scale, vs)):
+            _paged_write(pages, val, slots)
+    else:
+        _paged_write(layer.k, k, slots)
+        _paged_write(layer.v, v, slots)
+    return paged_attend(q, layer, cache_index, pos, scale, compute_dtype, kv_window,
+                        sliding_window)
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask,

@@ -29,7 +29,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from ..kernels.fused import fused_add_rmsnorm_quant
+from ..kernels.fused import fused_add_rmsnorm_quant, rmsnorm_quant
 from ..quant.config import PER_TENSOR, QuantConfig
 from ..runtime import resolve_device
 from .common import (
@@ -103,6 +103,15 @@ class LlamaConfig:
 config_from_hf = LlamaConfig.from_hf
 
 
+def _qkv_prescaled(qcfg: Optional[QuantConfig], attn) -> bool:
+    """Whether q|k|v take per-tensor int8 whose input scale is folded into
+    ln1 (the default QuantConfig): the first norm then runs as one
+    RMSNorm + int8 kernel a row (``kernels/fused.py:rmsnorm_quant``)."""
+    proj = attn["qkv"] if "qkv" in attn else attn["q"]
+    return (qcfg is not None and qcfg.is_int8 and qcfg.qkv == PER_TENSOR
+            and proj["w"].dtype == torch.int8)
+
+
 def _layer_forward(h, lp, cfg: LlamaConfig, qcfg: Optional[QuantConfig], cos,
                    sin, mask, cache, cache_index, compute_dtype, *,
                    plain_causal=False, chunk0=False, banded=False,
@@ -114,13 +123,24 @@ def _layer_forward(h, lp, cfg: LlamaConfig, qcfg: Optional[QuantConfig], cos,
     n_q, n_kv = cfg.num_attention_heads, cfg.num_key_value_heads
     qkv_gran = qcfg.qkv if qcfg else PER_TENSOR
 
-    x = rms_norm(h, lp["ln1"]["w"], cfg.rms_norm_eps)
-    if "qkv" in lp["attn"]:
+    if _qkv_prescaled(qcfg, lp["attn"]):
+        # RMSNorm + int8 quantize in one kernel, feeding q|k|v their int8
+        # input directly
+        x_q = rmsnorm_quant(h.reshape(b * t, d), lp["ln1"]["w"], eps=cfg.rms_norm_eps)
+        if "qkv" in lp["attn"]:
+            proj = linear_prequant(x_q, lp["attn"]["qkv"], compute_dtype).reshape(b, t, -1)
+            q, k, v = proj.split([n_q * hd, n_kv * hd, n_kv * hd], dim=-1)
+        else:
+            q, k, v = (linear_prequant(x_q, lp["attn"][name], compute_dtype).reshape(b, t, -1)
+                       for name in ("q", "k", "v"))
+    elif "qkv" in lp["attn"]:
+        x = rms_norm(h, lp["ln1"]["w"], cfg.rms_norm_eps)
         # one GEMM over q|k|v; its dequant_scale is a per-column vector
         proj = linear(x, lp["attn"]["qkv"], qcfg, qkv_gran, LinearKind.POST_NORM,
                       out_dtype=compute_dtype)
         q, k, v = proj.split([n_q * hd, n_kv * hd, n_kv * hd], dim=-1)
     else:
+        x = rms_norm(h, lp["ln1"]["w"], cfg.rms_norm_eps)
         q, k, v = (linear(x, lp["attn"][name], qcfg, qkv_gran,
                           LinearKind.POST_NORM, out_dtype=compute_dtype)
                    for name in ("q", "k", "v"))
@@ -132,7 +152,7 @@ def _layer_forward(h, lp, cfg: LlamaConfig, qcfg: Optional[QuantConfig], cos,
                             1.0 / math.sqrt(hd), compute_dtype,
                             plain_causal=plain_causal, chunk0_causal=chunk0,
                             banded=banded, banded_starts=banded_starts,
-                            kv_window=kv_window)
+                            kv_window=kv_window, sliding_window=cfg.sliding_window)
     attn_out = linear(ctx.reshape(b, t, n_q * hd), lp["attn"]["o"], qcfg,
                       qcfg.out if qcfg else PER_TENSOR, LinearKind.SCALED,
                       out_dtype=compute_dtype)
@@ -188,7 +208,9 @@ def forward(params, input_ids: torch.Tensor, cfg: LlamaConfig,
     kv_valid: bool [B, S_max] of valid cache slots (decode). pad_starts:
     int32 [B] left-pad lengths (ragged prefill). kv_window: a static bound
     on the cache columns decode attention reads (above every row's slot).
-    Returns (hidden [B, T, D], kv_cache)."""
+    A paged pool (``common.PagedKVPool`` / ``QuantPagedKVPool``) takes
+    neither kv_valid nor pad_starts; its sliding window masks inside its
+    attention. Returns (hidden [B, T, D], kv_cache)."""
     b, t = input_ids.shape
     h = params["embed"]["w"][input_ids].to(compute_dtype)
     chunk0 = chunkN = plain_causal = False
@@ -208,7 +230,9 @@ def forward(params, input_ids: torch.Tensor, cfg: LlamaConfig,
             kv_cache[i] if kv_cache is not None else None, cache_index,
             compute_dtype, plain_causal=plain_causal, chunk0=chunk0,
             banded=chunkN, banded_starts=pad_starts, kv_window=kv_window)
-    h = rms_norm(h, params["final_norm"]["w"], cfg.rms_norm_eps).to(compute_dtype)
+    # the final norm in one kernel a row, written in compute_dtype
+    h = rmsnorm_quant(h.reshape(b * t, -1), params["final_norm"]["w"], eps=cfg.rms_norm_eps,
+                      quantize=False).reshape(b, t, -1)
     return h, kv_cache
 
 

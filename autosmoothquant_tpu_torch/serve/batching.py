@@ -163,8 +163,7 @@ class ContinuousEngine(GraphedSteps):
         self.prefill_chunk = prefill_chunk
         self.max_prefixes = max_prefixes
 
-        # the slot pool, one scratch slot past max_seq (parked rows' writes)
-        self.pool = model_mod.init_kv_cache(cfg, max_batch, max_seq + 1, kv_dtype, dev)
+        self.pool = self._make_pool()
         self._ints = torch.zeros((5, max_batch), dtype=torch.int64, device=dev)
         self._tok, self._lens, self._active, self._topks = self._ints[:4]
         self._col = self._ints[4, 0]          # the tick's step: its output column
@@ -197,6 +196,11 @@ class ContinuousEngine(GraphedSteps):
         self._prefix_clock = 0
         self.prefill_tokens_processed = 0
         self.decode_tokens_generated = 0
+
+    def _make_pool(self):
+        """The slot pool, one scratch slot past max_seq (parked rows' writes)."""
+        return self.model.init_kv_cache(self.cfg, self.max_batch, self.max_seq + 1,
+                                        self.kv_dtype, self.device)
 
     @property
     def kv_cache_bytes(self) -> int:
@@ -541,6 +545,11 @@ class ContinuousEngine(GraphedSteps):
             self._advance_prefills()
         self._decode_tick()
 
+    def _parked_slots(self) -> np.ndarray:
+        """The slot each row writes while parked (free or mid-prefill): the
+        scratch slot max_seq of its own row."""
+        return np.full(self.max_batch, self.max_seq)
+
     def _decode_tick(self) -> None:
         """The tick's decode: n steps for the active slots, their tokens
         read back once and appended, finished requests retired."""
@@ -554,7 +563,7 @@ class ContinuousEngine(GraphedSteps):
         n = 1 << (n.bit_length() - 1)
         # a parked row (free, or mid-prefill: its prompt lives in the low
         # slots) writes to the scratch slot
-        lens_dec = np.where(active, self.lens, self.max_seq)
+        lens_dec = np.where(active, self.lens, self._parked_slots())
         sampling = bool((self.temps > 0.0)[active].any())
         penalize = bool((self.reppens != 1.0)[active].any())
         want_lp = any(r is not None and r.want_logprobs for r in self.slot_req)

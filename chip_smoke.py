@@ -14,7 +14,11 @@ add+RMSNorm+quant on its vector route, K3 flash prefill), fp8 e4m3 / e5m2
 W4A8 int4 (K5 int4 GEMM at M <= 64: its one-launch GEMV at decode, its
 tensor-core route at a prefill of <= 64 tokens in all; K3); and OPT-6.7B
 W8A8 generation (K1, K6 add+LayerNorm+quant, K3). Decode replays a CUDA
-graph of one step (``Engine``'s default on the card).
+graph of one step (``Engine``'s default on the card), in which every layer's
+attention is the port's own decode-attention kernel, and a Llama model's
+final norm (and, in W8A8, each layer's first norm with its int8 quantize)
+the port's own RMSNorm + int8 kernel. The block-paged engine
+(``PagedEngine``, explicit prefixes) serves the W8A8 TinyLlama too.
 
 Phases (any failure ends the run with a nonzero exit code):
   device   the card's name and power limit
@@ -23,7 +27,11 @@ Phases (any failure ends the run with a nonzero exit code):
   kernels  each kernel against its plain version at the main paths' shapes
            (TinyLlama-1.1B and OPT-6.7B), K1, K2, K4, K5 and K6 on each of
            their routes, K2 at Llama-2-7B's and -70B's widths too, K6 at OPT
-           widths up to OPT-66B's, K3 at D = 80 too
+           widths up to OPT-66B's, K3 at D = 80 too; rmsnorm_quant bit-equal
+           in both modes (T 1 / 8 / 128, D 2048 / 4096); decode_attention
+           contiguous and paged, bf16, f32 and int8 caches, f32 q, a sliding
+           window, kv_valid, B 1 / 8 / 16 at kv_window 256 / 512, within
+           DECODE_TOL; both with a row's bits the same alone and in a batch
   e2e      2-layer models on the card and, with the same weights, on the CPU
            (plain versions): TinyLlama width in W8A8, fp8 e4m3 dynamic, fp8
            e4m3 static (unfused), fp8 e5m2 and int4; OPT pre-LN W8A8 at
@@ -56,16 +64,25 @@ Phases (any failure ends the run with a nonzero exit code):
            replay 88 Int8 GEMV + 22 K2 on the device; an eager twin's
            tokens equal on every request and its last logits bit-equal;
            greedy tokens equal the static Engine's b1 tokens up to their
-           first parting, logits within BATCH_LOGIT_NOISE of its at every
-           step to it, and equal on every request at max_batch 1. Then saturating
+           first parting, logits within BATCH_LOGIT_NOISE (0: bit-equal) of
+           its at every step to it, and equal on every request at max_batch
+           1. Then saturating
            streams (32 requests, prompt 128, 128 new tokens, greedy) at
            max_batch 8 and 16, W8A8 and bf16, in paired turns: tok/s across
            the batch, replay ms a step, its idle share and speed tag,
            host ms a tick, prefill ms per admission; at max_batch 16 a
            replay runs K1 on its tensor cores (88 + 22 K2 on the device).
-           Also the first op (layer, name) where a row's eager decode step
-           at max_batch 8 differs from the same row alone, on the same
-           inputs (locate_batch_variance)
+           Also every op of a row's eager decode step at max_batch 8 held
+           against the same row alone, on the same inputs: bit-equal inside
+           the layers and at the final norm in every draw, the lm_head's
+           logits reported (locate_batch_variance)
+  paged    the 22-layer TinyLlama W8A8 through PagedEngine (block 32,
+           explicit prefixes) with bf16 and int8 pages: the batching
+           phase's 12 requests equal the ContinuousEngine's, graph equal to
+           eager (bf16), every decode attention launch paged, each replay
+           22 decode attention and no library GEMM past the lm_head's, the
+           pages back; the b8 stream's tok/s and replay ms beside the
+           contiguous engine's, in paired turns
   http     the serving entry points on that W8A8 TinyLlama: the artifact
            written by the port's save_quantized (with a tokenizer.model by
            its write_model_proto) and read back by load_any_quantized bit
@@ -94,7 +111,10 @@ Phases (any failure ends the run with a nonzero exit code):
            time and top kernels of one prefill (T 128; TinyLlama bf16, W8A8
            and int4 at T 64 too), of one eager decode step and of one graph
            replay (with the device ms of K1's and K4's GEMV in it); each
-           graph's capture time and pool memory; peak device memory
+           graph's capture time and pool memory; peak device memory;
+           rmsnorm_quant and decode_attention (the static engine's b1, the
+           continuous engine's b8 / b16, paged, int8, OPT-6.7B's heads)
+           beside their plain versions, SDPA and their bounds
 
 Every phase runs, in this order. The last two lines of standard output are
 the kernel table ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
@@ -138,7 +158,8 @@ from autosmoothquant_tpu_torch.kernels.counters import launch_counters, read_cou
 
 PKG = "autosmoothquant_tpu_torch"
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "kernels", "e2e", "serve", "batching", "http", "timing")
+PHASES = ("device", "build", "kernels", "e2e", "serve", "batching", "paged", "http",
+          "timing")
 
 # NVIDIA H100 SXM data sheet (dense): HBM3 bandwidth and peak rates by type
 HBM_BYTES_PER_S = 3.35e12
@@ -659,6 +680,261 @@ def layernorm_case(torch, t, d, dtype, gen):
     return h.to(dtype), x.to(dtype), gamma, beta
 
 
+# rmsnorm_quant's unquantized row against its plain version (torch's mean
+# and CUDA's rsqrt, both within a few f32 ulps of the kernel's ordered sum
+# and correctly rounded 1 / sqrt): f32 a few ulps, bf16 one rounding step
+RMSNORM_TOL = {"torch.float32": 2.0**-20, "torch.bfloat16": 2.0**-7}
+# decode attention's tolerances (max |kernel - plain| <= atol + rtol |plain|):
+# f32 outputs differ by the sums' order alone (the kernel adds in key order,
+# cuBLAS and torch's softmax in theirs); bf16 outputs are rounded to bf16
+# (one step of a value near 2 is 0.0156), and on the bf16 path the
+# probabilities are rounded to bf16 before the value product, where a last
+# bit of difference can move one across a rounding, as on K3's bf16 route
+DECODE_TOL = {"f32": (1e-5, 1e-5), "bf16": (1e-2, 1.6e-2)}
+# the decode shapes the engines give the kernel: TinyLlama (Hq 32, Hkv 4, D
+# 64) and OPT-6.7B (Hq = Hkv = 32, D 128)
+TINY_HEADS, OPT_HEADS = (32, 4, 64), (32, 32, 128)
+# Llama-3-8B / Mistral-7B (Hq 32, Hkv 8, D 128): G = 4, the long contexts
+LONG_HEADS = (32, 8, 128)
+
+
+def decode_case(torch, b, kv_window, heads, gen, *, cache="bf16", q_dtype=None,
+                paged=False, window=0, valid=False, block=32, parked=1, s=None):
+    """decode_attention's inputs as an engine gives them: q [B, Hq, D], a
+    cache of ``s`` (default kv_window + 1) slots a row in bf16, f32 or int8
+    (with _quantize_kv's scales), each row at a random position below
+    kv_window, the last ``parked`` rows at kv_window (a parked row of the
+    continuous engine: every scanned column valid); paged: the same rows cut
+    into blocks in shuffled pages behind a table with a scratch column (page
+    0); valid: kv_valid with each row's first few columns off (left pads)."""
+    from autosmoothquant_tpu_torch.models.common import _quantize_kv
+
+    hq, hkv, d = heads
+    s = s or kv_window + 1
+    qd = q_dtype or (torch.float32 if cache == "f32" else torch.bfloat16)
+    q = torch.randn(b, hq, d, device="cuda", generator=gen).to(qd)
+    kf = torch.randn(b, s, hkv, d, device="cuda", generator=gen)
+    vf = torch.randn(b, s, hkv, d, device="cuda", generator=gen)
+    c = dict(q=q, scale=1.0 / math.sqrt(d), kv_window=kv_window, window=window, table=None,
+             k_scale=None, v_scale=None, kv_valid=None)
+    if cache == "int8":
+        (k, ks), (v, vs) = _quantize_kv(kf), _quantize_kv(vf)
+        c.update(k_scale=ks, v_scale=vs)
+    else:
+        dt = torch.float32 if cache == "f32" else torch.bfloat16
+        k, v = kf.to(dt), vf.to(dt)
+    pos = torch.randint(0, kv_window, (b,), device="cuda", generator=gen)
+    if parked and b > parked:
+        pos[-parked:] = kv_window
+    c["pos"] = pos
+    if valid:
+        pads = torch.randint(0, 17, (b,), device="cuda", generator=gen)
+        c["kv_valid"] = torch.arange(s, device="cuda")[None, :] >= pads[:, None]
+    c.update(k=k, v=v)
+    if paged:
+        m = -(-s // block)
+        n_pages = b * m + 1
+        perm = torch.randperm(n_pages - 1, device="cuda", generator=gen) + 1
+        table = torch.zeros((b, m + 1), dtype=torch.int32, device="cuda")
+        table[:, :m] = perm.reshape(b, m).int()
+
+        def pages(x):
+            out = torch.zeros((n_pages, block, *x.shape[2:]), dtype=x.dtype, device="cuda")
+            pad = torch.zeros((b, m * block - s, *x.shape[2:]), dtype=x.dtype, device="cuda")
+            out[table[:, :m].reshape(-1).long()] = torch.cat([x, pad], 1).reshape(
+                b * m, block, *x.shape[2:])
+            return out
+        c.update(k=pages(k), v=pages(v), table=table)
+        if cache == "int8":
+            c.update(k_scale=pages(c["k_scale"]), v_scale=pages(c["v_scale"]))
+    return c
+
+
+def run_decode(c, plain=False, rows=None):
+    """decode_attention (or its plain version) on case ``c``, on its first
+    ``rows`` rows (all by default)."""
+    from autosmoothquant_tpu_torch.kernels import attention as A
+
+    fn = A.decode_attention_plain if plain else A.decode_attention
+    b = rows or c["q"].shape[0]
+    paged = c["table"] is not None
+    cut = (lambda x: x) if paged else (lambda x: None if x is None else x[:b])
+    return fn(c["q"][:b], cut(c["k"]), cut(c["v"]), c["pos"][:b], scale=c["scale"],
+              k_scale=cut(c["k_scale"]), v_scale=cut(c["v_scale"]),
+              table=None if not paged else c["table"][:b],
+              kv_valid=None if c["kv_valid"] is None else c["kv_valid"][:b],
+              window=c["window"], kv_window=c["kv_window"])
+
+
+def decode_ops_bytes(c):
+    """(operations, bytes) decode attention needs on this input: each row's
+    valid keys (from its window's start to min(pos, kv_window - 1)) read
+    once as keys and values (with their scales), q and the output once, the
+    score and value products 4 x G x D a key and head group."""
+    q = c["q"]
+    b, hq, d = q.shape
+    hkv = c["k"].shape[2]
+    pos = c["pos"].long()
+    hi = (pos + 1).clamp(max=c["kv_window"])
+    lo = (pos - c["window"] + 1).clamp(min=0) if c["window"] else 0 * pos
+    keys = int((hi - lo).clamp(min=0).sum())
+    per_key = 2 * hkv * d * c["k"].element_size() + (8 * hkv if c["k_scale"] is not None else 0)
+    nbytes = keys * per_key + 2 * q.numel() * q.element_size() + 8 * b
+    if c["table"] is not None:
+        nbytes += c["table"].numel() * 4
+    if c["kv_valid"] is not None:
+        nbytes += keys
+    return 4 * keys * hq * d, nbytes
+
+
+def _row_shape(d):
+    """(V, threads) of ``csrc/asq_common.cuh:asq_row_shape``: a block's
+    threads and the chunks of 8 each owns, for rows of ``d`` elements."""
+    chunks = d // 8
+    v = -(-chunks // 512)
+    per_thread = -(-chunks // v)
+    return v, -(-per_thread // 32) * 32
+
+
+def row_sum_squares(x):
+    """The sum of squares of each row of f32 ``x`` [T, D] (D % 8 == 0), added
+    in ``csrc/rmsnorm_quant.cu``'s order, rounded as it rounds (each product
+    and sum once): thread t sums its chunks of 8 (chunk t + v * threads) in
+    order, a warp adds its 32 partials by the xor butterfly, then the warps'
+    sums are added in order. The order depends on D alone, never on T."""
+    import torch
+    import torch.nn.functional as F
+
+    t, d = x.shape
+    v, threads = _row_shape(d)
+    sq = F.pad(x * x, (0, v * threads * 8 - d)).view(t, v, threads, 8)
+    local = torch.zeros((t, threads), dtype=torch.float32, device=x.device)
+    for i in range(v):
+        for e in range(8):
+            local = local + sq[:, i, :, e]
+    lanes = local.view(t, threads // 32, 32)
+    lane = torch.arange(32, device=x.device)
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[..., lane ^ o]
+    total = torch.zeros((t,), dtype=torch.float32, device=x.device)
+    for w in range(threads // 32):
+        total = total + lanes[:, w, 0]
+    return total
+
+
+def rmsnorm_quant_ordered(x, gamma, *, eps=1e-6, quantize=True):
+    """``csrc/rmsnorm_quant.cu``'s arithmetic in torch ops, bit for bit (D % 8
+    == 0): y = x * (1 / sqrt(sum(x^2) / D + eps)) * gamma in f32, the sum in
+    :func:`row_sum_squares`' order, each product and sum rounded once; int8
+    of round-half-even(y) clamped (``quantize``), else y in x's dtype. The
+    oracle the kernel is held to bit for bit."""
+    import torch
+
+    from autosmoothquant_tpu_torch.quant.math import true_div
+
+    xf = x.float()
+    mean = true_div(row_sum_squares(xf)[:, None], x.shape[-1])
+    y = xf * torch.reciprocal(torch.sqrt(mean + eps)) * gamma.float()
+    if quantize:
+        return torch.clamp(torch.round(y), -128, 127).to(torch.int8)
+    return y.to(x.dtype)
+
+
+def check_rmsnorm_quant(torch, results, gen):
+    """rmsnorm_quant in both modes (int8, and the row in x's dtype), T 1 / 8 /
+    128, D 2048 / 4096 (TinyLlama, Llama-2-7B), bf16 and f32: bit-equal to
+    rmsnorm_quant_ordered (its arithmetic in torch ops, the squares summed in
+    its order), and a row's bits the same at T = 8 and alone (the batch
+    invariance it exists for); against its plain version (torch's mean and
+    rsqrt, the two ops it fuses) within RMSNORM_TOL."""
+    from autosmoothquant_tpu_torch.kernels.fused import rmsnorm_quant, rmsnorm_quant_plain
+
+    worst = 0.0
+    for d in (2048, 4096):
+        for t in (1, 8, 128):
+            for dt in (torch.bfloat16, torch.float32):
+                x, _, gamma = rmsnorm_case(torch, t, d, dt, gen)
+                for quantize in (True, False):
+                    out = rmsnorm_quant(x, gamma, eps=1e-5, quantize=quantize)
+                    ordered = rmsnorm_quant_ordered(x, gamma, eps=1e-5, quantize=quantize)
+                    ref = rmsnorm_quant_plain(x, gamma, eps=1e-5, quantize=quantize)
+                    alone = rmsnorm_quant(x[:1], gamma, eps=1e-5, quantize=quantize)
+                    torch.cuda.synchronize()
+                    diff = (out.float() - ref.float()).abs()
+                    err = float(diff.max())
+                    worst = max(worst, err)
+                    if quantize:
+                        frac = float((diff > 0).float().mean())
+                        close = err <= 1 and frac <= 1e-3
+                        what = f"int8 max |diff| {err:g} on {frac:.3%} (<= 1 on <= 0.1%)"
+                    else:
+                        rtol = RMSNORM_TOL[str(dt)]
+                        close = bool((diff <= rtol * ref.float().abs()).all())
+                        what = f"norm max |diff| {err:g} (rtol {rtol:g})"
+                    exact = torch.equal(out, ordered) and torch.equal(alone[0], out[0])
+                    log(f"  rmsnorm_quant T={t:<4d} D={d} {str(dt).split('.')[-1]:8s} "
+                        f"{'int8' if quantize else 'norm'}: bit-equal to ordered "
+                        f"{torch.equal(out, ordered)}, row 0 alone = row 0 of T={t} "
+                        f"{torch.equal(alone[0], out[0])}; against plain {what} "
+                        f"{'ok' if exact and close else 'FAIL'}")
+                    require(exact and close, f"rmsnorm_quant disagrees at T={t} D={d} {dt} "
+                                             f"quantize={quantize}")
+    results["rmsnorm_quant"]["max_abs_err"] = worst
+
+
+def check_decode_attention(torch, results, gen):
+    """decode_attention against its plain version: contiguous and paged
+    addressing, bf16, f32 and int8 caches, f32 q on a bf16 cache, a sliding
+    window, kv_valid, B 1 / 8 / 16 at kv_window 256 / 512, TinyLlama's and
+    OPT-6.7B's heads, long contexts whose score rows do not fit in shared
+    memory (Llama-3-8B's heads at 16K columns), each within DECODE_TOL; and
+    the kernel's row 0 in a
+    batch bit-equal to row 0 alone, and to the same row scanned over all S
+    columns (the batch invariance it exists for)."""
+    cases = []
+    for b in (1, 8, 16):
+        for kv_window in (256, 512):
+            cases.append(dict(b=b, kv_window=kv_window, heads=TINY_HEADS))
+            cases.append(dict(b=b, kv_window=kv_window, heads=TINY_HEADS, paged=True))
+    cases += [dict(b=8, kv_window=256, heads=TINY_HEADS, cache="int8"),
+              dict(b=8, kv_window=512, heads=TINY_HEADS, cache="int8", paged=True),
+              dict(b=8, kv_window=256, heads=TINY_HEADS, cache="f32"),
+              dict(b=8, kv_window=256, heads=TINY_HEADS, q_dtype=torch.float32),
+              dict(b=8, kv_window=256, heads=TINY_HEADS, cache="int8", q_dtype=torch.float32),
+              dict(b=8, kv_window=512, heads=TINY_HEADS, window=64),
+              dict(b=8, kv_window=512, heads=TINY_HEADS, window=64, paged=True, cache="int8"),
+              dict(b=4, kv_window=512, heads=TINY_HEADS, valid=True, parked=0, s=512),
+              dict(b=4, kv_window=512, heads=OPT_HEADS, parked=0),
+              dict(b=8, kv_window=256, heads=OPT_HEADS, paged=True),
+              dict(b=4, kv_window=1024, heads=TINY_HEADS, paged=True, block=64),
+              # score rows past shared memory (the global workspace): G = 4 at
+              # 16K columns, G = 8 at 8K in pages; and a row's bits the same
+              # over 4096 columns (in shared memory) and all 8192 (not)
+              dict(b=2, kv_window=16384, heads=LONG_HEADS, parked=0),
+              dict(b=2, kv_window=8192, heads=TINY_HEADS, paged=True, cache="int8",
+                   block=64, parked=0),
+              dict(b=4, kv_window=4096, heads=TINY_HEADS, parked=0, s=8192)]
+    worst = 0.0
+    for kw in cases:
+        c = decode_case(torch, gen=gen, **kw)
+        out, ref = run_decode(c), run_decode(c, plain=True)
+        torch.cuda.synchronize()
+        kind = "f32" if out.dtype == torch.float32 else "bf16"
+        rtol, atol = DECODE_TOL[kind]
+        ok, err = _close(out, ref, rtol, atol)
+        worst = max(worst, err)
+        alone = run_decode(c, rows=1)
+        full = run_decode({**c, "kv_window": None} if c["table"] is None else c, rows=1)
+        inv = torch.equal(alone[0], out[0]) and torch.equal(full[0], out[0])
+        desc = ", ".join(f"{k}={v}" for k, v in kw.items() if k != "gen")
+        log(f"  decode_attention {desc}: max|err|={err:.3g} ({kind}: rtol {rtol:g}, atol "
+            f"{atol:g}); row 0 alone and over all columns bit-equal {inv} "
+            f"{'ok' if ok and inv else 'FAIL'}")
+        require(ok and inv, f"decode_attention disagrees with its plain version or across "
+                            f"batches ({desc})")
+    results["decode_attention"]["max_abs_err"] = worst
+
+
 def phase_kernels(torch, results):
     """Every kernel against its plain version on the card."""
     from autosmoothquant_tpu_torch.kernels.fused import (
@@ -941,6 +1217,11 @@ def phase_kernels(torch, results):
                                      f"at M={m} K={k} N={n} {c['label']}")
     results["int4_matmul"]["max_abs_err"] = worst
 
+    # the port's own kernels: RMSNorm + int8 (the first and final norms) and
+    # decode attention
+    check_rmsnorm_quant(torch, results, gen)
+    check_decode_attention(torch, results, gen)
+
 
 def tinyllama(L, layers):
     return L.LlamaConfig(**{**TINYLLAMA, "num_hidden_layers": layers})
@@ -1139,8 +1420,11 @@ def reset_counts(counters):
 # (SHORT_PROMPTS, 4 x 16 = 64 rows: every prefill GEMM on K5's tensor
 # cores, banded flash); its decode forwards (M = 4) take K5's GEMV on the
 # f32 inputs of q|k|v and gate|up and its columns on the bf16 inputs of o
-# and down, one count a GEMM. OPT-6.7B (32 layers) runs unfused: 6 GEMMs and
-# one K6 a layer per forward. The host launches two decode forwards, for the
+# and down, one count a GEMM. Every TinyLlama forward ends in the final norm
+# (rmsnorm_quant without the quantize); W8A8 runs its first norm a layer
+# through rmsnorm_quant too (22 + 1 a forward). Every decode forward runs
+# decode attention once a layer. OPT-6.7B (32 layers) runs unfused: 6
+# GEMMs and one K6 a layer per forward. The host launches two decode forwards, for the
 # path's one graph key: the warm-up step and the capture, which records the
 # step. The replays launch the rest without Python; a profile of replays
 # reads the device's launches of one (replay_counts)
@@ -1148,22 +1432,27 @@ SHORT_PROMPTS = (16, 12, 9, 5)
 SERVE_PATHS = {
     "W8A8": (32, {"int8_matmul": 88 * 2, "int8_matmul_tc": 88 * 2,
                   "fused_add_rmsnorm_quant": 22 * 2, "fused_add_rmsnorm_quant_vec": 22 * 2,
+                  "rmsnorm_quant": 23 * 2, "rmsnorm_quant_norm": 2,
                   "flash_attention": 22, "flash_attention_banded": 22},
              {"int8_matmul": 88, "int8_matmul_gemv": 88,
-              "fused_add_rmsnorm_quant": 22, "fused_add_rmsnorm_quant_vec": 22}, False),
+              "fused_add_rmsnorm_quant": 22, "fused_add_rmsnorm_quant_vec": 22,
+              "rmsnorm_quant": 23, "rmsnorm_quant_norm": 1, "decode_attention": 22}, False),
     "fp8 e4m3 dynamic": (16, {"fp8_matmul": 88 * 2, "fp8_matmul_tc": 88 * 2,
+                              "rmsnorm_quant": 2, "rmsnorm_quant_norm": 2,
                               "flash_attention": 22, "flash_attention_banded": 22},
-                         {"fp8_matmul": 88, "fp8_matmul_gemv": 88}, False),
-    "int4": (16, {"int4_matmul": 88, "int4_matmul_tc": 88,
-                  "flash_attention": 22, "flash_attention_banded": 2 * 22},
-             {"int4_matmul": 88}, True),
+                         {"fp8_matmul": 88, "fp8_matmul_gemv": 88, "rmsnorm_quant": 1,
+                          "rmsnorm_quant_norm": 1, "decode_attention": 22}, False),
+    "int4": (16, {"int4_matmul": 88, "int4_matmul_tc": 88, "rmsnorm_quant": 3,
+                  "rmsnorm_quant_norm": 3, "flash_attention": 22, "flash_attention_banded": 2 * 22},
+             {"int4_matmul": 88, "rmsnorm_quant": 1, "rmsnorm_quant_norm": 1,
+              "decode_attention": 22}, True),
     "OPT-6.7B W8A8": (32, {"int8_matmul": 192 * 2, "int8_matmul_tc": 192 * 2,
                            "fused_add_layernorm_quant": 32 * 2,
                            "fused_add_layernorm_quant_vec": 32 * 2,
                            "flash_attention": 32, "flash_attention_banded": 32},
                       {"int8_matmul": 192, "int8_matmul_gemv": 192,
                        "fused_add_layernorm_quant": 32,
-                       "fused_add_layernorm_quant_vec": 32}, False),
+                       "fused_add_layernorm_quant_vec": 32, "decode_attention": 32}, False),
 }
 
 
@@ -1194,32 +1483,75 @@ DEVICE_READS = {
     "fused_add_layernorm_quant": r"\badd_layernorm_quant(_vec)?_kernel<",
     "fused_add_layernorm_quant_vec": r"\badd_layernorm_quant_vec_kernel<",
     FLASH: r"\bflash_(tc_)?kernel<",
+    "rmsnorm_quant": r"\brmsnorm_quant_kernel<",
+    "rmsnorm_quant_norm": r"\brmsnorm_quant_kernel<(float, float|__nv_bfloat16, __nv_bfloat16),",
+    "decode_attention": r"\bdecode_attn_kernel<",
 }
 
 
-def replay_counts(torch, graph, reps=5):
+# a TinyLlama W8A8 decode replay's device launches (22 layers): K1's four
+# GEMMs (on ``k1_route``), K2, the first norm (rmsnorm_quant) and decode
+# attention a layer, and the final norm
+def w8a8_replay(k1_route="gemv"):
+    return {**dict.fromkeys(DEVICE_READS, 0), "int8_matmul": 88, f"int8_matmul_{k1_route}": 88,
+            "fused_add_rmsnorm_quant": 22, "fused_add_rmsnorm_quant_vec": 22,
+            "rmsnorm_quant": 23, "rmsnorm_quant_norm": 1, "decode_attention": 22}
+
+
+def replay_counts(torch, graph, reps=5, attempts=3):
     """{count of DEVICE_READS: device launches a replay of ``graph``}, from a
     profile (CUDA activity) of ``reps`` replays, begun after 100 one-element
     kernels. On an H100 a profile came back now and then without a run of
-    consecutive kernels: the first ones of a prefill at its start, or a
-    third of the warm-up step on the engine's side stream in a profile of a
-    whole serve call."""
+    consecutive kernels: the first ones of a prefill at its start, a third
+    of the warm-up step on the engine's side stream in a profile of a whole
+    serve call, or about a layer of one replay among five. Such a profile
+    reads counts that are not multiples of ``reps``; it is taken again, up
+    to ``attempts`` profiles in all (a lost event only lowers a count, so
+    the counts returned are never more than the replays launched)."""
     from torch.profiler import ProfilerActivity, profile
 
     graph.replay()
     warm = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(100):
-            warm.add_(1.0)
-        torch.cuda.synchronize()
-        for _ in range(reps):
-            graph.replay()
-        torch.cuda.synchronize()
-    counts = device_counts(prof)
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(100):
+                warm.add_(1.0)
+            torch.cuda.synchronize()
+            for _ in range(reps):
+                graph.replay()
+            torch.cuda.synchronize()
+        counts = device_counts(prof)
+        if all(n % reps == 0 for n in counts.values()):
+            break
+        log(f"  profile {attempt + 1} of at most {attempts} of {reps} replays lost "
+            f"events (read {counts})")
     require(all(n % reps == 0 for n in counts.values()),
-            f"a profile of {reps} replays read {counts}: not {reps} alike")
+            f"{attempts} profiles of {reps} replays read {counts} last: not {reps} alike")
+    library = library_gemms(prof)
+    require(sum(library.values()) <= LM_HEAD_GEMMS * reps,
+            f"a replay runs library GEMMs past the lm_head's: {library} over {reps} replays")
     return {name: n // reps for name, n in counts.items()}
+
+
+# library (cuBLAS) matrix-product kernels a decode replay may run: the
+# lm_head's product (one GEMM, and a split-K reduce where cuBLAS picks one).
+# Decode attention as torch ops added two a layer (its score and value
+# products), 44 a TinyLlama step
+LM_HEAD_GEMMS = 2
+LIBRARY_GEMM = r"gemm|gemv|nvjet|xmma|cutlass|splitK"
+
+
+def library_gemms(prof):
+    """{kernel name: launches} of the library matrix-product kernels in a
+    profile (LIBRARY_GEMM names that are none of the port's kernels)."""
+    import collections
+
+    port = port_kernel_names()
+    names = collections.Counter(e.name for e in prof.events()
+                                if e.device_type.name == "CUDA")
+    return {n: c for n, c in names.items() if re.search(LIBRARY_GEMM, n, re.I)
+            and n.split("<")[0].split("::")[-1].split("(")[0] not in port}
 
 
 def device_counts(prof):
@@ -1389,11 +1721,14 @@ CANCEL_AFTER = 10   # tokens the cancelled request has when it is cancelled
 STREAM = dict(requests=32, prompt=128, new_tokens=128, max_seq=512)
 # max |logit diff| between a request's logits at max_batch 8 and the static
 # engine's b1 logits at every step up to the first parting of their tokens
-# (logit std 2), set from this comparison's readings on an H100 (700 W): max
-# 0.2164 over 10 requests, 3 of them parting at top-2 margins 0.0068, 0.0253
-# and 0.0961, at about 1.6x. A wrong slot, mask or cache row moves logits by
-# whole units
-BATCH_LOGIT_NOISE = 0.35
+# (logit std 2). Decode attention and the first and final norms run as the
+# port's kernels, whose sums follow an order set by the row alone, so a
+# row's step no longer depends on the batch: on an H100 (700 W) this
+# comparison read 0 over 10 requests and every step (it read 0.2164 when
+# torch's mean and cuBLAS's batched score product were on the path and the
+# bound was 0.35), so the bound is 0: the logits must be bit-equal. The HTTP
+# phase holds the served logprobs to it too
+BATCH_LOGIT_NOISE = 0.0
 # a stream turn whose main graph's replay idles more than this share of its
 # time against the profiled busy time ran "gapped", else "dense" (PERF.md)
 GAPPED_IDLE = 0.05
@@ -1449,7 +1784,9 @@ def batching_counts(reqs, graphs, layers=22):
     prefill forward (the prefix's registration, causal; each chunk) runs 4
     GEMMs a layer on K1's tensor cores and K2 once a layer, and K3 once a
     layer (causal or banded); each captured key's warm-up step and capture
-    record one decode step at M = 8 (K1's GEMV, K2)."""
+    record one decode step at M = 8 (K1's GEMV, K2, decode attention); every
+    forward runs the first norm a layer and the final norm through
+    rmsnorm_quant."""
     routes = ["flash_attention"]  # the registration
     for _, prompt, kw in reqs:
         if kw.get("prefix") is None:
@@ -1463,6 +1800,8 @@ def batching_counts(reqs, graphs, layers=22):
             "int8_matmul_gemv": 4 * layers * steps,
             "fused_add_rmsnorm_quant": layers * (fwd + steps),
             "fused_add_rmsnorm_quant_vec": layers * (fwd + steps),
+            "rmsnorm_quant": (layers + 1) * (fwd + steps), "rmsnorm_quant_norm": fwd + steps,
+            "decode_attention": layers * steps,
             "flash_attention": layers * routes.count("flash_attention"),
             "flash_attention_banded": layers * routes.count("flash_attention_banded")}
 
@@ -1544,14 +1883,14 @@ def phase_batching(torch, results, engines):
     on a graph engine with the counts set to 0 just before and read just
     after, then on an eager twin. Host counts exactly as the schedule
     implies (batching_counts), both K3 wrappers launched; every captured
-    key's replay launches 88 Int8 GEMV and 22 K2 on the device; graph and
-    eager tokens equal on every request (sampled ones too) and last logits
-    bit-equal. Greedy tokens equal the static Engine's b1 generate of the
-    same prompt up to their first parting, with logits within
-    BATCH_LOGIT_NOISE of the static engine's at every step to it (the
-    near-tie statistic of PERF.md §2's W8A8 rule printed beside), and equal
-    on every request at max_batch 1. Then the op where a row's decode step
-    at max_batch 8 first parts from the same row alone
+    key's replay launches the W8A8 step's kernels on the device
+    (w8a8_replay: 88 Int8 GEMV, 22 K2, 23 rmsnorm_quant, 22 decode
+    attention); graph and eager tokens equal on every request (sampled ones
+    too) and last logits bit-equal. Greedy tokens equal the static Engine's
+    b1 generate of the same prompt up to their first parting, with logits
+    within BATCH_LOGIT_NOISE (0) of the static engine's at every step to it,
+    and equal on every request at max_batch 1. Then every op of a row's
+    decode step at max_batch 8 against the same row alone
     (locate_batch_variance), and the timing streams (batching_timing), whose
     readings it returns."""
     from autosmoothquant_tpu_torch.models import llama as L
@@ -1618,8 +1957,7 @@ def phase_batching(torch, results, engines):
                 f"from the host on the continuous path; the schedule implies {count}")
     others = {k: v for k, v in counts.items() if k not in want and v}
     require(not others, f"unexpected launches on the continuous path: {others}")
-    step = {**dict.fromkeys(DEVICE_READS, 0), "int8_matmul": 88, "int8_matmul_gemv": 88,
-            "fused_add_rmsnorm_quant": 22, "fused_add_rmsnorm_quant_vec": 22}
+    step = w8a8_replay()
     park(eng)
     for key, captured in eng.graphs.items():
         per_replay = replay_counts(torch, captured.graph)
@@ -1646,15 +1984,11 @@ def phase_batching(torch, results, engines):
             f"max |logit diff| {diff})")
     del eager
 
-    # greedy tokens against the static engine's b1 tokens. At max_batch 8
-    # a row's logits differ from b1's by W8A8 noise (torch's reductions, the
-    # norms' means and decode attention's products, sum in another order
-    # for 8 rows than for 1, and a last-bit difference moves an int8
-    # activation): tokens must be equal up to the first parting, and the
-    # logits at every step up to it within BATCH_LOGIT_NOISE of the static
-    # engine's (a wrong slot, mask or cache row moves them by whole units);
-    # the W8A8 near-tie statistic (the static engine's top-2 margin <= 0.02
-    # at or before the parting) is reported beside it
+    # greedy tokens against the static engine's b1 tokens: equal up to the
+    # first parting, and the logits at every step up to it within
+    # BATCH_LOGIT_NOISE of the static engine's (0: a row's decode step does
+    # not depend on the batch, so the logits are bit-equal and no parting can
+    # come); a parting's static top-2 margin is reported
     full, noise = 0, 0.0
     for uid, p, kw in reqs:
         if uid not in ref:
@@ -1700,27 +2034,14 @@ def phase_batching(torch, results, engines):
 
 
 # where a row's decode step depends on the batch: the ops of a Llama decoder
-# layer by the names models/llama.py calls them, and attend, which
-# update_and_attend calls in models/common.py
-VARIANCE_PROBES = {"llama": ("rms_norm", "linear", "apply_rope", "update_and_attend",
-                             "fused_add_rmsnorm_quant", "linear_prequant", "activation"),
-                   "common": ("attend",)}
+# layer by the names models/llama.py calls them (rmsnorm_quant also the final
+# norm), and decode_attention, which update_and_attend calls in
+# models/common.py
+VARIANCE_PROBES = {"llama": ("rmsnorm_quant", "rms_norm", "linear", "linear_prequant",
+                             "apply_rope", "update_and_attend", "fused_add_rmsnorm_quant",
+                             "activation"),
+                   "common": ("decode_attention",)}
 VARIANCE_SLOTS = (100, 37, 250, 5, 180, 64, 128, 12)   # each row's cache slot
-
-
-def attend_steps(torch, q, k, v, mask, scale):
-    """The steps of ``models/common.py:attend`` on a bf16 cache (decode's
-    route), by name: the score product, the mask, the softmax, the bf16
-    rounding of the probabilities and the value product."""
-    b, tq, h, dh = q.shape
-    h_kv = k.shape[2]
-    qf = q.float().reshape(b, tq, h_kv, h // h_kv, dh)
-    out = {"scores einsum": torch.einsum("bqkgd,bskd->bkgqs", qf, k.float()) * scale}
-    out["mask"] = out["scores einsum"].masked_fill(~mask[:, :, None], -1e30)
-    out["softmax"] = torch.softmax(out["mask"], dim=-1)
-    out["probs bf16"] = out["softmax"].to(torch.bfloat16).float()
-    out["values einsum"] = torch.einsum("bkgqs,bskd->bqkgd", out["probs bf16"], v.float())
-    return out
 
 
 def locate_batch_variance(torch, L, cfg, qcfg, params, rows=8, draws=8):
@@ -1729,11 +2050,11 @@ def locate_batch_variance(torch, L, cfg, qcfg, params, rows=8, draws=8):
     its row 0 alone, on the same inputs (random bf16 K/V in a cache of 257
     slots, random tokens), for ``draws`` seeded draws of them. Every probe
     (VARIANCE_PROBES) records its output's row 0 in call order with its
-    layer; the first record where the two steps differ names the op that
-    depends on the batch. Attend's steps are compared too, on the recorded
-    inputs of layer 0's call. Prints, per draw, the probes that differ and
-    the logits' difference; returns {(layer, op) first to differ: draws}."""
-    import collections
+    layer (the final norm is rmsnorm_quant after the last layer), and the
+    logits (the lm_head, a bf16 torch.matmul) are recorded last. Every probe
+    inside the decoder layers and the final norm must be bit-equal in every
+    draw; whether the logits differ is reported. Returns {"draws": n,
+    "logits_differ": draws where they do, "logits_max_diff": the largest}."""
     import importlib
 
     from autosmoothquant_tpu_torch.serve.engine import _tensors, maybe_fuse_projections
@@ -1742,9 +2063,10 @@ def locate_batch_variance(torch, L, cfg, qcfg, params, rows=8, draws=8):
     mods = {name: importlib.import_module(f"autosmoothquant_tpu_torch.models.{name}")
             for name in VARIANCE_PROBES}
     lens = torch.tensor(VARIANCE_SLOTS[:rows], device="cuda")
+    n_layers = cfg.num_hidden_layers
 
     def step(pool, tok, b):
-        rec, attend_in, layer = [], [], [0]
+        rec, layer = [], [0]
         saved = {}
 
         def probe(mod, name):
@@ -1752,8 +2074,6 @@ def locate_batch_variance(torch, L, cfg, qcfg, params, rows=8, draws=8):
 
             def wrapped(*a, **kw):
                 out = fn(*a, **kw)
-                if name == "attend" and not attend_in:
-                    attend_in.append(a)
                 outs = out if isinstance(out, tuple) else (out,)
                 rec.append((layer[0], name, [o[:1].float().clone() for o in outs
                                              if torch.is_tensor(o)]))
@@ -1781,9 +2101,9 @@ def locate_batch_variance(torch, L, cfg, qcfg, params, rows=8, draws=8):
             L._layer_forward = layer_forward
             for (mod, name), fn in saved.items():
                 setattr(mod, name, fn)
-        return rec, attend_in[0]
+        return rec
 
-    firsts = collections.Counter()
+    logit_draws, logit_max = 0, 0.0
     for seed in range(draws):
         g = torch.Generator(device="cuda")
         g.manual_seed(31 + seed)
@@ -1792,28 +2112,31 @@ def locate_batch_variance(torch, L, cfg, qcfg, params, rows=8, draws=8):
             for t in _tensors(layer):
                 t.copy_(torch.randn(t.shape, generator=g, device="cuda"))
         tok = torch.randint(0, cfg.vocab_size, (rows,), generator=g, device="cuda")
-        (wide, (q, k, v, mask, scale)), (alone, _) = step(pool, tok, rows), step(pool, tok, 1)
+        wide, alone = step(pool, tok, rows), step(pool, tok, 1)
         require([r[:2] for r in wide] == [r[:2] for r in alone],
                 "the batch-variance locator's two steps ran different ops")
+        names = {n for _, n, _ in wide}
+        require({"rmsnorm_quant", "decode_attention", "logits"} <= names,
+                f"the locator's step ran no rmsnorm_quant, decode_attention or logits: {names}")
         differ = [(layer, name, max(float((x - y).abs().max()) for x, y in zip(a, b)))
                   for (layer, name, a), (_, _, b) in zip(wide, alone)
                   if not all(torch.equal(x, y) for x, y in zip(a, b))]
-        logits = differ[-1][2] if differ and differ[-1][1] == "logits" else 0.0
-        if differ:
-            firsts[differ[0][:2]] += 1
-        with torch.inference_mode():
-            parts = {b: attend_steps(torch, q[:b], k[:b], v[:b], mask[:b], scale)
-                     for b in (rows, 1)}
+        inside = [d for d in differ if d[1] != "logits"]
+        logits = next((d[2] for d in differ if d[1] == "logits"), 0.0)
+        logit_draws += logits > 0
+        logit_max = max(logit_max, logits)
         log(f"  batch variance draw {seed}, one decode step, row 0 at max_batch {rows} vs "
-            f"alone: {len(differ)} of {len(wide)} probes differ; the first eight (layer, op, "
-            f"max |diff|): " + ", ".join(f"L{la} {n} {d:.3g}" for la, n, d in differ[:8])
-            + f"; logits max |diff| {logits:.4g}; inside layer 0's attend: " + ", ".join(
-                f"{name} {float((parts[rows][name][:1] - parts[1][name]).abs().max()):.3g}"
-                for name in parts[1]))
-    log(f"  batch variance: the first op to differ, over {draws} draws: "
-        + (", ".join(f"layer {la} {n} in {c}" for (la, n), c in firsts.most_common())
-           or "none (every probe equal)"))
-    return dict(firsts)
+            f"alone: {len(inside)} of {len(wide) - 1} probes inside the {n_layers} layers "
+            f"and the final norm differ"
+            + (" (" + ", ".join(f"L{la} {n} {d:.3g}" for la, n, d in inside[:8]) + ")"
+               if inside else "")
+            + f"; logits (lm_head) max |diff| {logits:.4g}")
+        require(not inside, f"draw {seed}: a row's decode step depends on the batch at "
+                            f"{inside[:4]} (layer, op, max |diff|)")
+    log(f"  batch variance: every probe inside the layers and the final norm bit-equal in "
+        f"{draws}/{draws} draws; the logits (lm_head) differ in {logit_draws}/{draws} "
+        f"(max |diff| {logit_max:.4g})")
+    return {"draws": draws, "logits_differ": logit_draws, "logits_max_diff": logit_max}
 
 
 def instrument(torch, eng):
@@ -1933,15 +2256,127 @@ def batching_timing(torch, results, L, cfg, w8a8, qcfg):
             e = engs["w8a8"]
             park(e)
             per_replay = replay_counts(torch, e.graphs[turns["w8a8"][-1]["main"]].graph)
-            want = {**dict.fromkeys(DEVICE_READS, 0), "int8_matmul": 88,
-                    "int8_matmul_tc": 88, "fused_add_rmsnorm_quant": 22,
-                    "fused_add_rmsnorm_quant_vec": 22}
+            want = w8a8_replay("tc")
             log(f"  batching b16 W8A8 graph: device launches a replay {per_replay}")
             require(per_replay == want, f"b16 W8A8 replay: {per_replay}; expected {want}")
             results["int8_matmul"]["continuous_b16_tc_launches_a_replay"] = per_replay[
                 "int8_matmul_tc"]
         del engs, stats
     return readings
+
+
+# ---------------------------------------------------------------------------
+# the block-paged engine
+# ---------------------------------------------------------------------------
+
+PAGE_BLOCK = 32  # tokens a page in the paged phase
+
+
+def phase_paged(torch, results, engines):
+    """PagedEngine (explicit prefixes) at full TinyLlama-1.1B width in W8A8
+    (the serve phase's params), block PAGE_BLOCK, bf16 and int8 pages: the
+    batching phase's correctness run (BATCHING: a 96-token prefix, 12
+    requests, chunk 64; eos and stop unset) on a graph PagedEngine, counted
+    from 0, against a graph ContinuousEngine on the same requests and KV
+    dtype: every request's tokens equal (the sampled ones too: one seed, one
+    schedule); each tick's decode attention in paged addressing (every host
+    launch paged), every captured key's replay the W8A8 step's device
+    launches (22 decode attention, no library GEMM past the lm_head's), every
+    page back but the prefix's. With bf16 pages an eager twin too: tokens
+    equal, last logits bit-equal. Then the timing stream (STREAM at
+    max_batch 8, whole-prompt admission) on both engines in paired turns
+    (contiguous, paged, paged, contiguous): tok/s, replay ms a step and its
+    idle share. Returns the readings."""
+    from autosmoothquant_tpu_torch.models import llama as L
+    from autosmoothquant_tpu_torch.serve.batching import ContinuousEngine
+    from autosmoothquant_tpu_torch.serve.paged import PagedEngine
+
+    cfg, qcfg, params = tinyllama(L, 22), engines["W8A8"].qcfg, engines["W8A8"].params
+    prefix, reqs = batching_requests(torch)
+    counters = launch_counters()
+    paged_kw = dict(block_size=PAGE_BLOCK, auto_prefix=False)
+    for kv in (torch.bfloat16, torch.int8):
+        kw = dict(kv_dtype=kv, compute_dtype=torch.bfloat16, seed=7, device="cuda",
+                  **BATCHING)
+        kv_name = str(kv).split(".")[-1]
+        contiguous = ContinuousEngine(L, params, cfg, qcfg, **kw)
+        want, _ = drive(contiguous, prefix, reqs)
+        del contiguous
+        eng = PagedEngine(L, params, cfg, qcfg, **paged_kw, **kw)
+        torch.cuda.synchronize()
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        out, ticks = drive(eng, prefix, reqs)
+        wall = time.perf_counter() - t0
+        counts = read_counts(counters)
+        logits = eng.last_logits
+        same = [u for u in want if out[u] == want[u]]
+        log(json.dumps({"path": f"paged W8A8 {kv_name} pages", "host launches": counts}))
+        log(f"  paged {kv_name} pages: {len(reqs)} requests in {ticks} ticks, {wall:.2f} s "
+            f"(captures included); {eng.num_pages} pages of {PAGE_BLOCK} tokens "
+            f"({eng.kv_cache_bytes / 2**30:.3f} GiB), {eng.free_pages} free after; "
+            f"{len(eng.graphs)} graphs, {eng.replays} replays; tokens equal the "
+            f"ContinuousEngine's on {len(same)}/{len(want)}")
+        require(len(same) == len(want), f"paged {kv_name}: tokens differ from the "
+                f"ContinuousEngine's on {sorted(set(want) - set(same))}")
+        require(bool(torch.isfinite(logits).all()), "non-finite logits on the paged path")
+        require(counts["decode_attention"] > 0
+                and counts["decode_attention_paged"] == counts["decode_attention"],
+                f"paged decode attention: {counts['decode_attention_paged']} paged of "
+                f"{counts['decode_attention']} host launches")
+        prefix_pages = -(-PREFIX_LEN // PAGE_BLOCK)
+        require(eng.free_pages == eng.num_pages - 1 - prefix_pages,
+                f"paged {kv_name}: {eng.free_pages} pages free after the run; expected "
+                f"{eng.num_pages - 1 - prefix_pages}")
+        park(eng)
+        for key, captured in eng.graphs.items():
+            per_replay = replay_counts(torch, captured.graph)
+            log(f"  paged graph {key}: device launches a replay {per_replay}")
+            require(per_replay == w8a8_replay(), f"paged graph {key}: {per_replay}")
+        results["decode_attention"].setdefault("paged_launches", {})[kv_name] = counts[
+            "decode_attention_paged"]
+        if kv == torch.bfloat16:
+            eager = PagedEngine(L, params, cfg, qcfg, cuda_graph=False, **paged_kw, **kw)
+            out_x, _ = drive(eager, prefix, reqs)
+            same_logits = torch.equal(eager.last_logits, logits)
+            log(f"  paged graph vs eager: tokens equal {out_x == out}, last logits bit-equal "
+                f"{same_logits}")
+            require(out_x == out and same_logits, "paged graph and eager decode differ")
+            del eager
+        del eng
+
+    # the timing stream on both engines, in turns
+    engs = {"contiguous": ContinuousEngine(L, params, cfg, qcfg, max_batch=8,
+                                           max_seq=STREAM["max_seq"], steps_per_sync=8,
+                                           kv_dtype=torch.bfloat16,
+                                           compute_dtype=torch.bfloat16, device="cuda"),
+            "paged": PagedEngine(L, params, cfg, qcfg, max_batch=8, max_seq=STREAM["max_seq"],
+                                 steps_per_sync=8, kv_dtype=torch.bfloat16,
+                                 compute_dtype=torch.bfloat16, device="cuda", **paged_kw)}
+    stats = {name: instrument(torch, e) for name, e in engs.items()}
+    for name, e in engs.items():
+        stream(torch, e, stats[name], 0)
+    turns = {name: [] for name in engs}
+    for i, name in enumerate(("contiguous", "paged", "paged", "contiguous")):
+        turns[name].append(stream(torch, engs[name], stats[name], 1 + i))
+    for name, e in engs.items():
+        key = turns[name][-1]["main"]
+        park(e)
+        _, busy = device_profile(torch, e.graphs[key].graph.replay,
+                                 f"{name} decode step (TinyLlama W8A8, b8, graph {key})",
+                                 turns[name][-1]["replay_ms"], reps=5)
+        for i, t in enumerate(turns[name]):
+            t["idle"] = 1 - busy / t["replay_ms"]
+            t["speed"] = "gapped" if t["idle"] > GAPPED_IDLE else "dense"
+            log(f"  paged phase stream b8 W8A8 {name} turn {i + 1}: {t['tok_s']:.1f} tok/s, "
+                f"replay {t['replay_ms']:.3f} ms a step (busy {busy:.3f}, idle "
+                f"{t['idle']:.3f}: {t['speed']}), prefill {t['prefill_ms']:.3f} ms per "
+                f"admission, host {t['host_ms_tick']:.3f} ms a tick")
+    best = {name: max(t["tok_s"] for t in ts) for name, ts in turns.items()}
+    log(f"  paged phase stream b8 W8A8 best turns: contiguous {best['contiguous']:.1f}, "
+        f"paged {best['paged']:.1f} tok/s; paged/contiguous "
+        f"{best['paged'] / best['contiguous']:.4f}")
+    return turns
 
 
 # ---------------------------------------------------------------------------
@@ -2365,8 +2800,7 @@ def phase_http(torch, results, direct, smi_line):
         f"{len(alone)}/{len(alone)} equal to the engine driven directly; {HTTP_CONCURRENT} "
         f"concurrent in {concurrent_s:.2f} s; {len(eng.graphs)} graphs {sorted(eng.graphs)}, "
         f"{eng.replays} replays")
-    step = {**dict.fromkeys(DEVICE_READS, 0), "int8_matmul": 88, "int8_matmul_gemv": 88,
-            "fused_add_rmsnorm_quant": 22, "fused_add_rmsnorm_quant_vec": 22}
+    step = w8a8_replay()
     park(eng)
     for key, captured in eng.graphs.items():
         per_replay = replay_counts(torch, captured.graph)
@@ -2556,6 +2990,68 @@ def phase_timing(torch, results, engines):
         results["fused_add_layernorm_quant"].setdefault("rows", []).append(row)
         if t == 1:
             results["fused_add_layernorm_quant"].update(row, shape="decode T=1 D=4096 bf16")
+
+    # rmsnorm_quant (the first norm with its int8, and the final norm) at
+    # decode (T = 1) and prefill (T = 128), TinyLlama's D = 2048, bf16. No
+    # library call computes it: library null
+    from autosmoothquant_tpu_torch.kernels.fused import rmsnorm_quant, rmsnorm_quant_plain
+
+    for t in (1, 8, 128):
+        for quantize in (True, False):
+            x, _, gamma = rmsnorm_case(torch, t, 2048, torch.bfloat16, gen)
+            ms = timer.ms(lambda: rmsnorm_quant(x, gamma, eps=1e-5, quantize=quantize))
+            plain_ms = timer.ms(lambda: rmsnorm_quant_plain(x, gamma, eps=1e-5,
+                                                            quantize=quantize), iters=10)
+            out_bytes = 1 if quantize else 2
+            b_ms, b_by = bound(t * 2048 * (2 + out_bytes) + 2048 * 4, 5 * t * 2048, "f32")
+            mode = "int8" if quantize else "norm"
+            log(f"    rmsnorm_quant T={t:<4d} D=2048 bf16 {mode} kernel {ms:.4f} plain "
+                f"{plain_ms:.4f} library null bound {b_ms:.5f} ({b_by}); launch floor "
+                f"{floor_ms:.4f}")
+            row = dict(shape=f"T={t} D=2048 bf16 {mode}", ms=ms, plain_ms=plain_ms,
+                       library_ms=None, bound_ms=b_ms, bound_by=b_by)
+            results["rmsnorm_quant"].setdefault("rows", []).append(row)
+            if (t, quantize) == (1, True):
+                results["rmsnorm_quant"].update(row, shape="decode T=1 D=2048 bf16 int8")
+
+    # decode attention at the engines' shapes: the static engine's b1 over
+    # its 512 slots, the continuous engine's b8 and b16 at kv_window 256 and
+    # 512 (each row at a random position, one parked), paged at b8, an int8
+    # cache, OPT-6.7B's heads at b4. Library: one
+    # F.scaled_dot_product_attention (q length 1, enable_gqa, the bool mask
+    # of the valid columns) on the bf16 contiguous cache; none for int8 or
+    # pages
+    timing_cases = [("static b1 S512", dict(b=1, kv_window=512, heads=TINY_HEADS, parked=0)),
+                    ("continuous b8 w256", dict(b=8, kv_window=256, heads=TINY_HEADS)),
+                    ("continuous b8 w512", dict(b=8, kv_window=512, heads=TINY_HEADS)),
+                    ("continuous b16 w256", dict(b=16, kv_window=256, heads=TINY_HEADS)),
+                    ("paged b8 w256", dict(b=8, kv_window=256, heads=TINY_HEADS, paged=True)),
+                    ("int8 b8 w256", dict(b=8, kv_window=256, heads=TINY_HEADS, cache="int8")),
+                    ("OPT-6.7B b4 w512", dict(b=4, kv_window=512, heads=OPT_HEADS, parked=0))]
+    for label, kw in timing_cases:
+        c = decode_case(torch, gen=gen, **kw)
+        ms = timer.ms(lambda: run_decode(c))
+        plain_ms = timer.ms(lambda: run_decode(c, plain=True), iters=10)
+        lib_ms = None
+        if c["table"] is None and c["k_scale"] is None:
+            n = c["kv_window"]
+            q4 = c["q"][:, :, None, :]
+            k4, v4 = c["k"][:, :n].transpose(1, 2), c["v"][:, :n].transpose(1, 2)
+            col = torch.arange(n, device="cuda")
+            mask = (col[None, :] <= c["pos"][:, None])[:, None, None, :]
+            lib_ms = timer.ms(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=mask, scale=c["scale"], enable_gqa=True))
+        ops, nbytes = decode_ops_bytes(c)
+        b_ms, b_by = bound(nbytes, ops, "f32")
+        log(f"    decode_attention {label} ({'paged' if c['table'] is not None else 'contiguous'}"
+            f", {str(c['k'].dtype).split('.')[-1]}) kernel {ms:.4f} plain {plain_ms:.4f} "
+            f"library {'null' if lib_ms is None else f'{lib_ms:.4f}'} bound {b_ms:.5f} "
+            f"({b_by}); launch floor {floor_ms:.4f}")
+        row = dict(shape=label, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                   bound_by=b_by)
+        results["decode_attention"].setdefault("rows", []).append(row)
+        if label == "continuous b8 w256":
+            results["decode_attention"].update(row, shape="continuous b8 kv_window 256 bf16")
 
     # K3: causal prefill (B1 T128, B4 T512) and banded ragged prefill at
     # TinyLlama's heads (32 / 4, D 64), at OPT-6.7B's (32 / 32, D 128), and
@@ -3004,6 +3500,12 @@ def main():
                         f"{PKG}/csrc/int4_gemm.cu"),
         "fused_add_layernorm_quant": ("autosmoothquant_tpu/kernels/fused.py:74",
                                       f"{PKG}/csrc/add_layernorm_quant.cu"),
+        # the port's own kernels: the JAX package runs these ops as XLA (no
+        # Pallas kernel); "replaces" names the JAX function
+        "rmsnorm_quant": ("autosmoothquant_tpu/models/common.py:32",
+                          f"{PKG}/csrc/rmsnorm_quant.cu"),
+        "decode_attention": ("autosmoothquant_tpu/models/common.py:1255",
+                             f"{PKG}/csrc/decode_attn.cu"),
     }
     results = {name: {"name": name, "route": "cuda", "source": src,
                       "replaces": rep, "launches": None, "max_abs_err": None,
@@ -3027,6 +3529,8 @@ def main():
                 engines = phase_serve(torch, results)
             elif phase == "batching":
                 direct = phase_batching(torch, results, engines)
+            elif phase == "paged":
+                phase_paged(torch, results, engines)
             elif phase == "http":
                 phase_http(torch, results, direct, smi_line)
             elif phase == "timing":

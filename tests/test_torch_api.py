@@ -56,6 +56,36 @@ def test_generate_matches_engine(server):
     assert out["tokens"] == want
 
 
+def test_paged_engine_serves_a_request_and_a_prefix(tiny):
+    """The facade over the port's PagedEngine (explicit prefixes): a request
+    and one on a prefix registered over HTTP, each the static engine's
+    tokens; /stats reports the pages, and every page is back after."""
+    from autosmoothquant_tpu_torch.serve.paged import PagedEngine
+
+    TL, cfg, params = tiny
+    eng = PagedEngine(TL, params, cfg, max_batch=4, max_seq=64, block_size=16,
+                      kv_dtype=torch.float32, compute_dtype=torch.float32,
+                      auto_prefix=False, device="cpu")
+    api, httpd, port = start_server(serve, eng)
+    try:
+        rng = np.random.default_rng(11)
+        prefix = rng.integers(1, 128, size=20).tolist()
+        prompt = prefix + rng.integers(1, 128, size=5).tolist()
+        want = _static(tiny).generate([prompt], GenerationConfig(max_new_tokens=6))[0]
+        status, out = http_post(port, "/generate", {"prompt": prompt, "max_new_tokens": 6})
+        assert status == 200 and out["tokens"] == want
+        status, resp = http_post(port, "/prefix", {"id": "sys", "tokens": prefix})
+        assert status == 200 and resp["prefix_tokens"] == 20
+        status, out = http_post(port, "/generate", {"prompt": prompt, "max_new_tokens": 6,
+                                                     "prefix": "sys"})
+        assert status == 200 and out["tokens"] == want
+        status, stats = http_get(port, "/stats")
+        assert status == 200 and stats["num_pages"] == eng.num_pages
+        assert stats["free_pages"] == eng.num_pages - 1 - 2  # the prefix's 2 pages
+    finally:
+        stop_server(api, httpd)
+
+
 def test_concurrent_requests(server):
     tiny, api, port = server
     rng = np.random.default_rng(1)

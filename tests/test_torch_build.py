@@ -33,6 +33,8 @@ BINDINGS = [
     ("add_layernorm_quant", "asq_add_layernorm_quant", fused._ARGTYPES["add_layernorm_quant"]),
     ("add_layernorm_quant", "asq_add_layernorm_quant_vec",
      fused._ARGTYPES["add_layernorm_quant"]),
+    ("rmsnorm_quant", "asq_rmsnorm_quant", fused._RMS_ARGTYPES),
+    ("decode_attn", "asq_decode_attention", attention._DECODE_ARGTYPES),
 ]
 
 _EXPORT = re.compile(r"ASQ_EXPORT\s+int\s+(\w+)\s*\(([^)]*)\)", re.S)

@@ -22,7 +22,7 @@ import torch
 
 from autosmoothquant_tpu_torch.cli import serve_model, test_model
 
-from test_torch_util import http_post, jax_opt, stop_server, to_numpy_tree
+from test_torch_util import http_get, http_post, jax_opt, stop_server, to_numpy_tree
 
 VOCAB = 512
 REPO = Path(__file__).resolve().parent.parent
@@ -190,9 +190,7 @@ def test_opt_artifact_through_both_clis(opt_dir, capsys, monkeypatch):
 REFUSED = {
     "serve --tp 2": (serve_model, ["--tp", "2"], "item 17"),
     "serve --speculative-gamma 2": (serve_model, ["--speculative-gamma", "2"], "item 14"),
-    "serve --paged": (serve_model, ["--paged"], "item 8"),
-    "serve --no-auto-prefix": (serve_model, ["--no-auto-prefix"], "item 8"),
-    "serve --paged --no-auto-prefix": (serve_model, ["--paged", "--no-auto-prefix"], "item 8"),
+    "serve --paged": (serve_model, ["--paged"], "item 8b"),
     "test --tp 4": (test_model, ["--tp", "4"], "item 17"),
     "test --speculative-gamma 1": (test_model, ["--speculative-gamma", "1"], "item 14"),
 }
@@ -209,6 +207,37 @@ def test_refused_flags_name_their_item(opt_dir, case):
     else:
         with pytest.raises(NotImplementedError, match=item):
             test_model.main(argv, **F32)
+
+
+@pytest.mark.parametrize("flags", [["--paged", "--no-auto-prefix"], ["--no-auto-prefix"]],
+                         ids=["paged", "no-auto-prefix alone"])
+def test_paged_without_auto_prefix_serves(opt_dir, flags, capsys):
+    """--paged --no-auto-prefix serves the paged engine (--block-size,
+    --num-pages), --no-auto-prefix alone the contiguous one (it has no
+    automatic prefix sharing to turn off, as in the JAX CLI); either
+    replies with test_model's tokens."""
+    from autosmoothquant_tpu_torch.serve.paged import PagedEngine
+
+    prompt = [5, 17, 99, 3, 42, 8]
+    test_model.main(["--quantized-model-path", str(opt_dir), "--prompt-ids",
+                     ",".join(map(str, prompt)), "--max-new-tokens", "6",
+                     "--max-seq", "64"], **F32)
+    printed = _printed_ids(capsys)
+    api, httpd, _ = serve_model.build(
+        _serve_args(opt_dir, *flags, "--block-size", "16", "--num-pages", "9"), **F32)
+    eng = api.engine
+    assert isinstance(eng, PagedEngine) == ("--paged" in flags)
+    if "--paged" in flags:
+        assert (eng.block_size, eng.num_pages, eng.auto_prefix) == (16, 9, False)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        status, out = http_post(httpd.server_address[1], "/generate",
+                                {"prompt": prompt, "max_new_tokens": 6})
+        assert status == 200 and out["tokens"] == printed
+        status, stats = http_get(httpd.server_address[1], "/stats")
+        assert status == 200 and ("free_pages" in stats) == ("--paged" in flags)
+    finally:
+        stop_server(api, httpd)
 
 
 @pytest.mark.parametrize("tp", ["0", "1"])

@@ -1092,7 +1092,8 @@ def test_continuous_graph_decode_equals_eager(cuda_device, max_batch):
     requests (chunked, prefixed, one sampled, more requests than slots):
     equal tokens, bit-equal last logits. A replay launches one step's port
     kernels on the device: 8 int8 GEMMs (the GEMV at max_batch 4, the tensor
-    cores at 16, where the step's M is 16) and 2 K2."""
+    cores at 16, where the step's M is 16), 2 K2, 2 decode attention and 3
+    rmsnorm_quant (each layer's first norm, and the final norm)."""
     import chip_smoke
 
     prefix, reqs = _continuous_requests(max_batch + 3)
@@ -1104,7 +1105,8 @@ def test_continuous_graph_decode_equals_eager(cuda_device, max_batch):
     assert eng.graphs and eng.replays > 0 and not got[False][2].graphs
     route = "int8_matmul_gemv" if max_batch <= 8 else "int8_matmul_tc"
     want = {**dict.fromkeys(chip_smoke.DEVICE_READS, 0), "int8_matmul": 8, route: 8,
-            "fused_add_rmsnorm_quant": 2, "fused_add_rmsnorm_quant_vec": 2}
+            "fused_add_rmsnorm_quant": 2, "fused_add_rmsnorm_quant_vec": 2,
+            "rmsnorm_quant": 3, "rmsnorm_quant_norm": 1, "decode_attention": 2}
     chip_smoke.park(eng)
     for captured in eng.graphs.values():
         assert chip_smoke.replay_counts(torch, captured.graph) == want
@@ -1165,3 +1167,184 @@ def test_serve_on_the_card_answers_generate_as_the_engine(cuda_device):
     for uid, p, kw in reqs[2:5]:
         eng.submit(uid, p, **kw)
         assert eng.run()[uid] == replies[uid]
+
+
+# ---------------------------------------------------------------------------
+# the port's own kernels: rmsnorm_quant and decode_attention
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("t", [1, 128])
+def test_rmsnorm_quant_kernel_bit_equal_to_its_ordered_arithmetic(cuda_device, t):
+    """Bit-equal to chip_smoke.rmsnorm_quant_ordered (the kernel's sum order
+    in torch ops) in both modes, a row's bits the same alone, and the int8
+    within one step of the plain version on <= 0.1% of elements."""
+    from chip_smoke import rmsnorm_quant_ordered
+
+    g = _gen(t)
+    for d in (2048, 4096):
+        for dt in (torch.bfloat16, torch.float32):
+            x = (torch.randn(t, d, device="cuda", generator=g) * 2).to(dt)
+            gamma = 32 * (1 + 0.1 * torch.randn(d, device="cuda", generator=g))
+            for quantize in (True, False):
+                out = F.rmsnorm_quant(x, gamma, eps=1e-5, quantize=quantize)
+                assert torch.equal(out, rmsnorm_quant_ordered(x, gamma, eps=1e-5,
+                                                              quantize=quantize))
+                assert torch.equal(out[:1], F.rmsnorm_quant(x[:1], gamma, eps=1e-5,
+                                                            quantize=quantize))
+            q = F.rmsnorm_quant(x, gamma, eps=1e-5)
+            diff = (q.int() - F.rmsnorm_quant_plain(x, gamma, eps=1e-5).int()).abs()
+            assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) <= 1e-3
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+def test_decode_attention_kernel_matches_plain(cuda_device, paged, cache):
+    """TinyLlama's heads at b8 over 256 columns (the last row parked at
+    256): within bf16 tolerance of the plain version (atol 1.6e-2 + rtol
+    1e-2), row 0 bit-equal alone, contiguous and paged (shuffled pages of
+    32 behind a table with a scratch column)."""
+    from autosmoothquant_tpu_torch.models.common import _quantize_kv
+
+    g = _gen(50 + paged)
+    b, s, hq, hkv, d, bs = 8, 257, 32, 4, 64, 32
+    q = torch.randn(b, hq, d, device="cuda", generator=g).to(torch.bfloat16)
+    kf, vf = (torch.randn(b, s, hkv, d, device="cuda", generator=g) for _ in range(2))
+    pos = torch.randint(0, 256, (b,), device="cuda", generator=g)
+    pos[-1] = 256
+    if cache == "int8":
+        (k, ks), (v, vs) = _quantize_kv(kf), _quantize_kv(vf)
+    else:
+        k, v, ks, vs = kf.to(torch.bfloat16), vf.to(torch.bfloat16), None, None
+    table = None
+    if paged:
+        m = -(-s // bs)
+        perm = torch.randperm(b * m, device="cuda", generator=g) + 1
+        table = torch.zeros((b, m + 1), dtype=torch.int32, device="cuda")
+        table[:, :m] = perm.reshape(b, m).int()
+
+        def pages(x):
+            out = torch.zeros((b * m + 1, bs, *x.shape[2:]), dtype=x.dtype, device="cuda")
+            pad = torch.zeros((b, m * bs - s, *x.shape[2:]), dtype=x.dtype, device="cuda")
+            out[perm] = torch.cat([x, pad], 1).reshape(b * m, bs, *x.shape[2:])
+            return out
+        k, v = pages(k), pages(v)
+        ks, vs = (None, None) if ks is None else (pages(ks), pages(vs))
+
+    def run(fn, rows):
+        cut = (lambda x: x) if paged else (lambda x: None if x is None else x[:rows])
+        return fn(q[:rows], cut(k), cut(v), pos[:rows], scale=d ** -0.5, k_scale=cut(ks),
+                  v_scale=cut(vs), table=None if table is None else table[:rows],
+                  kv_window=256)
+    out, ref = run(A.decode_attention, b), run(A.decode_attention_plain, b)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1.6e-2)
+    assert torch.equal(run(A.decode_attention, 1)[0], out[0])
+
+
+@pytest.mark.parametrize("heads,s,paged,cache", [
+    ((32, 8, 128), 16384, False, "bf16"),   # Llama-3-8B / Mistral-7B: G = 4, D 128
+    ((32, 4, 64), 8192, True, "int8"),       # TinyLlama: G = 8, D 64
+], ids=["G4-D128-S16K-contiguous-bf16", "G8-D64-S8K-paged-int8"])
+def test_decode_attention_past_shared_memory(cuda_device, heads, s, paged, cache):
+    """Columns past what the score rows can keep in shared memory (about
+    12.9K at G = 4, D 128; 5.9K at G = 8, D 64) go through the global
+    workspace: within bf16 tolerance of the plain version (atol 1.6e-2 +
+    rtol 1e-2), and a row's bits the same alone, and over 1024 columns,
+    where its scores sit in shared memory."""
+    from autosmoothquant_tpu_torch.models.common import _quantize_kv
+
+    hq, hkv, d = heads
+    b, bs = 2, 64
+    assert A.decode_smem_bytes(hq // hkv, d, s) > A._DECODE_MAX_SMEM
+    assert A.decode_smem_bytes(hq // hkv, d, 1024) <= A._DECODE_MAX_SMEM
+    g = _gen(s + paged)
+    q = torch.randn(b, hq, d, device="cuda", generator=g).to(torch.bfloat16)
+    kf, vf = (torch.randn(b, s, hkv, d, device="cuda", generator=g) for _ in range(2))
+    pos = torch.tensor([1000, s - 1], device="cuda")
+    if cache == "int8":
+        (k, ks), (v, vs) = _quantize_kv(kf), _quantize_kv(vf)
+    else:
+        k, v, ks, vs = kf.to(torch.bfloat16), vf.to(torch.bfloat16), None, None
+    table = None
+    if paged:
+        m = s // bs
+        perm = torch.randperm(b * m, device="cuda", generator=g) + 1
+        table = torch.zeros((b, m + 1), dtype=torch.int32, device="cuda")
+        table[:, :m] = perm.reshape(b, m).int()
+
+        def pages(x):
+            out = torch.zeros((b * m + 1, bs, *x.shape[2:]), dtype=x.dtype, device="cuda")
+            out[perm] = x.reshape(b * m, bs, *x.shape[2:])
+            return out
+        k, v = pages(k), pages(v)
+        ks, vs = (None, None) if ks is None else (pages(ks), pages(vs))
+
+    def run(fn, rows, kv_window):
+        cut = (lambda x: x) if paged else (lambda x: None if x is None else x[:rows])
+        return fn(q[:rows], cut(k), cut(v), pos[:rows], scale=d ** -0.5, k_scale=cut(ks),
+                  v_scale=cut(vs), table=None if table is None else table[:rows],
+                  kv_window=kv_window)
+    out, ref = run(A.decode_attention, b, s), run(A.decode_attention_plain, b, s)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1.6e-2)
+    assert torch.equal(run(A.decode_attention, 1, s)[0], out[0])
+    assert torch.equal(run(A.decode_attention, 1, 1024)[0], out[0])
+
+
+def test_paged_engine_sliding_window_on_the_card(cuda_device):
+    """A sliding-window Llama (window 24, D 64) on the PagedEngine on the
+    card, graph decode, f32 and int8 pages: a registered prefix and prompts
+    prefilled in chunks of 16 (the window binds in the chunks, through the
+    masked eager route over the gathered pages, and in decode) give the
+    ContinuousEngine's tokens on the card."""
+    from autosmoothquant_tpu_torch.bench import draw_float
+    from autosmoothquant_tpu_torch.models import llama as L
+    from autosmoothquant_tpu_torch.serve.batching import ContinuousEngine
+    from autosmoothquant_tpu_torch.serve.paged import PagedEngine
+
+    cfg = L.LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                        max_position_embeddings=256, sliding_window=24)
+    params = draw_float(cfg, 11, "cuda", proj_dtype=torch.float32)
+    rng = torch.Generator().manual_seed(12)
+    prefix = torch.randint(1, 512, (40,), generator=rng).tolist()
+    reqs = [(f"p{i}", prefix + torch.randint(1, 512, (9 + 13 * i,), generator=rng).tolist(),
+             dict(max_new_tokens=20, prefix="sys")) for i in range(2)]
+    reqs += [(f"r{i}", torch.randint(1, 512, (5 + 17 * i,), generator=rng).tolist(),
+              dict(max_new_tokens=20)) for i in range(3)]
+    for kv in (torch.float32, torch.int8):
+        kw = dict(max_batch=4, max_seq=128, prefill_chunk=16, steps_per_sync=4,
+                  kv_dtype=kv, compute_dtype=torch.float32, device="cuda")
+        engines = (PagedEngine(L, params, cfg, block_size=16, auto_prefix=False,
+                               cuda_graph=True, **kw),
+                   ContinuousEngine(L, params, cfg, cuda_graph=False, **kw))
+        outs = []
+        for eng in engines:
+            eng.register_prefix("sys", prefix)
+            for uid, p, r_kw in reqs:
+                eng.submit(uid, p, **r_kw)
+            outs.append(eng.run())
+        assert outs[0] == outs[1], kv
+        # the prefix holds its 2 full blocks and its tail
+        assert engines[0].free_pages == engines[0].num_pages - engines[0].scratch_pages - 3
+
+
+def test_continuous_engine_decodes_past_shared_memory(cuda_device):
+    """A 6,100-token prompt at 2-layer TinyLlama width (W8A8, max_seq 8192):
+    its decode steps scan more than 6,144 columns, past what the score rows
+    can keep in shared memory at G = 8 (about 5.9K), so decode attention
+    takes its workspace inside the captured graphs. Graph tokens equal
+    eager tokens, and the last logits are bit-equal and finite."""
+    from autosmoothquant_tpu_torch.serve.batching import ContinuousEngine
+
+    M, cfg, qcfg, params = _graph_model("W8A8")
+    prompt = torch.randint(0, 32000, (6100,), generator=torch.Generator().manual_seed(3))
+    got = []
+    for graph in (True, False):
+        eng = ContinuousEngine(M, params, cfg, qcfg, max_batch=2, max_seq=8192,
+                               steps_per_sync=4, prefill_chunk=2048,
+                               kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
+                               device="cuda", cuda_graph=graph)
+        eng.submit("long", prompt.tolist(), max_new_tokens=12)
+        got.append((eng.run()["long"], eng.last_logits))
+    assert got[0][0] == got[1][0] and len(got[0][0]) == 12
+    assert torch.equal(got[0][1], got[1][1]) and bool(torch.isfinite(got[0][1]).all())

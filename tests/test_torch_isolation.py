@@ -38,6 +38,7 @@ def test_port_imports_no_jax_side_module():
                  "kernels.attention", "kernels.fp8", "kernels.int4",
                  "convert.pipeline", "models.llama", "models.opt",
                  "models.registry", "serve.engine", "serve.sampling", "serve.batching",
+                 "serve.paged",
                  "serve.api", "utils.tokenizer", "utils.sp_tokenizer", "cli.serve_model",
                  "cli.test_model"):
         assert f"autosmoothquant_tpu_torch.{name}" in out["modules"]
