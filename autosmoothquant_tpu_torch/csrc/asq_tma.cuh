@@ -1,7 +1,7 @@
 // Hopper helpers the tensor-core kernels share (K1 int8_gemm.cu, K3
-// flash_attn.cu, K4 fp8_gemm.cu, K5 int4_gemm.cu): mbarriers, TMA 2-D loads
-// and their tensor maps, cp.async, ldmatrix, 128-byte-swizzle addressing and
-// wgmma shared-memory descriptors.
+// flash_attn.cu, K4 fp8_gemm.cu, K5 int4_gemm.cu; decode_attn.cu its
+// cp.async): mbarriers, TMA 2-D loads and their tensor maps, cp.async,
+// ldmatrix, 128-byte-swizzle addressing and wgmma shared-memory descriptors.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is reached through the runtime

@@ -18,48 +18,110 @@
 // the eager attend factors them.
 //
 // Layout: q and out [B, Hq, D]. Contiguous: k, v [B, S, Hkv, D] (scales [B,
-// S, Hkv]), key j of row b at (b * S + j). Paged: k, v [N, bs, Hkv, D]
-// pages (scales [N, bs, Hkv]), key j of row b in page table[b, j / bs] at
-// offset j % bs; the block index is clamped to the table's last column, so
-// no key reads past the table.
+// S, Hkv]), key j of row b at (b * S + j). Paged: k, v [N, bs, Hkv, D] pages
+// (scales [N, bs, Hkv]), key j of row b in page table[b, j / bs] at offset
+// j % bs; the block index is clamped to the table's last column, so no key
+// reads past the table.
 //
-// Design: one block of 512 threads a (row, kv head), its G = Hq / Hkv query
-// heads together, in three passes over a score row of G x n_cols f32 kept
-// in shared memory, or, where that would not fit (long contexts: past about
-// 5.9K columns at G = 8), in a global workspace the caller passes, block
-// (b, h) at offset (b * Hkv + h) x G x n_cols. Either place holds the same
-// f32 values, so the output's bits do not depend on which one a launch
-// uses:
-//  1. scores: thread t takes keys j = t, t + 512, ...; it reads key j with
-//     16-byte loads (four issued at once) and dots it with each head's q
-//     (in shared memory) in order of d (fmaf), so one key row is read once
-//     for all G heads;
-//  2. softmax: each head's max, then its sum of exp(s - max), a thread's
-//     keys in order, then the warp's xor tree, then the warps in order;
-//  3. values: a thread owns two adjacent d of one of KG key groups (key j in
-//     group j % KG), loads the values of 8 of its keys at once and sums p_j
-//     v_j over its keys in order for each head, and the KG partial sums are
-//     added in group order.
-// Keys past the row's position (and before its window) are skipped: their
-// probability is exactly 0, so skipping them changes no bit.
+// What bounds it on an H100: at decode sizes, latency. TinyLlama b8 at
+// kv_window 256 reads 1.05 MB a layer (0.3 us at 3.35 TB/s); the time is the
+// launch, the round trips to device memory (cold after a decode step's
+// GEMVs stream the weights through L2: the data, and the kernel's own code,
+// whose instruction fetches cost microseconds when it is long) and the
+// barriers between them, on as many SMs as the launch has blocks. At long
+// contexts, bytes: Llama-3-8B's heads at b1 over 16K columns read 67 MB
+// (20 us).
 //
-// Batch invariance: every sum above runs in an order set by key position
-// and D alone. A row's output is the same in any batch and whether the
-// scan is bounded by kv_window or by S.
+// Design: a thread-block cluster of kNC CTAs a (row, kv head), its G = Hq /
+// Hkv query heads together. Keys are cut into chunks of kC consecutive
+// positions, and CTA i of the cluster owns chunks i, i + kNC, i + 2 kNC, ...,
+// so a row's keys spread over kNC SMs at any position (one block walked them
+// all before), and at long contexts kNC SMs stream them. A CTA has 128
+// threads and at most 85 registers a thread, so an SM holds 6 of them and a
+// b16 decode step's 64 clusters run in one wave. A CTA whose chunks lie past
+// the row's position, or before its window, scores nothing and still takes
+// part in every cluster barrier. A CTA works on up to kR of its chunks at
+// once (a round), its K and V rows copied to shared-memory tiles with
+// cp.async:
+//  0. stage: each key's cache slot (the page table read once a page: a warp
+//     takes a chunk, its lanes read the chunk's pages and shuffle them to the
+//     keys) and int8 scales, -1 for a key outside [window start, pos] or not
+//     kv_valid. Without a window the first round's K and V rows go out
+//     before the row's position has arrived (every column's; the position
+//     masks them after), so one round trip to device memory brings q, the
+//     position, the keys and the values;
+//  1. scores: 4 lanes share a key, each dots its pieces of 8 columns with
+//     every head's q (f32 in shared memory) in order of d (fmaf), then the 4
+//     partial dots are added by an xor tree. The scores stay in shared
+//     memory (G x the CTA's columns) while they fit, the next round's keys
+//     loading while a round is scored; past that (very long contexts) the
+//     two later passes recompute them with the same code and the same bits.
+//     Each head's max over the CTA's keys goes to shared memory; after a
+//     cluster barrier every CTA reads the kNC maxima through distributed
+//     shared memory (DSMEM): the same M in all;
+//  2. each CTA sums exp(s - M) over its keys (lane l of a warp takes key l
+//     of each chunk, the chunks in order, then the warp's xor tree) and
+//     publishes the sum; after a second cluster barrier every CTA adds the
+//     kNC sums in CTA order: the same L in all;
+//  3. p_j = exp(s_j - M) / L [* v_scale_j], rounded to bf16 on the bf16 path
+//     as the reference rounds it, in place of the scores; then a thread owns
+//     8 columns of one head and one of KG key groups (key j of a chunk in
+//     group j % KG) and sums p_j v_j over its keys in order; the KG partial
+//     sums are added in group order, and after a third cluster barrier each
+//     CTA adds a slice of the outputs over the kNC CTAs in CTA order through
+//     DSMEM and stores it. A last cluster barrier keeps every CTA's shared
+//     memory alive until its peers have read it.
+// The loops over rounds, keys and a key's pieces of 8 columns stay rolled
+// (the 8 heads of a score group and the 8 columns of a piece are unrolled):
+// the kernel's code is fetched cold at every decode step, and an unrolled
+// body cost more in instruction fetches than its loops saved.
+// Why the fold waits for M and L: on the bf16 path the reference rounds the
+// normalised probabilities to bf16 before the value product, so partial
+// outputs of unnormalised probabilities, rescaled at the end (a plain
+// flash-decoding split), compute another function there. The cluster makes
+// the global M and L known inside one launch, with no workspace, no atomics
+// and no second kernel.
 //
-// What bounds it on an H100: bytes. It reads each valid key and value once
-// (TinyLlama b8 at kv_window 256: 2 x 8 x 256 x 4 x 64 x 2 B = 1.05 MB a
-// layer, 0.3 us at 3.35 TB/s); at decode sizes the time is the launch and a
-// few round trips to device memory.
+// Batch invariance: every sum above runs in an order set by the absolute key
+// position, G, D and the constants kC, kNC and kThreads, and by nothing
+// else. A round groups chunks without reordering any sum (kR = 1 gave
+// kR = 4's bits at every timing shape on an H100, PERF.md PR 13), and a
+// row's rounds do not change with kv_window anyway: a CTA holding at most
+// kR of the row's chunks takes them in one round, one holding more takes
+// rounds of kR. A key a call does not scan adds an exact 0 where it would
+// stand, so a row's output has the same bits alone and in any batch,
+// bounded by kv_window or by S, contiguous or paged, with its scores kept
+// or recomputed.
+//
+// kNC = 8, the portable cluster size. A cluster of 16 (the non-portable
+// opt-in) was measured against it on an H100: faster only past a few
+// thousand columns, and slower at every decode shape of the engines, whose
+// launches it doubles (PERF.md, PR 13).
+
+#include <cooperative_groups.h>
 
 #include "asq_common.cuh"
+#include "asq_tma.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kHeadGroup = 8;  // query heads a pass keeps in registers
-constexpr int kUnroll = 8;     // keys whose values a thread loads at once
+constexpr int kNC = 8;              // CTAs of a cluster (the portable most)
+constexpr int kC = 32;              // keys a chunk: consecutive positions
+constexpr int kR = 4;               // most chunks of a CTA a round
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMinBlocks = 6;             // CTAs an SM holds (<= 85 registers a thread)
+constexpr int kKeyLanes = kThreads / kC;  // lanes that share one key's dot
+constexpr int kMaxDc = 16 / kKeyLanes;    // a lane's 8-column pieces of a key (D <= 128)
+constexpr int kHeadGroup = 8;             // heads a score pass keeps in registers
+constexpr int kMaxHeads = 64;
 constexpr float kMasked = -1e30f;
+static_assert(kC == 32 && kR <= kWarps && kKeyLanes <= kHeadGroup &&
+                  (kKeyLanes & (kKeyLanes - 1)) == 0,
+              "the passes' thread maps");
+static_assert(kNC >= 1 && kNC <= 8, "a portable cluster has at most 8 CTAs");
 
 enum KvKind { KV_F32 = 0, KV_BF16 = 1, KV_INT8 = 2 };
 
@@ -73,7 +135,6 @@ struct Args {
   const long long* pos;
   const unsigned char* kv_valid;  // null: none
   void* out;
-  float* scores;  // null: the score row in shared memory
   int Hq, Hkv, D;
   int kv_rows;     // contiguous: S; paged: the page size bs
   int table_cols;  // paged: the table's columns
@@ -82,17 +143,75 @@ struct Args {
   int window;  // sliding window; 0: none
   float scale;
   int round_p;  // round the probabilities to bf16 before the value product
+  int keep;     // the scores stay in shared memory (else recomputed)
+  int round;    // chunks of a CTA a round
+  int tiles;    // K and V tiles of a round: 3 where kept scores span several rounds, else 2
+  int rowlen;   // keys a CTA's score rows hold: kept, all its columns; else a round's
 };
 
-// 8 consecutive elements of a cache row, widened to f32.
+// The key groups of the value pass: G x D / 8 (head, 8 columns) pairs, and
+// as many groups as the block has threads for (a power of two, <= kC).
+__host__ __device__ inline int key_groups(int G, int D) {
+  const int pairs = G * (D / 8);
+  int kg = 1;
+  while (kg < kC && 2 * kg * pairs <= kThreads) kg *= 2;
+  return kg;
+}
+
+// The chunks of a CTA a round: as many as a CTA has over n_cols columns, at
+// most kR (a shape's constant: the rounds do not change the sums' order).
+inline int round_chunks(int n_cols) {
+  const int chunks = (n_cols + kC - 1) / kC;
+  const int per_cta = (chunks + kNC - 1) / kNC;
+  return per_cta < kR ? per_cta : kR;
+}
+
+// The rows a CTA's scores take: all its columns, or a round's.
+inline int score_rowlen(int n_cols, bool keep) {
+  const int chunks = (n_cols + kC - 1) / kC;
+  return keep ? (chunks + kNC - 1) / kNC * kC : round_chunks(n_cols) * kC;
+}
+
+// The floats of the value pass's key-group partials, which pass 2's lane
+// sums (32 a head) use before them.
+__host__ __device__ inline int partial_floats(int G, int D) {
+  const int parts = key_groups(G, D) * G * D;
+  return parts > 32 * G ? parts : 32 * G;
+}
+
+// The tiles of a round's K and V rows: a third where the scores are kept
+// over several rounds, so the next round's rows load while one is used.
+inline int round_tiles(int n_cols, bool keep) {
+  const int chunks = (n_cols + kC - 1) / kC;
+  return keep && (chunks + kNC - 1) / kNC > kR ? 3 : 2;
+}
+
+// The dynamic shared memory of a launch: the tiles of K and V rows (elt
+// bytes an element), then in floats and ints: q (then the CTA's output), the
+// partials, the maxima and sums published and folded, the score rows (one
+// padding column each) and each key's slot and int8 scales.
+size_t smem_bytes(int G, int D, int round, int tiles, int rowlen, int elt) {
+  return static_cast<size_t>(tiles) * round * kC * D * elt +
+         4 * (static_cast<size_t>(G) * D + partial_floats(G, D) + 4 * kMaxHeads +
+              static_cast<size_t>(G) * (rowlen + 1) + 3 * static_cast<size_t>(rowlen));
+}
+
+// the bytes of a cache element
 template <int K>
-__device__ __forceinline__ void load8(const void* base, size_t idx, float (&x)[8]) {
+struct Elt {
+  static constexpr int kBytes = K == KV_F32 ? 4 : K == KV_BF16 ? 2 : 1;
+};
+
+// 8 consecutive cache elements as stored (16 bytes of bf16, 32 of f32, 8 of
+// int8), read from shared memory and widened to f32
+template <int K>
+__device__ __forceinline__ void lds8(const unsigned char* p, float (&x)[8]) {
   if constexpr (K == KV_F32) {
-    asq_load8(static_cast<const float*>(base) + idx, x);
+    asq_load8(reinterpret_cast<const float*>(p), x);
   } else if constexpr (K == KV_BF16) {
-    asq_load8(static_cast<const __nv_bfloat16*>(base) + idx, x);
+    asq_load8(reinterpret_cast<const __nv_bfloat16*>(p), x);
   } else {
-    const uint2 u = *reinterpret_cast<const uint2*>(static_cast<const int8_t*>(base) + idx);
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
     const uint32_t w[2] = {u.x, u.y};
 #pragma unroll
     for (int e = 0; e < 8; ++e)
@@ -100,260 +219,482 @@ __device__ __forceinline__ void load8(const void* base, size_t idx, float (&x)[8
   }
 }
 
-// 2 consecutive elements of a cache row, widened to f32.
+// 8 elements of a cache row, global to shared, asynchronously; zeros
+// where !valid (src is then not read)
 template <int K>
-__device__ __forceinline__ float2 load2(const void* base, size_t idx) {
+__device__ __forceinline__ void copy8(uint32_t dst, const unsigned char* src, bool valid) {
   if constexpr (K == KV_F32) {
-    return *reinterpret_cast<const float2*>(static_cast<const float*>(base) + idx);
+    cp_async16(dst, src, valid);
+    cp_async16(dst + 16, src + 16, valid);
   } else if constexpr (K == KV_BF16) {
-    return __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(static_cast<const __nv_bfloat16*>(base) + idx));
+    cp_async16(dst, src, valid);
   } else {
-    const char2 c = *reinterpret_cast<const char2*>(static_cast<const int8_t*>(base) + idx);
-    return make_float2(static_cast<float>(c.x), static_cast<float>(c.y));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(dst), "l"(src),
+                 "r"(valid ? 8 : 0)
+                 : "memory");
   }
 }
 
-// The block's reduction of one value a thread for each of n heads (n <=
-// kHeadGroup), returned to every thread: a warp's xor tree, then the warps'
-// results in warp order (sum) or their max. `part` holds kHeadGroup x kWarps
-// floats.
-constexpr int kWarps = kThreads / 32;
+__device__ __forceinline__ float4 load_float4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
 
-template <bool kMax>
-__device__ __forceinline__ void block_reduce(float (&v)[kHeadGroup], int n, float* part) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-#pragma unroll
-  for (int g = 0; g < kHeadGroup; ++g) {
-    if (g >= n) break;
-    v[g] = kMax ? asq_warp_max(v[g]) : asq_warp_sum(v[g]);
-    if (lane == 0) part[g * kWarps + warp] = v[g];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int g = 0; g < kHeadGroup; ++g) {
-    if (g >= n) break;
-    float w[kWarps];  // every load first, then the sum in warp order
-#pragma unroll
-    for (int i = 0; i < kWarps; ++i) w[i] = part[g * kWarps + i];
-    float t = w[0];
-#pragma unroll
-    for (int i = 1; i < kWarps; ++i) t = kMax ? fmaxf(t, w[i]) : __fadd_rn(t, w[i]);
-    v[g] = t;
-  }
-  __syncthreads();  // part is reused by the next reduction
+template <typename Tq>
+__device__ __forceinline__ void store4(Tq* p, float4 v);
+template <>
+__device__ __forceinline__ void store4<float>(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+template <>
+__device__ __forceinline__ void store4<__nv_bfloat16>(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
 }
 
 template <typename Tq, int K>
-__global__ void __launch_bounds__(kThreads) decode_attn_kernel(Args a) {
-  extern __shared__ float smem[];
-  __shared__ float part[kHeadGroup * kWarps];
-  __shared__ float stats[2 * 64];  // each head's max and sum (G <= 64)
-  const int b = blockIdx.x / a.Hkv, h = blockIdx.x % a.Hkv;
-  const int G = a.Hq / a.Hkv, D = a.D, tid = threadIdx.x;
-  const int np = D <= 64 ? 32 : 64, kg_count = kThreads / np;
-  float* q_s = smem;  // [G][D]
-  // [G][n_cols]
-  float* s_s = a.scores != nullptr
-                   ? a.scores + static_cast<size_t>(blockIdx.x) * G * a.n_cols
-                   : q_s + G * D;
-  float* o_s = a.scores != nullptr ? q_s + G * D : s_s + G * a.n_cols;  // [kg_count][G][D]
+__global__ void __cluster_dims__(kNC, 1, 1) __launch_bounds__(kThreads, kMinBlocks)
+    decode_attn_kernel(const Args a) {
+  constexpr int kElt = Elt<K>::kBytes;
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int bh = blockIdx.x / kNC, Hkv = a.Hkv;
+  const int b = bh / Hkv, h = bh % Hkv;
+  const int G = a.Hq / Hkv, D = a.D, ND = D / 8, tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int R = a.round, rowlen = a.rowlen, stride = rowlen + 1;
+  const int KG = key_groups(G, D);
+  // tiles of [R][kC][D]: t0 a round's keys (and, over several kept rounds,
+  // every other round's values in pass 3), t1 the next round's keys (three
+  // tiles), v_tile the first round's values
+  const int tile_bytes = R * kC * D * kElt;
+  unsigned char* t0 = smem;
+  unsigned char* t1 = t0 + tile_bytes;
+  unsigned char* v_tile = t0 + (a.tiles - 1) * tile_bytes;
+  const bool pipelined = a.tiles == 3;
+  float* q_s = reinterpret_cast<float*>(t0 + a.tiles * tile_bytes);  // [G][D] q, then the output
+  float* o_part = q_s + G * D;       // [KG][G][D] pass 3's partials
+  float* l_lane = o_part;            // [G][32] pass 2's running lane sums
+  float* m_s = o_part + partial_floats(G, D);  // each head's max over the CTA's keys
+  float* l_s = m_s + kMaxHeads;      // its sum of exp(s - M)
+  float* mg_s = l_s + kMaxHeads;     // the cluster's M
+  float* lg_s = mg_s + kMaxHeads;    // the cluster's L
+  float* s_buf = lg_s + kMaxHeads;   // [G][stride] scores
+  int* slot_s = reinterpret_cast<int*>(s_buf + G * stride);  // [rowlen]; -1: not scanned
+  float* ks_s = reinterpret_cast<float*>(slot_s + rowlen);   // [rowlen] int8 scales
+  float* vs_s = ks_s + rowlen;
 
-  // the cache slot (token index into [.., Hkv, D] rows) of key j of this row
   // (the kernel's parameters are copied out first: taking their address
   // would move them to local memory)
   const int* table = a.table == nullptr ? nullptr : a.table + static_cast<size_t>(b) * a.table_cols;
-  const int kv_rows = a.kv_rows, last_col = a.table_cols - 1;
-  auto slot_of = [=](int j) -> size_t {
-    if (table == nullptr) return static_cast<size_t>(b) * kv_rows + j;
-    return static_cast<size_t>(table[min(j / kv_rows, last_col)]) * kv_rows + j % kv_rows;
-  };
-  const long long p = a.pos[static_cast<size_t>(b) * a.pos_stride];
-  const int n = static_cast<int>(min(static_cast<long long>(a.n_cols), p + 1));
-  const int j0 = a.window > 0 ? static_cast<int>(max(0LL, p - a.window + 1)) : 0;
-  const Tq* q = static_cast<const Tq*>(a.q) + (static_cast<size_t>(b) * a.Hq + h * G) * D;
-  Tq* out = static_cast<Tq*>(a.out) + (static_cast<size_t>(b) * a.Hq + h * G) * D;
-  for (int i = tid; i < G * D; i += kThreads) q_s[i] = asq_to_float(q[i]);
-  __syncthreads();
-
-  // 1. scores
+  const unsigned char* valid =
+      a.kv_valid == nullptr ? nullptr : a.kv_valid + static_cast<size_t>(b) * a.valid_stride;
+  const int kv_rows = a.kv_rows, last_col = a.table_cols - 1, n_cols = a.n_cols;
+  const int window = a.window;
+  const bool keep = a.keep != 0, round_p = a.round_p != 0;
+  const float scale = a.scale;
+  const unsigned char* const kbase = static_cast<const unsigned char*>(a.k);
+  const unsigned char* const vbase = static_cast<const unsigned char*>(a.v);
+  const float* const k_scale = a.k_scale;
+  const float* const v_scale = a.v_scale;
   const size_t kv_head = static_cast<size_t>(h) * D;
-  for (int j = tid; j < n; j += kThreads) {
-    if (j < j0) continue;
-    const size_t slot = slot_of(j);
-    const bool ok = a.kv_valid == nullptr || a.kv_valid[static_cast<size_t>(b) * a.valid_stride + j];
-    const float ks = (K == KV_INT8 && ok) ? a.k_scale[slot * a.Hkv + h] : 1.f;
-    const size_t row = slot * a.Hkv * D + kv_head;
-    for (int g0 = 0; g0 < G; g0 += kHeadGroup) {
-      float acc[kHeadGroup];
-#pragma unroll
-      for (int g = 0; g < kHeadGroup; ++g) acc[g] = 0.f;
-      if (ok) {
-        // 32 elements of the key a step, their loads issued together
-        for (int d0 = 0; d0 < D; d0 += 32) {
-          float kf[4][8];
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            if (d0 + 8 * c < D) load8<K>(a.k, row + d0 + 8 * c, kf[c]);
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            if (d0 + 8 * c >= D) break;
-#pragma unroll
-            for (int g = 0; g < kHeadGroup; ++g) {
-              if (g0 + g >= G) break;
-              const float* qg = q_s + (g0 + g) * D + d0 + 8 * c;
-#pragma unroll
-              for (int e = 0; e < 8; ++e) acc[g] = fmaf(qg[e], kf[c][e], acc[g]);
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < kHeadGroup; ++g) {
-        if (g0 + g >= G) break;
-        float s = __fmul_rn(acc[g], a.scale);
-        if (K == KV_INT8) s = __fmul_rn(s, ks);
-        s_s[(g0 + g) * a.n_cols + j] = ok ? s : kMasked;
-      }
+  // this CTA's chunk c = rank + kNC * lc; its first one with a key at or
+  // after j0
+  auto first_lc = [&](int j0) {
+    const int c_lo = j0 / kC;
+    return c_lo <= rank ? 0 : (c_lo - rank + kNC - 1) / kNC;
+  };
+  // where a round's keys sit in the score rows
+  auto base_of = [&](int lc0) { return keep ? lc0 * kC : 0; };
+
+  // A round's keys: warp u < R takes chunk lc0 + u, lane l its key l. The
+  // slot of key j = (rank + kNC (lc0 + u)) kC + l in [lo, hi), else -1: a
+  // warp reads its chunk's pages from the table, one lane a page, and
+  // shuffles them to the keys
+  auto key_slot = [&](int lc0, int lo, int hi) {
+    const int c0 = (rank + kNC * (lc0 + warp)) * kC, j = c0 + lane;
+    if (c0 >= hi) return -1;  // uniform in a warp
+    int page = 0;
+    if (table != nullptr) {
+      const int first = c0 / kv_rows, count = (c0 + kC - 1) / kv_rows - first + 1;
+      const int mine = lane < count ? table[min(first + lane, last_col)] : 0;
+      page = __shfl_sync(0xffffffffu, mine, j / kv_rows - first);
     }
+    if (j < lo || j >= hi) return -1;
+    return table != nullptr ? page * kv_rows + j % kv_rows : b * kv_rows + j;
+  };
+  // key (warp, lane)'s K or V row into its tile row (zeros for a key not
+  // scanned: its probability is 0, and 0 x 0 adds nothing where the value
+  // pass reads it)
+  auto fetch = [&](const unsigned char* cache, unsigned char* tile, int slot) {
+    const bool ok = slot >= 0;
+    const unsigned char* src =
+        cache + (ok ? (static_cast<size_t>(slot) * Hkv * D + kv_head) * kElt : 0);
+    const uint32_t dst = smem_u32(tile + (warp * kC + lane) * D * kElt);
+    for (int dc = 0; dc < ND; ++dc) copy8<K>(dst + 8 * dc * kElt, src + 8 * dc * kElt, ok);
+  };
+  // its int8 scales into entry idx, staged with its slot (with the keys'
+  // commit group, so that pass 3 can read a round's value scales before
+  // its values have landed)
+  auto stage_scales = [&](int idx, int slot) {
+    if (K != KV_INT8) return;
+    if (slot >= 0) {
+      const size_t at = static_cast<size_t>(slot) * Hkv + h;
+      cp_async4(smem_u32(ks_s + idx), k_scale + at);
+      cp_async4(smem_u32(vs_s + idx), v_scale + at);
+    } else {
+      ks_s[idx] = vs_s[idx] = 0.f;
+    }
+  };
+
+  // The first round goes out before the row's position is known (without a
+  // window it starts at the CTA's first chunk): every column's K and V rows
+  // are fetched, and the keys the position, the window or kv_valid leave out
+  // are masked once it arrives
+  const long long p = a.pos[static_cast<size_t>(b) * a.pos_stride];
+  int lc_first = 0;
+  if (window > 0) lc_first = first_lc(static_cast<int>(max(0LL, p - window + 1)));
+  int slot0 = -1;
+  bool valid0 = true;
+  const int idx0 = base_of(lc_first) + warp * kC + lane;
+  const int j_first = (rank + kNC * (lc_first + warp)) * kC + lane;
+  // (a chunk past the columns has no place in the score rows)
+  const bool chunk0 = warp < R && j_first - lane < n_cols;
+  if (chunk0) {
+    slot0 = key_slot(lc_first, 0, n_cols);
+    fetch(kbase, t0, slot0);
+    stage_scales(idx0, slot0);
   }
+  cp_async_commit();
+  if (chunk0) {
+    fetch(vbase, v_tile, slot0);
+    if (valid != nullptr && slot0 >= 0) valid0 = valid[j_first];
+  }
+  cp_async_commit();
+  const Tq* q = static_cast<const Tq*>(a.q) + (static_cast<size_t>(b) * a.Hq + h * G) * D;
+  for (int i = tid; i < G * D; i += kThreads) q_s[i] = asq_to_float(q[i]);
+  // keys [j0, n) are scanned; this CTA's chunks among them: lc in [lc_lo, lc_hi)
+  const int n = static_cast<int>(min(static_cast<long long>(n_cols), p + 1));
+  const int j0 = window > 0 ? static_cast<int>(max(0LL, p - window + 1)) : 0;
+  int lc_lo = 0, lc_hi = 0;
+  if (n > j0) {
+    const int c_hi = (n - 1) / kC;
+    lc_lo = first_lc(j0);
+    lc_hi = c_hi < rank ? 0 : (c_hi - rank) / kNC + 1;
+  }
+  if (chunk0) slot_s[idx0] = slot0 >= 0 && j_first >= j0 && j_first < n && valid0 ? slot0 : -1;
+  cp_async_wait<1>();  // the first round's keys (its values may still be on the way)
   __syncthreads();
 
-  // 2. softmax statistics, then the probabilities in place
-  for (int g0 = 0; g0 < G; g0 += kHeadGroup) {
-    const int ng = min(kHeadGroup, G - g0);
-    float m[kHeadGroup], l[kHeadGroup];
-#pragma unroll
-    for (int g = 0; g < kHeadGroup; ++g) m[g] = kMasked;
-    for (int j = tid; j < n; j += kThreads) {
-      if (j < j0) continue;
-#pragma unroll
-      for (int g = 0; g < kHeadGroup; ++g)
-        if (g < ng) m[g] = fmaxf(m[g], s_s[(g0 + g) * a.n_cols + j]);
-    }
-    block_reduce<true>(m, ng, part);
-#pragma unroll
-    for (int g = 0; g < kHeadGroup; ++g) l[g] = 0.f;
-    for (int j = tid; j < n; j += kThreads) {
-      if (j < j0) continue;
-#pragma unroll
-      for (int g = 0; g < kHeadGroup; ++g)
-        if (g < ng) l[g] = __fadd_rn(l[g], expf(s_s[(g0 + g) * a.n_cols + j] - m[g]));
-    }
-    block_reduce<false>(l, ng, part);
-    if (tid == 0) {
-#pragma unroll
-      for (int g = 0; g < kHeadGroup; ++g) {
-        if (g >= ng) break;
-        stats[g0 + g] = m[g];
-        stats[64 + g0 + g] = l[g];
+  // a later round's keys into tile kt (restaged: their slots and scales
+  // anew) or values into tile vt (null: not wanted), one commit group
+  auto issue_round = [&](int lc0, bool restage, unsigned char* kt, unsigned char* vt) {
+    if (warp < R && lc0 + warp < lc_hi) {
+      const int idx = base_of(lc0) + warp * kC + lane;
+      int slot = slot_s[idx];
+      if (restage) {
+        slot = key_slot(lc0, j0, n);
+        const int j = (rank + kNC * (lc0 + warp)) * kC + lane;
+        if (slot >= 0 && valid != nullptr && !valid[j]) slot = -1;
+        slot_s[idx] = slot;
+        stage_scales(idx, slot);
       }
+      if (kt != nullptr) fetch(kbase, kt, slot);
+      if (vt != nullptr) fetch(vbase, vt, slot);
     }
-  }
-  __syncthreads();
-  for (int j = tid; j < n; j += kThreads) {
-    if (j < j0) continue;
-    const float vs = K == KV_INT8 ? a.v_scale[slot_of(j) * a.Hkv + h] : 1.f;
-    for (int g = 0; g < G; ++g) {
-      float* sp = s_s + g * a.n_cols + j;
-      float pr = expf(*sp - stats[g]) / stats[64 + g];
-      if (K == KV_INT8) pr = __fmul_rn(pr, vs);
-      if (a.round_p) pr = __bfloat162float(__float2bfloat16_rn(pr));
-      *sp = pr;
-    }
-  }
-  __syncthreads();
+    cp_async_commit();
+  };
+  // the same, waited for, the tiles' last round consumed first
+  auto load_round = [&](int lc0, unsigned char* kt, unsigned char* vt) {
+    __syncthreads();
+    issue_round(lc0, true, kt, vt);
+    cp_async_wait<0>();
+    __syncthreads();
+  };
 
-  // 3. values: thread (pair pi, key group kg)
-  const int pi = tid % np, kg = tid / np;
-  const bool active = 2 * pi < D;
-  for (int g0 = 0; g0 < G; g0 += kHeadGroup) {
-    float acc[kHeadGroup][2];
+  // 1. the scores of a round (its keys in tile kt) into the score rows:
+  // kKeyLanes lanes a key, lane kl dotting pieces kl, kl + kKeyLanes, ... of
+  // 8 columns with every head's q in order of d (fmaf), then an xor tree
+  // over the lanes (every lane gets the same bits); lane kl stores the heads
+  // g with g % kKeyLanes == kl
+  const int key = tid / kKeyLanes, kl = tid % kKeyLanes;
+  auto scores = [&](int lc0, const unsigned char* kt) {
+    const int base = base_of(lc0), nu = min(R, lc_hi - lc0);
+    for (int u = 0; u < nu; ++u) {
+      const int idx = base + u * kC + key;
+      const unsigned char* krow = kt + (u * kC + key) * D * kElt;
+      for (int g0 = 0; g0 < G; g0 += kHeadGroup) {
+        float acc[kHeadGroup];
 #pragma unroll
-    for (int g = 0; g < kHeadGroup; ++g) acc[g][0] = acc[g][1] = 0.f;
-    if (active) {
-      // the first key of this group at or after j0
-      const int first = j0 + ((kg - j0 % kg_count) + kg_count) % kg_count;
-      // kUnroll of the group's keys a step, their loads issued together, then
-      // added in key order
-      for (int j = first; j < n; j += kUnroll * kg_count) {
-        float2 vv[kUnroll];
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          const int ju = j + u * kg_count;
-          if (ju < n) vv[u] = load2<K>(a.v, slot_of(ju) * a.Hkv * D + kv_head + 2 * pi);
-        }
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          const int ju = j + u * kg_count;
-          if (ju >= n) break;
+        for (int g = 0; g < kHeadGroup; ++g) acc[g] = 0.f;
+#pragma unroll 1
+        for (int i = 0; i < kMaxDc; ++i) {
+          const int dc = kl + kKeyLanes * i;
+          if (dc >= ND) break;
+          float x[8];
+          lds8<K>(krow + 8 * dc * kElt, x);
 #pragma unroll
           for (int g = 0; g < kHeadGroup; ++g) {
             if (g0 + g >= G) break;
-            const float pr = s_s[(g0 + g) * a.n_cols + ju];
-            acc[g][0] = fmaf(pr, vv[u].x, acc[g][0]);
-            acc[g][1] = fmaf(pr, vv[u].y, acc[g][1]);
+            float qv[8];
+            asq_load8(q_s + (g0 + g) * D + 8 * dc, qv);
+#pragma unroll
+            for (int e = 0; e < 8; ++e) acc[g] = fmaf(qv[e], x[e], acc[g]);
+          }
+        }
+        const bool ok = slot_s[idx] >= 0;
+        const float ks = K == KV_INT8 ? ks_s[idx] : 1.f;
+#pragma unroll
+        for (int g = 0; g < kHeadGroup; ++g) {
+          if (g0 + g >= G) break;
+#pragma unroll
+          for (int o = kKeyLanes / 2; o > 0; o >>= 1)
+            acc[g] = __fadd_rn(acc[g], __shfl_xor_sync(0xffffffffu, acc[g], o));
+          if (g % kKeyLanes == kl) {
+            float s = __fmul_rn(acc[g], scale);
+            if (K == KV_INT8) s = __fmul_rn(s, ks);
+            s_buf[(g0 + g) * stride + idx] = ok ? s : kMasked;
           }
         }
       }
-#pragma unroll
-      for (int g = 0; g < kHeadGroup; ++g) {
-        if (g0 + g >= G) break;
-        float* o = o_s + (static_cast<size_t>(kg) * G + g0 + g) * D + 2 * pi;
-        o[0] = acc[g][0];
-        o[1] = acc[g][1];
+    }
+  };
+
+  // pass 1: scores, and each head's max over the CTA's keys (warp w takes
+  // heads w, w + kWarps, ...; max is exact in any order)
+  for (int g = warp; g < G; g += kWarps)
+    if (lane == 0) m_s[g] = kMasked;
+  for (int lc0 = lc_lo, r = 0; lc0 < lc_hi; lc0 += R, ++r) {
+    unsigned char* kt = pipelined && (r & 1) ? t1 : t0;
+    if (pipelined) {
+      // the next round's keys go out before this round's are scored
+      const bool more = lc0 + R < lc_hi;
+      if (more) issue_round(lc0 + R, true, r & 1 ? t0 : t1, nullptr);
+      if (r > 0) {
+        if (more) cp_async_wait<1>(); else cp_async_wait<0>();
+        __syncthreads();
       }
+    } else if (r > 0) {
+      load_round(lc0, t0, nullptr);
+    }
+    scores(lc0, kt);
+    __syncthreads();
+    const int base = base_of(lc0), nu = min(R, lc_hi - lc0);
+    for (int g = warp; g < G; g += kWarps) {
+      float mx = kMasked;
+      for (int u = 0; u < nu; ++u) mx = fmaxf(mx, s_buf[g * stride + base + u * kC + lane]);
+      mx = asq_warp_max(mx);
+      if (lane == 0) m_s[g] = fmaxf(m_s[g], mx);
     }
   }
+  cluster.sync();
+  // the cluster's max of each head, read through DSMEM: the same in every CTA
+  for (int g = warp; g < G; g += kWarps) {
+    const float mx = asq_warp_max(lane < kNC ? *cluster.map_shared_rank(m_s + g, lane) : kMasked);
+    if (lane == 0) mg_s[g] = mx;
+  }
+  __syncwarp();
+
+  // pass 2: each head's sum of exp(s - M) over the CTA's keys: lane l adds
+  // key l of each chunk in chunk order (its running sum in l_lane between
+  // rounds), then the warp's xor tree
+  for (int lc0 = lc_lo; lc0 < lc_hi; lc0 += R) {
+    if (!keep) {
+      load_round(lc0, t0, nullptr);
+      scores(lc0, t0);
+      __syncthreads();
+    }
+    const int base = base_of(lc0), nu = min(R, lc_hi - lc0);
+    for (int g = warp; g < G; g += kWarps) {
+      const float mx = mg_s[g];
+      float t = lc0 == lc_lo ? 0.f : l_lane[g * 32 + lane];
+      for (int u = 0; u < nu; ++u)
+        t = __fadd_rn(t, expf(s_buf[g * stride + base + u * kC + lane] - mx));
+      l_lane[g * 32 + lane] = t;
+    }
+  }
+  for (int g = warp; g < G; g += kWarps) {
+    const float t = asq_warp_sum(lc_lo < lc_hi ? l_lane[g * 32 + lane] : 0.f);
+    if (lane == 0) l_s[g] = t;
+  }
+  cluster.sync();
+  // the cluster's sum of each head: the kNC sums added in CTA order
+  for (int g = warp; g < G; g += kWarps) {
+    const float mine = lane < kNC ? *cluster.map_shared_rank(l_s + g, lane) : 0.f;
+    float t = __shfl_sync(0xffffffffu, mine, 0);
+#pragma unroll
+    for (int r = 1; r < kNC; ++r) t = __fadd_rn(t, __shfl_sync(0xffffffffu, mine, r));
+    if (lane == 0) lg_s[g] = t;
+  }
+  cp_async_wait<0>();  // the first round's values
+  __syncthreads();
+
+  // pass 3: a round's p_j = exp(s_j - M) / L [* v_scale_j], rounded to bf16
+  // on the bf16 path, in place of its scores; then each thread owns (head g,
+  // columns 8 dc .. 8 dc + 7) pairs and a key group (key kc of a chunk in
+  // group kc % KG), and sums p_j v_j over its keys in order, its running sums
+  // in o_part between rounds (the fmaf chain goes on from where the last
+  // round stored it)
+  const int pairs = G * ND;
+  const int vkg = pairs >= kThreads ? 0 : tid / pairs;
+  const int npairs = pairs >= kThreads ? (pairs - tid + kThreads - 1) / kThreads
+                                       : (vkg < KG ? 1 : 0);
+  auto pair_of = [&](int k) { return pairs >= kThreads ? tid + k * kThreads : tid % pairs; };
+  for (int k = 0; k < npairs; ++k) {
+    float* o = o_part + static_cast<size_t>(vkg) * G * D + pair_of(k) * 8;
+    *reinterpret_cast<float4*>(o) = make_float4(0.f, 0.f, 0.f, 0.f);
+    *reinterpret_cast<float4*>(o + 4) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  for (int lc0 = lc_lo, r = 0; lc0 < lc_hi; lc0 += R, ++r) {
+    // the first round's values came with its keys, into v_tile; kept
+    // scores over several rounds: round r's values in t0 (r odd) or v_tile
+    // (r even), the next round's going out before this one's are used.
+    // (Kept scores without a third tile span one round: round_chunks takes
+    // all of a CTA's chunks when they are at most kR.)
+    unsigned char* vt = pipelined && (r & 1) ? t0 : v_tile;
+    bool more = false;
+    if (!keep) {
+      load_round(lc0, t0, r > 0 ? v_tile : nullptr);
+      scores(lc0, t0);
+      __syncthreads();
+    } else if (pipelined) {
+      if (r > 0) __syncthreads();  // round r - 1's values are used
+      more = lc0 + R < lc_hi;
+      if (more) issue_round(lc0 + R, false, nullptr, r & 1 ? v_tile : t0);
+    }
+    const int base = base_of(lc0), nu = min(R, lc_hi - lc0);
+    for (int i = tid; i < G * nu * kC; i += kThreads) {
+      const int g = i / (nu * kC), idx = base + i % (nu * kC);
+      float pr = expf(s_buf[g * stride + idx] - mg_s[g]) / lg_s[g];
+      if (K == KV_INT8) pr = __fmul_rn(pr, vs_s[idx]);
+      if (round_p) pr = __bfloat162float(__float2bfloat16_rn(pr));
+      s_buf[g * stride + idx] = pr;
+    }
+    if (pipelined && r > 0) {
+      if (more) cp_async_wait<1>(); else cp_async_wait<0>();
+    }
+    __syncthreads();
+    for (int k = 0; k < npairs; ++k) {
+      const int pair = pair_of(k), g = pair / ND, dc = pair % ND;
+      float* o = o_part + static_cast<size_t>(vkg) * G * D + pair * 8;
+      float acc[8];
+      asq_load8(o, acc);
+      // a key not scanned has p_j = 0 and, unless it was fetched before the
+      // position was known, zeros in the tile: either way it adds nothing
+      for (int u = 0; u < nu; ++u) {
+#pragma unroll 4
+        for (int kc = vkg; kc < kC; kc += KG) {
+          const int idx = base + u * kC + kc;
+          const float pr = s_buf[g * stride + idx];
+          float v8[8];
+          lds8<K>(vt + ((u * kC + kc) * D + 8 * dc) * kElt, v8);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[e] = fmaf(pr, v8[e], acc[e]);
+        }
+      }
+      asq_store8(o, acc);
+    }
+  }
+  // the key groups' partial outputs added in group order, into q_s
   __syncthreads();
   for (int i = tid; i < G * D; i += kThreads) {
-    float t = o_s[i];
-    for (int c = 1; c < kg_count; ++c) t = __fadd_rn(t, o_s[static_cast<size_t>(c) * G * D + i]);
-    // a row with no valid key (every score masked) is written as 0
-    if (n <= j0 || stats[i / D] <= kMasked) t = 0.f;
-    out[i] = asq_from_float<Tq>(t);
+    float t = o_part[i];
+    for (int kg = 1; kg < KG; ++kg) t = __fadd_rn(t, o_part[static_cast<size_t>(kg) * G * D + i]);
+    q_s[i] = t;
   }
+  cluster.sync();
+
+  // this CTA's slice of the outputs: the kNC CTAs' partials added in CTA
+  // order through DSMEM, 4 columns a thread
+  Tq* out = static_cast<Tq*>(a.out) + (static_cast<size_t>(b) * a.Hq + h * G) * D;
+  const int per = (G * D / 4 + kNC - 1) / kNC * 4;
+  const int end = min(G * D, (rank + 1) * per);
+  for (int i = rank * per + 4 * tid; i < end; i += 4 * kThreads) {
+    float4 t = load_float4(cluster.map_shared_rank(q_s, 0) + i);
+#pragma unroll
+    for (int r = 1; r < kNC; ++r) {
+      const float4 o = load_float4(cluster.map_shared_rank(q_s, r) + i);
+      t = make_float4(__fadd_rn(t.x, o.x), __fadd_rn(t.y, o.y), __fadd_rn(t.z, o.z),
+                      __fadd_rn(t.w, o.w));
+    }
+    // a row with no valid key (every score masked) is written as 0
+    if (n <= j0 || mg_s[i / D] <= kMasked) t = make_float4(0.f, 0.f, 0.f, 0.f);
+    store4<Tq>(out + i, t);
+  }
+  cluster.sync();  // no CTA leaves while a peer may read its shared memory
 }
 
-// the dynamic shared memory of a launch; scores_in_smem: the score row's too
-size_t smem_bytes(int G, int D, int n_cols, bool scores_in_smem) {
-  const int kg_count = kThreads / (D <= 64 ? 32 : 64);
-  return sizeof(float) *
-         (static_cast<size_t>(G) * D + (scores_in_smem ? static_cast<size_t>(G) * n_cols : 0) +
-          static_cast<size_t>(kg_count) * G * D);
-}
-
+// The dynamic shared memory a block of decode_attn_kernel<Tq, K> may have,
+// granted to it once, at the first call (an eager step, never inside a
+// graph capture); 0 with the error in *err if the grant failed.
 template <typename Tq, int K>
-int launch(const Args& a, int B, cudaStream_t s) {
-  // grant the kernel all the dynamic shared memory a block may have beside
-  // its static arrays, once, at the first launch (an eager step, never
-  // inside a graph capture): occupancy follows each launch's own size
-  static int granted = -1;
-  if (granted < 0) {
+int granted(cudaError_t* err) {
+  static int most = -1;
+  if (most < 0) {
     cudaFuncAttributes attr;
     int device = 0, optin = 0;
     cudaError_t e = cudaFuncGetAttributes(&attr, decode_attn_kernel<Tq, K>);
     if (e == cudaSuccess) e = cudaGetDevice(&device);
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-    const int most = optin - static_cast<int>(attr.sharedSizeBytes);
+    const int limit = optin - static_cast<int>(attr.sharedSizeBytes);
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(decode_attn_kernel<Tq, K>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, most);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    granted = most;
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
+    *err = e;
+    if (e != cudaSuccess) return 0;
+    most = limit;
   }
-  const size_t smem = smem_bytes(a.Hq / a.Hkv, a.D, a.n_cols, a.scores == nullptr);
-  if (smem > static_cast<size_t>(granted)) return static_cast<int>(cudaErrorInvalidValue);
-  decode_attn_kernel<Tq, K><<<B * a.Hkv, kThreads, smem, s>>>(a);
+  *err = cudaSuccess;
+  return most;
+}
+
+// Whether a launch keeps its score rows in shared memory: where they fit in
+// the `most` bytes the kernel was granted, a choice by shape alone (either
+// route gives the same bits)
+inline bool keeps(int G, int D, int n_cols, int elt, int most) {
+  return smem_bytes(G, D, round_chunks(n_cols), round_tiles(n_cols, true),
+                    score_rowlen(n_cols, true), elt) <= static_cast<size_t>(most);
+}
+
+// keeps() for decode_attn_kernel<Tq, K>: 1 or 0, or a negative cudaError_t
+template <typename Tq, int K>
+int keeps_scores(int G, int D, int n_cols) {
+  cudaError_t e;
+  const int most = granted<Tq, K>(&e);
+  return e != cudaSuccess ? -static_cast<int>(e) : keeps(G, D, n_cols, Elt<K>::kBytes, most);
+}
+
+template <typename Tq, int K>
+int launch(Args a, int B, bool recompute, cudaStream_t s) {
+  cudaError_t e;
+  const int most = granted<Tq, K>(&e);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int G = a.Hq / a.Hkv;
+  const bool keep = !recompute && keeps(G, a.D, a.n_cols, Elt<K>::kBytes, most);
+  a.keep = keep;
+  a.round = round_chunks(a.n_cols);
+  a.tiles = round_tiles(a.n_cols, keep);
+  a.rowlen = score_rowlen(a.n_cols, keep);
+  const size_t smem = smem_bytes(G, a.D, a.round, a.tiles, a.rowlen, Elt<K>::kBytes);
+  if (smem > static_cast<size_t>(most)) return static_cast<int>(cudaErrorInvalidValue);
+  decode_attn_kernel<Tq, K><<<kNC * B * a.Hkv, kThreads, smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename Tq>
-int launch_kv(const Args& a, int B, int kv_kind, cudaStream_t s) {
-  if (kv_kind == KV_F32) return launch<Tq, KV_F32>(a, B, s);
-  if (kv_kind == KV_BF16) return launch<Tq, KV_BF16>(a, B, s);
-  return launch<Tq, KV_INT8>(a, B, s);
+int launch_kv(const Args& a, int B, int kv_kind, bool recompute, cudaStream_t s) {
+  if (kv_kind == KV_F32) return launch<Tq, KV_F32>(a, B, recompute, s);
+  if (kv_kind == KV_BF16) return launch<Tq, KV_BF16>(a, B, recompute, s);
+  return launch<Tq, KV_INT8>(a, B, recompute, s);
+}
+
+template <typename Tq>
+int keeps_kv(int G, int D, int n_cols, int kv_kind) {
+  if (kv_kind == KV_F32) return keeps_scores<Tq, KV_F32>(G, D, n_cols);
+  if (kv_kind == KV_BF16) return keeps_scores<Tq, KV_BF16>(G, D, n_cols);
+  return keeps_scores<Tq, KV_INT8>(G, D, n_cols);
 }
 
 }  // namespace
@@ -361,23 +702,20 @@ int launch_kv(const Args& a, int B, int kv_kind, cudaStream_t s) {
 // q, out [B, Hq, D] (q_bf16: bf16, else f32); k, v and k_scale, v_scale
 // (f32, int8 caches only, else null) as the note above lays them out;
 // table int32 [B, table_cols] (paged) or null (contiguous); pos int64, row
-// b's at pos[b * pos_stride]; kv_valid bool [B, valid_stride] or null;
-// scores: an f32 workspace of B x Hq x n_cols for the score rows, or null to
-// keep them in shared memory. kv_kind: 0 f32, 1 bf16, 2 int8. Needs D % 8 ==
-// 0, D <= 128, Hq % Hkv == 0, Hq / Hkv <= 64, 16-byte aligned q, k and v,
-// and 4 x (G x D [+ G x n_cols without a workspace] + KG x G x D) bytes of
-// shared memory (G = Hq / Hkv; KG = 16 key groups for D <= 64, else 8)
-// within what a block may have beside its static arrays (about 226 KB on
-// an H100).
+// b's at pos[b * pos_stride]; kv_valid bool [B, valid_stride] or null.
+// kv_kind: 0 f32, 1 bf16, 2 int8. The score rows stay in shared memory
+// where they fit (asq_decode_keeps_scores), unless recompute (for tests:
+// the other route, the same bits). Needs D % 8 == 0, D <= 128, Hq % Hkv ==
+// 0, Hq / Hkv <= 64 and 16-byte aligned q, k and v.
 ASQ_EXPORT int asq_decode_attention(const void* q, const void* k, const void* v,
                                     const void* k_scale, const void* v_scale,
                                     const void* table, const void* pos, const void* kv_valid,
-                                    void* out, void* scores, int B, int Hq, int Hkv, int D,
-                                    int kv_rows, int table_cols, int pos_stride, int valid_stride,
+                                    void* out, int B, int Hq, int Hkv, int D, int kv_rows,
+                                    int table_cols, int pos_stride, int valid_stride,
                                     int n_cols, int window, float scale, int kv_kind,
-                                    int q_bf16, int round_p, void* stream) {
-  if (D % 8 != 0 || D > 128 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > 64 || n_cols <= 0 ||
-      !asq_row_vec_ok(8, {q, k, v}))
+                                    int q_bf16, int round_p, int recompute, void* stream) {
+  if (D % 8 != 0 || D > 128 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > kMaxHeads ||
+      n_cols <= 0 || kv_rows <= 0 || !asq_row_vec_ok(8, {q, k, v}))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0) return 0;
@@ -390,7 +728,6 @@ ASQ_EXPORT int asq_decode_attention(const void* q, const void* k, const void* v,
                static_cast<const long long*>(pos),
                static_cast<const unsigned char*>(kv_valid),
                out,
-               static_cast<float*>(scores),
                Hq,
                Hkv,
                D,
@@ -401,6 +738,20 @@ ASQ_EXPORT int asq_decode_attention(const void* q, const void* k, const void* v,
                n_cols,
                window,
                scale,
-               round_p};
-  return q_bf16 ? launch_kv<__nv_bfloat16>(a, B, kv_kind, s) : launch_kv<float>(a, B, kv_kind, s);
+               round_p,
+               0,
+               0,
+               0,
+               0};
+  return q_bf16 ? launch_kv<__nv_bfloat16>(a, B, kv_kind, recompute != 0, s)
+                : launch_kv<float>(a, B, kv_kind, recompute != 0, s);
+}
+
+// Whether a launch at these shapes keeps its score rows in shared memory
+// (1) or recomputes them (0); a negative cudaError_t if the kernel's
+// shared memory could not be granted. Grants it, so call it outside a
+// graph capture.
+ASQ_EXPORT int asq_decode_keeps_scores(int G, int D, int n_cols, int kv_kind, int q_bf16) {
+  return q_bf16 ? keeps_kv<__nv_bfloat16>(G, D, n_cols, kv_kind)
+                : keeps_kv<float>(G, D, n_cols, kv_kind);
 }

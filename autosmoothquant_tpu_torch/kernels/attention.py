@@ -161,23 +161,27 @@ flash_attention_banded.launches = 0
 # decode attention (csrc/decode_attn.cu)
 # ---------------------------------------------------------------------------
 
-# q, k, v, k_scale, v_scale, table, pos, kv_valid, out, scores, then B, Hq,
-# Hkv, D, kv_rows, table_cols, pos_stride, valid_stride, n_cols, window,
-# scale, kv_kind, q_bf16, round_p, stream
-_DECODE_ARGTYPES = (_P,) * 10 + (_I,) * 10 + (ctypes.c_float, _I, _I, _I, _P)
+# q, k, v, k_scale, v_scale, table, pos, kv_valid, out, then B, Hq, Hkv, D,
+# kv_rows, table_cols, pos_stride, valid_stride, n_cols, window, scale,
+# kv_kind, q_bf16, round_p, recompute, stream
+_DECODE_ARGTYPES = (_P,) * 9 + (_I,) * 10 + (ctypes.c_float, _I, _I, _I, _I, _P)
+# G, D, n_cols, kv_kind, q_bf16
+_DECODE_KEEPS_ARGTYPES = (_I,) * 5
 _KV_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-# the shared memory the wrapper lets a launch take (a block may have 227 KB,
-# the kernel's static arrays included)
-_DECODE_MAX_SMEM = 220 * 1024
 
 
-def decode_smem_bytes(g: int, d: int, n_cols: int) -> int:
-    """The shared memory ``csrc/decode_attn.cu`` takes for G query heads a kv
-    head, head dim D and ``n_cols`` score columns kept there (0: the scores
-    in a global workspace): q, the score rows and the key groups' partial
-    outputs, in f32."""
-    key_groups = 512 // (32 if d <= 64 else 64)
-    return 4 * (g * d + g * n_cols + key_groups * g * d)
+def decode_keeps_scores(g: int, d: int, n_cols: int, kv_dtype: torch.dtype,
+                        q_dtype: torch.dtype = torch.bfloat16) -> bool:
+    """Whether ``csrc/decode_attn.cu`` keeps a launch's score rows in shared
+    memory (else its later passes recompute them, with the same bits), for
+    G query heads a kv head, head dim D, ``n_cols`` columns and the cache's
+    and q's dtypes: the kernel's own choice, by shape alone. Needs the card
+    (the kernel's shared memory is granted on first use)."""
+    fn = _build.function("decode_attn", "asq_decode_keeps_scores", _DECODE_KEEPS_ARGTYPES)
+    rc = fn(g, d, n_cols, _KV_KINDS[kv_dtype], int(q_dtype == torch.bfloat16))
+    if rc < 0:
+        _build.check("decode_attn", -rc, "decode_keeps_scores")
+    return bool(rc)
 
 
 def gather_pages(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -236,7 +240,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos, *,
                      v_scale: Optional[torch.Tensor] = None,
                      table: Optional[torch.Tensor] = None,
                      kv_valid: Optional[torch.Tensor] = None, window: int = 0,
-                     kv_window: Optional[int] = None) -> torch.Tensor:
+                     kv_window: Optional[int] = None,
+                     recompute_scores: bool = False) -> torch.Tensor:
     """Attention of one query token a row, q [B, Hq, D], over its cache.
     Contiguous: k, v [B, S, Hkv, D]; paged (``table`` int32 [B, M]): k, v
     [N, bs, Hkv, D] pages, key j of row b in page table[b, j // bs]. An int8
@@ -248,10 +253,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos, *,
 
     CUDA tensors launch ``csrc/decode_attn.cu``, whose sums run in an order
     set by key position alone, so a row's result does not depend on the
-    batch; what it refuses raises. The score rows live in shared memory
-    while they fit beside q and the partial outputs, else (long contexts) in
-    a workspace allocated here, with the same bits. A row with no valid key
-    comes out 0 from the kernel (the plain version averages it)."""
+    batch; what it refuses raises. It allocates nothing but the output: a
+    cluster of CTAs a row and kv head keeps its score rows in shared memory
+    where they fit (:func:`decode_keeps_scores`), else recomputes them, with
+    the same bits; ``recompute_scores`` forces the second route (for
+    tests). A row with no valid key comes out 0 from the kernel (the plain
+    version averages it)."""
     b, hq, d = q.shape
     hkv = k.shape[2]
     if (k.shape != v.shape or k.ndim != 4 or k.shape[3] != d or hq % hkv
@@ -271,16 +278,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos, *,
                         "(f32, bf16 or int8)")
     if d % 8 or d > _MAX_HEAD_DIM:
         raise ValueError(f"head_dim {d}: the kernel takes D % 8 == 0 up to {_MAX_HEAD_DIM}")
+    if hq // hkv > 64:
+        raise ValueError(f"G={hq // hkv}: past the kernel's 64 query heads a kv head")
     kv_rows = k.shape[1]
     n_cols = kv_window or (kv_rows if table is None else table.shape[1] * kv_rows)
-    g = hq // hkv
-    if g > 64 or decode_smem_bytes(g, d, 0) > _DECODE_MAX_SMEM:
-        raise ValueError(f"G={g}, D={d}: past the kernel's shared memory "
-                         f"({_DECODE_MAX_SMEM} bytes)")
-    # a choice by shape alone, and either place gives the same bits
-    scores = None
-    if decode_smem_bytes(g, d, n_cols) > _DECODE_MAX_SMEM:
-        scores = torch.empty(b * hq * n_cols, dtype=torch.float32, device=q.device)
     tensors = [q, k, v] + [t for t in (k_scale, v_scale, table) if t is not None]
     if not all(t.is_contiguous() for t in tensors) or any(
             t.data_ptr() % 16 for t in (q, k, v)):
@@ -302,11 +303,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos, *,
     fn = _build.function("decode_attn", "asq_decode_attention", _DECODE_ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _build.ptr(k_scale),
             _build.ptr(v_scale), _build.ptr(table), pos.data_ptr(), _build.ptr(kv_valid),
-            out.data_ptr(), _build.ptr(scores), b, hq, hkv, d, kv_rows,
+            out.data_ptr(), b, hq, hkv, d, kv_rows,
             table.shape[1] if table is not None else 0, pos_stride,
             kv_valid.stride(0) if kv_valid is not None else 0, n_cols, int(window),
             float(scale), _KV_KINDS[k.dtype], int(q.dtype == torch.bfloat16),
-            int(q.dtype != torch.float32 and k.dtype != torch.float32),
+            int(q.dtype != torch.float32 and k.dtype != torch.float32), int(recompute_scores),
             _build.stream_ptr(q))
     _build.check("decode_attn", rc, "decode_attention")
     decode_attention.launches += 1

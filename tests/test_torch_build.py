@@ -35,6 +35,7 @@ BINDINGS = [
      fused._ARGTYPES["add_layernorm_quant"]),
     ("rmsnorm_quant", "asq_rmsnorm_quant", fused._RMS_ARGTYPES),
     ("decode_attn", "asq_decode_attention", attention._DECODE_ARGTYPES),
+    ("decode_attn", "asq_decode_keeps_scores", attention._DECODE_KEEPS_ARGTYPES),
 ]
 
 _EXPORT = re.compile(r"ASQ_EXPORT\s+int\s+(\w+)\s*\(([^)]*)\)", re.S)
