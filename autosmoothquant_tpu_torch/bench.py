@@ -9,9 +9,9 @@ Environment, with ``bench.py``'s names and defaults: ``ASQ_BENCH_PRESET``
 (1), ``ASQ_BENCH_PROMPT`` (128 tokens) and ``ASQ_BENCH_SMAX`` (512). Greedy
 decode through ``Engine.generate`` (a CUDA graph a step on the card), bf16
 compute and KV cache, random weights from a seed: W8A8 first, then bf16,
-never both at once. tok/s across the batch is batch x 64 / (the time of a
-65-token generate minus a 1-token one), each the best of 3 after a warm
-call, so prefill and the first token cancel. Prints one JSON line with
+never both at once. tok/s across the batch is batch x 64 / the time of the
+64 decode steps of a 65-token generate (prefill and the first token left
+out), the best of 3 after a warm call. Prints one JSON line with
 ``bench.py``'s keys (``metric``, ``value``, ``unit``, ``vs_baseline`` =
 int8 / bf16, ``bf16_tok_per_s``) and the device it ran on.
 
@@ -143,21 +143,32 @@ def draw_float(cfg, seed, device, proj_dtype=None):
 
 def decode_tps(eng: Engine, prompts, steps: int = DECODE_STEPS) -> float:
     """Greedy decode tok/s across the batch: len(prompts) x steps over the
-    time of a (steps + 1)-token generate minus a 1-token one, each the best
-    of 3 after a warm call (host clock; ``generate`` returns host lists, so
-    the work is done when it returns)."""
-    def best_s(n):
-        gen_cfg = GenerationConfig(max_new_tokens=n)
-        eng.generate(prompts, gen_cfg)  # warm: first-call work, the graph's capture
-        best = float("inf")
-        for _ in range(3):
-            if eng.device.type == "cuda":
-                torch.cuda.synchronize(eng.device)
-            t0 = time.perf_counter()
-            eng.generate(prompts, gen_cfg)
-            best = min(best, time.perf_counter() - t0)
-        return best
-    return len(prompts) * steps / (best_s(steps + 1) - best_s(1))
+    time of the decode steps of a (steps + 1)-token generate (its prefill
+    and first token left out), the best of 3 after a warm call; host clock,
+    with the device synchronized on either side of the steps. (A difference
+    of two generates' times, one of steps + 1 tokens and one of 1, goes
+    negative when the host is loaded.)"""
+    def sync():
+        if eng.device.type == "cuda":
+            torch.cuda.synchronize(eng.device)
+
+    seconds = []
+    decode = eng._decode
+
+    def timed_decode(*args):
+        sync()
+        t0 = time.perf_counter()
+        decode(*args)
+        sync()
+        seconds.append(time.perf_counter() - t0)
+
+    eng._decode = timed_decode
+    try:
+        for _ in range(4):  # a warm call (first-call work, the graph's capture), then 3
+            eng.generate(prompts, GenerationConfig(max_new_tokens=steps + 1))
+    finally:
+        del eng._decode
+    return len(prompts) * steps / min(seconds[1:])
 
 
 def run(preset: str, batch: int, prompt_len: int, s_max: int, device) -> dict:

@@ -1,9 +1,11 @@
 """The port's command-line entry points, run as modules on the card:
 
+    python -m autosmoothquant_tpu_torch.cli.smoothquant_model --model-path DIR ...
     python -m autosmoothquant_tpu_torch.cli.serve_model --quantized-model-path DIR ...
     python -m autosmoothquant_tpu_torch.cli.test_model --quantized-model-path DIR ...
 
-They take the flags of ``examples/serve_model.py`` and
+They take the flags of ``examples/smoothquant_model.py`` (an HF float
+checkpoint -> a quantized artifact), ``examples/serve_model.py`` and
 ``examples/test_model.py``. A flag whose feature the port does not have yet
 raises NotImplementedError naming its ROADMAP item; none is ignored."""
 

@@ -1,0 +1,272 @@
+"""HuggingFace checkpoints -> the port's params (the port of
+``autosmoothquant_tpu/convert/hf.py``), with no ``transformers``: tensors
+come from the directory's safetensors files (``convert/safetensors_io.py``)
+or ``pytorch_model*.bin`` shards (``torch.load``).
+
+Float checkpoints (``load_hf_params``) map to the layout
+``convert/from_jax.py:params_from_jax`` gives the JAX package's float params:
+a list of per-layer dicts, projection weights [in, out] (HF's [out, in]
+transposed) in the requested dtype, norm weights and LayerNorm biases f32, a
+projection's bias under "bias". The quantized checkpoints the reference's
+``save_pretrained`` writes (``load_reference_quantized``: int8 [out, in]
+weights with their ``dequant_scale`` and ``quant_scale`` buffers, norms
+already folded) map straight into the port's quantized layout, whose weights
+are [out, in] too. Conversions run on the target device: a bf16 checkpoint
+is copied there as it is stored and widened there.
+
+Baichuan, Mixtral and Gemma checkpoints raise NotImplementedError (their
+model families are not ported yet: ROADMAP Queue 1, item 10).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Callable, Dict
+
+import torch
+
+from ..runtime import resolve_device
+
+_FAMILIES_TODO = "ROADMAP Queue 1, item 10 (Baichuan, Mixtral and Gemma are not ported yet)"
+
+
+def hf_config_dict(model_path: str) -> Dict[str, Any]:
+    """The checkpoint's config.json."""
+    with open(os.path.join(model_path, "config.json"), "r", encoding="utf-8") as f:
+        return json.load(f)
+
+
+class _Reader:
+    """Leaves of a state dict, converted on ``device``."""
+
+    def __init__(self, sd, dtype, device):
+        self.sd, self.dtype, self.device = sd, dtype, device
+
+    def raw(self, name) -> torch.Tensor:
+        return torch.as_tensor(self.sd[name]).to(self.device)
+
+    def weight(self, name) -> torch.Tensor:
+        """An HF [out, in] weight as [in, out] in the target dtype."""
+        return self.raw(name).to(self.dtype).t().contiguous()
+
+    def leaf(self, name) -> torch.Tensor:
+        return self.raw(name).to(self.dtype)
+
+    def norm(self, name) -> torch.Tensor:
+        return self.raw(name).float()
+
+    def has(self, name) -> bool:
+        return name in self.sd
+
+
+def _proj(r: _Reader, base: str, bias_key: str = "bias") -> Dict[str, torch.Tensor]:
+    p = {"w": r.weight(base + ".weight")}
+    if r.has(base + ".bias"):
+        p[bias_key] = r.leaf(base + ".bias")
+    return p
+
+
+def llama_params_from_state_dict(sd: Dict[str, Any], num_layers: int,
+                                 dtype=torch.float32, device="cuda") -> Dict[str, Any]:
+    """HF Llama (and Qwen2, with its q/k/v biases) names -> the port's float
+    params. A checkpoint without ``lm_head.weight`` ties it to the
+    embedding."""
+    r = _Reader(sd, dtype, resolve_device(device))
+    layers = []
+    for i in range(num_layers):
+        b = f"model.layers.{i}"
+        layers.append({
+            "ln1": {"w": r.norm(f"{b}.input_layernorm.weight")},
+            "attn": {n: _proj(r, f"{b}.self_attn.{n}_proj") for n in ("q", "k", "v", "o")},
+            "ln2": {"w": r.norm(f"{b}.post_attention_layernorm.weight")},
+            "mlp": {n: _proj(r, f"{b}.mlp.{n}_proj") for n in ("gate", "up", "down")},
+        })
+    p = {"embed": {"w": r.leaf("model.embed_tokens.weight")}, "layers": layers,
+         "final_norm": {"w": r.norm("model.norm.weight")}}
+    head = "lm_head.weight" if r.has("lm_head.weight") else "model.embed_tokens.weight"
+    p["lm_head"] = {"w": r.weight(head)}
+    return p
+
+
+def opt_params_from_state_dict(sd: Dict[str, Any], num_layers: int,
+                               dtype=torch.float32, device="cuda") -> Dict[str, Any]:
+    """HF OPT names -> the port's float params (every projection with its
+    bias; project_in / project_out and the final LayerNorm where the
+    checkpoint has them)."""
+    r = _Reader(sd, dtype, resolve_device(device))
+
+    def ln(name):
+        return {"w": r.norm(name + ".weight"), "b": r.norm(name + ".bias")}
+
+    layers = []
+    for i in range(num_layers):
+        b = f"model.decoder.layers.{i}"
+        layers.append({
+            "ln1": ln(f"{b}.self_attn_layer_norm"),
+            "attn": {"q": _proj(r, f"{b}.self_attn.q_proj"),
+                     "k": _proj(r, f"{b}.self_attn.k_proj"),
+                     "v": _proj(r, f"{b}.self_attn.v_proj"),
+                     "o": _proj(r, f"{b}.self_attn.out_proj")},
+            "ln2": ln(f"{b}.final_layer_norm"),
+            "mlp": {"fc1": _proj(r, f"{b}.fc1"), "fc2": _proj(r, f"{b}.fc2")},
+        })
+    p = {"embed": {"w": r.leaf("model.decoder.embed_tokens.weight")},
+         "embed_pos": {"w": r.leaf("model.decoder.embed_positions.weight")},
+         "layers": layers}
+    if r.has("model.decoder.final_layer_norm.weight"):
+        p["final_norm"] = ln("model.decoder.final_layer_norm")
+    for name in ("project_in", "project_out"):
+        if r.has(f"model.decoder.{name}.weight"):
+            p[name] = {"w": r.weight(f"model.decoder.{name}.weight")}
+    head = "lm_head.weight" if r.has("lm_head.weight") else "model.decoder.embed_tokens.weight"
+    p["lm_head"] = {"w": r.weight(head)}
+    return p
+
+
+def _not_ported(family: str) -> Callable:
+    def mapper(*args, **kwargs):
+        raise NotImplementedError(f"{family} checkpoints: {_FAMILIES_TODO}")
+    mapper.__name__ = f"{family}_params_from_state_dict"
+    return mapper
+
+
+baichuan_params_from_state_dict = _not_ported("baichuan")
+mixtral_params_from_state_dict = _not_ported("mixtral")
+gemma_params_from_state_dict = _not_ported("gemma")
+
+_LOADERS: Dict[str, Callable] = {
+    "llama": llama_params_from_state_dict,
+    "transformers": opt_params_from_state_dict,  # the reference's OPT family tag
+    "opt": opt_params_from_state_dict,
+    "baichuan": baichuan_params_from_state_dict,
+    "mixtral": mixtral_params_from_state_dict,
+    "gemma": gemma_params_from_state_dict,
+}
+
+
+def register_loader(family: str, fn: Callable) -> None:
+    _LOADERS[family] = fn
+
+
+def load_state_dict(model_path: str) -> Dict[str, torch.Tensor]:
+    """Every tensor of an HF checkpoint directory, as CPU tensors: its
+    ``*.safetensors`` files, else its ``pytorch_model*.bin`` shards."""
+    from .safetensors_io import load_safetensors
+
+    sd: Dict[str, torch.Tensor] = {}
+    entries = sorted(os.listdir(model_path))
+    st_files = [e for e in entries if e.endswith(".safetensors")]
+    bin_files = [e for e in entries if e.endswith(".bin") and "pytorch_model" in e]
+    if st_files:
+        for fname in st_files:
+            sd.update(load_safetensors(os.path.join(model_path, fname)))
+    elif bin_files:
+        for fname in bin_files:
+            sd.update(torch.load(os.path.join(model_path, fname), map_location="cpu",
+                                 weights_only=True))
+    else:
+        raise FileNotFoundError(f"no model weights found under {model_path}")
+    return sd
+
+
+def load_hf_params(model_path_or_sd, family: str, num_layers: int,
+                   dtype=torch.float32, *, device="cuda"):
+    """The port's float params of a state dict or checkpoint directory, on
+    ``device``. ``family``: "llama", "opt" (or the reference's tag for it,
+    "transformers")."""
+    sd = (model_path_or_sd if isinstance(model_path_or_sd, dict)
+          else load_state_dict(model_path_or_sd))
+    return _LOADERS[family](sd, num_layers, dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# The reference's quantized checkpoints (its save_pretrained output: int8
+# [out, in] weights with f32 dequant_scale, and quant_scale for a
+# per-tensor o_proj / down_proj / fc2, buffers per projection; norm weights
+# already divided by their consumers' input scales)
+# ---------------------------------------------------------------------------
+
+
+def _qproj(r: _Reader, base: str) -> Dict[str, torch.Tensor]:
+    w = r.raw(base + ".weight")
+    if w.dtype != torch.int8:
+        raise TypeError(f"{base}: expected int8 weights, got {w.dtype}")
+    p = {"w": w.contiguous(), "dequant_scale": r.raw(base + ".dequant_scale").float()}
+    for key in ("quant_scale", "bias"):
+        if r.has(f"{base}.{key}"):
+            p[key] = r.raw(f"{base}.{key}").float()
+    return p
+
+
+def quantized_llama_params_from_state_dict(sd: Dict[str, Any], num_layers: int,
+                                           dtype=torch.float32,
+                                           device="cuda") -> Dict[str, Any]:
+    """A reference int8 Llama checkpoint -> the port's quantized params."""
+    r = _Reader(sd, dtype, resolve_device(device))
+    layers = []
+    for i in range(num_layers):
+        b = f"model.layers.{i}"
+        layers.append({
+            "ln1": {"w": r.norm(f"{b}.input_layernorm.weight")},
+            "attn": {n: _qproj(r, f"{b}.self_attn.{n}_proj") for n in ("q", "k", "v", "o")},
+            "ln2": {"w": r.norm(f"{b}.post_attention_layernorm.weight")},
+            "mlp": {n: _qproj(r, f"{b}.mlp.{n}_proj") for n in ("gate", "up", "down")},
+        })
+    head = "lm_head.weight" if r.has("lm_head.weight") else "model.embed_tokens.weight"
+    return {"embed": {"w": r.leaf("model.embed_tokens.weight")}, "layers": layers,
+            "final_norm": {"w": r.norm("model.norm.weight")},
+            "lm_head": {"w": r.weight(head)}}
+
+
+def quantized_opt_params_from_state_dict(sd: Dict[str, Any], num_layers: int,
+                                         dtype=torch.float32,
+                                         device="cuda") -> Dict[str, Any]:
+    """A reference int8 OPT checkpoint (LayerNorm weights and biases already
+    folded) -> the port's quantized params."""
+    r = _Reader(sd, dtype, resolve_device(device))
+
+    def ln(name):
+        return {"w": r.norm(name + ".weight"), "b": r.norm(name + ".bias")}
+
+    layers = []
+    for i in range(num_layers):
+        b = f"model.decoder.layers.{i}"
+        layers.append({
+            "ln1": ln(f"{b}.self_attn_layer_norm"),
+            "attn": {"q": _qproj(r, f"{b}.self_attn.q_proj"),
+                     "k": _qproj(r, f"{b}.self_attn.k_proj"),
+                     "v": _qproj(r, f"{b}.self_attn.v_proj"),
+                     "o": _qproj(r, f"{b}.self_attn.out_proj")},
+            "ln2": ln(f"{b}.final_layer_norm"),
+            "mlp": {"fc1": _qproj(r, f"{b}.fc1"), "fc2": _qproj(r, f"{b}.fc2")},
+        })
+    p = {"embed": {"w": r.leaf("model.decoder.embed_tokens.weight")},
+         "embed_pos": {"w": r.leaf("model.decoder.embed_positions.weight")},
+         "layers": layers,
+         "final_norm": ln("model.decoder.final_layer_norm"),
+         "lm_head": {"w": r.weight("lm_head.weight")}}
+    for name in ("project_in", "project_out"):
+        if r.has(f"model.decoder.{name}.weight"):
+            p[name] = {"w": r.weight(f"model.decoder.{name}.weight")}
+    return p
+
+
+_QUANTIZED_LOADERS: Dict[str, Callable] = {
+    "llama": quantized_llama_params_from_state_dict,
+    "transformers": quantized_opt_params_from_state_dict,
+    "opt": quantized_opt_params_from_state_dict,
+    "baichuan": _not_ported("baichuan"),
+    "mixtral": _not_ported("mixtral"),
+}
+
+
+def load_reference_quantized(model_path: str, family: str, num_layers: int,
+                             dtype=torch.float32, *, device="cuda"):
+    """A reference-produced quantized checkpoint directory: (params on
+    ``device``, QuantConfig of its quant_config.json)."""
+    from ..quant.config import parse_quant_config
+
+    params = _QUANTIZED_LOADERS[family](load_state_dict(model_path), num_layers,
+                                        dtype=dtype, device=device)
+    return params, parse_quant_config(os.path.join(model_path, "quant_config.json"))

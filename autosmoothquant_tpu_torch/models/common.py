@@ -17,8 +17,9 @@ weights are [N, K] (int4: [N, K'/2] packed; see ``convert/from_jax.py``).
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Union
+from typing import Dict, List, Optional, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -722,3 +723,104 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask,
 
 def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
     return F.silu(x) if kind == "silu" else F.gelu(x, approximate="tanh")
+
+
+# ---------------------------------------------------------------------------
+# Quantization of float params (the families' quantize)
+# ---------------------------------------------------------------------------
+
+
+def absmax_ch(x: torch.Tensor) -> torch.Tensor:
+    """Per-channel absmax over every row: [..., C] -> [C] (a calibration
+    statistic)."""
+    return x.reshape(-1, x.shape[-1]).abs().amax(dim=0)
+
+
+def as_tensor(x) -> torch.Tensor:
+    """A tensor as it is; a numpy array (read-only ones included) as a CPU
+    tensor of its own copy."""
+    return x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))
+
+
+def fp8_observer_scales_of(stats, proj_input) -> Dict[str, torch.Tensor]:
+    """Each projection's fp8 input and output scales [L] (absmax / 448) from
+    an observer pass's statistics; ``proj_input``: projection -> its
+    per-channel input statistic."""
+    out = {}
+    for proj, key in proj_input.items():
+        out[f"{proj}_input_scale"] = qmath.true_div(as_tensor(stats[key]).amax(dim=-1),
+                                                    qmath.FP8_E4M3_MAX)
+        out[f"{proj}_output_scale"] = qmath.true_div(as_tensor(stats[f"{proj}_out_absmax"]),
+                                                     qmath.FP8_E4M3_MAX)
+    return out
+
+
+def scales_on(scales, device) -> Dict[str, torch.Tensor]:
+    """Every scale as a tensor on ``device``: a quantize divides by them,
+    and a CUDA tensor divided by a CPU scalar is multiplied by its rounded
+    reciprocal instead."""
+    return {k: as_tensor(v).to(device) for k, v in scales.items()}
+
+
+def pack_int4(p, group_size):
+    """A float [in, out] projection as grouped int4 ([out, in'/2] nibbles,
+    [out, G] scales), its bias carried as it is."""
+    packed, scales = qmath.quantize_weight_int4_grouped(p["w"], group_size)
+    out = {"w": packed.t().contiguous(), "w_scales": scales.t().contiguous()}
+    if "bias" in p:
+        out["bias"] = p["bias"]
+    return out
+
+
+def pack_int8(p, input_scale, gran, kind, bias=None):
+    """A float [in, out] projection as per-tensor int8 ([out, in]) with its
+    dequant (and, for a SCALED per-tensor input, quant) scale."""
+    qw, w_scale = qmath.quantize_weight_per_tensor_absmax(p["w"])
+    out = {"w": qw.t().contiguous()}
+    if bias is not None:
+        out["bias"] = bias
+    if gran == PER_TENSOR:
+        out["dequant_scale"] = w_scale * input_scale
+        if kind == LinearKind.SCALED:
+            out["quant_scale"] = input_scale
+    else:
+        out["dequant_scale"] = w_scale
+    return out
+
+
+def pack_fp8(p, qcfg: QuantConfig, bias=None):
+    """A float [in, out] projection as fp8 ([out, in]): e4m3 with its
+    per-tensor scale, e5m2 a scale-free cast."""
+    extra = {} if bias is None else {"bias": bias}
+    if qcfg.type == "fp8_e5m2":
+        return {"w": p["w"].to(qcfg.fp8_dtype).t().contiguous(), **extra}
+    qw, w_scale = qmath.quantize_fp8_per_tensor(p["w"], qcfg.fp8_dtype)
+    return {"w": qw.t().contiguous(), "w_scale": w_scale, **extra}
+
+
+def add_static_fp8_scales(layers, qcfg: QuantConfig, scales, groups, legacy, *,
+                          ignore, quantize_output, observer_scales):
+    """Static fp8 e4m3: each projection's input_scale (and, with
+    ``quantize_output``, output_scale) from the observer pass, or, without
+    one, from the int8 layer scales (``legacy``: projection -> scale key,
+    times 127 / 448). ``layers`` is written in place."""
+    if observer_scales is not None:
+        obs = scales_on(observer_scales, layers[0]["ln1"]["w"].device)
+        for i, lp in enumerate(layers):
+            for name, grp in groups.items():
+                if name in ignore:
+                    continue
+                lp[grp][name]["input_scale"] = obs[f"{name}_input_scale"][i]
+                if quantize_output:
+                    lp[grp][name]["output_scale"] = obs[f"{name}_output_scale"][i]
+        return
+    if scales is None:
+        raise ValueError("fp8 static needs observer scales")
+    if quantize_output:
+        raise ValueError("quantize_output needs observer_scales")
+    sc = scales_on(scales, layers[0]["ln1"]["w"].device)
+    for i, lp in enumerate(layers):
+        for name, key in legacy.items():
+            if name not in ignore:
+                lp[groups[name]][name]["input_scale"] = qmath.true_div(
+                    sc[key][i] * 127.0, qmath.FP8_E4M3_MAX)

@@ -17,8 +17,12 @@ A projection is {"w": float [in, out]} or, quantized ([out, in] weights):
            ("bias")}
 An fp8 projection that the artifact's ignore patterns exempted stays float.
 
-Not ported yet: calibration capture, smooth and quantize (the port serves
-artifacts the JAX package wrote).
+The quantize path (JAX ``llama.py:182-283``, ``:437-672``): ``forward(...,
+capture_stats=True)`` also returns the calibration statistics, stacked
+[L, ...] under ``STAT_KEYS``; ``smooth`` migrates activation outliers into
+the q|k|v and gate|up weights; ``layer_scales`` and ``fp8_observer_scales``
+turn statistics into per-layer scales; ``quantize`` writes the quantized
+params ([out, in] weights, unfused: the engines fuse at load).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..kernels.fused import fused_add_rmsnorm_quant, rmsnorm_quant
+from ..quant import math as qmath
 from ..quant.config import PER_TENSOR, QuantConfig
 from ..runtime import resolve_device
 from .common import (
@@ -37,14 +42,22 @@ from .common import (
     activation,
     apply_rope,
     cache_mask_and_routing,
+    fp8_observer_scales_of,
     fused_block_enabled,
+    absmax_ch,
+    add_static_fp8_scales,
+    as_tensor,
     is_quantized,
     linear,
     linear_prequant,
     make_kv_cache,
     matmul_f32,
+    pack_fp8,
+    pack_int4,
+    pack_int8,
     rms_norm,
     rope_cos_sin,
+    scales_on,
     uncached_mask_and_positions,
     update_and_attend,
 )
@@ -115,15 +128,18 @@ def _qkv_prescaled(qcfg: Optional[QuantConfig], attn) -> bool:
 def _layer_forward(h, lp, cfg: LlamaConfig, qcfg: Optional[QuantConfig], cos,
                    sin, mask, cache, cache_index, compute_dtype, *,
                    plain_causal=False, chunk0=False, banded=False,
-                   banded_starts=None, kv_window=None):
+                   banded_starts=None, kv_window=None, stats=None):
     """One decoder layer; h: [B, T, D] in compute_dtype. The cache (if any)
-    is written in place."""
+    is written in place. ``stats``, a dict, receives the layer's calibration
+    statistics (JAX ``_layer_forward``'s); capture takes no fused route, so
+    every norm output and projection is seen on its own."""
     b, t, d = h.shape
     hd = cfg.head_dim
     n_q, n_kv = cfg.num_attention_heads, cfg.num_key_value_heads
     qkv_gran = qcfg.qkv if qcfg else PER_TENSOR
+    capture = stats is not None
 
-    if _qkv_prescaled(qcfg, lp["attn"]):
+    if not capture and _qkv_prescaled(qcfg, lp["attn"]):
         # RMSNorm + int8 quantize in one kernel, feeding q|k|v their int8
         # input directly
         x_q = rmsnorm_quant(h.reshape(b * t, d), lp["ln1"]["w"], eps=cfg.rms_norm_eps)
@@ -133,17 +149,22 @@ def _layer_forward(h, lp, cfg: LlamaConfig, qcfg: Optional[QuantConfig], cos,
         else:
             q, k, v = (linear_prequant(x_q, lp["attn"][name], compute_dtype).reshape(b, t, -1)
                        for name in ("q", "k", "v"))
-    elif "qkv" in lp["attn"]:
-        x = rms_norm(h, lp["ln1"]["w"], cfg.rms_norm_eps)
-        # one GEMM over q|k|v; its dequant_scale is a per-column vector
-        proj = linear(x, lp["attn"]["qkv"], qcfg, qkv_gran, LinearKind.POST_NORM,
-                      out_dtype=compute_dtype)
-        q, k, v = proj.split([n_q * hd, n_kv * hd, n_kv * hd], dim=-1)
     else:
         x = rms_norm(h, lp["ln1"]["w"], cfg.rms_norm_eps)
-        q, k, v = (linear(x, lp["attn"][name], qcfg, qkv_gran,
-                          LinearKind.POST_NORM, out_dtype=compute_dtype)
-                   for name in ("q", "k", "v"))
+        if capture:
+            stats["qkv_in_ch_absmax"] = absmax_ch(x)
+        if "qkv" in lp["attn"]:
+            # one GEMM over q|k|v; its dequant_scale is a per-column vector
+            proj = linear(x, lp["attn"]["qkv"], qcfg, qkv_gran, LinearKind.POST_NORM,
+                          out_dtype=compute_dtype)
+            q, k, v = proj.split([n_q * hd, n_kv * hd, n_kv * hd], dim=-1)
+        else:
+            q, k, v = (linear(x, lp["attn"][name], qcfg, qkv_gran,
+                              LinearKind.POST_NORM, out_dtype=compute_dtype)
+                       for name in ("q", "k", "v"))
+    if capture:
+        for name, y in (("q", q), ("k", k), ("v", v)):
+            stats[f"{name}_out_absmax"] = y.abs().amax()
     q = apply_rope(q.reshape(b, t, n_q, hd), cos, sin)
     k = apply_rope(k.reshape(b, t, n_kv, hd), cos, sin)
     v = v.reshape(b, t, n_kv, hd)
@@ -153,12 +174,15 @@ def _layer_forward(h, lp, cfg: LlamaConfig, qcfg: Optional[QuantConfig], cos,
                             plain_causal=plain_causal, chunk0_causal=chunk0,
                             banded=banded, banded_starts=banded_starts,
                             kv_window=kv_window, sliding_window=cfg.sliding_window)
-    attn_out = linear(ctx.reshape(b, t, n_q * hd), lp["attn"]["o"], qcfg,
-                      qcfg.out if qcfg else PER_TENSOR, LinearKind.SCALED,
-                      out_dtype=compute_dtype)
+    ctx = ctx.reshape(b, t, n_q * hd)
+    attn_out = linear(ctx, lp["attn"]["o"], qcfg, qcfg.out if qcfg else PER_TENSOR,
+                      LinearKind.SCALED, out_dtype=compute_dtype)
+    if capture:
+        stats["o_in_ch_absmax"] = absmax_ch(ctx)
+        stats["o_out_absmax"] = attn_out.abs().amax()
 
     inter = cfg.intermediate_size
-    if fused_block_enabled(qcfg) and is_quantized(lp["attn"]["o"]):
+    if fused_block_enabled(qcfg, capture) and is_quantized(lp["attn"]["o"]):
         # residual add + RMSNorm + int8 quantize in one kernel, feeding the
         # gate|up GEMM its int8 input directly
         h2, x2_q = fused_add_rmsnorm_quant(h.reshape(b * t, d),
@@ -174,6 +198,8 @@ def _layer_forward(h, lp, cfg: LlamaConfig, qcfg: Optional[QuantConfig], cos,
     else:
         h = h + attn_out
         x2 = rms_norm(h, lp["ln2"]["w"], cfg.rms_norm_eps)
+        if capture:
+            stats["gate_in_ch_absmax"] = absmax_ch(x2)
         fc1 = qcfg.fc1 if qcfg else PER_TENSOR
         if "gateup" in lp["mlp"]:
             proj = linear(x2, lp["mlp"]["gateup"], qcfg, fc1, LinearKind.POST_NORM,
@@ -187,6 +213,11 @@ def _layer_forward(h, lp, cfg: LlamaConfig, qcfg: Optional[QuantConfig], cos,
     act = (activation(gate.float(), cfg.hidden_act) * up.float()).to(compute_dtype)
     down = linear(act, lp["mlp"]["down"], qcfg, qcfg.fc2 if qcfg else PER_TENSOR,
                   LinearKind.SCALED, out_dtype=compute_dtype)
+    if capture:
+        stats["gate_out_absmax"] = gate.abs().amax()
+        stats["up_out_absmax"] = up.abs().amax()
+        stats["down_in_ch_absmax"] = absmax_ch(act)
+        stats["down_out_absmax"] = down.abs().amax()
     return h + down
 
 
@@ -198,6 +229,7 @@ def forward(params, input_ids: torch.Tensor, cfg: LlamaConfig,
             positions: Optional[torch.Tensor] = None,
             attention_mask: Optional[torch.Tensor] = None,
             kv_window: Optional[int] = None,
+            capture_stats: bool = False,
             compute_dtype=torch.float32):
     """Run the decoder stack. input_ids: int [B, T].
 
@@ -210,7 +242,9 @@ def forward(params, input_ids: torch.Tensor, cfg: LlamaConfig,
     on the cache columns decode attention reads (above every row's slot).
     A paged pool (``common.PagedKVPool`` / ``QuantPagedKVPool``) takes
     neither kv_valid nor pad_starts; its sliding window masks inside its
-    attention. Returns (hidden [B, T, D], kv_cache)."""
+    attention. Returns (hidden [B, T, D], kv_cache), and with
+    ``capture_stats`` (hidden, kv_cache, stats): {STAT_KEYS: device tensors
+    stacked [L, ...]}, per-channel absmaxes [L, C] and absmax scalars [L]."""
     b, t = input_ids.shape
     h = params["embed"]["w"][input_ids].to(compute_dtype)
     chunk0 = chunkN = plain_causal = False
@@ -224,15 +258,20 @@ def forward(params, input_ids: torch.Tensor, cfg: LlamaConfig,
         positions, mask, plain_causal = uncached_mask_and_positions(
             b, t, positions, attention_mask, cfg.sliding_window, h.device)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    per_layer = []
     for i, lp in enumerate(params["layers"]):
+        stats = {} if capture_stats else None
         h = _layer_forward(
             h, lp, cfg, quant_config, cos, sin, mask,
             kv_cache[i] if kv_cache is not None else None, cache_index,
             compute_dtype, plain_causal=plain_causal, chunk0=chunk0,
-            banded=chunkN, banded_starts=pad_starts, kv_window=kv_window)
+            banded=chunkN, banded_starts=pad_starts, kv_window=kv_window, stats=stats)
+        per_layer.append(stats)
     # the final norm in one kernel a row, written in compute_dtype
     h = rmsnorm_quant(h.reshape(b * t, -1), params["final_norm"]["w"], eps=cfg.rms_norm_eps,
                       quantize=False).reshape(b, t, -1)
+    if capture_stats:
+        return h, kv_cache, {k: torch.stack([st[k] for st in per_layer]) for k in STAT_KEYS}
     return h, kv_cache
 
 
@@ -293,3 +332,164 @@ def fuse_decode_projections(params) -> Dict[str, Any]:
                 mlp = {"gateup": gateup, "down": mlp["down"]}
         layers.append({**lp, "attn": attn, "mlp": mlp})
     return {**params, "layers": layers}
+
+
+# ---------------------------------------------------------------------------
+# calibration statistics, smoothing and quantization (JAX llama.py:437-672)
+# ---------------------------------------------------------------------------
+
+# the per-layer statistics of forward(capture_stats=True); batches aggregate
+# by an elementwise max. *_out_absmax covers every projection, so an fp8
+# observer pass derives output scales too
+STAT_KEYS = (
+    "qkv_in_ch_absmax", "q_out_absmax", "k_out_absmax", "v_out_absmax",
+    "o_in_ch_absmax", "o_out_absmax", "gate_in_ch_absmax", "gate_out_absmax",
+    "up_out_absmax", "down_in_ch_absmax", "down_out_absmax",
+)
+
+# HF module-name suffix per projection key (fp8 ignore patterns)
+HF_PROJ_NAMES = {
+    "q": "self_attn.q_proj", "k": "self_attn.k_proj", "v": "self_attn.v_proj",
+    "o": "self_attn.o_proj", "gate": "mlp.gate_proj", "up": "mlp.up_proj",
+    "down": "mlp.down_proj",
+}
+
+# each projection's per-channel input statistic
+_PROJ_INPUT = {"q": "qkv_in_ch_absmax", "k": "qkv_in_ch_absmax", "v": "qkv_in_ch_absmax",
+               "o": "o_in_ch_absmax", "gate": "gate_in_ch_absmax",
+               "up": "gate_in_ch_absmax", "down": "down_in_ch_absmax"}
+# each projection's block in a layer's params
+_GROUPS = {"q": "attn", "k": "attn", "v": "attn", "o": "attn",
+           "gate": "mlp", "up": "mlp", "down": "mlp"}
+
+
+def act_scales_dict(stats) -> Dict[str, torch.Tensor]:
+    """Stacked statistics -> the reference's act_scales dict, keyed by HF
+    module name: each projection's per-channel input absmax."""
+    stats = {k: as_tensor(v) for k, v in stats.items()}
+    out = {}
+    for i in range(stats["qkv_in_ch_absmax"].shape[0]):
+        for proj, key in _PROJ_INPUT.items():
+            out[f"model.layers.{i}.{HF_PROJ_NAMES[proj]}"] = stats[key][i]
+    return out
+
+
+def _ch_max(stats, key) -> torch.Tensor:
+    return as_tensor(stats[key]).amax(dim=-1)
+
+
+def layer_scales(stats) -> Dict[str, torch.Tensor]:
+    """Per-layer int8 scales [L] (absmax / 127) from stacked statistics
+    (tensors or numpy arrays), on the statistics' device."""
+    def div(x):
+        return qmath.true_div(as_tensor(x), qmath.INT8_MAX)
+
+    return {
+        "attn_input_scale": div(_ch_max(stats, "qkv_in_ch_absmax")),
+        "q_output_scale": div(stats["q_out_absmax"]),
+        "k_output_scale": div(stats["k_out_absmax"]),
+        "v_output_scale": div(stats["v_out_absmax"]),
+        "out_input_scale": div(_ch_max(stats, "o_in_ch_absmax")),
+        "gate_input_scale": div(_ch_max(stats, "gate_in_ch_absmax")),
+        "down_input_scale": div(_ch_max(stats, "down_in_ch_absmax")),
+    }
+
+
+def fp8_observer_scales(stats) -> Dict[str, torch.Tensor]:
+    """Per-projection fp8 input and output scales [L] (absmax / 448) from
+    an observer pass through the fp8-quantized model."""
+    return fp8_observer_scales_of(stats, _PROJ_INPUT)
+
+
+def _device(params) -> torch.device:
+    return params["embed"]["w"].device
+
+
+def smooth(params, stats, alpha: float = 0.5, cfg: Optional[LlamaConfig] = None):
+    """SmoothQuant migration of every layer (the reference's smooth_lm for
+    Llama): ln1 -> q, k, v by the qkv input statistics; ln2 -> gate, up by
+    the gate input statistics. ``stats`` may be host or device tensors or
+    numpy arrays; the new params share every leaf the migration leaves."""
+    from ..quant.smooth import smooth_norm_fcs
+
+    st = scales_on({k: stats[k] for k in ("qkv_in_ch_absmax", "gate_in_ch_absmax")},
+                   _device(params))
+    layers = []
+    for i, lp in enumerate(params["layers"]):
+        attn, mlp = lp["attn"], lp["mlp"]
+        ln1, (q, k, v), _ = smooth_norm_fcs(
+            lp["ln1"]["w"], [attn[n]["w"] for n in ("q", "k", "v")],
+            st["qkv_in_ch_absmax"][i], alpha)
+        ln2, (gate, up), _ = smooth_norm_fcs(
+            lp["ln2"]["w"], [mlp["gate"]["w"], mlp["up"]["w"]],
+            st["gate_in_ch_absmax"][i], alpha)
+        layers.append({
+            **lp, "ln1": {"w": ln1}, "ln2": {"w": ln2},
+            "attn": {**attn, **{n: {**attn[n], "w": w}
+                                for n, w in (("q", q), ("k", k), ("v", v))}},
+            "mlp": {**mlp, "gate": {**mlp["gate"], "w": gate},
+                    "up": {**mlp["up"], "w": up}}})
+    return {**params, "layers": layers}
+
+
+def quantize(params, qcfg: QuantConfig, scales=None,
+             cfg: Optional[LlamaConfig] = None, *, ignore=frozenset(),
+             quantize_output: bool = False, observer_scales=None):
+    """The quantized params of float ``params`` (the reference's
+    from_float_to_int8 / _to_fp8), in the port's layout: [out, in] weights,
+    unfused q, k, v and gate, up (``Engine`` fuses at load), on the params'
+    device. ``scales``: ``layer_scales`` output, needed by int8 and, without
+    ``observer_scales``, by fp8 static.
+
+    int8 folds each per-tensor input scale of q|k|v and gate|up into ln1 and
+    ln2; int4 packs grouped weights and leaves the norms; fp8 keeps the
+    projections in ``ignore`` (keys of HF_PROJ_NAMES) float, and for e4m3
+    static adds input scales (and output scales with ``quantize_output``)
+    from ``observer_scales`` (``fp8_observer_scales`` of an observer pass)."""
+    layers = params["layers"]
+    if qcfg.is_int4:
+        new = [{"ln1": dict(lp["ln1"]), "ln2": dict(lp["ln2"]),
+                "attn": {k: pack_int4(v, qcfg.group_size) for k, v in lp["attn"].items()},
+                "mlp": {k: pack_int4(v, qcfg.group_size) for k, v in lp["mlp"].items()}}
+               for lp in layers]
+        return {**params, "layers": new}
+    if qcfg.is_int8:
+        if scales is None:
+            raise ValueError("int8 quantization needs layer_scales")
+        sc = scales_on(scales, _device(params))
+
+        def pack(p, s, gran, kind):
+            return pack_int8(p, s, gran, kind, p.get("bias"))
+
+        new = []
+        for i, lp in enumerate(layers):
+            attn_in, out_in = sc["attn_input_scale"][i], sc["out_input_scale"][i]
+            gate_in, down_in = sc["gate_input_scale"][i], sc["down_input_scale"][i]
+            attn, mlp = lp["attn"], lp["mlp"]
+            new.append({
+                "ln1": {"w": lp["ln1"]["w"] / attn_in if qcfg.qkv == PER_TENSOR
+                        else lp["ln1"]["w"]},
+                "attn": {**{n: pack(attn[n], attn_in, qcfg.qkv, LinearKind.POST_NORM)
+                            for n in ("q", "k", "v")},
+                         "o": pack(attn["o"], out_in, qcfg.out, LinearKind.SCALED)},
+                "ln2": {"w": lp["ln2"]["w"] / gate_in if qcfg.fc1 == PER_TENSOR
+                        else lp["ln2"]["w"]},
+                "mlp": {**{n: pack(mlp[n], gate_in, qcfg.fc1, LinearKind.POST_NORM)
+                           for n in ("gate", "up")},
+                        "down": pack(mlp["down"], down_in, qcfg.fc2, LinearKind.SCALED)}})
+        return {**params, "layers": new}
+
+    def fp8(key, p):
+        return dict(p) if key in ignore else pack_fp8(p, qcfg, p.get("bias"))
+
+    new = [{"ln1": dict(lp["ln1"]), "ln2": dict(lp["ln2"]),
+            "attn": {k: fp8(k, v) for k, v in lp["attn"].items()},
+            "mlp": {k: fp8(k, v) for k, v in lp["mlp"].items()}} for lp in layers]
+    if qcfg.type == "fp8_e4m3" and qcfg.activation_scheme == "static":
+        legacy = {"q": "attn_input_scale", "k": "attn_input_scale", "v": "attn_input_scale",
+                  "o": "out_input_scale", "gate": "gate_input_scale",
+                  "up": "gate_input_scale", "down": "down_input_scale"}
+        add_static_fp8_scales(new, qcfg, scales, _GROUPS, legacy, ignore=ignore,
+                              quantize_output=quantize_output,
+                              observer_scales=observer_scales)
+    return {**params, "layers": new}

@@ -99,6 +99,18 @@ def quantize_act_prescaled(x: torch.Tensor) -> torch.Tensor:
     return _round_clamp(x.float())
 
 
+def fake_quantize_act_per_token(x: torch.Tensor) -> torch.Tensor:
+    """Per-token int8 round trip in x's dtype (the fake-quant study path)."""
+    q, scale = quantize_act_per_token(x)
+    return (q.float() * scale).to(x.dtype)
+
+
+def fake_quantize_act_per_tensor(x: torch.Tensor) -> torch.Tensor:
+    """Per-tensor dynamic int8 round trip in x's dtype."""
+    q, scale = quantize_act_per_tensor_dynamic(x)
+    return (q.float() * scale).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # dequantization
 # ---------------------------------------------------------------------------
@@ -152,6 +164,19 @@ def quantize_fp8_static(x: torch.Tensor, scale, dtype=torch.float8_e4m3fn):
     """Static fp8 with a frozen (device) scale."""
     fmax = float(torch.finfo(dtype).max)
     return torch.clamp(x.float() / scale, -fmax, fmax).to(dtype)
+
+
+def fake_quantize_fp8_per_tensor(x: torch.Tensor, dtype=torch.float8_e4m3fn):
+    """Per-tensor fp8 round trip in x's dtype."""
+    q, scale = quantize_fp8_per_tensor(x, dtype)
+    return (q.float() * scale).to(x.dtype)
+
+
+def fake_quantize_fp8_per_token(x: torch.Tensor, dtype=torch.float8_e4m3fn):
+    """Per-token fp8 round trip in x's dtype (an all-zero row stays 0, see
+    :func:`quantize_fp8_per_token`)."""
+    q, scale = quantize_fp8_per_token(x, dtype)
+    return (q.float() * scale).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -101,6 +101,18 @@ Phases (any failure ends the run with a nonzero exit code):
            batching phase's stream from 32 client threads (tok/s, time to
            first token p50 / p95, against the direct stream), SIGINT exits 0
            with no traceback
+  quantize the SmoothQuant pipeline from an HF checkpoint to a served artifact:
+           a TinyLlama-1.1B float checkpoint (22 layers, bf16 safetensors
+           at HF's initialization, from a seed), its tokenizer.model and a
+           jsonl of synthetic text through the smoothquant_model CLI in its
+           own process at its defaults (int8, 512 x 512 calibration tokens,
+           alpha 0.5): each stage's time, calibration tokens/s, K3 once a
+           layer in every calibration batch, TF32 off; the artifact loaded
+           by load_any_quantized and served by Engine.generate (graph) with
+           the serve phase's W8A8 launch counts; KL(float || W8A8) of
+           held-out prompts; the pipeline on the card against the CPU at 2
+           layers (W8A8, fp8 e4m3 static with its observer pass on K4, int4
+           at TinyLlama width; W8A8 at OPT-6.7B width)
   timing   the launch floor (a one-element kernel); each kernel's time
            against its plain version, its library yardstick and its bound
            (K1 and K4 at M = 1, 2, 4 and 8 on their GEMV too; K2, K5 and K6
@@ -163,7 +175,7 @@ from autosmoothquant_tpu_torch.kernels.counters import launch_counters, read_cou
 PKG = "autosmoothquant_tpu_torch"
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "e2e", "serve", "batching", "paged", "http",
-          "timing")
+          "quantize", "timing")
 
 # NVIDIA H100 SXM data sheet (dense): HBM3 bandwidth and peak rates by type
 HBM_BYTES_PER_S = 3.35e12
@@ -2938,6 +2950,489 @@ def phase_http(torch, results, direct, smi_line):
     require("Traceback" not in stderr, f"serve_model's stderr holds a traceback: {stderr[-3000:]}")
 
 
+# ---------------------------------------------------------------------------
+# the quantize pipeline
+# ---------------------------------------------------------------------------
+
+# the calibration the smoothquant_model CLI runs at its defaults: 512
+# windows of 512 tokens in batches of 8, two passes for int8 (the float
+# model, then the smoothed one)
+QUANT_BATCHES = 512 // 8
+QUANT_PASSES = 2
+HF_INIT_STD = 0.02       # transformers' initializer_range for Llama and OPT
+CALIB_RECORDS = 500      # jsonl records of synthetic text, ~60 words each
+                         # (~207K tokens of the in-repo tokenizer)
+KL_PROMPTS = (8, 128)    # held-out prompts (count, tokens) for the KL reading
+# KL(float || W8A8) of the last token's softmax over the held-out prompts,
+# f32 compute on both sides (the quantization alone). Set from this phase's
+# readings on an H100 (700 W), 0.01245 in two runs, at 2x it: per-tensor
+# static int8 over 22 layers of HF-initialized weights, whose logits (std
+# 0.9 over 32,000 entries) are nearly flat. The smoothed float model reads
+# 3.2e-12; planted faults read 0.0272 (layer_scales x2 in layer 0, checked
+# on every run: QUANT_KL_FAULT), 0.0408 (x2 in every layer), 0.10-0.12 (a
+# weight scale's sign flipped in layer 11) and under the limit 0.0127-0.0132
+# (x2 in layer 11, a weight scale x1.1, no smoothing): the 2-layer card-vs-
+# CPU arms below hold the scales themselves
+QUANT_KL_LIMIT = 0.025
+QUANT_KL_FAULT = 0      # the layer whose layer_scales the planted fault doubles
+# card against CPU on the 2-layer pipelines, per configuration: (the
+# largest relative difference of any statistic that no e4m3 rounding
+# precedes, the share of quantized weights one step apart (none may be
+# further), the largest relative difference of any other float leaf:
+# scales, folded norms; then, for the fp8 observer pass only, that of its
+# first e4m3 products (layer 0's q/k/v outputs) and of the statistics
+# downstream of a rounded activation). Set from this phase's readings on an
+# H100 (700 W) at about 2-3x them: W8A8 6.57e-6, 6.86e-6, 3.54e-6; int4
+# 6.45e-6, 6.21e-7, 3.34e-6; OPT-6.7B W8A8 5.15e-5, 5.96e-6, 5.71e-6 (f32
+# sums in other orders; a last-bit difference in s moves a weight at a
+# rounding tie by one step); fp8 e4m3 static 6.45e-6, 4.35e-6, 0.00611,
+# 1.1e-7, 0.0965. Downstream of a rounding a last-bit difference moves an
+# activation by a whole e4m3 step (up to 1/8 of it): the CPU pipeline
+# against itself with 1-ulp noise on its weights reads 0.125 there, so
+# that limit is 2x the CPU's own spread. A first product moves by one
+# input's step in a 2048-term sum at most (under 3e-3)
+QUANT_LIMITS = {"W8A8": (2e-5, 2e-5, 1e-5, 0, 0),
+                "fp8 e4m3 static": (2e-5, 1e-5, 0.015, 1e-2, 0.25),
+                "int4": (2e-5, 2e-6, 1e-5, 0, 0),
+                "OPT-6.7B W8A8": (1.5e-4, 1.5e-5, 1.5e-5, 0, 0)}
+
+
+def write_hf_checkpoint(torch, path, config, seed, device="cuda"):
+    """``path``/model.safetensors: an HF-layout float checkpoint of the
+    Llama ``config`` in bf16 (as published checkpoints are), every weight
+    N(0, HF_INIT_STD) from a seeded torch.Generator on ``device`` and every
+    norm 1, transformers' own initialization; and ``path``/config.json.
+    Returns the parameter count."""
+    from autosmoothquant_tpu_torch.convert.safetensors_io import save_safetensors
+
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    D, I, V = config["hidden_size"], config["intermediate_size"], config["vocab_size"]
+    kv = config["num_key_value_heads"] * D // config["num_attention_heads"]
+
+    def w(*shape):
+        return (torch.randn(*shape, generator=g, device=device) * HF_INIT_STD).to(torch.bfloat16)
+
+    ones = torch.ones(D, dtype=torch.bfloat16, device=device)
+    sd = {"model.embed_tokens.weight": w(V, D)}
+    for i in range(config["num_hidden_layers"]):
+        b = f"model.layers.{i}"
+        sd.update({f"{b}.input_layernorm.weight": ones,
+                   f"{b}.self_attn.q_proj.weight": w(D, D), f"{b}.self_attn.k_proj.weight": w(kv, D),
+                   f"{b}.self_attn.v_proj.weight": w(kv, D), f"{b}.self_attn.o_proj.weight": w(D, D),
+                   f"{b}.post_attention_layernorm.weight": ones,
+                   f"{b}.mlp.gate_proj.weight": w(I, D), f"{b}.mlp.up_proj.weight": w(I, D),
+                   f"{b}.mlp.down_proj.weight": w(D, I)})
+    sd.update({"model.norm.weight": ones, "lm_head.weight": w(V, D)})
+    save_safetensors(os.path.join(path, "model.safetensors"), sd, metadata={"format": "pt"})
+    with open(os.path.join(path, "config.json"), "w", encoding="utf-8") as f:
+        json.dump({**config, "initializer_range": HF_INIT_STD, "torch_dtype": "bfloat16"}, f)
+    return sum(t.numel() for t in sd.values())
+
+
+def synthetic_text(seed, records, words=60):
+    """Records of random lowercase words (2-9 letters) with some punctuation,
+    from Python's random with ``seed``."""
+    import random
+
+    rng = random.Random(seed)
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    out = []
+    for _ in range(records):
+        ws = ["".join(rng.choice(letters) for _ in range(rng.randint(2, 9)))
+              for _ in range(words)]
+        out.append(" ".join(w + rng.choice(("", "", "", ",", ".")) for w in ws))
+    return out
+
+
+def run_quantize_cli(path, calib, out, timeout=900):
+    """The smoothquant_model CLI as users run it, in its own process, at its
+    defaults (512 x 512 calibration tokens, batches of 8, alpha 0.5, int8):
+    (stdout lines, its report, wall s)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"{PKG}.cli.smoothquant_model", "--model-path", path,
+         "--dataset-path", calib, "--generate-scale", "--quantize-model", "--type", "int8",
+         "--scale-output", os.path.join(out, "act_scales.pkl"),
+         "--scale-input", os.path.join(out, "act_scales.pkl"), "--model-output", out],
+        capture_output=True, text=True, timeout=timeout, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    require(proc.returncode == 0 and lines,
+            f"smoothquant_model exited {proc.returncode}; stdout {proc.stdout[-2000:]}; "
+            f"stderr {proc.stderr[-3000:]}")
+    return lines, json.loads(lines[-1])["smoothquant_model"], wall
+
+
+def last_token_logits(torch, L, params, cfg, qcfg, prompts):
+    """f32 last-token logits [N, V] of each prompt row (no cache, f32
+    compute)."""
+    with torch.inference_mode():
+        h, _ = L.forward(params, prompts, cfg, qcfg, compute_dtype=torch.float32)
+        return L.logits(params, h[:, -1:])[:, 0].float()
+
+
+def softmax_kl(torch, p_logits, q_logits):
+    p = torch.log_softmax(p_logits.double(), -1)
+    q = torch.log_softmax(q_logits.double(), -1)
+    return float((p.exp() * (p - q)).sum(-1).mean())
+
+
+def draw_hf_float(torch, L, cfg, seed):
+    """Float params in the port's layout at HF's initialization (weights
+    N(0, HF_INIT_STD) [in, out], norms 1, OPT biases 0), on the CPU."""
+    g = torch.Generator().manual_seed(seed)
+
+    def w(k, n):
+        return torch.randn(k, n, generator=g) * HF_INIT_STD
+
+    D = cfg.hidden_size
+    if hasattr(cfg, "intermediate_size"):
+        kv = cfg.num_key_value_heads * cfg.head_dim
+        layers = [{"ln1": {"w": torch.ones(D)}, "ln2": {"w": torch.ones(D)},
+                   "attn": {"q": {"w": w(D, D)}, "k": {"w": w(D, kv)}, "v": {"w": w(D, kv)},
+                            "o": {"w": w(D, D)}},
+                   "mlp": {"gate": {"w": w(D, cfg.intermediate_size)},
+                           "up": {"w": w(D, cfg.intermediate_size)},
+                           "down": {"w": w(cfg.intermediate_size, D)}}}
+                  for _ in range(cfg.num_hidden_layers)]
+        return {"embed": {"w": w(cfg.vocab_size, D)}, "layers": layers,
+                "final_norm": {"w": torch.ones(D)}, "lm_head": {"w": w(D, cfg.vocab_size)}}
+    F = cfg.ffn_dim
+
+    def proj(k, n):
+        return {"w": w(k, n), "bias": torch.zeros(n)}
+
+    def ln():
+        return {"w": torch.ones(D), "b": torch.zeros(D)}
+
+    layers = [{"ln1": ln(), "ln2": ln(),
+               "attn": {n: proj(D, D) for n in ("q", "k", "v", "o")},
+               "mlp": {"fc1": proj(D, F), "fc2": proj(F, D)}}
+              for _ in range(cfg.num_hidden_layers)]
+    return {"embed": {"w": w(cfg.vocab_size, D)},
+            "embed_pos": {"w": w(cfg.max_position_embeddings + 2, D)}, "layers": layers,
+            "final_norm": ln(), "lm_head": {"w": w(D, cfg.vocab_size)}}
+
+
+def rel_diff(torch, a, b):
+    """max |a - b| / |a| over a's nonzero entries (0 where a is all zero)."""
+    a, b = a.double().cpu(), b.double().cpu()
+    nz = a != 0
+    if not bool(nz.any()):
+        return float((a - b).abs().max()) if a.numel() else 0.0
+    return float(((a - b).abs()[nz] / a.abs()[nz]).max())
+
+
+def int_steps(torch, a, b):
+    """(entries one step apart, entries, largest step) of int8 weights or
+    int4 nibbles (compared as signed values)."""
+    def values(t):
+        t = t.cpu()
+        if t.dtype == torch.uint8:
+            return torch.cat([(t.int() & 0xF) - 8, (t.int() >> 4) - 8])
+        return t.int()
+    d = (values(a) - values(b)).abs()
+    return int((d > 0).sum()), d.numel(), int(d.max())
+
+
+def compare_pipelines(torch, label, M, cfg, qcfg, params_cpu, ids, limits):
+    """One 2-layer configuration's pipeline on the card and on the CPU (plain
+    versions), the same float params and batches: (readings, failures,
+    the card run's host launches)."""
+    from autosmoothquant_tpu_torch.convert.pipeline import calibrate_smooth_quantize
+
+    batches = lambda: [ids]  # noqa: E731
+    counters = launch_counters()
+    torch.cuda.synchronize()
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    card, card_art = calibrate_smooth_quantize(M, to_device(params_cpu, "cuda"), cfg, qcfg,
+                                               batches)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launched = {k: v for k, v in read_counts(counters).items() if v}
+    t0 = time.perf_counter()
+    cpu, cpu_art = calibrate_smooth_quantize(M, params_cpu, cfg, qcfg, batches)
+    cpu_s = time.perf_counter() - t0
+    # each statistic of each layer by where it sits in an observer pass,
+    # which rounds activations to e4m3 from layer 0's q/k/v products on:
+    # before any rounding (and every statistic of the other passes), the
+    # first e4m3 products (K4's outputs on inputs equal to the last bits), or
+    # downstream of a rounded activation
+    observer = qcfg.type == "fp8_e4m3" and qcfg.activation_scheme == "static"
+    groups = ([(0.0, "")], [(0.0, "")], [(0.0, "")])
+    for p in ("act_stats_fp", "act_stats_smoothed"):
+        for k in M.STAT_KEYS if cpu_art[p] is not None else ():
+            for i in range(cfg.num_hidden_layers):
+                r = (rel_diff(torch, cpu_art[p][k][i], card_art[p][k][i]), f"{p} {k} [{i}]")
+                if not observer or p == "act_stats_fp" or (i, k) == (0, "qkv_in_ch_absmax"):
+                    groups[0].append(r)
+                elif i == 0 and k in ("q_out_absmax", "k_out_absmax", "v_out_absmax"):
+                    groups[1].append(r)
+                else:
+                    groups[2].append(r)
+    (stats_rel, stats_key), (first_rel, first_key), (rounded_rel, rounded_key) = map(max, groups)
+    steps = total = worst_step = 0
+    float_rel, fp8_steps = 0.0, 0
+    a_all, b_all = dict(leaves(cpu)), dict(leaves(card))
+    require(set(a_all) == set(b_all), f"{label}: the card's params have other leaves")
+    for p, a in a_all.items():
+        b = b_all[p]
+        require(a.dtype == b.dtype and a.shape == b.shape, f"{label}: {p} differs in type/shape")
+        if a.dtype in (torch.int8, torch.uint8):
+            n, t, m = int_steps(torch, a, b)
+            steps, total, worst_step = steps + n, total + t, max(worst_step, m)
+        elif a.dtype == torch.float8_e4m3fn:
+            # one e4m3 step is at most 1/8 of the value (2^-9 among subnormals)
+            fa, fb = a.float(), b.cpu().float()
+            n = int((fa != fb).sum())
+            steps, total, fp8_steps = steps + n, total + fa.numel(), fp8_steps + n
+            if bool(((fa - fb).abs() > fa.abs() / 8 + 2**-9).any()):
+                worst_step = max(worst_step, 2)
+        elif p not in ("/embed/w", "/embed_pos/w", "/lm_head/w"):
+            float_rel = max(float_rel, rel_diff(torch, a, b))
+    share = steps / max(total, 1)
+    reading = dict(stats_rel=stats_rel, stats_key=stats_key, first_rel=first_rel,
+                   first_key=first_key, rounded_rel=rounded_rel, rounded_key=rounded_key,
+                   share=share, steps=steps, total=total,
+                   worst_step=worst_step, float_rel=float_rel, fp8_unequal=fp8_steps,
+                   card_s=card_s, cpu_s=cpu_s)
+    failures = []
+    if not (stats_rel <= limits[0] and share <= limits[1] and worst_step <= 1
+            and float_rel <= limits[2] and first_rel <= limits[3] and rounded_rel <= limits[4]):
+        failures.append(f"{label}: card vs CPU pipeline {reading} beyond (stats rtol, share, "
+                        f"float rtol, first e4m3 products rtol, rounded stats rtol) {limits}")
+    del card
+    return reading, failures, launched
+
+
+def phase_quantize(torch, results, smi_line):
+    """The SmoothQuant pipeline on the card, from an HF float checkpoint to
+    a served artifact: TinyLlama-1.1B at full width and depth (bf16
+    safetensors at HF's initialization, its tokenizer.model and a jsonl of
+    synthetic text, written to a temporary directory) through the
+    smoothquant_model CLI in its own process at its defaults (int8, 512 x
+    512 calibration tokens, alpha 0.5): each stage's time, calibration
+    tokens/s, K3 launched once a layer in every calibration batch of both
+    passes and the final norm once a batch, TF32 off. The artifact then
+    loads with load_any_quantized and serves Engine.generate (graph) with
+    the serve phase's W8A8 launch counts, host and device; KL(float ||
+    W8A8) of held-out prompts within QUANT_KL_LIMIT, the smoothed float
+    model within 1e-6 of the float one, and a planted fault (one layer's
+    layer_scales doubled) beyond the limit. Then the pipeline on
+    the card against the CPU (plain versions) at 2 layers of the same
+    widths: W8A8, fp8 e4m3 static (its observer pass on K4's tensor cores,
+    M = 4096) and int4 at TinyLlama width, W8A8 at OPT-6.7B width, within
+    QUANT_LIMITS."""
+    import pickle
+    import tempfile
+
+    import numpy as np
+
+    from autosmoothquant_tpu_torch.convert.hf import load_hf_params
+    from autosmoothquant_tpu_torch.convert.pipeline import load_any_quantized
+    from autosmoothquant_tpu_torch.models import llama as L
+    from autosmoothquant_tpu_torch.models import opt as O
+    from autosmoothquant_tpu_torch.quant.config import QuantConfig
+    from autosmoothquant_tpu_torch.serve.engine import Engine, GenerationConfig
+    from autosmoothquant_tpu_torch.utils.datautils import random_windows
+    from autosmoothquant_tpu_torch.utils.tokenizer import load_tokenizer
+
+    cfg = tinyllama(L, 22)
+    tmp = tempfile.TemporaryDirectory(prefix="asq_quant_")
+    try:
+        ckpt, out = os.path.join(tmp.name, "TinyLlama-1.1B"), os.path.join(tmp.name, "out")
+        os.makedirs(ckpt)
+        t0 = time.perf_counter()
+        n_params = write_hf_checkpoint(torch, ckpt, tinyllama_config_dict(), seed=21)
+        write_tokenizer(ckpt, cfg.vocab_size)
+        calib = os.path.join(tmp.name, "calib.jsonl")
+        with open(calib, "w", encoding="utf-8") as f:
+            for text in synthetic_text(1, CALIB_RECORDS):
+                f.write(json.dumps({"text": text}) + "\n")
+        written_s = time.perf_counter() - t0
+        size = os.path.getsize(os.path.join(ckpt, "model.safetensors"))
+        log(f"  quantize: HF checkpoint {n_params / 1e9:.3f} B params, {size / 2**30:.3f} GiB "
+            f"bf16, tokenizer.model and {CALIB_RECORDS} jsonl records written in "
+            f"{written_s:.1f} s")
+
+        lines, report, wall = run_quantize_cli(ckpt, calib, out)
+        for line in lines[:-1]:
+            log(f"  quantize cli: {line}")
+        stages, tokens = report["stages_s"], report["calibration_tokens"]
+        rate = {k: tokens / stages[k] for k in ("calibrate", "calibrate_smoothed")}
+        log(f"  quantize: smoothquant_model in its own process {wall:.1f} s wall; stages (s) "
+            + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+            + f"; {tokens} calibration tokens a pass, " + ", ".join(
+                f"{k} {v:.0f} tokens/s" for k, v in rate.items())
+            + f"; TF32 {report['tf32']} [{smi_line}]")
+        want = {"flash_attention": cfg.num_hidden_layers * QUANT_BATCHES,
+                "rmsnorm_quant": QUANT_BATCHES, "rmsnorm_quant_norm": QUANT_BATCHES}
+        for name in ("calibrate", "calibrate_smoothed"):
+            log(f"  quantize {name}: host launches {report['launches'][name]} (expected {want})")
+            require(report["launches"][name] == want,
+                    f"{name}: launches {report['launches'][name]}; expected {want}")
+        require(report["tf32"] is False and tokens == QUANT_BATCHES * 8 * 512,
+                f"the CLI ran TF32 {report['tf32']} over {tokens} tokens a pass")
+        results["flash_attention"]["calibration_launches"] = QUANT_PASSES * want["flash_attention"]
+        results["rmsnorm_quant"]["calibration_launches"] = QUANT_PASSES * want["rmsnorm_quant"]
+        results["flash_attention"]["calibration_tokens_per_s"] = rate
+        (art,) = [os.path.join(out, d) for d in os.listdir(out) if d.endswith("smoothquant-int8")]
+
+        # KL(float || W8A8) over held-out prompts: the float model first,
+        # freed before the artifact loads
+        tok = load_tokenizer(ckpt)
+        stream = np.asarray(tok("\n\n".join(synthetic_text(2, 60))).input_ids, np.int32)
+        held = torch.from_numpy(random_windows(stream, *KL_PROMPTS, seed=3)).long().cuda()
+        t0 = time.perf_counter()
+        fparams = load_hf_params(ckpt, "llama", cfg.num_hidden_layers, device="cuda")
+        lg_fp = last_token_logits(torch, L, fparams, cfg, None, held)
+        float_s = time.perf_counter() - t0
+
+        # the KL check's floor and its power: the smoothed float model (the
+        # same function), and the artifact's quantize with one layer's
+        # layer_scales doubled, which must fail the limit
+        with open(os.path.join(out, "act_scales.pkl"), "rb") as f:
+            smoothed = L.smooth(fparams, pickle.load(f), 0.5, cfg=cfg)
+        kl_floor = softmax_kl(torch, lg_fp, last_token_logits(torch, L, smoothed, cfg, None, held))
+        with open(os.path.join(art, "layer_scales.json"), "r", encoding="utf-8") as f:
+            planted = {k: torch.tensor(v, dtype=torch.float32, device="cuda")
+                       for k, v in json.load(f).items()}
+        for v in planted.values():
+            v[QUANT_KL_FAULT] *= 2
+        w8a8 = QuantConfig(type="int8")
+        kl_fault = softmax_kl(torch, lg_fp, last_token_logits(
+            torch, L, L.quantize(smoothed, w8a8, planted, cfg=cfg), cfg, w8a8, held))
+        del smoothed
+        log(f"  quantize KL check: the smoothed float model {kl_floor:.6g}; layer_scales x2 in "
+            f"layer {QUANT_KL_FAULT} {kl_fault:.6g} (limit {QUANT_KL_LIMIT}) [{smi_line}]")
+        require(kl_floor < 1e-6 and kl_fault > QUANT_KL_LIMIT,
+                f"the KL check: smoothed float {kl_floor} (must be < 1e-6), planted fault "
+                f"{kl_fault} (must exceed {QUANT_KL_LIMIT})")
+
+        # where a calibration batch's time goes: one capture forward (B 8,
+        # T 512, f32), unprofiled and then profiled
+        batch = torch.randint(0, cfg.vocab_size, (8, 512), device="cuda",
+                              generator=torch.Generator(device="cuda").manual_seed(5))
+
+        def calib_batch():
+            with torch.inference_mode():
+                L.forward(fparams, batch, cfg, capture_stats=True, compute_dtype=torch.float32)
+        calib_batch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        calib_batch()
+        torch.cuda.synchronize()
+        batch_ms = (time.perf_counter() - t0) * 1e3
+        ours, busy = device_profile(torch, calib_batch, "quantize: one calibration batch "
+                                    "(B 8, T 512, f32 capture forward)", batch_ms, reps=2)
+        results["flash_attention"]["calibration_batch_ms"] = ours
+        results["flash_attention"]["calibration_batch_busy_ms"] = busy
+        del fparams
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        params, qcfg, config = load_any_quantized(art, device="cuda")
+        load_s = time.perf_counter() - t0
+        require(qcfg.type == "int8" and config["num_hidden_layers"] == 22,
+                f"the artifact reads back {qcfg} / {config.get('num_hidden_layers')}")
+        lg_q = last_token_logits(torch, L, params, cfg, qcfg, held)
+        kl = softmax_kl(torch, lg_fp, lg_q)
+        agree = float((lg_fp.argmax(-1) == lg_q.argmax(-1)).float().mean())
+        log(f"  quantize KL(float || W8A8), last token of {KL_PROMPTS[0]} held-out prompts of "
+            f"{KL_PROMPTS[1]} tokens, f32 compute: {kl:.6g} (limit {QUANT_KL_LIMIT}); top-1 "
+            f"agreement {agree:.3f}; logit std {float(lg_fp.std()):.4g}; float load + forward "
+            f"{float_s:.1f} s, artifact load {load_s:.1f} s [{smi_line}]")
+        finite = bool(torch.isfinite(lg_q).all())
+        require(finite and kl <= QUANT_KL_LIMIT, f"KL(float || W8A8) {kl} (finite {finite})")
+
+        # the artifact served, counted as the serve phase's W8A8 path
+        n_new, prefill, step, _ = SERVE_PATHS["W8A8"]
+        rng = torch.Generator().manual_seed(23)
+        ragged = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
+                  for n in (128, 96, 64, 33)]
+        equal = [torch.randint(0, cfg.vocab_size, (128,), generator=rng).tolist()
+                 for _ in range(4)]
+        counters = launch_counters()
+        eng = Engine(L, params, cfg, qcfg, max_batch=4, max_seq=512, kv_dtype=torch.bfloat16,
+                     compute_dtype=torch.bfloat16, device="cuda")
+        gen_cfg = GenerationConfig(max_new_tokens=n_new)
+        torch.cuda.synchronize()
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        batches = [eng.generate(ragged, gen_cfg), eng.generate(equal, gen_cfg)]
+        served_s = time.perf_counter() - t0
+        counts = read_counts(counters)
+        (captured,) = eng.graphs.values()
+        per_replay = replay_counts(torch, captured.graph)
+        want_counts = serve_counts(prefill, step, 2)
+        log(json.dumps({"path": "quantize artifact W8A8", "host launches": counts,
+                        "device launches a replay": per_replay}))
+        log(f"  quantize serve: the artifact through Engine.generate (graph), 2 batches x 4 "
+            f"prompts x {n_new} new tokens in {served_s:.2f} s; {eng.replays} replays; "
+            f"tokens (ragged row 0) {batches[0][0]}")
+        require(bool(torch.isfinite(eng.last_logits).all()), "non-finite served logits")
+        for toks in batches:
+            require(len(toks) == 4 and all(len(t) == n_new for t in toks)
+                    and all(0 <= x < cfg.vocab_size for t in toks for x in t),
+                    "the served artifact gave wrong or out-of-range tokens")
+        wrong = {k: (counts[k], v) for k, v in want_counts.items() if counts[k] != v}
+        others = {k: v for k, v in counts.items() if k not in want_counts and v}
+        require(not wrong and not others, f"the served artifact's host launches differ from "
+                f"the serve phase's W8A8 path: (got, expected) {wrong}, unexpected {others}")
+        want_replay = as_device_reads(step)
+        require(all(per_replay[k] == want_replay.get(k, 0) for k in per_replay),
+                f"the served artifact's replay {per_replay}; expected {want_replay}")
+        del eng, params
+        torch.cuda.empty_cache()
+    finally:
+        tmp.cleanup()
+
+    # the pipeline, card against CPU, at 2 layers of the same widths
+    gen = torch.Generator().manual_seed(29)
+    llama2 = tinyllama(L, 2)
+    opt2 = O.OPTConfig(**{**OPT_6_7B, "num_hidden_layers": 2})
+    llama_ids = torch.randint(0, llama2.vocab_size, (8, 512), generator=gen)
+    opt_ids = torch.randint(0, opt2.vocab_size, (4, 256), generator=gen)
+    llama_float = draw_hf_float(torch, L, llama2, seed=31)
+    failures = []
+    for label, M, c, qcfg, params_cpu, ids in (
+            ("W8A8", L, llama2, QuantConfig(type="int8"), llama_float, llama_ids),
+            ("fp8 e4m3 static", L, llama2,
+             QuantConfig(type="fp8_e4m3", activation_scheme="static"), llama_float, llama_ids),
+            ("int4", L, llama2, QuantConfig(type="int4"), llama_float, llama_ids),
+            ("OPT-6.7B W8A8", O, opt2, QuantConfig(type="int8"),
+             draw_hf_float(torch, O, opt2, seed=37), opt_ids)):
+        reading, bad, launched = compare_pipelines(torch, label, M, c, qcfg, params_cpu, ids,
+                                                   QUANT_LIMITS[label])
+        failures += bad
+        log(f"  quantize card vs CPU, 2-layer {label} (hidden {c.hidden_size}, batch "
+            f"{tuple(ids.shape)}): statistics max rel diff {reading['stats_rel']:.3g} "
+            f"({reading['stats_key']}); first e4m3 products {reading['first_rel']:.3g} "
+            f"({reading['first_key'] or 'none'}); after an e4m3 rounding "
+            f"{reading['rounded_rel']:.3g} ({reading['rounded_key'] or 'none'}); "
+            f"quantized weights one step apart {reading['steps']}/{reading['total']} "
+            f"({reading['share']:.3g}; fp8 {reading['fp8_unequal']}), largest step "
+            f"{reading['worst_step']}; other float leaves max rel diff "
+            f"{reading['float_rel']:.3g}; limits {QUANT_LIMITS[label]}; card "
+            f"{reading['card_s']:.1f} s, CPU {reading['cpu_s']:.1f} s; card host launches "
+            f"{launched}")
+        if label == "fp8 e4m3 static":
+            # the observer pass's GEMMs: 7 a layer on K4's tensor cores
+            n = 7 * c.num_hidden_layers
+            require(launched.get("fp8_matmul") == n and launched.get("fp8_matmul_tc") == n,
+                    f"the observer pass launched K4 {launched.get('fp8_matmul')} times "
+                    f"({launched.get('fp8_matmul_tc')} on its tensor cores); expected {n}")
+            results["fp8_matmul"]["calibration_launches"] = n
+        passes = 1 if label == "int4" else 2
+        require(launched.get("flash_attention") == passes * c.num_hidden_layers,
+                f"{label}: K3 launched {launched.get('flash_attention')} times in "
+                f"{passes} calibration passes of one batch; expected "
+                f"{passes * c.num_hidden_layers}")
+    del llama_float
+    require(not failures, "; ".join(failures))
+
+
 def pad_rows(torch, x, multiple):
     """x with zero rows appended up to a multiple of ``multiple`` rows (at
     least that many): the shapes torch._int_mm and torch._scaled_mm take."""
@@ -3603,6 +4098,8 @@ def main():
                 phase_paged(torch, results, engines)
             elif phase == "http":
                 phase_http(torch, results, direct, smi_line)
+            elif phase == "quantize":
+                phase_quantize(torch, results, smi_line)
             elif phase == "timing":
                 phase_timing(torch, results, engines)
             log(f"== {phase} done in {time.perf_counter() - t0:.1f} s")

@@ -1,8 +1,9 @@
 """The port stands alone: importing every module of
-``autosmoothquant_tpu_torch`` loads no JAX, no ml_dtypes, no safetensors and
-nothing of the JAX package (``autosmoothquant_tpu`` and its submodules; the
-port's own name shares that prefix, so the check matches whole names), and
-building no kernel."""
+``autosmoothquant_tpu_torch`` loads no JAX, no ml_dtypes, no safetensors, no
+transformers or datasets (the quantize path reads checkpoints and
+calibration text itself) and nothing of the JAX package
+(``autosmoothquant_tpu`` and its submodules; the port's own name shares that
+prefix, so the check matches whole names), and builds no kernel."""
 
 import json
 import os
@@ -17,7 +18,8 @@ import autosmoothquant_tpu_torch as P
 for mi in pkgutil.walk_packages(P.__path__, P.__name__ + "."):
     importlib.import_module(mi.name)
 from autosmoothquant_tpu_torch.kernels import _build
-banned = ("jax", "jaxlib", "ml_dtypes", "safetensors", "autosmoothquant_tpu")
+banned = ("jax", "jaxlib", "ml_dtypes", "safetensors", "transformers", "datasets",
+          "autosmoothquant_tpu")
 print(json.dumps({
     "modules": sorted(m for m in sys.modules if m.startswith(P.__name__)),
     "banned": sorted(m for m in sys.modules if m.split(".")[0] in banned),
@@ -40,7 +42,9 @@ def test_port_imports_no_jax_side_module():
                  "models.registry", "serve.engine", "serve.sampling", "serve.batching",
                  "serve.paged",
                  "serve.api", "utils.tokenizer", "utils.sp_tokenizer", "cli.serve_model",
-                 "cli.test_model"):
+                 "cli.test_model", "cli.smoothquant_model", "calibrate.calibrate",
+                 "convert.hf", "quant.smooth", "quant.ignore", "quant.fake_quant",
+                 "utils.datautils"):
         assert f"autosmoothquant_tpu_torch.{name}" in out["modules"]
 
 
