@@ -13,25 +13,13 @@ from __future__ import annotations
 
 
 def refuse_unported(args) -> None:
-    """NotImplementedError for each parsed flag that asks for a feature the
-    port does not have: tensor parallelism (``--tp`` > 1), speculative
-    decoding (``--speculative-gamma`` > 0) and the paged engine's automatic
-    prefix sharing (``--paged`` without ``--no-auto-prefix``, the JAX CLI's
-    default). ``--tp`` 0 or 1 is the one card; ``--paged --no-auto-prefix``
-    serves the paged engine with explicit prefixes."""
+    """NotImplementedError for a parsed flag that asks for a feature the port
+    does not have: tensor parallelism (``--tp`` > 1; 0 or 1 is the one
+    card)."""
     if args.tp > 1:
         raise NotImplementedError(
             f"--tp {args.tp}: tensor-parallel serving is not ported yet "
             "(ROADMAP Queue 1, item 17); the port serves on one card (--tp 0 or 1)")
-    if args.speculative_gamma > 0:
-        raise NotImplementedError(
-            f"--speculative-gamma {args.speculative_gamma}: speculative decoding is "
-            "not ported yet (ROADMAP Queue 1, item 14)")
-    if getattr(args, "paged", False) and not getattr(args, "no_auto_prefix", False):
-        raise NotImplementedError(
-            "--paged: the paged engine's automatic prefix radix tree (on by default) is "
-            "not ported yet (ROADMAP Queue 1, item 8b); add --no-auto-prefix for the "
-            "paged engine with explicit prefixes")
 
 
 def load(path: str, device):

@@ -10,13 +10,14 @@ with its flags.
   curl -s localhost:8000/v1/completions -d '{"prompt": "Hello", "max_tokens": 32}'
 
 It prints the address it bound (``--port 0`` takes a free port) and serves
-until SIGINT, then exits 0. ``--paged --no-auto-prefix`` serves the
-block-paged engine (``serve/paged.py:PagedEngine``, ``--block-size`` tokens a
-page, ``--num-pages`` pages or the contiguous pool's capacity) with explicit
-prefixes. ``--tp`` above 1, ``--speculative-gamma`` above 0 and ``--paged``
-alone (automatic prefix sharing, the JAX CLI's default) raise
-NotImplementedError naming their ROADMAP items
-(``cli/__init__.py:refuse_unported``).
+until SIGINT, then exits 0. ``--paged`` serves the block-paged engine
+(``serve/paged.py:PagedEngine``, ``--block-size`` tokens a page,
+``--num-pages`` pages or the contiguous pool's capacity) with its automatic
+prefix radix tree (``--no-auto-prefix``: explicit prefixes only).
+``--speculative-gamma N`` decodes greedy ticks speculatively (prompt lookup
+of ``--speculative-ngram`` tokens, the draft length adaptive unless
+``--no-adaptive-gamma``). ``--tp`` above 1 raises NotImplementedError naming
+its ROADMAP item (``cli/__init__.py:refuse_unported``).
 """
 
 from __future__ import annotations
@@ -44,18 +45,17 @@ def parse_args(argv=None):
                    help="tensor-parallel degree: 0 or 1 = one card (above 1 is refused)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--speculative-gamma", type=int, default=0,
-                   help="speculative draft length (above 0 is refused)")
+                   help="speculative draft length (0 = off; greedy requests only)")
     p.add_argument("--speculative-ngram", type=int, default=3)
     p.add_argument("--no-adaptive-gamma", action="store_true")
-    p.add_argument("--paged", action="store_true",
-                   help="the block-paged KV engine (needs --no-auto-prefix)")
+    p.add_argument("--paged", action="store_true", help="the block-paged KV engine")
     p.add_argument("--block-size", type=int, default=64,
                    help="paged engine page size (tokens)")
     p.add_argument("--num-pages", type=int, default=0,
                    help="paged engine total pages (0 = the contiguous pool's capacity)")
     p.add_argument("--no-auto-prefix", action="store_true",
                    help="the paged engine's automatic prefix sharing off (explicit "
-                        "prefixes only; automatic sharing is not ported)")
+                        "prefixes only)")
     p.add_argument("--model-id", default=None,
                    help="name reported by /v1/models and completion envelopes "
                         "(default: checkpoint directory name)")
@@ -88,7 +88,8 @@ def build(args, *, device="cuda", compute_dtype=torch.bfloat16, kv_dtype=None):
               speculative_adaptive=not args.no_adaptive_gamma, device=device)
     if args.paged:
         eng = PagedEngine(model_mod, params, cfg, qcfg, block_size=args.block_size,
-                          num_pages=args.num_pages or None, auto_prefix=False, **kw)
+                          num_pages=args.num_pages or None,
+                          auto_prefix=not args.no_auto_prefix, **kw)
     else:
         eng = ContinuousEngine(model_mod, params, cfg, qcfg, **kw)
     model_id = (args.model_id or Path(args.quantized_model_path).name

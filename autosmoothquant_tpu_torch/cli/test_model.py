@@ -9,8 +9,10 @@
 
 One prompt through ``Engine.generate`` (max_batch 1). Prints the decoded
 prompt and continuation, or with ``--prompt-ids`` the new token ids
-space-separated. ``--tp`` above 1 and ``--speculative-gamma`` above 0 raise
-NotImplementedError naming their ROADMAP items.
+space-separated. ``--speculative-gamma N`` decodes a greedy run
+speculatively (prompt lookup of ``--speculative-ngram`` tokens; the same
+tokens). ``--tp`` above 1 raises NotImplementedError naming its ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ def parse_args(argv=None):
                    help="1 = off (HF convention)")
     p.add_argument("--seed", type=int, default=0, help="sampling seed")
     p.add_argument("--speculative-gamma", type=int, default=0,
-                   help="speculative draft length (above 0 is refused)")
+                   help="speculative draft length (0 = off; greedy only)")
     p.add_argument("--speculative-ngram", type=int, default=3)
     p.add_argument("--max-seq", type=int, default=2048)
     p.add_argument("--kv-dtype", default="bf16", choices=["bf16", "int8"],
@@ -77,7 +79,9 @@ def main(argv=None, *, device="cuda", compute_dtype=torch.bfloat16, kv_dtype=Non
         GenerationConfig(max_new_tokens=args.max_new_tokens,
                          temperature=args.temperature, top_k=args.top_k,
                          top_p=args.top_p, repetition_penalty=args.repetition_penalty,
-                         eos_token_id=tok.eos_token_id if tok is not None else None),
+                         eos_token_id=tok.eos_token_id if tok is not None else None,
+                         speculative_gamma=args.speculative_gamma,
+                         speculative_ngram=args.speculative_ngram),
         seed=args.seed)[0]
     if tok is not None:
         print(tok.decode(ids + out))

@@ -382,6 +382,36 @@ def cache_update_and_read_raw(cache, k, v, cache_index):
 # ---------------------------------------------------------------------------
 
 
+@dataclasses.dataclass
+class DecodeRows:
+    """A chunk of T > 1 tokens a row at per-row positions (a speculative
+    verify, a draft mirror) routed through decode attention on the card:
+    the chunk's B x T queries become B x T rows of one launch, row r at
+    position ``pos[r]`` reading through ``table[r]``. A paged layer's table
+    has each row repeated T times; a contiguous cache [B, S, ...] is seen as
+    B pages of S slots, row r reading page r // T. ``kv_valid`` is the rows'
+    readable columns (each row's repeated), or None."""
+
+    table: torch.Tensor                # int32 [B * T, M]
+    pos: torch.Tensor                  # int64 [B * T]
+    kv_valid: Optional[torch.Tensor]   # bool [B * T, S] or None
+
+
+def decode_rows(table: Optional[torch.Tensor], slots: torch.Tensor, kv_valid) -> DecodeRows:
+    """The :class:`DecodeRows` of a chunk at ``slots`` [B, T]: a paged
+    ``table`` [B, M] repeated, or (None) one page a row of a contiguous
+    cache. Built once a forward, ahead of the layers."""
+    b, t = slots.shape
+    if table is None:
+        table = torch.div(torch.arange(b * t, dtype=torch.int32, device=slots.device), t,
+                          rounding_mode="floor")[:, None]
+    else:
+        table = table.repeat_interleave(t, dim=0)
+    if kv_valid is not None:
+        kv_valid = kv_valid.repeat_interleave(t, dim=0)
+    return DecodeRows(table, slots.reshape(-1).long(), kv_valid)
+
+
 def cache_mask_and_routing(kv_cache, cache_index: CacheIndex, b: int, t: int,
                            kv_valid, pad_starts, sliding_window: int = 0,
                            kv_window: Optional[int] = None):
@@ -401,15 +431,23 @@ def cache_mask_and_routing(kv_cache, cache_index: CacheIndex, b: int, t: int,
     or the columns from each row's pad_starts on) or None for all. A paged
     layer (:class:`PagedLayer`) masks by key position inside its attention:
     slots only, and kv_valid and pad_starts must be None (paged rows are
-    unpadded)."""
+    unpadded). On the card a chunk of T > 1 at a vector cache_index with no
+    pad_starts (a speculative verify) gets a :class:`DecodeRows` as its
+    mask, contiguous or paged: each of its queries then attends as a decode
+    step at that position does, in the same kernel and the same sum order."""
     if kv_cache is None:
         raise ValueError("cache_mask_and_routing needs a cache")
+    rows = t > 1 and _is_vector_index(cache_index) and kv_cache.k.is_cuda
     if isinstance(kv_cache, PagedLayer):
         if kv_valid is not None or pad_starts is not None:
             raise ValueError("a paged KV pool serves unpadded rows: no kv_valid or "
                              "pad_starts")
-        return cache_slots(cache_index, b, t, kv_cache.k.device), None, False, False
+        slots = cache_slots(cache_index, b, t, kv_cache.k.device)
+        mask = decode_rows(kv_cache.table, slots, None) if rows else None
+        return slots, mask, False, False
     slots = cache_slots(cache_index, b, t, kv_cache.k.device)
+    if rows and pad_starts is None:
+        return slots, decode_rows(None, slots, kv_valid), False, False
     if t == 1:
         valid = kv_valid
         if valid is None and pad_starts is not None:
@@ -480,11 +518,14 @@ def update_and_attend(q, k, v, cache, cache_index: CacheIndex, mask, scale: floa
     columns where given, ``mask`` the bool [B, S] of readable columns or
     None (``cache_mask_and_routing``), ``sliding_window`` its window.
     A paged layer (:class:`PagedLayer`): :func:`paged_update_and_attend`.
+    ``mask`` a :class:`DecodeRows` (a verify chunk on the card): the chunk
+    written, then decode attention over its B x T queries as rows.
     Otherwise: eager attention over the cache under ``mask``."""
     b, t = q.shape[:2]
     if isinstance(cache, PagedLayer):
         return paged_update_and_attend(q, k, v, cache, cache_index, scale, compute_dtype,
-                                       kv_window=kv_window, sliding_window=sliding_window)
+                                       kv_window=kv_window, sliding_window=sliding_window,
+                                       rows=mask)
     quant = isinstance(cache, QuantKVCacheLayer)
     if chunk0_causal and t > 1 and cache is not None:
         if quant:
@@ -509,6 +550,8 @@ def update_and_attend(q, k, v, cache, cache_index: CacheIndex, mask, scale: floa
                                      banded_starts, sm_scale=scale)
         return out.to(q.dtype)
     k_all, v_all, ks, vs = cache_update_and_read_raw(cache, k, v, cache_index)
+    if isinstance(mask, DecodeRows):
+        return attend_rows(q, k_all, v_all, mask, scale, ks, vs, sliding_window, kv_window)
     if t == 1 and cache is not None:
         out = decode_attention(q[:, 0], k_all, v_all, cache_index, scale=scale,
                                k_scale=ks, v_scale=vs, kv_valid=mask,
@@ -520,6 +563,17 @@ def update_and_attend(q, k, v, cache, cache_index: CacheIndex, mask, scale: floa
             ks, vs = ks[:, :kv_window], vs[:, :kv_window]
     return attend(q, k_all, v_all, mask, scale, plain_causal=plain_causal,
                   k_scale=ks, v_scale=vs)
+
+
+def attend_rows(q, k, v, rows: DecodeRows, scale: float, k_scale=None, v_scale=None,
+                sliding_window: int = 0, kv_window: Optional[int] = None) -> torch.Tensor:
+    """q [B, T, Hq, D] through decode attention as B x T rows (``rows``,
+    :class:`DecodeRows`) over the raw cache or pages k / v, already written."""
+    b, t = q.shape[:2]
+    out = decode_attention(q.reshape(b * t, *q.shape[2:]), k, v, rows.pos, scale=scale,
+                           k_scale=k_scale, v_scale=v_scale, table=rows.table,
+                           kv_valid=rows.kv_valid, window=sliding_window, kv_window=kv_window)
+    return out.reshape(q.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -666,10 +720,12 @@ def paged_gather_attend(q, layer: PagedLayer, cache_index: CacheIndex, pos_q, sc
 
 def paged_update_and_attend(q, k, v, layer: PagedLayer, cache_index: CacheIndex,
                             scale: float, compute_dtype, kv_window: Optional[int] = None,
-                            sliding_window: int = 0) -> torch.Tensor:
+                            sliding_window: int = 0,
+                            rows: Optional[DecodeRows] = None) -> torch.Tensor:
     """Write the chunk's K/V (int8 pages: quantized, with their scales) into
     the layer's pages at slots cache_index + [0, T), then :func:`paged_attend`
-    (JAX ``common.py:paged_update_and_attend``)."""
+    (JAX ``common.py:paged_update_and_attend``), or with ``rows`` (a verify
+    chunk on the card) decode attention over its queries as rows."""
     b, t = q.shape[:2]
     pos = cache_slots(cache_index, b, t, q.device)
     slots = paged_slots(layer.table, pos, layer.k.shape[1])
@@ -682,6 +738,9 @@ def paged_update_and_attend(q, k, v, layer: PagedLayer, cache_index: CacheIndex,
     else:
         _paged_write(layer.k, k, slots)
         _paged_write(layer.v, v, slots)
+    if rows is not None:
+        return attend_rows(q, layer.k, layer.v, rows, scale, layer.k_scale, layer.v_scale,
+                           sliding_window, kv_window)
     return paged_attend(q, layer, cache_index, pos, scale, compute_dtype, kv_window,
                         sliding_window)
 

@@ -29,19 +29,35 @@ was captured on). On a CUDA device the step is a CUDA graph per key
 (sampling, penalize, want_lp, kv_window), replayed ``n`` times a tick
 (``serve/engine.py:StepGraphs``).
 
+Speculative decoding (``speculative_gamma`` > 0, greedy-only ticks, JAX's
+acceptance-adaptive draft length): a tick drafts on the host by prompt
+lookup, or with a draft model (``draft``, :class:`~.engine.DraftModel`,
+whose own contiguous pool mirrors every admission write), and verifies
+gamma + 1 positions a row in one forward; with a draft model a tick runs up
+to ``steps_per_sync`` rounds, their acceptance on the device. Each verify
+shape is one graph of the engine's ``StepGraphs``: ("verify", g),
+("verify_draft", g) and ("verify_draft_multi", g, k); on the card a verify's
+attention is decode attention over its B x (g + 1) queries as rows
+(``models/common.py:DecodeRows``), so each query attends as the plain step
+at its position does.
+
 What differs from the JAX engine:
   - an inactive row writes its K/V at slot ``max_seq`` of a pool with
     ``max_seq + 1`` slots, a scratch slot no attention reads (JAX sends it to
     slot ``max_seq`` of ``max_seq``, whose write its scatter drops; a CUDA
-    index out of bounds is a device assert instead);
+    index out of bounds is a device assert instead). With speculation the
+    pool has ``max_seq + gamma + 1`` slots: a verify writes a parked row's
+    gamma + 1 tokens at slots max_seq .. max_seq + gamma of its own row, and
+    a parked row's length never advances on the device; the draft's pool
+    has ``max_seq + max(gamma + 1, steps_per_sync)`` (a plain tick's mirror
+    writes up to steps_per_sync tokens a row);
   - ``seen`` stays on the device (JAX uploads it from the host a tick);
   - randomness comes from one ``torch.Generator`` seeded with ``seed`` (JAX
     folds an event counter into its key): equal seeds give equal tokens,
     not JAX's.
 
 Not ported yet, and refused with NotImplementedError: meshes (``mesh``,
-``param_shardings``; ROADMAP item 17) and speculative decoding (``draft``,
-``speculative_gamma`` > 0; item 14).
+``param_shardings``; ROADMAP item 17).
 """
 
 from __future__ import annotations
@@ -54,8 +70,10 @@ import torch
 
 from ..quant.config import QuantConfig
 from ..runtime import resolve_device
-from .engine import GraphedSteps, StepGraphs, _tensors, graph_mode, maybe_fuse_projections
+from .engine import (GraphedSteps, StepGraphs, _tensors, attach_draft, graph_mode,
+                     maybe_fuse_projections)
 from .sampling import apply_repetition_penalty, sample_per_row
+from .speculative import Model, accepted, rollout
 
 
 class PrefixCacheFull(RuntimeError):
@@ -112,12 +130,19 @@ class ContinuousEngine(GraphedSteps):
     without one; ``device="cpu"`` runs the plain versions of the kernels.
 
     State held on ``device`` for the engine's lifetime: the KV pool
-    (``model.init_kv_cache`` of max_batch x (max_seq + 1) slots;
-    ``kv_cache_bytes``), the decode buffers (``_ints``: pending token, slot,
-    active, top_k and the tick's step column; ``_floats``: temperature, top_p
-    and penalty; ``seen``; the outputs [max_batch, steps_per_sync]; the last
-    raw logits), the graphs and their pool. Prefix entries and admission
-    prefills allocate as they come.
+    (``model.init_kv_cache`` of max_batch x (max_seq + 1 +
+    speculative_gamma) slots; ``kv_cache_bytes``), the decode buffers
+    (``_ints``: pending token, slot, active, top_k and the tick's step
+    column; ``_floats``: temperature, top_p and penalty; ``seen``; the
+    outputs [max_batch, steps_per_sync]; the last raw logits), the verifies'
+    buffers, a draft model's pool (``dpool``), the graphs and their pool.
+    Prefix entries and admission prefills allocate as they come.
+
+    speculative_gamma > 0 speculates on ticks where every live request is
+    plain greedy (the tokens are the plain ticks'), ``speculative_adaptive``
+    resizing gamma by the acceptance EMA (``_spec_acc_ema``); ``draft`` (a
+    :class:`~.engine.DraftModel`) drafts instead of prompt lookup of
+    ``speculative_ngram`` tokens.
 
     cuda_graph: as ``Engine``'s: None is True on a CUDA device and False on
     the CPU; True on the CPU raises ValueError. True captures the decode
@@ -143,10 +168,6 @@ class ContinuousEngine(GraphedSteps):
             raise NotImplementedError(
                 "mesh / param_shardings: tensor-parallel serving is not ported "
                 "yet (ROADMAP Queue 1, item 17)")
-        if draft is not None or speculative_gamma > 0:
-            raise NotImplementedError(
-                "draft / speculative_gamma > 0: speculative decoding is not "
-                "ported yet (ROADMAP Queue 1, item 14)")
         self.device = dev = resolve_device(device)
         self.cuda_graph = graph_mode(dev, cuda_graph)
         self.model = model_mod
@@ -162,6 +183,17 @@ class ContinuousEngine(GraphedSteps):
         # long prompt cannot stall the decoding ones (None: whole prompts)
         self.prefill_chunk = prefill_chunk
         self.max_prefixes = max_prefixes
+        # speculative decoding (greedy ticks only): gamma drafts a verify,
+        # prompt lookup on the host or the draft model; adaptive gamma
+        # tracks the acceptance rate (an EMA, optimistic start) and halves
+        # or stops speculation when drafts miss, re-probing every 32 ticks
+        self.speculative_gamma = speculative_gamma
+        self.speculative_ngram = speculative_ngram
+        self.speculative_adaptive = speculative_adaptive
+        self._spec_acc_ema = 1.0
+        self._spec_ticks = 0
+        self.draft = attach_draft(draft, cfg, compute_dtype, kv_dtype, fuse_projections)
+        self._target = Model(model_mod, self.params, cfg, qcfg, compute_dtype)
 
         self.pool = self._make_pool()
         self._ints = torch.zeros((5, max_batch), dtype=torch.int64, device=dev)
@@ -178,6 +210,25 @@ class ContinuousEngine(GraphedSteps):
         self._generator = torch.Generator(device=dev)
         self._generator.manual_seed(seed)
         self._graphs = StepGraphs(dev, self._generator, self.cuda_graph)
+        # the verifies' buffers: inputs (prompt-lookup drafts behind the
+        # pending token), targets, a draft model's drafts, and a multi-round
+        # tick's targets and accepted counts a round
+        w = speculative_gamma + 1
+        self._spec_in = torch.zeros((max_batch, w), dtype=torch.int64, device=dev)
+        self._targets = torch.zeros((max_batch, w), dtype=torch.int64, device=dev)
+        self._drafts = torch.zeros((max_batch, w), dtype=torch.int64, device=dev)
+        self._round_tgt = torch.zeros((steps_per_sync, max_batch, w), dtype=torch.int64,
+                                      device=dev)
+        self._round_acc = torch.zeros((steps_per_sync, max_batch), dtype=torch.int64,
+                                      device=dev)
+        self.dpool = None
+        self._dmodel = None
+        self._dprefixes: Dict[Any, Any] = {}
+        if self.draft is not None:
+            d = self.draft
+            self._dmodel = Model(d.model, d.params, d.cfg, d.qcfg, d.compute_dtype)
+            self.dpool = d.model.init_kv_cache(
+                d.cfg, max_batch, max_seq + max(w, steps_per_sync), d.kv_dtype, dev)
 
         # host state of the slots (numpy, as the JAX engine keeps it)
         self.lens = np.zeros(max_batch, np.int32)         # tokens in cache per slot
@@ -198,8 +249,10 @@ class ContinuousEngine(GraphedSteps):
         self.decode_tokens_generated = 0
 
     def _make_pool(self):
-        """The slot pool, one scratch slot past max_seq (parked rows' writes)."""
-        return self.model.init_kv_cache(self.cfg, self.max_batch, self.max_seq + 1,
+        """The slot pool, with scratch slots past max_seq for parked rows'
+        writes: one, or a verify's gamma + 1."""
+        return self.model.init_kv_cache(self.cfg, self.max_batch,
+                                        self.max_seq + 1 + self.speculative_gamma,
                                         self.kv_dtype, self.device)
 
     @property
@@ -227,11 +280,37 @@ class ContinuousEngine(GraphedSteps):
             kv_cache=cache, cache_index=0, compute_dtype=self.compute_dtype)
         return cache, self.model.logits(self.params, h[:, n - 1:n])[0, 0]
 
-    def _put_row(self, row: int, cache) -> None:
-        """Copy a [1, bucket] cache into the pool row's first bucket slots."""
-        for dst, src in zip(self.pool, cache):
+    def _put_row(self, row: int, cache, pool=None) -> None:
+        """Copy a [1, bucket] cache into the first bucket slots of row ``row``
+        of ``pool`` (default: the slot pool)."""
+        for dst, src in zip(self.pool if pool is None else pool, cache):
             for d, s in zip(_tensors(dst), _tensors(src)):
                 d[row, :s.shape[1]].copy_(s[0])
+
+    # -- the draft model's mirrors of admission writes ---------------------------
+
+    def _draft_prefill(self, tokens: List[int]):
+        """The draft model's [1, bucket] cache of ``tokens`` (right-padded to a
+        power of two, as ``_prefill_detached``'s)."""
+        d, n = self.draft, len(tokens)
+        bucket = min(_bucket(n), self.max_seq)
+        ids = np.zeros((1, bucket), np.int64)
+        ids[0, :n] = tokens
+        cache = d.model.init_kv_cache(d.cfg, 1, bucket, d.kv_dtype, self.device)
+        d.model.forward(d.params, torch.from_numpy(ids).to(self.device), d.cfg, d.qcfg,
+                        kv_cache=cache, cache_index=0, compute_dtype=d.compute_dtype)
+        return cache
+
+    def _draft_chunk(self, row: int, ids: List[int], start: int) -> None:
+        """The draft model's prefill of ``ids`` into its pool row at slots
+        [start, start + len(ids)); a padded tail past the pool is cut (JAX
+        drops those writes)."""
+        d = self.draft
+        ids = ids[:self.dpool[0].k.shape[1] - start]
+        rowcache = [type(layer)(*(t[row:row + 1] for t in _tensors(layer)))
+                    for layer in self.dpool]
+        d.model.forward(d.params, torch.tensor([ids], device=self.device), d.cfg, d.qcfg,
+                        kv_cache=rowcache, cache_index=start, compute_dtype=d.compute_dtype)
 
     def _prefill_chunk_row(self, row: int, ids: List[int], start: int, valid: int):
         """Prefill ``ids`` into pool row ``row`` at slots [start, start +
@@ -286,6 +365,8 @@ class ContinuousEngine(GraphedSteps):
                 f"prefix cache full ({self.max_prefixes} entries); "
                 "drop one before registering another")
         cache, last = self._prefill_detached(toks)
+        if self.draft is not None:
+            self._dprefixes[prefix_id] = self._draft_prefill(toks)
         self.prefill_tokens_processed += len(toks)
         self._prefixes[prefix_id] = (cache, len(toks), last, toks)
         self._touch_prefix(prefix_id)
@@ -294,6 +375,7 @@ class ContinuousEngine(GraphedSteps):
     def drop_prefix(self, prefix_id) -> None:
         self._prefixes.pop(prefix_id, None)
         self._prefix_lru.pop(prefix_id, None)
+        self._dprefixes.pop(prefix_id, None)
 
     def _touch_prefix(self, prefix_id) -> None:
         self._prefix_clock += 1
@@ -425,6 +507,8 @@ class ContinuousEngine(GraphedSteps):
                 # is never attended before the suffix overwrites it)
                 cache, plen, last_logits, _ = pref
                 self._put_row(row, cache)
+                if self.draft is not None and req.prefix in self._dprefixes:
+                    self._put_row(row, self._dprefixes[req.prefix], self.dpool)
                 if len(req.prompt) == plen:
                     self._activate(row, req, last_logits)
                 else:
@@ -436,6 +520,8 @@ class ContinuousEngine(GraphedSteps):
             cache, last_logits = self._prefill_detached(req.prompt)
             self.prefill_tokens_processed += len(req.prompt)
             self._put_row(row, cache)
+            if self.draft is not None:
+                self._put_row(row, self._draft_prefill(req.prompt), self.dpool)
             self._activate(row, req, last_logits)
 
     def _advance_prefills(self) -> None:
@@ -461,6 +547,8 @@ class ContinuousEngine(GraphedSteps):
                     start, valid = 0, n
                     ids = prompt + [0] * (bucket - n)
             last_logits = self._prefill_chunk_row(row, ids, start, valid)
+            if self.draft is not None:
+                self._draft_chunk(row, ids, start)
             # new tokens only: the overlap re-feed starts before pos
             self.prefill_tokens_processed += min(valid, n - pos)
             st["pos"] = start + valid
@@ -551,19 +639,20 @@ class ContinuousEngine(GraphedSteps):
         return np.full(self.max_batch, self.max_seq)
 
     def _decode_tick(self) -> None:
-        """The tick's decode: n steps for the active slots, their tokens
-        read back once and appended, finished requests retired."""
+        """The tick's decode: a speculative tick where one may run, else n
+        steps for the active slots, their tokens read back once and
+        appended, finished requests retired."""
         active = np.array([r is not None for r in self.slot_req])
         if not active.any():
+            return
+        if self.speculative_gamma > 0 and self._speculate(active):
             return
         # clamp to the smallest remaining capacity (lens + 1 slots are taken
         # after a step writes at lens), and to a power of two
         cap = int(min(self.max_seq - self.lens[active] - 1))
         n = max(1, min(self.steps_per_sync, cap))
         n = 1 << (n.bit_length() - 1)
-        # a parked row (free, or mid-prefill: its prompt lives in the low
-        # slots) writes to the scratch slot
-        lens_dec = np.where(active, self.lens, self._parked_slots())
+        lens_dec = self._load_rows(active)
         sampling = bool((self.temps > 0.0)[active].any())
         penalize = bool((self.reppens != 1.0)[active].any())
         want_lp = any(r is not None and r.want_logprobs for r in self.slot_req)
@@ -571,15 +660,15 @@ class ContinuousEngine(GraphedSteps):
         # every live slot this tick
         need = int(self.lens[active].max()) + n + 1
         kv_window = min(-(-need // KV_WINDOW_STEP) * KV_WINDOW_STEP, self.max_seq)
-        self._ints.copy_(torch.from_numpy(np.stack([
-            self.pending_tok, lens_dec, active, self.topks,
-            np.zeros(self.max_batch)]).astype(np.int64)))
         self._floats.copy_(torch.from_numpy(
             np.stack([self.temps, self.topps, self.reppens]).astype(np.float32)))
         key = (sampling, penalize, want_lp, kv_window)
         self._graphs.run(key, lambda: self._decode_step(*key), n)
         toks = self._out_tok[:, :n].cpu().numpy()
         lps = self._out_lp[:, :n].cpu().numpy() if want_lp else None
+        if self.draft is not None and self.speculative_gamma > 0:
+            self._draft_mirror(np.concatenate(
+                [self.pending_tok[:, None], toks[:, :n - 1]], axis=1), lens_dec)
         self.lens = np.where(active, lens_dec + n, self.lens).astype(np.int32)
         for row, req in enumerate(self.slot_req):
             if req is None:
@@ -589,12 +678,222 @@ class ContinuousEngine(GraphedSteps):
                 self.decode_tokens_generated += 1
                 if req.want_logprobs:
                     req.logprobs.append(float(lps[row, i]))
-                if ((req.eos_token_id is not None and t == req.eos_token_id)
-                        or self._stop_hit(req.output, req.stop)
-                        or len(req.output) >= req.max_new_tokens):
+                if self._ends(req, t):
                     break
             self.pending_tok[row] = req.output[-1]
             self._check_done(row)
+
+    # -- speculative ticks (greedy only) -------------------------------------------
+
+    def _speculate(self, active: np.ndarray) -> bool:
+        """Run a speculative tick if one may: every live request plain
+        greedy, an effective gamma above 0, and room for the gamma + 1
+        writes in every active row (lens + g + 1 < max_seq). With a draft
+        model a tick runs k rounds, the most that fit the rows' room, up to
+        steps_per_sync, held to a power of two. False: the tick decodes
+        plainly."""
+        plain_greedy = all(r is None or (r.temperature == 0.0 and r.repetition_penalty == 1.0
+                                         and not r.want_logprobs) for r in self.slot_req)
+        g = self._effective_gamma() if plain_greedy else 0
+        if not (g > 0 and all(self.lens[active] + g + 1 < self.max_seq)):
+            return False
+        k = 1
+        if self.draft is not None:
+            fit = (self.max_seq - 1 - int(self.lens[active].max())) // (g + 1)
+            while k * 2 <= min(self.steps_per_sync, fit):
+                k *= 2
+        if k >= 2:
+            self._spec_step_multi(active, g, k)
+        else:
+            self._spec_step(active, g)
+        return True
+
+    def _effective_gamma(self) -> int:
+        """Acceptance-adaptive draft length: full gamma while drafts land
+        (EMA >= 0.5), half when mediocre (>= 0.2), none when they miss, with
+        a re-probe at full gamma every 32nd tick."""
+        g = self.speculative_gamma
+        if not self.speculative_adaptive:
+            return g
+        self._spec_ticks += 1
+        if self._spec_acc_ema >= 0.5:
+            return g
+        if self._spec_acc_ema >= 0.2:
+            return max(1, g // 2)
+        return g if self._spec_ticks % 32 == 0 else 0
+
+    @staticmethod
+    def _host_draft(history: List[int], gamma: int, ngram: int) -> List[int]:
+        """Prompt-lookup draft on the host: the continuation after the most
+        recent earlier occurrence of the last ``ngram`` tokens."""
+        n = len(history)
+        pat = history[-ngram:]
+        for p in range(n - ngram - 1, -1, -1):
+            if history[p:p + ngram] == pat:
+                cont = history[p + ngram: p + ngram + gamma]
+                if cont:
+                    return (cont + [history[-1]] * gamma)[:gamma]
+        return [history[-1]] * gamma
+
+    def _load_rows(self, active: np.ndarray) -> np.ndarray:
+        """Copy the pending tokens, the lengths (parked rows at their scratch
+        slots: a parked row, free or mid-prefill, must not write its own
+        low slots), the active mask and top_k into the decode buffers, the
+        tick's column at 0; returns the lengths."""
+        lens_dec = np.where(active, self.lens, self._parked_slots())
+        self._ints.copy_(torch.from_numpy(np.stack([
+            self.pending_tok, lens_dec, active, self.topks,
+            np.zeros(self.max_batch)]).astype(np.int64)))
+        return lens_dec
+
+    def _verify_positions(self, g: int) -> torch.Tensor:
+        """Each row's g + 1 positions from its length, clamped into the
+        model's range (a parked row's outputs are discarded)."""
+        jr = torch.arange(g + 1, device=self.device)
+        return torch.clamp(self._lens[:, None] + jr, max=self.max_seq - 1)
+
+    def _draft_rollout(self, g: int) -> torch.Tensor:
+        """The draft model's g + 1 greedy steps from the pending tokens (the
+        last one writes K/V for the last draft), at each row's length (a
+        parked row's clamped to max_seq, the draft pool's scratch slots):
+        the g drafts [B, g]."""
+        start = torch.clamp(self._lens, max=self.max_seq)
+        return rollout(self._dmodel, self.dpool, self._tok, start, g + 1,
+                       max_pos=self.max_seq - 1)[:, :g]
+
+    def _verify(self, g: int) -> None:
+        """The verify over the pending tokens and the host's drafts
+        (``_spec_in``): the targets [B, g + 1] into ``_targets``."""
+        self._targets[:, :g + 1].copy_(self._target.greedy(
+            self._spec_in[:, :g + 1], self.pool, self._lens, self._verify_positions(g)))
+
+    def _verify_draft(self, g: int) -> None:
+        """A draft-model round: the rollout, then the verify; drafts into
+        ``_drafts``, targets into ``_targets``."""
+        d = self._draft_rollout(g)
+        self._drafts[:, :g].copy_(d)
+        self._targets[:, :g + 1].copy_(self._target.greedy(
+            torch.cat([self._tok[:, None], d], dim=1), self.pool, self._lens,
+            self._verify_positions(g)))
+
+    def _verify_draft_multi(self, g: int, k: int) -> None:
+        """k draft-model rounds, the acceptance on the device: each round's
+        targets and accepted counts into ``_round_tgt`` / ``_round_acc``, the
+        pending tokens and the active rows' lengths advanced in place (a
+        parked row's length never moves)."""
+        for r in range(k):
+            d = self._draft_rollout(g)
+            tgt = self._target.greedy(torch.cat([self._tok[:, None], d], dim=1), self.pool,
+                                      self._lens, self._verify_positions(g))
+            n_acc = accepted(d, tgt)
+            self._round_tgt[r, :, :g + 1].copy_(tgt)
+            self._round_acc[r].copy_(n_acc)
+            self._tok.copy_(torch.gather(tgt, 1, n_acc[:, None])[:, 0])
+            self._lens.add_((n_acc + 1) * self._active)
+
+    def _spec_step(self, active: np.ndarray, g: int) -> None:
+        """One speculative tick: draft (host prompt lookup, or the draft
+        model in the graph), verify, accept the longest matching prefix a
+        row. The tokens equal the plain scheduler's."""
+        if self.draft is None:
+            inputs = np.zeros((self.max_batch, g + 1), np.int64)
+            for row, req in enumerate(self.slot_req):
+                if req is not None:
+                    inputs[row, 0] = self.pending_tok[row]
+                    inputs[row, 1:] = self._host_draft(req.prompt + req.output, g,
+                                                       self.speculative_ngram)
+            self._spec_in[:, :g + 1].copy_(torch.from_numpy(inputs))
+            self._load_rows(active)
+            self._graphs.run(("verify", g), lambda: self._verify(g), 1)
+        else:
+            self._load_rows(active)
+            self._graphs.run(("verify_draft", g), lambda: self._verify_draft(g), 1)
+            inputs = np.concatenate([self.pending_tok[:, None],
+                                     self._drafts[:, :g].cpu().numpy()], axis=1)
+        targets = self._targets[:, :g + 1].cpu().numpy()
+        tick_acc = tick_rows = 0
+        for row, req in enumerate(self.slot_req):
+            if req is None:
+                continue
+            n_acc = 0
+            while n_acc < g and inputs[row, n_acc + 1] == targets[row, n_acc]:
+                n_acc += 1
+            tick_acc += n_acc
+            tick_rows += 1
+            n_app = 0
+            for t in targets[row, :n_acc + 1].tolist():
+                req.output.append(t)
+                self.decode_tokens_generated += 1
+                n_app += 1
+                if self._ends(req, t):
+                    break
+            # each emitted token advanced the cache by one verified slot
+            self.lens[row] += n_app
+            self.pending_tok[row] = req.output[-1]
+            self._check_done(row)
+        if tick_rows:
+            rate = tick_acc / (tick_rows * g)
+            self._spec_acc_ema = 0.8 * self._spec_acc_ema + 0.2 * rate
+
+    def _spec_step_multi(self, active: np.ndarray, g: int, k: int) -> None:
+        """A draft-model tick of k rounds in one graph. The host cuts each
+        row at eos, a stop or its budget over the rounds' targets, and takes
+        the device's lengths and pending tokens for rows that stay live."""
+        self._load_rows(active)
+        self._graphs.run(("verify_draft_multi", g, k), lambda: self._verify_draft_multi(g, k), 1)
+        tgt = self._round_tgt[:k, :, :g + 1].cpu().numpy()
+        acc = self._round_acc[:k].cpu().numpy()
+        pend = self._tok.cpu().numpy()
+        lens_out = self._lens.cpu().numpy()
+        tick_acc = tick_rounds = 0
+        for row, req in enumerate(self.slot_req):
+            if req is None:
+                continue
+            done = False
+            for r in range(k):
+                n_acc = int(acc[r, row])
+                tick_acc += n_acc
+                tick_rounds += 1
+                for t in tgt[r, row, :n_acc + 1].tolist():
+                    req.output.append(t)
+                    self.decode_tokens_generated += 1
+                    if self._ends(req, t):
+                        done = True
+                        break
+                if done:
+                    break
+            if done:
+                # the rounds past the end are discarded
+                self.lens[row] = min(int(lens_out[row]), self.max_seq - 1)
+                self.pending_tok[row] = req.output[-1]
+            else:
+                self.lens[row] = int(lens_out[row])
+                self.pending_tok[row] = int(pend[row])
+            self._check_done(row)
+        if tick_rounds:
+            rate = tick_acc / (tick_rounds * g)
+            self._spec_acc_ema = 0.8 * self._spec_acc_ema + 0.2 * rate
+
+    def _ends(self, req: Request, tok: int) -> bool:
+        """Whether ``req`` ends at ``tok``, just appended: eos, a stop
+        sequence or its budget."""
+        return ((req.eos_token_id is not None and tok == req.eos_token_id)
+                or bool(self._stop_hit(req.output, req.stop))
+                or len(req.output) >= req.max_new_tokens)
+
+    def _draft_mirror(self, tok_mat: np.ndarray, lens_dec: np.ndarray) -> None:
+        """A plain tick's tokens [B, n] (the pending token and the tick's
+        first n - 1) into the draft model's pool at each row's slots, so
+        that its cache has no holes when speculation resumes (parked rows at
+        the pool's scratch slots past max_seq)."""
+        d, n = self.draft, tok_mat.shape[1]
+        start = torch.from_numpy(np.minimum(lens_dec, self.max_seq).astype(np.int64)).to(
+            self.device)
+        positions = torch.clamp(start[:, None] + torch.arange(n, device=self.device),
+                                max=self.max_seq - 1)
+        d.model.forward(d.params, torch.from_numpy(tok_mat.astype(np.int64)).to(self.device),
+                        d.cfg, d.qcfg, kv_cache=self.dpool, cache_index=start,
+                        positions=positions, compute_dtype=d.compute_dtype)
 
     def run(self, requests: Optional[List[Request]] = None,
             max_ticks: int = 10_000) -> Dict[Any, List[int]]:

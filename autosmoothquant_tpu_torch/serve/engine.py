@@ -22,8 +22,12 @@ all. A call copies its prompt state into the first ``b`` rows; slots left
 from an earlier, longer call are masked by ``kv_valid``, which every call
 resets (a masked score is -1e30, whose probability is exactly 0).
 
-Not ported yet: meshes, draft models and speculative decoding. Prefill stays
-eager.
+Speculative decoding (greedy only; ``GenerationConfig.speculative_gamma``,
+prompt lookup or a :class:`DraftModel`) runs ``serve/speculative.py``'s
+rounds over the same cache: a round (draft, verify forward, argmax,
+acceptance, the writes into history, output and lengths) is one CUDA graph
+per key, replayed in groups, the host reading the rows' progress once a
+group. Not ported yet: meshes. Prefill stays eager.
 """
 
 from __future__ import annotations
@@ -37,6 +41,42 @@ import torch
 
 from ..quant.config import QuantConfig
 from ..runtime import resolve_device
+from .speculative import SpecState
+
+
+@dataclasses.dataclass
+class DraftModel:
+    """A cheaper model for draft-model speculative decoding (fewer layers,
+    int4 weights, a distilled checkpoint: any family member with the
+    target's vocab). Verification keeps the tokens plain greedy decoding's,
+    so the draft only sets how many a verify forward accepts. Its params
+    are the port's, on the engine's device; compute_dtype and kv_dtype
+    default to the engine's."""
+
+    model: object
+    params: object
+    cfg: object
+    qcfg: Optional[QuantConfig] = None
+    compute_dtype: object = None
+    kv_dtype: object = None
+
+
+def attach_draft(draft: Optional[DraftModel], cfg, compute_dtype, kv_dtype,
+                 fuse: Optional[bool] = None) -> Optional[DraftModel]:
+    """``draft`` made ready for an engine: its vocab checked against the
+    target's ``cfg``, its projections fused as the target's
+    (:func:`maybe_fuse_projections`), its dtypes defaulted to the engine's."""
+    if draft is None:
+        return None
+    if draft.cfg.vocab_size != cfg.vocab_size:
+        raise ValueError(f"the draft model's vocab ({draft.cfg.vocab_size}) must be the "
+                         f"target's ({cfg.vocab_size})")
+    draft.params = maybe_fuse_projections(draft.model, draft.params, fuse)
+    if draft.compute_dtype is None:
+        draft.compute_dtype = compute_dtype
+    if draft.kv_dtype is None:
+        draft.kv_dtype = kv_dtype
+    return draft
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,13 +93,28 @@ class GenerationConfig:
     # also return each emitted token's log-probability under the raw model
     # logits (before temperature, filters and penalty)
     return_logprobs: bool = False
+    # speculative decoding (greedy only): draft tokens a verify round and the
+    # prompt-lookup match length; 0 disables (serve/speculative.py)
+    speculative_gamma: int = 0
+    speculative_ngram: int = 3
+
+
+def spec_gamma(gen_cfg: GenerationConfig) -> int:
+    """The draft length ``gen_cfg`` decodes with: its speculative_gamma when
+    decoding is plain greedy, else 0 (sampling, a repetition penalty and
+    logprobs take the plain decode)."""
+    greedy = (gen_cfg.temperature == 0.0 and gen_cfg.repetition_penalty == 1.0
+              and not gen_cfg.return_logprobs)
+    return gen_cfg.speculative_gamma if greedy else 0
 
 
 def device_config(gen_cfg: GenerationConfig) -> GenerationConfig:
     """``gen_cfg`` with the fields only the host reads (max_new_tokens,
-    eos_token_id, stop) cleared: what a decode graph's key holds, as the
-    JAX engine's ``dev_cfg`` is its static config."""
-    return dataclasses.replace(gen_cfg, max_new_tokens=0, eos_token_id=None, stop=None)
+    eos_token_id, stop) and the speculative ones cleared: what a plain
+    decode graph's key holds, as the JAX engine's ``dev_cfg`` is its static
+    config. A speculative round's key names its draft length itself."""
+    return dataclasses.replace(gen_cfg, max_new_tokens=0, eos_token_id=None, stop=None,
+                               speculative_gamma=0, speculative_ngram=0)
 
 
 def _truncate_at_stop(row, stop):
@@ -252,16 +307,25 @@ class Engine(GraphedSteps):
 
     The kernels' launch counters (``kernels/counters.py``) count host
     launches: prefill, the warm-up step and the capture (which records its
-    launches), and nothing for a replay, which launches without Python."""
+    launches), and nothing for a replay, which launches without Python.
+
+    Speculative decoding (``GenerationConfig.speculative_gamma`` > 0 on a
+    greedy config) keeps its state in :class:`~.speculative.SpecState`
+    buffers of max_batch x (max_seq + 1) allocated here, and, with
+    ``draft`` (a :class:`DraftModel`), the draft's KV cache of max_batch x
+    max_seq. Its round is one graph per key (b, "spec", gamma, ngram) or (b,
+    "spec_draft", gamma). ``last_spec_stats`` holds the last speculative
+    call's [verify rounds, accepted draft tokens]."""
 
     def __init__(self, model_mod, params, cfg, qcfg: Optional[QuantConfig] = None,
                  *, max_batch: int = 8, max_seq: int = 2048,
                  kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
-                 device="cuda", cuda_graph: Optional[bool] = None):
+                 device="cuda", cuda_graph: Optional[bool] = None,
+                 draft: Optional[DraftModel] = None, fuse_projections=None):
         self.device = resolve_device(device)
         self.cuda_graph = cuda_graph = graph_mode(self.device, cuda_graph)
         self.model = model_mod
-        self.params = maybe_fuse_projections(model_mod, params)
+        self.params = maybe_fuse_projections(model_mod, params, fuse_projections)
         self.cfg = cfg
         self.qcfg = qcfg
         self.max_batch = max_batch
@@ -283,6 +347,13 @@ class Engine(GraphedSteps):
         self._logits = torch.zeros((max_batch, vocab), dtype=torch.float32, device=dev)
         self._generator = torch.Generator(device=dev)
         self._graphs = StepGraphs(dev, self._generator, cuda_graph)
+        self._spec = SpecState.empty(max_batch, max_seq, dev)
+        self.last_spec_stats = None
+        self.draft = attach_draft(draft, cfg, compute_dtype, kv_dtype, fuse_projections)
+        self.draft_cache = None
+        if self.draft is not None:
+            d = self.draft
+            self.draft_cache = d.model.init_kv_cache(d.cfg, max_batch, max_seq, d.kv_dtype, dev)
 
     @property
     def kv_cache_bytes(self) -> int:
@@ -337,13 +408,60 @@ class Engine(GraphedSteps):
         if steps > 0:
             self._graphs.run((b, dev_cfg), lambda: self._step(rows, dev_cfg), steps)
 
+    def _speculate(self, rows: _Rows, b: int, ids: torch.Tensor, positions: torch.Tensor,
+                   padded: bool, first: torch.Tensor, gen_cfg: GenerationConfig,
+                   gamma: int) -> torch.Tensor:
+        """Greedy-exact speculative decoding of the first ``b`` rows after the
+        target's prefill (``first``: its greedy first tokens [b]): the prompt
+        state into the :class:`SpecState` rows, the draft model's cache
+        prefilled over the same layout where there is one, then rounds
+        (``speculative_decode``) replayed from the round's graph. Returns
+        the tokens [b, max_new_tokens]."""
+        from .speculative import Model, speculative_decode
+
+        max_len, n = ids.shape[1], gen_cfg.max_new_tokens
+        st = self._spec.rows(b)
+        st.history.zero_()
+        st.history[:, :max_len].copy_(ids)
+        st.history[:, max_len].copy_(first)
+        st.out.zero_()
+        st.out[:, 0].copy_(first)
+        st.lens.fill_(max_len)
+        st.n_emit.fill_(1)
+        st.stats.zero_()
+        st.max_new.fill_(n)
+        # readable columns: from each row's pad on (the model masks causally)
+        col = torch.arange(self.max_seq, device=self.device)
+        rows.kv_valid.copy_(col[None, :] >= rows.pads[:, None])
+        target = Model(self.model, self.params, self.cfg, self.qcfg, self.compute_dtype)
+        draft = dcache = None
+        if self.draft is not None:
+            d = self.draft
+            draft = Model(d.model, d.params, d.cfg, d.qcfg, d.compute_dtype)
+            dcache = [type(layer)(*(t[:b] for t in _tensors(layer)))
+                      for layer in self.draft_cache]
+            d.model.forward(d.params, ids, d.cfg, d.qcfg, kv_cache=dcache, cache_index=0,
+                            pad_starts=rows.pads if padded else None, positions=positions,
+                            compute_dtype=d.compute_dtype)
+            key = (b, "spec_draft", gamma)
+        else:
+            key = (b, "spec", gamma, gen_cfg.speculative_ngram)
+        out = speculative_decode(
+            target, rows.cache, st, rows.pads, rows.kv_valid, gamma=gamma,
+            ngram=gen_cfg.speculative_ngram, draft=draft, dcache=dcache,
+            dkv_valid=rows.kv_valid, run=lambda fn, k: self._graphs.run(key, fn, k))
+        self.last_spec_stats = st.stats.tolist()
+        return out
+
     @torch.inference_mode()
     def generate(self, prompts: Sequence[Sequence[int]],
                  gen_cfg: Optional[GenerationConfig] = None,
                  seed: int = 0) -> List:
         """Continuations of a batch of ragged prompts: a list of token lists
         (eos- and stop-truncated), or of (tokens, logprobs) pairs when
-        ``gen_cfg.return_logprobs``."""
+        ``gen_cfg.return_logprobs``. A plain greedy config with
+        ``speculative_gamma`` > 0 decodes speculatively (the same tokens;
+        ``last_logits`` is then None)."""
         gen_cfg = gen_cfg or GenerationConfig()
         prompts = [list(p) for p in prompts]
         b = len(prompts)
@@ -355,10 +473,12 @@ class Engine(GraphedSteps):
         n = gen_cfg.max_new_tokens
         if n < 1:
             raise ValueError(f"max_new_tokens={n}; the engine emits at least one token")
-        if max_len + n > self.max_seq:
+        spec = spec_gamma(gen_cfg)
+        if max_len + n + spec > self.max_seq:
             raise ValueError(
-                f"prompt ({max_len} tokens) + max_new_tokens ({n}) exceeds "
-                f"max_seq={self.max_seq}; truncate the prompt or raise max_seq")
+                f"prompt ({max_len} tokens) + max_new_tokens ({n}) (+ speculative window "
+                f"{spec}) exceeds max_seq={self.max_seq}; truncate the prompt or raise "
+                "max_seq")
         dev_cfg = device_config(gen_cfg)
         dev = self.device
         ids = np.zeros((b, max_len), np.int64)
@@ -387,17 +507,25 @@ class Engine(GraphedSteps):
             self._generator.manual_seed(seed)
 
         model, cfg, qcfg, cdt = self.model, self.cfg, self.qcfg, self.compute_dtype
+        ids_d = torch.from_numpy(ids).to(dev)
+        positions_d = torch.from_numpy(positions).to(dev)
         h, _ = model.forward(
-            self.params, torch.from_numpy(ids).to(dev), cfg, qcfg, kv_cache=rows.cache,
+            self.params, ids_d, cfg, qcfg, kv_cache=rows.cache,
             cache_index=0, pad_starts=rows.pads if padded else None,
-            positions=torch.from_numpy(positions).to(dev), compute_dtype=cdt)
-        self._emit(rows, model.logits(self.params, h[:, -1:, :])[:, 0], dev_cfg, self._slot)
-        self._decode(rows, b, dev_cfg, n - 1)
-        self.last_logits = rows.logits.clone()
-
-        out = rows.out_tok[:, max_len:max_len + n].cpu().tolist()
-        out_lps = (rows.out_lp[:, max_len:max_len + n].cpu().tolist()
-                   if gen_cfg.return_logprobs else None)
+            positions=positions_d, compute_dtype=cdt)
+        first = model.logits(self.params, h[:, -1:, :])[:, 0]
+        if spec > 0:
+            self.last_logits = None
+            out = self._speculate(rows, b, ids_d, positions_d, padded,
+                                  torch.argmax(first, dim=-1), gen_cfg, spec).cpu().tolist()
+            out_lps = None
+        else:
+            self._emit(rows, first, dev_cfg, self._slot)
+            self._decode(rows, b, dev_cfg, n - 1)
+            self.last_logits = rows.logits.clone()
+            out = rows.out_tok[:, max_len:max_len + n].cpu().tolist()
+            out_lps = (rows.out_lp[:, max_len:max_len + n].cpu().tolist()
+                       if gen_cfg.return_logprobs else None)
         results = []
         for i in range(b):
             row = out[i]

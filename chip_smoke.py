@@ -174,8 +174,8 @@ from autosmoothquant_tpu_torch.kernels.counters import launch_counters, read_cou
 
 PKG = "autosmoothquant_tpu_torch"
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "kernels", "e2e", "serve", "batching", "paged", "http",
-          "quantize", "timing")
+PHASES = ("device", "build", "kernels", "e2e", "serve", "batching", "paged", "speculative",
+          "http", "quantize", "timing")
 
 # NVIDIA H100 SXM data sheet (dense): HBM3 bandwidth and peak rates by type
 HBM_BYTES_PER_S = 3.35e12
@@ -1596,7 +1596,7 @@ def w8a8_replay(k1_route="gemv"):
             "rmsnorm_quant": 23, "rmsnorm_quant_norm": 1, "decode_attention": 22}
 
 
-def replay_counts(torch, graph, reps=5, attempts=3):
+def replay_counts(torch, graph, reps=5, attempts=3, lm_heads=1):
     """{count of DEVICE_READS: device launches a replay of ``graph``}, from a
     profile (CUDA activity) of ``reps`` replays, begun after 100 one-element
     kernels. On an H100 a profile came back now and then without a run of
@@ -1627,8 +1627,9 @@ def replay_counts(torch, graph, reps=5, attempts=3):
     require(all(n % reps == 0 for n in counts.values()),
             f"{attempts} profiles of {reps} replays read {counts} last: not {reps} alike")
     library = library_gemms(prof)
-    require(sum(library.values()) <= LM_HEAD_GEMMS * reps,
-            f"a replay runs library GEMMs past the lm_head's: {library} over {reps} replays")
+    require(sum(library.values()) <= LM_HEAD_GEMMS * lm_heads * reps,
+            f"a replay runs library GEMMs past the lm_head's ({lm_heads} a replay): "
+            f"{library} over {reps} replays")
     return {name: n // reps for name, n in counts.items()}
 
 
@@ -2478,6 +2479,426 @@ def phase_paged(torch, results, engines):
 
 
 # ---------------------------------------------------------------------------
+# speculative decoding and the paged engine's radix tree
+# ---------------------------------------------------------------------------
+
+SPEC_GAMMA = 4
+SPEC_NGRAM = 3
+SPEC_PROMPT = 128      # tokens of the static engine's prompts
+SPEC_PHRASE = 16       # the repetitive prompt: a phrase of this many tokens, repeated
+SPEC_NEW = 96          # new tokens of a static run
+SPEC_DRAFT_LAYERS = 4  # the small draft model's depth (TinyLlama width, W8A8)
+# max |logit diff| between a verify's logits at an accepted position and
+# the plain decode step's at the same position (b1, eager). Every op of the
+# verify forward but the lm_head computes a query's row as the T = 1 step
+# does (K1 exact on every route, the norms' sums set by the row, decode
+# attention over the B x (gamma + 1) queries as rows); the bound is 0: the
+# logits must be bit-equal, and then no token can part
+SPEC_LOGIT_NOISE = 0.0
+TREE_WAVE = 8          # requests a wave of the radix-tree run
+TREE_NEW = 24          # their new tokens
+
+
+def spec_prompts(torch):
+    """Two repetitive prompts (a phrase repeated to SPEC_PROMPT tokens) and
+    two random ones, from a seed."""
+    rng = torch.Generator().manual_seed(61)
+
+    def toks(n):
+        return torch.randint(0, 32000, (n,), generator=rng).tolist()
+
+    def repeated():
+        return (toks(SPEC_PHRASE) * (SPEC_PROMPT // SPEC_PHRASE + 1))[:SPEC_PROMPT]
+    return repeated(), toks(SPEC_PROMPT), repeated(), toks(SPEC_PROMPT)
+
+
+def spec_replay(k1_route, g=SPEC_GAMMA, rounds=1, draft=None):
+    """The device launches of a TinyLlama W8A8 speculative graph: per round a
+    verify (the W8A8 step's kernels, K1 on ``k1_route`` at B x (g + 1)
+    rows) and, with a draft model of ``draft`` layers, g + 1 draft steps
+    (K1 on its GEMV at B rows); ``rounds`` rounds. Also the lm_heads a
+    replay runs (one library GEMM each, with a split-K reduce where cuBLAS
+    picks one)."""
+    out = {k: v * rounds for k, v in w8a8_replay(k1_route).items()}
+    heads = rounds
+    if draft is not None:
+        steps = (g + 1) * rounds
+        for name, n in (("int8_matmul", 4 * draft), ("int8_matmul_gemv", 4 * draft),
+                        ("fused_add_rmsnorm_quant", draft),
+                        ("fused_add_rmsnorm_quant_vec", draft),
+                        ("rmsnorm_quant", draft + 1), ("rmsnorm_quant_norm", 1),
+                        ("decode_attention", draft)):
+            out[name] += steps * n
+        heads += steps
+    return out, heads
+
+
+def record_verifies(torch):
+    """Record every speculative verify forward (T > 1) of the port's
+    ``serve/speculative.py:Model``: [(cache_index [B], ids [B, T], hidden
+    [B, T, D], logits [B, T, V])]. Returns (records, undo)."""
+    from autosmoothquant_tpu_torch.serve import speculative as S
+
+    rec, forward = [], S.Model.forward
+
+    def recording(self, ids, cache, cache_index, positions, kv_valid=None):
+        h, _ = self.mod.forward(self.params, ids, self.cfg, self.qcfg, kv_cache=cache,
+                                cache_index=cache_index, kv_valid=kv_valid,
+                                positions=positions, compute_dtype=self.compute_dtype)
+        logits = self.mod.logits(self.params, h)
+        if ids.shape[1] > 1:
+            rec.append((cache_index.clone(), ids.clone(), h.clone(), logits.float().clone()))
+        return logits
+    S.Model.forward = recording
+
+    def undo():
+        S.Model.forward = forward
+    return rec, undo
+
+
+def record_plain(torch, L, eng, prompt, gen_cfg):
+    """The static engine's plain b1 generate of ``prompt`` on ``eng`` (eager),
+    with the final hidden state and logits of each step: (tokens, [hidden
+    [D]], [logits [V]]), step 0 the prefill's."""
+    hs, ls = [], []
+    logits = L.logits
+
+    def recording(params, h):
+        out = logits(params, h)
+        hs.append(h[0, -1].clone())
+        ls.append(out[0, -1].float().clone())
+        return out
+    L.logits = recording
+    try:
+        toks = eng.generate([prompt], gen_cfg)[0]
+    finally:
+        L.logits = logits
+    return toks, hs, ls
+
+
+def check_verify_logits(torch, rec, plain_h, plain_l, max_len, n):
+    """Each recorded verify (b1) against the plain steps: at every accepted
+    position (queries j <= n_acc, the bonus target's included) the verify's
+    logits against the plain step's at the same slot (index slot - max_len
+    + 1). Returns (positions compared, max |logit diff|, max |hidden diff|,
+    the least plain top-2 margin where logits differ or None)."""
+    from autosmoothquant_tpu_torch.serve.speculative import accepted
+
+    compared, dl, dh, tie = 0, 0.0, 0.0, None
+    for index, ids, h, logits in rec:
+        tgt = torch.argmax(logits[0], -1)[None]
+        n_acc = int(accepted(ids[:, 1:], tgt)[0])
+        for j in range(n_acc + 1):
+            i = int(index[0]) + j - max_len + 1
+            if i >= n:
+                break
+            compared += 1
+            d = float((logits[0, j] - plain_l[i]).abs().max())
+            dl = max(dl, d)
+            dh = max(dh, float((h[0, j].float() - plain_h[i].float()).abs().max()))
+            if d > 0:
+                m = margin(plain_l[i])
+                tie = m if tie is None else min(tie, m)
+    return compared, dl, dh, tie
+
+
+def spec_static(torch, results, L, cfg, qcfg, params, smi_line):
+    """Engine.generate speculative (gamma 4, n-gram 3) at b1 and b4 on the
+    22-layer W8A8 model: tokens equal to plain greedy graph decode, graph
+    equal to eager; the verify's logits at accepted positions against the
+    plain step's (b1, eager); one round's replay launches exactly; b1 tok/s
+    against plain graph decode in paired turns, the acceptance rate, a
+    round's replay ms and its idle share."""
+    from autosmoothquant_tpu_torch.serve.engine import Engine, GenerationConfig
+
+    rep, rnd, rep2, rnd2 = spec_prompts(torch)
+    kw = dict(max_batch=4, max_seq=512, kv_dtype=torch.bfloat16,
+              compute_dtype=torch.bfloat16, device="cuda")
+    eng = Engine(L, params, cfg, qcfg, **kw)
+    eager = Engine(L, params, cfg, qcfg, cuda_graph=False, **kw)
+    plain = GenerationConfig(max_new_tokens=SPEC_NEW)
+    spec = GenerationConfig(max_new_tokens=SPEC_NEW, speculative_gamma=SPEC_GAMMA,
+                            speculative_ngram=SPEC_NGRAM)
+    stats = {}
+    for label, batch in (("repetitive b1", [rep]), ("random b1", [rnd]),
+                         ("b4", [rep, rnd, rep2, rnd2])):
+        want = eng.generate(batch, plain)
+        got = eng.generate(batch, spec)
+        stats[label] = eng.last_spec_stats
+        got_x = eager.generate(batch, spec)
+        rounds, acc = eng.last_spec_stats
+        log(f"  speculative static {label}: {rounds} verify rounds, {acc} drafts accepted "
+            f"(rate {acc / (rounds * SPEC_GAMMA * len(batch)):.4f} a row); tokens equal plain "
+            f"greedy {got == want}, graph equal eager {got_x == got}")
+        require(got == want, f"speculative static {label}: tokens differ from plain greedy")
+        require(got_x == got, f"speculative static {label}: graph and eager differ")
+        require(eager.last_spec_stats == eng.last_spec_stats,
+                f"speculative static {label}: graph stats {eng.last_spec_stats}, eager "
+                f"{eager.last_spec_stats}")
+
+    # the verify's logits at accepted positions against the plain step's
+    for label, prompt in (("repetitive", rep), ("random", rnd)):
+        toks, plain_h, plain_l = record_plain(torch, L, eager, prompt, plain)
+        rec, undo = record_verifies(torch)
+        try:
+            eager.generate([prompt], spec)
+        finally:
+            undo()
+        compared, dl, dh, tie = check_verify_logits(torch, rec, plain_h, plain_l,
+                                                    len(prompt), SPEC_NEW)
+        log(f"  speculative verify logits ({label} b1, eager): {compared} accepted positions "
+            f"over {len(rec)} verifies, max |logit diff| to the plain step {dl:g} (limit "
+            f"{SPEC_LOGIT_NOISE}), max |final hidden diff| {dh:g}; least plain top-2 margin "
+            f"where they differ {tie}")
+        require(compared > 0, f"speculative {label}: no accepted position compared")
+        if dl > SPEC_LOGIT_NOISE:
+            where = ("the lm_head (the final hidden states are bit-equal)" if dh == 0
+                     else "inside the layers (the final hidden states differ)")
+            require(False, f"speculative {label}: verify logits differ from the plain "
+                    f"step's by {dl} (limit {SPEC_LOGIT_NOISE}); the op: {where}")
+    del eager
+
+    # one round's device launches (the graph replays on the buffers of the
+    # last generate: its writes stay in the rows' clamped window)
+    for b, route in ((1, "gemv"), (4, "tc")):
+        key = (b, "spec", SPEC_GAMMA, SPEC_NGRAM)
+        want, heads = spec_replay(route)
+        got = replay_counts(torch, eng.graphs[key].graph, lm_heads=heads)
+        log(f"  speculative static graph {key}: device launches a replay {got}")
+        require(got == want, f"speculative static graph {key}: {got}; expected {want}")
+    results["decode_attention"]["speculative_launches_a_verify"] = 22
+
+    # b1 tok/s in paired turns (plain, speculative, speculative, plain),
+    # each generate timed whole (prefill included)
+    for label, prompt in (("repetitive", rep), ("random", rnd)):
+        turns = {"plain": [], "speculative": []}
+        for name in ("plain", "speculative", "speculative", "plain"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.generate([prompt], spec if name == "speculative" else plain)
+            torch.cuda.synchronize()
+            turns[name].append(SPEC_NEW / (time.perf_counter() - t0))
+        rounds, acc = eng.last_spec_stats
+        log(f"  speculative static b1 {label} prompt ({SPEC_PROMPT} tokens, {SPEC_NEW} new, "
+            f"gamma {SPEC_GAMMA}, n-gram {SPEC_NGRAM}): tok/s (prefill included) plain "
+            + ", ".join(f"{t:.1f}" for t in turns["plain"]) + "; speculative "
+            + ", ".join(f"{t:.1f}" for t in turns["speculative"])
+            + f"; speculative / plain {max(turns['speculative']) / max(turns['plain']):.4f}; "
+            f"{rounds} rounds, acceptance {acc / (rounds * SPEC_GAMMA):.4f} [{smi_line}]")
+        results["decode_attention"].setdefault("speculative_tok_s", {})[label] = turns
+    graph = eng.graphs[(1, "spec", SPEC_GAMMA, SPEC_NGRAM)].graph
+    replay_ms = timed_replays(torch, graph)
+    _, busy = device_profile(torch, graph.replay, "speculative round (TinyLlama W8A8, b1, "
+                             f"gamma {SPEC_GAMMA}, n-gram)", replay_ms, reps=5)
+    log(f"  speculative round replay (b1): {replay_ms:.4f} ms, device busy {busy:.4f} ms, "
+        f"idle share {1 - busy / replay_ms:.4f} [{smi_line}]")
+    del eng
+
+
+def spec_continuous(torch, L, cfg, qcfg, params):
+    """ContinuousEngine at max_batch 8, gamma 4, on the batching phase's 12
+    correctness requests: adaptive and fixed gamma, a draft model equal to
+    the target (full acceptance: multi-round ticks) and a 4-layer W8A8
+    draft drawn from the same seed. Greedy tokens equal the plain engine's
+    on every request (the cancelled one up to its cut); the sampled ones
+    run to their budgets (a speculative schedule draws the generator at
+    other ticks, so their tokens are not the plain engine's). Each captured
+    verify's replay launches exactly its kernels."""
+    from autosmoothquant_tpu_torch.serve.batching import ContinuousEngine
+    from autosmoothquant_tpu_torch.serve.engine import DraftModel
+
+    prefix, reqs = batching_requests(torch)
+    kw = dict(kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16, seed=7, device="cuda",
+              **BATCHING)
+    want, _ = drive(ContinuousEngine(L, params, cfg, qcfg, **kw), prefix, reqs)
+    dcfg = tinyllama(L, SPEC_DRAFT_LAYERS)
+    arms = (("adaptive", {}, None), ("fixed", dict(speculative_adaptive=False), None),
+            ("draft = target", dict(speculative_adaptive=False), 22),
+            (f"{SPEC_DRAFT_LAYERS}-layer draft", {}, SPEC_DRAFT_LAYERS))
+    for label, extra, layers in arms:
+        if layers == 22:
+            extra = dict(extra, draft=DraftModel(L, params, cfg, qcfg))
+        elif layers:
+            extra = dict(extra, draft=DraftModel(L, draw_w8a8(dcfg, seed=3, device="cuda"),
+                                                 dcfg, qcfg))
+        eng = ContinuousEngine(L, params, cfg, qcfg, speculative_gamma=SPEC_GAMMA, **kw,
+                               **extra)
+        t0 = time.perf_counter()
+        out, ticks = drive(eng, prefix, reqs)
+        wall = time.perf_counter() - t0
+        bad, sampled = [], []
+        for uid, _, r in reqs:
+            a, b = out[uid], want[uid]
+            if "temperature" in r:
+                ok = len(a) == r["max_new_tokens"]
+                sampled.append(a == b)
+            elif uid == "cancel":
+                ok = a[:len(b)] == b[:len(a)]
+            else:
+                ok = a == b
+            if not ok:
+                bad.append(uid)
+        log(f"  speculative continuous {label}: {len(reqs)} requests in {ticks} ticks, "
+            f"{wall:.2f} s (captures included); graphs {sorted(eng.graphs, key=str)}; "
+            f"acceptance EMA {eng._spec_acc_ema:.4f}; pool {eng.pool[0].k.shape[1]} slots a "
+            f"row; greedy tokens equal the plain engine's on "
+            f"{sum(u not in bad for u, _, r in reqs if 'temperature' not in r)}/"
+            f"{sum('temperature' not in r for *_, r in reqs)} (the sampled ones equal: "
+            f"{sampled})")
+        require(not bad, f"speculative continuous {label}: tokens differ on {bad}")
+        spec_keys = [k for k in eng.graphs if isinstance(k[0], str)]
+        require(spec_keys, f"speculative continuous {label}: no verify graph ran")
+        if layers == 22:
+            require(any(k[0] == "verify_draft_multi" and k[2] >= 2 for k in spec_keys),
+                    f"draft = target ran no multi-round tick: {spec_keys}")
+        park(eng)
+        for key in spec_keys:
+            g = key[1]
+            rounds = key[2] if key[0] == "verify_draft_multi" else 1
+            expect, heads = spec_replay("tc", g, rounds, layers)
+            # a multi-round replay runs thousands of kernels: two replays a
+            # profile keep its reading short
+            got = replay_counts(torch, eng.graphs[key].graph, reps=2 if rounds > 1 else 5,
+                                lm_heads=heads)
+            log(f"  speculative continuous graph {key}: device launches a replay {got}")
+            require(got == expect, f"speculative continuous graph {key}: {got}; expected "
+                    f"{expect}")
+        del eng
+
+
+def tree_waves(torch):
+    """Two waves of TREE_WAVE requests that start with one 96-token system
+    prompt, each with its own 20-80 tokens after it."""
+    rng = torch.Generator().manual_seed(67)
+
+    def toks(n):
+        return torch.randint(0, 32000, (n,), generator=rng).tolist()
+    system = toks(PREFIX_LEN)
+    return [[(f"w{w}r{i}", system + toks(20 + 8 * i)) for i in range(TREE_WAVE)]
+            for w in range(2)]
+
+
+def run_wave(torch, eng, wave):
+    """Submit a wave and tick until it is done: ({uid: tokens}, mean time to
+    first token in s)."""
+    handles = {uid: eng.submit(uid, p, max_new_tokens=TREE_NEW) for uid, p in wave}
+    first = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while not all(h.done for h in handles.values()):
+        eng.step()
+        for uid, h in handles.items():
+            if h.output and uid not in first:
+                first[uid] = time.perf_counter() - t0
+    return {uid: list(h.output) for uid, h in handles.items()}, statistics.mean(first.values())
+
+
+def spec_tree(torch, L, cfg, qcfg, params, smi_line):
+    """PagedEngine with its radix tree at block PAGE_BLOCK, bf16 and int8
+    pages: two waves on one system prompt, the second hitting the tree (its
+    shared pages the tree's own, not copies; only suffixes prefilled),
+    tokens equal the ContinuousEngine's, every page back after
+    clear_auto_prefixes; eviction under page pressure; then gamma 4 on the
+    same waves. The second wave's time to first token beside the first's."""
+    from autosmoothquant_tpu_torch.serve.batching import ContinuousEngine
+    from autosmoothquant_tpu_torch.serve.paged import PagedEngine
+
+    waves = tree_waves(torch)
+    blocks = PREFIX_LEN // PAGE_BLOCK
+    for kv in (torch.bfloat16, torch.int8):
+        kv_name = str(kv).split(".")[-1]
+        kw = dict(kv_dtype=kv, compute_dtype=torch.bfloat16, device="cuda", max_batch=8,
+                  max_seq=512, steps_per_sync=8)
+        contiguous = ContinuousEngine(L, params, cfg, qcfg, **kw)
+        want = {}
+        for wave in waves:
+            want.update(run_wave(torch, contiguous, wave)[0])
+        del contiguous
+        for gamma in (0, SPEC_GAMMA):
+            eng = PagedEngine(L, params, cfg, qcfg, block_size=PAGE_BLOCK,
+                              speculative_gamma=gamma, **kw)
+            out, ttft1 = run_wave(torch, eng, waves[0])
+            tree = {n["page"] for n in eng._auto_nodes.values()}
+            prefilled = eng.prefill_tokens_processed
+            eng.submit(*waves[1][0], max_new_tokens=TREE_NEW)
+            eng._admit()
+            row = next(r for r, st in eng._admitting.items())
+            shared = eng._row_pages[row][:blocks]
+            require(set(shared) <= tree and all(eng._ref[p] >= 2 for p in shared),
+                    f"tree {kv_name}: the hit's first {blocks} pages {shared} are not the "
+                    f"tree's {sorted(tree)}")
+            eng.cancel(waves[1][0][0])
+            hits0 = eng.auto_hits
+            out2, ttft2 = run_wave(torch, eng, waves[1])
+            out.update(out2)
+            hits, hit_tokens = eng.auto_hits - hits0, eng.auto_hit_tokens
+            suffix = sum(len(p) for _, p in waves[1]) - TREE_WAVE * blocks * PAGE_BLOCK
+            same = [u for u in want if out[u] == want[u]]
+            log(f"  tree {kv_name} pages, gamma {gamma}: wave 2 {hits} hits, "
+                f"{hit_tokens} tokens shared in all; tree {eng._auto_pages} pages (cap "
+                f"{eng.max_auto_pages}); wave 2 prefilled {eng.prefill_tokens_processed - prefilled} "
+                f"tokens (its suffixes {suffix}); tokens equal the ContinuousEngine's on "
+                f"{len(same)}/{len(want)}; time to first token wave 1 {ttft1 * 1e3:.2f} ms, "
+                f"wave 2 {ttft2 * 1e3:.2f} ms (wave 2 / wave 1 {ttft2 / ttft1:.4f}) "
+                f"[{smi_line}]")
+            require(len(same) == len(want), f"tree {kv_name} gamma {gamma}: tokens differ "
+                    f"from the ContinuousEngine's on {sorted(set(want) - set(same))}")
+            require(hits == TREE_WAVE, f"tree {kv_name}: wave 2 hit the tree {hits} times")
+            require(eng.prefill_tokens_processed - prefilled == suffix,
+                    f"tree {kv_name}: wave 2 prefilled "
+                    f"{eng.prefill_tokens_processed - prefilled} tokens, its suffixes {suffix}")
+            eng.clear_auto_prefixes()
+            require(eng.free_pages == eng.num_pages - eng.scratch_pages,
+                    f"tree {kv_name}: {eng.free_pages} pages free after clear_auto_prefixes, "
+                    f"of {eng.num_pages - eng.scratch_pages}")
+            del eng
+    # eviction: a pool of 24 request pages, the tree capped at 12 pages,
+    # 12 distinct 100-token prompts (3 published blocks each) one at a time
+    rng = torch.Generator().manual_seed(71)
+    eng = PagedEngine(L, params, cfg, qcfg, block_size=PAGE_BLOCK, num_pages=25,
+                      max_auto_pages=12, kv_dtype=torch.bfloat16,
+                      compute_dtype=torch.bfloat16, device="cuda", max_batch=8, max_seq=512)
+    for i in range(12):
+        eng.submit(i, torch.randint(0, 32000, (100,), generator=rng).tolist(),
+                   max_new_tokens=8)
+        out = eng.run()
+        require(len(out[i]) == 8, f"tree eviction: request {i} gave {out[i]}")
+    held = int((eng._ref[eng.scratch_pages:] > 0).sum())
+    log(f"  tree eviction: 12 prompts through 24 pages, tree {eng._auto_pages} pages (cap "
+        f"{eng.max_auto_pages}), {eng.free_pages} free + {held} held")
+    require(eng._auto_pages <= eng.max_auto_pages
+            and eng.free_pages + held == eng.num_pages - eng.scratch_pages,
+            "tree eviction: the page accounting does not add up")
+    eng.clear_auto_prefixes()
+    require(eng.free_pages == eng.num_pages - eng.scratch_pages, "tree eviction: pages lost")
+
+
+def phase_speculative(torch, results, engines, smi_line):
+    """Speculative decoding and the radix tree on the 22-layer TinyLlama W8A8
+    (the serve phase's params), counted from 0: the static engine
+    (spec_static), the continuous one (spec_continuous) and the paged one
+    with its tree (spec_tree). Every kernel of the W8A8 path launched."""
+    from autosmoothquant_tpu_torch.models import llama as L
+
+    cfg, qcfg, params = tinyllama(L, 22), engines["W8A8"].qcfg, engines["W8A8"].params
+    counters = launch_counters()
+    torch.cuda.synchronize()
+    reset_counts(counters)
+    spec_static(torch, results, L, cfg, qcfg, params, smi_line)
+    spec_continuous(torch, L, cfg, qcfg, params)
+    spec_tree(torch, L, cfg, qcfg, params, smi_line)
+    counts = read_counts(counters)
+    log(json.dumps({"path": "speculative and tree W8A8", "host launches": counts}))
+    for name in ("int8_matmul_gemv", "int8_matmul_tc", "fused_add_rmsnorm_quant",
+                 "rmsnorm_quant", "decode_attention", "decode_attention_paged",
+                 "flash_attention", "flash_attention_banded"):
+        require(counts[name] > 0, f"{name} was not launched on the speculative path")
+    for name in ("int8_matmul", "fused_add_rmsnorm_quant", "rmsnorm_quant",
+                 "decode_attention", "flash_attention", "flash_attention_banded"):
+        results[name]["speculative_launches"] = counts[name]
+
+
+# ---------------------------------------------------------------------------
 # the serving entry points: the artifact on disk, the CLIs, the HTTP facade
 # ---------------------------------------------------------------------------
 
@@ -2693,15 +3114,15 @@ def check_concurrent(torch, replies, static, static_x, prompts):
         f"(limit {BATCH_LOGIT_NOISE})")
 
 
-def start_cli_server(path, tok_dir):
-    """serve_model as users start it, in its own process: (process, port,
-    stderr file)."""
+def start_cli_server(path, tok_dir, extra=()):
+    """serve_model as users start it, in its own process, with ``extra``
+    flags: (process, port, stderr file)."""
     import tempfile
 
     err = tempfile.TemporaryFile(mode="w+")
     proc = subprocess.Popen(
         [sys.executable, "-m", f"{PKG}.cli.serve_model", "--quantized-model-path", path,
-         "--tokenizer-path", tok_dir, *SERVE_FLAGS],
+         "--tokenizer-path", tok_dir, *SERVE_FLAGS, *extra],
         stdout=subprocess.PIPE, stderr=err, text=True, cwd=ROOT)
     deadline = time.time() + HTTP_TIMEOUT
     first = []
@@ -2774,6 +3195,68 @@ def served_stream(torch, eng, port):
                 admitted=stats["admitted"], replay_ms=replay[main][0] / replay[main][1])
 
 
+# serve_model's speculative and radix-tree servers: their flags, and the
+# requests each answers (streamed, one at a time)
+CLI_MODES = {"paged": ("--paged", "--block-size", "32"),
+             "speculative": ("--speculative-gamma", str(SPEC_GAMMA))}
+
+
+def stop_cli_server(server, err):
+    """SIGINT a serve_model process: (exit code, its stderr)."""
+    import signal
+
+    server.send_signal(signal.SIGINT)
+    try:
+        rc = server.wait(timeout=120)
+    except subprocess.TimeoutExpired:
+        server.kill()
+        rc = "killed after 120 s"
+    err.seek(0)
+    return rc, err.read()
+
+
+def check_cli_modes(path, prompts, want):
+    """serve_model with --paged (its radix tree on) and with
+    --speculative-gamma, both started at once: each answers its prompts
+    (streamed, one at a time) with the static engine's greedy tokens
+    (``want``), its /stats shows the tree's hits or gamma, and SIGINT exits
+    0 with no traceback."""
+    started = {}
+    threads = [threading.Thread(target=lambda m=m: started.__setitem__(
+        m, start_cli_server(path, path, CLI_MODES[m]))) for m in CLI_MODES]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(HTTP_TIMEOUT + 60)
+    up_s = time.perf_counter() - t0
+    require(set(started) == set(CLI_MODES), f"serve_model started only {sorted(started)}")
+    failures = []
+    for mode, (server, port, err) in started.items():
+        try:
+            got = []
+            for p in prompts[mode]:
+                events, _, _ = sse(port, "/generate", {"prompt": p, "stream": True,
+                                                       "max_new_tokens": HTTP_NEW})
+                got.append(json.loads(events[-1][1])["tokens"])
+            status, stats = http(port, "/stats")
+        finally:
+            rc, stderr = stop_cli_server(server, err)
+        same = sum(g == w for g, w in zip(got, want[mode]))
+        log(f"  http serve_model {' '.join(CLI_MODES[mode])} (up with the other in "
+            f"{up_s:.1f} s): {same}/{len(got)} streamed replies equal the static engine's "
+            f"greedy tokens; /stats {stats}; SIGINT exit {rc}")
+        if same != len(got):
+            failures.append(f"{mode}: replies {got}, static {want[mode]}")
+        if mode == "paged" and stats.get("auto_prefix_hits", 0) < len(got) - 1:
+            failures.append(f"paged: /stats {stats} counts too few tree hits")
+        if mode == "speculative" and stats.get("spec_gamma") != SPEC_GAMMA:
+            failures.append(f"speculative: /stats {stats} has no gamma {SPEC_GAMMA}")
+        if rc != 0 or "Traceback" in stderr:
+            failures.append(f"{mode}: exit {rc}; stderr {stderr[-2000:]}")
+    require(not failures, "serve_model modes: " + "; ".join(failures))
+
+
 def phase_http(torch, results, direct, smi_line):
     """The serving entry points at TinyLlama-1.1B's full width and depth in
     W8A8 (the serve phase's weights, drawn again from their seed), counted:
@@ -2785,8 +3268,8 @@ def phase_http(torch, results, direct, smi_line):
     tensor cores, K2, K3 causal and banded launched, a replay of each graph
     88 Int8 GEMV + 22 K2 on the device); serve_model in its own process (one
     reply equal to the in-process server's, the batching phase's stream from
-    32 client threads, SIGINT exits 0 with no traceback)."""
-    import signal
+    32 client threads, SIGINT exits 0 with no traceback), and its --paged
+    (radix tree) and --speculative-gamma modes (check_cli_modes)."""
     import tempfile
 
     from autosmoothquant_tpu_torch.convert.from_jax import params_to_jax
@@ -2835,6 +3318,10 @@ def phase_http(torch, results, direct, smi_line):
     cli_want = static.generate([cli_prompt], GenerationConfig(max_new_tokens=CLI_NEW))[0]
     ref = [static.generate([p], GenerationConfig(max_new_tokens=HTTP_NEW,
                                                  return_logprobs=True))[0] for p in together]
+    rep, rnd, _, _ = spec_prompts(torch)
+    mode_prompts = {"paged": [prefix + p[:20] for p in alone[:3]], "speculative": [rep, rnd]}
+    mode_want = {m: [static.generate([p], GenerationConfig(max_new_tokens=HTTP_NEW))[0]
+                     for p in ps] for m, ps in mode_prompts.items()}
     del static
     t0 = time.perf_counter()
     proc = subprocess.run(
@@ -2907,7 +3394,9 @@ def phase_http(torch, results, direct, smi_line):
     results["int8_matmul"]["http_launches_a_replay"] = 88
     del eng, api, httpd
 
-    # serve_model in its own process, as users start it
+    # serve_model in its own process, as users start it: its radix tree and
+    # speculative modes, then its default
+    check_cli_modes(path, mode_prompts, mode_want)
     t0 = time.perf_counter()
     server, port, err = start_cli_server(path, path)
     started_s = time.perf_counter() - t0
@@ -2918,14 +3407,7 @@ def phase_http(torch, results, direct, smi_line):
         tps, p50, p95, wall = client_stream(port, 1)
         status, stats = http(port, "/stats")
     finally:
-        server.send_signal(signal.SIGINT)
-        try:
-            rc = server.wait(timeout=120)
-        except subprocess.TimeoutExpired:
-            server.kill()
-            rc = "killed after 120 s"
-        err.seek(0)
-        stderr = err.read()
+        rc, stderr = stop_cli_server(server, err)
         tmp.cleanup()
     best = {speed: max((t["tok_s"] for t in direct[8]["w8a8"] if t["speed"] == speed),
                        default=None) for speed in ("dense", "gapped")}
@@ -3622,7 +4104,8 @@ def phase_timing(torch, results, engines):
     # TinyLlama's heads (32 / 4, D 64), at OPT-6.7B's (32 / 32, D 128), and
     # causal B1 T128 at OPT-2.7B's (32 / 32, D 80: read as it lies by the
     # kernel of compute width 128; beside it, "pad copies": the three
-    # zero-padded copies to D 128 that the kernel's zero-filled tiles save)
+    # zero-padded copies to D 128 that the kernel's zero-filled tiles save),
+    # and the calibration's f32 route at B8 T512 (SDPA in f32 beside it)
     bf = torch.bfloat16
     for name, kw in (
             ("flash_attention", dict(b=1, t=128, s=128)),
@@ -3633,9 +4116,12 @@ def phase_timing(torch, results, engines):
             ("flash_attention_banded", dict(b=4, t=128, s=512, pos=[0, 0, 0, 0],
                                             starts=[0, 32, 64, 95], hq=32, hkv=32,
                                             d=128)),
-            ("flash_attention", dict(b=1, t=128, s=128, hq=32, hkv=32, d=80))):
-        kw = {"hq": 32, "hkv": 4, "d": 64, **kw}
-        c = flash_case(torch, dtype=bf, gen=gen, **kw)
+            ("flash_attention", dict(b=1, t=128, s=128, hq=32, hkv=32, d=80)),
+            ("flash_attention", dict(b=8, t=512, s=512, dtype=torch.float32))):
+        kw = {"hq": 32, "hkv": 4, "d": 64, "dtype": bf, **kw}
+        dt = kw.pop("dtype")
+        kind = "f32" if dt == torch.float32 else "bf16"
+        c = flash_case(torch, dtype=dt, gen=gen, **kw)
         ms = timer.ms(lambda: run_flash(c))
         plain_ms = timer.ms(lambda: run_flash(c, plain=True), iters=10)
         qt, kt, vt = (c[x].transpose(1, 2) for x in ("q", "k", "v"))
@@ -3652,20 +4138,20 @@ def phase_timing(torch, results, engines):
                 qt, kt, vt, is_causal=True, scale=c["scale"], enable_gqa=True)
         lib_ms = timer.ms(lib)
         ops, nbytes = flash_ops_bytes(torch, c)
-        b_ms, b_by = bound(nbytes, ops, "bf16")
+        b_ms, b_by = bound(nbytes, ops, kind)
         desc = " ".join(f"{k}={v}" for k, v in kw.items())
-        row = dict(shape=f"{desc} bf16", ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        row = dict(shape=f"{desc} {kind}", ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                    bound_ms=b_ms, bound_by=b_by)
         pad = ""
         if kw["d"] % 64:
             row["pad_copies_ms"] = timer.ms(lambda: [F.pad(c[x], (0, 128 - kw["d"]))
                                                      for x in ("q", "k", "v")])
             pad = f" (pad copies {row['pad_copies_ms']:.4f})"
-        log(f"    {name} {desc} bf16 kernel {ms:.4f}{pad} plain "
+        log(f"    {name} {desc} {kind} kernel {ms:.4f}{pad} plain "
             f"{plain_ms:.4f} library {lib_ms:.4f} bound {b_ms:.4f} ({b_by})")
         results[name].setdefault("rows", []).append(row)
-        if (name, kw["b"], kw["d"]) in (("flash_attention", 1, 64),
-                                        ("flash_attention_banded", 4, 64)):
+        if kind == "bf16" and (name, kw["b"], kw["d"]) in (("flash_attention", 1, 64),
+                                                           ("flash_attention_banded", 4, 64)):
             results[name].update(row)
 
     # K4 at decode (M = 1, 2, 4, 8: the GEMV), prefill (M = 128) and a b4
@@ -4096,6 +4582,8 @@ def main():
                 direct = phase_batching(torch, results, engines)
             elif phase == "paged":
                 phase_paged(torch, results, engines)
+            elif phase == "speculative":
+                phase_speculative(torch, results, engines, smi_line)
             elif phase == "http":
                 phase_http(torch, results, direct, smi_line)
             elif phase == "quantize":

@@ -183,13 +183,37 @@ def test_penalized_greedy_and_logprobs_match_jax(models):
     run_both(*pair(models, "int8", steps_per_sync=4), reqs)
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(param_shardings={}),
-                                dict(draft=object()), dict(speculative_gamma=2)],
-                         ids=["mesh", "param_shardings", "draft", "speculative_gamma"])
+@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(param_shardings={})],
+                         ids=["mesh", "param_shardings"])
 def test_what_is_not_ported_raises(models, kw):
     *_, TM, tcfg, tparams, (_, tq) = models("float")
-    with pytest.raises(NotImplementedError, match="item 1[47]"):
+    with pytest.raises(NotImplementedError, match="item 17"):
         TB.ContinuousEngine(TM, tparams, tcfg, tq, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("arg", ["draft", "speculative_gamma"])
+def test_speculative_arguments_serve(models, arg):
+    """``draft`` (the target itself as its draft model) and
+    ``speculative_gamma`` build a speculative engine whose greedy tokens are
+    the plain engine's, with a pool of max_seq + gamma + 1 slots."""
+    from autosmoothquant_tpu_torch.serve.engine import DraftModel
+
+    *_, TM, tcfg, tparams, (_, tq) = models("float")
+    kw = dict(max_batch=2, max_seq=MAX_SEQ, kv_dtype=torch.float32,
+              compute_dtype=torch.float32, device="cpu")
+    spec = dict(speculative_gamma=3)
+    if arg == "draft":
+        spec["draft"] = DraftModel(TM, tparams, tcfg, tq)
+    prompts = [[7, 8, 9, 10] * 4, [3, 1, 4, 1, 5]]
+    outs = []
+    for extra in ({}, spec):
+        te = TB.ContinuousEngine(TM, tparams, tcfg, tq, **kw, **extra)
+        for i, p in enumerate(prompts):
+            te.submit(i, p, max_new_tokens=12)
+        outs.append(te.run())
+    assert outs[1] == outs[0]
+    assert te.pool[0].k.shape[1] == MAX_SEQ + 4
+    assert (te.dpool is not None) == (arg == "draft")
 
 
 def test_default_device_and_graphs_need_a_card(models):

@@ -5,8 +5,9 @@ tokenizer, quantized by the JAX ``smoothquant_model`` CLI; and a W8A8 OPT
 artifact (K6's plain version). ``serve_model.build(..., device="cpu")``
 round-trips /generate with a text prompt; ``test_model`` on ``--prompt-ids``
 prints the JAX ``test_model``'s tokens (a W8A8 parting only at a JAX top-2
-margin <= 0.02); every refused flag raises NotImplementedError naming its
-ROADMAP item; the port's ``save_quantized`` output loads in JAX
+margin <= 0.02); ``--tp`` above 1, the one flag refused, raises
+NotImplementedError naming its ROADMAP item, and the speculative and paged
+radix-tree flags serve; the port's ``save_quantized`` output loads in JAX
 ``load_quantized`` with equal arrays, and the reverse."""
 
 import dataclasses
@@ -189,10 +190,7 @@ def test_opt_artifact_through_both_clis(opt_dir, capsys, monkeypatch):
 
 REFUSED = {
     "serve --tp 2": (serve_model, ["--tp", "2"], "item 17"),
-    "serve --speculative-gamma 2": (serve_model, ["--speculative-gamma", "2"], "item 14"),
-    "serve --paged": (serve_model, ["--paged"], "item 8b"),
     "test --tp 4": (test_model, ["--tp", "4"], "item 17"),
-    "test --speculative-gamma 1": (test_model, ["--speculative-gamma", "1"], "item 14"),
 }
 
 
@@ -207,6 +205,57 @@ def test_refused_flags_name_their_item(opt_dir, case):
     else:
         with pytest.raises(NotImplementedError, match=item):
             test_model.main(argv, **F32)
+
+
+SERVED = {
+    "serve --speculative-gamma 2": ["--speculative-gamma", "2", "--speculative-ngram", "2"],
+    "serve --paged": ["--paged", "--block-size", "16"],
+    "test --speculative-gamma 1": ["--speculative-gamma", "1"],
+}
+
+
+@pytest.mark.parametrize("case", list(SERVED))
+def test_speculative_and_auto_prefix_flags_serve(opt_dir, case, capsys):
+    """The flags that asked for speculative decoding and the paged engine's
+    radix tree now serve them: test_model --speculative-gamma prints the
+    plain greedy tokens; serve_model --speculative-gamma builds a
+    speculative ContinuousEngine and --paged alone a PagedEngine with its
+    tree on, and either answers /generate with test_model's tokens, its
+    /stats showing gamma or the tree's counters."""
+    from autosmoothquant_tpu_torch.serve.paged import PagedEngine
+
+    prompt = [5, 17, 99, 3, 42, 8] * 3
+    base = ["--quantized-model-path", str(opt_dir), "--prompt-ids", ",".join(map(str, prompt)),
+            "--max-new-tokens", "8", "--max-seq", "64"]
+    test_model.main(base, **F32)
+    printed = _printed_ids(capsys)
+    flags = SERVED[case]
+    if case.startswith("test"):
+        test_model.main(base + flags, **F32)
+        assert _printed_ids(capsys) == printed
+        return
+    api, httpd, _ = serve_model.build(_serve_args(opt_dir, *flags), **F32)
+    eng = api.engine
+    paged = "--paged" in flags
+    assert isinstance(eng, PagedEngine) == paged
+    if paged:
+        assert eng.auto_prefix and eng.speculative_gamma == 0
+    else:
+        assert eng.speculative_gamma == 2
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        for _ in range(2):   # the second reply hits the tree on --paged
+            status, out = http_post(httpd.server_address[1], "/generate",
+                                    {"prompt": prompt, "max_new_tokens": 8})
+            assert status == 200 and out["tokens"] == printed
+        status, stats = http_get(httpd.server_address[1], "/stats")
+        assert status == 200
+        if paged:
+            assert stats["auto_prefix_hits"] == 1 and stats["auto_prefix_blocks"] == 1
+        else:
+            assert stats["spec_gamma"] == 2 and 0 <= stats["spec_acceptance_ema"] <= 1
+    finally:
+        stop_server(api, httpd)
 
 
 @pytest.mark.parametrize("flags", [["--paged", "--no-auto-prefix"], ["--no-auto-prefix"]],

@@ -1472,3 +1472,118 @@ def test_continuous_engine_decodes_past_shared_memory(cuda_device):
         got.append((eng.run()["long"], eng.last_logits))
     assert got[0][0] == got[1][0] and len(got[0][0]) == 12
     assert torch.equal(got[0][1], got[1][1]) and bool(torch.isfinite(got[0][1]).all())
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+def test_verify_rows_equal_single_rows(cuda_device, paged, cache):
+    """A speculative verify's attention: decode attention over B x (gamma +
+    1) queries as rows (``models/common.py:DecodeRows``: the contiguous
+    cache seen as one page a row, or the paged table's rows repeated)
+    equals each query alone, a T = 1 call at its position, bit for bit
+    (TinyLlama's heads, gamma 4, rows at 0, 37, 129 and the cache's end)."""
+    from autosmoothquant_tpu_torch.models.common import (
+        _quantize_kv, attend_rows, cache_slots, decode_rows)
+
+    g = _gen(70 + paged)
+    b, t, s, hq, hkv, d, bs = 4, 5, 256, 32, 4, 64, 32
+    q = torch.randn(b, t, hq, d, device="cuda", generator=g).to(torch.bfloat16)
+    kf, vf = (torch.randn(b, s, hkv, d, device="cuda", generator=g) for _ in range(2))
+    if cache == "int8":
+        (k, ks), (v, vs) = _quantize_kv(kf), _quantize_kv(vf)
+    else:
+        k, v, ks, vs = kf.to(torch.bfloat16), vf.to(torch.bfloat16), None, None
+    slots = cache_slots(torch.tensor([0, 37, 129, s - t], device="cuda"), b, t)
+    table = None
+    if paged:
+        m = s // bs
+        perm = torch.randperm(b * m, device="cuda", generator=g) + 1
+        table = torch.zeros((b, m + 1), dtype=torch.int32, device="cuda")
+        table[:, :m] = perm.reshape(b, m).int()
+        k, v = _paged_copy(k, b, m, bs, perm), _paged_copy(v, b, m, bs, perm)
+        if ks is not None:
+            ks, vs = _paged_copy(ks, b, m, bs, perm), _paged_copy(vs, b, m, bs, perm)
+    got = attend_rows(q, k, v, decode_rows(table, slots, None), d ** -0.5, ks, vs)
+    for i in range(b):
+        def row(x):
+            return x if paged or x is None else x[i:i + 1]
+        for j in range(t):
+            one = A.decode_attention(q[i, j][None], row(k), row(v), slots[i, j],
+                                     scale=d ** -0.5, k_scale=row(ks), v_scale=row(vs),
+                                     table=None if table is None else table[i:i + 1])
+            assert torch.equal(one[0], got[i, j]), (i, j)
+
+
+def _spec_engines(graph, kind, draft=False):
+    """A speculative engine (gamma 4) of ``kind`` ("static", "continuous" or
+    "paged") on the 2-layer W8A8 model, with a 1-layer W8A8 draft where
+    asked."""
+    import chip_smoke
+    from autosmoothquant_tpu_torch.models import llama as L
+    from autosmoothquant_tpu_torch.serve.batching import ContinuousEngine
+    from autosmoothquant_tpu_torch.serve.engine import DraftModel, Engine
+    from autosmoothquant_tpu_torch.serve.paged import PagedEngine
+
+    M, cfg, qcfg, params = _graph_model("W8A8")
+    kw = dict(max_batch=4, max_seq=256, kv_dtype=torch.bfloat16,
+              compute_dtype=torch.bfloat16, device="cuda", cuda_graph=graph)
+    if draft:
+        dcfg = chip_smoke.tinyllama(L, 1)
+        kw["draft"] = DraftModel(L, chip_smoke.draw_w8a8(dcfg, 6, "cuda"), dcfg, qcfg)
+    if kind == "static":
+        return Engine(M, params, cfg, qcfg, **kw)
+    kw.update(steps_per_sync=4, prefill_chunk=32, seed=7, speculative_gamma=4)
+    if kind == "paged":
+        return PagedEngine(M, params, cfg, qcfg, block_size=32, **kw)
+    return ContinuousEngine(M, params, cfg, qcfg, **kw)
+
+
+@pytest.mark.parametrize("draft", [False, True], ids=["ngram", "draft"])
+@pytest.mark.parametrize("kind", ["static", "continuous", "paged"])
+def test_speculative_graph_equals_eager(cuda_device, kind, draft):
+    """Speculative decoding from CUDA graphs (a static round, the continuous
+    and paged engines' verifies) against the same engines run eagerly:
+    equal tokens (the sampled request's too: one schedule), equal to plain
+    greedy graph decode, and the static engine's statistics equal."""
+    from autosmoothquant_tpu_torch.serve.engine import GenerationConfig
+
+    engs = {g: _spec_engines(g, kind, draft) for g in (True, False)}
+    if kind == "static":
+        phrase = list(range(500, 516))
+        prompts = [phrase * 6, list(range(900, 960))]
+        spec = GenerationConfig(max_new_tokens=40, speculative_gamma=4)
+        out = {g: e.generate(prompts, spec) for g, e in engs.items()}
+        assert out[True] == out[False]
+        assert out[True] == engs[True].generate(prompts, GenerationConfig(max_new_tokens=40))
+        assert engs[True].last_spec_stats == engs[False].last_spec_stats
+        assert any(isinstance(key[1], str) for key in engs[True].graphs)
+        return
+    prefix, reqs = _continuous_requests(4)
+    out = {g: _serve(e, prefix, reqs) for g, e in engs.items()}
+    assert out[True] == out[False]
+    assert any(isinstance(key[0], str) for key in engs[True].graphs)
+    plain = _continuous(True)
+    want = _serve(plain, prefix, reqs)
+    assert all(out[True][u] == want[u] for u, _, kw in reqs if "temperature" not in kw)
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+def test_verify_writes_stay_in_each_rows_own_slots_on_the_card(cuda_device, paged):
+    """The verify graph (gamma 4, 6 rows, pages of 4 slots: a parked row's
+    5 writes span 2 scratch pages) with each row in turn active at the last
+    length a verify may take and the others parked: the writes are
+    exactly the rows' own slots, none shared, parked rows only in their
+    scratch slots; no index leaves the pool (a device assert otherwise)."""
+    from autosmoothquant_tpu_torch.serve.batching import ContinuousEngine
+    from autosmoothquant_tpu_torch.serve.paged import PagedEngine
+
+    from test_torch_util import check_verify_writes
+
+    M, cfg, qcfg, params = _graph_model("W8A8")
+    kw = dict(max_batch=6, max_seq=64, kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
+              device="cuda", speculative_gamma=4)
+    eng = (PagedEngine(M, params, cfg, qcfg, block_size=4, **kw) if paged
+           else ContinuousEngine(M, params, cfg, qcfg, **kw))
+    check_verify_writes(eng, 4)
+    torch.cuda.synchronize()
+    assert eng.graphs

@@ -8,11 +8,12 @@ guards, int8 pages with and without a prefix, the three eviction tests),
 ``tests/test_serving_hardening.py``, each with equal greedy tokens (float
 and W8A8 Llama); plus what the port adds: the writes that reach past a
 row's blocks land on the scratch page, shared prefix pages are never
-rewritten, and ``auto_prefix=True`` is refused. Sampled tokens come from
+rewritten, and ``auto_prefix=True`` is the default. Sampled tokens come from
 the port's own generator, so they are held against the port's
 ``ContinuousEngine`` with the same seed instead (JAX's key gives other
-draws). Left out: the tensor-parallel, speculative and draft-model cases
-(ROADMAP Queue 1, items 17 and 14)."""
+draws). Left out: the tensor-parallel cases (ROADMAP Queue 1, item 17);
+the radix tree's and the speculative cases are in
+``tests/test_torch_auto_prefix.py`` and ``tests/test_torch_speculative.py``."""
 
 import jax
 import jax.numpy as jnp
@@ -426,11 +427,23 @@ def test_shared_prefix_pages_are_never_rewritten(models):
         assert all(torch.equal(x, y) for x, y in zip(before, after))
 
 
-def test_auto_prefix_is_refused(models):
-    *_, TM, tcfg, tparams, tq = models("float")
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        PagedEngine(TM, tparams, tcfg, tq, device="cpu", kv_dtype=torch.float32,
-                    compute_dtype=torch.float32)
+def test_auto_prefix_is_the_default(models):
+    """PagedEngine's default is the radix tree, as JAX's: a prompt's full
+    blocks publish once its prefill completes, and a second prompt on them
+    prefills only its suffix, with JAX's tokens."""
+    JM, jcfg, jparams, jq, TM, tcfg, tparams, tq = models("float")
+    pe = PagedEngine(TM, tparams, tcfg, tq, device="cpu", kv_dtype=torch.float32,
+                     compute_dtype=torch.float32, max_batch=4, max_seq=128, block_size=16)
+    je = JaxPaged(JM, jparams, jcfg, jq, kv_dtype=jnp.float32, compute_dtype=jnp.float32,
+                  max_batch=4, max_seq=128, block_size=16)
+    shared = list(range(1, 41))
+    for eng in (pe, je):
+        assert eng.auto_prefix
+        eng.submit("a", shared + [50], max_new_tokens=5)
+        eng.run()
+        eng.submit("b", shared + [60, 61], max_new_tokens=5)
+    assert pe.run() == je.run()
+    assert (pe.auto_hits, pe.auto_hit_tokens, pe._auto_pages) == (1, 32, 2)
 
 
 def test_pool_layout(models):

@@ -403,3 +403,67 @@ class ToyTok:
 
     def decode(self, ids):
         return "".join(chr((i - 2) % 96 + 32) for i in ids)
+
+
+def verify_write_census(eng, active_row, gamma):
+    """Run one prompt-lookup verify of ``gamma`` drafts on a speculative
+    ContinuousEngine or PagedEngine (its graph on the card) with every row
+    parked but ``active_row``, which sits at the last length a verify may
+    run at (lens + gamma + 1 = max_seq - 1), its pages allocated on a
+    paged engine; the pool's first layer's K zeroed first. Returns (the
+    written flat slots of each row, the pool's slot count, the scratch
+    slots' bound: the first slot no parked write may reach)."""
+    import torch
+
+    b = eng.max_batch
+    active = np.zeros(b, bool)
+    active[active_row] = True
+    lens = eng.max_seq - gamma - 2
+    eng.lens[:] = 0
+    eng.lens[active_row] = lens
+    eng.pending_tok[:] = 1
+    paged = hasattr(eng, "block_size")
+    if paged:
+        eng._set_row(active_row, eng._alloc(eng.blocks_per_slot))
+    k = eng.pool.k[0] if paged else eng.pool[0].k
+    k.zero_()
+    torch.manual_seed(0)
+    eng._spec_in[:, :gamma + 1].copy_(torch.randint(1, eng.cfg.vocab_size, (b, gamma + 1)))
+    lens_dec = eng._load_rows(active)
+    eng._graphs.run(("verify", gamma), lambda: eng._verify(gamma), 1)
+    written = k.reshape(-1, *k.shape[-2:]).abs().amax(dim=(-1, -2)).cpu() > 0
+    rows = {}
+    for r in range(b):
+        pos = torch.tensor(lens_dec[r]).long() + torch.arange(gamma + 1)
+        if paged:
+            from autosmoothquant_tpu_torch.models.common import paged_slots
+
+            slots = paged_slots(eng.pool.table.cpu()[r:r + 1], pos[None], eng.block_size)
+        else:
+            slots = r * k.shape[1] + pos
+        rows[r] = slots.tolist()
+    bound = eng.scratch_pages * eng.block_size if paged else None
+    if paged:
+        eng._release_row(active_row)
+    return rows, written, bound
+
+
+def check_verify_writes(eng, gamma):
+    """For each row in turn the one active row, the others parked
+    (:func:`verify_write_census`): the slots written are exactly the rows'
+    own, no two rows share one, a parked row writes only past max_seq in its
+    own row (contiguous) or inside the scratch pages (paged), and the
+    active row only below max_seq, in its own pages."""
+    for active_row in range(eng.max_batch):
+        rows, written, bound = verify_write_census(eng, active_row, gamma)
+        flat = [x for r in rows.values() for x in r]
+        assert len(set(flat)) == len(flat) == eng.max_batch * (gamma + 1)
+        assert set(np.flatnonzero(written.numpy()).tolist()) == set(flat)
+        s = eng.max_seq
+        for r, slots in rows.items():
+            if bound is not None:
+                assert all((x < bound) == (r != active_row) for x in slots)
+            else:
+                size = written.numel() // eng.max_batch
+                assert all(r * size <= x < (r + 1) * size for x in slots)
+                assert all((x - r * size >= s) == (r != active_row) for x in slots)
