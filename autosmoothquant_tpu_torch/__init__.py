@@ -15,7 +15,8 @@ Layout mirrors the JAX package so each counterpart is easy to find:
                   add+LayerNorm+quant, flash attention: each a CUDA kernel
                   beside its plain PyTorch version
   - ``convert/``  safetensors reader, artifact loader, JAX-params carry-over
-  - ``models/``   shared layers, the Llama and OPT families, the registry
+  - ``models/``   shared layers, the Llama, Gemma, Baichuan and OPT
+                  families, the registry
   - ``serve/``    sampling, the static-batch generation engine and the
                   continuous-batching engine
 

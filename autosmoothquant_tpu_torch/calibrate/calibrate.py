@@ -38,7 +38,8 @@ def calibrate(model_mod, params, cfg, batches: Iterable, compute_dtype=torch.flo
     """Run the model over calibration batches and return its statistics:
     {STAT_KEYS: CPU tensor [L, ...]}, the elementwise max over the batches.
 
-    model_mod: a family module (``models/llama.py``, ``models/opt.py``).
+    model_mod: a family module (``models/llama.py``, ``models/gemma.py``,
+    ``models/baichuan.py``, ``models/opt.py``).
     batches: int token id arrays or tensors [B, T]. qcfg: None for the float
     model; a QuantConfig with matching quantized params observes the scales
     through the quantized forward (the fp8 observer pass). The forward runs

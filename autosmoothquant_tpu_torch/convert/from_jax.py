@@ -87,8 +87,9 @@ def _block(tree: Dict[str, Any], layer: Optional[int]):
 
 def params_from_jax(tree: Dict[str, Any], cfg=None, *,
                     device="cuda") -> Dict[str, Any]:
-    """JAX params (Llama or OPT family; float, int8, fp8 or int4; fused
-    q|k|v, gate|up or not) -> the port's params on ``device``. ``cfg`` (a
+    """JAX params (Llama, Gemma, Baichuan or OPT family; float, int8, fp8 or
+    int4; fused q|k|v, gate|up or Baichuan's W_pack, or not) -> the port's
+    params on ``device``. ``cfg`` (a
     family's config), when given, is checked against the layer count and
     supplies a tied lm_head where it has ``tie_word_embeddings``."""
     from ..runtime import resolve_device

@@ -14,13 +14,17 @@ already folded) map straight into the port's quantized layout, whose weights
 are [out, in] too. Conversions run on the target device: a bf16 checkpoint
 is copied there as it is stored and widened there.
 
-Baichuan, Mixtral and Gemma checkpoints raise NotImplementedError (their
-model families are not ported yet: ROADMAP Queue 1, item 10).
+Gemma rides the Llama layout after the JAX mapper's folds (norm weights 1 +
+w, the embedding times sqrt(hidden), the tied head from the unscaled
+embedding); Baichuan keeps its fused W_pack and row-normalizes the NormHead
+lm_head. Mixtral checkpoints raise NotImplementedError (its model family is
+not ported yet: ROADMAP Queue 1, item 10).
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 from typing import Any, Callable, Dict
 
@@ -28,7 +32,7 @@ import torch
 
 from ..runtime import resolve_device
 
-_FAMILIES_TODO = "ROADMAP Queue 1, item 10 (Baichuan, Mixtral and Gemma are not ported yet)"
+_FAMILIES_TODO = "ROADMAP Queue 1, item 10 (Mixtral is not ported yet)"
 
 
 def hf_config_dict(model_path: str) -> Dict[str, Any]:
@@ -124,6 +128,51 @@ def opt_params_from_state_dict(sd: Dict[str, Any], num_layers: int,
     return p
 
 
+def gemma_params_from_state_dict(sd: Dict[str, Any], num_layers: int,
+                                 dtype=torch.float32, device="cuda") -> Dict[str, Any]:
+    """HF Gemma names -> the port's Llama-layout float params, with the JAX
+    mapper's folds: norm weights stored as 1 + w (HF computes x * (1 + w)),
+    the embedding times sqrt(hidden) (in f32, then the target dtype), and the
+    tied lm_head built from the unscaled embedding first."""
+    p = llama_params_from_state_dict(sd, num_layers, dtype=dtype, device=device)
+    for lp in p["layers"]:
+        lp["ln1"]["w"] = lp["ln1"]["w"] + 1.0
+        lp["ln2"]["w"] = lp["ln2"]["w"] + 1.0
+    p["final_norm"]["w"] = p["final_norm"]["w"] + 1.0
+    emb = p["embed"]["w"]
+    scale = torch.tensor(math.sqrt(emb.shape[1]), dtype=torch.float32)
+    p["embed"]["w"] = (emb.float() * scale.to(emb.device)).to(dtype)
+    return p
+
+
+def _norm_head(r: "_Reader", name: str) -> torch.Tensor:
+    """The NormHead lm_head [V, D] with its rows L2-normalized (inference
+    mode), in f32, as [D, V] in the target dtype."""
+    lm = r.raw(name).float()
+    lm = lm / (torch.linalg.vector_norm(lm, dim=1, keepdim=True) + 1e-12)
+    return lm.to(r.dtype).t().contiguous()
+
+
+def baichuan_params_from_state_dict(sd: Dict[str, Any], num_layers: int,
+                                    dtype=torch.float32, device="cuda") -> Dict[str, Any]:
+    """HF Baichuan names -> the port's float params: W_pack as one [D, 3D]
+    projection, the NormHead lm_head row-normalized once."""
+    r = _Reader(sd, dtype, resolve_device(device))
+    layers = []
+    for i in range(num_layers):
+        b = f"model.layers.{i}"
+        layers.append({
+            "ln1": {"w": r.norm(f"{b}.input_layernorm.weight")},
+            "attn": {"wpack": _proj(r, f"{b}.self_attn.W_pack"),
+                     "o": _proj(r, f"{b}.self_attn.o_proj")},
+            "ln2": {"w": r.norm(f"{b}.post_attention_layernorm.weight")},
+            "mlp": {n: _proj(r, f"{b}.mlp.{n}_proj") for n in ("gate", "up", "down")},
+        })
+    return {"embed": {"w": r.leaf("model.embed_tokens.weight")}, "layers": layers,
+            "final_norm": {"w": r.norm("model.norm.weight")},
+            "lm_head": {"w": _norm_head(r, "lm_head.weight")}}
+
+
 def _not_ported(family: str) -> Callable:
     def mapper(*args, **kwargs):
         raise NotImplementedError(f"{family} checkpoints: {_FAMILIES_TODO}")
@@ -131,9 +180,7 @@ def _not_ported(family: str) -> Callable:
     return mapper
 
 
-baichuan_params_from_state_dict = _not_ported("baichuan")
 mixtral_params_from_state_dict = _not_ported("mixtral")
-gemma_params_from_state_dict = _not_ported("gemma")
 
 _LOADERS: Dict[str, Callable] = {
     "llama": llama_params_from_state_dict,
@@ -173,8 +220,8 @@ def load_state_dict(model_path: str) -> Dict[str, torch.Tensor]:
 def load_hf_params(model_path_or_sd, family: str, num_layers: int,
                    dtype=torch.float32, *, device="cuda"):
     """The port's float params of a state dict or checkpoint directory, on
-    ``device``. ``family``: "llama", "opt" (or the reference's tag for it,
-    "transformers")."""
+    ``device``. ``family``: "llama", "gemma", "baichuan", "opt" (or the
+    reference's tag for it, "transformers")."""
     sd = (model_path_or_sd if isinstance(model_path_or_sd, dict)
           else load_state_dict(model_path_or_sd))
     return _LOADERS[family](sd, num_layers, dtype=dtype, device=device)
@@ -252,11 +299,43 @@ def quantized_opt_params_from_state_dict(sd: Dict[str, Any], num_layers: int,
     return p
 
 
+def quantized_baichuan_params_from_state_dict(sd: Dict[str, Any], num_layers: int,
+                                              dtype=torch.float32,
+                                              device="cuda") -> Dict[str, Any]:
+    """A reference int8 Baichuan checkpoint -> the port's quantized params.
+    Its W_pack is one int8 [3D, D] weight with three per-section scalars
+    (q/k/v_dequant_scale), each repeated over its D columns of the [3D]
+    dequant vector; the norms arrive folded; the raw NormHead lm_head is
+    row-normalized as the float mapper does."""
+    r = _Reader(sd, dtype, resolve_device(device))
+    layers = []
+    for i in range(num_layers):
+        b = f"model.layers.{i}"
+        w = r.raw(f"{b}.self_attn.W_pack.weight")
+        if w.dtype != torch.int8:
+            raise TypeError(f"{b}.self_attn.W_pack: expected int8 weights, got {w.dtype}")
+        d = w.shape[1]
+        sec = torch.stack([r.raw(f"{b}.self_attn.W_pack.{s}_dequant_scale").float().reshape(())
+                           for s in ("q", "k", "v")])
+        layers.append({
+            "ln1": {"w": r.norm(f"{b}.input_layernorm.weight")},
+            "attn": {"wpack": {"w": w.contiguous(), "dequant_scale": sec.repeat_interleave(d)},
+                     "o": _qproj(r, f"{b}.self_attn.o_proj")},
+            "ln2": {"w": r.norm(f"{b}.post_attention_layernorm.weight")},
+            "mlp": {n: _qproj(r, f"{b}.mlp.{n}_proj") for n in ("gate", "up", "down")},
+        })
+    return {"embed": {"w": r.leaf("model.embed_tokens.weight")}, "layers": layers,
+            "final_norm": {"w": r.norm("model.norm.weight")},
+            "lm_head": {"w": _norm_head(r, "lm_head.weight")}}
+
+
+# (the reference writes no quantized Gemma checkpoint; a Gemma artifact is the
+# port's own, read by convert/pipeline.py:load_quantized)
 _QUANTIZED_LOADERS: Dict[str, Callable] = {
     "llama": quantized_llama_params_from_state_dict,
     "transformers": quantized_opt_params_from_state_dict,
     "opt": quantized_opt_params_from_state_dict,
-    "baichuan": _not_ported("baichuan"),
+    "baichuan": quantized_baichuan_params_from_state_dict,
     "mixtral": _not_ported("mixtral"),
 }
 

@@ -7,15 +7,19 @@
 // paged engine's decode step):
 //
 //   s_j = (q . k_j) * scale [* k_scale_j]           (f32; int8 cache)
+//         [+ m_h * j]                                (ALiBi, Baichuan-13B)
 //   s_j = -1e30 unless j <= pos, j > pos - window (a sliding window) and
 //         kv_valid[j] (where given)
 //   p_j = exp(s_j - max s) / sum exp(s - max s) [* v_scale_j]
 //         [rounded to bf16 on the bf16 path]
 //   out = sum_j p_j v_j                              (f32, stored in q's dtype)
 //
-// with Hq / Hkv query heads sharing each kv head (GQA). An int8 cache is
-// read raw: its per-token-per-head scales factor out of both products, as
-// the eager attend factors them.
+// with Hq / Hkv query heads sharing each kv head (GQA), D % 8 == 0 up to
+// 256. An int8 cache is read raw: its per-token-per-head scales factor out
+// of both products, as the eager attend factors them. ALiBi's m_h (f32 [Hq]
+// slopes) multiplies the key's position j: the cache slot (contiguous) or
+// the logical position j = block * bs + offset (paged), as JAX's attend
+// (bias = m_h * key slot) and paged_attend (m_h * key position) add it.
 //
 // Layout: q and out [B, Hq, D]. Contiguous: k, v [B, S, Hkv, D] (scales [B,
 // S, Hkv]), key j of row b at (b * S + j). Paged: k, v [N, bs, Hkv, D] pages
@@ -38,7 +42,10 @@
 // so a row's keys spread over kNC SMs at any position (one block walked them
 // all before), and at long contexts kNC SMs stream them. A CTA has 128
 // threads and at most 85 registers a thread, so an SM holds 6 of them and a
-// b16 decode step's 64 clusters run in one wave. A CTA whose chunks lie past
+// b16 decode step's 64 clusters run in one wave (the loop over a key's
+// pieces of 8 columns stays rolled, so D = 256 keeps that budget; its K and
+// V tiles, 16 KB a chunk in bf16, then bound the CTAs an SM holds: a b1
+// Gemma step has 8 CTAs in all). A CTA whose chunks lie past
 // the row's position, or before its window, scores nothing and still takes
 // part in every cluster barrier. A CTA works on up to kR of its chunks at
 // once (a round), its K and V rows copied to shared-memory tiles with
@@ -93,6 +100,11 @@
 // bounded by kv_window or by S, contiguous or paged, with its scores kept
 // or recomputed.
 //
+// A round's K and V tiles hold kR = 4 chunks while a key row is at most 512
+// bytes (f32 at D 128, bf16 at D 256: 64 KB a tile), fewer past that (f32 at
+// D 256: 2), so that the recomputing route's two tiles always fit the
+// shared memory.
+//
 // kNC = 8, the portable cluster size. A cluster of 16 (the non-portable
 // opt-in) was measured against it on an H100: faster only past a few
 // thousand columns, and slower at every decode shape of the engines, whose
@@ -114,7 +126,8 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMinBlocks = 6;             // CTAs an SM holds (<= 85 registers a thread)
 constexpr int kKeyLanes = kThreads / kC;  // lanes that share one key's dot
-constexpr int kMaxDc = 16 / kKeyLanes;    // a lane's 8-column pieces of a key (D <= 128)
+constexpr int kMaxDc = 32 / kKeyLanes;    // a lane's 8-column pieces of a key (D <= 256)
+constexpr int kMaxD = 256;
 constexpr int kHeadGroup = 8;             // heads a score pass keeps in registers
 constexpr int kMaxHeads = 64;
 constexpr float kMasked = -1e30f;
@@ -134,6 +147,7 @@ struct Args {
   const int* table;  // null: contiguous
   const long long* pos;
   const unsigned char* kv_valid;  // null: none
+  const float* slopes;            // ALiBi, f32 [Hq]; null: none
   void* out;
   int Hq, Hkv, D;
   int kv_rows;     // contiguous: S; paged: the page size bs
@@ -159,17 +173,20 @@ __host__ __device__ inline int key_groups(int G, int D) {
 }
 
 // The chunks of a CTA a round: as many as a CTA has over n_cols columns, at
-// most kR (a shape's constant: the rounds do not change the sums' order).
-inline int round_chunks(int n_cols) {
+// most kR, and fewer where a key row (D * elt bytes) passes 512 bytes (a
+// shape's constant: the rounds do not change the sums' order).
+inline int round_chunks(int n_cols, int D, int elt) {
   const int chunks = (n_cols + kC - 1) / kC;
   const int per_cta = (chunks + kNC - 1) / kNC;
-  return per_cta < kR ? per_cta : kR;
+  const int row_bytes = D * elt, most = row_bytes > 512 ? (kR * 512) / row_bytes : kR;
+  const int cap = most < 1 ? 1 : most;
+  return per_cta < cap ? per_cta : cap;
 }
 
 // The rows a CTA's scores take: all its columns, or a round's.
-inline int score_rowlen(int n_cols, bool keep) {
+inline int score_rowlen(int n_cols, bool keep, int D, int elt) {
   const int chunks = (n_cols + kC - 1) / kC;
-  return keep ? (chunks + kNC - 1) / kNC * kC : round_chunks(n_cols) * kC;
+  return keep ? (chunks + kNC - 1) / kNC * kC : round_chunks(n_cols, D, elt) * kC;
 }
 
 // The floats of the value pass's key-group partials, which pass 2's lane
@@ -181,9 +198,9 @@ __host__ __device__ inline int partial_floats(int G, int D) {
 
 // The tiles of a round's K and V rows: a third where the scores are kept
 // over several rounds, so the next round's rows load while one is used.
-inline int round_tiles(int n_cols, bool keep) {
+inline int round_tiles(int n_cols, bool keep, int D, int elt) {
   const int chunks = (n_cols + kC - 1) / kC;
-  return keep && (chunks + kNC - 1) / kNC > kR ? 3 : 2;
+  return keep && (chunks + kNC - 1) / kNC > round_chunks(n_cols, D, elt) ? 3 : 2;
 }
 
 // The dynamic shared memory of a launch: the tiles of K and V rows (elt
@@ -299,6 +316,7 @@ __global__ void __cluster_dims__(kNC, 1, 1) __launch_bounds__(kThreads, kMinBloc
   const float* const k_scale = a.k_scale;
   const float* const v_scale = a.v_scale;
   const size_t kv_head = static_cast<size_t>(h) * D;
+  const float* const slopes = a.slopes == nullptr ? nullptr : a.slopes + h * G;
   // this CTA's chunk c = rank + kNC * lc; its first one with a key at or
   // after j0
   auto first_lc = [&](int j0) {
@@ -454,6 +472,10 @@ __global__ void __cluster_dims__(kNC, 1, 1) __launch_bounds__(kThreads, kMinBloc
           if (g % kKeyLanes == kl) {
             float s = __fmul_rn(acc[g], scale);
             if (K == KV_INT8) s = __fmul_rn(s, ks);
+            if (slopes != nullptr) {  // m_h * j, j the key's position
+              const int j = (rank + kNC * (lc0 + u)) * kC + key;
+              s = __fadd_rn(s, __fmul_rn(slopes[g0 + g], static_cast<float>(j)));
+            }
             s_buf[(g0 + g) * stride + idx] = ok ? s : kMasked;
           }
         }
@@ -654,8 +676,8 @@ int granted(cudaError_t* err) {
 // the `most` bytes the kernel was granted, a choice by shape alone (either
 // route gives the same bits)
 inline bool keeps(int G, int D, int n_cols, int elt, int most) {
-  return smem_bytes(G, D, round_chunks(n_cols), round_tiles(n_cols, true),
-                    score_rowlen(n_cols, true), elt) <= static_cast<size_t>(most);
+  return smem_bytes(G, D, round_chunks(n_cols, D, elt), round_tiles(n_cols, true, D, elt),
+                    score_rowlen(n_cols, true, D, elt), elt) <= static_cast<size_t>(most);
 }
 
 // keeps() for decode_attn_kernel<Tq, K>: 1 or 0, or a negative cudaError_t
@@ -673,10 +695,11 @@ int launch(Args a, int B, bool recompute, cudaStream_t s) {
   if (e != cudaSuccess) return static_cast<int>(e);
   const int G = a.Hq / a.Hkv;
   const bool keep = !recompute && keeps(G, a.D, a.n_cols, Elt<K>::kBytes, most);
+  constexpr int kElt = Elt<K>::kBytes;
   a.keep = keep;
-  a.round = round_chunks(a.n_cols);
-  a.tiles = round_tiles(a.n_cols, keep);
-  a.rowlen = score_rowlen(a.n_cols, keep);
+  a.round = round_chunks(a.n_cols, a.D, kElt);
+  a.tiles = round_tiles(a.n_cols, keep, a.D, kElt);
+  a.rowlen = score_rowlen(a.n_cols, keep, a.D, kElt);
   const size_t smem = smem_bytes(G, a.D, a.round, a.tiles, a.rowlen, Elt<K>::kBytes);
   if (smem > static_cast<size_t>(most)) return static_cast<int>(cudaErrorInvalidValue);
   decode_attn_kernel<Tq, K><<<kNC * B * a.Hkv, kThreads, smem, s>>>(a);
@@ -702,19 +725,20 @@ int keeps_kv(int G, int D, int n_cols, int kv_kind) {
 // q, out [B, Hq, D] (q_bf16: bf16, else f32); k, v and k_scale, v_scale
 // (f32, int8 caches only, else null) as the note above lays them out;
 // table int32 [B, table_cols] (paged) or null (contiguous); pos int64, row
-// b's at pos[b * pos_stride]; kv_valid bool [B, valid_stride] or null.
+// b's at pos[b * pos_stride]; kv_valid bool [B, valid_stride] or null;
+// slopes f32 [Hq] (ALiBi) or null.
 // kv_kind: 0 f32, 1 bf16, 2 int8. The score rows stay in shared memory
 // where they fit (asq_decode_keeps_scores), unless recompute (for tests:
-// the other route, the same bits). Needs D % 8 == 0, D <= 128, Hq % Hkv ==
+// the other route, the same bits). Needs D % 8 == 0, D <= 256, Hq % Hkv ==
 // 0, Hq / Hkv <= 64 and 16-byte aligned q, k and v.
 ASQ_EXPORT int asq_decode_attention(const void* q, const void* k, const void* v,
                                     const void* k_scale, const void* v_scale,
                                     const void* table, const void* pos, const void* kv_valid,
-                                    void* out, int B, int Hq, int Hkv, int D, int kv_rows,
+                                    const void* slopes, void* out, int B, int Hq, int Hkv, int D, int kv_rows,
                                     int table_cols, int pos_stride, int valid_stride,
                                     int n_cols, int window, float scale, int kv_kind,
                                     int q_bf16, int round_p, int recompute, void* stream) {
-  if (D % 8 != 0 || D > 128 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > kMaxHeads ||
+  if (D % 8 != 0 || D > kMaxD || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > kMaxHeads ||
       n_cols <= 0 || kv_rows <= 0 || !asq_row_vec_ok(8, {q, k, v}))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -727,6 +751,7 @@ ASQ_EXPORT int asq_decode_attention(const void* q, const void* k, const void* v,
                static_cast<const int*>(table),
                static_cast<const long long*>(pos),
                static_cast<const unsigned char*>(kv_valid),
+               static_cast<const float*>(slopes),
                out,
                Hq,
                Hkv,

@@ -9,10 +9,17 @@
 // causal prefill is pos = starts = 0 with S = T.
 //
 //   q [B, T, Hq, D], k/v [B, S, Hkv, D], out [B, T, Hq, D]; f32 or bf16;
-//   GQA: query head h reads kv head h / (Hq / Hkv); D <= 128 (a multiple of
+//   GQA: query head h reads kv head h / (Hq / Hkv); D <= 256 (a multiple of
 //   8 for bf16; the wrapper zero-pads any other D to one).
 //
-// The kernels are built for a compute width DP of 64 or 128 and read any
+// ALiBi (Baichuan-13B, Baichuan-2-13B): with per-query-head slopes m_h (f32
+// [Hq], else null) every score gains m_h * (key column) after the scale and
+// before the mask, the shift-invariant form of m_h * (key - query) that the
+// JAX package adds (models/baichuan.py: bias = m_h * key slot). The key
+// column is the cache slot the kernel walks (banded: the slot in the cache
+// row; causal prefill: the position).
+//
+// The kernels are built for a compute width DP of 64, 128 or 256 and read any
 // D <= DP as it lies: columns D .. DP of the shared-memory tiles are zero
 // (they add 0 to every score, and their output columns are not stored), so
 // OPT-2.7B's D = 80 runs the DP = 128 kernel with no padded copy of q, k, v
@@ -49,10 +56,16 @@
 //  (batch, kv head) holds 128-4,096 query rows; a 64-row warpgroup fed by a
 //  TMA producer buys little there and costs much more code.
 //
-// f32 (the card tests; the main path computes in bf16): tensor cores would
+// Width 256 (Gemma's head dim): the O accumulator doubles to 128 registers
+// a thread, so the bf16 route keeps Q in shared memory (its fragments read
+// with ldmatrix at every key tile instead of held in 64 more registers) and
+// takes 32-key tiles (half the score and P fragments): 98 KB of shared
+// memory a block, granted by the opt-in attribute.
+//
+// f32 (calibration; the serving path computes in bf16): tensor cores would
 // round to TF32, so f32 keeps the CUDA-core kernel: 8 warps x 8 rows, 32-key
 // tiles converted to f32 in shared memory, one lane scores one key, the PV
-// product a shuffle-broadcast FMA loop.
+// product a shuffle-broadcast FMA loop (128 KB of shared memory at D = 256).
 
 #include <math.h>
 
@@ -77,7 +90,8 @@ __global__ void __launch_bounds__(kWarps * 32)
     flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
                  const int* __restrict__ pos, const int* __restrict__ starts,
-                 int T_, int S, int Hq, int Hkv, int dh, float scale, int causal) {
+                 const float* __restrict__ slopes, int T_, int S, int Hq, int Hkv, int dh,
+                 float scale, int causal) {
   constexpr int DL = D / 32;  // accumulator columns per lane
   extern __shared__ float smem[];
   float* qs = smem;                    // [kRows][D]
@@ -149,7 +163,10 @@ __global__ void __launch_bounds__(kWarps * 32)
         float dot = 0.f;
 #pragma unroll 16
         for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
-        s = dot * scale;
+        s = __fmul_rn(dot, scale);
+        if (slopes != nullptr)
+          s = __fadd_rn(s, __fmul_rn(slopes[kvh * G + static_cast<int>(gr % G)],
+                                     static_cast<float>(col)));
       }
       const float m_new = fmaxf(m_i[rr], asq_warp_max(s));
       if (m_new == -INFINITY) continue;
@@ -185,8 +202,8 @@ __global__ void __launch_bounds__(kWarps * 32)
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* out,
-               const void* pos, const void* starts, int B, int T_, int S, int Hq,
-               int Hkv, int dh, float scale, int causal, cudaStream_t s) {
+               const void* pos, const void* starts, const void* slopes, int B, int T_,
+               int S, int Hq, int Hkv, int dh, float scale, int causal, cudaStream_t s) {
   constexpr size_t smem = smem_bytes<D>();
   if (smem > 48 * 1024) {
     cudaFuncSetAttribute(flash_kernel<D>,
@@ -198,8 +215,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
   flash_kernel<D><<<grid, kWarps * 32, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out),
-      static_cast<const int*>(pos), static_cast<const int*>(starts), T_, S, Hq,
-      Hkv, dh, scale, causal);
+      static_cast<const int*>(pos), static_cast<const int*>(starts),
+      static_cast<const float*>(slopes), T_, S, Hq, Hkv, dh, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -208,7 +225,13 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
 // ---------------------------------------------------------------------------
 
 constexpr int kTcRows = 64;  // query rows a block: 4 warps x 16
-constexpr int kTcKeys = 64;  // keys a K/V tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+// keys a K/V tile: 64, and 32 at width 256 (half the score registers)
+template <int D>
+__host__ __device__ constexpr int tc_keys() {
+  return D <= 128 ? 64 : 32;
+}
 
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
@@ -241,19 +264,23 @@ __device__ __forceinline__ uint32_t swz(int r, int c) {
 
 template <int D>
 constexpr int tc_smem_bytes() {
-  return (kTcRows + 4 * kTcKeys) * 2 * D;  // Q, then K[2] and V[2]
+  return (kTcRows + 4 * tc_keys<D>()) * 2 * D;  // Q, then K[2] and V[2]
 }
 
 template <int D>
 __global__ void __launch_bounds__(128)
     flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                    const int* __restrict__ pos, const int* __restrict__ starts, int B, int T_,
-                    int S, int Hq, int Hkv, int dh, float scale_log2, int causal,
-                    int row_blocks) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks a tile row
-  const int chunks = dh / 8;      // of them, the ones the row has (the rest are zero)
-  constexpr int kTile = kTcKeys * 2 * D;
+                    const int* __restrict__ pos, const int* __restrict__ starts,
+                    const float* __restrict__ slopes, int B, int T_, int S, int Hq, int Hkv,
+                    int dh, float scale, float scale_log2, int causal, int row_blocks) {
+  constexpr int kKeys = tc_keys<D>();
+  constexpr int kNt = kKeys / 8;      // 8-key score tiles a K/V tile
+  constexpr int kKc = kKeys / 16;     // 16-key chunks (P's A fragments)
+  constexpr bool kQRegs = D <= 128;   // Q fragments held in registers
+  constexpr int kChunks = D / 8;      // 16-byte chunks a tile row
+  const int chunks = dh / 8;          // of them, the ones the row has (the rest are zero)
+  constexpr int kTile = kKeys * 2 * D;
   extern __shared__ __align__(128) uint8_t smem_tc[];
   const uint32_t sq = smem_u32(smem_tc);
   const uint32_t sk = sq + kTcRows * 2 * D;  // K[buf] = sk + buf * kTile
@@ -280,16 +307,16 @@ __global__ void __launch_bounds__(128)
   }
   cp_async_commit();
 
-  // key columns any row of this block may need, as 64-key tiles
+  // key columns any row of this block may need, as kKeys-key tiles
   const long long r_last = min(r0 + kTcRows, rows_total) - 1;
   const int col_hi = causal ? min(p + static_cast<int>(r_last / G), S - 1) : S - 1;
   const int lo = causal ? max(st, 0) : 0;
-  const int j_first = lo / kTcKeys;
-  const int n_tiles = col_hi >= lo ? col_hi / kTcKeys - j_first + 1 : 0;
+  const int j_first = lo / kKeys;
+  const int n_tiles = col_hi >= lo ? col_hi / kKeys - j_first + 1 : 0;
 
   auto load_kv = [&](int tile, int buf) {
-    const int j0 = (j_first + tile) * kTcKeys;
-    for (int i = tid; i < kTcKeys * kChunks; i += 128) {
+    const int j0 = (j_first + tile) * kKeys;
+    for (int i = tid; i < kKeys * kChunks; i += 128) {
       const int r = i / kChunks, c = i % kChunks;
       const int col = j0 + r;
       const bool ok = col < S && c < chunks;
@@ -304,18 +331,25 @@ __global__ void __launch_bounds__(128)
   cp_async_wait<1>();  // Q has landed
   __syncthreads();
 
-  // this warp's 16 rows of Q as mma A fragments, one per 16 columns of D
-  uint32_t qa[D / 16][4];
-  {
-    const int r = warp * 16 + (lane % 8) + 8 * ((lane / 8) % 2);
+  // this warp's 16 rows of Q as mma A fragments, one per 16 columns of D:
+  // held in registers, or (width 256) read from shared memory at each tile
+  const int q_row = warp * 16 + (lane % 8) + 8 * ((lane / 8) % 2);
+  uint32_t qa[kQRegs ? D / 16 : 1][4];
+  if constexpr (kQRegs) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) ldsm_x4(sq + swz<D>(r, 2 * kk + lane / 16), qa[kk]);
+    for (int kk = 0; kk < D / 16; ++kk) ldsm_x4(sq + swz<D>(q_row, 2 * kk + lane / 16), qa[kk]);
   }
 
   // this thread's rows: ra (accumulator rows lane / 4) and ra + 8
   const long long ra = r0 + warp * 16 + lane / 4;
   const int hi_a = causal ? min(p + static_cast<int>(ra / G), S - 1) : S - 1;
   const int hi_b = causal ? min(p + static_cast<int>((ra + 8) / G), S - 1) : S - 1;
+  // their ALiBi slopes (natural-log units: with slopes the scores are
+  // scaled and biased before the exponent, which then takes log2(e))
+  const bool alibi = slopes != nullptr;
+  const float slope_a = alibi ? slopes[kvh * G + static_cast<int>(ra % G)] : 0.f;
+  const float slope_b = alibi ? slopes[kvh * G + static_cast<int>((ra + 8) % G)] : 0.f;
+  const float mul = alibi ? kLog2e : scale_log2;
   // the warp's smallest and largest last column
   const long long wr0 = r0 + warp * 16;
   const int w_hi_min = causal ? min(p + static_cast<int>(wr0 / G), S - 1) : S - 1;
@@ -333,29 +367,51 @@ __global__ void __launch_bounds__(128)
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    const int j0 = (j_first + it) * kTcKeys;
+    const int j0 = (j_first + it) * kKeys;
     if (j0 <= w_hi_max) {  // some row of this warp sees a key of this tile
       const uint32_t kb = sk + (it & 1) * kTile, vb = sv + (it & 1) * kTile;
-      float s[8][4];
+      float s[kNt][4];
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
+      for (int nt = 0; nt < kNt; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
       // S = Q K^T: B fragments of key tiles 2 np and 2 np + 1 by one ldmatrix
+      auto qk = [&](int kk, const uint32_t (&qf)[4]) {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-        for (int np = 0; np < 4; ++np) {
+        for (int np = 0; np < kKc; ++np) {
           uint32_t kf[4];
           ldsm_x4(kb + swz<D>(16 * np + (lane % 8) + 8 * (lane / 16), 2 * kk + (lane / 8) % 2),
                   kf);
-          mma_bf16(s[2 * np], qa[kk], kf[0], kf[1]);
-          mma_bf16(s[2 * np + 1], qa[kk], kf[2], kf[3]);
+          mma_bf16(s[2 * np], qf, kf[0], kf[1]);
+          mma_bf16(s[2 * np + 1], qf, kf[2], kf[3]);
+        }
+      };
+      if constexpr (kQRegs) {
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) qk(kk, qa[kk]);
+      } else {
+        // (a rolled loop: its addresses are not hoisted into registers)
+#pragma unroll 1
+        for (int kk = 0; kk < D / 16; ++kk) {
+          uint32_t qf[4];
+          ldsm_x4(sq + swz<D>(q_row, 2 * kk + lane / 16), qf);
+          qk(kk, qf);
         }
       }
-      if (j0 + kTcKeys - 1 > w_hi_min || j0 < lo) {  // some column is out of some row's band
+      if (alibi) {  // s = s * scale + m_h * column
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
+        for (int nt = 0; nt < kNt; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float col = static_cast<float>(j0 + 8 * nt + 2 * (lane % 4) + e);
+            s[nt][e] = __fadd_rn(__fmul_rn(s[nt][e], scale), __fmul_rn(slope_a, col));
+            s[nt][2 + e] = __fadd_rn(__fmul_rn(s[nt][2 + e], scale), __fmul_rn(slope_b, col));
+          }
+        }
+      }
+      if (j0 + kKeys - 1 > w_hi_min || j0 < lo) {  // some column is out of some row's band
+#pragma unroll
+        for (int nt = 0; nt < kNt; ++nt) {
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int col = j0 + 8 * nt + 2 * (lane % 4) + e;
@@ -366,7 +422,7 @@ __global__ void __launch_bounds__(128)
       }
       float mx_a = -INFINITY, mx_b = -INFINITY;
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
+      for (int nt = 0; nt < kNt; ++nt) {
         mx_a = fmaxf(mx_a, fmaxf(s[nt][0], s[nt][1]));
         mx_b = fmaxf(mx_b, fmaxf(s[nt][2], s[nt][3]));
       }
@@ -377,22 +433,22 @@ __global__ void __launch_bounds__(128)
       }
       const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
       // a row with no valid key so far keeps m = -inf; its p are exp2(-inf) = 0
-      const float base_a = mn_a == -INFINITY ? 0.f : mn_a * scale_log2;
-      const float base_b = mn_b == -INFINITY ? 0.f : mn_b * scale_log2;
-      const float alpha_a = exp2f(m_a * scale_log2 - base_a);  // 0 on the first tile
-      const float alpha_b = exp2f(m_b * scale_log2 - base_b);
+      const float base_a = mn_a == -INFINITY ? 0.f : mn_a * mul;
+      const float base_b = mn_b == -INFINITY ? 0.f : mn_b * mul;
+      const float alpha_a = exp2f(m_a * mul - base_a);  // 0 on the first tile
+      const float alpha_b = exp2f(m_b * mul - base_b);
       m_a = mn_a;
       m_b = mn_b;
-      // P as the A fragments of the 4 16-key chunks: chunk kc is score tiles
+      // P as the A fragments of the 16-key chunks: chunk kc is score tiles
       // 2 kc (registers 0, 1) and 2 kc + 1 (2, 3), rows lane / 4 and + 8
-      uint32_t pa[4][4];
+      uint32_t pa[kKc][4];
       float sum_a = 0.f, sum_b = 0.f;
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const float p0 = exp2f(fmaf(s[nt][0], scale_log2, -base_a));
-        const float p1 = exp2f(fmaf(s[nt][1], scale_log2, -base_a));
-        const float p2 = exp2f(fmaf(s[nt][2], scale_log2, -base_b));
-        const float p3 = exp2f(fmaf(s[nt][3], scale_log2, -base_b));
+      for (int nt = 0; nt < kNt; ++nt) {
+        const float p0 = exp2f(fmaf(s[nt][0], mul, -base_a));
+        const float p1 = exp2f(fmaf(s[nt][1], mul, -base_a));
+        const float p2 = exp2f(fmaf(s[nt][2], mul, -base_b));
+        const float p3 = exp2f(fmaf(s[nt][3], mul, -base_b));
         sum_a += p0 + p1;
         sum_b += p2 + p3;
         pa[nt / 2][2 * (nt % 2)] = pack_bf16(p0, p1);
@@ -409,7 +465,7 @@ __global__ void __launch_bounds__(128)
       }
       // O += P V: B fragments of d tiles 2 dp and 2 dp + 1 by one ldmatrix.trans
 #pragma unroll
-      for (int kc = 0; kc < 4; ++kc) {
+      for (int kc = 0; kc < kKc; ++kc) {
 #pragma unroll
         for (int dp = 0; dp < D / 16; ++dp) {
           uint32_t vf[4];
@@ -448,8 +504,8 @@ __global__ void __launch_bounds__(128)
 
 template <int D>
 int launch_tc(const void* q, const void* k, const void* v, void* out, const void* pos,
-              const void* starts, int B, int T_, int S, int Hq, int Hkv, int dh, float scale,
-              int causal, cudaStream_t s) {
+              const void* starts, const void* slopes, int B, int T_, int S, int Hq, int Hkv,
+              int dh, float scale, int causal, cudaStream_t s) {
   constexpr int smem = tc_smem_bytes<D>();
   if (smem > 48 * 1024) {
     cudaFuncSetAttribute(flash_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -461,30 +517,42 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, const void
   flash_tc_kernel<D><<<static_cast<unsigned>(blocks), 128, smem, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      static_cast<const int*>(pos), static_cast<const int*>(starts), B, T_, S, Hq, Hkv, dh,
-      scale * 1.4426950408889634f, causal, row_blocks);
+      static_cast<const int*>(pos), static_cast<const int*>(starts),
+      static_cast<const float*>(slopes), B, T_, S, Hq, Hkv, dh, scale, scale * kLog2e, causal,
+      row_blocks);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, const void* pos,
+           const void* starts, const void* slopes, int B, int T_, int S, int Hq, int Hkv,
+           int dh, float scale, int causal, int is_bf16, cudaStream_t s) {
+  return is_bf16 ? launch_tc<D>(q, k, v, out, pos, starts, slopes, B, T_, S, Hq, Hkv, dh,
+                                scale, causal, s)
+                 : launch_f32<D>(q, k, v, out, pos, starts, slopes, B, T_, S, Hq, Hkv, dh,
+                                 scale, causal, s);
 }
 
 }  // namespace
 
-// pos, starts: int32 [B] or null (zeros). is_bf16: 0 f32 (CUDA cores), 1 bf16
-// (tensor cores; q, k, v 16-byte aligned, D a multiple of 8). D <= 128: the
-// kernel of compute width 64 serves D <= 64, that of 128 the rest.
+// pos, starts: int32 [B] or null (zeros); slopes: f32 [Hq] ALiBi slopes or
+// null. is_bf16: 0 f32 (CUDA cores), 1 bf16 (tensor cores; q, k, v 16-byte
+// aligned, D a multiple of 8). D <= 256: the kernel of compute width 64
+// serves D <= 64, that of 128 D <= 128, that of 256 the rest.
 ASQ_EXPORT int asq_flash_attention(const void* q, const void* k, const void* v,
                                    void* out, const void* pos, const void* starts,
-                                   int B, int T_, int S, int Hq, int Hkv, int D,
-                                   float scale, int causal, int is_bf16,
+                                   const void* slopes, int B, int T_, int S, int Hq,
+                                   int Hkv, int D, float scale, int causal, int is_bf16,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0 || T_ == 0) return 0;
-  if (D < 1 || D > 128 || (is_bf16 && D % 8 != 0)) return static_cast<int>(cudaErrorInvalidValue);
-  if (D <= 64) {
-    return is_bf16
-               ? launch_tc<64>(q, k, v, out, pos, starts, B, T_, S, Hq, Hkv, D, scale, causal, s)
-               : launch_f32<64>(q, k, v, out, pos, starts, B, T_, S, Hq, Hkv, D, scale, causal, s);
-  }
-  return is_bf16
-             ? launch_tc<128>(q, k, v, out, pos, starts, B, T_, S, Hq, Hkv, D, scale, causal, s)
-             : launch_f32<128>(q, k, v, out, pos, starts, B, T_, S, Hq, Hkv, D, scale, causal, s);
+  if (D < 1 || D > 256 || (is_bf16 && D % 8 != 0)) return static_cast<int>(cudaErrorInvalidValue);
+  if (D <= 64)
+    return launch<64>(q, k, v, out, pos, starts, slopes, B, T_, S, Hq, Hkv, D, scale, causal,
+                      is_bf16, s);
+  if (D <= 128)
+    return launch<128>(q, k, v, out, pos, starts, slopes, B, T_, S, Hq, Hkv, D, scale, causal,
+                       is_bf16, s);
+  return launch<256>(q, k, v, out, pos, starts, slopes, B, T_, S, Hq, Hkv, D, scale, causal,
+                     is_bf16, s);
 }

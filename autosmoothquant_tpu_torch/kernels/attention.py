@@ -14,10 +14,18 @@ the JAX package: q [B, T, Hq, D], k/v [B, S, Hkv, D], GQA with Hq % Hkv == 0.
 A query row with no valid key is written as 0, as the TPU kernels write it
 (the eager ``attend`` averages such rows instead; callers compare valid rows).
 
-K3 is built for compute widths of 64 and 128 and reads any D <= 128 (OPT-2.7B's
-80) as it lies, its shared-memory tiles zero past D. Its bf16 route copies
-16 bytes at a time, so a D that is not a multiple of 8 is zero-padded to one
-first (:func:`_pad_head_dim`) and the output cut back; D > 128 raises.
+K3 is built for compute widths of 64, 128 and 256 and reads any D <= 256
+(OPT-2.7B's 80, Gemma's 256) as it lies, its shared-memory tiles zero past D.
+Its bf16 route copies 16 bytes at a time, so a D that is not a multiple of 8
+is zero-padded to one first (:func:`_pad_head_dim`) and the output cut back;
+D > 256 raises. Decode attention takes D % 8 == 0 up to 256.
+
+ALiBi (Baichuan-13B): every entry point takes optional ``alibi_slopes``, f32
+[Hq], and adds m_h * (key column) to each score after the scale and before
+the mask, as the JAX package's ``alibi_bias`` (m_h * key slot) and
+``paged_attend(alibi_slopes=...)`` (m_h * key position) add it. The key
+column is the slot of the cache row (prefill: the position; paged: the
+logical position j * bs + i).
 """
 
 from __future__ import annotations
@@ -32,18 +40,35 @@ from . import _build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
+_ARGTYPES = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
              _I, _I, _P)
-_MAX_HEAD_DIM = 128
+_MAX_HEAD_DIM = 256
 
 
-def _band_attention_plain(q, k, v, pos, starts, sm_scale, causal):
+def alibi_bias(slopes: torch.Tensor, n_cols: int) -> torch.Tensor:
+    """The ALiBi term m_h * column, f32 [Hq, n_cols]: the product of the
+    slope and the column as f32, as the JAX package forms it."""
+    col = torch.arange(n_cols, device=slopes.device).float()
+    return slopes.float()[:, None] * col[None, :]
+
+
+def _check_slopes(slopes, hq: int):
+    if slopes is None:
+        return None
+    if slopes.shape != (hq,):
+        raise ValueError(f"alibi_slopes {tuple(slopes.shape)}: f32 [Hq={hq}]")
+    return slopes.float().contiguous()
+
+
+def _band_attention_plain(q, k, v, pos, starts, sm_scale, causal, slopes=None):
     """Masked softmax attention, f32, zero for rows with no valid key."""
     b, t, hq, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
     qf = q.float().reshape(b, t, hkv, g, d)
     scores = torch.einsum("btkgd,bskd->bkgts", qf, k.float()) * sm_scale
+    if slopes is not None:
+        scores = scores + alibi_bias(slopes, s).reshape(1, hkv, g, 1, s)
     if causal:
         rows = torch.arange(t, device=q.device).reshape(1, t, 1)
         cols = torch.arange(s, device=q.device).reshape(1, 1, s)
@@ -82,7 +107,7 @@ def _pad_head_dim(q, k, v):
     return tuple(F.pad(t, (0, dp - d)) for t in (q, k, v))
 
 
-def _launch(wrapper, q, k, v, pos, starts, sm_scale, causal):
+def _launch(wrapper, q, k, v, pos, starts, sm_scale, causal, slopes):
     if q.dtype not in (torch.float32, torch.bfloat16) or not (
             k.dtype == v.dtype == q.dtype):
         raise TypeError(f"q/k/v must share f32 or bf16: {q.dtype}, "
@@ -98,7 +123,7 @@ def _launch(wrapper, q, k, v, pos, starts, sm_scale, causal):
     out = torch.empty_like(q)
     fn = _build.function("flash_attn", "asq_flash_attention", _ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _build.ptr(pos), _build.ptr(starts), b, t, s, hq, hkv, d,
+            _build.ptr(pos), _build.ptr(starts), _build.ptr(slopes), b, t, s, hq, hkv, d,
             float(sm_scale), int(causal), int(q.dtype == torch.bfloat16),
             _build.stream_ptr(q))
     _build.check("flash_attn", rc, wrapper.__name__)
@@ -106,19 +131,24 @@ def _launch(wrapper, q, k, v, pos, starts, sm_scale, causal):
     return out if d == d_true else out[..., :d_true].contiguous()
 
 
-def flash_attention_plain(q, k, v, *, sm_scale: float, causal: bool = True):
+def flash_attention_plain(q, k, v, *, sm_scale: float, causal: bool = True,
+                          alibi_slopes: Optional[torch.Tensor] = None):
     zeros = torch.zeros((q.shape[0],), dtype=torch.int32, device=q.device)
-    return _band_attention_plain(q, k, v, zeros, zeros, sm_scale, causal)
+    return _band_attention_plain(q, k, v, zeros, zeros, sm_scale, causal, alibi_slopes)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    sm_scale: float, causal: bool = True) -> torch.Tensor:
+                    sm_scale: float, causal: bool = True,
+                    alibi_slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Causal (or full) attention of q [B, T, Hq, D] over k/v [B, S, Hkv, D]
-    with S = T. Returns [B, T, Hq, D] in q.dtype."""
+    with S = T, with the ALiBi term where ``alibi_slopes`` (f32 [Hq]) is
+    given. Returns [B, T, Hq, D] in q.dtype."""
     _check(q, k, v)
+    slopes = _check_slopes(alibi_slopes, q.shape[2])
     if not q.is_cuda:
-        return flash_attention_plain(q, k, v, sm_scale=sm_scale, causal=causal)
-    return _launch(flash_attention, q, k, v, None, None, sm_scale, causal)
+        return flash_attention_plain(q, k, v, sm_scale=sm_scale, causal=causal,
+                                     alibi_slopes=slopes)
+    return _launch(flash_attention, q, k, v, None, None, sm_scale, causal, slopes)
 
 
 def _row_vector(x, b, device):
@@ -127,29 +157,32 @@ def _row_vector(x, b, device):
 
 
 def flash_attention_banded_plain(q, k, v, pos, starts=None, *,
-                                 sm_scale: float):
+                                 sm_scale: float,
+                                 alibi_slopes: Optional[torch.Tensor] = None):
     b = q.shape[0]
     pos = _row_vector(pos, b, q.device)
     starts = _row_vector(0 if starts is None else starts, b, q.device)
-    return _band_attention_plain(q, k, v, pos, starts, sm_scale, True)
+    return _band_attention_plain(q, k, v, pos, starts, sm_scale, True, alibi_slopes)
 
 
 def flash_attention_banded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            pos, starts: Optional[torch.Tensor] = None, *,
-                           sm_scale: float) -> torch.Tensor:
+                           sm_scale: float,
+                           alibi_slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Chunked-prefill attention: q [B, Tq, Hq, D] are a chunk's queries at
     cache slots [pos_b, pos_b + Tq); k/v [B, S, Hkv, D] are full cache rows.
     Query i attends columns [starts_b, pos_b + i]. pos/starts: int scalars or
-    int32 [B] (starts defaults to 0)."""
+    int32 [B] (starts defaults to 0). ``alibi_slopes``: f32 [Hq] or None."""
     _check(q, k, v)
+    slopes = _check_slopes(alibi_slopes, q.shape[2])
     if not q.is_cuda:
         return flash_attention_banded_plain(q, k, v, pos, starts,
-                                            sm_scale=sm_scale)
+                                            sm_scale=sm_scale, alibi_slopes=slopes)
     b = q.shape[0]
     pos = _row_vector(pos, b, q.device)
     starts = _row_vector(0 if starts is None else starts, b, q.device)
     return _launch(flash_attention_banded, q, k, v, pos, starts, sm_scale,
-                   True)
+                   True, slopes)
 
 
 # launches of the CUDA kernel per entry point (plain CPU calls do not count)
@@ -161,10 +194,10 @@ flash_attention_banded.launches = 0
 # decode attention (csrc/decode_attn.cu)
 # ---------------------------------------------------------------------------
 
-# q, k, v, k_scale, v_scale, table, pos, kv_valid, out, then B, Hq, Hkv, D,
-# kv_rows, table_cols, pos_stride, valid_stride, n_cols, window, scale,
-# kv_kind, q_bf16, round_p, recompute, stream
-_DECODE_ARGTYPES = (_P,) * 9 + (_I,) * 10 + (ctypes.c_float, _I, _I, _I, _I, _P)
+# q, k, v, k_scale, v_scale, table, pos, kv_valid, slopes, out, then B, Hq,
+# Hkv, D, kv_rows, table_cols, pos_stride, valid_stride, n_cols, window,
+# scale, kv_kind, q_bf16, round_p, recompute, stream
+_DECODE_ARGTYPES = (_P,) * 10 + (_I,) * 10 + (ctypes.c_float, _I, _I, _I, _I, _P)
 # G, D, n_cols, kv_kind, q_bf16
 _DECODE_KEEPS_ARGTYPES = (_I,) * 5
 _KV_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -197,11 +230,13 @@ def _decode_pos(pos, b: int, device) -> torch.Tensor:
 
 def decode_attention_plain(q, k, v, pos, *, scale: float, k_scale=None, v_scale=None,
                            table=None, kv_valid=None, window: int = 0,
-                           kv_window: Optional[int] = None) -> torch.Tensor:
+                           kv_window: Optional[int] = None,
+                           alibi_slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``models/common.py:attend`` at one query token a row (JAX
     ``common.py:attend`` at T = 1), over the first ``kv_window`` columns of
     the rows (paged: the pages gathered into rows first), with the mask the
     engines build: column <= pos, > pos - window (window > 0) and kv_valid.
+    ALiBi adds m_h * column after the scale (and the int8 key scale).
     f32 softmax; on the bf16 path (neither q nor the cache f32) the
     probabilities are rounded to bf16 before the value product."""
     b, hq, d = q.shape
@@ -225,6 +260,8 @@ def decode_attention_plain(q, k, v, pos, *, scale: float, k_scale=None, v_scale=
     scores = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float()) * scale
     if k_scale is not None:
         scores = scores * k_scale[:, :n].float().permute(0, 2, 1)[:, :, None, None, :]
+    if alibi_slopes is not None:
+        scores = scores + alibi_bias(alibi_slopes, n).reshape(1, hkv, hq // hkv, 1, n)
     scores = scores.masked_fill(~mask[:, None, None, None, :], -1e30)
     probs = torch.softmax(scores, dim=-1)
     if v_scale is not None:
@@ -241,6 +278,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos, *,
                      table: Optional[torch.Tensor] = None,
                      kv_valid: Optional[torch.Tensor] = None, window: int = 0,
                      kv_window: Optional[int] = None,
+                     alibi_slopes: Optional[torch.Tensor] = None,
                      recompute_scores: bool = False) -> torch.Tensor:
     """Attention of one query token a row, q [B, Hq, D], over its cache.
     Contiguous: k, v [B, S, Hkv, D]; paged (``table`` int32 [B, M]): k, v
@@ -249,7 +287,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos, *,
     each row's position (int, 0-d or [B]); keys 0..pos are attended, within
     ``window`` positions (a sliding window, 0: none) and where kv_valid
     (bool [B, >= kv_window]) holds; the first ``kv_window`` columns are
-    scanned (default: all). Returns [B, Hq, D] in q's dtype.
+    scanned (default: all). ``alibi_slopes`` (f32 [Hq]) adds m_h * (key
+    position). Returns [B, Hq, D] in q's dtype.
 
     CUDA tensors launch ``csrc/decode_attn.cu``, whose sums run in an order
     set by key position alone, so a row's result does not depend on the
@@ -268,10 +307,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos, *,
                          f"table {None if table is None else tuple(table.shape)}")
     if (k_scale is None) != (k.dtype != torch.int8) or (k_scale is None) != (v_scale is None):
         raise ValueError("an int8 cache needs k_scale and v_scale, any other none")
+    slopes = _check_slopes(alibi_slopes, hq)
     if not q.is_cuda:
         return decode_attention_plain(q, k, v, pos, scale=scale, k_scale=k_scale,
                                       v_scale=v_scale, table=table, kv_valid=kv_valid,
-                                      window=window, kv_window=kv_window)
+                                      window=window, kv_window=kv_window,
+                                      alibi_slopes=slopes)
     if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype not in _KV_KINDS \
             or v.dtype != k.dtype:
         raise TypeError(f"q {q.dtype} (f32 or bf16), cache {k.dtype}/{v.dtype} "
@@ -303,7 +344,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos, *,
     fn = _build.function("decode_attn", "asq_decode_attention", _DECODE_ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _build.ptr(k_scale),
             _build.ptr(v_scale), _build.ptr(table), pos.data_ptr(), _build.ptr(kv_valid),
-            out.data_ptr(), b, hq, hkv, d, kv_rows,
+            _build.ptr(slopes), out.data_ptr(), b, hq, hkv, d, kv_rows,
             table.shape[1] if table is not None else 0, pos_stride,
             kv_valid.stride(0) if kv_valid is not None else 0, n_cols, int(window),
             float(scale), _KV_KINDS[k.dtype], int(q.dtype == torch.bfloat16),

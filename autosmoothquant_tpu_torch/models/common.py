@@ -23,8 +23,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..kernels.attention import (decode_attention, flash_attention, flash_attention_banded,
-                                 gather_pages)
+from ..kernels.attention import (alibi_bias, decode_attention, flash_attention,
+                                 flash_attention_banded, gather_pages)
 from ..kernels.fp8 import fp8_matmul
 from ..kernels.fused import rms_norm  # noqa: F401  (the family modules' norm)
 from ..kernels.gemm import int8_matmul
@@ -503,9 +503,12 @@ def _dequant_kv(x: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
 def update_and_attend(q, k, v, cache, cache_index: CacheIndex, mask, scale: float,
                       compute_dtype, *, plain_causal=False, chunk0_causal=False,
                       banded=False, banded_starts=None,
-                      kv_window: Optional[int] = None, sliding_window: int = 0):
+                      kv_window: Optional[int] = None, sliding_window: int = 0,
+                      alibi_slopes: Optional[torch.Tensor] = None):
     """Cache write + attention for one layer (the routes of the JAX
     ``update_and_attend``). q/k/v: [B, T, H(kv), Dh] after RoPE.
+    ``alibi_slopes`` (f32 [Hq], Baichuan-13B): every route adds m_h * (key
+    slot) to the scores, the JAX package's ``alibi_bias``.
 
     chunk0_causal: prefill into an empty cache. The cache is written, then the
     chunk attends to itself through causal flash attention; with an int8
@@ -525,7 +528,7 @@ def update_and_attend(q, k, v, cache, cache_index: CacheIndex, mask, scale: floa
     if isinstance(cache, PagedLayer):
         return paged_update_and_attend(q, k, v, cache, cache_index, scale, compute_dtype,
                                        kv_window=kv_window, sliding_window=sliding_window,
-                                       rows=mask)
+                                       rows=mask, alibi_slopes=alibi_slopes)
     quant = isinstance(cache, QuantKVCacheLayer)
     if chunk0_causal and t > 1 and cache is not None:
         if quant:
@@ -537,7 +540,8 @@ def update_and_attend(q, k, v, cache, cache_index: CacheIndex, mask, scale: floa
         else:
             cache_write(cache, k, v, cache_index)
             k_att, v_att = k.to(compute_dtype), v.to(compute_dtype)
-        return attend(q, k_att, v_att, None, scale, plain_causal=True)
+        return attend(q, k_att, v_att, None, scale, plain_causal=True,
+                      alibi_slopes=alibi_slopes)
     if banded and t > 1 and cache is not None:
         cache_write(cache, k, v, cache_index)
         ct = torch.float32 if q.dtype == torch.float32 else torch.bfloat16
@@ -547,32 +551,38 @@ def update_and_attend(q, k, v, cache, cache_index: CacheIndex, mask, scale: floa
         else:
             k_l, v_l = cache.k.to(ct), cache.v.to(ct)
         out = flash_attention_banded(q.to(ct), k_l, v_l, cache_index,
-                                     banded_starts, sm_scale=scale)
+                                     banded_starts, sm_scale=scale, alibi_slopes=alibi_slopes)
         return out.to(q.dtype)
     k_all, v_all, ks, vs = cache_update_and_read_raw(cache, k, v, cache_index)
     if isinstance(mask, DecodeRows):
-        return attend_rows(q, k_all, v_all, mask, scale, ks, vs, sliding_window, kv_window)
+        return attend_rows(q, k_all, v_all, mask, scale, ks, vs, sliding_window, kv_window,
+                           alibi_slopes)
     if t == 1 and cache is not None:
         out = decode_attention(q[:, 0], k_all, v_all, cache_index, scale=scale,
                                k_scale=ks, v_scale=vs, kv_valid=mask,
-                               window=sliding_window, kv_window=kv_window)
+                               window=sliding_window, kv_window=kv_window,
+                               alibi_slopes=alibi_slopes)
         return out[:, None]
     if kv_window is not None:
         k_all, v_all = k_all[:, :kv_window], v_all[:, :kv_window]
         if ks is not None:
             ks, vs = ks[:, :kv_window], vs[:, :kv_window]
     return attend(q, k_all, v_all, mask, scale, plain_causal=plain_causal,
-                  k_scale=ks, v_scale=vs)
+                  k_scale=ks, v_scale=vs, alibi_slopes=alibi_slopes)
 
 
 def attend_rows(q, k, v, rows: DecodeRows, scale: float, k_scale=None, v_scale=None,
-                sliding_window: int = 0, kv_window: Optional[int] = None) -> torch.Tensor:
+                sliding_window: int = 0, kv_window: Optional[int] = None,
+                alibi_slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q [B, T, Hq, D] through decode attention as B x T rows (``rows``,
-    :class:`DecodeRows`) over the raw cache or pages k / v, already written."""
+    :class:`DecodeRows`) over the raw cache or pages k / v, already written
+    (a row's key positions are its cache slots, or its logical positions
+    through the table: ALiBi's column either way)."""
     b, t = q.shape[:2]
     out = decode_attention(q.reshape(b * t, *q.shape[2:]), k, v, rows.pos, scale=scale,
                            k_scale=k_scale, v_scale=v_scale, table=rows.table,
-                           kv_valid=rows.kv_valid, window=sliding_window, kv_window=kv_window)
+                           kv_valid=rows.kv_valid, window=sliding_window, kv_window=kv_window,
+                           alibi_slopes=alibi_slopes)
     return out.reshape(q.shape)
 
 
@@ -620,18 +630,21 @@ def _paged_write(pages: torch.Tensor, val: torch.Tensor, slots: torch.Tensor) ->
 
 def paged_attend_plain(q, k_pages, v_pages, table, pos_q, scale: float, compute_dtype,
                        m_used: Optional[int] = None, ks_pages=None, vs_pages=None,
-                       sliding_window: int = 0) -> torch.Tensor:
+                       sliding_window: int = 0,
+                       alibi_slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """JAX ``common.py:paged_attend``: an online-softmax scan over virtual
     blocks. q [B, T, Hq, D] (after RoPE); k_pages / v_pages [N, bs, Hkv, D]
     (a layer's pages); table [B, M]; pos_q [B, T] the queries' absolute
     positions (key position <= query position; within ``sliding_window``
     where > 0); ks_pages / vs_pages the int8 pages' scales [N, bs, Hkv],
-    factored out of the products; the first ``m_used`` blocks are scanned."""
+    factored out of the products; ``alibi_slopes`` f32 [Hq] adds m_h * key
+    position; the first ``m_used`` blocks are scanned."""
     b, t, hq, d = q.shape
     bs, hkv = k_pages.shape[1], k_pages.shape[2]
     m = table.shape[1] if m_used is None else min(m_used, table.shape[1])
     g = hq // hkv
     qf = (q.float() * scale).reshape(b, t, hkv, g, d)
+    slp = alibi_slopes.float().reshape(hkv, g) if alibi_slopes is not None else None
     neg = torch.tensor(-1e30, dtype=torch.float32, device=q.device)
     mx = torch.full((b, t, hkv, g), -1e30, dtype=torch.float32, device=q.device)
     s = torch.zeros((b, t, hkv, g), dtype=torch.float32, device=q.device)
@@ -644,6 +657,8 @@ def paged_attend_plain(q, k_pages, v_pages, table, pos_q, scale: float, compute_
         if ks_pages is not None:
             sc = sc * ks_pages[pid].permute(0, 2, 1)[:, None, :, None, :]
         posk = j * bs + torch.arange(bs, device=q.device)
+        if slp is not None:
+            sc = sc + slp[None, None, :, :, None] * posk.float()[None, None, None, None, :]
         valid = posk[None, None, :] <= pos_q[:, :, None]           # [B, T, bs]
         if sliding_window:
             valid = valid & (posk[None, None, :] > pos_q[:, :, None] - sliding_window)
@@ -662,7 +677,8 @@ def paged_attend_plain(q, k_pages, v_pages, table, pos_q, scale: float, compute_
 
 def paged_attend(q, layer: PagedLayer, cache_index: CacheIndex, pos_q, scale: float,
                  compute_dtype, kv_window: Optional[int] = None,
-                 sliding_window: int = 0) -> torch.Tensor:
+                 sliding_window: int = 0,
+                 alibi_slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention of q [B, T, Hq, D] at positions pos_q [B, T] over a paged
     layer whose pages already hold the chunk (write, then attend). CPU:
     :func:`paged_attend_plain` for any T, its scan bounded by
@@ -675,20 +691,21 @@ def paged_attend(q, layer: PagedLayer, cache_index: CacheIndex, pos_q, scale: fl
         m_used = -(-kv_window // bs) if kv_window is not None else None
         return paged_attend_plain(q, layer.k, layer.v, layer.table, pos_q, scale,
                                   compute_dtype, m_used, layer.k_scale, layer.v_scale,
-                                  sliding_window)
+                                  sliding_window, alibi_slopes)
     if t == 1:
         out = decode_attention(q[:, 0], layer.k, layer.v, cache_index, scale=scale,
                                k_scale=layer.k_scale, v_scale=layer.v_scale,
                                table=layer.table, window=sliding_window,
-                               kv_window=kv_window)
+                               kv_window=kv_window, alibi_slopes=alibi_slopes)
         return out[:, None]
     return paged_gather_attend(q, layer, cache_index, pos_q, scale, kv_window,
-                               sliding_window)
+                               sliding_window, alibi_slopes)
 
 
 def paged_gather_attend(q, layer: PagedLayer, cache_index: CacheIndex, pos_q, scale: float,
                         kv_window: Optional[int] = None,
-                        sliding_window: int = 0) -> torch.Tensor:
+                        sliding_window: int = 0,
+                        alibi_slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The card's route for a chunk of T > 1 (a suffix, a prefill chunk):
     each row's mapped pages gathered into contiguous rows (a copy at
     admission only), then banded flash attention from column 0 (rows at one
@@ -708,20 +725,22 @@ def paged_gather_attend(q, layer: PagedLayer, cache_index: CacheIndex, pos_q, sc
         if layer.k_scale is not None:
             ks = gather_pages(layer.k_scale, layer.table)[:, :n]
             vs = gather_pages(layer.v_scale, layer.table)[:, :n]
-        return attend(q, k_rows[:, :n], v_rows[:, :n], mask, scale, k_scale=ks, v_scale=vs)
+        return attend(q, k_rows[:, :n], v_rows[:, :n], mask, scale, k_scale=ks, v_scale=vs,
+                      alibi_slopes=alibi_slopes)
     ct = torch.float32 if q.dtype == torch.float32 else torch.bfloat16
     if layer.k_scale is not None:
         k_rows = _dequant_kv(k_rows, gather_pages(layer.k_scale, layer.table), ct)
         v_rows = _dequant_kv(v_rows, gather_pages(layer.v_scale, layer.table), ct)
     out = flash_attention_banded(q.to(ct), k_rows.to(ct), v_rows.to(ct), cache_index, 0,
-                                 sm_scale=scale)
+                                 sm_scale=scale, alibi_slopes=alibi_slopes)
     return out.to(q.dtype)
 
 
 def paged_update_and_attend(q, k, v, layer: PagedLayer, cache_index: CacheIndex,
                             scale: float, compute_dtype, kv_window: Optional[int] = None,
                             sliding_window: int = 0,
-                            rows: Optional[DecodeRows] = None) -> torch.Tensor:
+                            rows: Optional[DecodeRows] = None,
+                            alibi_slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Write the chunk's K/V (int8 pages: quantized, with their scales) into
     the layer's pages at slots cache_index + [0, T), then :func:`paged_attend`
     (JAX ``common.py:paged_update_and_attend``), or with ``rows`` (a verify
@@ -740,17 +759,19 @@ def paged_update_and_attend(q, k, v, layer: PagedLayer, cache_index: CacheIndex,
         _paged_write(layer.v, v, slots)
     if rows is not None:
         return attend_rows(q, layer.k, layer.v, rows, scale, layer.k_scale, layer.v_scale,
-                           sliding_window, kv_window)
+                           sliding_window, kv_window, alibi_slopes)
     return paged_attend(q, layer, cache_index, pos, scale, compute_dtype, kv_window,
-                        sliding_window)
+                        sliding_window, alibi_slopes)
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask,
            scale: float, plain_causal: bool = False,
            k_scale: Optional[torch.Tensor] = None,
-           v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+           v_scale: Optional[torch.Tensor] = None,
+           alibi_slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q: [B, Tq, H, Dh]; k/v: [B, Tk, H_kv, Dh]; mask: bool [B, 1, Tq, Tk].
-    GQA by head groups; softmax in f32.
+    GQA by head groups; softmax in f32. ``alibi_slopes`` (f32 [H]) adds m_h
+    * (key column) after the scale, before the mask (JAX ``alibi_bias``).
 
     k/v may be the raw int8 cache with per-token-per-head scales
     [B, Tk, H_kv]: the dequant factors out of the products exactly (scores
@@ -761,7 +782,7 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask,
     accumulation (operands upcast exactly; probabilities rounded to bf16
     first), as the JAX package runs them."""
     if plain_causal and k_scale is None:
-        return flash_attention(q, k, v, sm_scale=scale, causal=True)
+        return flash_attention(q, k, v, sm_scale=scale, causal=True, alibi_slopes=alibi_slopes)
     b, tq, h, dh = q.shape
     tk, h_kv = k.shape[1], k.shape[2]
     g = h // h_kv
@@ -770,6 +791,8 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask,
     scores = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float()) * scale
     if k_scale is not None:
         scores = scores * k_scale.float().permute(0, 2, 1)[:, :, None, None, :]
+    if alibi_slopes is not None:
+        scores = scores + alibi_bias(alibi_slopes, tk).reshape(1, h_kv, g, 1, tk)
     scores = scores.masked_fill(~mask[:, :, None], -1e30)
     probs = torch.softmax(scores, dim=-1)
     if v_scale is not None:

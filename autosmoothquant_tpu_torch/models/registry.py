@@ -20,14 +20,17 @@ MODEL_REGISTRY: Dict[str, str] = {
     "LLaMAForCausalLM": "llama",
     "Qwen2ForCausalLM": "llama",
     "MistralForCausalLM": "llama",
+    "GemmaForCausalLM": "gemma",
+    "BaichuanForCausalLM": "baichuan",
+    "BaiChuanForCausalLM": "baichuan",
     "OPTForCausalLM": "opt",
 }
 # HF model_type -> the same modules, for configs without `architectures`
 MODEL_TYPES: Dict[str, str] = {"llama": "llama", "qwen2": "llama",
-                               "mistral": "llama", "opt": "opt"}
+                               "mistral": "llama", "gemma": "gemma",
+                               "baichuan": "baichuan", "opt": "opt"}
 _PREFIXES = ("", "Quantized", "Int8")
-_TODO = ("ROADMAP.md Queue 1 item 10 (the other families: Baichuan, "
-         "Mixtral and Gemma are not ported yet)")
+_TODO = "ROADMAP.md Queue 1 item 10 (the other families: Mixtral is not ported yet)"
 
 
 def _module(name: str):
@@ -35,8 +38,8 @@ def _module(name: str):
 
 
 def get_model_family(config):
-    """The port's model module (``models.llama`` or ``models.opt``) for an
-    HF config (a dict or an object with ``architectures`` / ``model_type``);
+    """The port's model module (``models.llama``, ``models.gemma``,
+    ``models.baichuan`` or ``models.opt``) for an HF config (a dict or an object with ``architectures`` / ``model_type``);
     raises ValueError for a family the port does not have."""
     g = ((lambda k: config.get(k)) if isinstance(config, dict)
          else (lambda k: getattr(config, k, None)))

@@ -18,7 +18,9 @@ graph of one step (``Engine``'s default on the card), in which every layer's
 attention is the port's own decode-attention kernel, and a Llama model's
 final norm (and, in W8A8, each layer's first norm with its int8 quantize)
 the port's own RMSNorm + int8 kernel. The block-paged engine
-(``PagedEngine``, explicit prefixes) serves the W8A8 TinyLlama too.
+(``PagedEngine``, explicit prefixes) serves the W8A8 TinyLlama too. The
+Baichuan (ALiBi: K3 and decode attention with per-head slopes) and Gemma
+(head dim 256) families run at full width in the families phase.
 
 Phases (any failure ends the run with a nonzero exit code):
   device   the card's name and power limit
@@ -27,19 +29,25 @@ Phases (any failure ends the run with a nonzero exit code):
   kernels  each kernel against its plain version at the main paths' shapes
            (TinyLlama-1.1B and OPT-6.7B), K1, K2, K4, K5 and K6 on each of
            their routes, K2 at Llama-2-7B's and -70B's widths too, K6 at OPT
-           widths up to OPT-66B's, K3 at D = 80 too; rmsnorm_quant bit-equal
+           widths up to OPT-66B's, K3 at D = 80 and 256 (Gemma-2B's and
+           Gemma-7B's heads, both routes) and with ALiBi slopes (Baichuan-
+           2-13B's 40 heads, causal, banded and the f32 route) too;
+           rmsnorm_quant bit-equal
            in both modes (T 1 / 8 / 128, D 2048 / 4096); decode_attention
            contiguous and paged, bf16, f32 and int8 caches, f32 q, a sliding
            window, kv_valid, B 1 / 8 / 16 at kv_window 256 / 512, a row at
-           the cluster's span, 8K and 16K columns, within decode_tol; both
+           the cluster's span, 8K and 16K columns, Gemma's heads at D 256,
+           Baichuan-2-13B's with ALiBi (b1 / b8, contiguous, paged, int8,
+           4096 columns), within decode_tol; both
            with a row's bits the same alone and in a batch (decode_attention
            also over all columns, and with its scores kept or recomputed)
   e2e      2-layer models on the card and, with the same weights, on the CPU
            (plain versions): TinyLlama width in W8A8, fp8 e4m3 dynamic, fp8
            e4m3 static (unfused), fp8 e5m2 and int4; OPT pre-LN W8A8 at
            OPT-1.3B width and post-LN W8A8 with project_in/out at OPT-350m
-           width. Prefill logits agree within the stated limits and greedy
-           tokens are equal up to any near-tie
+           width; Baichuan-2-13B width (ALiBi) in W8A8 and fp8 e4m3, Gemma-2B
+           width (head dim 256) in W8A8. Prefill logits agree within the
+           stated limits and greedy tokens are equal up to any near-tie
   serve    the 22-layer TinyLlama-1.1B model serves Engine.generate in W8A8,
            fp8 e4m3 dynamic and int4 (group 128), and OPT-6.7B (full width
            and depth) in W8A8: 4 ragged prompts (banded prefill) and an
@@ -113,6 +121,14 @@ Phases (any failure ends the run with a nonzero exit code):
            held-out prompts; the pipeline on the card against the CPU at 2
            layers (W8A8, fp8 e4m3 static with its observer pass on K4, int4
            at TinyLlama width; W8A8 at OPT-6.7B width)
+  families Baichuan-2-13B (W8A8, fp8 e4m3, bf16) and Gemma-2B (W8A8, bf16)
+           at full width and depth, one model at a time: Engine.generate b1,
+           prompt 128, 64 decode steps, greedy, a CUDA graph; host launches
+           and a replay's device launches exact (family_counts); tok/s,
+           replay ms, idle share and the step's byte bound; then a 4-layer
+           Baichuan-2-13B W8A8 (ALiBi) through ContinuousEngine and
+           PagedEngine, graph and eager: tokens equal the static b1
+           engine's, logits bit-equal (BATCH_LOGIT_NOISE)
   timing   the launch floor (a one-element kernel); each kernel's time
            against its plain version, its library yardstick and its bound
            (K1 and K4 at M = 1, 2, 4 and 8 on their GEMV too; K2, K5 and K6
@@ -128,8 +144,10 @@ Phases (any failure ends the run with a nonzero exit code):
            graph's capture time and pool memory; peak device memory;
            rmsnorm_quant and decode_attention (DECODE_TIMING_CASES: the
            static engine's b1, the continuous engine's b8 / b16, paged, int8,
-           OPT-6.7B's heads, b8 over 4096 columns, b1 over 16K) beside their
-           plain versions, SDPA and their bounds
+           OPT-6.7B's heads, b8 over 4096 columns, b1 over 16K, Gemma-2B's
+           heads, Baichuan-2-13B's with ALiBi) and K3 at D 256 and with ALiBi
+           beside their plain versions, SDPA (ALiBi: its bias as a float
+           mask) and their bounds
 
 Every phase runs, in this order. The last two lines of standard output are
 the kernel table ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
@@ -145,7 +163,9 @@ ones, with f32 linear biases of std 0.1 and LayerNorm weights near 1 and
 biases near 0 (times 32, the folded input scale, where a pre-LN norm feeds
 an int8 projection); a post-LN OPT's q/k/v and fc1, whose inputs are
 LayerNorm outputs with no norm to fold into, quantize with a static scale
-of 1/32. OPT-6.7B's shape is the public facebook/opt-6.7b config.json.
+of 1/32. OPT-6.7B's shape is the public facebook/opt-6.7b config.json;
+Baichuan-2-13B's and Gemma-2B's are their public config.json files
+(draw_baichuan; Gemma through the Llama draws).
 """
 
 from __future__ import annotations
@@ -175,7 +195,7 @@ from autosmoothquant_tpu_torch.kernels.counters import launch_counters, read_cou
 PKG = "autosmoothquant_tpu_torch"
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "e2e", "serve", "batching", "paged", "speculative",
-          "http", "quantize", "timing")
+          "http", "quantize", "families", "timing")
 
 # NVIDIA H100 SXM data sheet (dense): HBM3 bandwidth and peak rates by type
 HBM_BYTES_PER_S = 3.35e12
@@ -200,6 +220,18 @@ OPT_350M_2L = dict(vocab_size=50272, hidden_size=1024, word_embed_proj_dim=512,
 OPT_GEMM_SHAPES = ((4096, 4096), (4096, 16384), (16384, 4096))  # (K, N)
 OPT_GEMM_NAMES = ("q|k|v|o", "fc1", "fc2")
 STATIC_FP8_AMAX = 16.0  # the static fp8 input scale is this / 448
+# Baichuan-2-13B (baichuan-inc/Baichuan2-13B-Base config.json: ALiBi, W_pack,
+# NormHead) and Gemma-2B (google/gemma-2b config.json: head_dim 256, one kv
+# head, gelu-tanh, tied head), the families phase's models at full width
+BAICHUAN_2_13B = dict(vocab_size=125696, hidden_size=5120, intermediate_size=13696,
+                      num_hidden_layers=40, num_attention_heads=40, model_max_length=4096,
+                      rms_norm_eps=1e-6)
+GEMMA_2B = dict(vocab_size=256000, hidden_size=2048, intermediate_size=16384,
+                num_hidden_layers=18, num_attention_heads=8, num_key_value_heads=1,
+                head_dim_override=256, max_position_embeddings=8192, rms_norm_eps=1e-6,
+                hidden_act="gelu_tanh", tie_word_embeddings=True)
+# their attention heads (Hq, Hkv, D), and Gemma-7B's (16 of 256, no GQA)
+GEMMA2B_HEADS, GEMMA7B_HEADS, BAICHUAN_HEADS = (8, 1, 256), (16, 16, 256), (40, 40, 128)
 # K3's two wrappers launch the same kernels: a profile reads their sum
 FLASH = "flash_attention+flash_attention_banded"
 # a graph's decode step runs at one of two speeds, the slower 10-16% slower
@@ -349,6 +381,59 @@ def draw_opt_float(cfg, seed, device, proj_dtype=None):
                "ln2": norm(), "mlp": {"fc1": w(D, F), "fc2": w(F, D)}}
               for _ in range(cfg.num_hidden_layers)]
     return {**_opt_common(cfg, randn), "layers": layers}
+
+
+def draw_baichuan(cfg, fmt, seed, device):
+    """Random Baichuan params in the port's layout, drawn layer by layer on
+    ``device`` from a seeded generator: "W8A8" as draw_w8a8 draws Llama's
+    (uniform int8 weights, scales that keep activations at unit scale
+    through any depth; W_pack's dequant scale a [3D] vector, ln1 and ln2 at
+    ACT_RMS, the folded input scale; o_proj and down_proj quantize at 1/64);
+    "fp8 e4m3" N(0, 1/K) weights through the port's own quantize (W_pack a
+    [3D] scale vector of its sections' scales), dynamic activations; each
+    with a bf16 embedding and the NormHead lm_head (bf16, its columns unit
+    vectors). "bf16": the module's own ``init_params``."""
+    import torch
+
+    from autosmoothquant_tpu_torch.models import baichuan as B
+    from autosmoothquant_tpu_torch.models.common import pack_fp8
+    from autosmoothquant_tpu_torch.quant.config import QuantConfig
+
+    if fmt == "bf16":
+        return B.init_params(cfg, seed, torch.bfloat16, device)
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    D, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    fp8 = QuantConfig(type="fp8_e4m3")
+
+    def proj(k, n, vector=False, scaled=False):
+        if fmt == "W8A8":
+            s = 1.0 / (math.sqrt(k) * ACT_RMS * INT8_RMS)
+            p = {"w": torch.randint(-127, 128, (n, k), dtype=torch.int8, device=device,
+                                    generator=g),
+                 "dequant_scale": torch.full((n,) if vector else (), s, dtype=torch.float32,
+                                             device=device)}
+            if scaled:
+                p["quant_scale"] = torch.tensor(1.0 / 64, dtype=torch.float32, device=device)
+            return p
+        w = torch.randn(k, n, generator=g, device=device) / math.sqrt(k)
+        return B._pack_wpack_fp8({"w": w}, fp8) if vector else pack_fp8({"w": w}, fp8)
+
+    def norm():
+        return {"w": torch.full((D,), ACT_RMS if fmt == "W8A8" else 1.0, dtype=torch.float32,
+                                device=device)}
+
+    layers = [{"ln1": norm(),
+               "attn": {"wpack": proj(D, 3 * D, vector=True), "o": proj(D, D, scaled=True)},
+               "ln2": norm(),
+               "mlp": {"gate": proj(D, I), "up": proj(D, I), "down": proj(I, D, scaled=True)}}
+              for _ in range(cfg.num_hidden_layers)]
+    lm = torch.randn(D, V, generator=g, device=device)
+    lm = (lm / torch.linalg.vector_norm(lm, dim=0, keepdim=True)).to(torch.bfloat16)
+    return {"embed": {"w": torch.randn(V, D, generator=g, device=device).to(torch.bfloat16)},
+            "layers": layers,
+            "final_norm": {"w": torch.ones(D, dtype=torch.float32, device=device)},
+            "lm_head": {"w": lm}}
 
 
 def to_device(node, device):
@@ -501,11 +586,18 @@ def run_gemm(c, plain=False):
               out_dtype=c["dt"])
 
 
-def flash_case(torch, b, t, s, hq, hkv, d, dtype, gen, pos=None, starts=None):
+def alibi_on_card(hq):
+    """Baichuan's ALiBi slopes for ``hq`` heads, on the card."""
+    from autosmoothquant_tpu_torch.models.baichuan import alibi_slopes
+
+    return alibi_slopes(hq).to("cuda")
+
+
+def flash_case(torch, b, t, s, hq, hkv, d, dtype, gen, pos=None, starts=None, alibi=False):
     q = torch.randn(b, t, hq, d, device="cuda", generator=gen).to(dtype)
     k = torch.randn(b, s, hkv, d, device="cuda", generator=gen).to(dtype)
     v = torch.randn(b, s, hkv, d, device="cuda", generator=gen).to(dtype)
-    c = dict(q=q, k=k, v=v, scale=1.0 / math.sqrt(d))
+    c = dict(q=q, k=k, v=v, scale=1.0 / math.sqrt(d), slopes=alibi_on_card(hq) if alibi else None)
     if pos is not None:
         c["pos"] = torch.tensor(pos, dtype=torch.int32, device="cuda")
         c["starts"] = torch.tensor(starts, dtype=torch.int32, device="cuda")
@@ -517,9 +609,10 @@ def run_flash(c, plain=False):
 
     if "pos" in c:
         fn = A.flash_attention_banded_plain if plain else A.flash_attention_banded
-        return fn(c["q"], c["k"], c["v"], c["pos"], c["starts"], sm_scale=c["scale"])
+        return fn(c["q"], c["k"], c["v"], c["pos"], c["starts"], sm_scale=c["scale"],
+                  alibi_slopes=c["slopes"])
     fn = A.flash_attention_plain if plain else A.flash_attention
-    return fn(c["q"], c["k"], c["v"], sm_scale=c["scale"])
+    return fn(c["q"], c["k"], c["v"], sm_scale=c["scale"], alibi_slopes=c["slopes"])
 
 
 FP8_VARIANTS = (
@@ -715,9 +808,17 @@ DECODE_LONG_COLS = 4096
 DECODE_LONG_TOL = {"f32": DECODE_TOL["f32"], "bf16": (1e-2, 1e-3)}
 
 
-def decode_tol(kind, kv_window):
+# f32 with ALiBi: the biased scores reach m_0 x 511 = 430 at 512 columns,
+# where an f32 step is 3e-5, and a score's last bit moves its probability by
+# as much (tests/test_torch_gpu.py; ALiBi's bf16 outputs keep DECODE_TOL)
+DECODE_ALIBI_F32_TOL = (1e-4, 1e-4)
+
+
+def decode_tol(kind, kv_window, alibi=False):
     """(rtol, atol) of decode attention's ``kind`` ("f32" or "bf16")
     outputs over ``kv_window`` columns (None: the cache's)."""
+    if alibi and kind == "f32":
+        return DECODE_ALIBI_F32_TOL
     return (DECODE_LONG_TOL if (kv_window or 0) >= DECODE_LONG_COLS else DECODE_TOL)[kind]
 
 
@@ -748,13 +849,27 @@ DECODE_TIMING_CASES = [
     ("b8 w4096", dict(b=8, kv_window=4096, heads=TINY_HEADS)),
     ("Llama-3-8B b1 16K pos 16383", dict(b=1, kv_window=16384, heads=LONG_HEADS, parked=0,
                                          pos0=16383)),
+    # head dim 256 (Gemma-2B's heads) and ALiBi (Baichuan-2-13B's) at the
+    # static engine's b1 and the continuous engine's b8
+    ("Gemma-2B b1 S512 pos 191", dict(b=1, kv_window=512, heads=GEMMA2B_HEADS, parked=0,
+                                      pos0=191)),
+    ("Gemma-2B b8 w512", dict(b=8, kv_window=512, heads=GEMMA2B_HEADS)),
+    ("Baichuan-2-13B ALiBi b1 S512 pos 191", dict(b=1, kv_window=512, heads=BAICHUAN_HEADS,
+                                                  parked=0, pos0=191, alibi=True)),
+    ("Baichuan-2-13B ALiBi b8 w512", dict(b=8, kv_window=512, heads=BAICHUAN_HEADS,
+                                          alibi=True)),
+    ("Baichuan-2-13B ALiBi paged b8 w512", dict(b=8, kv_window=512, heads=BAICHUAN_HEADS,
+                                                alibi=True, paged=True)),
+    ("Baichuan-2-13B ALiBi int8 b8 w512", dict(b=8, kv_window=512, heads=BAICHUAN_HEADS,
+                                               alibi=True, cache="int8")),
 ]
 
 
 def decode_library_call(torch, c):
     """One F.scaled_dot_product_attention computing decode attention on case
     ``c`` (bf16, contiguous): q length 1, enable_gqa, the bool mask of each
-    row's valid columns."""
+    row's valid columns; with ALiBi slopes a float mask instead, m_h * column
+    where valid and -inf elsewhere (built once, outside the timed call)."""
     import torch.nn.functional as F
 
     n = c["kv_window"]
@@ -762,12 +877,16 @@ def decode_library_call(torch, c):
     k4, v4 = c["k"][:, :n].transpose(1, 2), c["v"][:, :n].transpose(1, 2)
     col = torch.arange(n, device="cuda")
     mask = (col[None, :] <= c["pos"][:, None])[:, None, None, :]
+    if c.get("slopes") is not None:
+        bias = (c["slopes"][:, None] * col.float()[None, :])[None, :, None, :]
+        mask = torch.where(mask, bias, float("-inf")).to(q4.dtype)
     return lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
                                                   scale=c["scale"], enable_gqa=True)
 
 
 def decode_case(torch, b, kv_window, heads, gen, *, cache="bf16", q_dtype=None,
-                paged=False, window=0, valid=False, block=32, parked=1, s=None, pos0=None):
+                paged=False, window=0, valid=False, block=32, parked=1, s=None, pos0=None,
+                alibi=False):
     """decode_attention's inputs as an engine gives them: q [B, Hq, D], a
     cache of ``s`` (default kv_window + 1) slots a row in bf16, f32 or int8
     (with _quantize_kv's scales), each row at a random position below
@@ -775,7 +894,8 @@ def decode_case(torch, b, kv_window, heads, gen, *, cache="bf16", q_dtype=None,
     continuous engine: every scanned column valid), row 0 at ``pos0`` where
     given; paged: the same rows cut
     into blocks in shuffled pages behind a table with a scratch column (page
-    0); valid: kv_valid with each row's first few columns off (left pads)."""
+    0); valid: kv_valid with each row's first few columns off (left pads);
+    alibi: Baichuan's slopes for the Hq heads."""
     from autosmoothquant_tpu_torch.models.common import _quantize_kv
 
     hq, hkv, d = heads
@@ -785,7 +905,8 @@ def decode_case(torch, b, kv_window, heads, gen, *, cache="bf16", q_dtype=None,
     kf = torch.randn(b, s, hkv, d, device="cuda", generator=gen)
     vf = torch.randn(b, s, hkv, d, device="cuda", generator=gen)
     c = dict(q=q, scale=1.0 / math.sqrt(d), kv_window=kv_window, window=window, table=None,
-             k_scale=None, v_scale=None, kv_valid=None)
+             k_scale=None, v_scale=None, kv_valid=None,
+             slopes=alibi_on_card(hq) if alibi else None)
     if cache == "int8":
         (k, ks), (v, vs) = _quantize_kv(kf), _quantize_kv(vf)
         c.update(k_scale=ks, v_scale=vs)
@@ -834,7 +955,7 @@ def run_decode(c, plain=False, rows=None, fn=None):
               k_scale=cut(c["k_scale"]), v_scale=cut(c["v_scale"]),
               table=None if not paged else c["table"][:b],
               kv_valid=None if c["kv_valid"] is None else c["kv_valid"][:b],
-              window=c["window"], kv_window=c["kv_window"])
+              window=c["window"], kv_window=c["kv_window"], alibi_slopes=c["slopes"])
 
 
 def decode_shape(c):
@@ -1003,14 +1124,29 @@ def check_decode_attention(torch, results, gen):
               dict(b=2, kv_window=16384, heads=LONG_HEADS, parked=0),
               dict(b=2, kv_window=8192, heads=TINY_HEADS, paged=True, cache="int8",
                    block=64, parked=0),
-              dict(b=4, kv_window=4096, heads=TINY_HEADS, parked=0, s=8192)]
+              dict(b=4, kv_window=4096, heads=TINY_HEADS, parked=0, s=8192),
+              # head dim 256 (Gemma-2B: G = 8, one kv head; Gemma-7B: G = 1)
+              dict(b=1, kv_window=512, heads=GEMMA2B_HEADS, parked=0, pos0=511),
+              dict(b=8, kv_window=512, heads=GEMMA2B_HEADS),
+              dict(b=8, kv_window=512, heads=GEMMA2B_HEADS, paged=True, cache="int8"),
+              dict(b=4, kv_window=512, heads=GEMMA7B_HEADS, parked=0),
+              dict(b=4, kv_window=512, heads=GEMMA7B_HEADS, cache="f32", parked=0),
+              # ALiBi at Baichuan-2-13B's heads (40 of 128, G = 1): b1 and b8,
+              # contiguous, paged and an int8 cache, and at its 4096 columns
+              dict(b=1, kv_window=512, heads=BAICHUAN_HEADS, alibi=True, parked=0, pos0=511),
+              dict(b=8, kv_window=512, heads=BAICHUAN_HEADS, alibi=True),
+              dict(b=8, kv_window=512, heads=BAICHUAN_HEADS, alibi=True, paged=True),
+              dict(b=8, kv_window=512, heads=BAICHUAN_HEADS, alibi=True, cache="int8"),
+              dict(b=8, kv_window=512, heads=BAICHUAN_HEADS, alibi=True, cache="int8",
+                   paged=True),
+              dict(b=2, kv_window=4096, heads=BAICHUAN_HEADS, alibi=True, parked=0, s=4096)]
     worst = 0.0
     for kw in cases:
         c = decode_case(torch, gen=gen, **kw)
         out, ref = run_decode(c), run_decode(c, plain=True)
         torch.cuda.synchronize()
         kind = "f32" if out.dtype == torch.float32 else "bf16"
-        rtol, atol = decode_tol(kind, c["kv_window"])
+        rtol, atol = decode_tol(kind, c["kv_window"], c["slopes"] is not None)
         ok, err = _close(out, ref, rtol, atol)
         worst = max(worst, err)
         alone = run_decode(c, rows=1)
@@ -1194,6 +1330,22 @@ def phase_kernels(torch, results):
                                         pos=[0, 0, 0, 0], starts=[0, 32, 64, 95])),
         ("flash_attention_banded", dict(b=3, t=70, s=200, hq=8, hkv=8, d=80, dtype=f32,
                                         pos=[0, 50, 130], starts=[5, 0, 60])),
+        # head dim 256: Gemma-2B's heads (8 / 1) B1 T128 on both routes and
+        # banded, Gemma-7B's (16 / 16) at B4 T512
+        ("flash_attention", dict(b=1, t=128, s=128, hq=8, hkv=1, d=256, dtype=bf)),
+        ("flash_attention", dict(b=1, t=128, s=128, hq=8, hkv=1, d=256, dtype=f32)),
+        ("flash_attention", dict(b=4, t=512, s=512, hq=16, hkv=16, d=256, dtype=bf)),
+        ("flash_attention_banded", dict(b=4, t=128, s=512, hq=8, hkv=1, d=256, dtype=bf,
+                                        pos=[0, 100, 256, 384], starts=[0, 10, 0, 300])),
+        # ALiBi at Baichuan-2-13B's heads (40 / 40, D 128): causal B1 T128,
+        # banded B4 T128 over 512 columns, and the calibration's f32 route
+        ("flash_attention", dict(b=1, t=128, s=128, hq=40, hkv=40, d=128, dtype=bf,
+                                 alibi=True)),
+        ("flash_attention_banded", dict(b=4, t=128, s=512, hq=40, hkv=40, d=128, dtype=bf,
+                                        pos=[0, 100, 256, 384], starts=[0, 10, 0, 300],
+                                        alibi=True)),
+        ("flash_attention", dict(b=1, t=512, s=512, hq=40, hkv=40, d=128, dtype=f32,
+                                 alibi=True)),
     ]
     worst = {"flash_attention": 0.0, "flash_attention_banded": 0.0}
     for name, kw in flash_cases:
@@ -1201,7 +1353,8 @@ def phase_kernels(torch, results):
         out, ref = run_flash(c), run_flash(c, plain=True)
         torch.cuda.synchronize()
         rows = valid_rows(torch, c)
-        rtol, atol = tol[kw["dtype"]]
+        rtol, atol = (DECODE_ALIBI_F32_TOL if kw.get("alibi") and kw["dtype"] == f32
+                      else tol[kw["dtype"]])
         ok, err = _close(out[rows], ref[rows], rtol, atol)
         masked_zero = (int(torch.count_nonzero(out[~rows])) == 0
                        and out.shape == c["q"].shape)
@@ -1358,6 +1511,16 @@ E2E_QUANT_LIMITS = {"fp8 e4m3 dynamic": (0.8, 0.06, 0.3),
 # that noise a fault
 E2E_OPT_LIMITS = {"OPT pre-LN W8A8": (0.25, 7e-3, E2E_TIE_MARGIN),
                   "OPT post-LN W8A8": (0.25, 7e-3, E2E_TIE_MARGIN)}
+# (max, mean, near-tie margin) of the 2-layer Baichuan-2-13B-width (ALiBi,
+# NormHead: logit std 1) and Gemma-2B-width (head dim 256, logit std 2)
+# models, set from this comparison's readings on an H100 (700 W) at about
+# 2-3x them: Baichuan W8A8 max 0.0652, mean 0.00193, tokens 96/96 equal;
+# fp8 e4m3 dynamic 0.195 / 0.0165, tokens parted at CPU margins up to 0.146;
+# Gemma W8A8 0.134 / 0.00663, tokens 96/96 equal
+E2E_FAMILY_LIMITS = {"Baichuan-2-13B W8A8": (0.15, 5e-3, E2E_TIE_MARGIN),
+                     "Baichuan-2-13B fp8 e4m3 dynamic": (0.5, 0.04, 0.3),
+                     "Gemma-2B W8A8": (0.3, 0.015, E2E_TIE_MARGIN)}
+FAMILY_E2E_NEW = 8  # their greedy runs' new tokens
 
 
 def e2e_models(torch, cfg):
@@ -1378,10 +1541,12 @@ def e2e_models(torch, cfg):
 
 
 def phase_e2e(torch):
-    """2 layers at TinyLlama width in each format, and 2-layer W8A8 OPTs
+    """2 layers at TinyLlama width in each format, 2-layer W8A8 OPTs
     (pre-LN at OPT-1.3B width, post-LN with project_in/out at OPT-350m
-    width): card against CPU with the same weights, f32 activations and KV
-    cache so the comparison isolates the kernels.
+    width), and 2 layers at Baichuan-2-13B width (ALiBi; W8A8 and fp8 e4m3
+    dynamic) and at Gemma-2B width (head dim 256; W8A8): card against CPU
+    with the same weights, f32 activations and KV cache so the comparison
+    isolates the kernels.
 
     A quantized model turns last-bit differences (a reduction summed in
     another order) into whole quantization steps wherever a value sits near a
@@ -1392,6 +1557,8 @@ def phase_e2e(torch):
     way: E2E_TIE_MARGIN for W8A8 and int4, wider for fp8, whose logit noise
     is wider). Every format's readings are printed before any limit is
     enforced."""
+    from autosmoothquant_tpu_torch.models import baichuan as B
+    from autosmoothquant_tpu_torch.models import gemma as G
     from autosmoothquant_tpu_torch.models import llama as L
     from autosmoothquant_tpu_torch.models import opt as O
     from autosmoothquant_tpu_torch.quant.config import QuantConfig
@@ -1413,17 +1580,42 @@ def phase_e2e(torch):
             torch, O, ocfg, label, QuantConfig(type="int8"),
             draw_opt_w8a8(ocfg, seed=7, device="cpu"), E2E_OPT_LIMITS[label],
             ragged, equal, f"2-layer, hidden {ocfg.hidden_size}")
+    # Baichuan-2-13B's width (ALiBi, W_pack, the NormHead) in W8A8 and fp8
+    # e4m3 dynamic, and Gemma-2B's (head dim 256, one kv head, gelu-tanh) in
+    # W8A8, drawn on the card (faster) and copied to the CPU, with their
+    # 125696- and 256000-word embedding and lm_head in f32 on both sides (a
+    # bf16 lm_head is widened on every CPU product: 2.6 GB a step); greedy
+    # runs of FAMILY_E2E_NEW tokens (the CPU's side takes most of the phase)
+    def cpu_copy(params):
+        params = {**params, "embed": {"w": params["embed"]["w"].float()},
+                  "lm_head": {"w": params["lm_head"]["w"].float()}}
+        return to_device(params, "cpu")
+
+    bcfg = B.BaichuanConfig(**{**BAICHUAN_2_13B, "num_hidden_layers": 2})
+    for fmt, draw, qcfg in (("W8A8", "W8A8", QuantConfig(type="int8")),
+                            ("fp8 e4m3 dynamic", "fp8 e4m3", QuantConfig(type="fp8_e4m3"))):
+        label = f"Baichuan-2-13B {fmt}"
+        failures += e2e_compare(torch, B, bcfg, label, qcfg,
+                                cpu_copy(draw_baichuan(bcfg, draw, seed=7, device="cuda")),
+                                E2E_FAMILY_LIMITS[label], ragged, equal, "2-layer",
+                                FAMILY_E2E_NEW)
+    gcfg = L.LlamaConfig(**{**GEMMA_2B, "num_hidden_layers": 2})
+    failures += e2e_compare(torch, G, gcfg, "Gemma-2B W8A8", QuantConfig(type="int8"),
+                            cpu_copy(draw_w8a8(gcfg, seed=7, device="cuda")),
+                            E2E_FAMILY_LIMITS["Gemma-2B W8A8"], ragged, equal, "2-layer",
+                            FAMILY_E2E_NEW)
     require(not failures, "; ".join(failures))
 
 
 def e2e_compare(torch, L, cfg, label, qcfg, params_cpu, limits, ragged, equal,
-                desc):
-    """One format's card-vs-CPU readings (L: the family module); returns the
-    limits it broke."""
+                desc, new_tokens=16):
+    """One format's card-vs-CPU readings (L: the family module; greedy runs
+    of ``new_tokens``); returns the limits it broke."""
     from autosmoothquant_tpu_torch.serve.engine import Engine, GenerationConfig
 
+    t0 = time.perf_counter()
     params_gpu = to_device(params_cpu, "cuda")
-    gen_cfg = GenerationConfig(max_new_tokens=16)
+    gen_cfg = GenerationConfig(max_new_tokens=new_tokens)
     out, engines = {}, {}
     for dev, params in (("cpu", params_cpu), ("cuda", params_gpu)):
         eng = Engine(L, params, cfg, qcfg, max_batch=4, max_seq=128,
@@ -1451,7 +1643,7 @@ def e2e_compare(torch, L, cfg, label, qcfg, params_cpu, limits, ragged, equal,
     diff = (out["cuda"]["logits"] - out["cpu"]["logits"]).abs()
     err, mean_err = float(diff.max()), float(diff.mean())
     finite = bool(torch.isfinite(out["cuda"]["logits"]).all())
-    fused = "qkv" in engines["cuda"].params["layers"][0]["attn"]
+    fused = any(k in engines["cuda"].params["layers"][0]["attn"] for k in ("qkv", "wpack"))
     log(f"  e2e {label} ({'fused' if fused else 'unfused'}) {desc}, f32: "
         f"prefill logits |card-cpu| max {err:.3g} (limit {limits[0]}), "
         f"mean {mean_err:.3g} (limit {limits[1]}); logit std "
@@ -1487,7 +1679,7 @@ def e2e_compare(torch, L, cfg, label, qcfg, params_cpu, limits, ragged, equal,
                                 f"{batch} row {i} where the CPU's margin {margin} "
                                 f"is not a near-tie")
     log(f"  e2e {label} greedy tokens equal before any near-tie: {same}/{total} "
-        f"identical; ragged row 0 {out['cuda']['ragged'][0]}")
+        f"identical; ragged row 0 {out['cuda']['ragged'][0]}; {time.perf_counter() - t0:.1f} s")
     return failures
 
 
@@ -3915,6 +4107,214 @@ def phase_quantize(torch, results, smi_line):
     require(not failures, "; ".join(failures))
 
 
+# ---------------------------------------------------------------------------
+# the Gemma and Baichuan families at full width
+# ---------------------------------------------------------------------------
+
+# each path of the families phase: (family, weight format); b1, prompt 128,
+# 64 decode steps (65 new tokens), greedy, graph decode
+FAMILY_PATHS = (("baichuan", "W8A8"), ("baichuan", "fp8 e4m3"), ("baichuan", "bf16"),
+                ("gemma", "W8A8"), ("gemma", "bf16"))
+FAMILY_NAMES = {"baichuan": "Baichuan-2-13B", "gemma": "Gemma-2B"}
+FAMILY_PROMPT, FAMILY_NEW = 128, 64
+# the continuous and paged correctness arm: Baichuan-2-13B's width (ALiBi)
+# at 4 of its 40 layers, W8A8, a 96-token prefix and 6 requests
+FAMILY_ARM_LAYERS = 4
+FAMILY_ARM = dict(max_batch=8, max_seq=1024, steps_per_sync=8, prefill_chunk=64)
+
+
+def family_model(torch, family, fmt, layers=None, seed=5):
+    """(family module, config, QuantConfig, params on the card) of a
+    families path at full width (``layers``: fewer of them)."""
+    from autosmoothquant_tpu_torch.models import baichuan as B
+    from autosmoothquant_tpu_torch.models import gemma as G
+    from autosmoothquant_tpu_torch.quant.config import QuantConfig
+
+    qcfg = {"W8A8": QuantConfig(type="int8"), "fp8 e4m3": QuantConfig(type="fp8_e4m3"),
+            "bf16": None}[fmt]
+    depth = {"num_hidden_layers": layers} if layers else {}
+    if family == "baichuan":
+        cfg = B.BaichuanConfig(**{**BAICHUAN_2_13B, **depth})
+        return B, cfg, qcfg, draw_baichuan(cfg, fmt, seed, "cuda")
+    cfg = G.LlamaConfig(**{**GEMMA_2B, **depth})
+    params = (draw_w8a8(cfg, seed, "cuda") if fmt == "W8A8"
+              else draw_float(cfg, seed, "cuda"))
+    return G, cfg, qcfg, params
+
+
+def family_counts(family, fmt, layers):
+    """(host launches of a b1 T128 prefill, launches of one decode step) of a
+    families path. Baichuan runs 5 GEMMs a layer (W_pack, o, gate, up, down;
+    its gate and up unfused, as JAX runs them) and, in W8A8, both norms of a
+    layer through rmsnorm_quant; Gemma (the Llama module) fuses q|k|v and
+    gate|up (4 GEMMs a layer) and runs its second norm in K2 (W8A8). Every
+    forward's final norm is rmsnorm_quant's norm mode; prefill runs K3
+    causal once a layer, a decode step decode attention once a layer; bf16
+    projections are library GEMMs."""
+    gemms = (5 if family == "baichuan" else 4) * layers
+    prefill, step = {"flash_attention": layers}, {"decode_attention": layers}
+    norms = {"rmsnorm_quant": 1, "rmsnorm_quant_norm": 1}
+    if fmt == "W8A8":
+        norms["rmsnorm_quant"] += (2 if family == "baichuan" else 1) * layers
+        prefill.update(int8_matmul=gemms, int8_matmul_tc=gemms)
+        step.update(int8_matmul=gemms, int8_matmul_gemv=gemms)
+        if family == "gemma":
+            for counts in (prefill, step):
+                counts.update(fused_add_rmsnorm_quant=layers,
+                              fused_add_rmsnorm_quant_vec=layers)
+    elif fmt == "fp8 e4m3":
+        prefill.update(fp8_matmul=gemms, fp8_matmul_tc=gemms)
+        step.update(fp8_matmul=gemms, fp8_matmul_gemv=gemms)
+    return {**prefill, **norms}, {**step, **norms}
+
+
+def step_bytes(params):
+    """Bytes a b1 decode step must read: every layer's weights, scales and
+    norms and the lm_head once (the embedding's one row and the cache's few
+    hundred keys left out)."""
+    leaves_of = [t for _, t in leaves(params["layers"])]
+    leaves_of += [params["lm_head"]["w"], params["final_norm"]["w"]]
+    return sum(t.numel() * t.element_size() for t in leaves_of)
+
+
+def phase_families(torch, results):
+    """Gemma-2B and Baichuan-2-13B at full width and depth, random weights
+    from seeded generators on the card, one model at a time: Baichuan-2-13B
+    (ALiBi: K3 and decode attention with slopes) in W8A8, fp8 e4m3 and bf16,
+    Gemma-2B (head dim 256) in W8A8 and bf16. Each path: Engine.generate at
+    b1, prompt 128, 65 new tokens, greedy, decode from a CUDA graph, counted
+    (set to 0 just before, read just after): host launches exactly
+    family_counts' prefill plus the warm-up step and the capture; the
+    device's launches a replay exactly one step's (a profile of replays);
+    then decode tok/s (bench.decode_tps: best of 3), replay ms (CUDA events
+    over 50 replays), the replay's device-busy ms and idle share (the
+    profiler over 5) and the step's byte bound. Then the ALiBi correctness
+    arm (family_batching_arm)."""
+    from autosmoothquant_tpu_torch.serve.engine import Engine, GenerationConfig
+
+    rng = torch.Generator().manual_seed(29)
+    counters = launch_counters()
+    for family, fmt in FAMILY_PATHS:
+        t0 = time.perf_counter()
+        M, cfg, qcfg, params = family_model(torch, family, fmt)
+        name = f"{FAMILY_NAMES[family]} {fmt}"
+        layers = cfg.num_hidden_layers
+        prompt = [torch.randint(0, cfg.vocab_size, (FAMILY_PROMPT,), generator=rng).tolist()]
+        eng = Engine(M, params, cfg, qcfg, max_batch=1, max_seq=512, kv_dtype=torch.bfloat16,
+                     compute_dtype=torch.bfloat16, device="cuda")
+        torch.cuda.synchronize()
+        drawn = time.perf_counter() - t0
+        reset_counts(counters)
+        toks = eng.generate(prompt, GenerationConfig(max_new_tokens=FAMILY_NEW + 1))[0]
+        counts = read_counts(counters)
+        prefill, step = family_counts(family, fmt, layers)
+        want = serve_counts(prefill, step, 2)
+        (captured,) = eng.graphs.values()
+        require(len(toks) == FAMILY_NEW + 1 and all(0 <= t < cfg.vocab_size for t in toks)
+                and bool(torch.isfinite(eng.last_logits).all()),
+                f"{name}: {len(toks)} tokens, in range and finite logits expected")
+        for key, count in want.items():
+            require(counts[key] == count, f"{name}: {key} launched {counts[key]} times from "
+                    f"the host; expected {count}")
+        others = {k: v for k, v in counts.items() if k not in want and v}
+        require(not others, f"{name}: unexpected launches {others}")
+        require(eng.replays == FAMILY_NEW - 1, f"{name}: {eng.replays} replays; expected "
+                f"{FAMILY_NEW - 1} (the warm-up step ran the first step)")
+        # bf16 projections are library GEMMs (5 or 4 a layer); a quantized
+        # replay runs none past the lm_head's
+        gemms = (5 if family == "baichuan" else 4) * layers
+        per_replay = replay_counts(torch, captured.graph,
+                                   lm_heads=1 + (gemms if fmt == "bf16" else 0))
+        want_replay = {**dict.fromkeys(DEVICE_READS, 0), **as_device_reads(step)}
+        require(per_replay == want_replay, f"{name}: {per_replay} device launches a replay; "
+                f"expected {want_replay}")
+        tps = decode_tps(eng, prompt)
+        replay_ms = timed_replays(torch, captured.graph)
+        _, busy = device_profile(torch, captured.graph.replay,
+                                 f"decode step ({name}, b1, graph replay)", replay_ms, reps=5)
+        nbytes = step_bytes(params)
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        log(json.dumps({"path": f"families {name}", "host launches": counts,
+                        "device launches a replay": per_replay}))
+        log(f"  families {name}: {layers} layers, drawn in {drawn:.1f} s; b1 prompt "
+            f"{FAMILY_PROMPT}, {FAMILY_NEW} steps, graph: {tps:.2f} tok/s; a replay "
+            f"{replay_ms:.3f} ms (busy {busy:.3f}, idle {1 - busy / replay_ms:.3f}); step "
+            f"bytes {nbytes / 1e9:.3f} GB, bound {b_ms:.3f} ms, {1e3 / b_ms:.1f} tok/s "
+            f"(achieved {b_ms / replay_ms:.3f} of it); capture {captured.capture_ms:.1f} ms; "
+            f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+            f"{time.perf_counter() - t0:.1f} s; tokens {toks[:8]}")
+        results["decode_attention"].setdefault("families_launches_a_replay", {})[name] = \
+            per_replay["decode_attention"]
+        del eng, params, captured
+        torch.cuda.empty_cache()
+    family_batching_arm(torch)
+
+
+def family_batching_arm(torch):
+    """Baichuan-2-13B's width (ALiBi) at FAMILY_ARM_LAYERS layers, W8A8,
+    through ContinuousEngine and PagedEngine (pages of PAGE_BLOCK, the radix
+    tree on), eager and graph: a 96-token prefix registered and 6 greedy
+    requests (2 on the prefix; prompts of 17-300 tokens, chunked prefill
+    of 64: causal and banded K3 with the slopes, decode attention contiguous
+    and paged). Every request's tokens equal the static Engine's b1 greedy
+    tokens, graph and eager; the eager engines' logits at every step equal
+    the static engine's bit for bit (BATCH_LOGIT_NOISE 0)."""
+    from autosmoothquant_tpu_torch.serve.batching import ContinuousEngine
+    from autosmoothquant_tpu_torch.serve.engine import Engine, GenerationConfig
+    from autosmoothquant_tpu_torch.serve.paged import PagedEngine
+
+    t0 = time.perf_counter()
+    M, cfg, qcfg, params = family_model(torch, "baichuan", "W8A8", FAMILY_ARM_LAYERS, seed=9)
+    rng = torch.Generator().manual_seed(31)
+
+    def toks(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
+    prefix = toks(PREFIX_LEN)
+    reqs = [(f"prefix{i}", prefix + toks(n), dict(max_new_tokens=budget, prefix="sys"))
+            for i, (n, budget) in enumerate(((20, 32), (130, 16)))]
+    reqs += [(f"plain{i}", toks(n), dict(max_new_tokens=budget))
+             for i, (n, budget) in enumerate(((17, 40), (64, 24), (300, 12), (77, 32)))]
+    kw = dict(kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16, device="cuda")
+    static = Engine(M, params, cfg, qcfg, max_batch=1, max_seq=FAMILY_ARM["max_seq"],
+                    cuda_graph=False, **kw)
+    ref = {uid: static_logits(torch, static, p, GenerationConfig(
+        max_new_tokens=r_kw["max_new_tokens"])) for uid, p, r_kw in reqs}
+    del static
+    for kind, cls, extra in (("continuous", ContinuousEngine, {}),
+                             ("paged", PagedEngine, {"block_size": PAGE_BLOCK})):
+        noise = 0.0
+        for graph in (False, True):
+            eng = cls(M, params, cfg, qcfg, cuda_graph=graph, **FAMILY_ARM, **extra, **kw)
+            rec = None if graph else record_logits(eng)
+            eng.register_prefix("sys", prefix)
+            handles = {uid: eng.submit(uid, p, **r_kw) for uid, p, r_kw in reqs}
+            ticks = 0
+            while not all(h.done for h in handles.values()):
+                eng.step()
+                ticks += 1
+                require(ticks < 1000, f"the {kind} ALiBi arm did not finish in 1000 ticks")
+            out = {uid: list(h.output) for uid, h in handles.items()}
+            same = [uid for uid in ref if out[uid] == ref[uid][0]]
+            if rec is not None:
+                for uid, (want, logits) in ref.items():
+                    steps = min(len(want), len(rec[uid]))
+                    noise = max([noise] + [float((rec[uid][i] - logits[i]).abs().max())
+                                           for i in range(steps)])
+            log(f"  families ALiBi arm ({FAMILY_ARM_LAYERS}-layer Baichuan-2-13B W8A8) {kind} "
+                f"{'graph' if graph else 'eager'}: {ticks} ticks; tokens equal the static b1 "
+                f"engine's on {len(same)}/{len(ref)} requests"
+                + ("" if graph else f"; max |logit diff| to its {noise:g} (limit "
+                                    f"{BATCH_LOGIT_NOISE})"))
+            require(len(same) == len(ref), f"{kind} ALiBi arm: tokens differ from the static "
+                    f"engine's on {sorted(set(ref) - set(same))}")
+            require(noise <= BATCH_LOGIT_NOISE, f"{kind} ALiBi arm: logits differ from the "
+                    f"static engine's by {noise}")
+            del eng
+    log(f"  families ALiBi arm: {time.perf_counter() - t0:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+
+
 def pad_rows(torch, x, multiple):
     """x with zero rows appended up to a multiple of ``multiple`` rows (at
     least that many): the shapes torch._int_mm and torch._scaled_mm take."""
@@ -4117,7 +4517,19 @@ def phase_timing(torch, results, engines):
                                             starts=[0, 32, 64, 95], hq=32, hkv=32,
                                             d=128)),
             ("flash_attention", dict(b=1, t=128, s=128, hq=32, hkv=32, d=80)),
-            ("flash_attention", dict(b=8, t=512, s=512, dtype=torch.float32))):
+            ("flash_attention", dict(b=8, t=512, s=512, dtype=torch.float32)),
+            # head dim 256: Gemma-2B's heads (8 / 1) B1 T128, bf16 and f32, and
+            # Gemma-7B's (16 / 16) B4 T512; ALiBi at Baichuan-2-13B's heads
+            # (40 / 40, D 128) causal B1 T128 and banded B4 T128 over 512
+            # columns (SDPA beside them with the bias as a float mask)
+            ("flash_attention", dict(b=1, t=128, s=128, hq=8, hkv=1, d=256)),
+            ("flash_attention", dict(b=1, t=128, s=128, hq=8, hkv=1, d=256,
+                                     dtype=torch.float32)),
+            ("flash_attention", dict(b=4, t=512, s=512, hq=16, hkv=16, d=256)),
+            ("flash_attention", dict(b=1, t=128, s=128, hq=40, hkv=40, d=128, alibi=True)),
+            ("flash_attention_banded", dict(b=4, t=128, s=512, pos=[0, 0, 0, 0],
+                                            starts=[0, 32, 64, 95], hq=40, hkv=40,
+                                            d=128, alibi=True))):
         kw = {"hq": 32, "hkv": 4, "d": 64, "dtype": bf, **kw}
         dt = kw.pop("dtype")
         kind = "f32" if dt == torch.float32 else "bf16"
@@ -4125,12 +4537,16 @@ def phase_timing(torch, results, engines):
         ms = timer.ms(lambda: run_flash(c))
         plain_ms = timer.ms(lambda: run_flash(c, plain=True), iters=10)
         qt, kt, vt = (c[x].transpose(1, 2) for x in ("q", "k", "v"))
-        if "pos" in c:
-            t, s = kw["t"], kw["s"]
+        t, s = kw["t"], kw["s"]
+        if "pos" in c or c["slopes"] is not None:
             i = torch.arange(t, device="cuda")[None, :, None]
             j = torch.arange(s, device="cuda")[None, None, :]
-            mask = ((j <= c["pos"][:, None, None] + i)
-                    & (j >= c["starts"][:, None, None]))[:, None]
+            p0 = c["pos"][:, None, None] if "pos" in c else 0
+            mask = ((j <= p0 + i) & (j >= (c["starts"][:, None, None] if "pos" in c else 0))
+                    )[:, None]
+            if c["slopes"] is not None:
+                bias = c["slopes"][None, :, None, None] * j[:, None].float()
+                mask = torch.where(mask, bias, float("-inf")).to(dt)
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 qt, kt, vt, attn_mask=mask, scale=c["scale"], enable_gqa=True)
         else:
@@ -4139,7 +4555,8 @@ def phase_timing(torch, results, engines):
         lib_ms = timer.ms(lib)
         ops, nbytes = flash_ops_bytes(torch, c)
         b_ms, b_by = bound(nbytes, ops, kind)
-        desc = " ".join(f"{k}={v}" for k, v in kw.items())
+        desc = " ".join(f"{k}={v}" for k, v in kw.items() if k != "alibi")
+        desc += " ALiBi" if kw.get("alibi") else ""
         row = dict(shape=f"{desc} {kind}", ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                    bound_ms=b_ms, bound_by=b_by)
         pad = ""
@@ -4588,6 +5005,8 @@ def main():
                 phase_http(torch, results, direct, smi_line)
             elif phase == "quantize":
                 phase_quantize(torch, results, smi_line)
+            elif phase == "families":
+                phase_families(torch, results)
             elif phase == "timing":
                 phase_timing(torch, results, engines)
             log(f"== {phase} done in {time.perf_counter() - t0:.1f} s")

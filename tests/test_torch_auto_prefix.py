@@ -22,7 +22,7 @@ from autosmoothquant_tpu_torch.convert.from_jax import params_from_jax
 from autosmoothquant_tpu_torch.models import llama as TL
 from autosmoothquant_tpu_torch.serve.paged import PagedEngine
 
-from test_torch_util import port_config, to_numpy_tree
+from test_torch_util import one_torch_thread, port_config, to_numpy_tree  # noqa: F401
 
 TINY = dict(vocab_size=256, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
             num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=256)

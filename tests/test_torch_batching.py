@@ -13,7 +13,8 @@ import torch
 
 from autosmoothquant_tpu_torch.serve import engine as TE
 
-from test_torch_util import ARMS, MAX_SEQ, batching_models, pair, port, prompts_of, run_both
+from test_torch_util import (ARMS, MAX_SEQ, batching_models, one_torch_thread,  # noqa: F401
+                             pair, port, prompts_of, run_both)
 
 
 @pytest.fixture(scope="module")

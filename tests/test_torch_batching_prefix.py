@@ -11,7 +11,8 @@ import torch
 from autosmoothquant_tpu_torch.serve import batching as TB
 from autosmoothquant_tpu_torch.serve import engine as TE
 
-from test_torch_util import ARMS, KV, MAX_SEQ, batching_models, pair, port, prompts_of, run_both
+from test_torch_util import (ARMS, KV, MAX_SEQ, batching_models,  # noqa: F401
+                             one_torch_thread, pair, port, prompts_of, run_both)
 
 
 @pytest.fixture(scope="module")

@@ -14,7 +14,7 @@ from autosmoothquant_tpu_torch.convert.from_jax import params_from_jax
 from autosmoothquant_tpu_torch.models import llama as TL
 from autosmoothquant_tpu_torch.serve import engine as TE
 
-from test_torch_util import jax_llama, port_config, port_qcfg, to_numpy_tree
+from test_torch_util import jax_llama, one_torch_thread, port_config, port_qcfg, to_numpy_tree  # noqa: F401
 
 RAGGED = [[5, 9, 1, 77, 3, 8, 100, 12, 40], [7, 7, 2], [300, 1, 2, 3, 4, 5]]
 UNPADDED = [[11, 22, 33, 44, 55, 66], [6, 5, 4, 3, 2, 1]]

@@ -1587,3 +1587,149 @@ def test_verify_writes_stay_in_each_rows_own_slots_on_the_card(cuda_device, page
     check_verify_writes(eng, 4)
     torch.cuda.synchronize()
     assert eng.graphs
+
+
+def _alibi(hq, device):
+    from autosmoothquant_tpu_torch.models.baichuan import alibi_slopes
+
+    return alibi_slopes(hq).to(device)
+
+
+@pytest.mark.parametrize("heads,b,t,s", [
+    ((8, 1, 256), 1, 128, 128),      # Gemma-2B: G = 8, D 256
+    ((16, 16, 256), 2, 200, 200),    # Gemma-7B: G = 1, D 256
+    ((40, 40, 128), 1, 128, 128),    # Baichuan-2-13B: G = 1, D 128
+], ids=["gemma2b", "gemma7b", "baichuan13b"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("banded", [False, True])
+@pytest.mark.parametrize("alibi", [False, True])
+def test_flash_attention_head_dim_256_and_alibi(cuda_device, heads, b, t, s, dtype, banded,
+                                                alibi):
+    """K3 at width 256 (Gemma: Q read from shared memory, 32-key tiles on
+    the bf16 route; 128 KB of shared memory on the f32 route) and with ALiBi
+    slopes (m_h * key column after the scale, before the mask), causal and
+    banded (chunks at cache slots 0, 37, ... over rows of s + 64 columns,
+    the first columns before ``starts`` masked), against the plain version
+    at the usual tolerances (f32 atol 2e-5 + rtol 1e-5, bf16 atol 1.6e-2 +
+    rtol 1e-2)."""
+    hq, hkv, d = heads
+    g = _gen(hq + d + 3 * banded + alibi)
+    cols = s + 64 if banded else t
+    q = torch.randn(b, t, hq, d, device=cuda_device, generator=g).to(dtype)
+    k = torch.randn(b, cols, hkv, d, device=cuda_device, generator=g).to(dtype)
+    v = torch.randn(b, cols, hkv, d, device=cuda_device, generator=g).to(dtype)
+    slopes = _alibi(hq, cuda_device) if alibi else None
+    atol, rtol = (1.6e-2, 1e-2) if dtype == torch.bfloat16 else (2e-5, 1e-5)
+    if banded:
+        pos = torch.tensor([37 * i for i in range(b)], dtype=torch.int32, device=cuda_device)
+        starts = torch.tensor([5 * i for i in range(b)], dtype=torch.int32, device=cuda_device)
+        got = A.flash_attention_banded(q, k, v, pos, starts, sm_scale=d ** -0.5,
+                                       alibi_slopes=slopes)
+        ref = A.flash_attention_banded_plain(q, k, v, pos, starts, sm_scale=d ** -0.5,
+                                             alibi_slopes=slopes)
+        rows = (pos[:, None] + torch.arange(t, device=cuda_device)[None]) >= starts[:, None]
+    else:
+        got = A.flash_attention(q, k, v, sm_scale=d ** -0.5, alibi_slopes=slopes)
+        ref = A.flash_attention_plain(q, k, v, sm_scale=d ** -0.5, alibi_slopes=slopes)
+        rows = torch.ones(b, t, dtype=torch.bool, device=cuda_device)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[rows].float(), ref[rows].float(), rtol=rtol, atol=atol)
+
+
+def _decode_operands(heads, b, s, cache, paged, seed, bs=32):
+    """q, k, v, k_scale, v_scale, table of a decode attention case: rows of
+    s columns (int8: quantized per token and head), or the same rows cut
+    into shuffled pages of bs behind a table (page 0 the scratch page)."""
+    from autosmoothquant_tpu_torch.models.common import _quantize_kv
+
+    hq, hkv, d = heads
+    g = _gen(seed)
+    qd = torch.float32 if cache == "f32" else torch.bfloat16
+    q = torch.randn(b, hq, d, device="cuda", generator=g).to(qd)
+    kf, vf = (torch.randn(b, s, hkv, d, device="cuda", generator=g) for _ in range(2))
+    if cache == "int8":
+        (k, ks), (v, vs) = _quantize_kv(kf), _quantize_kv(vf)
+    else:
+        k, v, ks, vs = kf.to(qd), vf.to(qd), None, None
+    table = None
+    if paged:
+        m = -(-s // bs)
+        perm = torch.randperm(b * m, device="cuda", generator=g) + 1
+        table = torch.zeros((b, m + 1), dtype=torch.int32, device="cuda")
+        table[:, :m] = perm.reshape(b, m).int()
+        pad = lambda x: torch.cat([x, x.new_zeros((b, m * bs - s, *x.shape[2:]))], 1)  # noqa: E731
+        k, v, ks, vs = (None if x is None else _paged_copy(pad(x), b, m, bs, perm)
+                        for x in (k, v, ks, vs))
+    return q, k, v, ks, vs, table
+
+
+@pytest.mark.parametrize("heads,cache,paged,alibi", [
+    ((8, 1, 256), "bf16", False, False),     # Gemma-2B
+    ((8, 1, 256), "bf16", True, False),
+    ((8, 1, 256), "int8", False, False),
+    ((16, 16, 256), "f32", False, False),    # Gemma-7B heads, f32: 2-chunk rounds
+    ((40, 40, 128), "bf16", False, True),    # Baichuan-2-13B, ALiBi
+    ((40, 40, 128), "bf16", True, True),
+    ((40, 40, 128), "int8", False, True),
+    ((40, 40, 128), "f32", True, True),
+    ((8, 1, 256), "bf16", True, True),       # D 256 and ALiBi together
+], ids=["gemma2b-bf16", "gemma2b-paged", "gemma2b-int8", "gemma7b-f32", "baichuan-bf16",
+        "baichuan-paged", "baichuan-int8", "baichuan-paged-f32", "d256-alibi-paged"])
+def test_decode_attention_head_dim_256_and_alibi(cuda_device, heads, cache, paged, alibi):
+    """Decode attention at D = 256 (a lane's pieces of 8 columns run to 8)
+    and with ALiBi slopes (m_h * the key's position: the cache slot, or the
+    logical position through the page table), b8 over 512 columns, rows at
+    positions up to 511: within the plain version's tolerance (f32 1e-5;
+    bf16 atol 1.6e-2 + rtol 1e-2; f32 with ALiBi 1e-4: the biased scores
+    reach m_0 * 511 = 430, where an f32 step is 3e-5, and a score's rounding
+    moves its probability by as much), each row bit-equal alone and in the
+    batch, and the scores recomputed bit-equal to kept."""
+    hq, hkv, d = heads
+    b, s = 8, 512
+    q, k, v, ks, vs, table = _decode_operands(heads, b, s, cache, paged, hq + d + alibi)
+    pos = torch.randint(0, s, (b,), device="cuda", generator=_gen(5))
+    pos[0] = s - 1
+    slopes = _alibi(hq, "cuda") if alibi else None
+
+    def run(fn, rows):
+        cut = (lambda x: x) if paged else (lambda x: None if x is None else x[:rows])
+        return fn(q[:rows], cut(k), cut(v), pos[:rows], scale=d ** -0.5, k_scale=cut(ks),
+                  v_scale=cut(vs), table=None if table is None else table[:rows],
+                  kv_window=s, alibi_slopes=slopes)
+    before = A.decode_attention.launches
+    out, ref = run(A.decode_attention, b), run(A.decode_attention_plain, b)
+    assert A.decode_attention.launches == before + 1
+    f32_tol = 1e-4 if alibi else 1e-5
+    tol = (dict(rtol=f32_tol, atol=f32_tol) if cache == "f32"
+           else dict(rtol=1e-2, atol=1.6e-2))
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    assert torch.equal(run(A.decode_attention, 1)[0], out[0])
+    assert torch.equal(run(functools.partial(A.decode_attention, recompute_scores=True), b),
+                       out)
+
+
+@pytest.mark.parametrize("heads,paged", [((40, 40, 128), False), ((8, 1, 256), True)],
+                         ids=["baichuan-alibi-contiguous", "gemma2b-alibi-paged"])
+def test_decode_attention_alibi_over_16k_columns(cuda_device, heads, paged):
+    """ALiBi at 16K columns (the bias m_h * j reaches 1.4e4 on the first
+    head, where an f32 step is 1e-3): bf16 cache, b2 with rows at 1000 and
+    16383, scores kept and recomputed (the same bits), within the
+    long-context tolerance (atol 1e-3 + rtol 1e-2), a row's bits the same
+    alone and over its first 1024 columns."""
+    hq, hkv, d = heads
+    b, s = 2, 16384
+    q, k, v, ks, vs, table = _decode_operands(heads, b, s, "bf16", paged, s + hq, bs=64)
+    pos = torch.tensor([1000, s - 1], device="cuda")
+    slopes = _alibi(hq, "cuda")
+
+    def run(fn, rows, kv_window):
+        cut = (lambda x: x) if paged else (lambda x: x[:rows])
+        return fn(q[:rows], cut(k), cut(v), pos[:rows], scale=d ** -0.5,
+                  table=None if table is None else table[:rows], kv_window=kv_window,
+                  alibi_slopes=slopes)
+    out, ref = run(A.decode_attention, b, s), run(A.decode_attention_plain, b, s)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1e-3)
+    assert torch.equal(run(A.decode_attention, 1, s)[0], out[0])
+    assert torch.equal(run(A.decode_attention, 1, 1024)[0], out[0])
+    recompute = functools.partial(A.decode_attention, recompute_scores=True)
+    assert torch.equal(run(recompute, b, s), out)

@@ -571,9 +571,12 @@ def test_flash_head_dim_padding_is_exact(d, banded):
 
 
 def test_flash_head_dim_padding_keeps_the_built_dims_and_raises_past_128():
-    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 8, 2, 2, 64, seed=1))
-    assert all(a is b for a, b in zip(TA._pad_head_dim(q, k, v), (q, k, v)))
-    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 8, 2, 2, 160, seed=1))
+    """A multiple of 8 is kept as it lies (64; 160 and 256 since the kernel's
+    width-256 build); past the widest build (256) the wrapper raises."""
+    for d in (64, 160, 256):
+        q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 8, 2, 2, d, seed=1))
+        assert all(a is b for a, b in zip(TA._pad_head_dim(q, k, v), (q, k, v)))
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 8, 2, 2, 264, seed=1))
     with pytest.raises(ValueError):
         TA._pad_head_dim(q, k, v)
 

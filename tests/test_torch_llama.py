@@ -29,8 +29,8 @@ from autosmoothquant_tpu_torch.models import common as TC
 from autosmoothquant_tpu_torch.models import llama as TL
 from autosmoothquant_tpu_torch.quant import math as tmath
 
-from test_torch_util import (jax_llama, port_config, port_qcfg, run_jax_cached,
-                             run_port_cached, to_numpy_tree)
+from test_torch_util import (jax_llama, one_torch_thread, port_config,  # noqa: F401
+                             port_qcfg, run_jax_cached, run_port_cached, to_numpy_tree)
 
 ARMS = {
     "float": (None, jnp.float32, 1e-5),

@@ -46,8 +46,8 @@ from autosmoothquant_tpu_torch.models import registry as TR
 from autosmoothquant_tpu_torch.quant import math as tmath
 from autosmoothquant_tpu_torch.serve import engine as TE
 
-from test_torch_util import (TINY_OPT, jax_opt, port_opt_config, port_qcfg,
-                             run_jax_cached, run_port_cached, to_numpy_tree)
+from test_torch_util import (TINY_OPT, jax_opt, one_torch_thread, port_opt_config,  # noqa: F401
+                             port_qcfg, run_jax_cached, run_port_cached, to_numpy_tree)
 
 # ---------------------------------------------------------------------------
 # K6: fused residual add + LayerNorm + int8 quantize
@@ -397,10 +397,14 @@ def test_registry_picks_the_family(arch, module):
 
 
 def test_registry_falls_back_to_model_type_and_raises_on_the_rest():
+    from autosmoothquant_tpu_torch.models import baichuan as TB
+    from autosmoothquant_tpu_torch.models import gemma as TG
+
     assert TR.get_model_family({"model_type": "opt"}) is TO
     assert TR.get_model_family({"model_type": "llama"}) is TL
-    for config in ({"architectures": ["BaichuanForCausalLM"]},
-                   {"architectures": ["GemmaForCausalLM"]}, {"model_type": "mixtral"}):
+    assert TR.get_model_family({"architectures": ["BaichuanForCausalLM"]}) is TB
+    assert TR.get_model_family({"architectures": ["GemmaForCausalLM"]}) is TG
+    for config in ({"architectures": ["MixtralForCausalLM"]}, {"model_type": "mixtral"}):
         with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 10"):
             TR.get_model_family(config)
 

@@ -31,7 +31,8 @@ from autosmoothquant_tpu_torch.models.common import PagedKVPool, QuantPagedKVPoo
 from autosmoothquant_tpu_torch.serve.batching import ContinuousEngine, PrefixCacheFull
 from autosmoothquant_tpu_torch.serve.paged import PagedEngine
 
-from test_torch_util import jax_llama, port_config, port_opt_config, port_qcfg, to_numpy_tree
+from test_torch_util import (jax_llama, one_torch_thread, port_config,  # noqa: F401
+                             port_opt_config, port_qcfg, to_numpy_tree)
 
 TINY = dict(vocab_size=256, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
             num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=256)

@@ -32,7 +32,7 @@ from autosmoothquant_tpu_torch.serve import engine as TE
 from autosmoothquant_tpu_torch.serve.paged import PagedEngine
 from autosmoothquant_tpu_torch.serve.speculative import draft_ngram
 
-from test_torch_util import port_config, port_qcfg, to_numpy_tree
+from test_torch_util import one_torch_thread, port_config, port_qcfg, to_numpy_tree  # noqa: F401
 
 F32 = dict(compute_dtype=torch.float32)
 JF32 = dict(compute_dtype=jnp.float32)

@@ -187,6 +187,21 @@ def port_qcfg(qcfg):
     return None if qcfg is None else QuantConfig.from_dict(qcfg.to_dict())
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's side on one torch thread for a whole module (autouse where
+    a test module imports it): the tiny models issue many small ops whose
+    thread pool spins against the suite's other workers (an engine test of
+    0.4 s alone took 90 s among them); one thread also fixes each CPU sum's
+    order on any machine."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture
 def cuda_device():
     """The card, or a skip where there is none (decided here, at run time,

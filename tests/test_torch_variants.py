@@ -19,8 +19,8 @@ from autosmoothquant_tpu_torch.models import llama as TL
 from autosmoothquant_tpu_torch.serve import engine as TE
 from autosmoothquant_tpu_torch.serve.batching import ContinuousEngine as TCE
 
-from test_torch_util import (jax_llama, port_config, port_qcfg, run_jax_cached,
-                             run_port_cached, to_numpy_tree)
+from test_torch_util import (jax_llama, one_torch_thread, port_config,  # noqa: F401
+                             port_qcfg, run_jax_cached, run_port_cached, to_numpy_tree)
 
 VARIANTS = {"qwen2_bias": dict(attention_bias=True),
             "mistral_window": dict(sliding_window=16),
