@@ -39,7 +39,9 @@ def calibrate(model_mod, params, cfg, batches: Iterable, compute_dtype=torch.flo
     {STAT_KEYS: CPU tensor [L, ...]}, the elementwise max over the batches.
 
     model_mod: a family module (``models/llama.py``, ``models/gemma.py``,
-    ``models/baichuan.py``, ``models/opt.py``).
+    ``models/baichuan.py``, ``models/mixtral.py``, ``models/opt.py``);
+    ``extra_forward_kwargs`` its ``CALIBRATION_FORWARD_KWARGS`` where it has
+    them (Mixtral: every token to every expert).
     batches: int token id arrays or tensors [B, T]. qcfg: None for the float
     model; a QuantConfig with matching quantized params observes the scales
     through the quantized forward (the fp8 observer pass). The forward runs

@@ -11,6 +11,10 @@ layout), each transposed here, once:
     W4A8 kernel reads column n's packed bytes and its G scales as contiguous
     runs. Split-K packing survives the transpose: byte r of column n still
     holds rows r and r + K'/2.
+Mixtral's expert projections keep their leading [E] (a per-layer leaf is
+``[E, K, N]``, ``[E, K'/2, N]`` or ``[E, G, N]``): the last two dims swap, so
+expert e's weight is a contiguous ``[N, K]`` operand, and per-expert scales
+``[L, E]`` become ``[E]`` a layer.
 Scalar leaves (``dequant_scale``, ``quant_scale``, ``w_scale``,
 ``input_scale``, ``output_scale``) and biases are carried as they are.
 Float weights keep ``[in, out]``; a float projection's bias, which the JAX
@@ -65,7 +69,7 @@ def _proj(p: Dict[str, Any], layer: Optional[int]) -> Dict[str, torch.Tensor]:
         if layer is not None:
             t = t[layer]
         if quant and key in ("w", "w_scales"):
-            t = t.t()
+            t = t.transpose(-2, -1)
         out["bias" if key == "b" else key] = t.contiguous()
     return out
 
@@ -87,8 +91,8 @@ def _block(tree: Dict[str, Any], layer: Optional[int]):
 
 def params_from_jax(tree: Dict[str, Any], cfg=None, *,
                     device="cuda") -> Dict[str, Any]:
-    """JAX params (Llama, Gemma, Baichuan or OPT family; float, int8, fp8 or
-    int4; fused q|k|v, gate|up or Baichuan's W_pack, or not) -> the port's
+    """JAX params (Llama, Gemma, Baichuan, Mixtral or OPT family; float, int8,
+    fp8 or int4; fused q|k|v, gate|up or Baichuan's W_pack, or not) -> the port's
     params on ``device``. ``cfg`` (a
     family's config), when given, is checked against the layer count and
     supplies a tied lm_head where it has ``tie_word_embeddings``."""
@@ -113,7 +117,7 @@ def params_to_jax(params: Dict[str, Any]) -> Dict[str, Any]:
     """The port's params (unfused, as ``params_from_jax`` gives them) in the
     layout ``params_from_jax`` reads, as CPU tensors: decoder-layer leaves
     stacked ``[L, ...]``, quantized weights back to ``[K, N]`` (int4 packed
-    ``[K'/2, N]``, group scales ``[G, N]``). A float projection's bias keeps
+    ``[K'/2, N]``, group scales ``[G, N]``; Mixtral's experts ``[E, K, N]``). A float projection's bias keeps
     the name ``"bias"``, the one every linear of both packages reads, so the
     round trip through ``params_from_jax`` is exact."""
     host = _map(lambda t: t.detach().cpu(), params)
@@ -123,7 +127,7 @@ def params_to_jax(params: Dict[str, Any]) -> Dict[str, Any]:
 
 def _untranspose(node):
     if isinstance(node, dict) and "w" in node and node["w"].dtype in QUANT_DTYPES:
-        return {k: t.t().contiguous() if k in ("w", "w_scales") else t
+        return {k: t.transpose(-2, -1).contiguous() if k in ("w", "w_scales") else t
                 for k, t in node.items()}
     if isinstance(node, dict):
         return {k: _untranspose(v) for k, v in node.items()}

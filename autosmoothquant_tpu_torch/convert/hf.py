@@ -17,8 +17,8 @@ is copied there as it is stored and widened there.
 Gemma rides the Llama layout after the JAX mapper's folds (norm weights 1 +
 w, the embedding times sqrt(hidden), the tied head from the unscaled
 embedding); Baichuan keeps its fused W_pack and row-normalizes the NormHead
-lm_head. Mixtral checkpoints raise NotImplementedError (its model family is
-not ported yet: ROADMAP Queue 1, item 10).
+lm_head; Mixtral stacks each expert projection to a leading [E] (the expert
+count read from the checkpoint) beside its float router.
 """
 
 from __future__ import annotations
@@ -26,13 +26,11 @@ from __future__ import annotations
 import json
 import math
 import os
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
 from ..runtime import resolve_device
-
-_FAMILIES_TODO = "ROADMAP Queue 1, item 10 (Mixtral is not ported yet)"
 
 
 def hf_config_dict(model_path: str) -> Dict[str, Any]:
@@ -173,14 +171,38 @@ def baichuan_params_from_state_dict(sd: Dict[str, Any], num_layers: int,
             "lm_head": {"w": _norm_head(r, "lm_head.weight")}}
 
 
-def _not_ported(family: str) -> Callable:
-    def mapper(*args, **kwargs):
-        raise NotImplementedError(f"{family} checkpoints: {_FAMILIES_TODO}")
-    mapper.__name__ = f"{family}_params_from_state_dict"
-    return mapper
+def _expert_count(sd) -> int:
+    """The experts of a Mixtral state dict: one more than the highest expert
+    index of its keys (the JAX mappers infer it the same way)."""
+    found = [int(k.split(".experts.")[1].split(".")[0]) for k in sd if ".experts." in k]
+    if not found:
+        raise ValueError("no expert weights found in the state dict")
+    return 1 + max(found)
 
 
-mixtral_params_from_state_dict = _not_ported("mixtral")
+def mixtral_params_from_state_dict(sd: Dict[str, Any], num_layers: int,
+                                   dtype=torch.float32, device="cuda",
+                                   num_experts: Optional[int] = None) -> Dict[str, Any]:
+    """HF Mixtral names -> the port's float params: each expert projection
+    stacked [E, in, out], the router ([D, E], the HF "gate") float."""
+    r = _Reader(sd, dtype, resolve_device(device))
+    n_exp = num_experts or _expert_count(sd)
+    layers = []
+    for i in range(num_layers):
+        b = f"model.layers.{i}"
+        moe = f"{b}.block_sparse_moe"
+        layers.append({
+            "ln1": {"w": r.norm(f"{b}.input_layernorm.weight")},
+            "attn": {n: _proj(r, f"{b}.self_attn.{n}_proj") for n in ("q", "k", "v", "o")},
+            "ln2": {"w": r.norm(f"{b}.post_attention_layernorm.weight")},
+            "moe": {"router": {"w": r.weight(f"{moe}.gate.weight")},
+                    **{w: {"w": torch.stack([r.weight(f"{moe}.experts.{e}.{w}.weight")
+                                             for e in range(n_exp)])}
+                       for w in ("w1", "w3", "w2")}},
+        })
+    return {"embed": {"w": r.leaf("model.embed_tokens.weight")}, "layers": layers,
+            "final_norm": {"w": r.norm("model.norm.weight")},
+            "lm_head": {"w": r.weight("lm_head.weight")}}
 
 _LOADERS: Dict[str, Callable] = {
     "llama": llama_params_from_state_dict,
@@ -220,8 +242,8 @@ def load_state_dict(model_path: str) -> Dict[str, torch.Tensor]:
 def load_hf_params(model_path_or_sd, family: str, num_layers: int,
                    dtype=torch.float32, *, device="cuda"):
     """The port's float params of a state dict or checkpoint directory, on
-    ``device``. ``family``: "llama", "gemma", "baichuan", "opt" (or the
-    reference's tag for it, "transformers")."""
+    ``device``. ``family``: "llama", "gemma", "baichuan", "mixtral", "opt" (or
+    the reference's tag for it, "transformers")."""
     sd = (model_path_or_sd if isinstance(model_path_or_sd, dict)
           else load_state_dict(model_path_or_sd))
     return _LOADERS[family](sd, num_layers, dtype=dtype, device=device)
@@ -329,6 +351,40 @@ def quantized_baichuan_params_from_state_dict(sd: Dict[str, Any], num_layers: in
             "lm_head": {"w": _norm_head(r, "lm_head.weight")}}
 
 
+def quantized_mixtral_params_from_state_dict(sd: Dict[str, Any], num_layers: int,
+                                             dtype=torch.float32, device="cuda",
+                                             num_experts: Optional[int] = None
+                                             ) -> Dict[str, Any]:
+    """A reference int8 Mixtral checkpoint -> the port's quantized params:
+    each expert's int8 [out, in] weight stacked [E, N, K] with its dequant
+    (and, for w2, quant) scalar stacked [E]; the router float (the reference
+    does not quantize the gate); the norms arrive folded."""
+    r = _Reader(sd, dtype, resolve_device(device))
+    n_exp = num_experts or _expert_count(sd)
+    layers = []
+    for i in range(num_layers):
+        b = f"model.layers.{i}"
+        moe = f"{b}.block_sparse_moe"
+        layers.append({
+            "ln1": {"w": r.norm(f"{b}.input_layernorm.weight")},
+            "attn": {n: _qproj(r, f"{b}.self_attn.{n}_proj") for n in ("q", "k", "v", "o")},
+            "ln2": {"w": r.norm(f"{b}.post_attention_layernorm.weight")},
+            "moe": {"router": {"w": r.weight(f"{moe}.gate.weight")},
+                    **{w: _qexperts(r, moe, w, n_exp) for w in ("w1", "w3", "w2")}},
+        })
+    return {"embed": {"w": r.leaf("model.embed_tokens.weight")}, "layers": layers,
+            "final_norm": {"w": r.norm("model.norm.weight")},
+            "lm_head": {"w": r.weight("lm_head.weight")}}
+
+
+def _qexperts(r: _Reader, moe: str, w: str, n_exp: int) -> Dict[str, torch.Tensor]:
+    """One reference int8 expert projection of every expert: its leaves
+    stacked to a leading [E] (the per-expert scalars to [E])."""
+    ps = [_qproj(r, f"{moe}.experts.{e}.{w}") for e in range(n_exp)]
+    return {k: torch.stack([p[k] if k == "w" else p[k].reshape(()) for p in ps])
+            for k in ps[0]}
+
+
 # (the reference writes no quantized Gemma checkpoint; a Gemma artifact is the
 # port's own, read by convert/pipeline.py:load_quantized)
 _QUANTIZED_LOADERS: Dict[str, Callable] = {
@@ -336,7 +392,7 @@ _QUANTIZED_LOADERS: Dict[str, Callable] = {
     "transformers": quantized_opt_params_from_state_dict,
     "opt": quantized_opt_params_from_state_dict,
     "baichuan": quantized_baichuan_params_from_state_dict,
-    "mixtral": _not_ported("mixtral"),
+    "mixtral": quantized_mixtral_params_from_state_dict,
 }
 
 

@@ -30,10 +30,11 @@ def launch_counters() -> Counters:
     from .fused import fused_add_layernorm_quant, fused_add_rmsnorm_quant, rmsnorm_quant
     from .gemm import int8_matmul
     from .int4 import int4_matmul
+    from .moe import router_logits
 
     wrappers = (int8_matmul, fused_add_rmsnorm_quant, flash_attention,
                 flash_attention_banded, fp8_matmul, int4_matmul,
-                fused_add_layernorm_quant, rmsnorm_quant, decode_attention)
+                fused_add_layernorm_quant, rmsnorm_quant, decode_attention, router_logits)
     counters = {w.__name__: (w, "launches") for w in wrappers}
     for w, route in ((int8_matmul, "tc"), (fp8_matmul, "tc"), (int4_matmul, "tc"),
                      (int8_matmul, "gemv"), (fp8_matmul, "gemv"),

@@ -23,14 +23,15 @@ MODEL_REGISTRY: Dict[str, str] = {
     "GemmaForCausalLM": "gemma",
     "BaichuanForCausalLM": "baichuan",
     "BaiChuanForCausalLM": "baichuan",
+    "MixtralForCausalLM": "mixtral",
     "OPTForCausalLM": "opt",
 }
 # HF model_type -> the same modules, for configs without `architectures`
 MODEL_TYPES: Dict[str, str] = {"llama": "llama", "qwen2": "llama",
                                "mistral": "llama", "gemma": "gemma",
-                               "baichuan": "baichuan", "opt": "opt"}
+                               "baichuan": "baichuan", "mixtral": "mixtral",
+                               "opt": "opt"}
 _PREFIXES = ("", "Quantized", "Int8")
-_TODO = "ROADMAP.md Queue 1 item 10 (the other families: Mixtral is not ported yet)"
 
 
 def _module(name: str):
@@ -39,8 +40,9 @@ def _module(name: str):
 
 def get_model_family(config):
     """The port's model module (``models.llama``, ``models.gemma``,
-    ``models.baichuan`` or ``models.opt``) for an HF config (a dict or an object with ``architectures`` / ``model_type``);
-    raises ValueError for a family the port does not have."""
+    ``models.baichuan``, ``models.mixtral`` or ``models.opt``) for an HF
+    config (a dict or an object with ``architectures`` / ``model_type``);
+    raises ValueError for an architecture neither package has."""
     g = ((lambda k: config.get(k)) if isinstance(config, dict)
          else (lambda k: getattr(config, k, None)))
     architectures = list(g("architectures") or [])
@@ -54,5 +56,4 @@ def get_model_family(config):
         return _module(MODEL_TYPES[model_type])
     raise ValueError(
         f"architectures {architectures} (model_type {model_type!r}) are not "
-        f"ported; supported: {sorted(MODEL_REGISTRY)}. Porting the others is "
-        f"{_TODO}")
+        f"supported; supported: {sorted(MODEL_REGISTRY)}")

@@ -19,8 +19,10 @@ attention is the port's own decode-attention kernel, and a Llama model's
 final norm (and, in W8A8, each layer's first norm with its int8 quantize)
 the port's own RMSNorm + int8 kernel. The block-paged engine
 (``PagedEngine``, explicit prefixes) serves the W8A8 TinyLlama too. The
-Baichuan (ALiBi: K3 and decode attention with per-head slopes) and Gemma
-(head dim 256) families run at full width in the families phase.
+Baichuan (ALiBi: K3 and decode attention with per-head slopes), Gemma
+(head dim 256) and Mixtral (top-2 routed experts, one K1 or K4 launch an
+expert projection, the router on the port's own kernel) families run at
+full width in the families phase.
 
 Phases (any failure ends the run with a nonzero exit code):
   device   the card's name and power limit
@@ -32,8 +34,10 @@ Phases (any failure ends the run with a nonzero exit code):
            widths up to OPT-66B's, K3 at D = 80 and 256 (Gemma-2B's and
            Gemma-7B's heads, both routes) and with ALiBi slopes (Baichuan-
            2-13B's 40 heads, causal, banded and the f32 route) too;
+           K1 at Mixtral-8x7B's expert shapes (M 1 and a bucket of 64);
            rmsnorm_quant bit-equal
-           in both modes (T 1 / 8 / 128, D 2048 / 4096); decode_attention
+           in both modes (T 1 / 8 / 128, D 2048 / 4096); router_logits
+           within ROUTER_TOL at D 4096, E 8; decode_attention
            contiguous and paged, bf16, f32 and int8 caches, f32 q, a sliding
            window, kv_valid, B 1 / 8 / 16 at kv_window 256 / 512, a row at
            the cluster's span, 8K and 16K columns, Gemma's heads at D 256,
@@ -46,8 +50,11 @@ Phases (any failure ends the run with a nonzero exit code):
            e4m3 static (unfused), fp8 e5m2 and int4; OPT pre-LN W8A8 at
            OPT-1.3B width and post-LN W8A8 with project_in/out at OPT-350m
            width; Baichuan-2-13B width (ALiBi) in W8A8 and fp8 e4m3, Gemma-2B
-           width (head dim 256) in W8A8. Prefill logits agree within the
-           stated limits and greedy tokens are equal up to any near-tie
+           width (head dim 256) in W8A8; Mixtral at hidden 1024 (8 experts
+           of 3584, top 2) in W8A8, fp8 e4m3 and int4, a prefill on the
+           sparse route and decode on the dense one. Prefill logits agree
+           within the stated limits and greedy tokens are equal up to any
+           near-tie
   serve    the 22-layer TinyLlama-1.1B model serves Engine.generate in W8A8,
            fp8 e4m3 dynamic and int4 (group 128), and OPT-6.7B (full width
            and depth) in W8A8: 4 ragged prompts (banded prefill) and an
@@ -121,11 +128,14 @@ Phases (any failure ends the run with a nonzero exit code):
            held-out prompts; the pipeline on the card against the CPU at 2
            layers (W8A8, fp8 e4m3 static with its observer pass on K4, int4
            at TinyLlama width; W8A8 at OPT-6.7B width)
-  families Baichuan-2-13B (W8A8, fp8 e4m3, bf16) and Gemma-2B (W8A8, bf16)
-           at full width and depth, one model at a time: Engine.generate b1,
+  families Baichuan-2-13B (W8A8, fp8 e4m3, bf16), Gemma-2B (W8A8, bf16)
+           and Mixtral-8x7B (W8A8, fp8 e4m3; about 47 GB each, bf16 does not
+           fit) at full width and depth, one model at a time: Engine.generate b1,
            prompt 128, 64 decode steps, greedy, a CUDA graph; host launches
            and a replay's device launches exact (family_counts); tok/s,
-           replay ms, idle share and the step's byte bound; then a 4-layer
+           replay ms, idle share and the step's byte bound (Mixtral: the
+           dense step's, beside a routed-only step's); then the first 4
+           layers of the Mixtral-8x7B W8A8 draw and a 4-layer
            Baichuan-2-13B W8A8 (ALiBi) through ContinuousEngine and
            PagedEngine, graph and eager: tokens equal the static b1
            engine's, logits bit-equal (BATCH_LOGIT_NOISE)
@@ -133,7 +143,8 @@ Phases (any failure ends the run with a nonzero exit code):
            against its plain version, its library yardstick and its bound
            (K1 and K4 at M = 1, 2, 4 and 8 on their GEMV too; K2, K5 and K6
            beside their earlier designs, the rows / tiles routes, and K5 up
-           to 4 rows beside its GEMV; K3 at D = 80 beside what padded copies
+           to 4 rows beside its GEMV; K1 at Mixtral-8x7B's expert shapes;
+           the router at T 1 / 8 / 128; K3 at D = 80 beside what padded copies
            of its operands would cost); prefill time; decode tok/s at b1,
            prompt 128, s_max 512, graph and eager in paired turns: TinyLlama
            W8A8, fp8, int4 and bf16, and OPT-6.7B W8A8 and bf16, each graph
@@ -164,8 +175,8 @@ biases near 0 (times 32, the folded input scale, where a pre-LN norm feeds
 an int8 projection); a post-LN OPT's q/k/v and fc1, whose inputs are
 LayerNorm outputs with no norm to fold into, quantize with a static scale
 of 1/32. OPT-6.7B's shape is the public facebook/opt-6.7b config.json;
-Baichuan-2-13B's and Gemma-2B's are their public config.json files
-(draw_baichuan; Gemma through the Llama draws).
+Baichuan-2-13B's, Gemma-2B's and Mixtral-8x7B's are their public config.json
+files (draw_baichuan; Gemma through the Llama draws; draw_mixtral).
 """
 
 from __future__ import annotations
@@ -230,6 +241,19 @@ GEMMA_2B = dict(vocab_size=256000, hidden_size=2048, intermediate_size=16384,
                 num_hidden_layers=18, num_attention_heads=8, num_key_value_heads=1,
                 head_dim_override=256, max_position_embeddings=8192, rms_norm_eps=1e-6,
                 hidden_act="gelu_tanh", tie_word_embeddings=True)
+# Mixtral-8x7B (mistralai/Mixtral-8x7B-v0.1 config.json: 32 layers, GQA 32 / 8,
+# 8 experts of 14336, top 2, rope_theta 1e6), the families phase's model at
+# full width; the 2-layer card-vs-CPU arms' narrower width (hidden 1024, 8
+# query heads of 128 on 2 kv heads, 8 experts of 3584); an expert's K1
+# products (K, N): w1 and w3 [4096 -> 14336], w2 [14336 -> 4096]
+MIXTRAL_8X7B = dict(vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+                    num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+                    num_local_experts=8, num_experts_per_tok=2, max_position_embeddings=32768,
+                    rms_norm_eps=1e-5, rope_theta=1e6)
+MIXTRAL_E2E = dict(MIXTRAL_8X7B, hidden_size=1024, intermediate_size=3584, num_hidden_layers=2,
+                   num_attention_heads=8, num_key_value_heads=2)
+MIXTRAL_GEMM_SHAPES = ((4096, 14336), (14336, 4096))
+MIXTRAL_GEMM_NAMES = ("w1|w3", "w2")
 # their attention heads (Hq, Hkv, D), and Gemma-7B's (16 of 256, no GQA)
 GEMMA2B_HEADS, GEMMA7B_HEADS, BAICHUAN_HEADS = (8, 1, 256), (16, 16, 256), (40, 40, 128)
 # K3's two wrappers launch the same kernels: a profile reads their sum
@@ -434,6 +458,81 @@ def draw_baichuan(cfg, fmt, seed, device):
             "layers": layers,
             "final_norm": {"w": torch.ones(D, dtype=torch.float32, device=device)},
             "lm_head": {"w": lm}}
+
+
+def draw_mixtral(cfg, fmt, seed, device):
+    """Random Mixtral params in the port's layout, drawn layer by layer on
+    ``device`` from a seeded generator: "W8A8" as draw_w8a8 draws Llama's
+    (uniform int8 weights, an expert projection's [N, K] weights stacked
+    [E, N, K] with a dequant scale a expert [E]; scales that keep activations
+    at unit scale through any depth; ln1 and ln2 at ACT_RMS, the folded input
+    scale; o and every w2 quantizing at 1/64); "fp8 e4m3" N(0, 1/K) weights
+    through the port's own quantize (a w_scale a expert), dynamic
+    activations, norms 1; "float" those N(0, 1/K) weights in f32, unquantized
+    (attention [in, out], experts [E, in, out]). The router is f32 N(0, 1/K)
+    over the norm output's scale, so its logits have unit std and both
+    experts of a token carry weight; the embedding and lm_head (logit std
+    near 2) are bf16."""
+    import torch
+
+    from autosmoothquant_tpu_torch.models.common import pack_fp8
+    from autosmoothquant_tpu_torch.quant.config import QuantConfig
+
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    D, I, V, E = (cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size,
+                  cfg.num_local_experts)
+    HD = cfg.num_attention_heads * cfg.head_dim
+    KVD = cfg.num_key_value_heads * cfg.head_dim
+    act = ACT_RMS if fmt == "W8A8" else 1.0
+    fp8 = QuantConfig(type="fp8_e4m3")
+
+    def full(value, experts):
+        return torch.full((experts,) if experts else (), value, dtype=torch.float32,
+                          device=device)
+
+    def normal(k, n):
+        return torch.randn(k, n, generator=g, device=device) / math.sqrt(k)
+
+    def proj(k, n, experts=0, scaled=False):
+        if fmt == "W8A8":
+            p = {"w": torch.randint(-127, 128, (experts, n, k) if experts else (n, k),
+                                    dtype=torch.int8, device=device, generator=g),
+                 "dequant_scale": full(1.0 / (math.sqrt(k) * ACT_RMS * INT8_RMS), experts)}
+            if scaled:
+                p["quant_scale"] = full(1.0 / 64, experts)
+            return p
+        pack = (lambda w: {"w": w}) if fmt == "float" else (lambda w: pack_fp8({"w": w}, fp8))
+        if not experts:
+            return pack(normal(k, n))
+        packs = [pack(normal(k, n)) for _ in range(experts)]
+        return {key: torch.stack([p[key] for p in packs]) for key in packs[0]}
+
+    def norm():
+        return {"w": torch.full((D,), act, dtype=torch.float32, device=device)}
+
+    layers = [{"ln1": norm(),
+               "attn": {"q": proj(D, HD), "k": proj(D, KVD), "v": proj(D, KVD),
+                        "o": proj(HD, D, scaled=True)},
+               "ln2": norm(),
+               "moe": {"router": {"w": normal(D, E) / act},
+                       "w1": proj(D, I, E), "w3": proj(D, I, E),
+                       "w2": proj(I, D, E, scaled=True)}}
+              for _ in range(cfg.num_hidden_layers)]
+    return {"embed": {"w": torch.randn(V, D, generator=g, device=device).to(torch.bfloat16)},
+            "layers": layers,
+            "final_norm": {"w": torch.ones(D, dtype=torch.float32, device=device)},
+            "lm_head": {"w": (torch.randn(D, V, generator=g, device=device)
+                              * (2.0 / math.sqrt(D))).to(torch.bfloat16)}}
+
+
+def cpu_copy(params):
+    """Params drawn on the card, on the CPU, with the embedding and lm_head in
+    f32 on both sides of a card-vs-CPU arm (a bf16 lm_head is widened on
+    every CPU product)."""
+    params = {**params, "embed": {"w": params["embed"]["w"].float()},
+              "lm_head": {"w": params["lm_head"]["w"].float()}}
+    return to_device(params, "cpu")
 
 
 def to_device(node, device):
@@ -1084,6 +1183,47 @@ def check_rmsnorm_quant(torch, results, gen):
     results["rmsnorm_quant"]["max_abs_err"] = worst
 
 
+# the router's f32 logits against its plain version (cuBLAS's f32 product):
+# both sum in f32 in their own orders, so a logit may move by a few ulps of
+# sum_k |x_k w_ke|; this is the bound per logit as a share of that sum
+ROUTER_TOL = 1e-5
+
+
+def router_case(torch, t, d, e, wdt, gen):
+    """A second norm's output at Mixtral's W8A8 scale (RMS ACT_RMS) and a
+    router of unit-std logits on it, as draw_mixtral draws it."""
+    x = torch.randn(t, d, device="cuda", generator=gen) * ACT_RMS
+    w = (torch.randn(d, e, device="cuda", generator=gen) / (math.sqrt(d) * ACT_RMS)).to(wdt)
+    return x, w
+
+
+def check_router(torch, results, gen):
+    """router_logits at Mixtral-8x7B's D 4096 and E 8 (T 1, 8, 64, 128, 300;
+    f32 and bf16 router weights; and 12 experts, two blocks a row): within
+    ROUTER_TOL of its plain version, and a row's bits the same alone as in
+    the batch (what it exists for)."""
+    from autosmoothquant_tpu_torch.kernels.moe import router_logits, router_logits_plain
+
+    worst = 0.0
+    for t, e in ((1, 8), (8, 8), (64, 8), (128, 8), (300, 8), (9, 12)):
+        for wdt in (torch.float32, torch.bfloat16):
+            x, w = router_case(torch, t, 4096, e, wdt, gen)
+            out = router_logits(x, w)
+            ref = router_logits_plain(x, w)
+            rows = sorted({0, t // 2, t - 1})
+            alone = [router_logits(x[r:r + 1], w)[0] for r in rows]
+            torch.cuda.synchronize()
+            diff = (out.double() - ref.double()).abs()
+            excess = float((diff / (ROUTER_TOL * (x.abs() @ w.float().abs()).double())).max())
+            exact = all(torch.equal(a, out[r]) for a, r in zip(alone, rows))
+            worst = max(worst, float(diff.max()))
+            log(f"  router_logits T={t:<4d} D=4096 E={e:<2d} w {str(wdt).split('.')[-1]:8s}: "
+                f"max |diff| {float(diff.max()):.3g} ({excess:.3g} of ROUTER_TOL x sum|x||w|); "
+                f"rows alone = rows of T={t} {exact} {'ok' if excess <= 1 and exact else 'FAIL'}")
+            require(excess <= 1 and exact, f"router_logits disagrees at T={t} E={e} {wdt}")
+    results["router_logits"]["max_abs_err"] = worst
+
+
 def check_decode_attention(torch, results, gen):
     """decode_attention against its plain version: contiguous and paged
     addressing, bf16, f32 and int8 caches, f32 q on a bf16 cache, a sliding
@@ -1201,6 +1341,11 @@ def phase_kernels(torch, results):
     cases += [(m, k, n, OPT_GEMM_VARIANTS[pname], f"opt {pname}")
               for m in (1, 4, 8, 9, 65, 128, 512)
               for (k, n), pname in zip(OPT_GEMM_SHAPES, OPT_GEMM_NAMES)]
+    # Mixtral-8x7B's experts (bf16 out, one scalar dequant scale a expert): a
+    # decode row (the GEMV) and a T 128 prefill's bucket of 64 rows (the
+    # tensor cores)
+    cases += [(m, k, n, GEMM_VARIANTS[1], f"mixtral {pname}") for m in (1, 64)
+              for (k, n), pname in zip(MIXTRAL_GEMM_SHAPES, MIXTRAL_GEMM_NAMES)]
     worst = 0.0
     for m, k, n, variant, pname in cases:
         c = gemm_case(torch, m, k, n, variant, gen)
@@ -1468,10 +1613,11 @@ def phase_kernels(torch, results):
                                      f"at M={m} K={k} N={n} {c['label']}")
     results["int4_matmul"]["max_abs_err"] = worst
 
-    # the port's own kernels: RMSNorm + int8 (the first and final norms) and
-    # decode attention
+    # the port's own kernels: RMSNorm + int8 (the first and final norms),
+    # decode attention and the MoE router
     check_rmsnorm_quant(torch, results, gen)
     check_decode_attention(torch, results, gen)
+    check_router(torch, results, gen)
 
 
 def tinyllama(L, layers):
@@ -1516,11 +1662,27 @@ E2E_OPT_LIMITS = {"OPT pre-LN W8A8": (0.25, 7e-3, E2E_TIE_MARGIN),
 # models, set from this comparison's readings on an H100 (700 W) at about
 # 2-3x them: Baichuan W8A8 max 0.0652, mean 0.00193, tokens 96/96 equal;
 # fp8 e4m3 dynamic 0.195 / 0.0165, tokens parted at CPU margins up to 0.146;
-# Gemma W8A8 0.134 / 0.00663, tokens 96/96 equal
+# Gemma W8A8 0.134 / 0.00663, tokens 96/96 equal. Mixtral at hidden 1024
+# (8 experts of 3584; logit std 2), about 3x the larger of two prompt sets'
+# readings: W8A8 0.056 / 0.00305 (1.57e-05 / 9.01e-07 on the other: no
+# activation on an int8 boundary), 32/32 tokens; fp8 e4m3 dynamic 0.275 /
+# 0.0358 (0.055 / 3.48e-4), a parting at a CPU margin of 0.083 (row 1,
+# step 4) and, after it, row 0's at 0.82 (step 6: its decode steps share
+# row 1's per-tensor fp8 scale; every token's experts agreed); int4
+# 0.0651 / 0.00243 (W4A8 at every projection of this T 32 prefill, where
+# TinyLlama's T 192 prefill takes W4A16), one parting at a CPU margin of
+# 0.0058
 E2E_FAMILY_LIMITS = {"Baichuan-2-13B W8A8": (0.15, 5e-3, E2E_TIE_MARGIN),
                      "Baichuan-2-13B fp8 e4m3 dynamic": (0.5, 0.04, 0.3),
-                     "Gemma-2B W8A8": (0.3, 0.015, E2E_TIE_MARGIN)}
+                     "Gemma-2B W8A8": (0.3, 0.015, E2E_TIE_MARGIN),
+                     "Mixtral W8A8": (0.17, 0.01, E2E_TIE_MARGIN),
+                     "Mixtral fp8 e4m3 dynamic": (0.8, 0.11, 0.3),
+                     "Mixtral int4": (0.2, 7.5e-3, E2E_TIE_MARGIN)}
 FAMILY_E2E_NEW = 8  # their greedy runs' new tokens
+# the 2-layer Mixtral arms' prompts: 2 x 16 prefill tokens (T 32 = 4 E: the
+# sparse route), decode at T 2 (the dense route); the CPU's int32 expert
+# products at this width keep each arm to a few seconds
+MIXTRAL_E2E_PROMPTS = {"ragged": (16, 11), "equal": (16, 16)}
 
 
 def e2e_models(torch, cfg):
@@ -1586,11 +1748,6 @@ def phase_e2e(torch):
     # 125696- and 256000-word embedding and lm_head in f32 on both sides (a
     # bf16 lm_head is widened on every CPU product: 2.6 GB a step); greedy
     # runs of FAMILY_E2E_NEW tokens (the CPU's side takes most of the phase)
-    def cpu_copy(params):
-        params = {**params, "embed": {"w": params["embed"]["w"].float()},
-                  "lm_head": {"w": params["lm_head"]["w"].float()}}
-        return to_device(params, "cpu")
-
     bcfg = B.BaichuanConfig(**{**BAICHUAN_2_13B, "num_hidden_layers": 2})
     for fmt, draw, qcfg in (("W8A8", "W8A8", QuantConfig(type="int8")),
                             ("fp8 e4m3 dynamic", "fp8 e4m3", QuantConfig(type="fp8_e4m3"))):
@@ -1604,13 +1761,44 @@ def phase_e2e(torch):
                             cpu_copy(draw_w8a8(gcfg, seed=7, device="cuda")),
                             E2E_FAMILY_LIMITS["Gemma-2B W8A8"], ragged, equal, "2-layer",
                             FAMILY_E2E_NEW)
+    failures += e2e_mixtral(torch, rng)
     require(not failures, "; ".join(failures))
 
 
+def e2e_mixtral(torch, rng):
+    """Mixtral at MIXTRAL_E2E's width in W8A8, fp8 e4m3 dynamic and int4
+    (group 128, quantized from the float draw by the module's own quantize),
+    card against CPU (e2e_compare): a prefill on the sparse route and decode
+    on the dense one, on both sides. Returns the limits broken."""
+    from autosmoothquant_tpu_torch.models import mixtral as MX
+    from autosmoothquant_tpu_torch.quant.config import QuantConfig
+
+    failures = []
+    xcfg = MX.MixtralConfig(**MIXTRAL_E2E)
+    mix = {kind: [torch.randint(0, xcfg.vocab_size, (n,), generator=rng).tolist()
+                  for n in lengths] for kind, lengths in MIXTRAL_E2E_PROMPTS.items()}
+    for fmt, qcfg in (("W8A8", QuantConfig(type="int8")),
+                      ("fp8 e4m3 dynamic", QuantConfig(type="fp8_e4m3")),
+                      ("int4", QuantConfig(type="int4", group_size=128))):
+        if fmt == "int4":
+            params = MX.quantize(draw_mixtral(xcfg, "float", seed=7, device="cuda"), qcfg)
+        else:
+            params = draw_mixtral(xcfg, fmt.split(" dynamic")[0], seed=7, device="cuda")
+        label = f"Mixtral {fmt}"
+        failures += e2e_compare(torch, MX, xcfg, label, qcfg, cpu_copy(params),
+                                E2E_FAMILY_LIMITS[label], mix["ragged"], mix["equal"],
+                                "2-layer, hidden 1024, 8 experts of 3584", FAMILY_E2E_NEW,
+                                coupled_rows=fmt.startswith("fp8"))
+    return failures
+
+
 def e2e_compare(torch, L, cfg, label, qcfg, params_cpu, limits, ragged, equal,
-                desc, new_tokens=16):
+                desc, new_tokens=16, coupled_rows=False):
     """One format's card-vs-CPU readings (L: the family module; greedy runs
-    of ``new_tokens``); returns the limits it broke."""
+    of ``new_tokens``); returns the limits it broke. ``coupled_rows``: a
+    decode step quantizes its rows with one per-tensor scale (Mixtral's fp8
+    dynamic dense route), so a row's parting after another row's has
+    parted is that parting's consequence, not its own."""
     from autosmoothquant_tpu_torch.serve.engine import Engine, GenerationConfig
 
     t0 = time.perf_counter()
@@ -1664,17 +1852,25 @@ def e2e_compare(torch, L, cfg, label, qcfg, params_cpu, limits, ragged, equal,
     total = same = 0
     for batch in ("ragged", "equal"):
         prompts = ragged if batch == "ragged" else equal
+        parts = {i: next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), len(b))
+                 for i, (a, b) in enumerate(zip(out["cuda"][batch], out["cpu"][batch]))}
         for i, (a, b) in enumerate(zip(out["cuda"][batch], out["cpu"][batch])):
             total += len(b)
-            j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), len(b))
+            j = parts[i]
             same += j
             if j == len(b):
                 continue
             margin = cpu_margin(prompts[i], b[:j])
+            # rows that share a decode step's per-tensor activation scale:
+            # once another row's tokens part, this row's inputs differ too
+            first = min(parts, key=parts.get)
+            after = coupled_rows and parts[first] < j
             log(f"  e2e {label} {batch} row {i}: tokens part at step {j} "
                 f"(card {a[j]}, cpu {b[j]}); CPU top-2 margin there {margin:.4g}"
-                f" (near-tie limit {limits[2]})")
-            if margin > limits[2]:
+                f" (near-tie limit {limits[2]})"
+                + (f"; after row {first} parted at step {parts[first]} (the rows share "
+                   f"the decode step's per-tensor fp8 scale)" if after else ""))
+            if margin > limits[2] and not after:
                 failures.append(f"{label}: greedy tokens part at step {j} of "
                                 f"{batch} row {i} where the CPU's margin {margin} "
                                 f"is not a near-tie")
@@ -1776,6 +1972,7 @@ DEVICE_READS = {
     "rmsnorm_quant": r"\brmsnorm_quant_kernel<",
     "rmsnorm_quant_norm": r"\brmsnorm_quant_kernel<(float, float|__nv_bfloat16, __nv_bfloat16),",
     "decode_attention": r"\bdecode_attn_kernel<",
+    "router_logits": r"\bmoe_router_kernel<",
 }
 
 
@@ -4114,8 +4311,9 @@ def phase_quantize(torch, results, smi_line):
 # each path of the families phase: (family, weight format); b1, prompt 128,
 # 64 decode steps (65 new tokens), greedy, graph decode
 FAMILY_PATHS = (("baichuan", "W8A8"), ("baichuan", "fp8 e4m3"), ("baichuan", "bf16"),
-                ("gemma", "W8A8"), ("gemma", "bf16"))
-FAMILY_NAMES = {"baichuan": "Baichuan-2-13B", "gemma": "Gemma-2B"}
+                ("gemma", "W8A8"), ("gemma", "bf16"), ("mixtral", "W8A8"),
+                ("mixtral", "fp8 e4m3"))
+FAMILY_NAMES = {"baichuan": "Baichuan-2-13B", "gemma": "Gemma-2B", "mixtral": "Mixtral-8x7B"}
 FAMILY_PROMPT, FAMILY_NEW = 128, 64
 # the continuous and paged correctness arm: Baichuan-2-13B's width (ALiBi)
 # at 4 of its 40 layers, W8A8, a 96-token prefix and 6 requests
@@ -4128,11 +4326,15 @@ def family_model(torch, family, fmt, layers=None, seed=5):
     families path at full width (``layers``: fewer of them)."""
     from autosmoothquant_tpu_torch.models import baichuan as B
     from autosmoothquant_tpu_torch.models import gemma as G
+    from autosmoothquant_tpu_torch.models import mixtral as MX
     from autosmoothquant_tpu_torch.quant.config import QuantConfig
 
     qcfg = {"W8A8": QuantConfig(type="int8"), "fp8 e4m3": QuantConfig(type="fp8_e4m3"),
             "bf16": None}[fmt]
     depth = {"num_hidden_layers": layers} if layers else {}
+    if family == "mixtral":
+        cfg = MX.MixtralConfig(**{**MIXTRAL_8X7B, **depth})
+        return MX, cfg, qcfg, draw_mixtral(cfg, fmt, seed, "cuda")
     if family == "baichuan":
         cfg = B.BaichuanConfig(**{**BAICHUAN_2_13B, **depth})
         return B, cfg, qcfg, draw_baichuan(cfg, fmt, seed, "cuda")
@@ -4140,6 +4342,30 @@ def family_model(torch, family, fmt, layers=None, seed=5):
     params = (draw_w8a8(cfg, seed, "cuda") if fmt == "W8A8"
               else draw_float(cfg, seed, "cuda"))
     return G, cfg, qcfg, params
+
+
+def family_gemms(family, layers, experts=8):
+    """Projection GEMMs of one forward: Baichuan 5 a layer, Gemma 4 (fused
+    q|k|v and gate|up), Mixtral q, k, v, o and 3 a expert."""
+    return {"baichuan": 5, "gemma": 4, "mixtral": 4 + 3 * experts}[family] * layers
+
+
+def mixtral_counts(fmt, layers, experts=8):
+    """(host launches of a b1 T128 prefill, launches of one decode step) of a
+    Mixtral path: q, k, v and o, and w1, w3 and w2 of every expert, one
+    launch each (the prefill's buckets of 64 rows and its q|k|v|o at 128 on
+    the tensor cores, a decode step's on the GEMV); the router once a layer;
+    the second norm a layer (unquantized: the router reads it) and the final
+    norm through rmsnorm_quant's norm mode, and in W8A8 the first norm with
+    its int8 too; K3 causal once a layer in the prefill, decode attention
+    once a layer a step."""
+    gemms = family_gemms("mixtral", layers, experts)
+    kernel = "int8_matmul" if fmt == "W8A8" else "fp8_matmul"
+    norms = {"rmsnorm_quant": layers + 1 + (layers if fmt == "W8A8" else 0),
+             "rmsnorm_quant_norm": layers + 1, "router_logits": layers}
+    prefill = {kernel: gemms, f"{kernel}_tc": gemms, "flash_attention": layers, **norms}
+    step = {kernel: gemms, f"{kernel}_gemv": gemms, "decode_attention": layers, **norms}
+    return prefill, step
 
 
 def family_counts(family, fmt, layers):
@@ -4150,8 +4376,10 @@ def family_counts(family, fmt, layers):
     gate|up (4 GEMMs a layer) and runs its second norm in K2 (W8A8). Every
     forward's final norm is rmsnorm_quant's norm mode; prefill runs K3
     causal once a layer, a decode step decode attention once a layer; bf16
-    projections are library GEMMs."""
-    gemms = (5 if family == "baichuan" else 4) * layers
+    projections are library GEMMs. Mixtral: mixtral_counts."""
+    if family == "mixtral":
+        return mixtral_counts(fmt, layers)
+    gemms = family_gemms(family, layers)
     prefill, step = {"flash_attention": layers}, {"decode_attention": layers}
     norms = {"rmsnorm_quant": 1, "rmsnorm_quant_norm": 1}
     if fmt == "W8A8":
@@ -4177,7 +4405,7 @@ def step_bytes(params):
     return sum(t.numel() * t.element_size() for t in leaves_of)
 
 
-def phase_families(torch, results):
+def phase_families(torch, results, paths=FAMILY_PATHS):
     """Gemma-2B and Baichuan-2-13B at full width and depth, random weights
     from seeded generators on the card, one model at a time: Baichuan-2-13B
     (ALiBi: K3 and decode attention with slopes) in W8A8, fp8 e4m3 and bf16,
@@ -4188,13 +4416,20 @@ def phase_families(torch, results):
     device's launches a replay exactly one step's (a profile of replays);
     then decode tok/s (bench.decode_tps: best of 3), replay ms (CUDA events
     over 50 replays), the replay's device-busy ms and idle share (the
-    profiler over 5) and the step's byte bound. Then the ALiBi correctness
-    arm (family_batching_arm)."""
+    profiler over 5) and the step's byte bound. Mixtral-8x7B (its experts on
+    K1 or K4, one launch an expert projection; the router on its own kernel)
+    in W8A8 and fp8 e4m3, each about 47 GB (bf16, about 93 GB, does not fit
+    the card): its b1 decode step takes the dense route, reading every
+    expert (the bound), where a routed-only step would read 2 of 8 (printed
+    beside it). Then the correctness arms (family_batching_arm): Mixtral-8x7B
+    W8A8's first FAMILY_ARM_LAYERS layers, of the same draw (prefill chunks
+    on the sparse route, decode on the dense one), and Baichuan-2-13B's width
+    (ALiBi)."""
     from autosmoothquant_tpu_torch.serve.engine import Engine, GenerationConfig
 
     rng = torch.Generator().manual_seed(29)
     counters = launch_counters()
-    for family, fmt in FAMILY_PATHS:
+    for family, fmt in paths:
         t0 = time.perf_counter()
         M, cfg, qcfg, params = family_model(torch, family, fmt)
         name = f"{FAMILY_NAMES[family]} {fmt}"
@@ -4222,7 +4457,7 @@ def phase_families(torch, results):
                 f"{FAMILY_NEW - 1} (the warm-up step ran the first step)")
         # bf16 projections are library GEMMs (5 or 4 a layer); a quantized
         # replay runs none past the lm_head's
-        gemms = (5 if family == "baichuan" else 4) * layers
+        gemms = family_gemms(family, layers)
         per_replay = replay_counts(torch, captured.graph,
                                    lm_heads=1 + (gemms if fmt == "bf16" else 0))
         want_replay = {**dict.fromkeys(DEVICE_READS, 0), **as_device_reads(step)}
@@ -4234,37 +4469,169 @@ def phase_families(torch, results):
                                  f"decode step ({name}, b1, graph replay)", replay_ms, reps=5)
         nbytes = step_bytes(params)
         b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        kernels = device_profile.kernels_per_call
         log(json.dumps({"path": f"families {name}", "host launches": counts,
                         "device launches a replay": per_replay}))
+        routed = ""
+        if family == "mixtral":
+            # a routed-only step reads 2 of the 8 experts' bytes
+            experts = sum(t.numel() * t.element_size() for lp in params["layers"]
+                          for k in ("w1", "w3", "w2") for t in lp["moe"][k].values())
+            r_bytes = nbytes - experts * (1 - cfg.num_experts_per_tok / cfg.num_local_experts)
+            r_ms = r_bytes / HBM_BYTES_PER_S * 1e3
+            routed = (f"; experts {experts / 1e9:.3f} GB of it (dense route: all "
+                      f"{cfg.num_local_experts} a step); a routed-only step {r_bytes / 1e9:.3f} "
+                      f"GB, bound {r_ms:.3f} ms, {1e3 / r_ms:.1f} tok/s")
+        kernel = {"W8A8": "int8_matmul", "fp8 e4m3": "fp8_matmul"}.get(fmt)
         log(f"  families {name}: {layers} layers, drawn in {drawn:.1f} s; b1 prompt "
             f"{FAMILY_PROMPT}, {FAMILY_NEW} steps, graph: {tps:.2f} tok/s; a replay "
-            f"{replay_ms:.3f} ms (busy {busy:.3f}, idle {1 - busy / replay_ms:.3f}); step "
-            f"bytes {nbytes / 1e9:.3f} GB, bound {b_ms:.3f} ms, {1e3 / b_ms:.1f} tok/s "
-            f"(achieved {b_ms / replay_ms:.3f} of it); capture {captured.capture_ms:.1f} ms; "
-            f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+            f"{replay_ms:.3f} ms (busy {busy:.3f}, idle {1 - busy / replay_ms:.3f}); "
+            f"{kernels:.1f} kernels a replay"
+            + (f", {per_replay[kernel]} of them {kernel}" if kernel else "")
+            + f"; step bytes {nbytes / 1e9:.3f} GB, bound {b_ms:.3f} ms, {1e3 / b_ms:.1f} "
+            f"tok/s (achieved {b_ms / replay_ms:.3f} of it){routed}; capture "
+            f"{captured.capture_ms:.1f} ms; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
             f"{time.perf_counter() - t0:.1f} s; tokens {toks[:8]}")
         results["decode_attention"].setdefault("families_launches_a_replay", {})[name] = \
             per_replay["decode_attention"]
-        del eng, params, captured
+        if family == "mixtral":
+            for key in (kernel, "flash_attention", "rmsnorm_quant", "decode_attention",
+                        "router_logits"):
+                results[key].setdefault("mixtral_launches", {})[name] = {
+                    "prefill": prefill.get(key, 0),
+                    "replay": per_replay[FLASH if key == "flash_attention" else key]}
+            if results["router_logits"]["launches"] is None:  # the first Mixtral path
+                results["router_logits"]["launches"] = counts["router_logits"]
+                results["router_logits"]["launches_a_replay"] = per_replay["router_logits"]
+        del eng, captured
+        if (family, fmt) == ("mixtral", "W8A8"):
+            # the arm takes the first layers of this draw
+            arm_cfg = dataclasses.replace(cfg, num_hidden_layers=FAMILY_ARM_LAYERS)
+            family_batching_arm(torch, M, arm_cfg, qcfg,
+                                {**params, "layers": params["layers"][:FAMILY_ARM_LAYERS]},
+                                f"{FAMILY_ARM_LAYERS}-layer Mixtral-8x7B W8A8 arm")
+        del params
         torch.cuda.empty_cache()
-    family_batching_arm(torch)
+    if ("baichuan", "W8A8") in paths:
+        family_batching_arm(torch, *family_model(torch, "baichuan", "W8A8", FAMILY_ARM_LAYERS,
+                                                 seed=9),
+                            f"ALiBi arm ({FAMILY_ARM_LAYERS}-layer Baichuan-2-13B W8A8)")
 
 
-def family_batching_arm(torch):
-    """Baichuan-2-13B's width (ALiBi) at FAMILY_ARM_LAYERS layers, W8A8,
-    through ContinuousEngine and PagedEngine (pages of PAGE_BLOCK, the radix
-    tree on), eager and graph: a 96-token prefix registered and 6 greedy
-    requests (2 on the prefix; prompts of 17-300 tokens, chunked prefill
-    of 64: causal and banded K3 with the slopes, decode attention contiguous
-    and paged). Every request's tokens equal the static Engine's b1 greedy
-    tokens, graph and eager; the eager engines' logits at every step equal
-    the static engine's bit for bit (BATCH_LOGIT_NOISE 0)."""
+class SparseDrops:
+    """Mixtral's sparse route drops a (token, expert) pair past its expert's
+    capacity (JAX ``_dispatch_indices``, ``mode="drop"``), so a token's
+    output depends on the other tokens of its forward wherever an expert
+    overflows: a prompt prefilled whole (the static engine) and in chunks
+    (the continuous engines) then part by design. While open this counts,
+    under ``tag`` (the request a prefill serves), the pairs of real tokens
+    (the first ``valid`` of a forward, pads after them) that each sparse
+    forward drops: a host read, so eager forwards only."""
+
+    def __init__(self, torch, M):
+        import torch.nn.functional as F
+
+        self.M, self.sparse, self.tag, self.valid, self.by = M, M.moe_sparse, None, None, {}
+
+        def counted(x2, mp, cfg, qcfg, compute_dtype, top_w, top_idx, capacity_factor=2.0):
+            T, K = top_idx.shape
+            E = cfg.num_local_experts
+            flat = top_idx.reshape(-1)
+            rank = (F.one_hot(flat, E).cumsum(0) - 1).gather(1, flat[:, None])[:, 0]
+            real = torch.arange(T, device=flat.device).repeat_interleave(K) < (self.valid or T)
+            over = (rank >= M.expert_capacity(T, E, K, capacity_factor)) & real
+            self.by[self.tag] = self.by.get(self.tag, 0) + int(over.sum())
+            return self.sparse(x2, mp, cfg, qcfg, compute_dtype, top_w, top_idx,
+                               capacity_factor)
+        M.moe_sparse = counted
+
+    def tag_prefills(self, eng):
+        """Tag an engine's chunk prefills with the request they serve and its
+        real tokens."""
+        chunk = eng._prefill_chunk_row
+
+        def tagged(row, ids, start, valid):
+            self.tag, self.valid = eng._admitting[row]["req"].uid, valid
+            return chunk(row, ids, start, valid)
+        eng._prefill_chunk_row = tagged
+
+    def take(self, reqs):
+        """{request: pairs dropped} since the last take (a prefix request's
+        include its prefix's)."""
+        out = {uid: self.by.get(uid, 0) + (self.by.get("sys", 0) if "prefix" in r_kw else 0)
+               for uid, _, r_kw in reqs}
+        self.by.clear()
+        return out
+
+    def close(self):
+        self.M.moe_sparse = self.sparse
+
+
+def family_batching_arm(torch, M, cfg, qcfg, params, what):
+    """A family's W8A8 model at FAMILY_ARM_LAYERS layers through
+    ContinuousEngine and PagedEngine (pages of PAGE_BLOCK, the radix tree
+    on), eager and graph: a 96-token prefix registered and 6 greedy requests
+    (2 on the prefix; prompts of 17-300 tokens, chunked prefill of 64: causal
+    and banded K3, decode attention contiguous and paged; with Baichuan's
+    ALiBi slopes, or Mixtral's experts on both routes). Every request's
+    tokens equal the static Engine's b1 greedy tokens, graph and eager; the
+    eager engines' logits at every step equal the static engine's bit for
+    bit (BATCH_LOGIT_NOISE 0).
+
+    Mixtral's sparse route drops pairs past capacity (SparseDrops), and the
+    engines prefill a prompt in chunks of their own (the contiguous engine
+    re-feeds its last window, the paged one pads it), so where a prefill
+    drops, its tokens differ by design. Each engine is then held to its own
+    b1 twin (max_batch 1: the same chunks, each request alone): every
+    request's tokens equal, logits bit-equal; and to the static b1 engine
+    on every request whose prefills dropped no pair of real tokens on
+    either side (counted and printed; on random weights a prompt's tokens
+    share much of their hidden state, so its experts overflow often). And
+    the two routes on the card: the first layer's MoE block over 64 rows of
+    independent norm outputs (no expert past capacity) gives the same bits
+    on the dense route as on the sparse one."""
+    t0 = time.perf_counter()
+    drops = SparseDrops(torch, M) if hasattr(M, "moe_sparse") else None
+    try:
+        family_batching_runs(torch, M, cfg, qcfg, params, what, drops)
+    finally:
+        if drops is not None:
+            drops.close()
+    if drops is not None:
+        moe_routes_agree(torch, M, cfg, qcfg, params, what)
+    log(f"  families {what}: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+
+def moe_routes_agree(torch, M, cfg, qcfg, params, what, rows=64):
+    """The first layer's MoE block over ``rows`` independent norm outputs
+    (int8 units: N(0, ACT_RMS^2)) on the dense and on the sparse route: no
+    expert past its capacity, and the same bits (both combine in f32 in
+    ascending expert order; every product is K1's, exact)."""
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    x2 = torch.randn(rows, cfg.hidden_size, generator=gen, device="cuda") * ACT_RMS
+    mp = params["layers"][0]["moe"]
+    top_w, top_idx = M.route(x2, mp["router"]["w"], cfg.num_experts_per_tok)
+    load = torch.bincount(top_idx.reshape(-1), minlength=cfg.num_local_experts)
+    cap = M.expert_capacity(rows, cfg.num_local_experts, cfg.num_experts_per_tok)
+    dense = M.moe_dense(x2, mp, cfg, qcfg, torch.bfloat16, top_w, top_idx)
+    sparse = M.moe_sparse(x2, mp, cfg, qcfg, torch.bfloat16, top_w, top_idx)
+    same = torch.equal(dense, sparse)
+    log(f"  families {what}: the MoE block over {rows} independent rows, dense and sparse "
+        f"routes: expert loads {load.tolist()} (capacity {cap}), bit-equal {same}")
+    require(int(load.max()) <= cap and same,
+            f"{what}: the dense and sparse routes differ ({same}) or an expert overflowed")
+
+
+def family_batching_runs(torch, M, cfg, qcfg, params, what, drops):
+    """family_batching_arm's runs: the static reference, then each engine
+    (after its b1 twin where ``drops`` counts) eager and graph, held to
+    them."""
     from autosmoothquant_tpu_torch.serve.batching import ContinuousEngine
     from autosmoothquant_tpu_torch.serve.engine import Engine, GenerationConfig
     from autosmoothquant_tpu_torch.serve.paged import PagedEngine
 
-    t0 = time.perf_counter()
-    M, cfg, qcfg, params = family_model(torch, "baichuan", "W8A8", FAMILY_ARM_LAYERS, seed=9)
     rng = torch.Generator().manual_seed(31)
 
     def toks(n):
@@ -4277,42 +4644,79 @@ def family_batching_arm(torch):
     kw = dict(kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16, device="cuda")
     static = Engine(M, params, cfg, qcfg, max_batch=1, max_seq=FAMILY_ARM["max_seq"],
                     cuda_graph=False, **kw)
-    ref = {uid: static_logits(torch, static, p, GenerationConfig(
-        max_new_tokens=r_kw["max_new_tokens"])) for uid, p, r_kw in reqs}
+    ref = {}
+    for uid, p, r_kw in reqs:
+        if drops is not None:
+            drops.tag = uid
+        ref[uid] = static_logits(torch, static, p, GenerationConfig(
+            max_new_tokens=r_kw["max_new_tokens"]))
     del static
+    static_drops = drops.take(reqs) if drops is not None else {}
+
+    def serve(cls, extra, graph, max_batch):
+        """(tokens, recorded logits (eager) or None, ticks) of the requests."""
+        eng = cls(M, params, cfg, qcfg, cuda_graph=graph,
+                  **{**FAMILY_ARM, "max_batch": max_batch}, **extra, **kw)
+        rec = None if graph else record_logits(eng)
+        if drops is not None:
+            drops.tag_prefills(eng)
+            drops.tag, drops.valid = "sys", len(prefix)
+        eng.register_prefix("sys", prefix)
+        handles = {uid: eng.submit(uid, p, **r_kw) for uid, p, r_kw in reqs}
+        ticks = 0
+        while not all(h.done for h in handles.values()):
+            eng.step()
+            ticks += 1
+            require(ticks < 1000, f"the {what} did not finish in 1000 ticks")
+        out = {uid: list(h.output) for uid, h in handles.items()}
+        rec = None if rec is None else {uid: (out[uid], rec[uid]) for uid in out}
+        del eng
+        return out, rec, ticks
+
+    def noise_to(rec, want):
+        """Max |logit diff| of recorded steps to ``want``'s, over its keys."""
+        return max([0.0] + [float((rec[uid][1][i] - logits[i]).abs().max())
+                            for uid, (toks_, logits) in want.items()
+                            for i in range(min(len(toks_), len(rec[uid][1])))])
+
     for kind, cls, extra in (("continuous", ContinuousEngine, {}),
                              ("paged", PagedEngine, {"block_size": PAGE_BLOCK})):
-        noise = 0.0
+        twin = None
+        held = dict(ref)
+        if drops is not None:
+            _, twin, _ = serve(cls, extra, False, 1)
+            kind_drops = drops.take(reqs)
+            held = {uid: ref[uid] for uid in ref
+                    if not static_drops[uid] and not kind_drops[uid]}
+            log(f"  families {what} {kind}: real (token, expert) pairs dropped past "
+                f"capacity by each request's prefills, static / {kind}: "
+                + ", ".join(f"{uid} {static_drops[uid]} / {kind_drops[uid]}" for uid in ref)
+                + f"; held to the static engine: {sorted(held)}")
         for graph in (False, True):
-            eng = cls(M, params, cfg, qcfg, cuda_graph=graph, **FAMILY_ARM, **extra, **kw)
-            rec = None if graph else record_logits(eng)
-            eng.register_prefix("sys", prefix)
-            handles = {uid: eng.submit(uid, p, **r_kw) for uid, p, r_kw in reqs}
-            ticks = 0
-            while not all(h.done for h in handles.values()):
-                eng.step()
-                ticks += 1
-                require(ticks < 1000, f"the {kind} ALiBi arm did not finish in 1000 ticks")
-            out = {uid: list(h.output) for uid, h in handles.items()}
-            same = [uid for uid in ref if out[uid] == ref[uid][0]]
+            out, rec, ticks = serve(cls, extra, graph, FAMILY_ARM["max_batch"])
+            same = [uid for uid in held if out[uid] == held[uid][0]]
+            msg = (f"  families {what} {kind} {'graph' if graph else 'eager'}: {ticks} ticks; "
+                   f"tokens equal the static b1 engine's on {len(same)}/{len(held)} requests"
+                   + ("" if twin is None else " held"))
+            if twin is not None:
+                same_twin = [uid for uid in out if out[uid] == twin[uid][0]]
+                msg += f", its b1 twin's on {len(same_twin)}/{len(out)}"
+                require(len(same_twin) == len(out), f"{kind} {what}: tokens differ from the "
+                        f"b1 twin's on {sorted(set(out) - set(same_twin))}")
             if rec is not None:
-                for uid, (want, logits) in ref.items():
-                    steps = min(len(want), len(rec[uid]))
-                    noise = max([noise] + [float((rec[uid][i] - logits[i]).abs().max())
-                                           for i in range(steps)])
-            log(f"  families ALiBi arm ({FAMILY_ARM_LAYERS}-layer Baichuan-2-13B W8A8) {kind} "
-                f"{'graph' if graph else 'eager'}: {ticks} ticks; tokens equal the static b1 "
-                f"engine's on {len(same)}/{len(ref)} requests"
-                + ("" if graph else f"; max |logit diff| to its {noise:g} (limit "
-                                    f"{BATCH_LOGIT_NOISE})"))
-            require(len(same) == len(ref), f"{kind} ALiBi arm: tokens differ from the static "
-                    f"engine's on {sorted(set(ref) - set(same))}")
-            require(noise <= BATCH_LOGIT_NOISE, f"{kind} ALiBi arm: logits differ from the "
-                    f"static engine's by {noise}")
-            del eng
-    log(f"  families ALiBi arm: {time.perf_counter() - t0:.1f} s")
-    del params
-    torch.cuda.empty_cache()
+                noise = noise_to(rec, held)
+                msg += f"; max |logit diff| to the static engine's {noise:g}"
+                require(noise <= BATCH_LOGIT_NOISE, f"{kind} {what}: logits differ from the "
+                        f"static engine's by {noise}")
+                if twin is not None:
+                    noise = noise_to(rec, twin)
+                    msg += f", to the twin's {noise:g}"
+                    require(noise <= BATCH_LOGIT_NOISE, f"{kind} {what}: logits differ from "
+                            f"the b1 twin's by {noise}")
+                msg += f" (limit {BATCH_LOGIT_NOISE})"
+            log(msg)
+            require(len(same) == len(held), f"{kind} {what}: tokens differ from the static "
+                    f"engine's on {sorted(set(held) - set(same))}")
 
 
 def pad_rows(torch, x, multiple):
@@ -4374,32 +4778,36 @@ def phase_timing(torch, results, engines):
                   for (k, n), pname in zip(GEMM_SHAPES, GEMM_NAMES)]
                  + [(f"opt {pname}", k, n, OPT_GEMM_VARIANTS[pname])
                     for (k, n), pname in zip(OPT_GEMM_SHAPES, OPT_GEMM_NAMES)])
-    for m in (1, 2, 4, 8, 128, 512):
-        for pname, k, n, variant in k1_shapes:
-            c = gemm_case(torch, m, k, n, variant, gen)
-            ms = timer.ms(lambda: run_gemm(c))
-            plain_ms = timer.ms(lambda: run_gemm(c, plain=True), iters=10)
-            lib_ms = timer.ms(int_mm_library(torch, c))
-            xp, wt = pad_rows(torch, c["x"], 32 if m <= 16 else 8), c["w"].t()
-            product_ms = timer.ms(lambda: torch._int_mm(xp, wt))
-            b_ms, b_by = bound(gemm_bytes(c), 2 * m * n * k, "int8")
-            padded = " (padded to M=32)" if m <= 16 else ""
-            how = K1.route(m, k, c["x"], c["w"])
-            if how == "tc":
-                how += f", split {K1.tc_split(m, n, k)}"
-            elif how == "gemv":
-                how += f" {K1.gemv_blocks(n)} blocks"
-            log(f"    int8_matmul {pname:11s} M={m:<4d} K={k:<5d} N={n:<6d} ({how}) "
-                f"kernel {ms:.4f} plain {plain_ms:.4f} library {lib_ms:.4f}{padded} "
-                f"(kernel/library {ms / lib_ms:.2f}; product {product_ms:.4f}, kernel/product "
-                f"{ms / product_ms:.2f}) bound {b_ms:.4f} ({b_by})")
-            row = dict(shape=f"{pname} M={m} K={k} N={n} {c['label']} ({how})"
-                       + ("; library on x padded to M=32" if padded else ""),
-                       ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                       bound_by=b_by, product_ms=product_ms)
-            results["int8_matmul"].setdefault("rows", []).append(row)
-            if m == 1 and pname == "gate|up":
-                results["int8_matmul"].update(row)
+    # and Mixtral-8x7B's experts: a decode row (the GEMV) and a T 128
+    # prefill's bucket of 64 rows (the tensor cores)
+    k1_cases = [(m, *shape) for m in (1, 2, 4, 8, 128, 512) for shape in k1_shapes]
+    k1_cases += [(m, f"mixtral {pname}", k, n, GEMM_VARIANTS[1]) for m in (1, 64)
+                 for (k, n), pname in zip(MIXTRAL_GEMM_SHAPES, MIXTRAL_GEMM_NAMES)]
+    for m, pname, k, n, variant in k1_cases:
+        c = gemm_case(torch, m, k, n, variant, gen)
+        ms = timer.ms(lambda: run_gemm(c))
+        plain_ms = timer.ms(lambda: run_gemm(c, plain=True), iters=10)
+        lib_ms = timer.ms(int_mm_library(torch, c))
+        xp, wt = pad_rows(torch, c["x"], 32 if m <= 16 else 8), c["w"].t()
+        product_ms = timer.ms(lambda: torch._int_mm(xp, wt))
+        b_ms, b_by = bound(gemm_bytes(c), 2 * m * n * k, "int8")
+        padded = " (padded to M=32)" if m <= 16 else ""
+        how = K1.route(m, k, c["x"], c["w"])
+        if how == "tc":
+            how += f", split {K1.tc_split(m, n, k)}"
+        elif how == "gemv":
+            how += f" {K1.gemv_blocks(n)} blocks"
+        log(f"    int8_matmul {pname:11s} M={m:<4d} K={k:<5d} N={n:<6d} ({how}) "
+            f"kernel {ms:.4f} plain {plain_ms:.4f} library {lib_ms:.4f}{padded} "
+            f"(kernel/library {ms / lib_ms:.2f}; product {product_ms:.4f}, kernel/product "
+            f"{ms / product_ms:.2f}) bound {b_ms:.4f} ({b_by})")
+        row = dict(shape=f"{pname} M={m} K={k} N={n} {c['label']} ({how})"
+                   + ("; library on x padded to M=32" if padded else ""),
+                   ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                   bound_by=b_by, product_ms=product_ms)
+        results["int8_matmul"].setdefault("rows", []).append(row)
+        if m == 1 and pname == "gate|up":
+            results["int8_matmul"].update(row)
 
     # K2 at decode (T = 1), prefill (T = 128) and a b4 prefill (T = 512) at
     # TinyLlama's D = 2048, and at decode at Llama-2-7B's and -70B's widths
@@ -4476,6 +4884,25 @@ def phase_timing(torch, results, engines):
             results["rmsnorm_quant"].setdefault("rows", []).append(row)
             if (t, quantize) == (1, True):
                 results["rmsnorm_quant"].update(row, shape="decode T=1 D=2048 bf16 int8")
+
+    # the MoE router at Mixtral-8x7B's D 4096 and E 8 (f32 router weights): a
+    # decode step (T 1), the continuous engine's b8 and a T 128 prefill.
+    # Library: the cuBLAS f32 product x @ w (what the plain version runs)
+    from autosmoothquant_tpu_torch.kernels.moe import router_logits, router_logits_plain
+
+    for t in (1, 8, 128):
+        x, w = router_case(torch, t, 4096, 8, torch.float32, gen)
+        ms = timer.ms(lambda: router_logits(x, w))
+        plain_ms = timer.ms(lambda: router_logits_plain(x, w))
+        lib_ms = timer.ms(lambda: torch.mm(x, w))
+        b_ms, b_by = bound(4 * (t * 4096 + 4096 * 8 + t * 8), 2 * t * 4096 * 8, "f32")
+        log(f"    router_logits T={t:<4d} D=4096 E=8 f32 kernel {ms:.4f} plain {plain_ms:.4f} "
+            f"library {lib_ms:.4f} bound {b_ms:.5f} ({b_by}); launch floor {floor_ms:.4f}")
+        row = dict(shape=f"T={t} D=4096 E=8 f32", ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=b_ms, bound_by=b_by)
+        results["router_logits"].setdefault("rows", []).append(row)
+        if t == 1:
+            results["router_logits"].update(row, shape="decode T=1 D=4096 E=8 f32")
 
     # decode attention at DECODE_TIMING_CASES. Library: one
     # F.scaled_dot_product_attention (q length 1, enable_gqa, the bool mask
@@ -4914,6 +5341,7 @@ def device_profile(torch, fn, what, wall_ms, reps):
                for name in after if after[name] != before[name]}
     events = [e for e in prof.events() if e.device_type.name == "CUDA"]
     dev_us = sum(e.time_range.elapsed_us() for e in events) / reps if events else 0.0
+    device_profile.kernels_per_call = len(events) / reps
     log(f"  {what}: unprofiled {wall_ms:.3f} ms; profiled: "
         f"{len(events) / reps:.1f} device kernels per call (wrapper launches "
         f"counted on the host per call: {counted}), device busy "
@@ -4943,16 +5371,9 @@ def device_profile(torch, fn, what, wall_ms, reps):
     return {k: us / reps / 1e3 for k, (n, us) in ours.items()}, dev_us / 1e3
 
 
-def main():
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this needs one "
-              "NVIDIA GPU", file=sys.stderr)
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
+def kernel_results():
+    """The kernel table: one entry a kernel of the port, its numbers filled
+    in by the phases."""
     replaces = {
         "int8_matmul": ("autosmoothquant_tpu/kernels/gemm.py:57",
                         f"{PKG}/csrc/int8_gemm.cu"),
@@ -4974,12 +5395,27 @@ def main():
                           f"{PKG}/csrc/rmsnorm_quant.cu"),
         "decode_attention": ("autosmoothquant_tpu/models/common.py:1255",
                              f"{PKG}/csrc/decode_attn.cu"),
+        "router_logits": ("autosmoothquant_tpu/models/mixtral.py:383",
+                          f"{PKG}/csrc/moe_router.cu"),
     }
-    results = {name: {"name": name, "route": "cuda", "source": src,
-                      "replaces": rep, "launches": None, "max_abs_err": None,
-                      "ms": None, "plain_ms": None, "bound_ms": None,
-                      "bound_by": None, "library_ms": None}
-               for name, (rep, src) in replaces.items()}
+    return {name: {"name": name, "route": "cuda", "source": src,
+                   "replaces": rep, "launches": None, "max_abs_err": None,
+                   "ms": None, "plain_ms": None, "bound_ms": None,
+                   "bound_by": None, "library_ms": None}
+            for name, (rep, src) in replaces.items()}
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this needs one "
+              "NVIDIA GPU", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    results = kernel_results()
     t_start = time.perf_counter()
     try:
         name, smi_line = phase_device(torch)

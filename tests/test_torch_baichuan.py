@@ -124,10 +124,18 @@ def test_config_and_registry():
     assert cfg.position_embedding == "ALIBI" and cfg.head_dim == 128
     assert TB.config_from_hf({**hf, "hidden_size": 4096, "num_attention_heads": 32}
                              ).position_embedding == "ROPE"
-    for ask in (lambda: get_model_family({"architectures": ["MixtralForCausalLM"]}),
-                lambda: load_hf_params({}, "mixtral", 1, device="cpu")):
-        with pytest.raises((ValueError, NotImplementedError), match="item 10"):
-            ask()
+    # Mixtral is ported too (tests/test_torch_mixtral.py); an architecture
+    # that no package has raises, listing the supported ones
+    from autosmoothquant_tpu_torch.models import mixtral as TX
+
+    from test_torch_util import mixtral_state_dict
+
+    assert get_model_family({"architectures": ["MixtralForCausalLM"]}) is TX
+    assert load_hf_params(mixtral_state_dict(), "mixtral", 1, device="cpu")["layers"][0]["moe"][
+        "w1"]["w"].shape == (2, 8, 16)
+    with pytest.raises(ValueError, match="supported: .*MixtralForCausalLM"):
+        get_model_family({"architectures": ["FalconForCausalLM"]})
+
 
 
 def test_init_params_layout():
@@ -483,13 +491,21 @@ def write_hf_dir(d, config, sd, vocab):
     calibration file."""
     import json
 
-    from tokenizers import Tokenizer, models, pre_tokenizers
-    from transformers import PreTrainedTokenizerFast
-
     from autosmoothquant_tpu_torch.convert.safetensors_io import save_safetensors
 
     (d / "config.json").write_text(json.dumps(config))
     save_safetensors(str(d / "model.safetensors"), {k: torch.as_tensor(v) for k, v in sd.items()})
+    return write_tokenizer_and_data(d, vocab)
+
+
+def write_tokenizer_and_data(d, vocab):
+    """Beside an HF checkpoint in ``d``: a word-level tokenizer of ``vocab``
+    words and a jsonl calibration file."""
+    import json
+
+    from tokenizers import Tokenizer, models, pre_tokenizers
+    from transformers import PreTrainedTokenizerFast
+
     tok = Tokenizer(models.WordLevel({str(i): i for i in range(vocab)}, unk_token="0"))
     tok.pre_tokenizer = pre_tokenizers.Whitespace()
     PreTrainedTokenizerFast(tokenizer_object=tok, unk_token="0").save_pretrained(d)

@@ -12,7 +12,7 @@ from pathlib import Path
 import pytest
 
 from autosmoothquant_tpu_torch.kernels import _build
-from autosmoothquant_tpu_torch.kernels import attention, fp8, fused, gemm, int4
+from autosmoothquant_tpu_torch.kernels import attention, fp8, fused, gemm, int4, moe
 
 KERNELS = Path(_build.__file__).resolve().parent
 
@@ -36,6 +36,7 @@ BINDINGS = [
     ("rmsnorm_quant", "asq_rmsnorm_quant", fused._RMS_ARGTYPES),
     ("decode_attn", "asq_decode_attention", attention._DECODE_ARGTYPES),
     ("decode_attn", "asq_decode_keeps_scores", attention._DECODE_KEEPS_ARGTYPES),
+    ("moe_router", "asq_moe_router", moe._ARGTYPES),
 ]
 
 _EXPORT = re.compile(r"ASQ_EXPORT\s+int\s+(\w+)\s*\(([^)]*)\)", re.S)

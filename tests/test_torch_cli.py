@@ -300,9 +300,9 @@ def test_reference_format_checkpoint_is_refused(tmp_path):
     """A reference-format directory (quant_config.json + config.json, no
     manifest) is read as the reference's checkpoint now
     (tests/test_torch_quantize_pipeline.py reads real ones): one without
-    weights is refused with FileNotFoundError (Llama and Baichuan), one of a
-    family the port does not have (Mixtral) with ValueError naming item 10;
-    an empty path with FileNotFoundError."""
+    weights is refused with FileNotFoundError (Llama, Baichuan and Mixtral),
+    one of an architecture no package has with ValueError listing the
+    supported ones; an empty path with FileNotFoundError."""
     from autosmoothquant_tpu_torch.convert.pipeline import load_any_quantized
 
     (tmp_path / "quant_config.json").write_text(json.dumps({"type": "int8"}))
@@ -310,15 +310,16 @@ def test_reference_format_checkpoint_is_refused(tmp_path):
                                                       "num_hidden_layers": 2}))
     with pytest.raises(FileNotFoundError, match="no model weights"):
         load_any_quantized(str(tmp_path), device="cpu")
-    # Baichuan is read as the reference's checkpoint too (no weights here);
-    # Mixtral is the family the port does not have
-    (tmp_path / "config.json").write_text(json.dumps({"architectures": ["BaichuanForCausalLM"],
+    # Baichuan and Mixtral are read as the reference's checkpoints too (no
+    # weights here); Falcon is an architecture no package has
+    for arch in ("BaichuanForCausalLM", "MixtralForCausalLM"):
+        (tmp_path / "config.json").write_text(json.dumps({"architectures": [arch],
+                                                          "num_hidden_layers": 2}))
+        with pytest.raises(FileNotFoundError, match="no model weights"):
+            load_any_quantized(str(tmp_path), device="cpu")
+    (tmp_path / "config.json").write_text(json.dumps({"architectures": ["FalconForCausalLM"],
                                                       "num_hidden_layers": 2}))
-    with pytest.raises(FileNotFoundError, match="no model weights"):
-        load_any_quantized(str(tmp_path), device="cpu")
-    (tmp_path / "config.json").write_text(json.dumps({"architectures": ["MixtralForCausalLM"],
-                                                      "num_hidden_layers": 2}))
-    with pytest.raises(ValueError, match="item 10"):
+    with pytest.raises(ValueError, match="supported: .*MixtralForCausalLM"):
         load_any_quantized(str(tmp_path), device="cpu")
     with pytest.raises(FileNotFoundError):
         load_any_quantized(str(tmp_path / "nothing"), device="cpu")

@@ -1733,3 +1733,84 @@ def test_decode_attention_alibi_over_16k_columns(cuda_device, heads, paged):
     assert torch.equal(run(A.decode_attention, 1, 1024)[0], out[0])
     recompute = functools.partial(A.decode_attention, recompute_scores=True)
     assert torch.equal(run(recompute, b, s), out)
+
+
+# --- the MoE router (kernels/moe.py) and the Mixtral model on the card
+
+
+@pytest.mark.parametrize("rows,d,e,wdt", [(1, 4096, 8, torch.float32), (128, 4096, 8, torch.float32),
+                                          (37, 1024, 8, torch.bfloat16), (5, 64, 4, torch.float32),
+                                          (9, 4096, 12, torch.float32)])
+def test_router_logits_kernel_matches_plain_and_is_batch_invariant(cuda_device, rows, d, e, wdt):
+    """The router's f32 GEMV against its plain version (relative 1e-5 of
+    sum |x||w|: f32 sums in another order), and each row's bits the same
+    alone as in the batch (the cuBLAS product differs there)."""
+    from autosmoothquant_tpu_torch.kernels import moe
+
+    g = _gen(rows + d + e)
+    x = torch.randn(rows, d, device=cuda_device, generator=g) * 30
+    w = (torch.randn(d, e, device=cuda_device, generator=g) / math.sqrt(d)).to(wdt)
+    before = moe.router_logits.launches
+    got = moe.router_logits(x, w)
+    torch.cuda.synchronize()
+    assert moe.router_logits.launches == before + 1
+    ref = moe.router_logits_plain(x, w)
+    scale = (x.abs() @ w.float().abs()).double()
+    assert bool(((got.double() - ref.double()).abs() <= 1e-5 * scale + 1e-30).all())
+    for r in {0, rows // 2, rows - 1}:
+        assert torch.equal(moe.router_logits(x[r:r + 1], w)[0], got[r])
+
+
+@pytest.mark.parametrize("quant", ["int8", "fp8_e4m3", "int4"])
+def test_mixtral_card_matches_cpu_on_both_routes(cuda_device, quant):
+    """A tiny Mixtral (hidden 256, 8 experts of 512, top 2) quantized on the
+    CPU: card against CPU logits of a T 48 prefill (the sparse route) and a
+    b3 decode step (the dense route), max 0.2 and mean 1e-2 (a W8A8 model's
+    card-vs-CPU bar); each route's K1 / K4 / K5 launches one a expert
+    projection."""
+    from autosmoothquant_tpu_torch.kernels.counters import launch_counters, read_counts
+    from autosmoothquant_tpu_torch.models import mixtral as MX
+    from autosmoothquant_tpu_torch.quant.config import QuantConfig
+
+    cfg = MX.MixtralConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                           num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                           num_local_experts=8, max_position_embeddings=128)
+    qcfg = QuantConfig(**({"type": "int4", "group_size": 64} if quant == "int4"
+                          else {"type": quant}))
+    params = MX.init_params(cfg, seed=1, device="cpu")
+    ids = torch.randint(0, 512, (3, 16), generator=torch.Generator().manual_seed(2))
+    stats = MX.forward(params, ids, cfg, capture_stats=True, calibrate_all_experts=True)[2]
+    qp = MX.quantize(MX.smooth(params, stats, cfg=cfg) if quant == "int8" else params, qcfg,
+                     MX.layer_scales(stats), cfg=cfg)
+    kernel = {"int8": "int8_matmul", "fp8_e4m3": "fp8_matmul", "int4": "int4_matmul"}[quant]
+    counters = launch_counters()
+    out, tok = {}, None
+    for dev in ("cpu", "cuda"):
+        p = _to(qp, dev)
+        cache = MX.init_kv_cache(cfg, 3, 32, torch.float32, dev)
+        with torch.inference_mode():
+            before = read_counts(counters)
+            h, _ = MX.forward(p, ids.to(dev), cfg, qcfg, kv_cache=cache, cache_index=0)
+            pre = read_counts(counters)
+            if tok is None:  # the CPU's greedy token feeds both decode steps
+                tok = MX.logits(p, h)[:, -1].argmax(-1)
+            h2, _ = MX.forward(p, tok[:, None].to(dev), cfg, qcfg, kv_cache=cache,
+                               cache_index=16)
+            after = read_counts(counters)
+        out[dev] = (MX.logits(p, h).cpu(), MX.logits(p, h2).cpu())
+        if dev == "cuda":
+            # 4 attention projections and 3 a expert, every layer, both routes
+            assert pre[kernel] - before[kernel] == 2 * (4 + 3 * 8)
+            assert after[kernel] - pre[kernel] == 2 * (4 + 3 * 8)
+            assert after["router_logits"] - before["router_logits"] == 4
+    for a, b in zip(out["cuda"], out["cpu"]):
+        diff = (a - b).abs()
+        assert float(diff.max()) <= 0.2 and float(diff.mean()) <= 1e-2, quant
+
+
+def _to(node, dev):
+    if isinstance(node, dict):
+        return {k: _to(v, dev) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_to(v, dev) for v in node]
+    return node.to(dev)

@@ -360,14 +360,15 @@ def test_load_quantized_opt_is_byte_equal_with_layernorm_biases(opt_artifact, mo
 
 def test_load_quantized_refuses_an_unported_family(opt_artifact, tmp_path):
     """The family comes from the registry, not a Llama config read for
-    every artifact: a Mixtral artifact raises and names the ROADMAP item."""
+    every artifact: an artifact whose config names an architecture no
+    package has raises, listing the supported ones (Mixtral among them)."""
     import shutil
 
-    path = str(tmp_path / "mixtral")
+    path = str(tmp_path / "falcon")
     shutil.copytree(opt_artifact[0], path)
     with open(os.path.join(path, "config.json"), "w", encoding="utf-8") as f:
-        json.dump({**TINY_OPT, "architectures": ["MixtralForCausalLM"]}, f)
-    with pytest.raises(ValueError, match="Queue 1 item 10"):
+        json.dump({**TINY_OPT, "architectures": ["FalconForCausalLM"]}, f)
+    with pytest.raises(ValueError, match="supported: .*MixtralForCausalLM"):
         TP.load_quantized(path, device="cpu")
 
 
@@ -399,13 +400,16 @@ def test_registry_picks_the_family(arch, module):
 def test_registry_falls_back_to_model_type_and_raises_on_the_rest():
     from autosmoothquant_tpu_torch.models import baichuan as TB
     from autosmoothquant_tpu_torch.models import gemma as TG
+    from autosmoothquant_tpu_torch.models import mixtral as TX
 
     assert TR.get_model_family({"model_type": "opt"}) is TO
     assert TR.get_model_family({"model_type": "llama"}) is TL
     assert TR.get_model_family({"architectures": ["BaichuanForCausalLM"]}) is TB
     assert TR.get_model_family({"architectures": ["GemmaForCausalLM"]}) is TG
-    for config in ({"architectures": ["MixtralForCausalLM"]}, {"model_type": "mixtral"}):
-        with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 10"):
+    assert TR.get_model_family({"architectures": ["MixtralForCausalLM"]}) is TX
+    assert TR.get_model_family({"model_type": "mixtral"}) is TX
+    for config in ({"architectures": ["FalconForCausalLM"]}, {"model_type": "falcon"}):
+        with pytest.raises(ValueError, match="supported: .*MixtralForCausalLM"):
             TR.get_model_family(config)
 
 

@@ -139,12 +139,20 @@ def test_load_hf_params_matches_jax(hf_dirs, name):
 
 
 def test_unported_families_name_their_item():
+    """Every family of the JAX package is ported: Baichuan and Gemma
+    (tests/test_torch_baichuan.py, tests/test_torch_gemma.py) and Mixtral
+    (tests/test_torch_mixtral.py), whose mapper reads an HF state dict; an
+    architecture no package has raises ValueError listing the supported
+    ones."""
     from autosmoothquant_tpu_torch.convert.hf import load_hf_params
+    from autosmoothquant_tpu_torch.models.registry import get_model_family
 
-    # Baichuan and Gemma are ported (tests/test_torch_baichuan.py,
-    # tests/test_torch_gemma.py); Mixtral still names its item
-    with pytest.raises(NotImplementedError, match="item 10"):
-        load_hf_params({}, "mixtral", 1, device="cpu")
+    from test_torch_util import mixtral_state_dict
+
+    params = load_hf_params(mixtral_state_dict(), "mixtral", 1, device="cpu")
+    assert params["layers"][0]["moe"]["router"]["w"].shape == (8, 2)
+    with pytest.raises(ValueError, match="supported: .*MixtralForCausalLM"):
+        get_model_family({"architectures": ["FalconForCausalLM"], "model_type": "falcon"})
 
 
 def test_datautils_match_jax(tmp_path):

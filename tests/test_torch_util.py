@@ -89,6 +89,25 @@ def jax_opt(qcfg_kwargs=None, seed=0, **overrides):
     return JO, cfg, JO.quantize(params, qcfg, scales, cfg), qcfg
 
 
+def mixtral_state_dict():
+    """A one-layer HF Mixtral state dict of 2 experts (hidden 8, intermediate
+    16, 2 heads): what the float mapper reads."""
+    import torch
+
+    rng = np.random.default_rng(0)
+    sd = {"model.embed_tokens.weight": rng.normal(size=(32, 8)),
+          "model.norm.weight": np.ones(8), "lm_head.weight": rng.normal(size=(32, 8)),
+          "model.layers.0.input_layernorm.weight": np.ones(8),
+          "model.layers.0.post_attention_layernorm.weight": np.ones(8),
+          "model.layers.0.block_sparse_moe.gate.weight": rng.normal(size=(2, 8))}
+    for n in ("q", "k", "v", "o"):
+        sd[f"model.layers.0.self_attn.{n}_proj.weight"] = rng.normal(size=(8, 8))
+    for e in range(2):
+        for w, shape in (("w1", (16, 8)), ("w3", (16, 8)), ("w2", (8, 16))):
+            sd[f"model.layers.0.block_sparse_moe.experts.{e}.{w}.weight"] = rng.normal(size=shape)
+    return {k: torch.from_numpy(v.astype(np.float32)) for k, v in sd.items()}
+
+
 def port_opt_config(cfg):
     from autosmoothquant_tpu_torch.models.opt import OPTConfig
 
