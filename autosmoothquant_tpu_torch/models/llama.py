@@ -62,6 +62,8 @@ from .common import (
     update_and_attend,
 )
 
+FAMILY = "llama"
+
 
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:

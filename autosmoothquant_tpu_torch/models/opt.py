@@ -66,6 +66,7 @@ from .common import (
     update_and_attend,
 )
 
+FAMILY = "transformers"  # the reference's family tag for OPT (its models/__init__.py)
 POS_OFFSET = 2  # HF OPTLearnedPositionalEmbedding offset
 
 

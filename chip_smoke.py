@@ -128,6 +128,21 @@ Phases (any failure ends the run with a nonzero exit code):
            held-out prompts; the pipeline on the card against the CPU at 2
            layers (W8A8, fp8 e4m3 static with its observer pass on K4, int4
            at TinyLlama width; W8A8 at OPT-6.7B width)
+  eval     the quantize phase's checkpoint and W8A8 artifact scored through
+           the eval_model CLI, in its own process, once on the artifact
+           (with the port's F1 metrics module) and once on the float
+           checkpoint (--origin-model): bf16 perplexity of a held-out jsonl
+           of synthetic text (16+ windows of 2048, 4 a forward) and the
+           three stock tasks (examples/tasks) through the native harness;
+           W8A8 / float perplexity and the mean |NLL - float NLL| a token
+           within their limits, which planted faults (layer 0's
+           layer_scales x4 and x0.5) exceed; the CLI's perplexity against
+           one window a forward in process; a profile of one perplexity
+           forward; each
+           perplexity pass's and one scored batch's launches exact (K1, K2,
+           K3, rmsnorm_quant), one engine a harness; at 2 layers every
+           stock request's log-likelihood, greedy flag and tokens and a
+           perplexity on the card against the CPU
   families Baichuan-2-13B (W8A8, fp8 e4m3, bf16), Gemma-2B (W8A8, bf16)
            and Mixtral-8x7B (W8A8, fp8 e4m3; about 47 GB each, bf16 does not
            fit) at full width and depth, one model at a time: Engine.generate b1,
@@ -206,7 +221,7 @@ from autosmoothquant_tpu_torch.kernels.counters import launch_counters, read_cou
 PKG = "autosmoothquant_tpu_torch"
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "e2e", "serve", "batching", "paged", "speculative",
-          "http", "quantize", "families", "timing")
+          "http", "quantize", "eval", "families", "timing")
 
 # NVIDIA H100 SXM data sheet (dense): HBM3 bandwidth and peak rates by type
 HBM_BYTES_PER_S = 3.35e12
@@ -4095,7 +4110,8 @@ def phase_quantize(torch, results, smi_line):
     the card against the CPU (plain versions) at 2 layers of the same
     widths: W8A8, fp8 e4m3 static (its observer pass on K4's tensor cores,
     M = 4096) and int4 at TinyLlama width, W8A8 at OPT-6.7B width, within
-    QUANT_LIMITS."""
+    QUANT_LIMITS. Returns the checkpoint's directory (a TemporaryDirectory
+    the eval phase removes), its tokenizer and the artifact's path."""
     import pickle
     import tempfile
 
@@ -4256,8 +4272,12 @@ def phase_quantize(torch, results, smi_line):
                 f"the served artifact's replay {per_replay}; expected {want_replay}")
         del eng, params
         torch.cuda.empty_cache()
-    finally:
+    except BaseException:
         tmp.cleanup()
+        raise
+    # the checkpoint, its tokenizer and the artifact stay for the eval phase,
+    # which removes them
+    quantized = dict(tmp=tmp, ckpt=ckpt, out=out, art=art, tok=tok)
 
     # the pipeline, card against CPU, at 2 layers of the same widths
     gen = torch.Generator().manual_seed(29)
@@ -4302,6 +4322,352 @@ def phase_quantize(torch, results, smi_line):
                 f"{passes * c.num_hidden_layers}")
     del llama_float
     require(not failures, "; ".join(failures))
+    return quantized
+
+
+# ---------------------------------------------------------------------------
+# evaluation on the card: the eval_model CLI on the quantize phase's artifact
+# ---------------------------------------------------------------------------
+
+EVAL_RECORDS = 90        # held-out jsonl records of synthetic text (18 windows)
+EVAL_WINDOWS = 16        # at least this many perplexity windows of EVAL_MAX_LENGTH
+EVAL_MAX_LENGTH = 2048
+EVAL_BATCH_WINDOWS = 4
+EVAL_TASKS = tuple(os.path.join("examples", "tasks", f"stock_{n}.jsonl")
+                   for n in ("mc", "gen", "rolling"))
+EVAL_METRICS = os.path.join(PKG, "eval", "custom_metrics.py")
+EVAL_TIMEOUT = 600       # seconds: one eval_model process
+# limits, each set from this phase's readings on an H100 (700 W) at about
+# 2-3x them (HF-initialized TinyLlama, logit std 0.9; every reading repeated
+# to the last digit in a second call): the CLI's 4 windows a forward against
+# one (1.59e-7); W8A8 / float perplexity (1.004585: 2x its excess) and the
+# mean |NLL - float NLL| a scored token (0.1133). Perplexity on random
+# weights follows the logits' spread more than their fidelity: the quantize
+# phase's planted fault (layer 0's layer_scales x2: 1.001951, drift 0.1618)
+# stays under both, so the faults that show the limits' power are layer 0's
+# layer_scales x4 (1.009919, 0.2727) and x0.5 (1.019310, 0.3519). At 2
+# layers, card against CPU in f32: a log-likelihood within 0.04 a token
+# (0.0168), tokens parting only where the CPU's top-2 margin is within 0.15
+# (partings at 0.0113, 0.0481, 0.0520), a bf16 perplexity within 0.4%
+# (0.169%)
+EVAL_BW_RTOL = 5e-7
+EVAL_PPL_RATIO_LIMIT = 1.0092
+EVAL_NLL_DRIFT_LIMIT = 0.23
+EVAL_LL_TOL = 0.04
+EVAL_TIE_MARGIN = 0.15
+EVAL_PPL_2L_RTOL = 4e-3
+EVAL_2L_WINDOWS = (2, 512)   # the 2-layer perplexity: windows x length
+# planted faults: (name, layers, factor on their layer_scales, whether it
+# must exceed both limits)
+EVAL_FAULTS = (("layer_scales x2 in layer 0", 0, 2.0, False),
+               ("layer_scales x4 in layer 0", 0, 4.0, True),
+               ("layer_scales x0.5 in layer 0", 0, 0.5, True))
+
+
+def run_eval_cli(model, tok_dir, held, *extra):
+    """The eval_model CLI as users run it, in its own process: perplexity of
+    the held-out stream (windows of EVAL_MAX_LENGTH, EVAL_BATCH_WINDOWS a
+    forward) and the three stock tasks through the native harness.
+    Returns (its results, its report, wall s)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"{PKG}.cli.eval_model", "--model-path", model,
+         "--tokenizer-path", tok_dir, "--eval-ppl", "--dataset-path", held,
+         "--max-length", str(EVAL_MAX_LENGTH), "--batch-windows", str(EVAL_BATCH_WINDOWS),
+         "--task-files", ",".join(os.path.join(ROOT, t) for t in EVAL_TASKS), *extra],
+        capture_output=True, text=True, timeout=EVAL_TIMEOUT, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    out, err = proc.stdout.strip().splitlines(), proc.stderr.strip().splitlines()
+    require(proc.returncode == 0 and out and err,
+            f"eval_model exited {proc.returncode}; stdout {proc.stdout[-2000:]}; "
+            f"stderr {proc.stderr[-3000:]}")
+    report = json.loads(err[-1])["eval_model"]
+    require(out[0].startswith("{'results': {'wikitext2': {'ppl': ")
+            and any(line.startswith("| stock_mc |") for line in out),
+            f"eval_model printed {out[:3]}")
+    return report.pop("results"), report, wall
+
+
+def ppl_launches(layers, forwards, w8a8):
+    """The host launches of ``forwards`` perplexity forwards of the TinyLlama
+    at ``layers`` layers, unfused: 7 K1 GEMMs, one K2, one rmsnorm_quant
+    (the first norm and its int8) and one causal K3 a layer, plus the final
+    norm; a float model runs only K3 and the final norm."""
+    n = {"flash_attention": layers, "rmsnorm_quant": 1, "rmsnorm_quant_norm": 1}
+    if w8a8:
+        n.update(int8_matmul=7 * layers, int8_matmul_tc=7 * layers,
+                 fused_add_rmsnorm_quant=layers, fused_add_rmsnorm_quant_vec=layers,
+                 rmsnorm_quant=layers + 1)
+    return {k: forwards * v for k, v in n.items()}
+
+
+def stock_requests(tok):
+    """The stock tasks' requests as the harness builds them: (multiple-choice
+    loglikelihood pairs, rolling streams, generate prompts and their new
+    tokens)."""
+    from autosmoothquant_tpu_torch.eval.tasks import load_task
+
+    mc, gen, rolling = (load_task(os.path.join(ROOT, t), tok) for t in EVAL_TASKS)
+    return (mc.build_requests()[0], rolling.build_requests()[0],
+            gen.build_requests()[0], gen.max_new_tokens)
+
+
+def cpu_margin(torch, L, params, cfg, qcfg, ids, positions):
+    """The CPU's top-2 logit margin at each of ``positions`` of the
+    sequence ``ids`` (f32, no cache)."""
+    with torch.inference_mode():
+        h, _ = L.forward(params, torch.tensor([ids]), cfg, qcfg)
+        lg = L.logits(params, h)[0]
+    return [margin(lg[p]) for p in positions]
+
+
+def eval_card_vs_cpu(torch, L, cfg, qcfg, params, tok, stream, smi_line):
+    """The first 2 layers of the artifact (TinyLlama width) on the card and
+    on the CPU (plain versions), TorchLM in f32: each stock multiple-choice
+    request's log-likelihood within EVAL_LL_TOL a continuation token and its
+    greedy flag equal (unless the CPU's top-2 margin at a continuation
+    position is within EVAL_TIE_MARGIN), the rolling totals likewise, the
+    generated tokens equal up to a parting at such a near-tie; and the bf16
+    perplexity of EVAL_2L_WINDOWS within EVAL_PPL_2L_RTOL."""
+    from autosmoothquant_tpu_torch.eval.lm_adapter import TorchLM
+    from autosmoothquant_tpu_torch.eval.ppl import perplexity_from_tokens
+
+    c2 = tinyllama(L, 2)
+    cpu = cpu_copy({**params, "layers": params["layers"][:2]})
+    card = to_device(cpu, "cuda")
+    mc, rolling, prompts, n_new = stock_requests(tok)
+    lms = {dev: TorchLM(L, p, c2, qcfg, batch_size=4, max_length=EVAL_MAX_LENGTH, device=dev)
+           for dev, p in (("cuda", card), ("cpu", cpu))}
+    out = {}
+    for dev, lm in lms.items():
+        t0 = time.perf_counter()
+        out[dev] = (lm.loglikelihood(mc), lm.loglikelihood_rolling(rolling),
+                    lm.generate_until(prompts, max_new_tokens=n_new))
+        out[dev + "_s"] = time.perf_counter() - t0
+    bad, worst_ll, flags_parted, tok_parted = [], 0.0, [], []
+    for i, ((a, ga), (b, gb), (ctx, cont)) in enumerate(zip(out["cuda"][0], out["cpu"][0], mc)):
+        per_tok = abs(a - b) / len(cont)
+        worst_ll = max(worst_ll, per_tok)
+        if per_tok > EVAL_LL_TOL:
+            bad.append(f"mc request {i}: log-likelihood {a} against the CPU's {b}")
+        if ga != gb:
+            m = min(cpu_margin(torch, L, cpu, c2, qcfg, ctx + cont,
+                               range(len(ctx) - 1, len(ctx) + len(cont) - 1)))
+            flags_parted.append((i, m))
+            if m > EVAL_TIE_MARGIN:
+                bad.append(f"mc request {i}: greedy flag {ga} against the CPU's {gb} at a "
+                           f"top-2 margin of {m}")
+    worst_roll = 0.0
+    for a, b, s in zip(out["cuda"][1], out["cpu"][1], rolling):
+        worst_roll = max(worst_roll, abs(a - b) / len(s))
+        if abs(a - b) / len(s) > EVAL_LL_TOL:
+            bad.append(f"rolling: {a} against the CPU's {b} over {len(s)} tokens")
+    for i, (a, b, p) in enumerate(zip(out["cuda"][2], out["cpu"][2], prompts)):
+        if a != b:
+            j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+            m = cpu_margin(torch, L, cpu, c2, qcfg, p + b[:j], [len(p) + j - 1])[0]
+            tok_parted.append((i, j, m))
+            if m > EVAL_TIE_MARGIN:
+                bad.append(f"generate {i}: tokens part at {j} at a CPU top-2 margin of {m}")
+    w, n = EVAL_2L_WINDOWS
+    ppl = {dev: perplexity_from_tokens(L, lm.params, c2, stream[:w * n], max_length=n, qcfg=qcfg,
+                                       compute_dtype=torch.bfloat16, batch_windows=w, device=dev)
+           for dev, lm in lms.items()}
+    ppl_rel = abs(ppl["cuda"] - ppl["cpu"]) / ppl["cpu"]
+    if ppl_rel > EVAL_PPL_2L_RTOL:
+        bad.append(f"2-layer perplexity {ppl['cuda']} against the CPU's {ppl['cpu']}")
+    log(f"  eval card vs CPU, 2-layer W8A8 (the artifact's first layers, f32): "
+        f"{len(mc)} loglikelihood requests, worst |diff| a token {worst_ll:.4g} (limit "
+        f"{EVAL_LL_TOL}), greedy flags parted {flags_parted} (request, CPU margin); "
+        f"{len(rolling)} rolling streams, worst |diff| a token {worst_roll:.4g}; "
+        f"{len(prompts)} generations x {n_new} tokens, parted {tok_parted} (request, "
+        f"position, CPU margin); bf16 perplexity {w} x {n}: card {ppl['cuda']:.6f} CPU "
+        f"{ppl['cpu']:.6f} rel {ppl_rel:.3g} (limit {EVAL_PPL_2L_RTOL}); card "
+        f"{out['cuda_s']:.1f} s, CPU {out['cpu_s']:.1f} s [{smi_line}]")
+    require(not bad, "; ".join(bad))
+
+
+def token_nll(torch, L, params, cfg, qcfg, windows):
+    """(f32 NLL of every scored token [n, T - 1] on the card, the pass's
+    seconds): the windows [n, T] EVAL_BATCH_WINDOWS a forward in bf16, as
+    the perplexity pass scores them."""
+    from autosmoothquant_tpu_torch.eval.ppl import token_logprobs
+
+    out = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for i in range(0, windows.shape[0], EVAL_BATCH_WINDOWS):
+            w = windows[i:i + EVAL_BATCH_WINDOWS]
+            h, _ = L.forward(params, w, cfg, qcfg, compute_dtype=torch.bfloat16)
+            out.append(-token_logprobs(L, params, h, w)[0])
+        nll = torch.cat(out)
+    torch.cuda.synchronize()
+    return nll, time.perf_counter() - t0
+
+
+def phase_eval(torch, quantized, smi_line):
+    """Evaluation on the card through the eval_model CLI, on the quantize
+    phase's TinyLlama-1.1B checkpoint (22 layers, full width) and its W8A8
+    artifact: a held-out jsonl of synthetic text (at least EVAL_WINDOWS
+    windows of 2048 tokens) and the three stock tasks, the CLI in its own
+    process on the artifact (with the port's F1 metrics module) and on the
+    float checkpoint (--origin-model): W8A8 and float perplexity and their
+    ratio, scored tokens/s, stage times, each task's metrics, one engine a
+    harness and each perplexity pass's launches exact. In process: the
+    CLI's W8A8 perplexity equals perplexity_from_tokens at one window a
+    forward within EVAL_BW_RTOL; every scored token's NLL of the float and
+    W8A8 models and of EVAL_FAULTS' planted faults: the W8A8 / float
+    perplexity within EVAL_PPL_RATIO_LIMIT and the mean |NLL - float NLL|
+    within EVAL_NLL_DRIFT_LIMIT, both exceeded by the faults marked so; a
+    profile of one perplexity forward; one scored batch's host launches
+    exact; and at 2 layers the card against the CPU (eval_card_vs_cpu)."""
+    import pickle
+
+    import numpy as np
+
+    from autosmoothquant_tpu_torch.convert.hf import load_hf_params
+    from autosmoothquant_tpu_torch.convert.pipeline import load_any_quantized
+    from autosmoothquant_tpu_torch.eval.lm_adapter import TorchLM
+    from autosmoothquant_tpu_torch.eval.ppl import perplexity_from_tokens
+    from autosmoothquant_tpu_torch.models import llama as L
+    from autosmoothquant_tpu_torch.quant.config import QuantConfig
+    from autosmoothquant_tpu_torch.utils.datautils import load_json_text
+
+    require(quantized is not None, "the quantize phase left no checkpoint")
+    tmp, ckpt, art, tok = (quantized[k] for k in ("tmp", "ckpt", "art", "tok"))
+    cfg = tinyllama(L, 22)
+    try:
+        t_phase = time.perf_counter()
+        held = os.path.join(tmp.name, "heldout.jsonl")
+        with open(held, "w", encoding="utf-8") as f:
+            for text in synthetic_text(4, EVAL_RECORDS):
+                f.write(json.dumps({"text": text}) + "\n")
+        stream = load_json_text(held, tok)
+        n_windows = stream.size // EVAL_MAX_LENGTH
+        require(n_windows >= EVAL_WINDOWS, f"the held-out stream holds {n_windows} windows")
+
+        runs = {}
+        for label, model, extra in (("W8A8", art, ("--metrics-module",
+                                                   os.path.join(ROOT, EVAL_METRICS))),
+                                    ("float", ckpt, ("--origin-model",))):
+            res, report, wall = run_eval_cli(model, ckpt, held, *extra)
+            runs[label] = (res, report)
+            ppl = res["wikitext2"]["ppl"]
+            log(f"  eval_model {label} in its own process: perplexity {ppl:.6f} over "
+                f"{report['ppl_tokens']} tokens ({n_windows} windows of {EVAL_MAX_LENGTH}, "
+                f"{EVAL_BATCH_WINDOWS} a forward, bf16), {report['ppl_tokens_per_s']:.0f} "
+                f"scored tokens/s; stages (s) " + ", ".join(
+                    f"{k} {v:.2f}" for k, v in report["stages_s"].items())
+                + f"; wall {wall:.1f} s; engines {report['engines_built']}, graphs "
+                f"{report['graphs_captured']} [{smi_line}]")
+            for task in ("stock_mc", "stock_gen", "stock_rolling"):
+                log(f"  eval_model {label} {task}: " + json.dumps(res[task]) + f" [{smi_line}]")
+            want = ppl_launches(cfg.num_hidden_layers, -(-n_windows // EVAL_BATCH_WINDOWS),
+                                label == "W8A8")
+            got = report["launches"]["ppl"]
+            log(f"  eval_model {label} perplexity pass host launches {got} (expected {want})")
+            require(got == want, f"{label}: the perplexity pass launched {got}; expected {want}")
+            require(report["engines_built"] == 1 and report["graphs_captured"] == 1,
+                    f"{label}: the harness built {report['engines_built']} engines, "
+                    f"{report['graphs_captured']} graphs")
+            tasks = report["launches"]["tasks"]
+            require(tasks.get("decode_attention", 0) > 0 and tasks.get("flash_attention", 0) > 0,
+                    f"{label}: the tasks launched {tasks}")
+            require(all(math.isfinite(v) for t in res.values() for v in t.values()),
+                    f"{label}: non-finite results {res}")
+        require("f1" in runs["W8A8"][0]["stock_gen"], "the metrics module's f1 is missing")
+        ppl_q, ppl_f = (runs[k][0]["wikitext2"]["ppl"] for k in ("W8A8", "float"))
+
+        # the CLI's batches of 4 windows against one window a forward
+        params, qcfg, _ = load_any_quantized(art, device="cuda")
+        t0 = time.perf_counter()
+        ppl_one = perplexity_from_tokens(L, params, cfg, stream, max_length=EVAL_MAX_LENGTH,
+                                         qcfg=qcfg, compute_dtype=torch.bfloat16)
+        one_s = time.perf_counter() - t0
+        bw_rel = abs(ppl_q - ppl_one) / ppl_one
+
+        # each scored token's NLL, float against W8A8 and planted faults (the
+        # quantize phase's: layer 0's layer_scales doubled; and others), in
+        # process, bf16, 4 windows a forward
+        windows = torch.from_numpy(stream[:n_windows * EVAL_MAX_LENGTH].astype(np.int64)) \
+            .view(n_windows, EVAL_MAX_LENGTH).cuda()
+        fparams = load_hf_params(ckpt, "llama", cfg.num_hidden_layers, device="cuda")
+        nll_f, _ = token_nll(torch, L, fparams, cfg, None, windows)
+        nll_q, warm_s = token_nll(torch, L, params, cfg, qcfg, windows)
+        with open(os.path.join(quantized["out"], "act_scales.pkl"), "rb") as f:
+            smoothed = L.smooth(fparams, pickle.load(f), 0.5, cfg=cfg)
+        del fparams
+        with open(os.path.join(art, "layer_scales.json"), "r", encoding="utf-8") as f:
+            scales = {k: torch.tensor(v, dtype=torch.float32, device="cuda")
+                      for k, v in json.load(f).items()}
+        w8a8 = QuantConfig(type="int8")
+        faults = {}
+        for name, layers, by, _ in EVAL_FAULTS:
+            planted = {k: v.clone() for k, v in scales.items()}
+            for v in planted.values():
+                v[layers] *= by
+            faulty = L.quantize(smoothed, w8a8, planted, cfg=cfg)
+            faults[name] = token_nll(torch, L, faulty, cfg, w8a8, windows)[0]
+            del faulty
+        del smoothed
+        torch.cuda.empty_cache()
+
+        def drift(nll):
+            return float((nll - nll_f).abs().mean())
+
+        def ratio(nll):
+            return math.exp(float(nll.double().mean()) - float(nll_f.double().mean()))
+
+        readings = {name: (ratio(n), drift(n)) for name, n in faults.items()}
+        log(f"  eval perplexity: W8A8 {ppl_q:.6f}, float {ppl_f:.6f}, W8A8 / float "
+            f"{ppl_q / ppl_f:.6f} (limit {EVAL_PPL_RATIO_LIMIT}); in process at one window a "
+            f"forward {ppl_one:.6f} ({one_s:.2f} s, {windows.numel() / one_s:.0f} scored "
+            f"tokens/s), CLI / it - 1 {bw_rel:.3g} (limit {EVAL_BW_RTOL}); warm, 4 windows a "
+            f"forward {warm_s:.3f} s ({windows.numel() / warm_s:.0f} scored tokens/s) "
+            f"[{smi_line}]")
+        log(f"  eval token NLL drift from float (mean |NLL - float NLL| a scored token) and "
+            f"perplexity / float, in process: W8A8 {drift(nll_q):.6g} / {ratio(nll_q):.6f} "
+            f"(limits {EVAL_NLL_DRIFT_LIMIT} / {EVAL_PPL_RATIO_LIMIT}); " + "; ".join(
+                f"{k} {d:.6g} / {r:.6f}" for k, (r, d) in readings.items()) + f" [{smi_line}]")
+        require(bw_rel <= EVAL_BW_RTOL, f"the CLI's W8A8 perplexity {ppl_q} against "
+                f"{ppl_one} at one window a forward")
+        require(ppl_q / ppl_f <= EVAL_PPL_RATIO_LIMIT and drift(nll_q) <= EVAL_NLL_DRIFT_LIMIT,
+                f"W8A8 / float perplexity {ppl_q / ppl_f} (limit {EVAL_PPL_RATIO_LIMIT}), token "
+                f"NLL drift {drift(nll_q)} (limit {EVAL_NLL_DRIFT_LIMIT})")
+        for name, _, _, must in EVAL_FAULTS:
+            r, d = readings[name]
+            require(not must or (r > EVAL_PPL_RATIO_LIMIT and d > EVAL_NLL_DRIFT_LIMIT),
+                    f"the planted fault {name} reads {r} / {d}, within the limits")
+        del nll_f, nll_q, faults
+
+        # where a perplexity forward's time goes: 4 windows, warm, profiled
+        def ppl_forward():
+            return token_nll(torch, L, params, cfg, qcfg, windows[:EVAL_BATCH_WINDOWS])[1]
+        device_profile(torch, ppl_forward, "eval: one perplexity forward (4 windows of 2048, "
+                       "W8A8, bf16) and its scoring", 1e3 * ppl_forward(), reps=2)
+
+        # one scored batch of the harness (4 multiple-choice requests, f32):
+        # 7 K1 tensor-core GEMMs, one K2, one causal K3 (its f32 route) and
+        # one rmsnorm_quant a layer, and the final norm
+        mc = stock_requests(tok)[0][:4]
+        lm = TorchLM(L, params, cfg, qcfg, batch_size=4, max_length=EVAL_MAX_LENGTH)
+        counters = launch_counters()
+        torch.cuda.synchronize()
+        reset_counts(counters)
+        lm.loglikelihood(mc)
+        counts = read_counts(counters)
+        want = ppl_launches(cfg.num_hidden_layers, 1, True)
+        got = {k: v for k, v in counts.items() if v}
+        log(f"  eval one scored batch (4 requests, f32): host launches {got} (expected {want})")
+        require(got == want, f"one scored batch launched {got}; expected {want}")
+
+        eval_card_vs_cpu(torch, L, cfg, qcfg, params, tok, stream, smi_line)
+        del params, lm
+        torch.cuda.empty_cache()
+        log(f"  eval phase {time.perf_counter() - t_phase:.1f} s [{smi_line}]")
+    finally:
+        tmp.cleanup()
 
 
 # ---------------------------------------------------------------------------
@@ -4864,7 +5230,9 @@ def phase_timing(torch, results, engines):
 
     # rmsnorm_quant (the first norm with its int8, and the final norm) at
     # decode (T = 1) and prefill (T = 128), TinyLlama's D = 2048, bf16. No
-    # library call computes it: library null
+    # library call computes the int8 mode (library null); the norm mode is
+    # torch.nn.functional.rms_norm, timed on bf16 x with gamma in bf16 (one
+    # call; the kernel reads gamma in f32)
     from autosmoothquant_tpu_torch.kernels.fused import rmsnorm_quant, rmsnorm_quant_plain
 
     for t in (1, 8, 128):
@@ -4873,14 +5241,20 @@ def phase_timing(torch, results, engines):
             ms = timer.ms(lambda: rmsnorm_quant(x, gamma, eps=1e-5, quantize=quantize))
             plain_ms = timer.ms(lambda: rmsnorm_quant_plain(x, gamma, eps=1e-5,
                                                             quantize=quantize), iters=10)
+            lib_ms = None
+            if not quantize:
+                gamma_bf16 = gamma.to(torch.bfloat16)
+                lib_ms = timer.ms(lambda: torch.nn.functional.rms_norm(
+                    x, (2048,), weight=gamma_bf16, eps=1e-5))
             out_bytes = 1 if quantize else 2
             b_ms, b_by = bound(t * 2048 * (2 + out_bytes) + 2048 * 4, 5 * t * 2048, "f32")
             mode = "int8" if quantize else "norm"
+            lib = "null" if lib_ms is None else f"{lib_ms:.4f} (F.rms_norm)"
             log(f"    rmsnorm_quant T={t:<4d} D=2048 bf16 {mode} kernel {ms:.4f} plain "
-                f"{plain_ms:.4f} library null bound {b_ms:.5f} ({b_by}); launch floor "
+                f"{plain_ms:.4f} library {lib} bound {b_ms:.5f} ({b_by}); launch floor "
                 f"{floor_ms:.4f}")
             row = dict(shape=f"T={t} D=2048 bf16 {mode}", ms=ms, plain_ms=plain_ms,
-                       library_ms=None, bound_ms=b_ms, bound_by=b_by)
+                       library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
             results["rmsnorm_quant"].setdefault("rows", []).append(row)
             if (t, quantize) == (1, True):
                 results["rmsnorm_quant"].update(row, shape="decode T=1 D=2048 bf16 int8")
@@ -5419,7 +5793,7 @@ def main():
     t_start = time.perf_counter()
     try:
         name, smi_line = phase_device(torch)
-        engines = direct = None
+        engines = direct = quantized = None
         for phase in PHASES[1:]:
             log(f"== {phase}")
             t0 = time.perf_counter()
@@ -5440,7 +5814,9 @@ def main():
             elif phase == "http":
                 phase_http(torch, results, direct, smi_line)
             elif phase == "quantize":
-                phase_quantize(torch, results, smi_line)
+                quantized = phase_quantize(torch, results, smi_line)
+            elif phase == "eval":
+                phase_eval(torch, quantized, smi_line)
             elif phase == "families":
                 phase_families(torch, results)
             elif phase == "timing":

@@ -1814,3 +1814,74 @@ def _to(node, dev):
     if isinstance(node, list):
         return [_to(v, dev) for v in node]
     return node.to(dev)
+
+
+def test_device_time_times_on_cuda_events(cuda_device):
+    """utils/profiling.py:device_time on a card tensor: the median of CUDA
+    event pairs, within 2x of an event-timed loop of the same product (a
+    host clock without a synchronize would read the enqueue alone)."""
+    from autosmoothquant_tpu_torch.utils.profiling import device_time
+
+    a = torch.randn(4096, 4096, device=cuda_device, dtype=torch.bfloat16)
+    t = device_time(torch.mm, a, a)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(20):
+        torch.mm(a, a)
+    end.record()
+    end.synchronize()
+    loop = start.elapsed_time(end) / 20 / 1e3
+    assert 0.5 * loop < t < 2 * loop, (t, loop)
+
+
+def _tiny_w8a8_lm(dev, **kw):
+    import chip_smoke
+    from autosmoothquant_tpu_torch.eval.lm_adapter import TorchLM
+    from autosmoothquant_tpu_torch.models import llama as L
+    from autosmoothquant_tpu_torch.quant.config import QuantConfig
+
+    cfg = L.LlamaConfig(vocab_size=1024, hidden_size=256, intermediate_size=512,
+                        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2)
+    params = chip_smoke.to_device(chip_smoke.draw_w8a8(cfg, seed=1, device="cpu"), dev)
+    return TorchLM(L, params, cfg, QuantConfig(type="int8"), device=dev, **kw)
+
+
+def test_torch_lm_loglikelihoods_card_match_cpu(cuda_device):
+    """A 2-layer W8A8 TorchLM (f32 compute) scores the same requests on the
+    card (K1, K2, K3's f32 route, rmsnorm_quant) and on the CPU: each
+    log-likelihood within 0.05 a continuation token (a logit's card-vs-CPU
+    bar is 0.2, its mean 1e-2), and the card's launches one scored batch's."""
+    from autosmoothquant_tpu_torch.kernels.counters import launch_counters, read_counts
+
+    g = torch.Generator().manual_seed(3)
+    reqs = [(torch.randint(0, 1024, (n,), generator=g).tolist(),
+             torch.randint(0, 1024, (k,), generator=g).tolist())
+            for n, k in ((5, 3), (40, 7), (100, 1), (12, 20))]
+    counters = launch_counters()
+    want = _tiny_w8a8_lm("cpu", batch_size=4, max_length=128).loglikelihood(reqs)
+    before = read_counts(counters)
+    got = _tiny_w8a8_lm(cuda_device, batch_size=4, max_length=128).loglikelihood(reqs)
+    after = read_counts(counters)
+    for (a, _), (b, _), (_, cont) in zip(got, want, reqs):
+        assert abs(a - b) <= 0.05 * len(cont), (got, want)
+    launched = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+    # one batch of 4 (T 128): 7 GEMMs, one K2, one first norm and K3 a layer
+    assert launched["int8_matmul"] == launched["int8_matmul_tc"] == 14
+    assert launched["fused_add_rmsnorm_quant"] == 2 and launched["flash_attention"] == 2
+    assert launched["rmsnorm_quant"] == 3 and launched["rmsnorm_quant_norm"] == 1
+
+
+def test_torch_lm_keeps_one_engine_across_generate_calls(cuda_device):
+    """Three generate_until calls of batch 2 build one Engine and capture one
+    decode graph, which the later calls replay; the same prompts give the
+    same tokens through it."""
+    lm = _tiny_w8a8_lm(cuda_device, batch_size=2, max_length=128)
+    prompts = [[5, 6, 7], [1, 2, 3, 4]]
+    first = lm.generate_until(prompts, max_new_tokens=12)
+    eng = lm.engine
+    replays = eng.replays
+    other = lm.generate_until([[9, 9], [8, 8, 8, 8, 8]], max_new_tokens=12)
+    again = lm.generate_until(prompts, max_new_tokens=12)
+    assert lm.engines_built == 1 and lm.engine is eng and len(eng.graphs) == 1
+    assert eng.replays == replays + 2 * 11 and again == first
+    assert all(len(t) == 12 for t in first + other)

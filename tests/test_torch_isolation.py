@@ -44,7 +44,10 @@ def test_port_imports_no_jax_side_module():
                  "serve.api", "utils.tokenizer", "utils.sp_tokenizer", "cli.serve_model",
                  "cli.test_model", "cli.smoothquant_model", "calibrate.calibrate",
                  "convert.hf", "quant.smooth", "quant.ignore", "quant.fake_quant",
-                 "utils.datautils"):
+                 "utils.datautils", "eval.ppl", "eval.harness", "eval.tasks",
+                 "eval.lm_adapter", "eval.lm_eval_adapter", "eval.custom_metrics",
+                 "utils.chat", "utils.eval_utils", "utils.seed", "utils.profiling",
+                 "cli.eval_model"):
         assert f"autosmoothquant_tpu_torch.{name}" in out["modules"]
 
 
