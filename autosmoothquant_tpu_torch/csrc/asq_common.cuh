@@ -146,7 +146,10 @@ __device__ __forceinline__ float asq_block_sum(float v, float* part) {
 // multiplied in the JAX order (acc * row) * col, then the bias added, with
 // explicit round-to-nearest intrinsics so nvcc cannot contract them into an
 // FMA: given the same acc, the output has the plain PyTorch version's bits.
-enum AsqOutKind { ASQ_OUT_F32 = 0, ASQ_OUT_BF16 = 1, ASQ_OUT_I8 = 2 };
+// ASQ_OUT_I32 (K1 only) writes the int32 accumulator itself: no scale, bias
+// or activation (the row-parallel partial that an all-reduce over ranks sums
+// before the epilogue runs once, models/common.py:row_parallel).
+enum AsqOutKind { ASQ_OUT_F32 = 0, ASQ_OUT_BF16 = 1, ASQ_OUT_I8 = 2, ASQ_OUT_I32 = 3 };
 enum AsqAct { ASQ_ACT_NONE = 0, ASQ_ACT_RELU = 1, ASQ_ACT_SILU = 2 };
 
 struct AsqEpilogue {
@@ -193,5 +196,20 @@ __device__ __forceinline__ void asq_store(const AsqEpilogue& e, const AsqOperand
 
 __device__ __forceinline__ void asq_store(const AsqEpilogue& e, int m, int n, int N,
                                           float acc) {
+  asq_store(e, asq_operands(e, m, n), m, n, N, acc);
+}
+
+// An exact int32 accumulator (K1's routes): written as it is for
+// ASQ_OUT_I32, else the epilogue of its f32 value.
+__device__ __forceinline__ void asq_store(const AsqEpilogue& e, const AsqOperands& o, int m,
+                                          int n, int N, int acc) {
+  if (e.out_kind == ASQ_OUT_I32) {
+    static_cast<int*>(e.out)[static_cast<size_t>(m) * N + n] = acc;
+    return;
+  }
+  asq_store(e, o, m, n, N, __int2float_rn(acc));
+}
+
+__device__ __forceinline__ void asq_store(const AsqEpilogue& e, int m, int n, int N, int acc) {
   asq_store(e, asq_operands(e, m, n), m, n, N, acc);
 }

@@ -85,7 +85,8 @@ __device__ __forceinline__ void cp_async16_l2(uint32_t dst, const void* src, boo
 
 // Op: Acc (the accumulator type), step(acc, w_g, w_g8, x_g) (one 64-byte
 // K step: the lane's 16 bytes of weight rows g and g + 8 and of x row g
-// into the tensor cores) and value(acc) (the sum as f32 for asq_store).
+// into the tensor cores) and value(acc) (the sum as asq_store takes it: the
+// exact int32 for K1, f32 for K4).
 // Four blocks an SM (<= 64 registers, 53 KB of shared memory each).
 template <class Op>
 __global__ void __launch_bounds__(kGemvThreads, 4)

@@ -6,6 +6,7 @@
 // epilogue it runs after it:
 //
 //   tok_scale[m] = max(absmax_k |x[m, k]|, 1e-8) / 127            (f32)
+//                  or, where the caller gives it, tok_scale_in[m]
 //   x_q[m, k]    = clamp(rint(x[m, k] / tok_scale[m]), -128, 127)  (int8)
 //   acc[m, n]    = sum_g scale[n, g] * sum_{k in g} x_q[m, k] * (nib[n, k] - 8)
 //   out[m, n]    = act(acc[m, n] * tok_scale[m] + bias[n])
@@ -18,7 +19,10 @@
 // padded copy of x is made. tok_scale is a true f32 division (__fdiv_rn) and
 // x_q rounds half to even: both are bit-exact with the JAX package on every
 // route. Every group partial is an exact int32; the f32 sum over groups runs
-// in another order than the plain version's.
+// in another order than the plain version's. A given tok_scale_in (every
+// route) is the per-token scale of the whole row when x is one rank's planes
+// of a row-parallel product (models/common.py:int4_matmul_tp): the ranks then
+// quantize against one scale, as the unsharded product does.
 //
 // What bounds it on an H100: bytes. Every packed byte (half the int8 weight
 // bytes) and every group scale is read once: K'/2 * N + 4 * G * N bytes over
@@ -95,22 +99,28 @@ __device__ __forceinline__ uint32_t nib_hi(uint32_t w) {
 
 constexpr int kQuantThreads = 256;
 
+// ts_in (null: the row's own absmax) gives each row's scale
 template <typename T>
 __global__ void __launch_bounds__(kQuantThreads)
-    quant_rows_kernel(const T* __restrict__ x, int K, int Kp,
+    quant_rows_kernel(const T* __restrict__ x, int K, int Kp, const float* __restrict__ ts_in,
                       int8_t* __restrict__ xq, float* __restrict__ ts) {
   __shared__ float warp_max[kQuantThreads / 32];
   const T* row = x + static_cast<size_t>(blockIdx.x) * K;
-  float amax = 0.f;
-  for (int k = threadIdx.x; k < K; k += kQuantThreads)
-    amax = fmaxf(amax, fabsf(asq_to_float(row[k])));
-  amax = asq_warp_max(amax);
-  if (threadIdx.x % 32 == 0) warp_max[threadIdx.x / 32] = amax;
-  __syncthreads();
-  amax = 0.f;
+  float scale;
+  if (ts_in != nullptr) {
+    scale = ts_in[blockIdx.x];
+  } else {
+    float amax = 0.f;
+    for (int k = threadIdx.x; k < K; k += kQuantThreads)
+      amax = fmaxf(amax, fabsf(asq_to_float(row[k])));
+    amax = asq_warp_max(amax);
+    if (threadIdx.x % 32 == 0) warp_max[threadIdx.x / 32] = amax;
+    __syncthreads();
+    amax = 0.f;
 #pragma unroll
-  for (int w = 0; w < kQuantThreads / 32; ++w) amax = fmaxf(amax, warp_max[w]);
-  const float scale = __fdiv_rn(fmaxf(amax, 1e-8f), 127.f);
+    for (int w = 0; w < kQuantThreads / 32; ++w) amax = fmaxf(amax, warp_max[w]);
+    scale = __fdiv_rn(fmaxf(amax, 1e-8f), 127.f);
+  }
   if (threadIdx.x == 0) ts[blockIdx.x] = scale;
   int8_t* qrow = xq + static_cast<size_t>(blockIdx.x) * Kp;
   for (int k = threadIdx.x; k < Kp; k += kQuantThreads)
@@ -118,10 +128,10 @@ __global__ void __launch_bounds__(kQuantThreads)
 }
 
 template <typename T>
-int launch_quant(const void* x, int M, int K, int Kp, int8_t* xq, float* ts,
-                 cudaStream_t s) {
+int launch_quant(const void* x, int M, int K, int Kp, const float* ts_in, int8_t* xq,
+                 float* ts, cudaStream_t s) {
   quant_rows_kernel<T><<<M, kQuantThreads, 0, s>>>(static_cast<const T*>(x), K,
-                                                   Kp, xq, ts);
+                                                   Kp, ts_in, xq, ts);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -324,7 +334,8 @@ template <typename T, int MR>
 __global__ void __launch_bounds__(kGemvThreads, 3)
     w4a8_gemv_kernel(const T* __restrict__ x, const uint8_t* __restrict__ packed,
                      const float* __restrict__ scales, int N, int K, int K2, int G, int group,
-                     uint32_t gmul, int cpw, int pre, bool vec16, bool xvec, AsqEpilogue e) {
+                     uint32_t gmul, int cpw, int pre, bool vec16, bool xvec,
+                     const float* __restrict__ ts_in, AsqEpilogue e) {
   // dynamic shared memory: x_q [MR, K'], then per warp `pre` slots of 32
   // lanes, a 16-byte packed chunk each
   extern __shared__ __align__(16) uint8_t gemv_smem[];
@@ -412,7 +423,7 @@ __global__ void __launch_bounds__(kGemvThreads, 3)
     float a = 0.f;
 #pragma unroll
     for (int w = 0; w < kGemvWarps; ++w) a = fmaxf(a, part[w][threadIdx.x]);
-    ts[threadIdx.x] = __fdiv_rn(fmaxf(a, 1e-8f), 127.f);
+    ts[threadIdx.x] = ts_in != nullptr ? ts_in[threadIdx.x] : __fdiv_rn(fmaxf(a, 1e-8f), 127.f);
   }
   __syncthreads();
 
@@ -493,7 +504,7 @@ __global__ void __launch_bounds__(kGemvThreads, 3)
 
 template <typename T, int MR>
 int launch_gemv(const void* x, const void* packed, const void* scales, int N, int K, int K2,
-                int G, bool vec16, const AsqEpilogue& e, cudaStream_t s) {
+                int G, bool vec16, const float* ts_in, const AsqEpilogue& e, cudaStream_t s) {
   const int Kp = 2 * K2;
   const int group = Kp / G;
   const uint32_t gmul = static_cast<uint32_t>(((1ull << 32) + group - 1) / group);
@@ -516,18 +527,20 @@ int launch_gemv(const void* x, const void* packed, const void* scales, int N, in
   if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
   kernel<<<(warps + kGemvWarps - 1) / kGemvWarps, kGemvThreads, smem, s>>>(
       static_cast<const T*>(x), static_cast<const uint8_t*>(packed),
-      static_cast<const float*>(scales), N, K, K2, G, group, gmul, cpw, pre, vec16, xvec, e);
+      static_cast<const float*>(scales), N, K, K2, G, group, gmul, cpw, pre, vec16, xvec, ts_in,
+      e);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_gemv_rows(const void* x, const void* packed, const void* scales, int M, int N, int K,
-                     int K2, int G, bool vec16, const AsqEpilogue& e, cudaStream_t s) {
+                     int K2, int G, bool vec16, const float* ts_in, const AsqEpilogue& e,
+                     cudaStream_t s) {
   switch (M) {
-    case 1: return launch_gemv<T, 1>(x, packed, scales, N, K, K2, G, vec16, e, s);
-    case 2: return launch_gemv<T, 2>(x, packed, scales, N, K, K2, G, vec16, e, s);
-    case 3: return launch_gemv<T, 3>(x, packed, scales, N, K, K2, G, vec16, e, s);
-    default: return launch_gemv<T, 4>(x, packed, scales, N, K, K2, G, vec16, e, s);
+    case 1: return launch_gemv<T, 1>(x, packed, scales, N, K, K2, G, vec16, ts_in, e, s);
+    case 2: return launch_gemv<T, 2>(x, packed, scales, N, K, K2, G, vec16, ts_in, e, s);
+    case 3: return launch_gemv<T, 3>(x, packed, scales, N, K, K2, G, vec16, ts_in, e, s);
+    default: return launch_gemv<T, 4>(x, packed, scales, N, K, K2, G, vec16, ts_in, e, s);
   }
 }
 
@@ -728,19 +741,22 @@ __global__ void __launch_bounds__(256)
 // >= K); scales [N, G] f32 (group = K' / G); bias [N] f32 or null; act 0
 // none, 1 relu, 2 silu; out [M, N] (out_kind 0: f32, 1: bf16); xq_scratch
 // [M, K'] int8 and ts_scratch [M] f32 are written (the quantized x and its
-// per-token scales). The "tiles" route.
+// per-token scales); tok_scale [M] f32 or null (each row's own absmax) gives
+// the per-token scales. The "tiles" route.
 ASQ_EXPORT int asq_int4_gemm(const void* x, int x_is_bf16, const void* packed,
-                             const void* scales, const void* bias, void* out,
+                             const void* scales, const void* bias, const void* tok_scale,
+                             void* out,
                              void* xq_scratch, void* ts_scratch, int M, int N,
                              int K, int K2, int G, int act, int out_kind,
                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int Kp = 2 * K2;
   const int group = Kp / G;
+  const auto ts_in = static_cast<const float*>(tok_scale);
   auto xq = static_cast<int8_t*>(xq_scratch);
   auto ts = static_cast<float*>(ts_scratch);
-  const int rc = x_is_bf16 ? launch_quant<__nv_bfloat16>(x, M, K, Kp, xq, ts, s)
-                           : launch_quant<float>(x, M, K, Kp, xq, ts, s);
+  const int rc = x_is_bf16 ? launch_quant<__nv_bfloat16>(x, M, K, Kp, ts_in, xq, ts, s)
+                           : launch_quant<float>(x, M, K, Kp, ts_in, xq, ts, s);
   if (rc != 0) return rc;
   AsqEpilogue e{ts, 1, nullptr, 0, static_cast<const float*>(bias), act,
                 out_kind, out};
@@ -758,18 +774,21 @@ ASQ_EXPORT int asq_int4_gemm(const void* x, int x_is_bf16, const void* packed,
 // scratch buffers. Needs M <= 4, K' % 4 == 0 (x_q is written 4 bytes at a
 // time) and M * K' <= 64 KB (x_q in shared memory).
 ASQ_EXPORT int asq_int4_gemv(const void* x, int x_is_bf16, const void* packed,
-                             const void* scales, const void* bias, void* out, int M, int N,
+                             const void* scales, const void* bias, const void* tok_scale,
+                             void* out, int M, int N,
                              int K, int K2, int G, int act, int out_kind, void* stream) {
   if (M < 1 || M > kGemvMaxM || K2 % 2 != 0 || M * 2 * K2 > kGemvMaxXq)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto ts_in = static_cast<const float*>(tok_scale);
   const int group = 2 * K2 / G;
   const bool vec16 = (K2 % 16 == 0) && (group % 16 == 0) &&
                      (reinterpret_cast<uintptr_t>(packed) % 16 == 0);
   AsqEpilogue e{nullptr, 1, nullptr, 0, static_cast<const float*>(bias), act, out_kind, out};
   return x_is_bf16
-             ? launch_gemv_rows<__nv_bfloat16>(x, packed, scales, M, N, K, K2, G, vec16, e, s)
-             : launch_gemv_rows<float>(x, packed, scales, M, N, K, K2, G, vec16, e, s);
+             ? launch_gemv_rows<__nv_bfloat16>(x, packed, scales, M, N, K, K2, G, vec16, ts_in, e,
+                                               s)
+             : launch_gemv_rows<float>(x, packed, scales, M, N, K, K2, G, vec16, ts_in, e, s);
 }
 
 // The "tc" route: arguments as asq_int4_gemm, plus split (K splits; ws holds
@@ -777,7 +796,8 @@ ASQ_EXPORT int asq_int4_gemv(const void* x, int x_is_bf16, const void* packed,
 // group == 0 (a step's low and high halves end their groups together) and a
 // 16-byte aligned packed.
 ASQ_EXPORT int asq_int4_gemm_tc(const void* x, int x_is_bf16, const void* packed,
-                                const void* scales, const void* bias, void* out,
+                                const void* scales, const void* bias, const void* tok_scale,
+                                void* out,
                                 void* xq_scratch, void* ts_scratch, int M, int N, int K, int K2,
                                 int G, int act, int out_kind, int split, void* ws,
                                 void* stream) {
@@ -789,10 +809,11 @@ ASQ_EXPORT int asq_int4_gemm_tc(const void* x, int x_is_bf16, const void* packed
       split < 1 || (split > 1 && ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto ts_in = static_cast<const float*>(tok_scale);
   auto xq = static_cast<int8_t*>(xq_scratch);
   auto ts = static_cast<float*>(ts_scratch);
-  const int rc = x_is_bf16 ? launch_quant<__nv_bfloat16>(x, M, K, Kp, xq, ts, s)
-                           : launch_quant<float>(x, M, K, Kp, xq, ts, s);
+  const int rc = x_is_bf16 ? launch_quant<__nv_bfloat16>(x, M, K, Kp, ts_in, xq, ts, s)
+                           : launch_quant<float>(x, M, K, Kp, ts_in, xq, ts, s);
   if (rc != 0) return rc;
   AsqEpilogue e{ts, 1, nullptr, 0, static_cast<const float*>(bias), act, out_kind, out};
   const int k_steps = (K2 + kTcBK - 1) / kTcBK;

@@ -6,7 +6,9 @@
 //   out[m, n] = act(acc[m, n] * row_scale[m] * col_scale[n] + bias[n])
 //   acc       = sum_k x[m, k] * w_t[n, k]          (exact, int32)
 //
-// with out in f32, bf16 or int8 (round half to even, clamp to [-128, 127]).
+// with out in f32, bf16 or int8 (round half to even, clamp to [-128, 127]),
+// or out = acc itself in int32 (no scale, bias or activation: the partial
+// of a row-parallel projection, which the ranks sum before the epilogue).
 // x is [M, K] and w_t is [N, K], both K-contiguous (nn.Linear's layout); the
 // JAX package's [K, N] weights are transposed once at load time.
 //
@@ -72,7 +74,7 @@ struct Int8Gemv {
     gemv_mma(acc, w0.x, w1.x, w0.y, w1.y, x.x, x.y);
     gemv_mma(acc, w0.z, w1.z, w0.w, w1.w, x.z, x.w);
   }
-  __device__ static float value(int acc) { return __int2float_rn(acc); }
+  __device__ static int value(int acc) { return acc; }
 };
 
 constexpr int kRaggedWarps = 8;
@@ -98,7 +100,7 @@ __global__ void __launch_bounds__(kRaggedWarps * 32)
   for (int m = 0; m < kGemvMaxM; ++m) {
     if (m < M) {
       const int total = asq_warp_sum_int(acc[m]);
-      if (lane == m) asq_store(e, m, n, N, __int2float_rn(total));
+      if (lane == m) asq_store(e, m, n, N, total);
     }
   }
 }
@@ -163,7 +165,7 @@ __global__ void __launch_bounds__(256)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int m = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
-      if (m < M && n < N) asq_store(e, m, n, N, __int2float_rn(acc[i][j]));
+      if (m < M && n < N) asq_store(e, m, n, N, acc[i][j]);
     }
   }
 }
@@ -289,7 +291,7 @@ __global__ void __launch_bounds__(WG * 128 + 32)
     if (ws != nullptr) {
       ws[(static_cast<size_t>(split) * M + row) * N + col] = v;
     } else {
-      asq_store(e, row, col, N, __int2float_rn(v));
+      asq_store(e, row, col, N, v);
     }
   }
 }
@@ -304,7 +306,7 @@ __global__ void __launch_bounds__(256)
   if (i >= mn) return;
   int v = ws[i];
   for (int s = 1; s < splits; ++s) v += ws[s * mn + i];
-  asq_store(e, static_cast<int>(i / N), static_cast<int>(i % N), N, __int2float_rn(v));
+  asq_store(e, static_cast<int>(i / N), static_cast<int>(i % N), N, v);
 }
 
 template <int WG>
@@ -335,7 +337,8 @@ int launch_tc(const void* x, const void* w, int M, int N, int K, int split, int*
 // x [M, K] int8, w_t [N, K] int8, row_scale (rs_stride 0: one value, 1: [M];
 // null: 1), col_scale (cs_stride 0: one value, 1: [N]; null: 1), bias [N] f32
 // or null, out [M, N].
-// act: 0 none, 1 relu, 2 silu; out_kind: 0 f32, 1 bf16, 2 int8. The
+// act: 0 none, 1 relu, 2 silu; out_kind: 0 f32, 1 bf16, 2 int8, 3 int32 (the
+// accumulator; scales, bias and act must be absent). The
 // ragged GEMV for M <= 8, CUDA-core tiles above.
 ASQ_EXPORT int asq_int8_gemm(const void* x, const void* w_t, const void* row_scale,
                              int rs_stride, const void* col_scale, int cs_stride,

@@ -180,9 +180,9 @@ def shard_requests(requests: Sequence, rank: int, world_size: int) -> list:
 def gather_results(local_results: list, world_size: int):
     """The results of every rank in rank order (evaluator.py:442-491). One
     rank passes its results through; more ranks need a process group, which
-    the port does not have yet (ROADMAP Queue 1, item 17)."""
+    the port does not have yet (ROADMAP Queue 1, item 17b)."""
     if world_size <= 1:
         return local_results
     raise NotImplementedError(
         f"gathering results over {world_size} ranks is not ported yet "
-        "(ROADMAP Queue 1, item 17); the port evaluates on one card")
+        "(ROADMAP Queue 1, item 17b); the port evaluates on one card")

@@ -63,11 +63,11 @@ def perplexity_from_tokens(model_mod, params, cfg, tokens: np.ndarray,
     ``progress`` prints a line a batch to stderr. A stage ``mesh``
     (pipeline-parallel windows, the JAX package's ``shard/pipeline.py``)
     raises NotImplementedError: the port runs on one card (ROADMAP Queue 1,
-    item 17)."""
+    item 17b)."""
     if mesh is not None:
         raise NotImplementedError(
             "perplexity over a stage mesh (pipeline parallelism) is not ported yet "
-            "(ROADMAP Queue 1, item 17); the port runs on one card")
+            "(ROADMAP Queue 1, item 17b); the port runs on one card")
     dev = resolve_device(device)
     tokens = np.asarray(tokens).reshape(-1)
     nsamples = tokens.size // max_length

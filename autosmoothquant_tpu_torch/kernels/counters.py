@@ -20,6 +20,8 @@ def launch_counters() -> Counters:
     launch of the kernel; ``int8_matmul_tc``, ``fp8_matmul_tc`` and
     ``int4_matmul_tc`` count K1's, K4's and K5's tensor-core routes alone,
     ``int8_matmul_gemv`` and ``fp8_matmul_gemv`` K1's and K4's "gemv" routes,
+    ``int8_matmul_i32`` K1's int32 output and ``int4_matmul_scale`` K5 with a
+    given per-token scale (the row-parallel partials, any route),
     ``fused_add_rmsnorm_quant_vec`` and ``fused_add_layernorm_quant_vec``
     K2's and K6's vector routes, ``rmsnorm_quant_norm`` the norm's mode
     without the quantize (the final norm) and ``decode_attention_paged``
@@ -37,6 +39,7 @@ def launch_counters() -> Counters:
                 fused_add_layernorm_quant, rmsnorm_quant, decode_attention, router_logits)
     counters = {w.__name__: (w, "launches") for w in wrappers}
     for w, route in ((int8_matmul, "tc"), (fp8_matmul, "tc"), (int4_matmul, "tc"),
+                     (int8_matmul, "i32"), (int4_matmul, "scale"),
                      (int8_matmul, "gemv"), (fp8_matmul, "gemv"),
                      (fused_add_rmsnorm_quant, "vec"), (fused_add_layernorm_quant, "vec"),
                      (rmsnorm_quant, "norm"), (decode_attention, "paged")):

@@ -28,7 +28,7 @@ INT8_MIN = -128.0
 INT8_MAX = 127.0
 
 _ACTS = {None: 0, "relu": 1, "silu": 2}
-_OUT_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_OUT_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.int32: 3}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -99,18 +99,32 @@ def int8_matmul_plain(x_q: torch.Tensor, w_t: torch.Tensor, row_scale=1.0,
     zeros at K = 1); on a CUDA tensor (where torch has no int32 matmul for
     every shape) a float64 one, exact because |acc| <= 128 * 127 * K stays far
     below 2**53."""
-    m, n = x_q.shape[0], w_t.shape[0]
     if x_q.is_cuda:
         acc = (x_q.double() @ w_t.double().t()).to(torch.int32)
     elif x_q.shape[1] >= 8:
         acc = torch._int_mm(x_q.contiguous(), w_t.contiguous().t())
     else:
         acc = x_q.to(torch.int32) @ w_t.to(torch.int32).t()
+    if out_dtype == torch.int32:
+        return acc
+    return epilogue(acc, row_scale, col_scale, bias, activation=activation,
+                    out_dtype=out_dtype)
+
+
+def epilogue(acc: torch.Tensor, row_scale=1.0, col_scale=1.0,
+             bias: Optional[torch.Tensor] = None, *, activation: Optional[str] = None,
+             out_dtype=torch.float32) -> torch.Tensor:
+    """K1's epilogue of an int32 accumulator [M, N] in torch ops, in the
+    kernel's order: ``act((acc * row_scale) * col_scale + bias)``, each op
+    rounded on its own (no fused multiply-add), so an exact accumulator gives
+    the kernel's bits. A row-parallel projection runs it once on the int32
+    sum of the ranks' partials (``models/common.py:row_linear``)."""
+    m, n = acc.shape
     out = acc.float()
-    rs = _as_vector(row_scale, m, x_q.device, "row_scale")
+    rs = _as_vector(row_scale, m, acc.device, "row_scale")
     if rs is not None:
         out = out * (rs.reshape(-1, 1) if rs.ndim else rs)
-    cs = _as_vector(col_scale, n, x_q.device, "col_scale")
+    cs = _as_vector(col_scale, n, acc.device, "col_scale")
     if cs is not None:
         out = out * (cs.reshape(1, -1) if cs.ndim else cs)
     if bias is not None:
@@ -133,7 +147,10 @@ def int8_matmul(x_q: torch.Tensor, w_t: torch.Tensor, row_scale=1.0,
     x_q: int8 [M, K]; w_t: int8 [N, K]; row_scale: f32 scalar, [M] or [M, 1]
     (per-token activation scales); col_scale: f32 scalar, [N] or [1, N]
     (weight / fused-section scales); bias: f32 [N] or None; activation: None,
-    "relu" or "silu"; out_dtype int8 rounds half to even and clamps."""
+    "relu" or "silu"; out_dtype int8 rounds half to even and clamps;
+    out_dtype int32 returns the exact accumulator itself, and then takes no
+    scale, bias or activation (a row-parallel partial: :func:`epilogue`
+    runs once on the ranks' sum)."""
     if x_q.dtype != torch.int8 or w_t.dtype != torch.int8:
         raise TypeError(f"int8_matmul needs int8 operands, got {x_q.dtype} "
                         f"and {w_t.dtype}")
@@ -142,6 +159,11 @@ def int8_matmul(x_q: torch.Tensor, w_t: torch.Tensor, row_scale=1.0,
                          "do not match ([M, K] @ [N, K].T)")
     if activation not in _ACTS or out_dtype not in _OUT_KINDS:
         raise ValueError(f"activation={activation!r} out_dtype={out_dtype}")
+    if out_dtype == torch.int32 and (
+            bias is not None or activation is not None
+            or any(isinstance(s, torch.Tensor) or s != 1.0 for s in (row_scale, col_scale))):
+        raise ValueError("out_dtype int32 is the bare accumulator: no scale, bias or "
+                         "activation")
     if not x_q.is_cuda:
         return int8_matmul_plain(x_q, w_t, row_scale, col_scale, bias,
                                  activation=activation, out_dtype=out_dtype)
@@ -166,6 +188,8 @@ def int8_matmul(x_q: torch.Tensor, w_t: torch.Tensor, row_scale=1.0,
             int(cs is not None and cs.ndim), _build.ptr(bias), out.data_ptr(),
             m, n, k, _ACTS[activation], _OUT_KINDS[out_dtype])
     how = route(m, k, x_q, w_t)
+    if out_dtype == torch.int32:
+        int8_matmul.i32_launches += 1
     if how == "gemv":
         fn = _build.function("int8_gemm", "asq_int8_gemv", _GEMV_ARGTYPES)
         rc = fn(*args, gemv_blocks(n), _build.stream_ptr(x_q))
@@ -188,7 +212,9 @@ def int8_matmul(x_q: torch.Tensor, w_t: torch.Tensor, row_scale=1.0,
 
 
 # launches of the CUDA kernels, every route (plain CPU calls do not count),
-# and of the "gemv" and tensor-core routes alone
+# of the "gemv" and tensor-core routes alone, and of the int32 output (a
+# row-parallel partial)
 int8_matmul.launches = 0
+int8_matmul.i32_launches = 0
 int8_matmul.gemv_launches = 0
 int8_matmul.tc_launches = 0

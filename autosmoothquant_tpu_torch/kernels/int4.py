@@ -53,11 +53,11 @@ _OUT_KINDS = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# x, x_is_bf16, packed, scales, bias, out, [xq, ts,] M, N, K, K2, G, act,
-# out_kind, [split, ws,] stream
-_ARGTYPES = (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)
-_GEMV_ARGTYPES = (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)
-_TC_ARGTYPES = (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P)
+# x, x_is_bf16, packed, scales, bias, tok_scale, out, [xq, ts,] M, N, K, K2, G,
+# act, out_kind, [split, ws,] stream
+_ARGTYPES = (_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)
+_GEMV_ARGTYPES = (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)
+_TC_ARGTYPES = (_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P)
 
 
 def route(m: int, k2: int, group: int, x_dtype: torch.dtype,
@@ -102,19 +102,24 @@ def _unpacked(packed: torch.Tensor) -> torch.Tensor:
 def int4_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
                       scales: torch.Tensor, bias: Optional[torch.Tensor] = None,
                       *, activation: Optional[str] = None,
-                      out_dtype=None) -> torch.Tensor:
+                      out_dtype=None, tok_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain PyTorch version of K5, the W4A8 branch of the JAX package's
-    ``int4_matmul_xla``: per-token int8 x, exact per-group integer products,
-    then ``sum_g(part * scale) * tok_scale`` in f32. The products are exact
-    in f32 on the CPU (|part| <= 128 * 8 * group, far below 2**24); on a
-    CUDA tensor they run in float64, equally exact."""
+    ``int4_matmul_xla``: per-token int8 x (against ``tok_scale`` [M] where
+    given, else each row's own absmax scale), exact per-group integer
+    products, then ``sum_g(part * scale) * tok_scale`` in f32. The products
+    are exact in f32 on the CPU (|part| <= 128 * 8 * group, far below 2**24);
+    on a CUDA tensor they run in float64, equally exact."""
     out_dtype = out_dtype or x.dtype
     m, k = x.shape
     n, k2 = packed.shape
     kp, g = 2 * k2, scales.shape[1]
     if k < kp:
         x = F.pad(x, (0, kp - k))
-    q, tok_scale = qmath.quantize_act_per_token(x)
+    if tok_scale is None:
+        q, tok_scale = qmath.quantize_act_per_token(x)
+    else:
+        tok_scale = tok_scale.float().reshape(m, 1)
+        q = qmath.quantize_act_static(x, tok_scale)
     xg = q.reshape(m, g, kp // g)
     wg = _unpacked(packed).reshape(n, g, kp // g)
     ct = torch.float64 if x.is_cuda else torch.float32
@@ -145,13 +150,19 @@ def int4_matmul_w4a16(x: torch.Tensor, packed: torch.Tensor,
 
 def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
                 bias: Optional[torch.Tensor] = None, *,
-                activation: Optional[str] = None, out_dtype=None) -> torch.Tensor:
+                activation: Optional[str] = None, out_dtype=None,
+                tok_scale: Optional[torch.Tensor] = None,
+                a8: Optional[bool] = None) -> torch.Tensor:
     """``act(x @ dequant(packed, scales).T + bias)`` in ``out_dtype``
     (default x's dtype), routed on M as the JAX package routes it.
 
     x: f32 or bf16 [M, K]; packed: uint8 [N, K'/2] with K <= K'; scales: f32
     [N, G], group = K' / G; bias: f32 [N] or None; activation: None, "relu"
-    or "silu"."""
+    or "silu". ``a8`` (JAX's ``a8``) gives the W4A8 / W4A16 decision where
+    the caller makes it (a rank's planes of a row-parallel product route on
+    the whole product's M); None takes M <= 64. ``tok_scale`` (f32 [M]) gives
+    W4A8's per-token scales on every route (the whole row's, for a rank's
+    planes); None takes each row's own."""
     if packed.dtype != torch.uint8 or packed.ndim != 2:
         raise TypeError(f"packed must be uint8 [N, K'/2], got {packed.dtype} "
                         f"{tuple(packed.shape)}")
@@ -169,12 +180,18 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     out_dtype = out_dtype or x.dtype
     if activation not in _ACTS or out_dtype not in _OUT_KINDS:
         raise ValueError(f"activation={activation!r} out_dtype={out_dtype}")
-    if m > _A8_MAX_M:
+    if a8 is None:
+        a8 = m <= _A8_MAX_M
+    if not a8:
         return int4_matmul_w4a16(x, packed, scales, bias,
                                  activation=activation, out_dtype=out_dtype)
+    if m > _A8_MAX_M:
+        raise ValueError(f"W4A8 takes at most {_A8_MAX_M} rows, not {m}")
+    if tok_scale is not None and tok_scale.numel() != m:
+        raise ValueError(f"tok_scale has {tok_scale.numel()} values for {m} rows")
     if not x.is_cuda:
-        return int4_matmul_plain(x, packed, scales, bias,
-                                 activation=activation, out_dtype=out_dtype)
+        return int4_matmul_plain(x, packed, scales, bias, activation=activation,
+                                 out_dtype=out_dtype, tok_scale=tok_scale)
     dev = x.device
     if packed.device != dev or scales.device != dev:
         raise ValueError("x, packed and scales must be on one device")
@@ -183,12 +200,14 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     scales = scales.contiguous()
     if bias is not None:
         bias = bias.to(device=dev, dtype=torch.float32).contiguous().reshape(n)
+    if tok_scale is not None:
+        tok_scale = tok_scale.to(device=dev, dtype=torch.float32).contiguous().reshape(m)
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     if m == 0 or n == 0:
         return out
     g = scales.shape[1]
     head = (x.data_ptr(), int(x.dtype == torch.bfloat16), packed.data_ptr(),
-            scales.data_ptr(), _build.ptr(bias), out.data_ptr())
+            scales.data_ptr(), _build.ptr(bias), _build.ptr(tok_scale), out.data_ptr())
     tail = (m, n, k, k2, g, _ACTS[activation], _OUT_KINDS[out_dtype])
     how = route(m, k2, 2 * k2 // g, x.dtype, packed)
     if how == "gemv":
@@ -196,8 +215,8 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
         rc = fn(*head, *tail, _build.stream_ptr(x))
     else:
         xq = torch.empty((m, 2 * k2), dtype=torch.int8, device=dev)
-        tok_scale = torch.empty((m,), dtype=torch.float32, device=dev)
-        scratch = (xq.data_ptr(), tok_scale.data_ptr())
+        ts_out = torch.empty((m,), dtype=torch.float32, device=dev)
+        scratch = (xq.data_ptr(), ts_out.data_ptr())
         if how == "tc":
             split = tc_split(m, n, k2)
             ws = (torch.empty(split * m * n, dtype=torch.float32, device=dev)
@@ -211,10 +230,14 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     int4_matmul.launches += 1
     if how == "tc":
         int4_matmul.tc_launches += 1
+    if tok_scale is not None:
+        int4_matmul.scale_launches += 1
     return out
 
 
 # calls that launched K5 on the card, every route (plain CPU calls and the
-# W4A16 route do not count), and those of the tensor-core route alone
+# W4A16 route do not count), those of the tensor-core route alone, and those
+# with a given per-token scale (a rank's planes of a row-parallel product)
 int4_matmul.launches = 0
 int4_matmul.tc_launches = 0
+int4_matmul.scale_launches = 0

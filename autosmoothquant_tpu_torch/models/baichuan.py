@@ -51,15 +51,17 @@ from .common import (
     apply_rope,
     as_tensor,
     cache_mask_and_routing,
+    forward_plan,
     linear,
     linear_prequant,
+    lm_logits,
     make_kv_cache,
-    matmul_f32,
     pack_fp8,
     pack_int4,
     pack_int8,
     rms_norm,
     rope_cos_sin,
+    row_linear,
     scales_on,
     uncached_mask_and_positions,
     update_and_attend,
@@ -186,12 +188,14 @@ def _prescaled(qcfg: Optional[QuantConfig], gran: Optional[str], p) -> bool:
 def _layer_forward(h, lp, cfg: BaichuanConfig, qcfg: Optional[QuantConfig], cos, sin,
                    mask, cache, cache_index, compute_dtype, slopes, *,
                    plain_causal=False, chunk0=False, banded=False, banded_starts=None,
-                   kv_window=None, stats=None):
+                   kv_window=None, stats=None, plan=None, mesh=None):
     """One decoder layer; h: [B, T, D] in compute_dtype. The cache (if any)
     is written in place; ``stats``, a dict, receives the layer's calibration
-    statistics (JAX ``_layer_forward``'s)."""
+    statistics (JAX ``_layer_forward``'s). Under a mesh (``plan``) W_pack
+    holds the rank's q | k | v sections and ``slopes`` its heads' slopes; o
+    and down sum over "model"."""
     b, t, d = h.shape
-    hd, n_h = cfg.head_dim, cfg.num_attention_heads
+    hd, n_h = cfg.head_dim, plan.q_heads
     capture = stats is not None
     wpack = lp["attn"]["wpack"]
     if not capture and _prescaled(qcfg, qcfg and qcfg.qkv, wpack):
@@ -205,7 +209,7 @@ def _layer_forward(h, lp, cfg: BaichuanConfig, qcfg: Optional[QuantConfig], cos,
                       LinearKind.POST_NORM, out_dtype=compute_dtype)
     if capture:
         stats["attn_out_absmax"] = proj.abs().amax()
-    q, k, v = (y.reshape(b, t, n_h, hd) for y in proj.split(d, dim=-1))
+    q, k, v = (y.reshape(b, t, n_h, hd) for y in proj.split(n_h * hd, dim=-1))
     if cos is not None:
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
     else:
@@ -215,9 +219,9 @@ def _layer_forward(h, lp, cfg: BaichuanConfig, qcfg: Optional[QuantConfig], cos,
                             compute_dtype, plain_causal=plain_causal, chunk0_causal=chunk0,
                             banded=banded, banded_starts=banded_starts, kv_window=kv_window,
                             alibi_slopes=slopes)
-    ctx = ctx.reshape(b, t, d)
-    attn_out = linear(ctx, lp["attn"]["o"], qcfg, qcfg.out if qcfg else PER_TENSOR,
-                      LinearKind.SCALED, out_dtype=compute_dtype)
+    ctx = ctx.reshape(b, t, n_h * hd)
+    attn_out = row_linear(ctx, lp["attn"]["o"], qcfg, qcfg.out if qcfg else PER_TENSOR,
+                          LinearKind.SCALED, compute_dtype, mesh if plan.attn else None)
     if capture:
         stats["o_in_ch_absmax"] = absmax_ch(ctx)
         stats["o_out_absmax"] = attn_out.abs().amax()
@@ -236,8 +240,8 @@ def _layer_forward(h, lp, cfg: BaichuanConfig, qcfg: Optional[QuantConfig], cos,
         gate = linear(x2, mlp["gate"], qcfg, fc1, LinearKind.POST_NORM, out_dtype=compute_dtype)
         up = linear(x2, mlp["up"], qcfg, fc1, LinearKind.POST_NORM, out_dtype=compute_dtype)
     act = (torch.nn.functional.silu(gate.float()) * up.float()).to(compute_dtype)
-    down = linear(act, lp["mlp"]["down"], qcfg, qcfg.fc2 if qcfg else PER_TENSOR,
-                  LinearKind.SCALED, out_dtype=compute_dtype)
+    down = row_linear(act, lp["mlp"]["down"], qcfg, qcfg.fc2 if qcfg else PER_TENSOR,
+                      LinearKind.SCALED, compute_dtype, mesh if plan.mlp else None)
     if capture:
         stats["gate_out_absmax"] = gate.abs().amax()
         stats["up_out_absmax"] = up.abs().amax()
@@ -255,11 +259,13 @@ def forward(params, input_ids: torch.Tensor, cfg: BaichuanConfig,
             attention_mask: Optional[torch.Tensor] = None,
             kv_window: Optional[int] = None,
             capture_stats: bool = False,
-            compute_dtype=torch.float32):
+            compute_dtype=torch.float32, mesh=None):
     """Run the decoder stack: the arguments and results of
     ``models/llama.py:forward`` (contiguous, paged or a verify's rows; with
-    ``capture_stats`` the statistics under ``STAT_KEYS`` too)."""
+    ``capture_stats`` the statistics under ``STAT_KEYS`` too; ``mesh``: a
+    rank's params, cache and rows)."""
     b, t = input_ids.shape
+    plan = forward_plan(FAMILY, cfg, mesh, quant_config, capture_stats)
     h = params["embed"]["w"][input_ids].to(compute_dtype)
     chunk0 = chunkN = plain_causal = False
     if kv_cache is not None:
@@ -273,7 +279,7 @@ def forward(params, input_ids: torch.Tensor, cfg: BaichuanConfig,
     cos = sin = None
     if cfg.position_embedding == "ROPE":
         cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
-    slopes = slopes_on(cfg, h.device)
+    slopes = plan.slopes(slopes_on(cfg, h.device))
     per_layer = []
     for i, lp in enumerate(params["layers"]):
         stats = {} if capture_stats else None
@@ -281,7 +287,7 @@ def forward(params, input_ids: torch.Tensor, cfg: BaichuanConfig,
             h, lp, cfg, quant_config, cos, sin, mask,
             kv_cache[i] if kv_cache is not None else None, cache_index, compute_dtype,
             slopes, plain_causal=plain_causal, chunk0=chunk0, banded=chunkN,
-            banded_starts=pad_starts, kv_window=kv_window, stats=stats)
+            banded_starts=pad_starts, kv_window=kv_window, stats=stats, plan=plan, mesh=mesh)
         per_layer.append(stats)
     h = rmsnorm_quant(h.reshape(b * t, -1), params["final_norm"]["w"], eps=cfg.rms_norm_eps,
                       quantize=False).reshape(b, t, -1)
@@ -290,9 +296,10 @@ def forward(params, input_ids: torch.Tensor, cfg: BaichuanConfig,
     return h, kv_cache
 
 
-def logits(params, hidden: torch.Tensor) -> torch.Tensor:
-    """The NormHead lm_head (normalized at load), float: f32 [B, T, V]."""
-    return matmul_f32(hidden, params["lm_head"]["w"])
+def logits(params, hidden: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The NormHead lm_head (normalized at load), float: f32 [B, T, V] (a
+    rank's vocab slice gathered over ``mesh``)."""
+    return lm_logits(params, hidden, mesh)
 
 
 def init_kv_cache(cfg: BaichuanConfig, batch: int, max_len: int,

@@ -27,10 +27,12 @@ from ..kernels.attention import (alibi_bias, decode_attention, flash_attention,
                                  flash_attention_banded, gather_pages)
 from ..kernels.fp8 import fp8_matmul
 from ..kernels.fused import rms_norm  # noqa: F401  (the family modules' norm)
-from ..kernels.gemm import int8_matmul
-from ..kernels.int4 import int4_matmul
+from ..kernels.gemm import epilogue, int8_matmul
+from ..kernels.int4 import _A8_MAX_M, int4_matmul
 from ..quant import math as qmath
 from ..quant.config import PER_TENSOR, PER_TOKEN, QuantConfig
+from ..shard.mesh import Axis, Mesh, axis_of, sharded
+from ..shard.sharding import TPPlan, tp_plan
 
 # ---------------------------------------------------------------------------
 # Norms and rotary embeddings (rms_norm: kernels/fused.py)
@@ -179,6 +181,153 @@ def linear(x, p, cfg: Optional[QuantConfig], granularity=PER_TENSOR,
     if cfg is None or not is_quantized(p):
         return float_linear(x, p, out_dtype)
     return quant_linear(x, p, cfg, granularity, kind, out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism (shard/mesh.py, shard/sharding.py)
+# ---------------------------------------------------------------------------
+
+
+def forward_plan(family: str, cfg, mesh: Optional[Mesh], qcfg=None,
+                 capture_stats: bool = False) -> TPPlan:
+    """A forward's :class:`~..shard.sharding.TPPlan`; calibration statistics
+    are taken on one rank only."""
+    if capture_stats and sharded(mesh):
+        raise ValueError("calibration statistics are gathered on one rank (no mesh)")
+    return tp_plan(family, cfg, mesh, qcfg)
+
+
+def global_rows(m: int, mesh: Optional[Mesh]) -> int:
+    """The rows of the product a rank's m rows are part of: m, times the data
+    axis where the static engine split the batch over it (``mesh.rows_split``),
+    as JAX routes on the global M."""
+    return m * axis_of(mesh, "data").size if getattr(mesh, "rows_split", False) else m
+
+
+def row_linear(x, p, cfg: Optional[QuantConfig], granularity=PER_TENSOR,
+               kind=LinearKind.SCALED, out_dtype=None, mesh: Optional[Mesh] = None,
+               axis: str = "model"):
+    """A row-parallel projection (o, down, fc2): x [..., K/m] is this rank's
+    slice of the input columns, p's weight the matching slice of its rows,
+    and the ranks of ``axis`` sum their partials (JAX's partitioner inserts
+    that sum; here it is explicit). With the axis of size 1: :func:`linear`.
+
+    int8: K1 gives the int32 accumulator (``out_dtype=torch.int32``), the
+    ranks sum it, and K1's epilogue runs once on the sum, the bias added
+    once: the bits of the unsharded product. Per-token scales (int8 and fp8
+    dynamic) quantize against the whole row's absmax (a MAX over the ranks).
+    fp8 and float: f32 partials summed, then the bias, the output
+    re-quantization (static fp8) and the cast. int4: :func:`int4_matmul_tp`."""
+    ax = axis_of(mesh, axis)
+    if ax.size == 1:
+        return linear(x, p, cfg, granularity, kind, out_dtype)
+    out_dtype = out_dtype or x.dtype
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    bias = p.get("bias")
+    if cfg is not None and is_quantized(p) and cfg.type == "int4":
+        out = int4_matmul_tp(x2, p, bias=bias, out_dtype=out_dtype, tp="row", mesh=mesh,
+                             axis=axis)
+        return out.reshape(*lead, -1)
+    requant = None
+    if cfg is None or not is_quantized(p):
+        out = matmul_f32(x2, p["w"])
+    elif cfg.type == "int8":
+        rs = 1.0
+        if granularity == PER_TOKEN:
+            q, rs = qmath.quantize_act_per_token(x2, absmax=_row_absmax(x2, ax))
+        elif kind == LinearKind.SCALED:
+            q = qmath.quantize_act_static(x2, p["quant_scale"])
+        else:
+            q = qmath.quantize_act_prescaled(x2)
+        acc = ax.all_reduce(int8_matmul(q, p["w"], out_dtype=torch.int32))
+        out = epilogue(acc, rs, p["dequant_scale"], bias, out_dtype=out_dtype)
+        return out.reshape(*lead, -1)
+    elif cfg.type == "fp8_e5m2":
+        out = fp8_matmul(x2.to(torch.float8_e5m2), p["w"], out_dtype=torch.float32)
+    else:
+        fdt = torch.float8_e4m3fn
+        if cfg.activation_scheme == "static" and "input_scale" in p:
+            q = qmath.quantize_fp8_static(x2, p["input_scale"], fdt)
+            out = fp8_matmul(q, p["w"], row_scale=p["input_scale"], col_scale=p["w_scale"],
+                             out_dtype=torch.float32)
+            requant = p.get("output_scale")
+        else:
+            if granularity == PER_TOKEN:
+                q, s = qmath.quantize_fp8_per_token(
+                    x2, fdt, absmax=_row_absmax(x2, ax).to(x2.dtype))
+            else:
+                amax = ax.all_reduce(x2.abs().max().float().reshape(1), "max").reshape(())
+                q, s = qmath.quantize_fp8_per_tensor(x2, fdt, amax=amax)
+            out = fp8_matmul(q, p["w"], row_scale=s, col_scale=p["w_scale"],
+                             out_dtype=torch.float32)
+    ax.all_reduce(out)
+    if bias is not None:
+        out = out + bias.float()
+    out = out.to(out_dtype)
+    if requant is not None:
+        qo = qmath.quantize_fp8_static(out, requant, torch.float8_e4m3fn)
+        out = (qo.float() * requant).to(out_dtype)
+    return out.reshape(*lead, -1)
+
+
+def _row_absmax(x2: torch.Tensor, ax: Axis) -> torch.Tensor:
+    """The whole row's absmax [M, 1] in f32 of a row-parallel slice x2."""
+    return ax.all_reduce(x2.abs().amax(dim=-1, keepdim=True).float(), "max")
+
+
+def int4_matmul_tp(x2: torch.Tensor, p: dict, *, bias, out_dtype, tp: str,
+                   mesh: Optional[Mesh] = None, axis: str = "model") -> torch.Tensor:
+    """JAX ``int4_matmul_tp``: K5 on this rank's shard, routed W4A8 / W4A16
+    on the whole product's M (:func:`global_rows`).
+
+    tp="col": the packed weight, its group scales and the bias split on the
+    output dimension; x is whole on every rank; exact.
+    tp="row": x2 [M, K/m] is this rank's slice of the input. Split-K packing
+    puts rank i's packed bytes [N, K'/2m] against two column ranges of x,
+    [i kh, (i+1) kh) and [K'/2 + i kh, ...), so the ranks first gather x
+    whole (an all-gather over the axis, in f32: exact), then each takes its
+    two planes and their group scales (held whole) and quantizes against
+    the whole row's per-token scale, as the unsharded product does. The f32
+    partials are summed over the ranks (the one place row-parallel int4
+    differs from the unsharded sum order), then the bias, then the cast."""
+    ax = axis_of(mesh, axis)
+    a8 = global_rows(x2.shape[0], mesh) <= _A8_MAX_M
+    if tp == "col" or ax.size == 1:
+        return int4_matmul(x2, p["w"], p["w_scales"], bias, out_dtype=out_dtype, a8=a8)
+    packed, scales = p["w"], p["w_scales"]
+    kh = packed.shape[1]
+    k2 = kh * ax.size
+    g2 = scales.shape[1] // 2
+    gh = g2 // ax.size
+    x = ax.all_gather(x2.float(), dim=-1).to(x2.dtype)
+    if x.shape[1] < 2 * k2:
+        x = F.pad(x, (0, 2 * k2 - x.shape[1]))
+    ts = None
+    if a8:
+        absmax = x.abs().amax(dim=-1).float()
+        ts = qmath.true_div(torch.clamp(absmax, min=1e-8), qmath.INT8_MAX)
+    i = ax.index
+    xl = torch.cat([x[:, i * kh:(i + 1) * kh], x[:, k2 + i * kh:k2 + (i + 1) * kh]], dim=1)
+    sl = torch.cat([scales[:, i * gh:(i + 1) * gh], scales[:, g2 + i * gh:g2 + (i + 1) * gh]],
+                   dim=1)
+    out = int4_matmul(xl.contiguous(), packed, sl.contiguous(), None, out_dtype=torch.float32,
+                      tok_scale=ts, a8=a8)
+    ax.all_reduce(out)
+    if bias is not None:
+        out = out + bias.float().reshape(1, -1)
+    return out.to(out_dtype)
+
+
+def lm_logits(params, hidden: torch.Tensor, mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """The float lm_head: f32 [B, T, V], the product in the weight's dtype
+    with f32 accumulation. Split over the vocab (its columns fewer than the
+    embedding's rows), each rank's slice is gathered over "model"."""
+    out = matmul_f32(hidden, params["lm_head"]["w"])
+    ax = axis_of(mesh, "model")
+    if ax.size > 1 and params["lm_head"]["w"].shape[1] != params["embed"]["w"].shape[0]:
+        out = ax.all_gather(out, dim=-1)
+    return out
 
 
 def linear_prequant(x_q: torch.Tensor, p: dict, compute_dtype,

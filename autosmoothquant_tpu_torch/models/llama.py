@@ -42,6 +42,7 @@ from .common import (
     activation,
     apply_rope,
     cache_mask_and_routing,
+    forward_plan,
     fp8_observer_scales_of,
     fused_block_enabled,
     absmax_ch,
@@ -50,13 +51,14 @@ from .common import (
     is_quantized,
     linear,
     linear_prequant,
+    lm_logits,
     make_kv_cache,
-    matmul_f32,
     pack_fp8,
     pack_int4,
     pack_int8,
     rms_norm,
     rope_cos_sin,
+    row_linear,
     scales_on,
     uncached_mask_and_positions,
     update_and_attend,
@@ -130,14 +132,16 @@ def _qkv_prescaled(qcfg: Optional[QuantConfig], attn) -> bool:
 def _layer_forward(h, lp, cfg: LlamaConfig, qcfg: Optional[QuantConfig], cos,
                    sin, mask, cache, cache_index, compute_dtype, *,
                    plain_causal=False, chunk0=False, banded=False,
-                   banded_starts=None, kv_window=None, stats=None):
+                   banded_starts=None, kv_window=None, stats=None, plan=None, mesh=None):
     """One decoder layer; h: [B, T, D] in compute_dtype. The cache (if any)
     is written in place. ``stats``, a dict, receives the layer's calibration
     statistics (JAX ``_layer_forward``'s); capture takes no fused route, so
-    every norm output and projection is seen on its own."""
+    every norm output and projection is seen on its own. Under a mesh
+    (``plan``, ``shard/sharding.py:tp_plan``) the layer holds its rank's
+    heads and MLP columns, and o and down sum over "model"."""
     b, t, d = h.shape
     hd = cfg.head_dim
-    n_q, n_kv = cfg.num_attention_heads, cfg.num_key_value_heads
+    n_q, n_kv = plan.q_heads, plan.kv_heads
     qkv_gran = qcfg.qkv if qcfg else PER_TENSOR
     capture = stats is not None
 
@@ -168,8 +172,8 @@ def _layer_forward(h, lp, cfg: LlamaConfig, qcfg: Optional[QuantConfig], cos,
         for name, y in (("q", q), ("k", k), ("v", v)):
             stats[f"{name}_out_absmax"] = y.abs().amax()
     q = apply_rope(q.reshape(b, t, n_q, hd), cos, sin)
-    k = apply_rope(k.reshape(b, t, n_kv, hd), cos, sin)
-    v = v.reshape(b, t, n_kv, hd)
+    k = plan.local_kv(apply_rope(k.reshape(b, t, n_kv, hd), cos, sin))
+    v = plan.local_kv(v.reshape(b, t, n_kv, hd))
 
     ctx = update_and_attend(q, k, v, cache, cache_index, mask,
                             1.0 / math.sqrt(hd), compute_dtype,
@@ -177,13 +181,13 @@ def _layer_forward(h, lp, cfg: LlamaConfig, qcfg: Optional[QuantConfig], cos,
                             banded=banded, banded_starts=banded_starts,
                             kv_window=kv_window, sliding_window=cfg.sliding_window)
     ctx = ctx.reshape(b, t, n_q * hd)
-    attn_out = linear(ctx, lp["attn"]["o"], qcfg, qcfg.out if qcfg else PER_TENSOR,
-                      LinearKind.SCALED, out_dtype=compute_dtype)
+    attn_out = row_linear(ctx, lp["attn"]["o"], qcfg, qcfg.out if qcfg else PER_TENSOR,
+                          LinearKind.SCALED, compute_dtype, mesh if plan.attn else None)
     if capture:
         stats["o_in_ch_absmax"] = absmax_ch(ctx)
         stats["o_out_absmax"] = attn_out.abs().amax()
 
-    inter = cfg.intermediate_size
+    inter = cfg.intermediate_size // (plan.model if plan.mlp else 1)
     if fused_block_enabled(qcfg, capture) and is_quantized(lp["attn"]["o"]):
         # residual add + RMSNorm + int8 quantize in one kernel, feeding the
         # gate|up GEMM its int8 input directly
@@ -213,8 +217,8 @@ def _layer_forward(h, lp, cfg: LlamaConfig, qcfg: Optional[QuantConfig], cos,
             up = linear(x2, lp["mlp"]["up"], qcfg, fc1, LinearKind.POST_NORM,
                         out_dtype=compute_dtype)
     act = (activation(gate.float(), cfg.hidden_act) * up.float()).to(compute_dtype)
-    down = linear(act, lp["mlp"]["down"], qcfg, qcfg.fc2 if qcfg else PER_TENSOR,
-                  LinearKind.SCALED, out_dtype=compute_dtype)
+    down = row_linear(act, lp["mlp"]["down"], qcfg, qcfg.fc2 if qcfg else PER_TENSOR,
+                      LinearKind.SCALED, compute_dtype, mesh if plan.mlp else None)
     if capture:
         stats["gate_out_absmax"] = gate.abs().amax()
         stats["up_out_absmax"] = up.abs().amax()
@@ -232,7 +236,7 @@ def forward(params, input_ids: torch.Tensor, cfg: LlamaConfig,
             attention_mask: Optional[torch.Tensor] = None,
             kv_window: Optional[int] = None,
             capture_stats: bool = False,
-            compute_dtype=torch.float32):
+            compute_dtype=torch.float32, mesh=None):
     """Run the decoder stack. input_ids: int [B, T].
 
     kv_cache: None, or the list from ``init_kv_cache``, written in place at
@@ -246,8 +250,12 @@ def forward(params, input_ids: torch.Tensor, cfg: LlamaConfig,
     neither kv_valid nor pad_starts; its sliding window masks inside its
     attention. Returns (hidden [B, T, D], kv_cache), and with
     ``capture_stats`` (hidden, kv_cache, stats): {STAT_KEYS: device tensors
-    stacked [L, ...]}, per-channel absmaxes [L, C] and absmax scalars [L]."""
+    stacked [L, ...]}, per-channel absmaxes [L, C] and absmax scalars [L].
+    ``mesh`` (``shard/mesh.py``): params, cache and rows are this rank's
+    (``shard/sharding.py``), and the layers sum their row-parallel
+    projections over its "model" axis."""
     b, t = input_ids.shape
+    plan = forward_plan(FAMILY, cfg, mesh, quant_config, capture_stats)
     h = params["embed"]["w"][input_ids].to(compute_dtype)
     chunk0 = chunkN = plain_causal = False
     if kv_cache is not None:
@@ -267,7 +275,8 @@ def forward(params, input_ids: torch.Tensor, cfg: LlamaConfig,
             h, lp, cfg, quant_config, cos, sin, mask,
             kv_cache[i] if kv_cache is not None else None, cache_index,
             compute_dtype, plain_causal=plain_causal, chunk0=chunk0,
-            banded=chunkN, banded_starts=pad_starts, kv_window=kv_window, stats=stats)
+            banded=chunkN, banded_starts=pad_starts, kv_window=kv_window, stats=stats,
+            plan=plan, mesh=mesh)
         per_layer.append(stats)
     # the final norm in one kernel a row, written in compute_dtype
     h = rmsnorm_quant(h.reshape(b * t, -1), params["final_norm"]["w"], eps=cfg.rms_norm_eps,
@@ -277,10 +286,11 @@ def forward(params, input_ids: torch.Tensor, cfg: LlamaConfig,
     return h, kv_cache
 
 
-def logits(params, hidden: torch.Tensor) -> torch.Tensor:
+def logits(params, hidden: torch.Tensor, mesh=None) -> torch.Tensor:
     """lm_head (float): f32 [B, T, V], the product in the weight's dtype with
-    f32 accumulation."""
-    return matmul_f32(hidden, params["lm_head"]["w"])
+    f32 accumulation (a rank's vocab slice gathered over ``mesh``'s "model"
+    axis)."""
+    return lm_logits(params, hidden, mesh)
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,

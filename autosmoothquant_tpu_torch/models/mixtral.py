@@ -59,22 +59,25 @@ from ..kernels.moe import router_logits
 from ..quant import math as qmath
 from ..quant.config import PER_TENSOR, PER_TOKEN, QuantConfig
 from ..runtime import resolve_device
+from ..shard.mesh import axis_of
 from .common import (
     LinearKind,
     absmax_ch,
     apply_rope,
     as_tensor,
     cache_mask_and_routing,
+    forward_plan,
     is_quantized,
     linear,
     linear_prequant,
+    lm_logits,
     make_kv_cache,
-    matmul_f32,
     pack_fp8,
     pack_int4,
     pack_int8,
     rms_norm,
     rope_cos_sin,
+    row_linear,
     scales_on,
     uncached_mask_and_positions,
     update_and_attend,
@@ -254,43 +257,60 @@ def _prequant_matmul(q: torch.Tensor, rs, pe: dict, qcfg: QuantConfig, out_dtype
                       out_dtype=out_dtype)
 
 
-def _proj(x, shared, p, e, qcfg, gran, kind, out_dtype, sparse):
+def _proj(x, shared, p, e, qcfg, gran, kind, out_dtype, sparse, row_mesh=None):
     """Expert e's projection of x [R, in] (its rows: all T, or its bucket),
-    from the shared quantized input where there is one."""
+    from the shared quantized input where there is one; ``row_mesh`` (w2
+    with the experts' inner dimensions split) sums it over "model"."""
     pe = _expert(p, e)
     if shared is not None:
         return _prequant_matmul(shared[0], shared[1], pe, qcfg, out_dtype)
     if (sparse and qcfg is not None and qcfg.type == "fp8_e4m3" and is_quantized(pe)
             and not _fp8_static(qcfg, pe)):
         gran = PER_TOKEN  # JAX's bucketed fp8 scales each row
-    return linear(x, pe, qcfg, gran, kind, out_dtype)
+    return row_linear(x, pe, qcfg, gran, kind, out_dtype, row_mesh)
 
 
-def _expert_mlp(x, shared, mp, e, qcfg, compute_dtype, sparse):
-    """(w1 out, w3 out, silu(w1) * w3, w2 out) of expert e over rows x."""
+def _expert_mlp(x, shared, mp, e, qcfg, compute_dtype, sparse, row_mesh=None):
+    """(w1 out, w3 out, silu(w1) * w3, w2 out) of the e-th expert this rank
+    holds over rows x."""
     gran1 = qcfg.fc1 if qcfg else PER_TENSOR
     gran2 = qcfg.fc2 if qcfg else PER_TENSOR
     g = _proj(x, shared, mp["w1"], e, qcfg, gran1, LinearKind.POST_NORM, compute_dtype, sparse)
     u = _proj(x, shared, mp["w3"], e, qcfg, gran1, LinearKind.POST_NORM, compute_dtype, sparse)
     act = (F.silu(g.float()) * u.float()).to(compute_dtype)
-    down = _proj(act, None, mp["w2"], e, qcfg, gran2, LinearKind.SCALED, compute_dtype, sparse)
+    down = _proj(act, None, mp["w2"], e, qcfg, gran2, LinearKind.SCALED, compute_dtype, sparse,
+                 row_mesh)
     return g, u, act, down
 
 
-def moe_dense(x2, mp, cfg: MixtralConfig, qcfg, compute_dtype, top_w, top_idx, stats=None):
+def _local_experts(plan, E: int):
+    """(first expert, count) this rank holds: all E, or its share of the
+    expert axis."""
+    if plan is None or plan.experts == 1:
+        return 0, E
+    n = E // plan.experts
+    return plan.expert_index * n, n
+
+
+def moe_dense(x2, mp, cfg: MixtralConfig, qcfg, compute_dtype, top_w, top_idx, stats=None,
+              plan=None, row_mesh=None, keep_f32=False):
     """Every expert over all T rows (JAX ``_moe_block``'s dense route): a
     token's output is the f32 sum, in ascending expert order, of weight x
     expert output (weight 0 where the token is not routed). ``stats`` (a
-    dict) receives the routed-masked per-expert statistics."""
+    dict) receives the routed-masked per-expert statistics. With ``plan``'s
+    experts split, the sum covers this rank's experts (:func:`moe_block`
+    adds the ranks' sums; ``keep_f32`` returns the f32 sum)."""
     T = x2.shape[0]
     E = cfg.num_local_experts
+    e0, n_local = _local_experts(plan, E)
     weights = torch.zeros((T, E), dtype=torch.float32, device=x2.device)
     weights.scatter_(1, top_idx, top_w.float())
     shared = _shared_input(x2, mp["w1"], qcfg, qcfg.fc1 if qcfg else PER_TENSOR, False)
     acc = None
     per_expert = []
-    for e in range(E):
-        g, u, act, down = _expert_mlp(x2, shared, mp, e, qcfg, compute_dtype, False)
+    for j in range(n_local):
+        e = e0 + j
+        g, u, act, down = _expert_mlp(x2, shared, mp, j, qcfg, compute_dtype, False, row_mesh)
         term = down.float() * weights[:, e:e + 1]
         acc = term if acc is None else acc + term
         if stats is not None:
@@ -304,7 +324,7 @@ def moe_dense(x2, mp, cfg: MixtralConfig, qcfg, compute_dtype, top_w, top_idx, s
         for i, key in enumerate(("down_in_ch_absmax_per_expert", "w1_out_absmax_per_expert",
                                  "w3_out_absmax_per_expert", "w2_out_absmax_per_expert")):
             stats[key] = torch.stack([s[i] for s in per_expert])
-    return acc.to(compute_dtype)
+    return acc if keep_f32 else acc.to(compute_dtype)
 
 
 def _pad_row(t: torch.Tensor, fill: float = 0.0) -> torch.Tensor:
@@ -314,14 +334,18 @@ def _pad_row(t: torch.Tensor, fill: float = 0.0) -> torch.Tensor:
 
 
 def moe_sparse(x2, mp, cfg: MixtralConfig, qcfg, compute_dtype, top_w, top_idx,
-               capacity_factor: float = 2.0):
+               capacity_factor: float = 2.0, plan=None, row_mesh=None, keep_f32=False):
     """Each expert over its capacity bucket (JAX ``_moe_block_sparse``): one
     projection launch a expert over its C rows, gathered from x2 (or from
     its shared quantization) with pad slots reading a zero row; a token's
     output gathers its K experts' rows in ascending expert order (a dropped
-    pair reads a zero row) and sums weight x output in f32 in that order."""
+    pair reads a zero row) and sums weight x output in f32 in that order.
+    With ``plan``'s experts split, other ranks' experts' rows read zeros and
+    :func:`moe_block` adds the ranks' sums; ``keep_f32`` returns the f32
+    sum."""
     T, D = x2.shape
     E, K = cfg.num_local_experts, top_idx.shape[1]
+    e0, n_local = _local_experts(plan, E)
     C = expert_capacity(T, E, K, capacity_factor)
     gather, slot = dispatch_indices(top_idx, T, E, K, C)
     shared = _shared_input(x2, mp["w1"], qcfg, qcfg.fc1 if qcfg else PER_TENSOR, True)
@@ -330,17 +354,22 @@ def moe_sparse(x2, mp, cfg: MixtralConfig, qcfg, compute_dtype, top_w, top_idx,
         rs = None if shared[1] is None else _pad_row(shared[1], 1.0)
     x_pad = _pad_row(x2)
     outs = []
-    for e in range(E):
-        rows = gather[e]
+    for j in range(n_local):
+        rows = gather[e0 + j]
         sh = None if shared is None else (q[rows], None if rs is None else rs[rows])
-        outs.append(_expert_mlp(x_pad[rows], sh, mp, e, qcfg, compute_dtype, True)[3])
-    down = _pad_row(torch.cat(outs))                          # [E * C + 1, D]
+        outs.append(_expert_mlp(x_pad[rows], sh, mp, j, qcfg, compute_dtype, True, row_mesh)[3])
+    local = torch.cat(outs)
+    if n_local < E:
+        down = local.new_zeros((E * C + 1, local.shape[1]))
+        down[e0 * C:(e0 + n_local) * C] = local
+    else:
+        down = _pad_row(local)                                # [E * C + 1, D]
     order = torch.argsort(top_idx, dim=-1)
     slot, w = slot.gather(1, order), top_w.float().gather(1, order)
     acc = down[slot[:, 0]].float() * w[:, :1]
     for k in range(1, K):
         acc = acc + down[slot[:, k]].float() * w[:, k:k + 1]
-    return acc.to(compute_dtype)
+    return acc if keep_f32 else acc.to(compute_dtype)
 
 
 def use_sparse(T: int, E: int, capture: bool, all_experts: bool) -> bool:
@@ -351,14 +380,29 @@ def use_sparse(T: int, E: int, capture: bool, all_experts: bool) -> bool:
 
 
 def moe_block(x2, mp, cfg: MixtralConfig, qcfg, compute_dtype, *, all_experts=False,
-              stats=None):
+              stats=None, plan=None, mesh=None):
     """The MoE block of the norm output x2 (f32 [T, D]): route, then the
-    route :func:`use_sparse` picks. Returns [T, D] in compute_dtype."""
+    route :func:`use_sparse` picks. Returns [T, D] in compute_dtype.
+
+    Under a mesh (``plan``): the router is whole on every rank, so every
+    rank routes every token alike; a rank runs the experts it holds (its
+    share of the "expert" axis) and, where their inner dimensions split over
+    "model", sums w2 over it (K1's int32 partials for int8: exact); the
+    ranks of the expert axis then add their f32 sums. A token has two
+    routed experts, so that sum is the one-card a + b, bit for bit; int4
+    experts run whole on each rank (JAX ``_moe_int4_sharded``)."""
     E = cfg.num_local_experts
     top_w, top_idx = route(x2, mp["router"]["w"], E if all_experts else cfg.num_experts_per_tok)
+    row_mesh = mesh if plan is not None and plan.expert_mlp else None
     if use_sparse(x2.shape[0], E, stats is not None, all_experts):
-        return moe_sparse(x2, mp, cfg, qcfg, compute_dtype, top_w, top_idx)
-    return moe_dense(x2, mp, cfg, qcfg, compute_dtype, top_w, top_idx, stats)
+        out = moe_sparse(x2, mp, cfg, qcfg, compute_dtype, top_w, top_idx, plan=plan,
+                         row_mesh=row_mesh, keep_f32=True)
+    else:
+        out = moe_dense(x2, mp, cfg, qcfg, compute_dtype, top_w, top_idx, stats, plan=plan,
+                        row_mesh=row_mesh, keep_f32=True)
+    if plan is not None and plan.experts > 1:
+        axis_of(mesh, "expert").all_reduce(out)
+    return out.to(compute_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -376,13 +420,13 @@ def _qkv_prescaled(qcfg: Optional[QuantConfig], attn) -> bool:
 def _layer_forward(h, lp, cfg: MixtralConfig, qcfg: Optional[QuantConfig], cos, sin,
                    mask, cache, cache_index, compute_dtype, *, plain_causal=False,
                    chunk0=False, banded=False, banded_starts=None, kv_window=None,
-                   all_experts=False, stats=None):
+                   all_experts=False, stats=None, plan=None, mesh=None):
     """One decoder layer; h: [B, T, D] in compute_dtype. The cache (if any)
     is written in place; ``stats``, a dict, receives the layer's calibration
     statistics (JAX ``_layer_forward``'s and ``_moe_block``'s)."""
     b, t, d = h.shape
     hd = cfg.head_dim
-    n_q, n_kv = cfg.num_attention_heads, cfg.num_key_value_heads
+    n_q, n_kv = plan.q_heads, plan.kv_heads
     capture = stats is not None
     attn = lp["attn"]
     if not capture and _qkv_prescaled(qcfg, attn):
@@ -400,14 +444,14 @@ def _layer_forward(h, lp, cfg: MixtralConfig, qcfg: Optional[QuantConfig], cos, 
         for name, y in (("q", q), ("k", k), ("v", v)):
             stats[f"{name}_out_absmax"] = y.abs().amax()
     q = apply_rope(q.reshape(b, t, n_q, hd), cos, sin)
-    k = apply_rope(k.reshape(b, t, n_kv, hd), cos, sin)
-    v = v.reshape(b, t, n_kv, hd)
+    k = plan.local_kv(apply_rope(k.reshape(b, t, n_kv, hd), cos, sin))
+    v = plan.local_kv(v.reshape(b, t, n_kv, hd))
     ctx = update_and_attend(q, k, v, cache, cache_index, mask, 1.0 / math.sqrt(hd),
                             compute_dtype, plain_causal=plain_causal, chunk0_causal=chunk0,
                             banded=banded, banded_starts=banded_starts, kv_window=kv_window)
     ctx = ctx.reshape(b, t, n_q * hd)
-    attn_out = linear(ctx, attn["o"], qcfg, qcfg.out if qcfg else PER_TENSOR,
-                      LinearKind.SCALED, out_dtype=compute_dtype)
+    attn_out = row_linear(ctx, attn["o"], qcfg, qcfg.out if qcfg else PER_TENSOR,
+                          LinearKind.SCALED, compute_dtype, mesh if plan.attn else None)
     if capture:
         stats["o_in_ch_absmax"] = absmax_ch(ctx)
         stats["o_out_absmax"] = attn_out.abs().amax()
@@ -417,7 +461,7 @@ def _layer_forward(h, lp, cfg: MixtralConfig, qcfg: Optional[QuantConfig], cos, 
     x2 = rmsnorm_quant(h.reshape(b * t, d).float(), lp["ln2"]["w"], eps=cfg.rms_norm_eps,
                        quantize=False)
     moe = moe_block(x2, lp["moe"], cfg, qcfg, compute_dtype, all_experts=all_experts,
-                    stats=stats)
+                    stats=stats, plan=plan, mesh=mesh)
     return h + moe.reshape(b, t, d)
 
 
@@ -431,12 +475,15 @@ def forward(params, input_ids: torch.Tensor, cfg: MixtralConfig,
             kv_window: Optional[int] = None,
             capture_stats: bool = False,
             calibrate_all_experts: bool = False,
-            compute_dtype=torch.float32):
+            compute_dtype=torch.float32, mesh=None):
     """Run the decoder stack: the arguments and results of
     ``models/llama.py:forward`` (contiguous, paged or a verify's rows; with
     ``capture_stats`` the statistics under ``STAT_KEYS`` too), and
-    ``calibrate_all_experts``: every token routed to every expert."""
+    ``calibrate_all_experts``: every token routed to every expert. ``mesh``:
+    a rank's params, cache and rows (attention as ``models/llama.py``'s,
+    the experts by :func:`moe_block`)."""
     b, t = input_ids.shape
+    plan = forward_plan(FAMILY, cfg, mesh, quant_config, capture_stats)
     h = params["embed"]["w"][input_ids].to(compute_dtype)
     chunk0 = chunkN = plain_causal = False
     if kv_cache is not None:
@@ -455,7 +502,8 @@ def forward(params, input_ids: torch.Tensor, cfg: MixtralConfig,
             h, lp, cfg, quant_config, cos, sin, mask,
             kv_cache[i] if kv_cache is not None else None, cache_index, compute_dtype,
             plain_causal=plain_causal, chunk0=chunk0, banded=chunkN, banded_starts=pad_starts,
-            kv_window=kv_window, all_experts=calibrate_all_experts, stats=stats)
+            kv_window=kv_window, all_experts=calibrate_all_experts, stats=stats, plan=plan,
+            mesh=mesh)
         per_layer.append(stats)
     h = rmsnorm_quant(h.reshape(b * t, -1), params["final_norm"]["w"], eps=cfg.rms_norm_eps,
                       quantize=False).reshape(b, t, -1)
@@ -464,9 +512,10 @@ def forward(params, input_ids: torch.Tensor, cfg: MixtralConfig,
     return h, kv_cache
 
 
-def logits(params, hidden: torch.Tensor) -> torch.Tensor:
-    """lm_head (float): f32 [B, T, V]."""
-    return matmul_f32(hidden, params["lm_head"]["w"])
+def logits(params, hidden: torch.Tensor, mesh=None) -> torch.Tensor:
+    """lm_head (float): f32 [B, T, V] (a rank's vocab slice gathered over
+    ``mesh``)."""
+    return lm_logits(params, hidden, mesh)
 
 
 def init_kv_cache(cfg: MixtralConfig, batch: int, max_len: int,

@@ -51,16 +51,18 @@ from .common import (
     add_static_fp8_scales,
     as_tensor,
     cache_mask_and_routing,
+    forward_plan,
     fp8_observer_scales_of,
     fused_block_enabled,
     layer_norm,
     linear,
     linear_prequant,
+    lm_logits,
     make_kv_cache,
-    matmul_f32,
     pack_fp8,
     pack_int4,
     pack_int8,
+    row_linear,
     scales_on,
     uncached_mask_and_positions,
     update_and_attend,
@@ -110,12 +112,15 @@ config_from_hf = OPTConfig.from_hf
 def _layer_forward(h, lp, cfg: OPTConfig, qcfg: Optional[QuantConfig], mask,
                    cache, cache_index, compute_dtype, *, plain_causal=False,
                    chunk0=False, banded=False, banded_starts=None, kv_window=None,
-                   stats=None):
+                   stats=None, plan=None, mesh=None):
     """One decoder layer; h: [B, T, D] in compute_dtype. The cache (if any)
     is written in place. ``stats``, a dict, receives the layer's calibration
-    statistics (capture takes no fused route)."""
+    statistics (capture takes no fused route). Under a mesh (``plan``) the
+    layer holds its rank's heads and fc1 columns; o and fc2 sum over
+    "model"."""
     b, t, d = h.shape
-    hd, n_h = cfg.head_dim, cfg.num_attention_heads
+    hd, n_h = cfg.head_dim, plan.q_heads
+    attn_mesh, mlp_mesh = (mesh if plan.attn else None), (mesh if plan.mlp else None)
     eps = cfg.layer_norm_eps
     pre_ln = cfg.do_layer_norm_before
     capture = stats is not None
@@ -139,9 +144,9 @@ def _layer_forward(h, lp, cfg: OPTConfig, qcfg: Optional[QuantConfig], mask,
                             1.0 / math.sqrt(hd), compute_dtype,
                             plain_causal=plain_causal, chunk0_causal=chunk0,
                             banded=banded, banded_starts=banded_starts,
-                            kv_window=kv_window).reshape(b, t, d)
-    attn_out = linear(ctx, lp["attn"]["o"], qcfg, qcfg.out if qcfg else PER_TENSOR,
-                      LinearKind.SCALED, out_dtype=compute_dtype)
+                            kv_window=kv_window).reshape(b, t, n_h * hd)
+    attn_out = row_linear(ctx, lp["attn"]["o"], qcfg, qcfg.out if qcfg else PER_TENSOR,
+                          LinearKind.SCALED, compute_dtype, attn_mesh)
     if capture:
         stats["o_in_ch_absmax"] = absmax_ch(ctx)
         stats["o_out_absmax"] = attn_out.abs().amax()
@@ -156,8 +161,8 @@ def _layer_forward(h, lp, cfg: OPTConfig, qcfg: Optional[QuantConfig], mask,
         h = h2.reshape(b, t, d)
         act = linear_prequant(x2_q, lp["mlp"]["fc1"], compute_dtype,
                               activation="relu").reshape(b, t, -1)
-        out = linear(act, lp["mlp"]["fc2"], qcfg, fc2_gran, LinearKind.SCALED,
-                     out_dtype=compute_dtype)
+        out = row_linear(act, lp["mlp"]["fc2"], qcfg, fc2_gran, LinearKind.SCALED,
+                         compute_dtype, mlp_mesh)
         return h + out
 
     h = residual + attn_out
@@ -175,8 +180,8 @@ def _layer_forward(h, lp, cfg: OPTConfig, qcfg: Optional[QuantConfig], mask,
         stats["fc1_in_ch_absmax"] = absmax_ch(x2)
         stats["fc1_out_absmax"] = act.abs().amax()
     act = torch.clamp_min(act, 0)
-    out = linear(act, lp["mlp"]["fc2"], qcfg, fc2_gran, LinearKind.SCALED,
-                 out_dtype=compute_dtype)
+    out = row_linear(act, lp["mlp"]["fc2"], qcfg, fc2_gran, LinearKind.SCALED,
+                     compute_dtype, mlp_mesh)
     if capture:
         stats["fc2_in_ch_absmax"] = absmax_ch(act)
         stats["fc2_out_absmax"] = out.abs().amax()
@@ -195,7 +200,7 @@ def forward(params, input_ids: torch.Tensor, cfg: OPTConfig,
             attention_mask: Optional[torch.Tensor] = None,
             kv_window: Optional[int] = None,
             capture_stats: bool = False,
-            compute_dtype=torch.float32):
+            compute_dtype=torch.float32, mesh=None):
     """Run the decoder stack (HF OPTDecoder.forward). input_ids: int [B, T].
 
     Arguments as ``models/llama.py:forward``: kv_cache None or the list from
@@ -205,8 +210,10 @@ def forward(params, input_ids: torch.Tensor, cfg: OPTConfig,
     learned position table at ``positions + POS_OFFSET``; kv_window bounds
     the cache columns decode attention reads. Returns (hidden [B, T, Dw],
     kv_cache), and with ``capture_stats`` (hidden, kv_cache, stats), the
-    statistics stacked [L, ...] under ``STAT_KEYS``."""
+    statistics stacked [L, ...] under ``STAT_KEYS``. ``mesh``: a rank's
+    params, cache and rows (``models/llama.py:forward``)."""
     b, t = input_ids.shape
+    plan = forward_plan(FAMILY, cfg, mesh, quant_config, capture_stats)
     h = params["embed"]["w"][input_ids].to(compute_dtype)
     if "project_in" in params:
         h = h @ params["project_in"]["w"].to(compute_dtype)
@@ -227,7 +234,8 @@ def forward(params, input_ids: torch.Tensor, cfg: OPTConfig,
             h, lp, cfg, quant_config, mask,
             kv_cache[i] if kv_cache is not None else None, cache_index,
             compute_dtype, plain_causal=plain_causal, chunk0=chunk0,
-            banded=chunkN, banded_starts=pad_starts, kv_window=kv_window, stats=stats)
+            banded=chunkN, banded_starts=pad_starts, kv_window=kv_window, stats=stats,
+            plan=plan, mesh=mesh)
         per_layer.append(stats)
     if cfg.do_layer_norm_before and "final_norm" in params:
         h = layer_norm(h, params["final_norm"]["w"], params["final_norm"]["b"],
@@ -240,10 +248,10 @@ def forward(params, input_ids: torch.Tensor, cfg: OPTConfig,
     return h, kv_cache
 
 
-def logits(params, hidden: torch.Tensor) -> torch.Tensor:
+def logits(params, hidden: torch.Tensor, mesh=None) -> torch.Tensor:
     """lm_head (float): f32 [B, T, V], the product in the weight's dtype with
-    f32 accumulation."""
-    return matmul_f32(hidden, params["lm_head"]["w"])
+    f32 accumulation (a rank's vocab slice gathered over ``mesh``)."""
+    return lm_logits(params, hidden, mesh)
 
 
 def init_kv_cache(cfg: OPTConfig, batch: int, max_len: int,

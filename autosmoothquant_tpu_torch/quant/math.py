@@ -20,6 +20,7 @@ JAX and the CPU compute.
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import torch
 
@@ -76,9 +77,12 @@ def quantize_weight_per_channel_absmax(w: torch.Tensor, axis: int = 0):
 # ---------------------------------------------------------------------------
 
 
-def quantize_act_per_token(x: torch.Tensor):
-    """Dynamic per-token absmax over the last dim. Returns (int8, f32 [..., 1])."""
-    absmax = x.abs().amax(dim=-1, keepdim=True)
+def quantize_act_per_token(x: torch.Tensor, absmax: Optional[torch.Tensor] = None):
+    """Dynamic per-token absmax over the last dim (or ``absmax`` [..., 1]
+    given: a row-parallel slice's whole-row absmax). Returns (int8, f32
+    [..., 1])."""
+    if absmax is None:
+        absmax = x.abs().amax(dim=-1, keepdim=True)
     scale = true_div(torch.clamp(absmax.float(), min=1e-8), INT8_MAX)
     return _round_clamp(x.float() / scale), scale
 
@@ -134,28 +138,35 @@ def dequantize_w_per_channel_a_per_tensor(q, w_scales, a_scale,
 # ---------------------------------------------------------------------------
 
 
-def quantize_fp8_per_tensor(x: torch.Tensor, dtype=torch.float8_e4m3fn):
-    """Per-tensor fp8 with a saturating clamp. Returns (fp8, f32 0-d scale)."""
+def quantize_fp8_per_tensor(x: torch.Tensor, dtype=torch.float8_e4m3fn,
+                            amax: Optional[torch.Tensor] = None):
+    """Per-tensor fp8 with a saturating clamp (``amax`` f32 0-d given: the
+    whole tensor's, for a row-parallel slice). Returns (fp8, f32 0-d
+    scale)."""
     fmax = float(torch.finfo(dtype).max)
-    if x.numel() == 0:
+    if amax is None and x.numel() == 0:
         # the reference's empty-tensor guard (empty MoE experts)
         amax = torch.tensor(16.0, dtype=torch.float32, device=x.device)
-    else:
+    elif amax is None:
         amax = x.abs().max().float()
     scale = true_div(amax, fmax)
     return torch.clamp(x.float() / scale, -fmax, fmax).to(dtype), scale
 
 
-def quantize_fp8_per_token(x: torch.Tensor, dtype=torch.float8_e4m3fn):
+def quantize_fp8_per_token(x: torch.Tensor, dtype=torch.float8_e4m3fn,
+                           absmax: Optional[torch.Tensor] = None):
     """Per-token fp8. Returns (fp8, f32 [..., 1]); the divide by fmax runs in
     x's dtype, as the JAX package runs it.
 
     One difference by design: an all-zero row gets the scale 1 (its values
     quantize to 0 either way), where JAX divides 0 by 0 and returns NaN. The
     port's banded prefill writes left-pad rows as 0, and a NaN there would
-    reach valid rows through the masked cache slots."""
+    reach valid rows through the masked cache slots. ``absmax`` [..., 1] in
+    x's dtype, where given, is the whole row's (a row-parallel slice)."""
     fmax = float(torch.finfo(dtype).max)
-    scale = true_div(x.abs().amax(dim=-1, keepdim=True), fmax).float()
+    if absmax is None:
+        absmax = x.abs().amax(dim=-1, keepdim=True)
+    scale = true_div(absmax, fmax).float()
     scale = torch.where(scale > 0, scale, torch.ones_like(scale))
     return torch.clamp(x.float() / scale, -fmax, fmax).to(dtype), scale
 

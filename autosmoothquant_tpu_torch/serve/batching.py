@@ -56,8 +56,12 @@ What differs from the JAX engine:
     folds an event counter into its key): equal seeds give equal tokens,
     not JAX's.
 
-Not ported yet, and refused with NotImplementedError: meshes (``mesh``,
-``param_shardings``; ROADMAP item 17).
+Under a mesh (``mesh``, this rank's ``shard/mesh.py:make_mesh``; every rank
+runs the engine in its own process on the same calls, in lockstep): the
+params (the draft's too) and the pool's heads shard over "model" and
+"expert" (``serve/engine.py:shard_model``), the slot batch stays whole on
+every rank (JAX's ``batching.py:73-79``), and every rank reads the same
+tokens back. A gloo mesh decodes eagerly (``cuda_graph=False``).
 """
 
 from __future__ import annotations
@@ -70,8 +74,8 @@ import torch
 
 from ..quant.config import QuantConfig
 from ..runtime import resolve_device
-from .engine import (GraphedSteps, StepGraphs, _tensors, attach_draft, graph_mode,
-                     maybe_fuse_projections)
+from .engine import (GraphedSteps, StepGraphs, _tensors, attach_draft, check_graph_mesh,
+                     graph_mode, shard_model)
 from .sampling import apply_repetition_penalty, sample_per_row
 from .speculative import Model, accepted, rollout
 
@@ -153,7 +157,10 @@ class ContinuousEngine(GraphedSteps):
     ``register_prefix``, ``drop_prefix``, ``cancel``, ``reset_slots`` and
     ``step`` run under ``torch.inference_mode()`` whatever the calling
     thread's grad mode (it is thread-local): ``serve/api.py`` calls them from
-    its scheduler thread."""
+    its scheduler thread.
+
+    mesh, param_shardings: as ``Engine``'s (params the whole unfused ones);
+    "data" splits nothing here: its ranks run the same slots."""
 
     def __init__(self, model_mod, params, cfg, qcfg: Optional[QuantConfig] = None,
                  *, max_batch: int = 8, max_seq: int = 2048,
@@ -164,14 +171,12 @@ class ContinuousEngine(GraphedSteps):
                  speculative_ngram: int = 3, max_prefixes: int = 16,
                  speculative_adaptive: bool = True, draft=None,
                  device="cuda", cuda_graph: Optional[bool] = None):
-        if mesh is not None or param_shardings is not None:
-            raise NotImplementedError(
-                "mesh / param_shardings: tensor-parallel serving is not ported "
-                "yet (ROADMAP Queue 1, item 17)")
         self.device = dev = resolve_device(device)
         self.cuda_graph = graph_mode(dev, cuda_graph)
-        self.model = model_mod
-        self.params = maybe_fuse_projections(model_mod, params, fuse_projections)
+        check_graph_mesh(self.cuda_graph, mesh)
+        self.mesh = mesh
+        self.model, self.params = shard_model(model_mod, params, cfg, qcfg, mesh,
+                                              param_shardings, fuse_projections, dev)
         self.cfg = cfg
         self.qcfg = qcfg
         self.max_batch = max_batch
@@ -192,8 +197,9 @@ class ContinuousEngine(GraphedSteps):
         self.speculative_adaptive = speculative_adaptive
         self._spec_acc_ema = 1.0
         self._spec_ticks = 0
-        self.draft = attach_draft(draft, cfg, compute_dtype, kv_dtype, fuse_projections)
-        self._target = Model(model_mod, self.params, cfg, qcfg, compute_dtype)
+        self.draft = attach_draft(draft, cfg, compute_dtype, kv_dtype, fuse_projections, mesh,
+                                  dev)
+        self._target = Model(self.model, self.params, cfg, qcfg, compute_dtype)
 
         self.pool = self._make_pool()
         self._ints = torch.zeros((5, max_batch), dtype=torch.int64, device=dev)

@@ -27,7 +27,17 @@ prompt lookup or a :class:`DraftModel`) runs ``serve/speculative.py``'s
 rounds over the same cache: a round (draft, verify forward, argmax,
 acceptance, the writes into history, output and lengths) is one CUDA graph
 per key, replayed in groups, the host reading the rows' progress once a
-group. Not ported yet: meshes. Prefill stays eager.
+group. Prefill stays eager.
+
+Under a mesh (``shard/mesh.py``; every rank runs the engine in its own
+process, in lockstep, on the same calls): "model" and "expert" shard the
+params, the draft's too (:func:`shard_model`), and the cache heads; "data"
+splits a call's rows (``max_batch`` a multiple of it; the prompts padded to a
+multiple with copies of the first, as JAX's engine pads them), and the
+ranks' tokens are gathered at the end of a call. A rank fuses q|k|v and
+gate|up over its own sections (K1's columns do not depend on their
+neighbours, so its outputs are those of its unfused shards). A gloo group
+cannot be captured in a CUDA graph: ``cuda_graph`` must then be False.
 """
 
 from __future__ import annotations
@@ -41,6 +51,8 @@ import torch
 
 from ..quant.config import QuantConfig
 from ..runtime import resolve_device
+from ..shard.mesh import Mesh, axis_of
+from ..shard.sharding import MeshModel, param_specs, shard_params, tp_plan
 from .speculative import SpecState
 
 
@@ -62,16 +74,18 @@ class DraftModel:
 
 
 def attach_draft(draft: Optional[DraftModel], cfg, compute_dtype, kv_dtype,
-                 fuse: Optional[bool] = None) -> Optional[DraftModel]:
+                 fuse: Optional[bool] = None, mesh: Optional[Mesh] = None,
+                 device=None) -> Optional[DraftModel]:
     """``draft`` made ready for an engine: its vocab checked against the
-    target's ``cfg``, its projections fused as the target's
-    (:func:`maybe_fuse_projections`), its dtypes defaulted to the engine's."""
+    target's ``cfg``, sharded over ``mesh`` and its projections fused as the
+    target's (:func:`shard_model`), its dtypes defaulted to the engine's."""
     if draft is None:
         return None
     if draft.cfg.vocab_size != cfg.vocab_size:
         raise ValueError(f"the draft model's vocab ({draft.cfg.vocab_size}) must be the "
                          f"target's ({cfg.vocab_size})")
-    draft.params = maybe_fuse_projections(draft.model, draft.params, fuse)
+    draft.model, draft.params = shard_model(draft.model, draft.params, draft.cfg, draft.qcfg,
+                                            mesh, fuse=fuse, device=device)
     if draft.compute_dtype is None:
         draft.compute_dtype = compute_dtype
     if draft.kv_dtype is None:
@@ -152,6 +166,43 @@ def maybe_fuse_projections(model_mod, params, fuse: Optional[bool] = None):
             raise ValueError("fused projections would drop the fp8-static input scales")
         return params
     return fuser(params)
+
+
+def shard_model(model_mod, params, cfg, qcfg, mesh: Optional[Mesh], param_shardings=None,
+                fuse: Optional[bool] = None, device=None):
+    """(model, params) as an engine runs them. No mesh: the module and the
+    params, fused as :func:`maybe_fuse_projections` decides. A mesh: the
+    rank's shard of the unfused params (``shard/sharding.py:shard_params``,
+    by ``param_shardings`` or the family's specs, under its ``tp_plan``) on
+    ``device``, then fused over the rank's own sections, and the module bound
+    to the mesh (:class:`~..shard.sharding.MeshModel`)."""
+    if mesh is None:
+        return model_mod, maybe_fuse_projections(model_mod, params, fuse)
+    if isinstance(model_mod, MeshModel):
+        return model_mod, params
+    plan = tp_plan(model_mod.FAMILY, cfg, mesh, qcfg)
+    specs = param_shardings or param_specs(model_mod.FAMILY, cfg, mesh)
+    params = shard_params(params, mesh, specs, plan)
+    if device is not None:
+        from ..convert.from_jax import _map
+
+        params = _map(lambda t: t.to(device), params)
+    return MeshModel(model_mod, mesh, plan), maybe_fuse_projections(model_mod, params, fuse)
+
+
+def collectives_in_step(mesh: Optional[Mesh]) -> bool:
+    """Whether a decode step under ``mesh`` runs collectives (a "model" or
+    "expert" axis above 1; "data" alone runs none)."""
+    return axis_of(mesh, "model").size > 1 or axis_of(mesh, "expert").size > 1
+
+
+def check_graph_mesh(cuda_graph: bool, mesh: Optional[Mesh]) -> None:
+    """A CUDA graph captures NCCL collectives, never gloo's (they run on the
+    host): ``cuda_graph=True`` with a gloo mesh whose step has collectives
+    raises ValueError, rather than decoding some other way."""
+    if cuda_graph and collectives_in_step(mesh) and mesh.backend == "gloo":
+        raise ValueError("gloo collectives cannot be captured in a CUDA graph: pass "
+                         "cuda_graph=False (eager decode) or use an NCCL mesh")
 
 
 def _tensors(layer) -> list:
@@ -315,17 +366,31 @@ class Engine(GraphedSteps):
     ``draft`` (a :class:`DraftModel`), the draft's KV cache of max_batch x
     max_seq. Its round is one graph per key (b, "spec", gamma, ngram) or (b,
     "spec_draft", gamma). ``last_spec_stats`` holds the last speculative
-    call's [verify rounds, accepted draft tokens]."""
+    call's [verify rounds, accepted draft tokens].
+
+    mesh (``shard/mesh.py:make_mesh``, this rank's): the engine runs as one
+    rank of it (module docstring); param_shardings overrides the family's
+    specs (JAX's spec tree). params are then the whole unfused params, on
+    any device: the engine keeps its rank's shard on ``device``."""
 
     def __init__(self, model_mod, params, cfg, qcfg: Optional[QuantConfig] = None,
                  *, max_batch: int = 8, max_seq: int = 2048,
                  kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
                  device="cuda", cuda_graph: Optional[bool] = None,
-                 draft: Optional[DraftModel] = None, fuse_projections=None):
+                 draft: Optional[DraftModel] = None, fuse_projections=None,
+                 mesh: Optional[Mesh] = None, param_shardings=None):
         self.device = resolve_device(device)
         self.cuda_graph = cuda_graph = graph_mode(self.device, cuda_graph)
-        self.model = model_mod
-        self.params = maybe_fuse_projections(model_mod, params, fuse_projections)
+        check_graph_mesh(cuda_graph, mesh)
+        self._data = axis_of(mesh, "data")
+        if max_batch % self._data.size:
+            raise ValueError(f"max_batch={max_batch} must be a multiple of the data axis "
+                             f"({self._data.size})")
+        if self._data.size > 1:
+            mesh = dataclasses.replace(mesh, rows_split=True)
+        self.mesh = mesh
+        self.model, self.params = shard_model(model_mod, params, cfg, qcfg, mesh,
+                                              param_shardings, fuse_projections, self.device)
         self.cfg = cfg
         self.qcfg = qcfg
         self.max_batch = max_batch
@@ -335,8 +400,10 @@ class Engine(GraphedSteps):
         # the last decode step's logits [B, V] (a device tensor, for checks)
         self.last_logits = None
 
+        # this rank's rows: max_batch over the data axis
+        max_batch = max_batch // self._data.size
         dev, rows, vocab = self.device, (max_batch, max_seq), cfg.vocab_size
-        self.kv_cache = model_mod.init_kv_cache(cfg, max_batch, max_seq, kv_dtype, dev)
+        self.kv_cache = self.model.init_kv_cache(cfg, max_batch, max_seq, kv_dtype, dev)
         self._kv_valid = torch.zeros(rows, dtype=torch.bool, device=dev)
         self._pads = torch.zeros(max_batch, dtype=torch.int32, device=dev)
         self._tok = torch.zeros(max_batch, dtype=torch.int64, device=dev)
@@ -349,7 +416,8 @@ class Engine(GraphedSteps):
         self._graphs = StepGraphs(dev, self._generator, cuda_graph)
         self._spec = SpecState.empty(max_batch, max_seq, dev)
         self.last_spec_stats = None
-        self.draft = attach_draft(draft, cfg, compute_dtype, kv_dtype, fuse_projections)
+        self.draft = attach_draft(draft, cfg, compute_dtype, kv_dtype, fuse_projections, mesh,
+                                  dev)
         self.draft_cache = None
         if self.draft is not None:
             d = self.draft
@@ -464,11 +532,15 @@ class Engine(GraphedSteps):
         ``last_logits`` is then None)."""
         gen_cfg = gen_cfg or GenerationConfig()
         prompts = [list(p) for p in prompts]
-        b = len(prompts)
+        b = n_real = len(prompts)
         if not 0 < b <= self.max_batch:
             raise ValueError(f"{b} prompts; the engine takes 1..{self.max_batch}")
         if any(not p for p in prompts):
             raise ValueError("empty prompt")
+        dp = self._data.size
+        if dp > 1:  # rows for every rank: copies of the first prompt, dropped after
+            prompts += [list(prompts[0])] * (-b % dp)
+            b = len(prompts)
         max_len = max(len(p) for p in prompts)
         n = gen_cfg.max_new_tokens
         if n < 1:
@@ -492,6 +564,11 @@ class Engine(GraphedSteps):
         positions = np.maximum(
             np.arange(max_len, dtype=np.int32)[None, :] - pad_lens[:, None], 0)
         padded = bool(pad_lens.max() > 0)
+        if dp > 1:  # this rank's rows, laid out as the whole batch lays them out
+            b //= dp
+            mine = slice(self._data.index * b, (self._data.index + 1) * b)
+            ids, pad_lens, valid, positions = ids[mine], pad_lens[mine], valid[mine], positions[mine]
+            prompts = prompts[mine]
 
         # the call's prompt state into the first b rows of the static buffers
         rows = self._rows(b)
@@ -514,20 +591,22 @@ class Engine(GraphedSteps):
             cache_index=0, pad_starts=rows.pads if padded else None,
             positions=positions_d, compute_dtype=cdt)
         first = model.logits(self.params, h[:, -1:, :])[:, 0]
+        gather = self._data.all_gather
         if spec > 0:
             self.last_logits = None
-            out = self._speculate(rows, b, ids_d, positions_d, padded,
-                                  torch.argmax(first, dim=-1), gen_cfg, spec).cpu().tolist()
+            out = gather(self._speculate(rows, b, ids_d, positions_d, padded,
+                                         torch.argmax(first, dim=-1), gen_cfg, spec),
+                         dim=0).cpu().tolist()
             out_lps = None
         else:
             self._emit(rows, first, dev_cfg, self._slot)
             self._decode(rows, b, dev_cfg, n - 1)
-            self.last_logits = rows.logits.clone()
-            out = rows.out_tok[:, max_len:max_len + n].cpu().tolist()
-            out_lps = (rows.out_lp[:, max_len:max_len + n].cpu().tolist()
-                       if gen_cfg.return_logprobs else None)
+            self.last_logits = gather(rows.logits.clone(), dim=0)[:n_real]
+            out = gather(rows.out_tok[:, max_len:max_len + n].contiguous(), dim=0).cpu().tolist()
+            out_lps = (gather(rows.out_lp[:, max_len:max_len + n].contiguous(), dim=0)
+                       .cpu().tolist() if gen_cfg.return_logprobs else None)
         results = []
-        for i in range(b):
+        for i in range(n_real):
             row = out[i]
             if gen_cfg.eos_token_id is not None and gen_cfg.eos_token_id in row:
                 row = row[:row.index(gen_cfg.eos_token_id)]

@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from ..models.common import make_paged_pool
+from ..shard.sharding import cache_heads
 from .batching import ContinuousEngine, PrefixCacheFull, Request, _bucket
 
 
@@ -119,7 +120,7 @@ class PagedEngine(ContinuousEngine):
         self._table_np = np.zeros((self.max_batch, m + scratch.shape[1]), np.int32)
         self._table_np[:, m:] = scratch
         table = torch.tensor(self._table_np, device=self.device)
-        n_kv = getattr(self.cfg, "num_key_value_heads", None) or self.cfg.num_attention_heads
+        n_kv = cache_heads(self.model, self.cfg)
         return make_paged_pool(self.cfg.num_hidden_layers, self.num_pages, bs, n_kv,
                                self.cfg.head_dim, table, self.kv_dtype, self.device)
 

@@ -221,7 +221,7 @@ from autosmoothquant_tpu_torch.kernels.counters import launch_counters, read_cou
 PKG = "autosmoothquant_tpu_torch"
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "e2e", "serve", "batching", "paged", "speculative",
-          "http", "quantize", "eval", "families", "timing")
+          "http", "quantize", "eval", "families", "parallel", "timing")
 
 # NVIDIA H100 SXM data sheet (dense): HBM3 bandwidth and peak rates by type
 HBM_BYTES_PER_S = 3.35e12
@@ -1633,6 +1633,135 @@ def phase_kernels(torch, results):
     check_rmsnorm_quant(torch, results, gen)
     check_decode_attention(torch, results, gen)
     check_router(torch, results, gen)
+    # the row-parallel modes (the parallel phase's): K1's int32 output and
+    # K5 with a given per-token scale
+    check_row_parallel_kernels(torch, results, gen)
+
+
+# K1's int32 output at the row-parallel shapes of TinyLlama at model=2 (o:
+# K 2048 / 2, down: K 5632 / 2; N 2048): decode rows on the GEMV, a b1 T128
+# prefill and a split-K M=9 on the tensor cores, and the ragged GEMV and the
+# CUDA-core tiles; (M, K, N, route)
+ROW_K1_CASES = ((1, 1024, 2048, "gemv"), (4, 2816, 2048, "gemv"), (3, 37, 100, "gemv_ragged"),
+                (128, 1024, 2048, "tc"), (9, 2816, 2048, "tc"), (77, 70, 130, "tiles"))
+# K5 with a given scale on one rank's two nibble planes of TinyLlama's int4 o
+# (K' 2048: kh 512) and down (K' 6144: kh 1536) at model=2, N 2048, bf16 x
+ROW_K5_SHAPES = (("o", 2048, 2048), ("down", 6144, 2048))
+ROW_K5_M = (1, 2, 4, 8, 16, 64)
+
+
+def rank0_planes(torch, packed, scales, ranks=2):
+    """Rank 0's packed bytes [N, K'/2 / ranks] of a row-parallel int4 weight
+    ([N, K'/2], split-K nibbles) and the group scales of its two planes (the
+    first of each half's groups)."""
+    kh = packed.shape[1] // ranks
+    g2 = scales.shape[1] // 2
+    gh = g2 // ranks
+    return (packed[:, :kh].contiguous(),
+            torch.cat([scales[:, :gh], scales[:, g2:g2 + gh]], dim=1).contiguous())
+
+
+def check_row_parallel_kernels(torch, results, gen):
+    """K1's int32 output on all four routes, bit-equal to its plain version,
+    and K1's epilogue of it in torch ops (``kernels/gemm.py:epilogue``, what a
+    row-parallel projection runs after the ranks' sum) bit-equal to K1's own
+    f32 and bf16 output; K5 with a given per-token scale (``tok_scale``: a
+    rank's planes quantize against the whole row's scale) on the GEMV, the
+    columns and the tensor cores, within the f32-sum bound of its plain
+    version with that scale. Each is timed at the decode shape (the Timer of
+    the timing phase), beside its plain version and its bound."""
+    from autosmoothquant_tpu_torch.kernels import gemm as K1
+    from autosmoothquant_tpu_torch.kernels import int4 as K5
+    from autosmoothquant_tpu_torch.quant import math as Q
+
+    for m, k, n, want in ROW_K1_CASES:
+        x = torch.randint(-128, 128, (m, k), dtype=torch.int8, device="cuda", generator=gen)
+        w = torch.randint(-127, 128, (n, k), dtype=torch.int8, device="cuda", generator=gen)
+        before = K1.int8_matmul.i32_launches
+        acc = K1.int8_matmul(x, w, out_dtype=torch.int32)
+        ref = K1.int8_matmul_plain(x, w, out_dtype=torch.int32)
+        torch.cuda.synchronize()
+        how = K1.route(m, k, x, w)
+        require(how == want and K1.int8_matmul.i32_launches == before + 1,
+                f"int8_matmul int32 took route {how} at M={m} K={k}; expected {want}")
+        rs = torch.rand(m, device="cuda", generator=gen) + 0.5
+        cs = torch.rand(n, device="cuda", generator=gen) / (64 * math.sqrt(k))
+        bias = torch.randn(n, device="cuda", generator=gen)
+        same = bool(torch.equal(acc, ref)) and all(
+            torch.equal(K1.epilogue(acc, rs, cs, bias, out_dtype=dt),
+                        K1.int8_matmul(x, w, rs, cs, bias, out_dtype=dt))
+            for dt in (torch.float32, torch.bfloat16))
+        log(f"  int8_matmul int32 M={m:<4d} K={k:<5d} N={n:<5d} {how:11s} accumulator and "
+            f"epilogue {'bit-equal' if same else 'DIFFER'}")
+        require(same, f"int8_matmul int32 disagrees with its plain version at M={m} K={k}")
+    results["int8_matmul_i32"]["max_abs_err"] = 0.0
+
+    worst = 0.0
+    for pname, kp, n in ROW_K5_SHAPES:
+        w = torch.randn(kp, n, device="cuda", generator=gen) / math.sqrt(kp)
+        packed, scales = (t.t().contiguous() for t in Q.quantize_weight_int4_grouped(w, 128))
+        planes, sl = rank0_planes(torch, packed, scales)
+        kh = planes.shape[1]
+        for m in ROW_K5_M:
+            x = torch.randn(m, 2 * kh, device="cuda", generator=gen).to(torch.bfloat16)
+            ts = (x.float().abs().amax(dim=1) * (1 + torch.rand(m, device="cuda", generator=gen))
+                  / 127.0)
+            before = K5.int4_matmul.scale_launches
+            out = K5.int4_matmul(x, planes, sl, out_dtype=torch.float32, tok_scale=ts)
+            ref = K5.int4_matmul_plain(x, planes, sl, out_dtype=torch.float32, tok_scale=ts)
+            torch.cuda.synchronize()
+            require(K5.int4_matmul.scale_launches == before + 1,
+                    f"int4_matmul with a given scale did not launch at M={m}")
+            q = Q.quantize_act_static(x.float(), ts[:, None])
+            wq = torch.cat(Q.unpack_int4(planes), dim=1).double()
+            srep = sl.double().repeat_interleave(128, dim=1)
+            mag = (q.double().abs() @ (wq.abs() * srep).t()) * ts.double()[:, None]
+            tol = 2 * 2 * kh * 2.0 ** -24 * mag + 1e-6
+            err = float((out.double() - ref.double()).abs().max())
+            excess = float(((out.double() - ref.double()).abs() / tol).max())
+            worst = max(worst, err)
+            how = K5.route(m, kh, 128, torch.bfloat16, planes)
+            log(f"  int4_matmul given scale {pname:4s} planes M={m:<3d} K={2 * kh:<5d} "
+                f"N={n} {how:5s} max|err|={err:.3g} (<= f32-sum bound: {excess:.3g} of it) "
+                f"{'ok' if excess <= 1 else 'FAIL'}")
+            require(excess <= 1, f"int4_matmul with a given scale disagrees with its plain "
+                                 f"version at M={m} ({pname})")
+    results["int4_matmul_scale"]["max_abs_err"] = worst
+
+    # the decode shapes' times: down at model=2, M = 1
+    timer = Timer(torch)
+    m, k, n = 1, 2816, 2048
+    x = torch.randint(-128, 128, (m, k), dtype=torch.int8, device="cuda", generator=gen)
+    w = torch.randint(-127, 128, (n, k), dtype=torch.int8, device="cuda", generator=gen)
+    xp = pad_rows(torch, x, 32)
+    ms = timer.ms(lambda: K1.int8_matmul(x, w, out_dtype=torch.int32))
+    plain_ms = timer.ms(lambda: K1.int8_matmul_plain(x, w, out_dtype=torch.int32), iters=10)
+    lib_ms = timer.ms(lambda: torch._int_mm(xp, w.t()))
+    b_ms, b_by = bound(m * k + n * k + 4 * m * n, 2 * m * n * k, "int8")
+    results["int8_matmul_i32"].update(
+        shape=f"down at model=2, M={m} K={k} N={n} int32 (gemv); library torch._int_mm on "
+              "x padded to M=32", ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+        bound_by=b_by)
+    log(f"  int8_matmul int32 M={m} K={k} N={n}: kernel {ms:.4f} plain {plain_ms:.4f} "
+        f"library {lib_ms:.4f} (padded) bound {b_ms:.4f} ({b_by})")
+    kp = 6144
+    kh = kp // 4
+    w = torch.randn(kp, n, device="cuda", generator=gen) / math.sqrt(kp)
+    packed, scales = (t.t().contiguous() for t in Q.quantize_weight_int4_grouped(w, 128))
+    planes, sl = rank0_planes(torch, packed, scales)
+    x = torch.randn(1, 2 * kh, device="cuda", generator=gen).to(torch.bfloat16)
+    ts = x.float().abs().amax(dim=1) / 127.0
+    ms = timer.ms(lambda: K5.int4_matmul(x, planes, sl, out_dtype=torch.float32, tok_scale=ts))
+    plain_ms = timer.ms(lambda: K5.int4_matmul_plain(x, planes, sl, out_dtype=torch.float32,
+                                                     tok_scale=ts), iters=10)
+    nbytes = n * kh + 4 * sl.numel() + 2 * x.numel() + 4 + 4 * n
+    b_ms, b_by = bound(nbytes, 2 * n * 2 * kh, "int8")
+    results["int4_matmul_scale"].update(
+        shape=f"down planes at model=2, M=1 K={2 * kh} N={n} bf16 x, given scale (gemv); "
+              "no library call computes W4A8", ms=ms, plain_ms=plain_ms, library_ms=None,
+        bound_ms=b_ms, bound_by=b_by)
+    log(f"  int4_matmul given scale M=1 K={2 * kh} N={n}: kernel {ms:.4f} plain "
+        f"{plain_ms:.4f} bound {b_ms:.4f} ({b_by})")
 
 
 def tinyllama(L, layers):
@@ -4900,7 +5029,8 @@ class SparseDrops:
 
         self.M, self.sparse, self.tag, self.valid, self.by = M, M.moe_sparse, None, None, {}
 
-        def counted(x2, mp, cfg, qcfg, compute_dtype, top_w, top_idx, capacity_factor=2.0):
+        def counted(x2, mp, cfg, qcfg, compute_dtype, top_w, top_idx, capacity_factor=2.0,
+                    **kw):
             T, K = top_idx.shape
             E = cfg.num_local_experts
             flat = top_idx.reshape(-1)
@@ -4909,7 +5039,7 @@ class SparseDrops:
             over = (rank >= M.expert_capacity(T, E, K, capacity_factor)) & real
             self.by[self.tag] = self.by.get(self.tag, 0) + int(over.sum())
             return self.sparse(x2, mp, cfg, qcfg, compute_dtype, top_w, top_idx,
-                               capacity_factor)
+                               capacity_factor, **kw)
         M.moe_sparse = counted
 
     def tag_prefills(self, eng):
@@ -5083,6 +5213,439 @@ def family_batching_runs(torch, M, cfg, qcfg, params, what, drops):
             log(msg)
             require(len(same) == len(held), f"{kind} {what}: tokens differ from the static "
                     f"engine's on {sorted(set(held) - set(same))}")
+
+
+# ---------------------------------------------------------------------------
+# the parallel phase: ranks of one process group sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+PARALLEL_PROMPT = 128        # a static arm's prompt, and its new tokens
+PARALLEL_NEW = 32
+PARALLEL_REQUESTS = 8        # the continuous arms' requests (the batching phase's first 8)
+MIXTRAL_TP_LAYERS = 4        # Mixtral-8x7B at full width, cut to these layers
+MIXTRAL_TP_NEW = 16
+# the sharded final hidden state (before the lm_head) against the one-card
+# twin's, in W8A8 and expert parallelism: bit for bit (K1's int32 partials
+# are summed before the epilogue; a token's two experts are added once)
+TP_HIDDEN_NOISE = 0.0
+# int4 at model=2 sums the row-parallel planes' f32 partials in another
+# order than one card, then rounds to bf16: its greedy tokens may part only
+# where the twin's top-2 margin is below INT4_TP_MARGIN, and until they part
+# its logits stay within INT4_TP_LOGIT_LIMIT of the twin's (PERF.md §6 has
+# the readings these rest on)
+INT4_TP_MARGIN = 0.25
+INT4_TP_LOGIT_LIMIT = 1.0
+# int4's row-parallel products alone (layer 0's o and down of that model, f32
+# out, M = 1, 16 and 64 on W4A8 and 128 on W4A16): the ranks' sum against one
+# card's product on the same rows, within this share of its largest output.
+# A model's outputs part further: a per-token int8 rounding downstream of a
+# changed sum can flip, and 22 layers carry the flip on (PERF.md §6)
+INT4_TP_ROW_RTOL = 1e-5
+# the gathered logits against the twin's where the hidden state is bit-equal:
+# the lm_head over a vocab slice is one cuBLAS bf16 product of another N,
+# which may sum in another order (PERF.md records the reading)
+TP_LOGIT_LIMIT = 1e-2
+
+
+class HiddenTap:
+    """A family module, or a mesh-bound one, whose ``logits`` keeps (on the
+    host) every hidden state it is given (the final norm's output, before
+    the lm_head) and the least top-2 margin of each call's last position.
+    Every other attribute is the model's."""
+
+    def __init__(self, model):
+        self.model, self.hidden, self.margins, self.last = model, [], [], []
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def logits(self, params, hidden, *args, **kw):
+        self.hidden.append(hidden.detach().float().cpu())
+        out = self.model.logits(params, hidden, *args, **kw)
+        self.last.append(out[:, -1].float().cpu())
+        top = out[:, -1].float().topk(2, dim=-1).values
+        self.margins.append(float((top[:, 0] - top[:, 1]).min()))
+        return out
+
+
+def tapped(eng):
+    eng.model = HiddenTap(eng.model)
+    return eng.model
+
+
+def params_bytes(params):
+    if hasattr(params, "numel"):
+        return params.numel() * params.element_size()
+    if isinstance(params, dict):
+        return sum(params_bytes(v) for v in params.values())
+    if isinstance(params, list):
+        return sum(params_bytes(v) for v in params)
+    return 0
+
+
+def parallel_inputs(torch):
+    """(two prompts of PARALLEL_PROMPT tokens, the prefix and the first
+    PARALLEL_REQUESTS requests of the batching phase)."""
+    rng = torch.Generator().manual_seed(31)
+    prompts = [torch.randint(0, 32000, (PARALLEL_PROMPT,), generator=rng).tolist()
+               for _ in range(2)]
+    prefix, reqs = batching_requests(torch)
+    return prompts, prefix, reqs[:PARALLEL_REQUESTS]
+
+
+def tp_arms(torch, mesh=None, data_mesh=None):
+    """The TinyLlama arms of the parallel phase, on one card (``mesh`` None:
+    the twin) or as this rank of ``mesh`` (model=2) and ``data_mesh``
+    (data=2): {arm: {"tokens", "hidden", "logits", "counts", "collectives",
+    "forwards", "wall", "peak", "weights"}}, every engine eager."""
+    from autosmoothquant_tpu_torch.models import llama as L
+    from autosmoothquant_tpu_torch.quant.config import QuantConfig
+    from autosmoothquant_tpu_torch.serve.batching import ContinuousEngine, Request
+    from autosmoothquant_tpu_torch.serve.engine import Engine, GenerationConfig
+    from autosmoothquant_tpu_torch.serve.multihost import MultiHostEngine, ShardedServingPool
+    from autosmoothquant_tpu_torch.serve.paged import PagedEngine
+    from autosmoothquant_tpu_torch.shard.mesh import COLLECTIVES
+
+    prompts, prefix, reqs = parallel_inputs(torch)
+    cfg = tinyllama(L, 22)
+    counters = launch_counters()
+    base = dict(kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16, device="cuda",
+                cuda_graph=False)
+    out = {}
+
+    def run(arm, fn, eng, inner=None):
+        inner = inner or eng
+        tap = tapped(inner)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start_mem = torch.cuda.memory_allocated()
+        reset_counts(counters)
+        for k in COLLECTIVES:
+            COLLECTIVES[k] = 0
+        t0 = time.perf_counter()
+        tokens, logits = fn(eng)
+        torch.cuda.synchronize()
+        counts = read_counts(counters)
+        out[arm] = dict(tokens=tokens, hidden=tap.hidden, margins=tap.margins, logits=logits,
+                        last=tap.last if arm == "int4" else None, counts=counts,
+                        collectives=dict(COLLECTIVES),
+                        forwards=counts["rmsnorm_quant_norm"] or len(tap.hidden),
+                        wall=time.perf_counter() - t0,
+                        peak=torch.cuda.max_memory_allocated() - start_mem,
+                        weights=params_bytes(inner.params))
+
+    def static(prompts_):
+        def fn(eng):
+            toks = eng.generate(prompts_, GenerationConfig(max_new_tokens=PARALLEL_NEW))
+            return toks, eng.last_logits.cpu()
+        return fn
+
+    def continuous(with_prefix):
+        def fn(eng):
+            if with_prefix:
+                eng.register_prefix("sys", prefix)
+            handles = {uid: eng.submit(uid, p, **(kw if with_prefix else
+                                                  {"max_new_tokens": kw["max_new_tokens"]}))
+                       for uid, p, kw in reqs}
+            eng.run()
+            return {u: list(h.output) for u, h in handles.items()}, eng.last_logits.cpu()
+        return fn
+
+    w8a8 = draw_w8a8(cfg, 3, "cuda")
+    q8 = QuantConfig(type="int8")
+    run("static", static(prompts[:1]),
+        Engine(L, w8a8, cfg, q8, max_batch=2, max_seq=512, mesh=mesh, **base))
+    run("static_b2", static(prompts),
+        Engine(L, w8a8, cfg, q8, max_batch=2, max_seq=512, mesh=data_mesh, **base))
+    run("continuous", continuous(True),
+        ContinuousEngine(L, w8a8, cfg, q8, mesh=mesh, **BATCHING, **base))
+    run("paged", continuous(True),
+        PagedEngine(L, w8a8, cfg, q8, mesh=mesh, block_size=PAGE_BLOCK, auto_prefix=False,
+                    **BATCHING, **base))
+    if mesh is None:
+        run("plain", continuous(False), ContinuousEngine(L, w8a8, cfg, q8, **BATCHING, **base))
+    else:
+        def multihost(eng):
+            rs = [Request(uid=u, prompt=p, max_new_tokens=kw["max_new_tokens"])
+                  for u, p, kw in reqs]
+            got = eng.serve(rs if mesh.rank == 0 else None)
+            return {reqs[i][0]: t for i, t in got.items()}, eng.engine.last_logits.cpu()
+
+        def pool(eng):
+            for i, (u, p, kw) in enumerate(reqs):
+                eng.submit(i, p, max_new_tokens=kw["max_new_tokens"])
+            eng.run()
+            return {reqs[i][0]: t for i, t in eng.gather().items()}, None
+        mh = MultiHostEngine(L, w8a8, cfg, q8, mesh=mesh, **BATCHING, **base)
+        run("multihost", multihost, mh, mh.engine)
+        sp = ShardedServingPool(L, w8a8, cfg, q8, max_new_cap=PARALLEL_NEW * 2, **BATCHING,
+                                **base)
+        run("pool", pool, sp, sp.engine)
+        # a gloo mesh refuses CUDA graphs rather than decode another way
+        refused = False
+        try:
+            Engine(L, w8a8, cfg, q8, max_batch=2, max_seq=512, mesh=mesh,
+                   **{**base, "cuda_graph": True})
+        except ValueError as e:
+            refused = "gloo" in str(e)
+        out["graph_refused"] = refused
+    del w8a8
+    torch.cuda.empty_cache()
+    int4 = draw_quantized(cfg, QuantConfig(type="int4"), 3, "cuda")
+    e4 = Engine(L, int4, cfg, QuantConfig(type="int4"), max_batch=2, max_seq=512, mesh=mesh,
+                **base)
+    run("int4", static(prompts[:1]), e4)
+    if mesh is not None:
+        out["int4_row"] = int4_row_products(torch, int4, e4.params, cfg, mesh)
+    del int4, e4
+    torch.cuda.empty_cache()
+    return out
+
+
+def int4_row_products(torch, full, mine, cfg, mesh):
+    """{(projection, M): (max |ranks' sum - one card|, max |one card|)} of
+    layer 0's int4 o and down: this rank's ``int4_matmul_tp`` row planes
+    (``mine``, the engine's shard) against ``int4_matmul`` on the whole
+    weight (``full``), f32 out, the same random rows on every rank."""
+    from autosmoothquant_tpu_torch.kernels.int4 import int4_matmul
+    from autosmoothquant_tpu_torch.models.common import int4_matmul_tp
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(41)
+    ax = mesh.axis("model")
+    rows = {}
+    for name, group, k in (("o", "attn", cfg.hidden_size),
+                           ("down", "mlp", cfg.intermediate_size)):
+        whole, part = full["layers"][0][group][name], mine["layers"][0][group][name]
+        kl = k // ax.size
+        for m in (1, 16, 64, 128):
+            x = torch.randn(m, k, generator=g, device="cuda")
+            one = int4_matmul(x, whole["w"], whole["w_scales"], out_dtype=torch.float32)
+            two = int4_matmul_tp(x[:, ax.index * kl:(ax.index + 1) * kl].contiguous(), part,
+                                 bias=None, out_dtype=torch.float32, tp="row", mesh=mesh)
+            rows[f"{name} M={m}"] = (float((one - two).abs().max()), float(one.abs().max()))
+    return rows
+
+
+def mixtral_arm(torch, mesh=None, rank=0, ranks=1):
+    """Mixtral-8x7B W8A8 at full width cut to MIXTRAL_TP_LAYERS layers, b1
+    prompt PARALLEL_PROMPT, MIXTRAL_TP_NEW new tokens, eager, on one card or
+    as this rank of ``mesh`` (the ranks draw the full weights one after
+    another, so one full copy is on the card at a time)."""
+    import torch.distributed as dist
+
+    from autosmoothquant_tpu_torch.serve.engine import Engine, GenerationConfig
+    from autosmoothquant_tpu_torch.shard.mesh import COLLECTIVES
+
+    prompts, _, _ = parallel_inputs(torch)
+    counters = launch_counters()
+    eng = None
+    for r in range(ranks):
+        if r == rank:
+            M, cfg, qcfg, params = family_model(torch, "mixtral", "W8A8", MIXTRAL_TP_LAYERS)
+            eng = Engine(M, params, cfg, qcfg, max_batch=1, max_seq=256,
+                         kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16, device="cuda",
+                         cuda_graph=False, mesh=mesh)
+            del params
+            torch.cuda.empty_cache()
+        if ranks > 1:
+            dist.barrier()
+    tap = tapped(eng)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_mem = torch.cuda.memory_allocated()
+    reset_counts(counters)
+    for k in COLLECTIVES:
+        COLLECTIVES[k] = 0
+    t0 = time.perf_counter()
+    toks = eng.generate(prompts[:1], GenerationConfig(max_new_tokens=MIXTRAL_TP_NEW))
+    torch.cuda.synchronize()
+    return dict(tokens=toks, hidden=tap.hidden, logits=eng.last_logits.cpu(),
+                counts=read_counts(counters), collectives=dict(COLLECTIVES),
+                forwards=MIXTRAL_TP_NEW, wall=time.perf_counter() - t0,
+                peak=torch.cuda.max_memory_allocated() - start_mem,
+                weights=params_bytes(eng.params))
+
+
+def parallel_rank(ranks):
+    """One rank of the parallel phase's launch of ``ranks`` ranks on cuda:0
+    over gloo: 2 ranks run the TinyLlama arms (model=2, and data=2), 4 the
+    Mixtral arm (expert=2 x model=2)."""
+    import torch
+    import torch.distributed as dist
+
+    from autosmoothquant_tpu_torch.shard.mesh import make_mesh
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    devices = ["cuda:0"] * ranks
+    t0 = time.perf_counter()
+    if ranks == 2:
+        mesh = make_mesh(data=1, model=2, devices=devices)
+        data_mesh = make_mesh(data=2, model=1, devices=devices)
+        out = tp_arms(torch, mesh, data_mesh)
+    else:
+        mesh = make_mesh(data=1, expert=2, model=2, devices=devices)
+        out = {"mixtral": mixtral_arm(torch, mesh, dist.get_rank(), ranks)}
+    out["rank_wall"] = time.perf_counter() - t0
+    out["backend"] = dist.get_backend()
+    return out
+
+
+def hidden_noise(torch, got, want, rows=None):
+    """max |hidden - twin's hidden| over every recorded call, the twin's
+    ``rows`` only where given (a data rank's share of the batch); inf where
+    the calls or their shapes differ."""
+    if len(got) != len(want):
+        return math.inf
+    worst = 0.0
+    for g, w in zip(got, want):
+        g = torch.as_tensor(g)
+        if rows is not None:
+            w = w[rows]
+        if g.shape != w.shape:
+            return math.inf
+        worst = max(worst, float((g - w).abs().max()))
+    return worst
+
+
+def phase_parallel(torch, results, smi_line):
+    """Tensor, data and expert parallelism on the card: ranks of one gloo
+    process group share cuda:0 (NCCL refuses two ranks on one GPU, PERF.md
+    §7), eager (a gloo collective cannot be captured), each arm held to a
+    one-card twin built here first: (a) TinyLlama-1.1B W8A8, 22 layers,
+    model=2: the static engine (b1, prompt 128, 32 new tokens), the
+    continuous and paged engines on the batching phase's first 8 requests,
+    and the static engine at data=2 (b2); (b) TinyLlama int4 (group 128)
+    model=2, b1, and its o and down row planes' sums against one card's
+    products (INT4_TP_ROW_RTOL); (c) Mixtral-8x7B W8A8 at full width cut to 4 layers,
+    expert=2 x model=2 over 4 ranks; (d) MultiHostEngine (model=2) and
+    ShardedServingPool (2 replicas) on the 8 requests, against the
+    continuous engine. Tokens equal, every recorded final hidden state bit
+    for bit (TP_HIDDEN_NOISE) where the arithmetic is exact (W8A8,
+    experts), logits within the bounds printed; each rank's launches by
+    kernel exact, collectives a forward, peak memory and weights against the
+    twin's, wall. The kernels are built (the build phase) before any rank
+    starts; one launch a rank count."""
+    from autosmoothquant_tpu_torch.shard.mesh import launch
+
+    log(f"  twins on one card (eager): {smi_line}")
+    t0 = time.perf_counter()
+    twin = tp_arms(torch)
+    twin["mixtral"] = mixtral_arm(torch)
+    torch.cuda.empty_cache()
+    log(f"  twins built and run in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ranks2 = launch(parallel_rank, 2, 2, backend="gloo", timeout=600)
+    log(f"  2 ranks (model=2 and data=2) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ranks4 = launch(parallel_rank, 4, 4, backend="gloo", timeout=600)
+    log(f"  4 ranks (expert=2 x model=2) in {time.perf_counter() - t0:.1f} s")
+
+    def report(arm, outs, mesh, exact):
+        want = twin[arm] if arm not in ("multihost", "pool") else twin["plain"]
+        for r, rank in enumerate(outs):
+            got = rank[arm]
+            rows = slice(r, r + 1) if mesh == "data=2" else None
+            noise = hidden_noise(torch, got["hidden"], want["hidden"], rows) if exact else None
+            lg = (None if got["logits"] is None or want["logits"] is None
+                  else float((torch.as_tensor(got["logits"]) - want["logits"]).abs().max()))
+            per = {k: v / got["forwards"] for k, v in got["collectives"].items() if v}
+            log(f"  parallel {arm:10s} rank {r} ({mesh}, {rank['backend']}, cuda:0): tokens "
+                f"{'equal' if got['tokens'] == want['tokens'] else 'DIFFER'}; hidden "
+                f"{'max|diff| ' + repr(noise) if exact else 'not held bit for bit'}; logits "
+                f"max|diff| {lg!r}; wall {got['wall']:.2f} s (twin {want['wall']:.2f}); "
+                f"peak above the weights {got['peak'] / 2**30:.3f} GiB (twin "
+                f"{want['peak'] / 2**30:.3f}); "
+                f"weights {got['weights'] / 2**30:.3f} GiB (twin "
+                f"{want['weights'] / 2**30:.3f}, {got['weights'] / want['weights']:.3f} of "
+                f"them); collectives a forward {per}")
+            log("    " + json.dumps({"arm": arm, "rank": r, "host launches": {
+                k: v for k, v in got["counts"].items() if v}}))
+            if exact:
+                require(noise is not None and noise <= TP_HIDDEN_NOISE,
+                        f"parallel {arm} rank {r}: the final hidden state parts from the "
+                        f"one-card twin's by {noise} (TP_HIDDEN_NOISE {TP_HIDDEN_NOISE})")
+        return want
+
+    # (a), (d): W8A8
+    for arm, mesh in (("static", "model=2"), ("static_b2", "data=2"), ("continuous", "model=2"),
+                      ("paged", "model=2"), ("multihost", "model=2"),
+                      ("pool", "2 replicas")):
+        want = report(arm, ranks2, mesh, exact=arm != "pool")
+        for r, rank in enumerate(ranks2):
+            got = rank[arm]
+            require(got["tokens"] == want["tokens"],
+                    f"parallel {arm} rank {r}: tokens differ from the one-card twin's")
+            if arm in ("static", "static_b2", "continuous", "paged", "multihost"):
+                lg = float((torch.as_tensor(got["logits"]) - want["logits"]).abs().max())
+                require(lg <= TP_LOGIT_LIMIT, f"parallel {arm} rank {r}: logits part from the "
+                                              f"twin's by {lg} (TP_LOGIT_LIMIT {TP_LOGIT_LIMIT})")
+            extra = {}
+            if mesh == "model=2" and arm != "pool":
+                extra = {"int8_matmul_i32": 2 * 22 * got["forwards"]}
+            if arm == "pool":
+                continue  # a replica serves its own share of the requests
+            wanted = {**want["counts"], **extra}
+            require(got["counts"] == wanted,
+                    f"parallel {arm} rank {r}: launches {got['counts']} != {wanted}")
+    # (b): int4: its row-parallel products alone, then the model
+    for r, rank in enumerate(ranks2):
+        for what, (diff, top) in rank["int4_row"].items():
+            log(f"  parallel int4 rank {r}: {what} row planes summed against one card: "
+                f"max|diff| {diff!r} of max|out| {top!r} (INT4_TP_ROW_RTOL {INT4_TP_ROW_RTOL})")
+            require(diff <= INT4_TP_ROW_RTOL * top,
+                    f"parallel int4 rank {r}: {what}'s ranks' sum parts from one card's")
+    want = report("int4", ranks2, "model=2", exact=False)
+    for r, rank in enumerate(ranks2):
+        got = rank["int4"]
+        wanted = {**want["counts"], "int4_matmul_scale": want["counts"]["int4_matmul"] // 2}
+        require(got["counts"] == wanted,
+                f"parallel int4 rank {r}: launches {got['counts']} != {wanted}")
+        a, b = got["tokens"][0], want["tokens"][0]
+        i = next((j for j in range(len(a)) if a[j] != b[j]), len(a))
+        # calls 0..i read the same tokens on both sides: their differences
+        # are the arithmetic's alone
+        lg = max(float((torch.as_tensor(g) - w).abs().max())
+                 for g, w in zip(got["last"][:i + 1], want["last"][:i + 1]))
+        hd = hidden_noise(torch, got["hidden"][:i + 1], want["hidden"][:i + 1])
+        if i < len(a):
+            margin = want["margins"][i]
+            log(f"  parallel int4 rank {r}: tokens part at step {i}, where the twin's top-2 "
+                f"margin is {margin!r} (INT4_TP_MARGIN {INT4_TP_MARGIN}); until then logits "
+                f"max|diff| {lg!r} (INT4_TP_LOGIT_LIMIT {INT4_TP_LOGIT_LIMIT}), hidden "
+                f"{hd!r}")
+            require(margin <= INT4_TP_MARGIN, f"parallel int4 rank {r}: tokens part at step "
+                                              f"{i}, not at a near-tie ({margin})")
+        else:
+            log(f"  parallel int4 rank {r}: tokens equal; logits max|diff| {lg!r} "
+                f"(INT4_TP_LOGIT_LIMIT {INT4_TP_LOGIT_LIMIT}), hidden {hd!r}; least twin "
+                f"top-2 margin {min(want['margins'])!r}")
+        require(lg <= INT4_TP_LOGIT_LIMIT, f"parallel int4 rank {r}: logits part from the "
+                                           f"twin's by {lg} before the tokens do")
+        results["int4_matmul_scale"]["tp_logit_max_abs_diff"] = lg
+    # (c): Mixtral
+    want = report("mixtral", ranks4, "expert=2 x model=2", exact=True)
+    for r, rank in enumerate(ranks4):
+        got = rank["mixtral"]
+        require(got["tokens"] == want["tokens"],
+                f"parallel mixtral rank {r}: tokens differ from the one-card twin's")
+        prefill, step = mixtral_counts("W8A8", MIXTRAL_TP_LAYERS, experts=4)
+        wanted = {k: prefill.get(k, 0) + (MIXTRAL_TP_NEW - 1) * step.get(k, 0)
+                  for k in set(prefill) | set(step)}
+        wanted["int8_matmul_i32"] = 5 * MIXTRAL_TP_LAYERS * MIXTRAL_TP_NEW
+        got_counts = {k: v for k, v in got["counts"].items() if v}
+        require(got_counts == wanted, f"parallel mixtral rank {r}: launches {got_counts} "
+                                      f"!= {wanted}")
+    require(all(rank["graph_refused"] for rank in ranks2),
+            "a gloo mesh did not refuse cuda_graph=True")
+    log("  parallel: cuda_graph=True on a gloo mesh raised ValueError on every rank")
+    # the kernel table's launches: rank 0's on the main paths (model=2)
+    results["int8_matmul_i32"]["launches"] = ranks2[0]["static"]["counts"]["int8_matmul_i32"]
+    results["int4_matmul_scale"]["launches"] = ranks2[0]["int4"]["counts"]["int4_matmul_scale"]
+    require(results["int8_matmul_i32"]["launches"] > 0
+            and results["int4_matmul_scale"]["launches"] > 0,
+            "a row-parallel kernel was not launched on its path")
 
 
 def pad_rows(torch, x, multiple):
@@ -5429,7 +5992,7 @@ def phase_timing(torch, results, engines):
             xq = torch.empty(m, 2 * k2, dtype=torch.int8, device="cuda")
             ts = torch.empty(m, device="cuda")
             operands = (c["x"].data_ptr(), int(xdt == torch.bfloat16), c["packed"].data_ptr(),
-                        c["scales"].data_ptr(), None, out.data_ptr())
+                        c["scales"].data_ptr(), None, None, out.data_ptr())
             tiles_ms = timer.ms(lambda: tiles_fn(*operands, xq.data_ptr(), ts.data_ptr(),
                                                  m, n, k, k2, g, 0, 1, _build.stream_ptr(out)))
             gemv_ms = (timer.ms(lambda: gemv_fn(*operands, m, n, k, k2, g, 0, 1,
@@ -5771,6 +6334,12 @@ def kernel_results():
                              f"{PKG}/csrc/decode_attn.cu"),
         "router_logits": ("autosmoothquant_tpu/models/mixtral.py:383",
                           f"{PKG}/csrc/moe_router.cu"),
+        # K1's int32 output and K5's given per-token scale (the row-parallel
+        # partials of the parallel phase): the TPU kernels' own accumulators
+        "int8_matmul_i32": ("autosmoothquant_tpu/kernels/gemm.py:57",
+                            f"{PKG}/csrc/int8_gemm.cu"),
+        "int4_matmul_scale": ("autosmoothquant_tpu/kernels/int4.py:68",
+                              f"{PKG}/csrc/int4_gemm.cu"),
     }
     return {name: {"name": name, "route": "cuda", "source": src,
                    "replaces": rep, "launches": None, "max_abs_err": None,
@@ -5819,6 +6388,8 @@ def main():
                 phase_eval(torch, quantized, smi_line)
             elif phase == "families":
                 phase_families(torch, results)
+            elif phase == "parallel":
+                phase_parallel(torch, results, smi_line)
             elif phase == "timing":
                 phase_timing(torch, results, engines)
             log(f"== {phase} done in {time.perf_counter() - t0:.1f} s")

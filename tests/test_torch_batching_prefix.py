@@ -184,12 +184,23 @@ def test_penalized_greedy_and_logprobs_match_jax(models):
     run_both(*pair(models, "int8", steps_per_sync=4), reqs)
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(param_shardings={})],
+def _stage_mesh():
+    """A rank's mesh with a stage axis of 2 (pipeline parallelism, item 17b),
+    built without process groups."""
+    from autosmoothquant_tpu_torch.shard.mesh import Axis, Mesh
+
+    axes = {"stage": Axis("stage", 2), "data": Axis("data"), "model": Axis("model")}
+    return Mesh(("stage", "data", "model"), (2, 1, 1), 0, torch.device("cpu"), None, axes)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(param_shardings={})],
                          ids=["mesh", "param_shardings"])
 def test_what_is_not_ported_raises(models, kw):
+    """Meshes and param_shardings serve (tests/test_torch_serve_sharded.py);
+    a stage axis (pipeline parallelism) is still refused, naming its item."""
     *_, TM, tcfg, tparams, (_, tq) = models("float")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        TB.ContinuousEngine(TM, tparams, tcfg, tq, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="item 17b"):
+        TB.ContinuousEngine(TM, tparams, tcfg, tq, device="cpu", mesh=_stage_mesh(), **kw)
 
 
 @pytest.mark.parametrize("arg", ["draft", "speculative_gamma"])

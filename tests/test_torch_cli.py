@@ -189,22 +189,27 @@ def test_opt_artifact_through_both_clis(opt_dir, capsys, monkeypatch):
 
 
 REFUSED = {
-    "serve --tp 2": (serve_model, ["--tp", "2"], "item 17"),
-    "test --tp 4": (test_model, ["--tp", "4"], "item 17"),
+    "serve --tp 2": (serve_model, ["--tp", "2"], NotImplementedError, "item 17b"),
+    # test_model runs --tp (tests/test_torch_serve_sharded.py); more ranks
+    # than visible cards are refused
+    "test --tp 4": (test_model, ["--tp", "4", "--device", "cuda"], ValueError,
+                    r"card\(s\) visible"),
 }
 
 
 @pytest.mark.parametrize("case", list(REFUSED))
 def test_refused_flags_name_their_item(opt_dir, case):
-    mod, flags, item = REFUSED[case]
+    mod, flags, exc, match = REFUSED[case]
     argv = ["--quantized-model-path", str(opt_dir), "--prompt-ids", "1,2", *flags]
     if mod is serve_model:
         argv = ["--quantized-model-path", str(opt_dir), *flags]
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(exc, match=match):
             serve_model.build(serve_model.parse_args(argv), **F32)
     else:
-        with pytest.raises(NotImplementedError, match=item):
-            test_model.main(argv, **F32)
+        if torch.cuda.device_count() >= 4:
+            pytest.skip("four cards are visible: --tp 4 runs")
+        with pytest.raises(exc, match=match):
+            test_model.main(argv, compute_dtype=torch.float32, kv_dtype=torch.float32)
 
 
 SERVED = {

@@ -650,6 +650,67 @@ def test_int4_matmul_routes_at_tinyllama_shapes(cuda_device, m, k, n, xdt):
         assert bool(((got.double() - ref.double()).abs() <= tol).all()), (act, out)
 
 
+@pytest.mark.parametrize("m,k,n,how", [(4, 5632, 2048, "gemv"), (3, 37, 100, "gemv_ragged"),
+                                       (128, 2048, 2560, "tc"), (9, 16384, 4096, "tc"),
+                                       (77, 70, 130, "tiles")])
+def test_int8_matmul_int32_output_every_route(cuda_device, m, k, n, how):
+    """K1's int32 output (a row-parallel partial) is the exact accumulator on
+    every route, split K included, and the torch epilogue of it gives the
+    kernel's own f32 and bf16 bits."""
+    g = _gen(m * k + n)
+    x = torch.randint(-128, 128, (m, k), dtype=torch.int8, device=cuda_device, generator=g)
+    w = torch.randint(-127, 128, (n, k), dtype=torch.int8, device=cuda_device, generator=g)
+    assert G.route(m, k, x, w) == how
+    before = G.int8_matmul.i32_launches
+    acc = G.int8_matmul(x, w, out_dtype=torch.int32)
+    torch.cuda.synchronize()
+    assert G.int8_matmul.i32_launches == before + 1 and acc.dtype == torch.int32
+    assert torch.equal(acc, G.int8_matmul_plain(x, w, out_dtype=torch.int32))
+    rs = torch.rand(m, device=cuda_device, generator=g) + 0.5
+    cs = torch.rand(n, device=cuda_device, generator=g) / (64 * math.sqrt(k))
+    bias = torch.randn(n, device=cuda_device, generator=g)
+    for dt in (torch.float32, torch.bfloat16):
+        assert torch.equal(G.epilogue(acc, rs, cs, bias, out_dtype=dt),
+                           G.int8_matmul(x, w, rs, cs, bias, out_dtype=dt))
+    with pytest.raises(ValueError):
+        G.int8_matmul(x, w, rs, out_dtype=torch.int32)
+
+
+@pytest.mark.parametrize("m", [1, 2, 4, 8, 33, 64])
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+def test_int4_matmul_given_scale_every_route(cuda_device, m, xdt):
+    """K5 with a given per-token scale (a rank's planes of a row-parallel
+    product quantize against the whole row's scale) on the GEMV, the columns
+    and the tensor cores: within the f32 sum's bound of the plain version
+    with the same scale, and with x_q bit-exact (through the identity
+    weight); ``a8=False`` takes W4A16 and launches nothing."""
+    k, n = 2048, 2560
+    g = _gen(7 * m)
+    packed, scales = _int4_operands(k, n, 128, cuda_device, g)
+    x = (torch.randn(m, k, device=cuda_device, generator=g) * 3).to(xdt)
+    ts = (x.float().abs().amax(dim=1) * (1.0 + torch.rand(m, device=cuda_device, generator=g))
+          ) / 127.0
+    before = I4.int4_matmul.scale_launches
+    got = I4.int4_matmul(x, packed, scales, out_dtype=torch.float32, tok_scale=ts)
+    ref = I4.int4_matmul_plain(x, packed, scales, out_dtype=torch.float32, tok_scale=ts)
+    torch.cuda.synchronize()
+    assert I4.int4_matmul.scale_launches == before + 1
+    q = Q.quantize_act_static(x.float(), ts[:, None])
+    wq = torch.cat(Q.unpack_int4(packed), dim=1).double()
+    srep = scales.double().repeat_interleave(2 * packed.shape[1] // scales.shape[1], 1)
+    mag = (q.double().abs() @ (wq.abs() * srep).t()) * ts.double()[:, None]
+    tol = 2 * packed.shape[1] * 2.0 ** -24 * mag * 2 + 1e-6
+    assert bool(((got.double() - ref.double()).abs() <= tol).all())
+    ident, ones = _int4_identity(k, cuda_device)
+    assert torch.equal(I4.int4_matmul(x, ident, ones, out_dtype=torch.float32, tok_scale=ts),
+                       q.float() * ts[:, None])
+    launches = I4.int4_matmul.launches
+    w16 = I4.int4_matmul(x, packed, scales, out_dtype=torch.float32, tok_scale=ts, a8=False)
+    assert I4.int4_matmul.launches == launches
+    torch.testing.assert_close(w16, I4.int4_matmul_w4a16(x, packed, scales,
+                                                         out_dtype=torch.float32))
+
+
 def test_int4_matmul_odd_group_count_takes_the_columns(cuda_device):
     """K' = 192 in G = 3 groups of 64 (K'/2 = 96 is no multiple of the
     group): the route is "tiles", which agrees with the plain version, and
@@ -671,7 +732,7 @@ def test_int4_matmul_odd_group_count_takes_the_columns(cuda_device):
     fn = _build.function("int4_gemm", "asq_int4_gemm_tc", I4._TC_ARGTYPES)
     xq = torch.empty(33, 192, dtype=torch.int8, device=cuda_device)
     ts = torch.empty(33, device=cuda_device)
-    rc = fn(x.data_ptr(), 0, packed.data_ptr(), scales.data_ptr(), None, got.data_ptr(),
+    rc = fn(x.data_ptr(), 0, packed.data_ptr(), scales.data_ptr(), None, None, got.data_ptr(),
             xq.data_ptr(), ts.data_ptr(), 33, 128, 192, 96, 3, 0, 0, 1, None,
             _build.stream_ptr(x))
     assert rc != 0
@@ -690,7 +751,8 @@ def _int4_tc_raw(x, packed, scales, split):
     ws = torch.empty(split * m * n, device=x.device) if split > 1 else None
     fn = _build.function("int4_gemm", "asq_int4_gemm_tc", I4._TC_ARGTYPES)
     rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), packed.data_ptr(), scales.data_ptr(),
-            None, out.data_ptr(), xq.data_ptr(), ts.data_ptr(), m, n, k, k2, scales.shape[1],
+            None, None, out.data_ptr(), xq.data_ptr(), ts.data_ptr(), m, n, k, k2,
+            scales.shape[1],
             0, 0, split, _build.ptr(ws), _build.stream_ptr(x))
     torch.cuda.synchronize()
     assert rc == 0
