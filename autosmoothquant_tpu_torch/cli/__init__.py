@@ -10,27 +10,27 @@ checkpoint -> a quantized artifact), ``examples/serve_model.py``,
 ``examples/test_model.py`` and ``examples/eval_model.py`` (perplexity and
 tasks). A flag whose feature the port does not have yet
 raises NotImplementedError naming its ROADMAP item; none is ignored.
-``test_model --tp N`` runs N ranks (``shard/mesh.py:launch``)."""
+``test_model --tp N`` runs N ranks and ``eval_model --stages N
+--tensor-parallel M`` N x M ranks (``shard/mesh.py:launch``); ``serve_model
+--tp`` above 1 is refused (ROADMAP Queue 1, item 17c)."""
 
 from __future__ import annotations
 
 
-# the flags that ask for more than one card: (attribute, flag, what)
-_MULTI_CARD = (("tp", "--tp", "tensor-parallel serving over HTTP"),
-               ("tensor_parallel", "--tensor-parallel", "tensor-parallel evaluation"),
-               ("stages", "--stages", "pipeline-parallel evaluation"))
+# the flags that ask for a feature not ported yet: (attribute, flag, what, item)
+_UNPORTED = (("tp", "--tp", "tensor-parallel serving over HTTP", "17c"),)
 
 
 def refuse_unported(args, allow=()) -> None:
     """NotImplementedError for a parsed flag that asks for a feature the port
-    does not have: ``serve_model --tp``, ``--tensor-parallel`` or
-    ``--stages`` above 1 (0 or 1 is the one card); the attributes in
-    ``allow`` are the caller's own (``test_model`` runs ``--tp``)."""
-    for attr, flag, what in _MULTI_CARD:
+    does not have: ``serve_model --tp`` above 1 (0 or 1 is the one card);
+    the attributes in ``allow`` are the caller's own (``test_model`` runs
+    ``--tp``)."""
+    for attr, flag, what, item in _UNPORTED:
         n = getattr(args, attr, 0)
         if n > 1 and attr not in allow:
             raise NotImplementedError(
-                f"{flag} {n}: {what} is not ported yet (ROADMAP Queue 1, item 17b); "
+                f"{flag} {n}: {what} is not ported yet (ROADMAP Queue 1, item {item}); "
                 f"the port runs it on one card ({flag} 0 or 1)")
 
 

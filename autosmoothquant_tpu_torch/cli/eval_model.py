@@ -15,8 +15,18 @@ CLI's; the native harness (``--task-files``) and the lm-eval bridge
 (``--tasks``) in the LM's f32. ``--dataset-path`` is a local JSON-lines file
 of ``{"text": ...}`` records; ``--dataset`` names a loader of
 ``utils/datautils.py``, which reads local copies under ``--data-dir`` and
-downloads nothing. ``--stages`` and ``--tensor-parallel`` above 1 raise
-NotImplementedError naming their ROADMAP item.
+downloads nothing.
+
+``--stages N --tensor-parallel M`` (either above 1; JAX
+``examples/eval_model.py:48-54,110-124``) runs N x M ranks, one process
+each (``shard/mesh.py:launch``), on the mesh ``make_mesh(stage=N,
+model=M)``: one card a rank over NCCL, or with ``--backend gloo`` ranks that
+may share a card (the CPU always takes gloo). Perplexity runs the
+microbatched pipeline over the stages (``--microbatches`` a window batch,
+each rank holding its stage's layers, tensor-parallel inside a stage); the
+native harness spreads its requests over every rank, each scoring its share
+with the whole model, and gathers them (``eval/harness.py:evaluate``); the
+lm-eval bridge runs on rank 0. Rank 0 prints, as one card does.
 
 Standard output is the JAX CLI's: the perplexity results, the harness's
 table, the lm-eval results. Each stage's wall time (the device synchronized
@@ -65,12 +75,15 @@ def parse_args(argv=None):
     p.add_argument("--batch-windows", type=int, default=1,
                    help="perplexity windows a forward")
     p.add_argument("--stages", type=int, default=0,
-                   help="pipeline stages for perplexity: 0 or 1 = one card (above 1 "
-                        "is refused)")
+                   help="pipeline stages for perplexity (0 or 1 = one stage); the layer "
+                        "stack runs the microbatched GPipe schedule")
     p.add_argument("--microbatches", type=int, default=4,
-                   help="pipeline microbatches a window batch (with --stages)")
+                   help="pipeline microbatches a window batch (with a mesh)")
     p.add_argument("--tensor-parallel", type=int, default=0,
-                   help="tensor-parallel ways: 0 or 1 = one card (above 1 is refused)")
+                   help="tensor-parallel ranks inside each stage (0 or 1 = one)")
+    p.add_argument("--backend", default="nccl", choices=("nccl", "gloo"),
+                   help="the ranks' process group on the card: nccl takes one card a "
+                        "rank, gloo lets ranks share one (the CPU always takes gloo)")
     p.add_argument("--dataset", default="wikitext2",
                    help="wikitext2 | ptb | ptb_new | c4 | c4_new | pile | mix")
     p.add_argument("--dataset-path", default=None,
@@ -159,36 +172,56 @@ def load_metrics_module(path: str):
     return mod
 
 
-def main(argv=None, *, device="cuda"):
-    """Run the CLI on ``device`` (the card unless the caller asks for the
-    CPU); returns the results it printed."""
+def _to(params, dev):
+    from ..convert.from_jax import _map
+
+    return _map(lambda t: t.to(dev), params)
+
+
+def _stage_shard(model_mod, cfg, qcfg, params, mesh, dev):
+    """This rank's shard of ``params`` on ``dev`` (its stage's layers, split
+    over "model" inside the stage)."""
+    from ..shard.sharding import param_specs, shard_params, tp_plan, with_stage_axis
+
+    specs = with_stage_axis(param_specs(model_mod.FAMILY, cfg, mesh), mesh,
+                            cfg.num_hidden_layers)
+    return _to(shard_params(params, mesh, specs, tp_plan(model_mod.FAMILY, cfg, mesh, qcfg)),
+               dev)
+
+
+def run(args, dev, mesh=None):
+    """The CLI's work on ``dev`` for parsed ``args``, as one rank of ``mesh``
+    where there is one; returns the results it printed."""
     from ..eval.ppl import perplexity_from_tokens
-    from ..runtime import resolve_device
     from ..utils.profiling import phase_report
     from ..utils.tokenizer import load_tokenizer
-    from . import refuse_unported
 
-    args = parse_args(argv)
-    refuse_unported(args)
-    dev = resolve_device(device)
     phase_report(reset=True)   # the report holds this run's stages alone
     stages = _Stages(dev)
     t0 = time.perf_counter()
     with stages("load"):
-        model_mod, cfg, params, qcfg = load_model(args, dev)
+        # under a mesh a rank reads the whole model to the host, then keeps
+        # what each pass needs on its device
+        model_mod, cfg, params, qcfg = load_model(args, "cpu" if mesh else dev)
     with stages("tokenizer"):
         tokenizer = load_tokenizer(args.tokenizer_path)
     results = {}
     report = {"device": str(dev)}
+    if mesh is not None:
+        report["mesh"] = mesh.shape
 
     if args.eval_ppl:
         with stages("dataset"):
             stream = ppl_stream(args, tokenizer)
         with stages("ppl"):
+            pp = (_stage_shard(model_mod, cfg, qcfg, params, mesh, dev) if mesh is not None
+                  else params)
             ppl = perplexity_from_tokens(
-                model_mod, params, cfg, stream, max_length=args.max_length, qcfg=qcfg,
+                model_mod, pp, cfg, stream, max_length=args.max_length, qcfg=qcfg,
                 compute_dtype=torch.bfloat16, progress=True,
-                batch_windows=args.batch_windows, device=dev)
+                batch_windows=args.batch_windows, mesh=mesh,
+                microbatches=args.microbatches, device=dev)
+            del pp
         scored = (len(stream) // args.max_length) * args.max_length
         report["ppl_tokens"] = scored
         results[args.dataset] = {"ppl": ppl}
@@ -200,6 +233,8 @@ def main(argv=None, *, device="cuda"):
         from ..eval.lm_adapter import TorchLM
         from ..eval.tasks import load_task
 
+        if mesh is not None:
+            params = _to(params, dev)
         lm = TorchLM(model_mod, params, cfg, qcfg, batch_size=args.batch_size,
                      max_length=args.max_length, device=dev)
         native_tasks = [load_task(p, tokenizer, num_fewshot=args.num_fewshot,
@@ -210,14 +245,21 @@ def main(argv=None, *, device="cuda"):
             if hasattr(mod, "transform_tasks"):
                 native_tasks = mod.transform_tasks(native_tasks)
         with stages("tasks"):
-            res = evaluate(lm, native_tasks)
+            if mesh is None:
+                res = evaluate(lm, native_tasks)
+            else:
+                res = evaluate(lm, native_tasks, rank=mesh.rank, world_size=mesh.size,
+                               group=mesh.host_group)
         results.update(res)
         print(make_table(res))
         report["engines_built"] = lm.engines_built
         report["graphs_captured"] = len(lm.engine.graphs) if lm.engine is not None else 0
 
-    if args.tasks and args.tasks != "wikitext2":
+    if args.tasks and args.tasks != "wikitext2" and (mesh is None or mesh.rank == 0):
         from ..eval.lm_eval_adapter import run_lm_eval
+
+        if mesh is not None:
+            params = _to(params, dev)
 
         with stages("lm_eval"):
             results.update(run_lm_eval(
@@ -236,6 +278,56 @@ def main(argv=None, *, device="cuda"):
     for name, s in report["stages_s"].items():
         print(f"[eval_model] {name}: {s:.2f} s", file=sys.stderr)
     print(json.dumps({"eval_model": report}, default=str), file=sys.stderr, flush=True)
+    return results
+
+
+def _rank(args, device_type, world):
+    """One rank of ``--stages`` x ``--tensor-parallel``: (its standard
+    output, its standard error, its results); the parent prints rank 0's."""
+    import io
+
+    import torch.distributed as dist
+
+    from ..shard.mesh import make_mesh
+
+    rank = dist.get_rank()
+    if device_type == "cpu":
+        devices = ["cpu"] * world
+    else:
+        devices = [f"cuda:{r % torch.cuda.device_count()}" for r in range(world)]
+        torch.cuda.set_device(torch.device(devices[rank]))
+    mesh = make_mesh(model=args.tensor_parallel or None,
+                     stage=args.stages if args.stages > 1 else None, devices=devices)
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        results = run(args, torch.device(devices[rank]), mesh)
+    return out.getvalue(), err.getvalue(), results
+
+
+def main(argv=None, *, device="cuda"):
+    """Run the CLI on ``device`` (the card unless the caller asks for the
+    CPU); returns the results it printed."""
+    from ..runtime import resolve_device
+    from . import refuse_unported
+
+    args = parse_args(argv)
+    refuse_unported(args)
+    dev = resolve_device(device)
+    world = max(args.stages, 1) * max(args.tensor_parallel, 1)
+    if world == 1:
+        return run(args, dev)
+    from ..shard.mesh import launch
+
+    backend = "gloo" if dev.type == "cpu" else args.backend
+    if dev.type == "cuda" and backend == "nccl" and world > torch.cuda.device_count():
+        raise ValueError(f"{world} NCCL ranks need {world} cards; "
+                         f"{torch.cuda.device_count()} visible (--backend gloo shares them)")
+    outs = launch(_rank, world, args, dev.type, world, backend=backend,
+                  threads=1 if dev.type == "cpu" else None)
+    out, err, results = outs[0]
+    sys.stdout.write(out)
+    sys.stderr.write(err)
+    sys.stderr.flush()
     return results
 
 

@@ -21,10 +21,10 @@
 // then sum((s - mean)^2). OPT's activations carry outlier channels and a
 // large common offset, where the one-pass E[s^2] - mean^2 cancels and would
 // move q by many steps. Every product and sum is an explicit round-to-nearest
-// intrinsic (no FMA contraction), the inverse root is 1 / sqrtf (both
-// correctly rounded) rather than rsqrtf, and rounding is half to even
-// (rintf), which keeps q within one step of the plain version where rounding
-// ties are close. Two routes, chosen by the wrapper from the shape
+// intrinsic (no FMA contraction), the inverse root is correctly rounded
+// (asq_rsqrt_rn, the plain version's bits) rather than rsqrtf, and rounding
+// is half to even (rintf), which keeps q within one step of the plain version
+// where rounding ties are close. Two routes, chosen by the wrapper from the shape
 // (kernels/fused.py:norm_route, shared with K2):
 //  - vector (D % 8 == 0, 16-byte aligned operands, D <= 12288): the row
 //    lives in registers. A thread owns V chunks of 8 elements (V = 1..3,
@@ -83,7 +83,7 @@ __global__ void __launch_bounds__(kThreads)
     local = __fadd_rn(local, __fmul_rn(c, c));
   }
   const float var = block_sum(local, part) / static_cast<float>(D);
-  const float inv = 1.f / sqrtf(__fadd_rn(var, eps));
+  const float inv = asq_rsqrt_rn(__fadd_rn(var, eps));
   for (int i = threadIdx.x; i < D; i += kThreads) {
     const float c = __fsub_rn(s_row[i], mean);
     const float y = __fadd_rn(__fmul_rn(__fmul_rn(c, inv), gamma[i]), beta[i]);
@@ -140,7 +140,7 @@ __global__ void __launch_bounds__(kAsqRowMaxThreads)
     }
   }
   const float var = asq_block_sum(local, part[1]) / static_cast<float>(D);
-  const float inv = 1.f / sqrtf(__fadd_rn(var, eps));
+  const float inv = asq_rsqrt_rn(__fadd_rn(var, eps));
 #pragma unroll
   for (int v = 0; v < V; ++v) {
     if (!on[v]) continue;

@@ -29,6 +29,14 @@ __device__ __forceinline__ __nv_bfloat16 asq_from_float<__nv_bfloat16>(float x) 
   return __float2bfloat16_rn(x);
 }
 
+// LayerNorm's inverse root: 1 / sqrt(v) in f64 (both IEEE, correctly
+// rounded), rounded once to f32: the plain version's quant/math.py:rsqrt_rn,
+// so the card and the CPU take the same bits (1.f / sqrtf, two f32
+// roundings and RMSNorm's root, parts from it in about one value in four)
+__device__ __forceinline__ float asq_rsqrt_rn(float v) {
+  return __double2float_rn(1.0 / sqrt(static_cast<double>(v)));
+}
+
 // round half to even, then clamp to int8 (jnp.round / torch.round semantics)
 __device__ __forceinline__ int8_t asq_quant_int8(float y) {
   float r = fminf(fmaxf(rintf(y), -128.f), 127.f);

@@ -176,12 +176,15 @@ def bootstrap_stderr(values: Sequence[float], iters: int = 1000,
 
 
 def evaluate(lm: TorchLM, tasks: Sequence,
-             rank: int = 0, world_size: int = 1) -> Dict[str, Dict[str, float]]:
+             rank: int = 0, world_size: int = 1, group=None) -> Dict[str, Dict[str, float]]:
     """simple_evaluate analog (ref: evaluator.py:23-46,233+): requests are
     dispatched by each task's REQUEST_TYPE (loglikelihood / generate_until /
     loglikelihood_rolling, mirroring getattr(lm, reqtype) at
     evaluator.py:352) with the multi-rank request-shard + gather structure
-    (evaluator.py:335,442-491)."""
+    (evaluator.py:335,442-491): rank ``rank`` of ``world_size`` runs every
+    ``world_size``-th request, and the results are gathered over ``group``
+    (:func:`~.lm_adapter.gather_results`) so every rank aggregates them
+    all."""
     results: Dict[str, Dict[str, float]] = {}
     for task in tasks:
         reqs, index = task.build_requests()
@@ -192,7 +195,7 @@ def evaluate(lm: TorchLM, tasks: Sequence,
         else:
             local = getattr(lm, task.REQUEST_TYPE)([reqs[i] for i in local_ids])
         if world_size > 1:
-            flat = gather_results(list(zip(local_ids, local)), world_size)
+            flat = gather_results(list(zip(local_ids, local)), world_size, group)
             merged = dict(flat)
             ordered = [merged[i] for i in range(len(reqs))]
         else:
@@ -202,11 +205,11 @@ def evaluate(lm: TorchLM, tasks: Sequence,
 
 
 def simple_evaluate(lm: TorchLM, tasks: Sequence, rank: int = 0,
-                    world_size: int = 1) -> Dict[str, Dict]:
+                    world_size: int = 1, group=None) -> Dict[str, Dict]:
     """The reference CLI's entry-point shape (ref: evaluator.py:23-46
     simple_evaluate returns {"results", "versions", "config"}): task
     metrics plus per-task VERSION stamps and the run configuration."""
-    results = evaluate(lm, tasks, rank=rank, world_size=world_size)
+    results = evaluate(lm, tasks, rank=rank, world_size=world_size, group=group)
     return {
         "results": results,
         "versions": {t.name: getattr(t, "VERSION", 0) for t in tasks},

@@ -48,7 +48,8 @@ class TorchLM:
         self.compute_dtype = compute_dtype
         self.device = resolve_device(device)
         # the reference's multi-rank request sharding
-        # (benchmarks/evaluator.py:335,356-364); one rank on one card
+        # (benchmarks/evaluator.py:335,356-364): the harness spreads requests
+        # over ranks (eval/harness.py:evaluate's rank, world_size)
         self.rank = 0
         self.world_size = 1
         self.engine = None
@@ -177,12 +178,31 @@ def shard_requests(requests: Sequence, rank: int, world_size: int) -> list:
     return [r for i, r in enumerate(requests) if i % world_size == rank]
 
 
-def gather_results(local_results: list, world_size: int):
-    """The results of every rank in rank order (evaluator.py:442-491). One
-    rank passes its results through; more ranks need a process group, which
-    the port does not have yet (ROADMAP Queue 1, item 17b)."""
+def gather_results(local_results: list, world_size: int, group=None):
+    """Every rank's results in rank order (evaluator.py:442-491; JAX
+    ``gather_results``), the same on every rank: each rank pickles its list,
+    the byte counts are all-gathered first, then the byte buffers padded to
+    the longest, and the lists are unpickled and concatenated rank after
+    rank (the harness restores the request order from the indices it
+    zips in). One rank passes its results through. ``group``: a gloo group
+    of every rank (a mesh's ``host_group`` under NCCL); None: the world's,
+    which must then be gloo (the buffers are host tensors)."""
     if world_size <= 1:
         return local_results
-    raise NotImplementedError(
-        f"gathering results over {world_size} ranks is not ported yet "
-        "(ROADMAP Queue 1, item 17b); the port evaluates on one card")
+    import pickle
+
+    import torch.distributed as dist
+
+    payload = np.frombuffer(pickle.dumps(local_results), np.uint8)
+    n = torch.tensor([payload.size], dtype=torch.int64)
+    lens = [torch.zeros_like(n) for _ in range(world_size)]
+    dist.all_gather(lens, n, group=group)
+    lens = [int(x) for x in lens]
+    buf = torch.zeros(max(lens), dtype=torch.uint8)
+    buf[:payload.size] = torch.from_numpy(payload.copy())
+    chunks = [torch.empty_like(buf) for _ in range(world_size)]
+    dist.all_gather(chunks, buf, group=group)
+    out = []
+    for c, k in zip(chunks, lens):
+        out.extend(pickle.loads(c[:k].numpy().tobytes()))
+    return out

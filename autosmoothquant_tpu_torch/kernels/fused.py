@@ -17,6 +17,7 @@ import ctypes
 
 import torch
 
+from ..quant.math import recip_sqrt_rn, rsqrt_rn
 from . import _build
 
 _P = ctypes.c_void_p
@@ -49,7 +50,7 @@ def fused_add_rmsnorm_quant_plain(h: torch.Tensor, x: torch.Tensor,
     """Returns (h + x in h's dtype, int8 of round(rmsnorm(h + x) * gamma))."""
     s = h.float() + x.float()
     var = (s * s).mean(dim=-1, keepdim=True)
-    y = s * torch.rsqrt(var + eps) * gamma.float()
+    y = s * recip_sqrt_rn(var + eps) * gamma.float()
     q = torch.clamp(torch.round(y), -128, 127).to(torch.int8)
     return s.to(h.dtype), q
 
@@ -109,7 +110,7 @@ def fused_add_layernorm_quant_plain(h: torch.Tensor, x: torch.Tensor,
     s = h.float() + x.float()
     c = s - s.mean(dim=-1, keepdim=True)
     var = (c * c).mean(dim=-1, keepdim=True)
-    y = c * torch.rsqrt(var + eps) * gamma.float() + beta.float()
+    y = c * rsqrt_rn(var + eps) * gamma.float() + beta.float()
     q = torch.clamp(torch.round(y), -128, 127).to(torch.int8)
     return s.to(h.dtype), q
 
@@ -138,7 +139,7 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     already holds the folded 1/input_scale, so the output is in int8 units."""
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
-    return xf * torch.rsqrt(var + eps) * weight.float()
+    return xf * recip_sqrt_rn(var + eps) * weight.float()
 
 
 def rmsnorm_quant_plain(x: torch.Tensor, gamma: torch.Tensor, *, eps: float = 1e-6,

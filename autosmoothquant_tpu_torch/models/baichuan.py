@@ -63,8 +63,12 @@ from .common import (
     rope_cos_sin,
     row_linear,
     scales_on,
+    stage_input,
+    stage_output,
     uncached_mask_and_positions,
     update_and_attend,
+    embed_tokens as embed,
+    final_rms_norm as head,
 )
 
 FAMILY = "baichuan"
@@ -266,7 +270,9 @@ def forward(params, input_ids: torch.Tensor, cfg: BaichuanConfig,
     rank's params, cache and rows)."""
     b, t = input_ids.shape
     plan = forward_plan(FAMILY, cfg, mesh, quant_config, capture_stats)
-    h = params["embed"]["w"][input_ids].to(compute_dtype)
+    dev = input_ids.device
+    h = stage_input(lambda: embed(params, input_ids, cfg, compute_dtype), mesh,
+                    (b, t, cfg.hidden_size), compute_dtype, dev)
     chunk0 = chunkN = plain_causal = False
     if kv_cache is not None:
         slots, mask, chunk0, chunkN = cache_mask_and_routing(
@@ -275,11 +281,11 @@ def forward(params, input_ids: torch.Tensor, cfg: BaichuanConfig,
             positions = slots
     else:
         positions, mask, plain_causal = uncached_mask_and_positions(
-            b, t, positions, attention_mask, 0, h.device)
+            b, t, positions, attention_mask, 0, dev)
     cos = sin = None
     if cfg.position_embedding == "ROPE":
         cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
-    slopes = plan.slopes(slopes_on(cfg, h.device))
+    slopes = plan.slopes(slopes_on(cfg, dev))
     per_layer = []
     for i, lp in enumerate(params["layers"]):
         stats = {} if capture_stats else None
@@ -289,8 +295,7 @@ def forward(params, input_ids: torch.Tensor, cfg: BaichuanConfig,
             slopes, plain_causal=plain_causal, chunk0=chunk0, banded=chunkN,
             banded_starts=pad_starts, kv_window=kv_window, stats=stats, plan=plan, mesh=mesh)
         per_layer.append(stats)
-    h = rmsnorm_quant(h.reshape(b * t, -1), params["final_norm"]["w"], eps=cfg.rms_norm_eps,
-                      quantize=False).reshape(b, t, -1)
+    h = stage_output(h, lambda x: head(params, x, cfg, compute_dtype), mesh)
     if capture_stats:
         return h, kv_cache, {k: torch.stack([st[k] for st in per_layer]) for k in STAT_KEYS}
     return h, kv_cache

@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from ..kernels.attention import (alibi_bias, decode_attention, flash_attention,
                                  flash_attention_banded, gather_pages)
 from ..kernels.fp8 import fp8_matmul
-from ..kernels.fused import rms_norm  # noqa: F401  (the family modules' norm)
+from ..kernels.fused import rms_norm, rmsnorm_quant  # noqa: F401  (the families' norm)
 from ..kernels.gemm import epilogue, int8_matmul
 from ..kernels.int4 import _A8_MAX_M, int4_matmul
 from ..quant import math as qmath
@@ -47,7 +47,7 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     xf = x.float()
     c = xf - xf.mean(dim=-1, keepdim=True)
     var = (c * c).mean(dim=-1, keepdim=True)
-    return c * torch.rsqrt(var + eps) * weight.float() + bias.float()
+    return c * qmath.rsqrt_rn(var + eps) * weight.float() + bias.float()
 
 
 def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
@@ -197,6 +197,43 @@ def forward_plan(family: str, cfg, mesh: Optional[Mesh], qcfg=None,
     return tp_plan(family, cfg, mesh, qcfg)
 
 
+def stage_input(embed, mesh: Optional[Mesh], shape, dtype, device) -> torch.Tensor:
+    """The hidden state a rank's layers start from: ``embed()`` on the first
+    stage (or without a stage axis), else what the previous stage sends, of
+    ``shape`` and ``dtype`` on ``device`` (sequential stage placement; the
+    microbatched schedule is ``shard/pipeline.py``'s)."""
+    st = axis_of(mesh, "stage")
+    if st.index == 0:
+        return embed()
+    return st.recv(shape, dtype, device, st.index - 1)
+
+
+def stage_output(h: torch.Tensor, head, mesh: Optional[Mesh]) -> torch.Tensor:
+    """``head(h)`` on the last stage (or without a stage axis): the model's
+    final hidden state. An earlier stage sends ``h`` to the next one, waits
+    until it has left, and returns it as it is (its own layers' output)."""
+    st = axis_of(mesh, "stage")
+    if st.index == st.size - 1:
+        return head(h)
+    st.send(h, st.index + 1)
+    st.wait_sends()
+    return h
+
+
+def embed_tokens(params, input_ids: torch.Tensor, cfg, compute_dtype) -> torch.Tensor:
+    """The token embedding [B, T, D] in compute_dtype: the first stage's part
+    of the Llama, Gemma, Baichuan and Mixtral forwards (their ``embed``)."""
+    return params["embed"]["w"][input_ids].to(compute_dtype)
+
+
+def final_rms_norm(params, h: torch.Tensor, cfg, compute_dtype) -> torch.Tensor:
+    """The final norm in one kernel a row (``rmsnorm_quant``, unquantized),
+    in h's dtype: the last stage's part of those forwards (their ``head``)."""
+    lead = h.shape[:-1]
+    return rmsnorm_quant(h.reshape(-1, h.shape[-1]), params["final_norm"]["w"],
+                         eps=cfg.rms_norm_eps, quantize=False).reshape(*lead, -1)
+
+
 def global_rows(m: int, mesh: Optional[Mesh]) -> int:
     """The rows of the product a rank's m rows are part of: m, times the data
     axis where the static engine split the batch over it (``mesh.rows_split``),
@@ -325,7 +362,10 @@ def lm_logits(params, hidden: torch.Tensor, mesh: Optional[Mesh] = None) -> torc
     embedding's rows), each rank's slice is gathered over "model"."""
     out = matmul_f32(hidden, params["lm_head"]["w"])
     ax = axis_of(mesh, "model")
-    if ax.size > 1 and params["lm_head"]["w"].shape[1] != params["embed"]["w"].shape[0]:
+    # a rank past the first stage holds no embedding; its lm_head is split
+    # wherever the mesh is passed (``MeshModel.logits`` passes none otherwise)
+    if ax.size > 1 and ("embed" not in params or
+                        params["lm_head"]["w"].shape[1] != params["embed"]["w"].shape[0]):
         out = ax.all_gather(out, dim=-1)
     return out
 

@@ -79,8 +79,12 @@ from .common import (
     rope_cos_sin,
     row_linear,
     scales_on,
+    stage_input,
+    stage_output,
     uncached_mask_and_positions,
     update_and_attend,
+    embed_tokens as embed,
+    final_rms_norm as head,
 )
 
 FAMILY = "mixtral"
@@ -484,7 +488,9 @@ def forward(params, input_ids: torch.Tensor, cfg: MixtralConfig,
     the experts by :func:`moe_block`)."""
     b, t = input_ids.shape
     plan = forward_plan(FAMILY, cfg, mesh, quant_config, capture_stats)
-    h = params["embed"]["w"][input_ids].to(compute_dtype)
+    dev = input_ids.device
+    h = stage_input(lambda: embed(params, input_ids, cfg, compute_dtype), mesh,
+                    (b, t, cfg.hidden_size), compute_dtype, dev)
     chunk0 = chunkN = plain_causal = False
     if kv_cache is not None:
         slots, mask, chunk0, chunkN = cache_mask_and_routing(
@@ -493,7 +499,7 @@ def forward(params, input_ids: torch.Tensor, cfg: MixtralConfig,
             positions = slots
     else:
         positions, mask, plain_causal = uncached_mask_and_positions(
-            b, t, positions, attention_mask, 0, h.device)
+            b, t, positions, attention_mask, 0, dev)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     per_layer = []
     for i, lp in enumerate(params["layers"]):
@@ -505,8 +511,7 @@ def forward(params, input_ids: torch.Tensor, cfg: MixtralConfig,
             kv_window=kv_window, all_experts=calibrate_all_experts, stats=stats, plan=plan,
             mesh=mesh)
         per_layer.append(stats)
-    h = rmsnorm_quant(h.reshape(b * t, -1), params["final_norm"]["w"], eps=cfg.rms_norm_eps,
-                      quantize=False).reshape(b, t, -1)
+    h = stage_output(h, lambda x: head(params, x, cfg, compute_dtype), mesh)
     if capture_stats:
         return h, kv_cache, {k: torch.stack([st[k] for st in per_layer]) for k in STAT_KEYS}
     return h, kv_cache

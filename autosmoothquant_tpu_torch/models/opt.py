@@ -64,6 +64,8 @@ from .common import (
     pack_int8,
     row_linear,
     scales_on,
+    stage_input,
+    stage_output,
     uncached_mask_and_positions,
     update_and_attend,
 )
@@ -214,9 +216,7 @@ def forward(params, input_ids: torch.Tensor, cfg: OPTConfig,
     params, cache and rows (``models/llama.py:forward``)."""
     b, t = input_ids.shape
     plan = forward_plan(FAMILY, cfg, mesh, quant_config, capture_stats)
-    h = params["embed"]["w"][input_ids].to(compute_dtype)
-    if "project_in" in params:
-        h = h @ params["project_in"]["w"].to(compute_dtype)
+    dev = input_ids.device
     chunk0 = chunkN = plain_causal = False
     if kv_cache is not None:
         slots, mask, chunk0, chunkN = cache_mask_and_routing(
@@ -225,8 +225,9 @@ def forward(params, input_ids: torch.Tensor, cfg: OPTConfig,
             positions = slots  # no padding: the slot is the position
     else:
         positions, mask, plain_causal = uncached_mask_and_positions(
-            b, t, positions, attention_mask, 0, h.device)
-    h = h + params["embed_pos"]["w"][positions.long() + POS_OFFSET].to(compute_dtype)
+            b, t, positions, attention_mask, 0, dev)
+    h = stage_input(lambda: embed(params, input_ids, cfg, compute_dtype, positions), mesh,
+                    (b, t, cfg.hidden_size), compute_dtype, dev)
     per_layer = []
     for i, lp in enumerate(params["layers"]):
         stats = {} if capture_stats else None
@@ -237,15 +238,35 @@ def forward(params, input_ids: torch.Tensor, cfg: OPTConfig,
             banded=chunkN, banded_starts=pad_starts, kv_window=kv_window, stats=stats,
             plan=plan, mesh=mesh)
         per_layer.append(stats)
+    h = stage_output(h, lambda x: head(params, x, cfg, compute_dtype), mesh)
+    if capture_stats:
+        return h, kv_cache, {k: torch.stack([st[k] for st in per_layer]) for k in STAT_KEYS}
+    return h, kv_cache
+
+
+def embed(params, input_ids: torch.Tensor, cfg, compute_dtype, positions=None
+          ) -> torch.Tensor:
+    """The first stage's input [B, T, D]: the token embedding, through
+    ``project_in`` where the model has one, plus the learned positions
+    (``positions`` [B, T]; default 0..T-1) at ``positions + POS_OFFSET``."""
+    h = params["embed"]["w"][input_ids].to(compute_dtype)
+    if "project_in" in params:
+        h = h @ params["project_in"]["w"].to(compute_dtype)
+    if positions is None:
+        positions = torch.arange(input_ids.shape[1], device=input_ids.device)[None, :]
+    return h + params["embed_pos"]["w"][positions.long() + POS_OFFSET].to(compute_dtype)
+
+
+def head(params, h: torch.Tensor, cfg, compute_dtype) -> torch.Tensor:
+    """The last stage's output: the final LayerNorm (pre-LN models), the
+    cast to compute_dtype and ``project_out`` where the model has one."""
     if cfg.do_layer_norm_before and "final_norm" in params:
         h = layer_norm(h, params["final_norm"]["w"], params["final_norm"]["b"],
                        cfg.layer_norm_eps)
     h = h.to(compute_dtype)
     if "project_out" in params:
         h = h @ params["project_out"]["w"].to(compute_dtype)
-    if capture_stats:
-        return h, kv_cache, {k: torch.stack([st[k] for st in per_layer]) for k in STAT_KEYS}
-    return h, kv_cache
+    return h
 
 
 def logits(params, hidden: torch.Tensor, mesh=None) -> torch.Tensor:

@@ -42,6 +42,34 @@ def true_div(x: torch.Tensor, value: float) -> torch.Tensor:
     return x / _const(float(value), x.device)
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """f32 square root of ``x``, correctly rounded on every host: taken in
+    f64 and rounded once to f32 (exact for f32 inputs, since f64 carries
+    more than twice f32's bits). torch's f32 ``sqrt`` on some CPUs is not
+    correctly rounded (an ulp off in about one value in six on an AVX-512
+    host); CUDA's f32 and f64 ``sqrt`` are."""
+    return torch.sqrt(x.double()).float()
+
+
+def rsqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``1 / sqrt(x)`` rounded once from its f64 value: on every f32 in
+    [1, 4) the same as from an 80-bit extended value (checked exhaustively;
+    other binades scale by powers of 4 exactly), so correctly rounded for
+    normal results: LayerNorm's inverse root (the plain versions and K6,
+    ``csrc/asq_common.cuh:asq_rsqrt_rn``, take these bits)."""
+    return (1.0 / torch.sqrt(x.double())).float()
+
+
+def recip_sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``1 / sqrt(x)`` as two correctly rounded f32 operations, the
+    square root (:func:`sqrt_rn`) then the division: RMSNorm's inverse root,
+    the bits of K2's and ``rmsnorm_quant``'s ``1.f / sqrtf`` (torch's CPU
+    ``rsqrt`` gives them too on an AVX-512 host, but its ``sqrt`` does not
+    round correctly there). It parts from :func:`rsqrt_rn` in about one value
+    in four."""
+    return torch.reciprocal(sqrt_rn(x))
+
+
 def _round_clamp(y: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(y), INT8_MIN, INT8_MAX).to(torch.int8)
 

@@ -11,8 +11,10 @@ The numeric convention (the reference's smooth.py):
 Float weights are stored [in, out] in the port as in the JAX package, so the
 per-in-channel absmax reduces over dim 1 and ``s`` broadcasts as a column.
 
-Rounding: at alpha 0.5 both powers are square roots (``torch.sqrt``,
-exactly rounded on the CPU and the card), which is what XLA makes of
+Rounding: at alpha 0.5 both powers are correctly rounded square roots
+(``quant/math.py:sqrt_rn``: taken in f64 and rounded once, the same bits on
+the CPU and the card; torch's own f32 ``sqrt`` on the CPU is an ulp off in
+about one value in six on an AVX-512 host), which is what XLA makes of
 ``x ** 0.5`` under ``jax.jit``. Outside a jit (the JAX pipeline smooths
 eagerly) XLA calls libm's ``powf``, which differs from the square root by an
 ulp in about one channel in 2,000; torch's CPU ``pow`` differs in about one
@@ -30,6 +32,8 @@ from typing import Any, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .math import sqrt_rn
+
 
 def compute_smooth_scale(act_scales: torch.Tensor, fc_weights: Sequence[torch.Tensor],
                          alpha: float = 0.5) -> torch.Tensor:
@@ -38,7 +42,7 @@ def compute_smooth_scale(act_scales: torch.Tensor, fc_weights: Sequence[torch.Te
     weight_scales = torch.clamp_min(weight_scales.float(), 1e-5)
     act = act_scales.float()
     if alpha == 0.5:
-        ratio = torch.sqrt(act) / torch.sqrt(weight_scales)
+        ratio = sqrt_rn(act) / sqrt_rn(weight_scales)
     else:
         ratio = act.pow(alpha) / weight_scales.pow(1.0 - alpha)
     return torch.clamp_min(ratio, 1e-5)

@@ -61,7 +61,10 @@ runs the engine in its own process on the same calls, in lockstep): the
 params (the draft's too) and the pool's heads shard over "model" and
 "expert" (``serve/engine.py:shard_model``), the slot batch stays whole on
 every rank (JAX's ``batching.py:73-79``), and every rank reads the same
-tokens back. A gloo mesh decodes eagerly (``cuda_graph=False``).
+tokens back. "stage" gives a rank its stage's layers and their pool only
+(JAX's ``batching.py:138-151``): each prefill and tick runs stage after
+stage and the last stage's logits reach every rank (``MeshModel``). A gloo
+mesh decodes eagerly (``cuda_graph=False``).
 """
 
 from __future__ import annotations

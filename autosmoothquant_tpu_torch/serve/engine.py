@@ -36,8 +36,13 @@ splits a call's rows (``max_batch`` a multiple of it; the prompts padded to a
 multiple with copies of the first, as JAX's engine pads them), and the
 ranks' tokens are gathered at the end of a call. A rank fuses q|k|v and
 gate|up over its own sections (K1's columns do not depend on their
-neighbours, so its outputs are those of its unfused shards). A gloo group
-cannot be captured in a CUDA graph: ``cuda_graph`` must then be False.
+neighbours, so its outputs are those of its unfused shards). "stage" places
+the layers sequentially (JAX ``engine.py:175-190``, no microbatching): a
+rank holds its stage's layers and their cache only, each prefill and decode
+step runs stage after stage (the hidden state sent along the stage line),
+and the last stage's logits are broadcast over it, so every rank samples
+the same tokens (``shard/sharding.py:MeshModel``). A gloo group cannot be
+captured in a CUDA graph: ``cuda_graph`` must then be False.
 """
 
 from __future__ import annotations
@@ -52,7 +57,8 @@ import torch
 from ..quant.config import QuantConfig
 from ..runtime import resolve_device
 from ..shard.mesh import Mesh, axis_of
-from ..shard.sharding import MeshModel, param_specs, shard_params, tp_plan
+from ..shard.sharding import (MeshModel, param_specs, shard_params, tp_plan,
+                               with_stage_axis)
 from .speculative import SpecState
 
 
@@ -173,27 +179,31 @@ def shard_model(model_mod, params, cfg, qcfg, mesh: Optional[Mesh], param_shardi
     """(model, params) as an engine runs them. No mesh: the module and the
     params, fused as :func:`maybe_fuse_projections` decides. A mesh: the
     rank's shard of the unfused params (``shard/sharding.py:shard_params``,
-    by ``param_shardings`` or the family's specs, under its ``tp_plan``) on
-    ``device``, then fused over the rank's own sections, and the module bound
-    to the mesh (:class:`~..shard.sharding.MeshModel`)."""
+    by ``param_shardings`` or the family's specs, under its ``tp_plan``;
+    with a stage axis the specs ``with_stage_axis`` gives, so a rank holds
+    its stage's layers) on ``device``, then fused over the rank's own
+    sections, and the module bound to the mesh
+    (:class:`~..shard.sharding.MeshModel`)."""
     if mesh is None:
         return model_mod, maybe_fuse_projections(model_mod, params, fuse)
     if isinstance(model_mod, MeshModel):
         return model_mod, params
     plan = tp_plan(model_mod.FAMILY, cfg, mesh, qcfg)
-    specs = param_shardings or param_specs(model_mod.FAMILY, cfg, mesh)
+    specs = param_shardings or with_stage_axis(param_specs(model_mod.FAMILY, cfg, mesh), mesh,
+                                               cfg.num_hidden_layers)
     params = shard_params(params, mesh, specs, plan)
     if device is not None:
         from ..convert.from_jax import _map
 
         params = _map(lambda t: t.to(device), params)
-    return MeshModel(model_mod, mesh, plan), maybe_fuse_projections(model_mod, params, fuse)
+    return (MeshModel(model_mod, mesh, plan, cfg.vocab_size),
+            maybe_fuse_projections(model_mod, params, fuse))
 
 
 def collectives_in_step(mesh: Optional[Mesh]) -> bool:
-    """Whether a decode step under ``mesh`` runs collectives (a "model" or
-    "expert" axis above 1; "data" alone runs none)."""
-    return axis_of(mesh, "model").size > 1 or axis_of(mesh, "expert").size > 1
+    """Whether a decode step under ``mesh`` runs collectives (a "model",
+    "expert" or "stage" axis above 1; "data" alone runs none)."""
+    return any(axis_of(mesh, a).size > 1 for a in ("model", "expert", "stage"))
 
 
 def check_graph_mesh(cuda_graph: bool, mesh: Optional[Mesh]) -> None:

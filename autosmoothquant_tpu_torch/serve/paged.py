@@ -49,7 +49,7 @@ import numpy as np
 import torch
 
 from ..models.common import make_paged_pool
-from ..shard.sharding import cache_heads
+from ..shard.sharding import cache_heads, cache_layers
 from .batching import ContinuousEngine, PrefixCacheFull, Request, _bucket
 
 
@@ -121,7 +121,7 @@ class PagedEngine(ContinuousEngine):
         self._table_np[:, m:] = scratch
         table = torch.tensor(self._table_np, device=self.device)
         n_kv = cache_heads(self.model, self.cfg)
-        return make_paged_pool(self.cfg.num_hidden_layers, self.num_pages, bs, n_kv,
+        return make_paged_pool(cache_layers(self.model, self.cfg), self.num_pages, bs, n_kv,
                                self.cfg.head_dim, table, self.kv_dtype, self.device)
 
     def _page_tensors(self) -> List[torch.Tensor]:

@@ -11,12 +11,21 @@ Axes:
   data   -- batch rows (the engines split a batch over it)
   expert -- Mixtral's experts (expert parallelism)
   model  -- tensor parallelism (column- and row-parallel projections)
-  stage  -- pipeline stages: not ported yet (ROADMAP Queue 1, item 17b)
+  stage  -- pipeline stages: a rank holds L/S contiguous layers and the
+            hidden state walks the stage line by point-to-point sends
+            (``shard/pipeline.py``; the engines' sequential placement in
+            ``models/common.py:stage_input`` / ``stage_output``)
 
 :func:`launch` starts one process a rank (``torch.multiprocessing``, spawn)
 for the CLI, the tests and ``chip_smoke.py``. Two ranks may share one device
 only under the gloo backend (NCCL refuses two ranks on one GPU): that is an
 explicit choice of the caller, never a fallback.
+
+The stage link (:meth:`Axis.send`, :meth:`Axis.recv`) sends device tensors
+under NCCL. gloo's point-to-point ops take host memory only, so under gloo
+a CUDA tensor is copied to the host before its send and from the host after
+its receive: chosen by the backend, before any send, and never after a
+failure.
 """
 
 from __future__ import annotations
@@ -31,11 +40,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-STAGE_ITEM = "ROADMAP Queue 1, item 17b"
-
 # collectives run through Axis, by kind (the card's parallel phase reads
 # them a decode step; reset by setting the entries to 0)
-COLLECTIVES: Dict[str, int] = {"all_reduce": 0, "all_gather": 0}
+COLLECTIVES: Dict[str, int] = {"all_reduce": 0, "all_gather": 0, "send": 0, "recv": 0,
+                               "broadcast": 0}
 
 
 def mesh_axes(n: int, data: int = 1, model: Optional[int] = None,
@@ -100,6 +108,49 @@ class Axis:
     index: int = 0
     group: Any = None
     backend: Optional[str] = None
+    # the global ranks of this rank's line, by coordinate (point-to-point
+    # ops and broadcasts name their peers by global rank)
+    ranks: Tuple[int, ...] = ()
+    # sends posted and not yet waited for: (work, the tensor sent)
+    _pending: List[Any] = dataclasses.field(default_factory=list, repr=False)
+
+    def _via_host(self, device) -> bool:
+        """Whether a point-to-point op on ``device`` goes through host memory
+        (a CUDA tensor under gloo)."""
+        return self.backend != "nccl" and torch.device(device).type != "cpu"
+
+    def send(self, t: torch.Tensor, to: int) -> None:
+        """Post ``t`` to coordinate ``to`` of the line (returns at once; the
+        tensor stays referenced until :meth:`wait_sends`)."""
+        buf = t.detach().contiguous()
+        if self._via_host(buf.device):
+            buf = buf.cpu()
+        self._pending.append((dist.isend(buf, self.ranks[to], group=self.group), buf))
+        COLLECTIVES["send"] += 1
+
+    def wait_sends(self) -> None:
+        """Wait until every posted send has left."""
+        for work, _ in self._pending:
+            work.wait()
+        self._pending.clear()
+
+    def recv(self, shape, dtype, device, src: int) -> torch.Tensor:
+        """A tensor of ``shape`` and ``dtype`` from coordinate ``src`` of the
+        line, on ``device`` (blocks until it has come)."""
+        dev = torch.device(device)
+        host = self._via_host(dev)
+        buf = torch.empty(shape, dtype=dtype, device="cpu" if host else dev)
+        dist.recv(buf, self.ranks[src], group=self.group)
+        COLLECTIVES["recv"] += 1
+        return buf.to(dev) if host else buf
+
+    def broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
+        """``t`` of coordinate ``src`` on every rank of the line, in place;
+        returns t."""
+        if self.size > 1:
+            dist.broadcast(t, self.ranks[src], group=self.group)
+            COLLECTIVES["broadcast"] += 1
+        return t
 
     def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """``t`` summed (or maxed) over the axis, in place; returns t."""
@@ -197,11 +248,7 @@ def make_mesh(data: int = 1, model: Optional[int] = None, expert: Optional[int] 
     group (one rank where there is none), JAX ``make_mesh``'s axes and sizes.
     ``devices`` lists each rank's device (default: ``cuda:<rank>``); every
     rank must call this, with the same arguments, in the same order, since
-    it opens the axes' process groups. A stage axis above 1 raises
-    NotImplementedError (item 17b)."""
-    if stage is not None and stage > 1:
-        raise NotImplementedError(f"a stage axis ({stage} stages) is not ported yet "
-                                  f"({STAGE_ITEM})")
+    it opens the axes' process groups."""
     live = dist.is_available() and dist.is_initialized()
     n = dist.get_world_size() if live else 1
     rank = dist.get_rank() if live else 0
@@ -217,24 +264,25 @@ def make_mesh(data: int = 1, model: Optional[int] = None, expert: Optional[int] 
     coords = np.unravel_index(rank, sizes)
     axes = {}
     for i, (name, size) in enumerate(zip(names, sizes)):
-        group = None
+        group, ranks = None, (rank,)
         if size > 1:
             for line in axis_lines(sizes, i):
                 g = dist.new_group(line)
                 if rank in line:
-                    group = g
-        axes[name] = Axis(name, size, int(coords[i]), group, backend)
+                    group, ranks = g, tuple(line)
+        axes[name] = Axis(name, size, int(coords[i]), group, backend, ranks)
     host = dist.new_group(backend="gloo") if live and backend != "gloo" else None
     return Mesh(names, sizes, rank, device, backend, axes, host_group=host)
 
 
 def layout_mesh(data: int = 1, model: Optional[int] = None, expert: Optional[int] = None,
-                rank: int = 0, n: Optional[int] = None, device="cpu") -> Mesh:
+                rank: int = 0, n: Optional[int] = None, device="cpu",
+                stage: Optional[int] = None) -> Mesh:
     """Rank ``rank``'s :class:`Mesh` of n ranks without process groups: its
     axes, sizes and coordinates only, for what is a pure function of them
     (specs, a rank's shard of the params; its collectives would fail)."""
-    n = n or data * (model or 1) * (expert or 1)
-    names, sizes = mesh_axes(n, data, model, expert)
+    n = n or data * (model or 1) * (expert or 1) * (stage or 1)
+    names, sizes = mesh_axes(n, data, model, expert, stage)
     coords = np.unravel_index(rank, sizes)
     axes = {a: Axis(a, s, int(c)) for a, s, c in zip(names, sizes, coords)}
     return Mesh(names, sizes, rank, torch.device(device), None, axes)

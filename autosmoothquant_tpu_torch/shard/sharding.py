@@ -25,7 +25,16 @@ the port's layout and in three rules, all stated by :func:`tp_plan`:
     q_i | k_i | v_i, whole heads), where JAX splits the fused dimension
     contiguously; Mixtral's per-expert scale vectors [E] all follow their
     experts.
-The stage axis (``with_stage_axis``) waits for ROADMAP Queue 1, item 17b.
+
+The stage axis (:func:`with_stage_axis`, JAX's ``sharding.py:198-225``):
+"stage" leads every layer leaf's spec, and :func:`shard_params` gives a
+rank of stage s the contiguous layers [s L / S, (s + 1) L / S) only (the
+port's layers are a list, so the stacked dimension is the list's); stage 0
+alone keeps the embedding (and OPT's learned positions and ``project_in``),
+the last stage alone the head (the final norm, the lm_head, OPT's
+``project_out``); a middle stage keeps its layers and nothing else.
+Mixtral's packed int4 experts follow their layers (JAX ``_storage_spec``
+keeps "stage" on them too), so no stage holds another stage's experts.
 """
 
 from __future__ import annotations
@@ -36,7 +45,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..quant import math as qmath
-from .mesh import STAGE_ITEM, Mesh, axis_of
+from .mesh import Mesh, axis_of
+from .pipeline import stage_stack
 
 # weight dtypes of quantized projections ([N, K] in the port; uint8: int4)
 _QUANT = (torch.int8, torch.float8_e4m3fn, torch.float8_e5m2, torch.uint8)
@@ -191,6 +201,46 @@ def param_specs(family: str, cfg, mesh: Mesh):
     return PARAM_SPEC_FNS[family](cfg, mesh)
 
 
+def with_stage_axis(specs, mesh: Mesh, num_layers: int):
+    """Pipeline-stage placement (JAX ``with_stage_axis``): every "layers"
+    leaf's spec leads with "stage" in place of its stacked [L] entry; the
+    other subtrees keep their specs. A mesh without a stage axis above 1
+    returns ``specs``; layers that do not divide over the stages raise
+    ValueError (JAX asserts)."""
+    s = mesh.shape.get("stage", 1)
+    if s <= 1:
+        return specs
+    if num_layers % s:
+        raise ValueError(f"{num_layers} layers not divisible by {s} pipeline stages")
+
+    def add_stage(spec):
+        if isinstance(spec, dict):
+            return {k: add_stage(v) for k, v in spec.items()}
+        return ("stage",) + tuple(spec)[1:]
+
+    return {**specs, "layers": add_stage(specs["layers"])}
+
+
+def _stage_leads(spec) -> bool:
+    """Whether a layer spec subtree leads its leaves with "stage"."""
+    if isinstance(spec, dict):
+        return any(_stage_leads(v) for v in spec.values())
+    return bool(spec) and spec[0] == "stage"
+
+
+# what each end of the stage line keeps besides its layers
+_FIRST_STAGE = ("embed", "embed_pos", "project_in")
+_LAST_STAGE = ("final_norm", "lm_head", "project_out")
+
+
+def stage_layers(layers, mesh: Optional[Mesh]):
+    """Rank's contiguous share of a layer list: [s L / S, (s + 1) L / S) at
+    coordinate s of S stages (JAX ``stage_stack``'s blocks); the whole list
+    without a stage axis. Layers that do not divide raise ValueError."""
+    st = axis_of(mesh, "stage")
+    return stage_stack(layers, st.size)[st.index]
+
+
 def kv_heads_of(cfg) -> int:
     return getattr(cfg, "num_key_value_heads", None) or cfg.num_attention_heads
 
@@ -281,9 +331,6 @@ def tp_plan(family: str, cfg, mesh: Optional[Mesh], qcfg=None) -> TPPlan:
     """The rank's :class:`TPPlan`: a pure function of the config, the mesh's
     sizes and coordinates and the quantization (int4 splits rows in whole
     groups only), so :func:`shard_params` and every forward agree."""
-    if axis_of(mesh, "stage").size > 1:
-        raise NotImplementedError(f"a stage axis (pipeline parallelism) is not ported yet "
-                                  f"({STAGE_ITEM})")
     ax = axis_of(mesh, "model")
     ex = axis_of(mesh, "expert")
     m, i = ax.size, ax.index
@@ -400,7 +447,14 @@ def shard_params(params, mesh: Mesh, specs, plan: TPPlan):
     """This rank's shard of the port's params (unfused, every leaf on its
     device already): each leaf by its spec (JAX's, in the port's layout),
     under the plan's rules (module docstring). Leaves without a spec
-    replicate."""
+    replicate. Under a stage axis above 1 the specs must lead the layers
+    with "stage" (:func:`with_stage_axis`; ValueError otherwise): the rank
+    keeps its stage's layers and its end of the line's other params (module
+    docstring)."""
+    st = axis_of(mesh, "stage")
+    if st.size > 1 and not _stage_leads(specs.get("layers", {})):
+        raise ValueError("a stage mesh needs stage-led layer specs (with_stage_axis)")
+
     def top(name, block):
         spec = specs.get(name, {})
         if name == "lm_head" and not plan.vocab:
@@ -411,7 +465,7 @@ def shard_params(params, mesh: Mesh, specs, plan: TPPlan):
 
     lspec = specs["layers"]
     layers = []
-    for lp in params["layers"]:
+    for lp in stage_layers(params["layers"], mesh):
         new = {}
         for group, block in lp.items():
             gspec = lspec.get(group, {})
@@ -436,8 +490,12 @@ def shard_params(params, mesh: Mesh, specs, plan: TPPlan):
             else:
                 new[group] = block
         layers.append(new)
+    drop = ()
+    if st.size > 1:
+        drop = ((_FIRST_STAGE if st.index > 0 else ())
+                + (_LAST_STAGE if st.index < st.size - 1 else ()))
     out = {k: (top(k, v) if isinstance(v, dict) else v) for k, v in params.items()
-           if k != "layers"}
+           if k != "layers" and k not in drop}
     out["layers"] = layers
     return out
 
@@ -470,12 +528,23 @@ def shard_kv_cache(cache, mesh: Mesh, cfg, shard_batch: bool = True,
 class MeshModel:
     """A family module bound to a mesh: ``forward`` and ``logits`` run as the
     rank's part (the mesh passed to the family's own functions),
-    ``init_kv_cache`` allocates the heads the rank's attention reads, and
-    every other attribute is the module's. The engines hold one instead of
-    the module, so their code is the same on one card and on a mesh."""
+    ``init_kv_cache`` allocates the heads the rank's attention reads, for
+    its stage's layers, and every other attribute is the module's. The
+    engines hold one instead of the module, so their code is the same on one
+    card and on a mesh.
 
-    def __init__(self, module, mesh: Mesh, plan: TPPlan):
-        self.module, self.mesh, self.plan = module, mesh, plan
+    Under a stage axis above 1 (sequential placement, JAX's engines under
+    ``with_stage_axis``): ``forward`` runs the rank's layers on the hidden
+    state the previous stage sends and sends its own on
+    (``models/common.py:stage_input`` / ``stage_output``), and its result is
+    the model's final hidden state on the last stage only. ``logits`` is
+    computed by the last stage and broadcast over the stage line, so every
+    rank samples from the same logits with the same generator: the tokens,
+    and all the state the schedulers read, are equal on every rank and the
+    engines stay in lockstep with no further exchange."""
+
+    def __init__(self, module, mesh: Mesh, plan: TPPlan, vocab: int = 0):
+        self.module, self.mesh, self.plan, self.vocab = module, mesh, plan, vocab
 
     def __getattr__(self, name):
         return getattr(self.module, name)
@@ -484,16 +553,37 @@ class MeshModel:
         return self.module.forward(*args, mesh=self.mesh, **kw)
 
     def logits(self, params, hidden):
-        return self.module.logits(params, hidden, mesh=self.mesh)
+        # the vocab split over "model" (plan.vocab) is gathered; a whole
+        # lm_head needs no mesh
+        mesh = self.mesh if self.plan.vocab else None
+        st = self.mesh.axis("stage")
+        if st.size == 1:
+            return self.module.logits(params, hidden, mesh=mesh)
+        last = st.size - 1
+        if st.index == last:
+            out = self.module.logits(params, hidden, mesh=mesh).contiguous()
+        else:
+            out = torch.empty(tuple(hidden.shape[:-1]) + (self.vocab,), dtype=torch.float32,
+                              device=hidden.device)
+        return st.broadcast(out, last)
+
+    def num_layers(self, cfg) -> int:
+        """The layers this rank holds (its stage's)."""
+        return cfg.num_hidden_layers // self.mesh.axis("stage").size
 
     def init_kv_cache(self, cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                       device="cuda"):
         from ..models.common import make_kv_cache
 
-        return make_kv_cache(cfg.num_hidden_layers, batch, max_len, self.plan.cache_heads,
+        return make_kv_cache(self.num_layers(cfg), batch, max_len, self.plan.cache_heads,
                              cfg.head_dim, dtype, torch.device(device))
 
 
 def cache_heads(model, cfg) -> int:
     """The kv heads a (possibly mesh-bound) model's cache holds."""
     return model.plan.cache_heads if isinstance(model, MeshModel) else kv_heads_of(cfg)
+
+
+def cache_layers(model, cfg) -> int:
+    """The layers a (possibly mesh-bound) model's cache holds."""
+    return model.num_layers(cfg) if isinstance(model, MeshModel) else cfg.num_hidden_layers

@@ -142,7 +142,9 @@ Phases (any failure ends the run with a nonzero exit code):
            perplexity pass's and one scored batch's launches exact (K1, K2,
            K3, rmsnorm_quant), one engine a harness; at 2 layers every
            stock request's log-likelihood, greedy flag and tokens and a
-           perplexity on the card against the CPU
+           perplexity on the card against the CPU; eval_model --stages 2
+           (two gloo ranks on the card, in its own process) against the
+           one-card perplexity (EVAL_STAGES_RTOL), rank 0's launches exact
   families Baichuan-2-13B (W8A8, fp8 e4m3, bf16), Gemma-2B (W8A8, bf16)
            and Mixtral-8x7B (W8A8, fp8 e4m3; about 47 GB each, bf16 does not
            fit) at full width and depth, one model at a time: Engine.generate b1,
@@ -154,6 +156,14 @@ Phases (any failure ends the run with a nonzero exit code):
            Baichuan-2-13B W8A8 (ALiBi) through ContinuousEngine and
            PagedEngine, graph and eager: tokens equal the static b1
            engine's, logits bit-equal (BATCH_LOGIT_NOISE)
+  parallel ranks of one gloo group sharing the card, eager, each arm held
+           to a one-card twin: TinyLlama-1.1B W8A8 at model=2 (the three
+           engines, MultiHostEngine), data=2, 2 replicas, int4 at model=2,
+           Mixtral-8x7B (4 layers) at expert=2 x model=2, and the stage axis
+           (TinyLlama W8A8 at stage=2: the pipelined forward of 4 windows of
+           2048 at 2 and 4 microbatches and the three engines; at stage=2 x
+           model=2: the pipelined forward and the static engine); tokens
+           equal, final hidden states bit-equal, launches exact
   timing   the launch floor (a one-element kernel); each kernel's time
            against its plain version, its library yardstick and its bound
            (K1 and K4 at M = 1, 2, 4 and 8 on their GEMV too; K2, K5 and K6
@@ -903,9 +913,10 @@ def layernorm_case(torch, t, d, dtype, gen):
     return h.to(dtype), x.to(dtype), gamma, beta
 
 
-# rmsnorm_quant's unquantized row against its plain version (torch's mean
-# and CUDA's rsqrt, both within a few f32 ulps of the kernel's ordered sum
-# and correctly rounded 1 / sqrt): f32 a few ulps, bf16 one rounding step
+# rmsnorm_quant's unquantized row against its plain version (torch's mean,
+# within a few f32 ulps of the kernel's ordered sum, and the kernel's own
+# inverse root, quant/math.py:recip_sqrt_rn): f32 a few ulps, bf16 one
+# rounding step
 RMSNORM_TOL = {"torch.float32": 2.0**-20, "torch.bfloat16": 2.0**-7}
 # decode attention's tolerances (max |kernel - plain| <= atol + rtol |plain|):
 # f32 outputs differ by the sums' order alone (the kernel adds in key order,
@@ -1161,8 +1172,8 @@ def check_rmsnorm_quant(torch, results, gen):
     128, D 2048 / 4096 (TinyLlama, Llama-2-7B), bf16 and f32: bit-equal to
     rmsnorm_quant_ordered (its arithmetic in torch ops, the squares summed in
     its order), and a row's bits the same at T = 8 and alone (the batch
-    invariance it exists for); against its plain version (torch's mean and
-    rsqrt, the two ops it fuses) within RMSNORM_TOL."""
+    invariance it exists for); against its plain version (the two ops it
+    fuses) within RMSNORM_TOL."""
     from autosmoothquant_tpu_torch.kernels.fused import rmsnorm_quant, rmsnorm_quant_plain
 
     worst = 0.0
@@ -4480,6 +4491,10 @@ EVAL_TIMEOUT = 600       # seconds: one eval_model process
 # (partings at 0.0113, 0.0481, 0.0520), a bf16 perplexity within 0.4%
 # (0.169%)
 EVAL_BW_RTOL = 5e-7
+# eval_model --stages 2 against the one-card CLI: the W8A8 pipelined forward
+# has the one-card bits, so the tests' perplexity tolerance (PPL_RTOL of
+# tests/test_torch_eval.py) holds with room
+EVAL_STAGES_RTOL = 2e-6
 EVAL_PPL_RATIO_LIMIT = 1.0092
 EVAL_NLL_DRIFT_LIMIT = 0.23
 EVAL_LL_TOL = 0.04
@@ -4493,17 +4508,19 @@ EVAL_FAULTS = (("layer_scales x2 in layer 0", 0, 2.0, False),
                ("layer_scales x0.5 in layer 0", 0, 0.5, True))
 
 
-def run_eval_cli(model, tok_dir, held, *extra):
+def run_eval_cli(model, tok_dir, held, *extra, tasks=True):
     """The eval_model CLI as users run it, in its own process: perplexity of
     the held-out stream (windows of EVAL_MAX_LENGTH, EVAL_BATCH_WINDOWS a
-    forward) and the three stock tasks through the native harness.
-    Returns (its results, its report, wall s)."""
+    forward) and, with ``tasks``, the three stock tasks through the native
+    harness. Returns (its results, its report, wall s)."""
     t0 = time.perf_counter()
+    task_flags = (["--task-files", ",".join(os.path.join(ROOT, t) for t in EVAL_TASKS)]
+                  if tasks else [])
     proc = subprocess.run(
         [sys.executable, "-m", f"{PKG}.cli.eval_model", "--model-path", model,
          "--tokenizer-path", tok_dir, "--eval-ppl", "--dataset-path", held,
          "--max-length", str(EVAL_MAX_LENGTH), "--batch-windows", str(EVAL_BATCH_WINDOWS),
-         "--task-files", ",".join(os.path.join(ROOT, t) for t in EVAL_TASKS), *extra],
+         *task_flags, *extra],
         capture_output=True, text=True, timeout=EVAL_TIMEOUT, cwd=ROOT)
     wall = time.perf_counter() - t0
     out, err = proc.stdout.strip().splitlines(), proc.stderr.strip().splitlines()
@@ -4512,7 +4529,7 @@ def run_eval_cli(model, tok_dir, held, *extra):
             f"stderr {proc.stderr[-3000:]}")
     report = json.loads(err[-1])["eval_model"]
     require(out[0].startswith("{'results': {'wikitext2': {'ppl': ")
-            and any(line.startswith("| stock_mc |") for line in out),
+            and (not tasks or any(line.startswith("| stock_mc |") for line in out)),
             f"eval_model printed {out[:3]}")
     return report.pop("results"), report, wall
 
@@ -4707,6 +4724,29 @@ def phase_eval(torch, quantized, smi_line):
                     f"{label}: non-finite results {res}")
         require("f1" in runs["W8A8"][0]["stock_gen"], "the metrics module's f1 is missing")
         ppl_q, ppl_f = (runs[k][0]["wikitext2"]["ppl"] for k in ("W8A8", "float"))
+
+        # the W8A8 perplexity pipelined over 2 stages (2 gloo ranks on the
+        # card, a window a microbatch): the one-card run's within
+        # EVAL_STAGES_RTOL; rank 0 (stage 0) launches its 11 layers' kernels
+        # a microbatch and no final norm
+        res, report, wall = run_eval_cli(art, ckpt, held, "--stages", "2", "--backend", "gloo",
+                                         "--microbatches", str(EVAL_BATCH_WINDOWS), tasks=False)
+        ppl_s = res["wikitext2"]["ppl"]
+        stage_rel = abs(ppl_s - ppl_q) / ppl_q
+        forwards = EVAL_BATCH_WINDOWS * -(-n_windows // EVAL_BATCH_WINDOWS)
+        want = ppl_launches(cfg.num_hidden_layers // 2, forwards, True)
+        want["rmsnorm_quant"] -= forwards
+        del want["rmsnorm_quant_norm"]
+        got = report["launches"]["ppl"]
+        log(f"  eval_model W8A8 --stages 2 (2 gloo ranks on cuda:0) in its own process: "
+            f"perplexity {ppl_s!r} against one card's {ppl_q!r} (|rel| {stage_rel:.3g}, limit "
+            f"{EVAL_STAGES_RTOL}); mesh {report['mesh']}; stages (s) " + ", ".join(
+                f"{k} {v:.2f}" for k, v in report["stages_s"].items())
+            + f"; wall {wall:.1f} s; rank 0's perplexity launches {got} (expected {want}) "
+            f"[{smi_line}]")
+        require(stage_rel <= EVAL_STAGES_RTOL, f"eval_model --stages 2: perplexity {ppl_s} "
+                                               f"against one card's {ppl_q}")
+        require(got == want, f"eval_model --stages 2: rank 0 launched {got}; expected {want}")
 
         # the CLI's batches of 4 windows against one window a forward
         params, qcfg, _ = load_any_quantized(art, device="cuda")
@@ -5293,6 +5333,64 @@ def parallel_inputs(torch):
     return prompts, prefix, reqs[:PARALLEL_REQUESTS]
 
 
+def parallel_base(torch):
+    """The parallel phase's engine keywords: bf16, on cuda:0, eager."""
+    return dict(kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16, device="cuda",
+                cuda_graph=False)
+
+
+def run_arm(torch, out, counters, arm, fn, eng, inner=None):
+    """Run one arm of the parallel phase: ``fn(eng)`` -> (tokens, logits),
+    with the hidden states ``inner``'s (default ``eng``'s) model hands its
+    lm_head tapped, the launch counters and COLLECTIVES reset before and read
+    after; out[arm] gets what the phase reports."""
+    from autosmoothquant_tpu_torch.shard.mesh import COLLECTIVES
+
+    inner = inner or eng
+    tap = tapped(inner)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_mem = torch.cuda.memory_allocated()
+    reset_counts(counters)
+    for k in COLLECTIVES:
+        COLLECTIVES[k] = 0
+    t0 = time.perf_counter()
+    tokens, logits = fn(eng)
+    torch.cuda.synchronize()
+    counts = read_counts(counters)
+    out[arm] = dict(tokens=tokens, hidden=tap.hidden, margins=tap.margins, logits=logits,
+                    last=tap.last if arm == "int4" else None, counts=counts,
+                    collectives=dict(COLLECTIVES),
+                    forwards=counts["rmsnorm_quant_norm"] or len(tap.hidden),
+                    wall=time.perf_counter() - t0,
+                    peak=torch.cuda.max_memory_allocated() - start_mem,
+                    weights=params_bytes(inner.params))
+
+
+def static_fn(prompts):
+    """An arm's run of Engine.generate on ``prompts``: (tokens, last logits)."""
+    from autosmoothquant_tpu_torch.serve.engine import GenerationConfig
+
+    def fn(eng):
+        toks = eng.generate(prompts, GenerationConfig(max_new_tokens=PARALLEL_NEW))
+        return toks, eng.last_logits.cpu()
+    return fn
+
+
+def continuous_fn(prefix, reqs, with_prefix):
+    """An arm's run of a continuous engine on ``reqs`` (with the registered
+    prefix, or plain): ({uid: tokens}, last logits)."""
+    def fn(eng):
+        if with_prefix:
+            eng.register_prefix("sys", prefix)
+        handles = {uid: eng.submit(uid, p, **(kw if with_prefix else
+                                              {"max_new_tokens": kw["max_new_tokens"]}))
+                   for uid, p, kw in reqs}
+        eng.run()
+        return {u: list(h.output) for u, h in handles.items()}, eng.last_logits.cpu()
+    return fn
+
+
 def tp_arms(torch, mesh=None, data_mesh=None):
     """The TinyLlama arms of the parallel phase, on one card (``mesh`` None:
     the twin) or as this rank of ``mesh`` (model=2) and ``data_mesh``
@@ -5301,61 +5399,27 @@ def tp_arms(torch, mesh=None, data_mesh=None):
     from autosmoothquant_tpu_torch.models import llama as L
     from autosmoothquant_tpu_torch.quant.config import QuantConfig
     from autosmoothquant_tpu_torch.serve.batching import ContinuousEngine, Request
-    from autosmoothquant_tpu_torch.serve.engine import Engine, GenerationConfig
+    from autosmoothquant_tpu_torch.serve.engine import Engine
     from autosmoothquant_tpu_torch.serve.multihost import MultiHostEngine, ShardedServingPool
     from autosmoothquant_tpu_torch.serve.paged import PagedEngine
-    from autosmoothquant_tpu_torch.shard.mesh import COLLECTIVES
 
     prompts, prefix, reqs = parallel_inputs(torch)
     cfg = tinyllama(L, 22)
     counters = launch_counters()
-    base = dict(kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16, device="cuda",
-                cuda_graph=False)
+    base = parallel_base(torch)
     out = {}
 
     def run(arm, fn, eng, inner=None):
-        inner = inner or eng
-        tap = tapped(inner)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        start_mem = torch.cuda.memory_allocated()
-        reset_counts(counters)
-        for k in COLLECTIVES:
-            COLLECTIVES[k] = 0
-        t0 = time.perf_counter()
-        tokens, logits = fn(eng)
-        torch.cuda.synchronize()
-        counts = read_counts(counters)
-        out[arm] = dict(tokens=tokens, hidden=tap.hidden, margins=tap.margins, logits=logits,
-                        last=tap.last if arm == "int4" else None, counts=counts,
-                        collectives=dict(COLLECTIVES),
-                        forwards=counts["rmsnorm_quant_norm"] or len(tap.hidden),
-                        wall=time.perf_counter() - t0,
-                        peak=torch.cuda.max_memory_allocated() - start_mem,
-                        weights=params_bytes(inner.params))
-
-    def static(prompts_):
-        def fn(eng):
-            toks = eng.generate(prompts_, GenerationConfig(max_new_tokens=PARALLEL_NEW))
-            return toks, eng.last_logits.cpu()
-        return fn
+        run_arm(torch, out, counters, arm, fn, eng, inner)
 
     def continuous(with_prefix):
-        def fn(eng):
-            if with_prefix:
-                eng.register_prefix("sys", prefix)
-            handles = {uid: eng.submit(uid, p, **(kw if with_prefix else
-                                                  {"max_new_tokens": kw["max_new_tokens"]}))
-                       for uid, p, kw in reqs}
-            eng.run()
-            return {u: list(h.output) for u, h in handles.items()}, eng.last_logits.cpu()
-        return fn
+        return continuous_fn(prefix, reqs, with_prefix)
 
     w8a8 = draw_w8a8(cfg, 3, "cuda")
     q8 = QuantConfig(type="int8")
-    run("static", static(prompts[:1]),
+    run("static", static_fn(prompts[:1]),
         Engine(L, w8a8, cfg, q8, max_batch=2, max_seq=512, mesh=mesh, **base))
-    run("static_b2", static(prompts),
+    run("static_b2", static_fn(prompts),
         Engine(L, w8a8, cfg, q8, max_batch=2, max_seq=512, mesh=data_mesh, **base))
     run("continuous", continuous(True),
         ContinuousEngine(L, w8a8, cfg, q8, mesh=mesh, **BATCHING, **base))
@@ -5394,7 +5458,7 @@ def tp_arms(torch, mesh=None, data_mesh=None):
     int4 = draw_quantized(cfg, QuantConfig(type="int4"), 3, "cuda")
     e4 = Engine(L, int4, cfg, QuantConfig(type="int4"), max_batch=2, max_seq=512, mesh=mesh,
                 **base)
-    run("int4", static(prompts[:1]), e4)
+    run("int4", static_fn(prompts[:1]), e4)
     if mesh is not None:
         out["int4_row"] = int4_row_products(torch, int4, e4.params, cfg, mesh)
     del int4, e4
@@ -5467,10 +5531,110 @@ def mixtral_arm(torch, mesh=None, rank=0, ranks=1):
                 weights=params_bytes(eng.params))
 
 
+# the stage arms (e) and (f): the pipelined forward over windows x length
+# at each number of microbatches
+STAGE_WINDOWS = (4, 2048)
+STAGE_MICROBATCHES = (2, 4)
+# a stage arm's final hidden states (the last stage's) and window CEs
+# against the one-card twin's: W8A8 is row-alone or exact (K1's int32 sums,
+# K2, K3 and rmsnorm_quant a row alone), so equal bits
+STAGE_HIDDEN_NOISE = 0.0
+
+
+def stage_windows(torch):
+    g = torch.Generator().manual_seed(37)
+    return torch.randint(0, 32000, STAGE_WINDOWS, generator=g).cuda()
+
+
+def stage_arms(torch, mesh=None, engines=True):
+    """(e) and (f): TinyLlama-1.1B W8A8 (22 layers) over the stage axis, as
+    this rank of ``mesh``, or with none the one-card twin of the pipelined
+    forward: {arm: ...}. "pipe_mb{M}": STAGE_WINDOWS through
+    ``pipelined_forward`` at M microbatches (bf16, as perplexity runs it;
+    the twin: the family's forward of all windows at once), each window's
+    mean CE and the final hidden state where this rank holds them (the last
+    stage), launches, sends, wall, peak memory and weights. With a mesh, the
+    stage-placed engines of ``tp_arms``' W8A8 arms (b1 static, and with
+    ``engines`` the continuous and paged ones), against its twins."""
+    from autosmoothquant_tpu_torch.eval.ppl import token_logprobs
+    from autosmoothquant_tpu_torch.models import llama as L
+    from autosmoothquant_tpu_torch.quant.config import QuantConfig
+    from autosmoothquant_tpu_torch.serve.batching import ContinuousEngine
+    from autosmoothquant_tpu_torch.serve.engine import Engine
+    from autosmoothquant_tpu_torch.serve.paged import PagedEngine
+    from autosmoothquant_tpu_torch.shard.mesh import COLLECTIVES
+    from autosmoothquant_tpu_torch.shard.pipeline import pipelined_forward
+    from autosmoothquant_tpu_torch.shard.sharding import (param_specs, shard_params, tp_plan,
+                                                          with_stage_axis)
+
+    cfg = tinyllama(L, 22)
+    q8 = QuantConfig(type="int8")
+    counters = launch_counters()
+    w8a8 = draw_w8a8(cfg, 3, "cuda")
+    windows = stage_windows(torch)
+    out = {}
+    if mesh is None:
+        mine, lmesh = w8a8, None
+    else:
+        plan = tp_plan("llama", cfg, mesh, q8)
+        specs = with_stage_axis(param_specs("llama", cfg, mesh), mesh, cfg.num_hidden_layers)
+        mine = shard_params(w8a8, mesh, specs, plan)
+        lmesh = mesh if plan.vocab else None
+    with torch.inference_mode():
+        for mbs in (STAGE_MICROBATCHES if mesh is not None else (1,)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start_mem = torch.cuda.memory_allocated()
+            reset_counts(counters)
+            for k in COLLECTIVES:
+                COLLECTIVES[k] = 0
+            t0 = time.perf_counter()
+            if mesh is None:
+                h = L.forward(mine, windows, cfg, q8, compute_dtype=torch.bfloat16)[0]
+            else:
+                h = pipelined_forward(L, mine, windows, cfg, q8, mesh=mesh, microbatches=mbs,
+                                      compute_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts(counters)
+            ce = None
+            if h is not None:
+                ce = -token_logprobs(L, mine, h, windows, lmesh)[0].mean(dim=-1)
+            out[f"pipe_mb{mbs}"] = dict(
+                hidden=None if h is None else h.float().cpu(),
+                ce=None if ce is None else ce.cpu(), counts=counts,
+                collectives=dict(COLLECTIVES), wall=wall,
+                peak=torch.cuda.max_memory_allocated() - start_mem,
+                weights=params_bytes(mine))
+            del h
+    del mine
+    torch.cuda.empty_cache()
+    if mesh is not None:
+        prompts, prefix, reqs = parallel_inputs(torch)
+        base = parallel_base(torch)
+
+        def run(arm, fn, eng):
+            run_arm(torch, out, counters, arm, fn, eng)
+
+        run("static", static_fn(prompts[:1]),
+            Engine(L, w8a8, cfg, q8, max_batch=2, max_seq=512, mesh=mesh, **base))
+        if engines:
+            run("continuous", continuous_fn(prefix, reqs, True),
+                ContinuousEngine(L, w8a8, cfg, q8, mesh=mesh, **BATCHING, **base))
+            run("paged", continuous_fn(prefix, reqs, True),
+                PagedEngine(L, w8a8, cfg, q8, mesh=mesh, block_size=PAGE_BLOCK,
+                            auto_prefix=False, **BATCHING, **base))
+    del w8a8
+    torch.cuda.empty_cache()
+    return out
+
+
 def parallel_rank(ranks):
     """One rank of the parallel phase's launch of ``ranks`` ranks on cuda:0
-    over gloo: 2 ranks run the TinyLlama arms (model=2, and data=2), 4 the
-    Mixtral arm (expert=2 x model=2)."""
+    over gloo: 2 ranks run the TinyLlama arms (model=2, and data=2) and the
+    stage arms at stage=2, 4 the Mixtral arm (expert=2 x model=2) and the
+    stage arms at stage=2 x model=2 (the pipelined forward and the static
+    engine)."""
     import torch
     import torch.distributed as dist
 
@@ -5483,10 +5647,15 @@ def parallel_rank(ranks):
     if ranks == 2:
         mesh = make_mesh(data=1, model=2, devices=devices)
         data_mesh = make_mesh(data=2, model=1, devices=devices)
+        stage_mesh = make_mesh(stage=2, devices=devices)
         out = tp_arms(torch, mesh, data_mesh)
+        out["stage"] = stage_arms(torch, stage_mesh)
     else:
         mesh = make_mesh(data=1, expert=2, model=2, devices=devices)
+        stage_mesh = make_mesh(stage=2, model=2, devices=devices)
         out = {"mixtral": mixtral_arm(torch, mesh, dist.get_rank(), ranks)}
+        out["stage"] = stage_arms(torch, stage_mesh, engines=False)
+    out["coords"] = stage_mesh.coords
     out["rank_wall"] = time.perf_counter() - t0
     out["backend"] = dist.get_backend()
     return out
@@ -5521,10 +5690,15 @@ def phase_parallel(torch, results, smi_line):
     products (INT4_TP_ROW_RTOL); (c) Mixtral-8x7B W8A8 at full width cut to 4 layers,
     expert=2 x model=2 over 4 ranks; (d) MultiHostEngine (model=2) and
     ShardedServingPool (2 replicas) on the 8 requests, against the
-    continuous engine. Tokens equal, every recorded final hidden state bit
-    for bit (TP_HIDDEN_NOISE) where the arithmetic is exact (W8A8,
-    experts), logits within the bounds printed; each rank's launches by
-    kernel exact, collectives a forward, peak memory and weights against the
+    continuous engine; (e) TinyLlama W8A8 at stage=2 (11 layers a rank):
+    the pipelined forward of STAGE_WINDOWS at STAGE_MICROBATCHES against the
+    family's forward on one card, and the static, continuous and paged
+    engines; (f) stage=2 x model=2 over 4 ranks: the pipelined forward and
+    the static engine (report_stages). Tokens equal, every recorded final
+    hidden state bit for bit (TP_HIDDEN_NOISE, STAGE_HIDDEN_NOISE) where the
+    arithmetic is exact (W8A8, experts), logits within the bounds printed;
+    each rank's launches by kernel exact (a stage line's summed over its
+    stages), collectives a forward, peak memory and weights against the
     twin's, wall. The kernels are built (the build phase) before any rank
     starts; one launch a rank count."""
     from autosmoothquant_tpu_torch.shard.mesh import launch
@@ -5533,14 +5707,16 @@ def phase_parallel(torch, results, smi_line):
     t0 = time.perf_counter()
     twin = tp_arms(torch)
     twin["mixtral"] = mixtral_arm(torch)
+    twin["stage"] = stage_arms(torch)
     torch.cuda.empty_cache()
     log(f"  twins built and run in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     ranks2 = launch(parallel_rank, 2, 2, backend="gloo", timeout=600)
-    log(f"  2 ranks (model=2 and data=2) in {time.perf_counter() - t0:.1f} s")
+    log(f"  2 ranks (model=2, data=2 and stage=2) in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     ranks4 = launch(parallel_rank, 4, 4, backend="gloo", timeout=600)
-    log(f"  4 ranks (expert=2 x model=2) in {time.perf_counter() - t0:.1f} s")
+    log(f"  4 ranks (expert=2 x model=2 and stage=2 x model=2) in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     def report(arm, outs, mesh, exact):
         want = twin[arm] if arm not in ("multihost", "pool") else twin["plain"]
@@ -5637,6 +5813,9 @@ def phase_parallel(torch, results, smi_line):
         got_counts = {k: v for k, v in got["counts"].items() if v}
         require(got_counts == wanted, f"parallel mixtral rank {r}: launches {got_counts} "
                                       f"!= {wanted}")
+    # (e), (f): the stage axis
+    report_stages(torch, twin, ranks2, "stage=2", smi_line)
+    report_stages(torch, twin, ranks4, "stage=2 x model=2", smi_line)
     require(all(rank["graph_refused"] for rank in ranks2),
             "a gloo mesh did not refuse cuda_graph=True")
     log("  parallel: cuda_graph=True on a gloo mesh raised ValueError on every rank")
@@ -5646,6 +5825,79 @@ def phase_parallel(torch, results, smi_line):
     require(results["int8_matmul_i32"]["launches"] > 0
             and results["int4_matmul_scale"]["launches"] > 0,
             "a row-parallel kernel was not launched on its path")
+
+
+def report_stages(torch, twin, ranks, label, smi_line):
+    """Hold the stage arms of one launch (``label``: its mesh) to their
+    one-card twins and print them: every rank's tokens equal; the last
+    stage's final hidden states and window CEs bit for bit
+    (STAGE_HIDDEN_NOISE); logits within TP_LOGIT_LIMIT; each stage line's
+    launches, summed over its stages, exactly the twin's (with model=2 the
+    row-parallel int32 GEMMs besides, 2 a layer a forward); sends and
+    broadcasts a forward, wall (not a speed: the ranks share one card and
+    gloo goes through the host), peak memory and weights a rank."""
+    model2 = "model=2" in label
+    coords = [rank["coords"] for rank in ranks]
+    lines = {}
+    for r, c in enumerate(coords):
+        lines.setdefault(c.get("model", 0), []).append(r)
+    last = [r for r, c in enumerate(coords) if c["stage"] == 1]
+    arms = [f"pipe_mb{m}" for m in STAGE_MICROBATCHES] + [
+        a for a in ("static", "continuous", "paged") if a in ranks[0]["stage"]]
+    for arm in arms:
+        pipe = arm.startswith("pipe")
+        want = twin["stage"]["pipe_mb1"] if pipe else twin[arm]
+        mbs = int(arm[len("pipe_mb"):]) if pipe else 1
+        forwards = mbs if pipe else want["forwards"]
+        for r, rank in enumerate(ranks):
+            got = rank["stage"][arm]
+            if not pipe:
+                require(got["tokens"] == want["tokens"],
+                        f"{label} {arm} rank {r}: tokens differ from the one-card twin's")
+                lg = float((torch.as_tensor(got["logits"]) - want["logits"]).abs().max())
+                require(lg <= TP_LOGIT_LIMIT, f"{label} {arm} rank {r}: logits part from the "
+                                              f"twin's by {lg} (TP_LOGIT_LIMIT)")
+            noise = ce = None
+            if r in last:
+                noise = (hidden_noise(torch, [got["hidden"]], [want["hidden"]]) if pipe
+                         else hidden_noise(torch, got["hidden"], want["hidden"]))
+                require(noise <= STAGE_HIDDEN_NOISE,
+                        f"{label} {arm} rank {r}: the final hidden state parts from the "
+                        f"twin's by {noise} (STAGE_HIDDEN_NOISE {STAGE_HIDDEN_NOISE})")
+                if pipe:
+                    ce = float((torch.as_tensor(got["ce"]) - want["ce"]).abs().max())
+                    require(ce <= STAGE_HIDDEN_NOISE,
+                            f"{label} {arm} rank {r}: window CEs part from the twin's by {ce}")
+            # a pipelined call's collectives in all (M microbatch forwards),
+            # an engine's a forward
+            per = {k: v if pipe else v / forwards for k, v in got["collectives"].items() if v}
+            log(f"  parallel {arm:10s} rank {r} ({label} at {coords[r]}, gloo, cuda:0): "
+                + ("" if pipe else f"tokens equal, logits max|diff| {lg!r}; ")
+                + (f"last stage: hidden max|diff| {noise!r}"
+                   + (f", window CEs max|diff| {ce!r} ({got['ce'].tolist()})" if pipe else "")
+                   if r in last else "not the last stage")
+                + f"; collectives {'a call' if pipe else 'a forward'} {per}; wall "
+                f"{got['wall']:.2f} s (twin "
+                f"{want['wall']:.2f} s; not a speed: ranks share one card, gloo goes through "
+                f"the host); peak above the weights {got['peak'] / 2**30:.3f} GiB (twin "
+                f"{want['peak'] / 2**30:.3f}); weights {got['weights'] / 2**30:.3f} GiB (twin "
+                f"{want['weights'] / 2**30:.3f}, {got['weights'] / want['weights']:.3f} of "
+                f"them) [{smi_line}]")
+            log("    " + json.dumps({"arm": f"{label} {arm}", "rank": r, "host launches": {
+                k: v for k, v in got["counts"].items() if v}}))
+        for m, line in lines.items():
+            summed = {}
+            for r in line:
+                for k, v in ranks[r]["stage"][arm]["counts"].items():
+                    summed[k] = summed.get(k, 0) + v
+            summed = {k: v for k, v in summed.items() if v}
+            wanted = {k: v * mbs for k, v in want["counts"].items() if v}
+            if model2:
+                wanted["int8_matmul_i32"] = 2 * 22 * forwards
+            require(summed == wanted, f"{label} {arm} stage line {line}: launches summed over "
+                                      f"its stages {summed} != the twin's {wanted}")
+    log(f"  parallel {label}: tokens equal, the last stage's hidden states bit-equal, each "
+        f"stage line's launches the twin's on {', '.join(arms)}")
 
 
 def pad_rows(torch, x, multiple):

@@ -184,23 +184,37 @@ def test_penalized_greedy_and_logprobs_match_jax(models):
     run_both(*pair(models, "int8", steps_per_sync=4), reqs)
 
 
-def _stage_mesh():
-    """A rank's mesh with a stage axis of 2 (pipeline parallelism, item 17b),
-    built without process groups."""
-    from autosmoothquant_tpu_torch.shard.mesh import Axis, Mesh
+def _stage_mesh(index=0):
+    """Rank ``index``'s mesh with a stage axis of 2 (pipeline stages), built
+    without process groups: the engine's construction shards and allocates,
+    and runs no collective."""
+    from autosmoothquant_tpu_torch.shard.mesh import layout_mesh
 
-    axes = {"stage": Axis("stage", 2), "data": Axis("data"), "model": Axis("model")}
-    return Mesh(("stage", "data", "model"), (2, 1, 1), 0, torch.device("cpu"), None, axes)
+    return layout_mesh(stage=2, rank=index)
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(param_shardings={})],
                          ids=["mesh", "param_shardings"])
 def test_what_is_not_ported_raises(models, kw):
-    """Meshes and param_shardings serve (tests/test_torch_serve_sharded.py);
-    a stage axis (pipeline parallelism) is still refused, naming its item."""
+    """A stage mesh builds an engine (with the family's specs, or with
+    ``param_shardings`` led by "stage"): each rank holds its stage's layers
+    and their pool, the first stage the embedding, the last the head. Specs
+    without "stage" are refused under a stage mesh."""
+    from autosmoothquant_tpu_torch.shard.sharding import llama_param_specs, with_stage_axis
+
     *_, TM, tcfg, tparams, (_, tq) = models("float")
-    with pytest.raises(NotImplementedError, match="item 17b"):
-        TB.ContinuousEngine(TM, tparams, tcfg, tq, device="cpu", mesh=_stage_mesh(), **kw)
+    n = tcfg.num_hidden_layers
+    for index in (0, 1):
+        mesh = _stage_mesh(index)
+        if "param_shardings" in kw:
+            kw = {"param_shardings": with_stage_axis(llama_param_specs(tcfg, mesh), mesh, n)}
+        eng = TB.ContinuousEngine(TM, tparams, tcfg, tq, device="cpu", mesh=mesh, **kw)
+        assert len(eng.params["layers"]) == len(eng.pool) == n // 2
+        assert ("embed" in eng.params) == (index == 0)
+        assert ("lm_head" in eng.params) == (index == 1)
+    with pytest.raises(ValueError, match="with_stage_axis"):
+        TB.ContinuousEngine(TM, tparams, tcfg, tq, device="cpu", mesh=_stage_mesh(),
+                            param_shardings=llama_param_specs(tcfg, _stage_mesh()))
 
 
 @pytest.mark.parametrize("arg", ["draft", "speculative_gamma"])

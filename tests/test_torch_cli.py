@@ -189,7 +189,7 @@ def test_opt_artifact_through_both_clis(opt_dir, capsys, monkeypatch):
 
 
 REFUSED = {
-    "serve --tp 2": (serve_model, ["--tp", "2"], NotImplementedError, "item 17b"),
+    "serve --tp 2": (serve_model, ["--tp", "2"], NotImplementedError, "item 17c"),
     # test_model runs --tp (tests/test_torch_serve_sharded.py); more ranks
     # than visible cards are refused
     "test --tp 4": (test_model, ["--tp", "4", "--device", "cuda"], ValueError,

@@ -161,9 +161,14 @@ def test_short_stream_and_mesh_raise(models):
     with pytest.raises(ValueError, match="shorter than window"):
         perplexity_from_tokens(m.tm, m.tparams, m.tcfg, np.arange(10), max_length=64,
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
+    # a stage mesh's window batch must divide into its microbatches (JAX
+    # asserts); raised before any collective
+    from autosmoothquant_tpu_torch.shard.mesh import layout_mesh
+
+    with pytest.raises(ValueError, match="microbatches"):
         perplexity_from_tokens(m.tm, m.tparams, m.tcfg, np.arange(128), max_length=64,
-                               device="cpu", mesh=object())
+                               device="cpu", mesh=layout_mesh(stage=2), batch_windows=3,
+                               microbatches=2)
 
 
 def _assert_lls(got, want):
@@ -317,7 +322,7 @@ def test_evaluate_multirank_merge(models, stream, monkeypatch, kind):
         rank = 1
     expect = TH.evaluate(tlm, [task])
 
-    def fake_gather(local, world_size):
+    def fake_gather(local, world_size, group=None):
         reqs, _ = task.build_requests()
         done = {i for i, _ in local}
         other_ids = [i for i in range(len(reqs)) if i not in done]
@@ -329,10 +334,45 @@ def test_evaluate_multirank_merge(models, stream, monkeypatch, kind):
     assert TH.evaluate(tlm, [task], rank=rank, world_size=2) == expect
 
 
-def test_shard_and_gather_results():
+# each rank's results: uneven lists of mixed Python values
+GATHER_LISTS = [[("a", 1), ("b", 2.5), ("c", [3, 4])], [], [("d", {"k": None}), ("e", b"x")]]
+
+
+def _gather_rank(lists):
+    import torch.distributed as dist
+
+    return gather_results(lists[dist.get_rank()], len(lists))
+
+
+def _jax_gather(lists, rank, monkeypatch):
+    """JAX's ``gather_results`` as rank ``rank`` of len(lists) processes: its
+    ``process_allgather`` stands in with every rank's array of each call (the
+    byte counts, then the padded byte buffers)."""
+    import pickle
+
+    from autosmoothquant_tpu.eval import lm_adapter as jla
+    from jax.experimental import multihost_utils
+
+    payloads = [np.frombuffer(pickle.dumps(x), np.uint8) for x in lists]
+    calls = iter([np.stack([np.asarray([p.size]) for p in payloads]),
+                  np.stack([np.pad(p, (0, max(q.size for q in payloads) - p.size))
+                            for p in payloads])])
+
+    def allgather(x):
+        out = next(calls)
+        assert np.array_equal(out[rank].reshape(x.shape), x)
+        return out
+
+    monkeypatch.setattr(multihost_utils, "process_allgather", allgather)
+    return jla.gather_results(lists[rank], len(lists))
+
+
+def test_shard_and_gather_results(monkeypatch):
     """Requests shard round-robin as JAX's; one rank's results pass through;
-    more ranks are refused (a process group is item 17)."""
+    over 3 gloo ranks with uneven lists (one empty) every rank gathers JAX's
+    list: the ranks' lists in rank order."""
     from autosmoothquant_tpu.eval.lm_adapter import shard_requests as jshard
+    from autosmoothquant_tpu_torch.shard.mesh import launch
 
     reqs = list(range(10))
     parts = [shard_requests(reqs, r, 3) for r in range(3)]
@@ -340,8 +380,9 @@ def test_shard_and_gather_results():
     assert sorted(sum(parts, [])) == reqs
     res = [("a", 1)]
     assert gather_results(res, 1) is res
-    with pytest.raises(NotImplementedError, match="item 17"):
-        gather_results(res, 2)
+    want = _jax_gather(GATHER_LISTS, 0, monkeypatch)
+    assert want == sum(GATHER_LISTS, [])
+    assert launch(_gather_rank, 3, GATHER_LISTS, threads=1, timeout=300) == [want] * 3
 
 
 def test_bootstrap_stderr_equals_jax():
@@ -673,10 +714,39 @@ def test_eval_model_cli_matches_jax(hf_dir, artifact, which, monkeypatch, capsys
     assert {"load", "tokenizer", "dataset", "ppl", "tasks"} <= set(report["stages_s"])
 
 
-@pytest.mark.parametrize("flags", [["--stages", "2"], ["--tensor-parallel", "2"]])
-def test_eval_model_refuses_multi_card_flags(hf_dir, flags):
+@pytest.fixture(scope="module")
+def one_rank_cli(hf_dir, artifact):
+    """(argv, what ``eval_model --stages 0`` prints to stdout) on the
+    port-written W8A8 artifact: perplexity over 16 windows of 64 in batches
+    of 4, and the three stock tasks."""
+    import contextlib
+    import io
+
     from autosmoothquant_tpu_torch.cli import eval_model
 
-    with pytest.raises(NotImplementedError, match="item 17"):
-        eval_model.main(["--model-path", str(hf_dir), "--tokenizer-path", str(hf_dir),
-                         "--eval-ppl", *flags], device="cpu")
+    argv = ["--model-path", str(artifact), "--tokenizer-path", str(hf_dir), "--eval-ppl",
+            "--dataset-path", str(hf_dir / "val.jsonl"), "--max-length", "64",
+            "--batch-windows", "4", "--microbatches", "2", "--task-files", ",".join(STOCK),
+            "--batch-size", "2"]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+        eval_model.main(argv + ["--stages", "0"], device="cpu")
+    return argv, out.getvalue()
+
+
+@pytest.mark.parametrize("flags", [["--stages", "2"], ["--tensor-parallel", "2"]])
+def test_eval_model_refuses_multi_card_flags(one_rank_cli, flags, capsys):
+    """``--stages 2`` and ``--tensor-parallel 2`` run 2 gloo ranks (the
+    pipelined W8A8 perplexity, the tasks' requests spread over the ranks and
+    gathered) and rank 0 prints what one rank prints, the perplexity's
+    digits included; the report names the mesh."""
+    from autosmoothquant_tpu_torch.cli import eval_model
+
+    argv, want = one_rank_cli
+    capsys.readouterr()
+    eval_model.main(argv + flags, device="cpu")
+    out, err = capsys.readouterr()
+    assert out == want
+    report = json.loads(err.strip().splitlines()[-1])["eval_model"]
+    size = {"--stages": "stage", "--tensor-parallel": "model"}[flags[0]]
+    assert report["mesh"][size] == 2

@@ -47,7 +47,8 @@ def test_port_imports_no_jax_side_module():
                  "utils.datautils", "eval.ppl", "eval.harness", "eval.tasks",
                  "eval.lm_adapter", "eval.lm_eval_adapter", "eval.custom_metrics",
                  "utils.chat", "utils.eval_utils", "utils.seed", "utils.profiling",
-                 "cli.eval_model", "shard.mesh", "shard.sharding", "serve.multihost"):
+                 "cli.eval_model", "shard.mesh", "shard.sharding", "shard.pipeline",
+                 "serve.multihost"):
         assert f"autosmoothquant_tpu_torch.{name}" in out["modules"]
 
 

@@ -230,3 +230,76 @@ def test_fp8_per_token_zero_row_is_zero_not_nan():
     keep = [0, 1, 3]
     np.testing.assert_array_equal(_tbytes(q)[keep], _jbytes(jq)[keep])
     _eq(s.numpy()[keep], np.asarray(js)[keep])
+
+
+def _exact_sqrt(x):
+    return np.sqrt(x.astype(np.float64)).astype(np.float32)
+
+
+def _exact_rsqrt(x):
+    return (1.0 / np.sqrt(x.astype(np.float64))).astype(np.float32)
+
+
+def _two_rsqrt(x):
+    """1 / sqrt(x) as two correctly rounded f32 operations (numpy's f32 sqrt
+    and division are IEEE's)."""
+    return (np.float32(1) / np.sqrt(x)).astype(np.float32)
+
+
+def _host_inputs():
+    """4096 seeded f32 values over the ranges the norms and the smoothing see
+    (variances plus eps, absmax statistics), whole binades of both parities
+    of exponent included."""
+    rng = np.random.default_rng(11)
+    return np.concatenate([rng.uniform(0.1, 4.0, 2048),
+                           np.exp(rng.uniform(np.log(1e-6), np.log(1e4), 2048))]
+                          ).astype(np.float32)
+
+
+@pytest.mark.parametrize("which", ["sqrt", "rsqrt", "recip_sqrt"])
+def test_plain_sqrt_and_rsqrt_are_correctly_rounded_on_this_host(which):
+    """The port's plain square roots (the smoothing's ``sqrt_rn``), the
+    correctly rounded reciprocal square root (LayerNorm's ``rsqrt_rn``) and
+    the reciprocal of the correctly rounded square root (RMSNorm's
+    ``recip_sqrt_rn``, the kernels' ``1.f / sqrtf``) equal their exactly
+    rounded definitions: torch's own f32 ``sqrt`` is not correctly rounded
+    on every CPU (an ulp off in hundreds of these values on an AVX-512 host),
+    and an ulp there flips int8 roundings downstream. A host whose torch
+    rounds these differently fails here rather than in a perplexity."""
+    x = _host_inputs()
+    fn, want = {"sqrt": (tm.sqrt_rn, _exact_sqrt), "rsqrt": (tm.rsqrt_rn, _exact_rsqrt),
+                "recip_sqrt": (tm.recip_sqrt_rn, _two_rsqrt)}[which]
+    _eq(fn(torch.from_numpy(x)).numpy(), want(x))
+
+
+def test_plain_norms_take_the_correctly_rounded_rsqrt():
+    """LayerNorm and K6's plain version scale each row by the correctly
+    rounded 1 / sqrt(var + eps) of their own variance; RMSNorm and K2's plain
+    version by the reciprocal of its correctly rounded square root (the
+    kernels' bits); the smoothing's alpha-0.5 scales are quotients of
+    correctly rounded square roots."""
+    from autosmoothquant_tpu_torch.kernels import fused
+    from autosmoothquant_tpu_torch.models.common import layer_norm
+    from autosmoothquant_tpu_torch.quant.smooth import compute_smooth_scale
+
+    rng = np.random.default_rng(12)
+    x = rng.normal(size=(512, 64)).astype(np.float32)
+    ones = torch.ones(64)
+    xt = torch.from_numpy(x)
+    var = (xt * xt).mean(dim=-1, keepdim=True).numpy()
+    _eq(fused.rms_norm(xt, ones, 1e-6).numpy(), x * _two_rsqrt(var + np.float32(1e-6)))
+    c = xt - xt.mean(dim=-1, keepdim=True)
+    cv = (c * c).mean(dim=-1, keepdim=True).numpy()
+    want = c.numpy() * _exact_rsqrt(cv + np.float32(1e-5))
+    _eq(layer_norm(xt, ones, torch.zeros(64), 1e-5).numpy(), want)
+    zero = torch.zeros_like(xt)
+    h, q = fused.fused_add_layernorm_quant_plain(xt, zero, ones * 20, torch.zeros(64), eps=1e-5)
+    _eq(q.numpy(), np.clip(np.round(want * np.float32(20)), -128, 127).astype(np.int8))
+    h, q = fused.fused_add_rmsnorm_quant_plain(xt, zero, ones * 20, eps=1e-6)
+    want = x * _two_rsqrt(var + np.float32(1e-6)) * np.float32(20)
+    _eq(q.numpy(), np.clip(np.round(want), -128, 127).astype(np.int8))
+    act = np.abs(rng.normal(size=64)).astype(np.float32) + 0.1
+    w = rng.normal(size=(64, 32)).astype(np.float32)
+    wmax = np.maximum(np.abs(w).max(axis=1), np.float32(1e-5))
+    _eq(compute_smooth_scale(torch.from_numpy(act), [torch.from_numpy(w)]).numpy(),
+        np.maximum(_exact_sqrt(act) / _exact_sqrt(wmax), np.float32(1e-5)))

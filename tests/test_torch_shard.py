@@ -51,13 +51,48 @@ def test_rank_layout_matches_jax_make_mesh(data, model, expert):
             assert (np.delete(coords, i, axis=1) == np.delete(coords, i, axis=1)[0]).all()
 
 
+# (stage, data, model, expert) over 8 devices, and over fewer
+STAGE_LAYOUTS = [(2, 1, 4, None), (4, 1, 2, None), (2, 2, 2, None), (2, 1, None, 2),
+                 (8, 1, 1, None), (2, 1, 1, None)]
+
+
+@pytest.mark.parametrize("stage,data,model,expert", STAGE_LAYOUTS)
+def test_stage_layout_matches_jax_make_mesh(stage, data, model, expert):
+    """With a stage axis (outermost): rank r sits where JAX's ``make_mesh``
+    puts device r, and each stage line holds the ranks that differ in their
+    stage alone."""
+    import jax
+    from autosmoothquant_tpu.shard import make_mesh
+    from autosmoothquant_tpu_torch.shard.mesh import axis_lines, layout_mesh, mesh_axes, rank_grid
+
+    n = 2 if (stage, data, model) == (2, 1, 1) else 8
+    devices = jax.devices()[:n]
+    jm = make_mesh(data=data, model=model, expert=expert, stage=stage, devices=devices)
+    names, sizes = mesh_axes(n, data, model, expert, stage)
+    assert names == tuple(jm.axis_names) and names[0] == "stage"
+    assert sizes == tuple(jm.devices.shape)
+    ids = np.vectorize(lambda d: devices.index(d))(jm.devices)
+    assert np.array_equal(rank_grid(sizes), ids)
+    for r in range(n):
+        mesh = layout_mesh(data, model, expert, rank=r, n=n, stage=stage)
+        assert [mesh.coords[a] for a in names] == list(np.argwhere(ids == r)[0])
+    for line in axis_lines(sizes, 0):
+        assert [np.unravel_index(r, sizes)[0] for r in line] == list(range(stage))
+
+
 def test_mesh_refuses_as_jax_and_stage_names_its_item():
+    """Sizes that do not multiply to the ranks raise, as JAX asserts: a stage
+    axis of 2 over one process among them; one rank builds a mesh whose
+    collectives are the identity, a stage axis of 1 included."""
     from autosmoothquant_tpu_torch.shard.mesh import make_mesh, mesh_axes
 
     with pytest.raises(ValueError):
         mesh_axes(8, data=3, model=3)
-    with pytest.raises(NotImplementedError, match="item 17b"):
-        make_mesh(stage=2)
+    with pytest.raises(ValueError, match="not divisible"):
+        make_mesh(stage=2, devices=["cpu"])
+    staged = make_mesh(stage=1, devices=["cpu"])
+    assert staged.shape == {"stage": 1, "data": 1, "model": 1}
+    assert staged.axis("stage").broadcast(torch.ones(2), 0).tolist() == [1.0, 1.0]
     one = make_mesh(devices=["cpu"])
     assert one.shape == {"data": 1, "model": 1} and one.axis("model").all_reduce(
         torch.ones(2)).tolist() == [1.0, 1.0]
