@@ -289,12 +289,11 @@ def _rank(args, device_type, world):
     import torch.distributed as dist
 
     from ..shard.mesh import make_mesh
+    from . import rank_devices
 
     rank = dist.get_rank()
-    if device_type == "cpu":
-        devices = ["cpu"] * world
-    else:
-        devices = [f"cuda:{r % torch.cuda.device_count()}" for r in range(world)]
+    devices = rank_devices(world, device_type)
+    if device_type == "cuda":
         torch.cuda.set_device(torch.device(devices[rank]))
     mesh = make_mesh(model=args.tensor_parallel or None,
                      stage=args.stages if args.stages > 1 else None, devices=devices)
@@ -308,10 +307,8 @@ def main(argv=None, *, device="cuda"):
     """Run the CLI on ``device`` (the card unless the caller asks for the
     CPU); returns the results it printed."""
     from ..runtime import resolve_device
-    from . import refuse_unported
 
     args = parse_args(argv)
-    refuse_unported(args)
     dev = resolve_device(device)
     world = max(args.stages, 1) * max(args.tensor_parallel, 1)
     if world == 1:

@@ -54,12 +54,13 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def tp_degree(tp: int, device: str) -> int:
+def tp_degree(tp: int, device: str, share: bool = False) -> int:
     """The ranks ``--tp`` asks for: 0 takes every visible card (1 on the CPU
-    or with one card); more than the visible cards raises ValueError."""
+    or with one card); more than the visible cards raises ValueError, unless
+    ``share`` (ranks may share a card: gloo)."""
     visible = torch.cuda.device_count() if device == "cuda" else 1
     n = tp if tp else max(visible, 1)
-    if device == "cuda" and n > max(visible, 1):
+    if device == "cuda" and not share and n > max(visible, 1):
         raise ValueError(f"--tp {n}: only {visible} card(s) visible")
     return n
 
@@ -106,9 +107,10 @@ def _rank(args, device, compute_dtype, kv_dtype, tp) -> str:
     import torch.distributed as dist
 
     from ..shard.mesh import make_mesh
+    from . import rank_devices
 
     rank = dist.get_rank()
-    devices = ["cpu"] * tp if device == "cpu" else [f"cuda:{r}" for r in range(tp)]
+    devices = rank_devices(tp, device)
     if device == "cuda":
         torch.cuda.set_device(rank)
     mesh = make_mesh(data=1, model=tp, devices=devices)
@@ -119,10 +121,7 @@ def main(argv=None, *, device=None, compute_dtype=torch.bfloat16, kv_dtype=None)
     """Run the CLI; ``device`` (None: ``--device``), ``compute_dtype`` and
     ``kv_dtype`` (None: ``--kv-dtype``'s; int8 always wins) let a caller run
     the plain versions on the CPU."""
-    from . import refuse_unported
-
     args = parse_args(argv)
-    refuse_unported(args, allow=("tp",))
     device = device or args.device
     tp = tp_degree(args.tp, torch.device(device).type)
     if tp == 1:

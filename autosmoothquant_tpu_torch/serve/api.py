@@ -46,11 +46,33 @@ later device call fails. Once a tick's exception reads as a CUDA error, or
 the device no longer synchronizes after it, the scheduler stops driving the
 engine: every request in flight and every later request and prefix
 registration fails at once with that error's text, and /health answers 503.
+
+Over ranks (an engine whose ``mesh`` spans more than one process, the
+reference's ``serve_model --tp``). The server runs on rank 0; every other
+rank runs :func:`follow` over its own engine. Each turn of rank 0's
+scheduler that has work is one ``serve/multihost.py:TickPlan`` (the drained
+prefix operations, cancels and checked submits, and whether it ticks),
+broadcast before rank 0 applies it; every rank applies it with
+:func:`apply_plan`, so every engine sees the same calls in the same order
+and stays in step on the collectives inside its ticks (greedy and sampled
+alike where the ranks' logits are bit-equal, as W8A8's are). While idle,
+rank 0 sends an empty plan every ``HEARTBEAT_S`` seconds, so no rank waits
+longer than that, far inside any process group's timeout. A request that
+``submit`` would refuse (``new_request``) and a malformed prefix operation
+(``check_prefix``) are checked on rank 0 and fail their client alone; no
+rank applies them. Any other exception on any rank
+(a rank that dies, or a tick that raises) cannot be shown to leave the
+ranks in step, so it stops the server as a lost device does, where the
+reference resets its slots and serves on: a follower that raises ends its
+process, and rank 0's next collective with it fails (gloo reports a closed
+connection at once), or the caller tells rank 0 through :meth:`ServingAPI.lose`.
+Stopping rank 0 sends a stop plan, and each follower returns.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import sys
 import threading
 import time
@@ -62,6 +84,13 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from .batching import PrefixCacheFull
+from .multihost import TickPlan, broadcast_plan
+
+# seconds between the empty plans an idle server over ranks sends
+HEARTBEAT_S = 1.0
+# what a prefix registration raises alike on every rank: the registering
+# client hears it, and the ranks stay in step
+PREFIX_REFUSALS = (PrefixCacheFull, ValueError, AssertionError)
 
 
 def cuda_context_lost(engine, exc: BaseException) -> bool:
@@ -83,14 +112,92 @@ def cuda_context_lost(engine, exc: BaseException) -> bool:
     return False
 
 
+def engine_live(eng) -> bool:
+    """Whether the engine holds a request it has not finished."""
+    return bool(eng.waiting or eng._admitting
+                or any(s is not None for s in eng.slot_req))
+
+
+def apply_plan(eng, plan: TickPlan, inflight: Dict[Any, Any], ranks: int = 1,
+               on_prefix=None, on_submit=None) -> None:
+    """Apply one scheduler turn to ``eng``: the prefix operations in order,
+    the cancels, the submits, then a tick where ``plan.step``. ``inflight``
+    ({uid: Request}) gains the submits and loses the cancels.
+    ``on_prefix(i, exc or None)`` hears how prefix operation i went and
+    ``on_submit(uid, request)`` each new request. A prefix registration that
+    raises goes to ``on_prefix`` alone; over ``ranks`` > 1 only a refusal
+    (``PREFIX_REFUSALS``) does, and anything else raises."""
+    for i, (pid, toks) in enumerate(plan.prefixes):
+        try:
+            if toks is None:
+                eng.drop_prefix(pid)
+            else:
+                eng.register_prefix(pid, toks)
+        except Exception as e:
+            if ranks > 1 and not isinstance(e, PREFIX_REFUSALS):
+                raise
+            if on_prefix is not None:
+                on_prefix(i, e)
+            continue
+        if on_prefix is not None:
+            on_prefix(i, None)
+    for uid in plan.cancels:
+        inflight.pop(uid, None)
+        eng.cancel(uid)
+    for uid, prompt, kw in plan.submits:
+        inflight[uid] = eng.submit(uid, prompt, **kw)
+        if on_submit is not None:
+            on_submit(uid, inflight[uid])
+    if plan.step:
+        eng.step()
+
+
+def _finished(inflight: Dict[Any, Any]) -> List[Any]:
+    return [uid for uid, req in inflight.items() if req.done]
+
+
+@torch.inference_mode()
+def follow(engine, on_finish=None) -> None:
+    """A rank other than 0 of a server over ranks: receive rank 0's plans and
+    apply them to this rank's ``engine`` (built like rank 0's, on the same
+    mesh) until rank 0 stops, then return. Raises where a plan raises or
+    rank 0 is gone (its broadcast fails); the caller must then end the
+    process, so that rank 0's next collective with it fails too.
+    ``on_finish(uid, request)`` sees each finished request; its outputs are
+    otherwise discarded."""
+    mesh = engine.mesh
+    inflight: Dict[Any, Any] = {}
+    while True:
+        plan = broadcast_plan(None, mesh)
+        if plan.stop:
+            return
+        apply_plan(engine, plan, inflight, mesh.size)
+        for uid in _finished(inflight):
+            req = inflight.pop(uid)
+            if on_finish is not None:
+                on_finish(uid, req)
+
+
 class ServingAPI:
     """Owns a ContinuousEngine and a scheduler thread; thread-safe submit.
-    ``fatal`` holds the error text once the device is lost (None before)."""
+    ``fatal`` holds the error text once the device (or a rank) is lost (None
+    before). Over ranks (the engine's ``mesh`` spans several) it runs on
+    rank 0 and sends each turn to the others (the module's docstring).
+    ``on_finish(uid, request)`` sees each finished request; ``plan_log``, a
+    list, gets every plan rank 0 applies (applied to another engine in
+    order, they make the same calls)."""
 
-    def __init__(self, engine, tokenizer=None, idle_sleep: float = 0.002):
+    def __init__(self, engine, tokenizer=None, idle_sleep: float = 0.002,
+                 on_finish=None, plan_log: Optional[list] = None):
         self.engine = engine
         self.tokenizer = tokenizer
         self.idle_sleep = idle_sleep
+        mesh = getattr(engine, "mesh", None)
+        self.ranks = mesh.size if mesh is not None else 1
+        if self.ranks > 1 and mesh.rank != 0:
+            raise ValueError("the server runs on rank 0; other ranks run follow(engine)")
+        self.on_finish = on_finish
+        self.plan_log = plan_log
         self._lock = threading.Lock()
         self._inbox: List[dict] = []
         self._events: Dict[int, threading.Event] = {}
@@ -240,99 +347,146 @@ class ServingAPI:
             perr.append(self.fatal)
             pev.set()
 
+    def _fail(self, uids, err: str) -> None:
+        """Fail the waiting clients of ``uids`` with ``err``."""
+        with self._lock:
+            for uid in uids:
+                self._handles.pop(uid, None)
+                ev = self._events.get(uid)
+                if ev is not None and uid not in self._results:
+                    self._errors[uid] = err
+                    ev.set()
+
+    def lose(self, err: str) -> None:
+        """Stop serving for good (a rank or the device is lost): every
+        request in flight or queued, and every later one, fails with
+        ``err``'s text, and /health answers 503. Safe from any thread; the
+        scheduler drives the engine no more."""
+        if self.fatal is None:
+            self.fatal = err
+        with self._lock:
+            uids = list(self._events)
+        self._fail(uids, self.fatal)
+        self._fail_queued()
+
+    def _drain(self, eng, inflight) -> tuple:
+        """Take the inboxes into this turn's plan: (plan, the prefix
+        operations' (event, error list) in the plan's order). A request
+        ``new_request`` refuses, or a prefix operation ``check_prefix``
+        refuses, fails its client here, and a request cancelled in the same
+        drain is dropped: none of them reaches any rank."""
+        with self._lock:
+            new, self._inbox = self._inbox, []
+            cancels, self._cancels = self._cancels, []
+            prefixes, self._prefix_inbox = self._prefix_inbox, []
+        plan = TickPlan(cancels=cancels)
+        waiters = []
+        for pid, ptoks, pev, perr, pcancel in prefixes:
+            if pcancel.is_set():  # registering thread timed out
+                continue
+            try:
+                eng.check_prefix(pid, ptoks)
+            except Exception as e:  # its client hears a 400
+                perr.append(f"ValueError: {e}")
+                pev.set()
+                continue
+            plan.prefixes.append((pid, None if ptoks is None else list(ptoks)))
+            waiters.append((pev, perr))
+        cancelled = set(cancels)
+        for r in new:
+            uid = r.pop("uid")
+            if uid in cancelled:
+                # deregistered (client timeout) in the same drain:
+                # submitting it anyway would decode a zombie whose
+                # result nobody collects
+                continue
+            prompt = r.pop("prompt")
+            # a malformed request must fail ONLY its own client — not hang
+            # it for its full timeout, and not take the rest of the
+            # drained batch down with it
+            try:
+                eng.new_request(uid, prompt, **r)
+            except Exception as e:
+                self._fail([uid], f"{type(e).__name__}: {e}")
+                continue
+            plan.submits.append((uid, prompt, r))
+        plan.step = bool(plan.submits or inflight) or engine_live(eng)
+        return plan, waiters
+
+    def _sample_rate(self, eng) -> None:
+        # rate window advances even when idle (throttled), so /stats decays
+        # to 0 instead of reporting the last burst's throughput forever
+        now = time.monotonic()
+        with self._lock:
+            if not self._rate_window or now - self._rate_window[-1][0] > 0.25:
+                self._rate_window.append((now, eng.decode_tokens_generated))
+            while len(self._rate_window) > 2 and now - self._rate_window[0][0] > 5.0:
+                self._rate_window.pop(0)
+
     @torch.inference_mode()
     def _loop(self):
         eng = self.engine
+        mesh = getattr(eng, "mesh", None)
         inflight: Dict[int, Any] = {}
+        sent = -math.inf  # when rank 0 last sent a plan: the first turn sends one
+
+        def on_submit(uid, req):
+            with self._lock:
+                self._handles[uid] = req
+
         while not self._stop.is_set():
             if self.fatal is not None:
                 self._fail_queued()
                 time.sleep(self.idle_sleep)
                 continue
+            plan, waiters = None, []
+
+            def on_prefix(i, exc):
+                pev, perr = waiters[i]
+                if exc is not None:
+                    perr.append(f"{type(exc).__name__}: {exc}")
+                pev.set()
+
             try:
-                with self._lock:
-                    new, self._inbox = self._inbox, []
-                    cancels, self._cancels = self._cancels, []
-                    prefixes, self._prefix_inbox = self._prefix_inbox, []
-                for pid, ptoks, pev, perr, pcancel in prefixes:
-                    if pcancel.is_set():  # registering thread timed out
-                        continue
-                    # a failed registration must not poison inflight work:
-                    # report to the registering thread only
-                    try:
-                        if ptoks is None:
-                            eng.drop_prefix(pid)
-                        else:
-                            eng.register_prefix(pid, ptoks)
-                    except Exception as e:
-                        perr.append(f"{type(e).__name__}: {e}")
-                    finally:
-                        pev.set()
-                for uid in cancels:
-                    inflight.pop(uid, None)
-                    eng.cancel(uid)
-                cancelled = set(cancels)
-                for r in new:
-                    uid = r.pop("uid")
-                    if uid in cancelled:
-                        # deregistered (client timeout) in the same drain:
-                        # submitting it anyway would decode a zombie whose
-                        # result nobody collects
-                        continue
-                    # a malformed request must fail ONLY its own client —
-                    # not hang it for its full timeout, and not take the
-                    # rest of the drained batch down with it
-                    try:
-                        inflight[uid] = eng.submit(uid, **r)
-                    except Exception as e:
-                        with self._lock:
-                            self._errors[uid] = f"{type(e).__name__}: {e}"
-                            ev = self._events.get(uid)
-                        if ev is not None:
-                            ev.set()
-                        continue
-                    with self._lock:
-                        self._handles[uid] = inflight[uid]
-                # rate window advances even when idle (throttled), so
-                # /stats decays to 0 instead of reporting the last burst's
-                # throughput forever
-                now = time.monotonic()
-                with self._lock:
-                    if (not self._rate_window
-                            or now - self._rate_window[-1][0] > 0.25):
-                        self._rate_window.append(
-                            (now, eng.decode_tokens_generated))
-                    while (len(self._rate_window) > 2
-                           and now - self._rate_window[0][0] > 5.0):
-                        self._rate_window.pop(0)
-                busy = (inflight or eng.waiting or eng._admitting
-                        or any(s is not None for s in eng.slot_req))
-                if not busy:
+                plan, waiters = self._drain(eng, inflight)
+                self._sample_rate(eng)
+                if not (plan.prefixes or plan.cancels or plan.submits or plan.step):
+                    if self.ranks > 1 and time.monotonic() - sent >= HEARTBEAT_S:
+                        broadcast_plan(plan, mesh)
+                        sent = time.monotonic()
                     time.sleep(self.idle_sleep)
                     continue
-                eng.step()
+                if self.ranks > 1:
+                    broadcast_plan(plan, mesh)
+                    sent = time.monotonic()
+                if self.plan_log is not None:
+                    self.plan_log.append(plan)
+                apply_plan(eng, plan, inflight, self.ranks, on_prefix, on_submit)
             except Exception as e:  # fail inflight FAST, keep serving
                 traceback.print_exc(file=sys.stderr)
                 err = f"{type(e).__name__}: {e}"
-                if cuda_context_lost(eng, e):
-                    # no later device call can succeed: stop driving the
-                    # engine and fail everything from here on
-                    self.fatal = err
-                with self._lock:
-                    for uid in list(inflight):
-                        self._handles.pop(uid, None)
-                        self._errors[uid] = err
-                        ev = self._events.get(uid)
-                        if ev is not None:
-                            ev.set()
+                pending = set(inflight)
+                if plan is not None:
+                    pending |= {uid for uid, _, _ in plan.submits}
+                self._fail(pending, err)
+                for pev, perr in waiters:
+                    if not pev.is_set():
+                        perr.append(err)
+                        pev.set()
                 inflight.clear()
+                if self.ranks > 1 or cuda_context_lost(eng, e):
+                    # no later device call can succeed, or the ranks may no
+                    # longer be in step: stop driving the engine and fail
+                    # everything from here on
+                    self.lose(err)
                 # a poisoned request must not wedge the scheduler: evict
                 # every slot so the next tick starts clean
                 eng.reset_slots()
                 continue
-            done = [uid for uid, req in inflight.items() if req.done]
-            for uid in done:
+            for uid in _finished(inflight):
                 req = inflight.pop(uid)
+                if self.on_finish is not None:
+                    self.on_finish(uid, req)
                 out = req.output
                 if (req.eos_token_id is not None
                         and req.eos_token_id in out):
@@ -347,6 +501,11 @@ class ServingAPI:
                         self._handles.pop(uid, None)
                 if ev is not None:
                     ev.set()
+        if self.ranks > 1 and self.fatal is None:
+            try:  # the other ranks' follow() returns
+                broadcast_plan(TickPlan(stop=True), mesh)
+            except Exception:
+                traceback.print_exc(file=sys.stderr)
 
     def start(self):
         assert self._thread is None, "already started"
@@ -977,11 +1136,13 @@ class _Server(ThreadingHTTPServer):
 
 
 def serve(engine, host: str = "127.0.0.1", port: int = 8000, tokenizer=None,
-          model_id: str = "autosmoothquant-tpu") -> tuple:
+          model_id: str = "autosmoothquant-tpu", **api_kw) -> tuple:
     """Start the scheduler thread + HTTP server; returns (api, httpd).
     Callers run ``httpd.serve_forever()`` (or poke it from tests) and shut
     down with ``httpd.shutdown(); api.stop()``. ``model_id`` is what
-    /v1/models and completion envelopes report."""
-    api = ServingAPI(engine, tokenizer=tokenizer).start()
+    /v1/models and completion envelopes report; ``api_kw`` go to
+    :class:`ServingAPI` (``on_finish``, ``plan_log``). Over
+    ranks this runs on rank 0, and every other rank runs :func:`follow`."""
+    api = ServingAPI(engine, tokenizer=tokenizer, **api_kw).start()
     httpd = _Server((host, port), _make_handler(api, model_id))
     return api, httpd

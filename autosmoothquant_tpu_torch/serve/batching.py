@@ -334,28 +334,57 @@ class ContinuousEngine(GraphedSteps):
 
     # -- scheduler ---------------------------------------------------------------
 
-    def submit(self, uid, prompt: List[int], max_new_tokens: int = 64,
-               eos_token_id: Optional[int] = None, temperature: float = 0.0,
-               top_k: int = 0, top_p: float = 1.0,
-               repetition_penalty: float = 1.0, stop=None,
-               prefix=None, want_logprobs: bool = False) -> Request:
-        """Queue a request. A malformed stop or prompt raises ValueError here,
-        never inside a tick (where it would fail every slot)."""
+    def submit(self, uid, prompt: List[int], *args, **kw) -> Request:
+        """Queue a request (the arguments of :meth:`new_request`). A malformed
+        stop, prompt or prefix id raises ValueError here, never inside a tick
+        (where it would fail every slot)."""
+        req = self.new_request(uid, prompt, *args, **kw)
+        self.waiting.append(req)
+        return req
+
+    def new_request(self, uid, prompt: List[int], max_new_tokens: int = 64,
+                    eos_token_id: Optional[int] = None, temperature: float = 0.0,
+                    top_k: int = 0, top_p: float = 1.0,
+                    repetition_penalty: float = 1.0, stop=None,
+                    prefix=None, want_logprobs: bool = False) -> Request:
+        """The Request :meth:`submit` queues, checked and not queued: the
+        facade over ranks checks a request on rank 0 before any rank
+        submits it (``serve/api.py``)."""
+        if prefix is not None:
+            self.check_prefix(prefix)
         if stop is not None:
             if not (isinstance(stop, (list, tuple)) and all(
                     isinstance(s, (list, tuple)) and s
                     and all(isinstance(t, int) for t in s) for s in stop)):
                 raise ValueError("stop must be a non-empty list of token-id lists")
             stop = [list(s) for s in stop]
-        ids = np.asarray(list(prompt), dtype=np.int64)
-        if ids.size == 0:
+        if not list(prompt):
             raise ValueError("prompt must be non-empty")
+        self._check_ids(prompt, "prompt")
+        return Request(uid, list(prompt), max_new_tokens, eos_token_id, temperature,
+                       top_k, top_p, repetition_penalty, stop, prefix, want_logprobs)
+
+    def _check_ids(self, tokens, what: str) -> None:
+        ids = np.asarray(list(tokens), dtype=np.int64)
         if ids.ndim != 1 or int(ids.min()) < 0 or int(ids.max()) >= self.cfg.vocab_size:
-            raise ValueError(f"prompt token ids must be in [0, {self.cfg.vocab_size})")
-        req = Request(uid, list(prompt), max_new_tokens, eos_token_id, temperature,
-                      top_k, top_p, repetition_penalty, stop, prefix, want_logprobs)
-        self.waiting.append(req)
-        return req
+            raise ValueError(f"{what} token ids must be in [0, {self.cfg.vocab_size})")
+
+    def check_prefix(self, prefix_id, tokens: Optional[List[int]] = None) -> None:
+        """Raise ValueError where the operation itself is malformed: an
+        unhashable id, or registration ``tokens`` (None: a drop) that do not
+        fit max_seq or the vocabulary. :meth:`register_prefix` checks its
+        arguments here, and the facade over ranks checks each prefix
+        operation on rank 0 before any rank applies it (``serve/api.py``)."""
+        try:
+            hash(prefix_id)
+        except TypeError:
+            raise ValueError("prefix id must be a string or a number") from None
+        if tokens is None:
+            return
+        toks = list(tokens)
+        if not 0 < len(toks) <= self.max_seq - 1:
+            raise ValueError(f"prefix must fit max_seq ({len(toks)} vs {self.max_seq})")
+        self._check_ids(toks, "prefix")
 
     @torch.inference_mode()
     def register_prefix(self, prefix_id, tokens: List[int]) -> None:
@@ -365,8 +394,7 @@ class ContinuousEngine(GraphedSteps):
         the least recently used one is evicted (PrefixCacheFull when there is
         none to evict)."""
         toks = list(tokens)
-        if not 0 < len(toks) <= self.max_seq - 1:
-            raise ValueError(f"prefix must fit max_seq ({len(toks)} vs {self.max_seq})")
+        self.check_prefix(prefix_id, toks)
         if (prefix_id not in self._prefixes
                 and len(self._prefixes) >= self.max_prefixes
                 and not self._evict_lru_prefix()):

@@ -17,11 +17,18 @@ the JAX package:
 The marshalling runs on CPU tensors over a gloo group: the world's where
 the process group is gloo, else the mesh's ``host_group`` (broadcast), and
 the world's for the pool's replicas, each an engine without a mesh.
+
+The HTTP facade over a mesh (``serve/api.py``) sends each turn of rank 0's
+scheduler to the other ranks as one :class:`TickPlan`
+(:func:`broadcast_plan`): pickled, its length first. It has no
+fixed caps: any stop sequences, any JSON prefix id and any number of
+requests cross, as they do into the JAX package's one-process server.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -109,6 +116,32 @@ def broadcast_requests(requests: Optional[Sequence[Request]], max_prompt: int = 
                            top_p=float(samp[i, 1]), repetition_penalty=float(samp[i, 2]),
                            stop=stop, want_logprobs=bool(meta[i, 4]), prefix=prefix))
     return out
+
+
+@dataclasses.dataclass
+class TickPlan:
+    """One turn of the facade's scheduler, applied in this order on every
+    rank (``serve/api.py:apply_plan``): prefix registrations (tokens) and
+    drops (None) by id, cancels by uid, submits as (uid, prompt, the
+    engine's ``submit`` keywords), then a tick where ``step``. ``stop``
+    ends the other ranks' loops. A plan with nothing in it is a heartbeat."""
+
+    prefixes: List[Tuple[Any, Optional[List[int]]]] = dataclasses.field(default_factory=list)
+    cancels: List[Any] = dataclasses.field(default_factory=list)
+    submits: List[Tuple[Any, List[int], Dict[str, Any]]] = dataclasses.field(
+        default_factory=list)
+    step: bool = False
+    stop: bool = False
+
+
+def broadcast_plan(plan: Optional[TickPlan], mesh=None) -> TickPlan:
+    """Rank 0's ``plan`` on every rank of the mesh (other ranks pass None),
+    pickled by ``broadcast_object_list`` (its length, then its bytes) on the
+    mesh's gloo ``host_group``, or the world's (None) where the process
+    group is gloo. Blocks until rank 0 sends."""
+    box = [plan]
+    dist.broadcast_object_list(box, src=0, group=getattr(mesh, "host_group", None))
+    return box[0]
 
 
 class MultiHostEngine:

@@ -453,8 +453,7 @@ class PagedEngine(ContinuousEngine):
         least recently used prefixes are evicted (PrefixCacheFull when that
         cannot help)."""
         toks = list(tokens)
-        if not 0 < len(toks) <= self.max_seq - 1:
-            raise ValueError(f"prefix must fit max_seq ({len(toks)} vs {self.max_seq})")
+        self.check_prefix(prefix_id, toks)
         if (prefix_id not in self._prefixes
                 and len(self._prefixes) >= self.max_prefixes
                 and not self._evict_lru_prefix(keep=prefix_id)):

@@ -31,6 +31,7 @@ failure.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import socket
 import time
 import traceback
@@ -231,15 +232,18 @@ def sharded(mesh: Optional[Mesh]) -> bool:
 
 
 def init_distributed(coordinator: Optional[str] = None, num_processes: Optional[int] = None,
-                     process_id: Optional[int] = None, backend: str = "gloo") -> None:
+                     process_id: Optional[int] = None, backend: str = "gloo",
+                     timeout: Optional[float] = None) -> None:
     """The process group of ``num_processes`` ranks (JAX ``init_distributed``
     on ``torch.distributed.init_process_group``); ``coordinator`` is
-    "host:port" or a ``tcp://`` address. Nothing for one process."""
+    "host:port" or a ``tcp://`` address; ``timeout`` the group's in seconds
+    (None: torch's default for the backend). Nothing for one process."""
     if not num_processes or num_processes <= 1:
         return
     addr = coordinator if "://" in coordinator else f"tcp://{coordinator}"
+    kw = {} if timeout is None else {"timeout": datetime.timedelta(seconds=timeout)}
     dist.init_process_group(backend, init_method=addr, world_size=num_processes,
-                            rank=process_id)
+                            rank=process_id, **kw)
 
 
 def make_mesh(data: int = 1, model: Optional[int] = None, expert: Optional[int] = None,

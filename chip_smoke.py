@@ -103,16 +103,17 @@ Phases (any failure ends the run with a nonzero exit code):
   http     the serving entry points on that W8A8 TinyLlama: the artifact
            written by the port's save_quantized (with a tokenizer.model by
            its write_model_proto) and read back by load_any_quantized bit
-           for bit; the test_model CLI in its own process equal to
-           Engine.generate; serve() in process over a graph ContinuousEngine
+           for bit; serve() in process over a graph ContinuousEngine
            (max_batch 8, max_seq 512): every route with the reference's wire
            shape, streamed equal to plain, requests one at a time equal to
            the engine driven directly, 16 concurrent ones with logprobs by
            the batching phase's rule against the static engine, K1 (GEMV
            and tensor cores), K2 and K3 (causal and banded) launched, each
-           graph's replay 88 Int8 GEMV + 22 K2 on the device; the
-           serve_model CLI in
-           its own process: one reply equal to the in-process server's, the
+           graph's replay 88 Int8 GEMV + 22 K2 on the device; then, started
+           at once, the serve_model CLI in its own process by default,
+           with --paged and with --speculative-gamma, and the test_model CLI
+           (equal to Engine.generate): one reply equal to the in-process
+           server's, the
            batching phase's stream from 32 client threads (tok/s, time to
            first token p50 / p95, against the direct stream), SIGINT exits 0
            with no traceback
@@ -143,8 +144,9 @@ Phases (any failure ends the run with a nonzero exit code):
            K3, rmsnorm_quant), one engine a harness; at 2 layers every
            stock request's log-likelihood, greedy flag and tokens and a
            perplexity on the card against the CPU; eval_model --stages 2
-           (two gloo ranks on the card, in its own process) against the
-           one-card perplexity (EVAL_STAGES_RTOL), rank 0's launches exact
+           (two gloo ranks on the card, in its own process, run beside the
+           parallel phase's arms) against the one-card perplexity
+           (EVAL_STAGES_RTOL), rank 0's launches exact
   families Baichuan-2-13B (W8A8, fp8 e4m3, bf16), Gemma-2B (W8A8, bf16)
            and Mixtral-8x7B (W8A8, fp8 e4m3; about 47 GB each, bf16 does not
            fit) at full width and depth, one model at a time: Engine.generate b1,
@@ -163,7 +165,12 @@ Phases (any failure ends the run with a nonzero exit code):
            (TinyLlama W8A8 at stage=2: the pipelined forward of 4 windows of
            2048 at 2 and 4 microbatches and the three engines; at stage=2 x
            model=2: the pipelined forward and the static engine); tokens
-           equal, final hidden states bit-equal, launches exact
+           equal, final hidden states bit-equal, launches exact; the HTTP
+           server over ranks: serve() on rank 0 over the model=2
+           ContinuousEngine with rank 1 following its plans (the 8
+           requests at once and one streamed, tokens equal the twin's, each
+           rank's launches exact against a one-card replay of rank 0's
+           plans)
   timing   the launch floor (a one-element kernel); each kernel's time
            against its plain version, its library yardstick and its bound
            (K1 and K4 at M = 1, 2, 4 and 8 on their GEMV too; K2, K5 and K6
@@ -185,7 +192,8 @@ Phases (any failure ends the run with a nonzero exit code):
            beside their plain versions, SDPA (ALiBi: its bias as a float
            mask) and their bounds
 
-Every phase runs, in this order. The last two lines of standard output are
+Every phase runs, in this order, except e2e, which runs inside the parallel
+phase while its ranks' processes run. The last two lines of standard output are
 the kernel table ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
 
 Weights are random, drawn from seeded ``torch.Generator``s. The Llama
@@ -230,7 +238,10 @@ from autosmoothquant_tpu_torch.kernels.counters import launch_counters, read_cou
 
 PKG = "autosmoothquant_tpu_torch"
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "kernels", "e2e", "serve", "batching", "paged", "speculative",
+# the e2e phase runs inside the parallel phase, on this process while the
+# ranks' processes run (both check and time nothing: their walls are not
+# speeds)
+PHASES = ("device", "build", "kernels", "serve", "batching", "paged", "speculative",
           "http", "quantize", "eval", "families", "parallel", "timing")
 
 # NVIDIA H100 SXM data sheet (dense): HBM3 bandwidth and peak rates by type
@@ -296,6 +307,28 @@ class SmokeFailure(RuntimeError):
 def require(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+class Background:
+    """``fn(*args, **kw)`` run on a thread of its own; ``result()`` joins it
+    and returns its value, or raises what it raised."""
+
+    def __init__(self, fn, *args, **kw):
+        self.box = {}
+        self.thread = threading.Thread(target=self._run, args=(fn, args, kw), daemon=True)
+        self.thread.start()
+
+    def _run(self, fn, args, kw):
+        try:
+            self.box["value"] = fn(*args, **kw)
+        except BaseException as e:  # raised again by result()
+            self.box["error"] = e
+
+    def result(self):
+        self.thread.join()
+        if "error" in self.box:
+            raise self.box["error"]
+        return self.box["value"]
 
 
 def log(*a):
@@ -3658,16 +3691,30 @@ def check_concurrent(torch, replies, static, static_x, prompts):
         f"(limit {BATCH_LOGIT_NOISE})")
 
 
-def start_cli_server(path, tok_dir, extra=()):
+def spawn_cli_server(path, tok_dir, extra=()):
     """serve_model as users start it, in its own process, with ``extra``
-    flags: (process, port, stderr file)."""
+    flags (``tok_dir`` None: no tokenizer): (process, stderr file), not
+    waited for."""
     import tempfile
 
     err = tempfile.TemporaryFile(mode="w+")
+    tok = ("--tokenizer-path", tok_dir) if tok_dir else ()
     proc = subprocess.Popen(
         [sys.executable, "-m", f"{PKG}.cli.serve_model", "--quantized-model-path", path,
-         "--tokenizer-path", tok_dir, *SERVE_FLAGS, *extra],
+         *tok, *SERVE_FLAGS, *extra],
         stdout=subprocess.PIPE, stderr=err, text=True, cwd=ROOT)
+    return proc, err
+
+
+def start_cli_server(path, tok_dir, extra=()):
+    """serve_model as users start it, in its own process, with ``extra``
+    flags: (process, port, stderr file) once it answers /health."""
+    return await_cli_server(*spawn_cli_server(path, tok_dir, extra))
+
+
+def await_cli_server(proc, err):
+    """(process, port, stderr file) of a spawned serve_model once it printed
+    its address and answers /health."""
     deadline = time.time() + HTTP_TIMEOUT
     first = []
     reader = threading.Thread(target=lambda: first.append(proc.stdout.readline()), daemon=True)
@@ -3757,6 +3804,19 @@ def stop_cli_server(server, err):
         rc = "killed after 120 s"
     err.seek(0)
     return rc, err.read()
+
+
+def run_test_model(path, prompt):
+    """test_model as users run it, in its own process, on ``prompt``'s ids:
+    (the new token ids it printed, wall s)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"{PKG}.cli.test_model", "--quantized-model-path", path,
+         "--prompt-ids", ",".join(map(str, prompt)), "--max-new-tokens", str(CLI_NEW),
+         "--max-seq", "512"], capture_output=True, text=True, timeout=HTTP_TIMEOUT, cwd=ROOT)
+    require(proc.returncode == 0, f"test_model exited {proc.returncode}: {proc.stderr[-3000:]}")
+    return ([int(t) for t in proc.stdout.strip().splitlines()[-1].split()],
+            time.perf_counter() - t0)
 
 
 def check_cli_modes(path, prompts, want):
@@ -3867,16 +3927,6 @@ def phase_http(torch, results, direct, smi_line):
     mode_want = {m: [static.generate([p], GenerationConfig(max_new_tokens=HTTP_NEW))[0]
                      for p in ps] for m, ps in mode_prompts.items()}
     del static
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", f"{PKG}.cli.test_model", "--quantized-model-path", path,
-         "--prompt-ids", ",".join(map(str, cli_prompt)), "--max-new-tokens", str(CLI_NEW),
-         "--max-seq", "512"], capture_output=True, text=True, timeout=HTTP_TIMEOUT, cwd=ROOT)
-    require(proc.returncode == 0, f"test_model exited {proc.returncode}: {proc.stderr[-3000:]}")
-    cli_got = [int(t) for t in proc.stdout.strip().splitlines()[-1].split()]
-    log(f"  http test_model (own process, {time.perf_counter() - t0:.1f} s): {cli_got[:12]}...; "
-        f"equal to Engine.generate in process: {cli_got == cli_want}")
-    require(cli_got == cli_want, f"test_model printed {cli_got}; Engine.generate {cli_want}")
 
     # the facade in process, counted from the engine's construction
     counters = launch_counters()
@@ -3939,10 +3989,22 @@ def phase_http(torch, results, direct, smi_line):
     del eng, api, httpd
 
     # serve_model in its own process, as users start it: its radix tree and
-    # speculative modes, then its default
-    check_cli_modes(path, mode_prompts, mode_want)
+    # speculative modes and its default, started at once, and test_model
+    # meanwhile (its tokens against Engine.generate); the default server's
+    # stream runs after the others have stopped
     t0 = time.perf_counter()
-    server, port, err = start_cli_server(path, path)
+    default = spawn_cli_server(path, path)
+    try:
+        cli = Background(run_test_model, path, cli_prompt)
+        check_cli_modes(path, mode_prompts, mode_want)
+        cli_got, cli_s = cli.result()
+        log(f"  http test_model (own process, {cli_s:.1f} s, beside the servers' start): "
+            f"{cli_got[:12]}...; equal to Engine.generate in process: {cli_got == cli_want}")
+        require(cli_got == cli_want, f"test_model printed {cli_got}; Engine.generate {cli_want}")
+    except BaseException:
+        stop_cli_server(*default)
+        raise
+    server, port, err = await_cli_server(*default)
     started_s = time.perf_counter() - t0
     try:
         status, out = http(port, "/generate", {"prompt": alone[0], "max_new_tokens": HTTP_NEW})
@@ -3952,7 +4014,6 @@ def phase_http(torch, results, direct, smi_line):
         status, stats = http(port, "/stats")
     finally:
         rc, stderr = stop_cli_server(server, err)
-        tmp.cleanup()
     best = {speed: max((t["tok_s"] for t in direct[8]["w8a8"] if t["speed"] == speed),
                        default=None) for speed in ("dense", "gapped")}
     direct_tps = max(v for v in best.values() if v)
@@ -3963,7 +4024,8 @@ def phase_http(torch, results, direct, smi_line):
         f"direct stream's turns (batching phase): " + "; ".join(
             f"{t['tok_s']:.1f} tok/s, prefill {t['prefill_ms']:.3f} ms per admission, replay "
             f"{t['replay_ms']:.3f} ms" for t in turns) + f" [{smi_line}]")
-    log(f"  http serve_model (own process): up in {started_s:.1f} s, one reply equal to the "
+    log(f"  http serve_model (own process): up within {started_s:.1f} s (started with the "
+        f"modes' servers), one reply equal to the "
         f"in-process server's; /stats after the stream {stats}")
     log(f"  http stream through serve_model ({HTTP_CLIENTS} client threads, prompt "
         f"{STREAM['prompt']}, {STREAM['new_tokens']} new tokens, greedy, streamed; max_batch "
@@ -4683,6 +4745,7 @@ def phase_eval(torch, quantized, smi_line):
     require(quantized is not None, "the quantize phase left no checkpoint")
     tmp, ckpt, art, tok = (quantized[k] for k in ("tmp", "ckpt", "art", "tok"))
     cfg = tinyllama(L, 22)
+    handed = None
     try:
         t_phase = time.perf_counter()
         held = os.path.join(tmp.name, "heldout.jsonl")
@@ -4725,28 +4788,10 @@ def phase_eval(torch, quantized, smi_line):
         require("f1" in runs["W8A8"][0]["stock_gen"], "the metrics module's f1 is missing")
         ppl_q, ppl_f = (runs[k][0]["wikitext2"]["ppl"] for k in ("W8A8", "float"))
 
-        # the W8A8 perplexity pipelined over 2 stages (2 gloo ranks on the
-        # card, a window a microbatch): the one-card run's within
-        # EVAL_STAGES_RTOL; rank 0 (stage 0) launches its 11 layers' kernels
-        # a microbatch and no final norm
-        res, report, wall = run_eval_cli(art, ckpt, held, "--stages", "2", "--backend", "gloo",
-                                         "--microbatches", str(EVAL_BATCH_WINDOWS), tasks=False)
-        ppl_s = res["wikitext2"]["ppl"]
-        stage_rel = abs(ppl_s - ppl_q) / ppl_q
-        forwards = EVAL_BATCH_WINDOWS * -(-n_windows // EVAL_BATCH_WINDOWS)
-        want = ppl_launches(cfg.num_hidden_layers // 2, forwards, True)
-        want["rmsnorm_quant"] -= forwards
-        del want["rmsnorm_quant_norm"]
-        got = report["launches"]["ppl"]
-        log(f"  eval_model W8A8 --stages 2 (2 gloo ranks on cuda:0) in its own process: "
-            f"perplexity {ppl_s!r} against one card's {ppl_q!r} (|rel| {stage_rel:.3g}, limit "
-            f"{EVAL_STAGES_RTOL}); mesh {report['mesh']}; stages (s) " + ", ".join(
-                f"{k} {v:.2f}" for k, v in report["stages_s"].items())
-            + f"; wall {wall:.1f} s; rank 0's perplexity launches {got} (expected {want}) "
-            f"[{smi_line}]")
-        require(stage_rel <= EVAL_STAGES_RTOL, f"eval_model --stages 2: perplexity {ppl_s} "
-                                               f"against one card's {ppl_q}")
-        require(got == want, f"eval_model --stages 2: rank 0 launched {got}; expected {want}")
+        # the W8A8 perplexity over 2 stages runs in the parallel phase,
+        # beside its ranks (eval_stages)
+        stages = functools.partial(eval_stages, art, ckpt, held, ppl_q, n_windows,
+                                   cfg.num_hidden_layers, smi_line)
 
         # the CLI's batches of 4 windows against one window a forward
         params, qcfg, _ = load_any_quantized(art, device="cuda")
@@ -4835,8 +4880,36 @@ def phase_eval(torch, quantized, smi_line):
         del params, lm
         torch.cuda.empty_cache()
         log(f"  eval phase {time.perf_counter() - t_phase:.1f} s [{smi_line}]")
+        handed = dict(check=stages, tmp=tmp)
+        return handed
     finally:
-        tmp.cleanup()
+        if handed is None:
+            tmp.cleanup()
+
+
+def eval_stages(art, ckpt, held, ppl_q, n_windows, layers, smi_line):
+    """The eval phase's W8A8 perplexity pipelined over 2 stages (2 gloo
+    ranks on the card, a window a microbatch) through eval_model in its own
+    process: the one-card run's (``ppl_q``) within EVAL_STAGES_RTOL; rank 0
+    (stage 0) launches its layers' kernels a microbatch and no final norm."""
+    res, report, wall = run_eval_cli(art, ckpt, held, "--stages", "2", "--backend", "gloo",
+                                     "--microbatches", str(EVAL_BATCH_WINDOWS), tasks=False)
+    ppl_s = res["wikitext2"]["ppl"]
+    stage_rel = abs(ppl_s - ppl_q) / ppl_q
+    forwards = EVAL_BATCH_WINDOWS * -(-n_windows // EVAL_BATCH_WINDOWS)
+    want = ppl_launches(layers // 2, forwards, True)
+    want["rmsnorm_quant"] -= forwards
+    del want["rmsnorm_quant_norm"]
+    got = report["launches"]["ppl"]
+    log(f"  eval_model W8A8 --stages 2 (2 gloo ranks on cuda:0) in its own process: "
+        f"perplexity {ppl_s!r} against one card's {ppl_q!r} (|rel| {stage_rel:.3g}, limit "
+        f"{EVAL_STAGES_RTOL}); mesh {report['mesh']}; stages (s) " + ", ".join(
+            f"{k} {v:.2f}" for k, v in report["stages_s"].items())
+        + f"; wall {wall:.1f} s; rank 0's perplexity launches {got} (expected {want}) "
+        f"[{smi_line}]")
+    require(stage_rel <= EVAL_STAGES_RTOL, f"eval_model --stages 2: perplexity {ppl_s} "
+                                           f"against one card's {ppl_q}")
+    require(got == want, f"eval_model --stages 2: rank 0 launched {got}; expected {want}")
 
 
 # ---------------------------------------------------------------------------
@@ -5421,8 +5494,11 @@ def tp_arms(torch, mesh=None, data_mesh=None):
         Engine(L, w8a8, cfg, q8, max_batch=2, max_seq=512, mesh=mesh, **base))
     run("static_b2", static_fn(prompts),
         Engine(L, w8a8, cfg, q8, max_batch=2, max_seq=512, mesh=data_mesh, **base))
-    run("continuous", continuous(True),
-        ContinuousEngine(L, w8a8, cfg, q8, mesh=mesh, **BATCHING, **base))
+    cont = ContinuousEngine(L, w8a8, cfg, q8, mesh=mesh, **BATCHING, **base)
+    run("continuous", continuous(True), cont)
+    if mesh is not None:
+        out["served"] = served_arm(torch, cont, reqs)
+    del cont
     run("paged", continuous(True),
         PagedEngine(L, w8a8, cfg, q8, mesh=mesh, block_size=PAGE_BLOCK, auto_prefix=False,
                     **BATCHING, **base))
@@ -5629,6 +5705,137 @@ def stage_arms(torch, mesh=None, engines=True):
     return out
 
 
+def served_arm(torch, eng, reqs):
+    """The HTTP server over ranks on this rank of the model=2 ``eng`` (the
+    continuous arm's engine, its "sys" prefix registered): rank 0 runs
+    serve() on a free port and sends ``reqs`` to /generate at once from
+    client threads, with the first one again streamed; rank 1 follows rank
+    0's plans (serve/api.py:follow) until rank 0 stops. The launch counters
+    are reset just before and read just after. Rank 0 returns the replies,
+    its plans and its finished requests' outputs; rank 1 its finished
+    requests' outputs and whether its engine still holds a request."""
+    from autosmoothquant_tpu_torch.serve.api import engine_live, follow, serve
+
+    if isinstance(eng.model, HiddenTap):
+        eng.model = eng.model.model
+    counters = launch_counters()
+    finished = {}
+
+    def on_finish(uid, req):
+        finished[uid] = list(req.output)
+    torch.cuda.synchronize()
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    if eng.mesh.rank != 0:
+        follow(eng, on_finish=on_finish)
+        torch.cuda.synchronize()
+        return dict(counts=read_counts(counters), finished=finished, live=engine_live(eng),
+                    wall=time.perf_counter() - t0)
+    plans = []
+    api, httpd = serve(eng, port=0, on_finish=on_finish, plan_log=plans)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    port = httpd.server_address[1]
+    replies = {}
+
+    def one(uid, prompt, kw):
+        replies[uid] = http(port, "/generate", {"prompt": prompt, **kw})
+
+    def streamed():
+        uid, prompt, kw = reqs[0]
+        events, _, _ = sse(port, "/generate", {"prompt": prompt, **kw, "stream": True})
+        replies["stream"] = (200 if events[-1][0] == "done" else 500,
+                             json.loads(events[-1][1]))
+    try:
+        threads = [threading.Thread(target=one, args=r) for r in reqs]
+        threads.append(threading.Thread(target=streamed))
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(HTTP_TIMEOUT)
+    finally:
+        httpd.shutdown()
+        api.stop()
+        httpd.server_close()
+    torch.cuda.synchronize()
+    return dict(counts=read_counts(counters), replies=replies, plans=plans, fatal=api.fatal,
+                finished=finished, live=engine_live(eng), wall=time.perf_counter() - t0)
+
+
+def served_replay(torch, plans):
+    """Rank 0's plans of the served arm applied in order to a one-card twin
+    (the continuous arm's engine, eager, its "sys" prefix registered):
+    (launch counts, {uid: outputs} of the finished requests), the counters
+    reset after the registration."""
+    from autosmoothquant_tpu_torch.models import llama as L
+    from autosmoothquant_tpu_torch.quant.config import QuantConfig
+    from autosmoothquant_tpu_torch.serve.api import apply_plan
+    from autosmoothquant_tpu_torch.serve.batching import ContinuousEngine
+
+    _, prefix, _ = parallel_inputs(torch)
+    cfg = tinyllama(L, 22)
+    eng = ContinuousEngine(L, draw_w8a8(cfg, 3, "cuda"), cfg, QuantConfig(type="int8"),
+                           **BATCHING, **parallel_base(torch))
+    eng.register_prefix("sys", prefix)
+    counters = launch_counters()
+    torch.cuda.synchronize()
+    reset_counts(counters)
+    inflight, finished = {}, {}
+    for plan in plans:
+        apply_plan(eng, plan, inflight)
+        for uid in [u for u, r in inflight.items() if r.done]:
+            finished[uid] = list(inflight.pop(uid).output)
+    torch.cuda.synchronize()
+    counts = read_counts(counters)
+    del eng
+    torch.cuda.empty_cache()
+    return counts, finished
+
+
+def report_served(torch, twin, ranks, results, smi_line):
+    """The served arm's readings: every reply 200 with the twin continuous
+    arm's tokens (the streamed one those of the first request), rank 1's
+    outputs equal rank 0's, neither engine holding a request at the end,
+    and each rank's launches exact by kernel against the one-card replay of
+    rank 0's plans (plus K1's int32 route for o and down, 44 a forward)."""
+    served = [rank["served"] for rank in ranks]
+    lead = served[0]
+    require(lead["fatal"] is None, f"parallel served: the server was lost: {lead['fatal']}")
+    want = twin["continuous"]["tokens"]
+    first = parallel_inputs(torch)[2][0][0]
+    for uid, (status, body) in lead["replies"].items():
+        expect = want[first if uid == "stream" else uid]
+        require(status == 200 and body.get("tokens") == expect,
+                f"parallel served {uid}: {status} {body}; the twin's tokens {expect}")
+    require(len(lead["replies"]) == PARALLEL_REQUESTS + 1,
+            f"parallel served: {len(lead['replies'])} replies")
+    require(served[1]["finished"] == lead["finished"],
+            "parallel served: rank 1's outputs differ from rank 0's")
+    require(not any(s["live"] for s in served), "parallel served: an engine still holds a "
+                                                "request after the server stopped")
+    t0 = time.perf_counter()
+    counts, finished = served_replay(torch, lead["plans"])
+    replay_s = time.perf_counter() - t0
+    require(finished == lead["finished"], "parallel served: the one-card replay of rank 0's "
+                                          "plans gave other outputs")
+    wanted = {**counts, "int8_matmul_i32": 2 * 22 * counts["rmsnorm_quant_norm"]}
+    for r, s in enumerate(served):
+        got = {k: v for k, v in s["counts"].items() if v}
+        log(f"  parallel served rank {r} (model=2, gloo, cuda:0): {len(lead['replies'])} "
+            f"replies equal to the twin's; {len(lead['plans'])} plans; wall {s['wall']:.2f} s "
+            f"[{smi_line}]")
+        log("    " + json.dumps({"arm": "served", "rank": r, "host launches": got}))
+        require(got == {k: v for k, v in wanted.items() if v},
+                f"parallel served rank {r}: launches {got} != the replay's {wanted}")
+    for name in ("int8_matmul", "int8_matmul_i32", "fused_add_rmsnorm_quant",
+                 "flash_attention", "flash_attention_banded", "rmsnorm_quant",
+                 "decode_attention"):
+        require(lead["counts"][name] > 0, f"parallel served: {name} was not launched")
+        if name in results:
+            results[name]["tp_served_launches"] = lead["counts"][name]
+    log(f"  parallel served arm: {served[0]['wall']:.1f} s on the ranks, the one-card replay "
+        f"{replay_s:.1f} s")
+
+
 def parallel_rank(ranks):
     """One rank of the parallel phase's launch of ``ranks`` ranks on cuda:0
     over gloo: 2 ranks run the TinyLlama arms (model=2, and data=2) and the
@@ -5678,7 +5885,7 @@ def hidden_noise(torch, got, want, rows=None):
     return worst
 
 
-def phase_parallel(torch, results, smi_line):
+def phase_parallel(torch, results, smi_line, eval_job=None, during=None):
     """Tensor, data and expert parallelism on the card: ranks of one gloo
     process group share cuda:0 (NCCL refuses two ranks on one GPU, PERF.md
     §7), eager (a gloo collective cannot be captured), each arm held to a
@@ -5700,23 +5907,50 @@ def phase_parallel(torch, results, smi_line):
     each rank's launches by kernel exact (a stage line's summed over its
     stages), collectives a forward, peak memory and weights against the
     twin's, wall. The kernels are built (the build phase) before any rank
-    starts; one launch a rank count."""
+    starts; one launch a rank count. (g) The HTTP server over ranks
+    (served_arm, report_served), inside the 2-rank launch. The eval phase's
+    eval_model --stages 2 (``eval_job``, eval_stages) runs beside the arms.
+    The launches and that process run while the twins run, and ``during()``
+    runs on this process after the twins, while the ranks run (walls here
+    are not speeds)."""
+    stages = Background(eval_job["check"]) if eval_job is not None else None
+    try:
+        parallel_arms(torch, results, smi_line, during)
+        if stages is not None:
+            t0 = time.perf_counter()
+            stages.result()
+            log(f"  eval_model --stages 2 joined {time.perf_counter() - t0:.1f} s after the "
+                f"arms")
+    finally:
+        if stages is not None:
+            stages.thread.join()  # its process has ended before its files go
+            eval_job["tmp"].cleanup()
+
+
+def parallel_arms(torch, results, smi_line, during=None):
+    """phase_parallel's arms and checks."""
     from autosmoothquant_tpu_torch.shard.mesh import launch
 
-    log(f"  twins on one card (eager): {smi_line}")
+    # the 2-rank launch runs beside the twins, the 4-rank one (a full
+    # Mixtral draw at a time) after the twins' Mixtral is gone
+    log(f"  twins on one card (eager), the 2-rank launch beside them: {smi_line}")
     t0 = time.perf_counter()
+    job2 = Background(launch, parallel_rank, 2, 2, backend="gloo", timeout=600)
     twin = tp_arms(torch)
     twin["mixtral"] = mixtral_arm(torch)
     twin["stage"] = stage_arms(torch)
     torch.cuda.empty_cache()
     log(f"  twins built and run in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    ranks2 = launch(parallel_rank, 2, 2, backend="gloo", timeout=600)
-    log(f"  2 ranks (model=2, data=2 and stage=2) in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    ranks4 = launch(parallel_rank, 4, 4, backend="gloo", timeout=600)
-    log(f"  4 ranks (expert=2 x model=2 and stage=2 x model=2) in "
-        f"{time.perf_counter() - t0:.1f} s")
+    t4 = time.perf_counter()
+    job4 = Background(launch, parallel_rank, 4, 4, backend="gloo", timeout=600)
+    if during is not None:
+        during()
+    ranks2 = job2.result()
+    log(f"  2 ranks (model=2, data=2 and stage=2) done {time.perf_counter() - t0:.1f} s after "
+        f"their start")
+    ranks4 = job4.result()
+    log(f"  4 ranks (expert=2 x model=2 and stage=2 x model=2) done "
+        f"{time.perf_counter() - t4:.1f} s after their start")
 
     def report(arm, outs, mesh, exact):
         want = twin[arm] if arm not in ("multihost", "pool") else twin["plain"]
@@ -5813,6 +6047,8 @@ def phase_parallel(torch, results, smi_line):
         got_counts = {k: v for k, v in got["counts"].items() if v}
         require(got_counts == wanted, f"parallel mixtral rank {r}: launches {got_counts} "
                                       f"!= {wanted}")
+    # (g): the HTTP server over ranks
+    report_served(torch, twin, ranks2, results, smi_line)
     # (e), (f): the stage axis
     report_stages(torch, twin, ranks2, "stage=2", smi_line)
     report_stages(torch, twin, ranks4, "stage=2 x model=2", smi_line)
@@ -6614,7 +6850,7 @@ def main():
     t_start = time.perf_counter()
     try:
         name, smi_line = phase_device(torch)
-        engines = direct = quantized = None
+        engines = direct = quantized = eval_job = None
         for phase in PHASES[1:]:
             log(f"== {phase}")
             t0 = time.perf_counter()
@@ -6622,8 +6858,6 @@ def main():
                 phase_build()
             elif phase == "kernels":
                 phase_kernels(torch, results)
-            elif phase == "e2e":
-                phase_e2e(torch)
             elif phase == "serve":
                 engines = phase_serve(torch, results)
             elif phase == "batching":
@@ -6637,11 +6871,16 @@ def main():
             elif phase == "quantize":
                 quantized = phase_quantize(torch, results, smi_line)
             elif phase == "eval":
-                phase_eval(torch, quantized, smi_line)
+                eval_job = phase_eval(torch, quantized, smi_line)
             elif phase == "families":
                 phase_families(torch, results)
             elif phase == "parallel":
-                phase_parallel(torch, results, smi_line)
+                def e2e():
+                    log("== e2e (beside the parallel phase's ranks)")
+                    t = time.perf_counter()
+                    phase_e2e(torch)
+                    log(f"== e2e done in {time.perf_counter() - t:.1f} s")
+                phase_parallel(torch, results, smi_line, eval_job, during=e2e)
             elif phase == "timing":
                 phase_timing(torch, results, engines)
             log(f"== {phase} done in {time.perf_counter() - t0:.1f} s")

@@ -5,9 +5,8 @@ tokenizer, quantized by the JAX ``smoothquant_model`` CLI; and a W8A8 OPT
 artifact (K6's plain version). ``serve_model.build(..., device="cpu")``
 round-trips /generate with a text prompt; ``test_model`` on ``--prompt-ids``
 prints the JAX ``test_model``'s tokens (a W8A8 parting only at a JAX top-2
-margin <= 0.02); ``--tp`` above 1, the one flag refused, raises
-NotImplementedError naming its ROADMAP item, and the speculative and paged
-radix-tree flags serve; the port's ``save_quantized`` output loads in JAX
+margin <= 0.02); ``--tp`` above the visible cards is refused under NCCL
+(ValueError), and the speculative and paged radix-tree flags serve; the port's ``save_quantized`` output loads in JAX
 ``load_quantized`` with equal arrays, and the reverse."""
 
 import dataclasses
@@ -189,9 +188,11 @@ def test_opt_artifact_through_both_clis(opt_dir, capsys, monkeypatch):
 
 
 REFUSED = {
-    "serve --tp 2": (serve_model, ["--tp", "2"], NotImplementedError, "item 17c"),
-    # test_model runs --tp (tests/test_torch_serve_sharded.py); more ranks
-    # than visible cards are refused
+    # serve_model and test_model run --tp (tests/test_torch_serve_tp.py,
+    # tests/test_torch_serve_sharded.py); more NCCL ranks than visible cards
+    # are refused
+    "serve --tp 4": (serve_model, ["--tp", "4", "--device", "cuda"], ValueError,
+                     r"card\(s\) visible"),
     "test --tp 4": (test_model, ["--tp", "4", "--device", "cuda"], ValueError,
                     r"card\(s\) visible"),
 }
@@ -200,16 +201,13 @@ REFUSED = {
 @pytest.mark.parametrize("case", list(REFUSED))
 def test_refused_flags_name_their_item(opt_dir, case):
     mod, flags, exc, match = REFUSED[case]
-    argv = ["--quantized-model-path", str(opt_dir), "--prompt-ids", "1,2", *flags]
-    if mod is serve_model:
-        argv = ["--quantized-model-path", str(opt_dir), *flags]
-        with pytest.raises(exc, match=match):
-            serve_model.build(serve_model.parse_args(argv), **F32)
-    else:
-        if torch.cuda.device_count() >= 4:
-            pytest.skip("four cards are visible: --tp 4 runs")
-        with pytest.raises(exc, match=match):
-            test_model.main(argv, compute_dtype=torch.float32, kv_dtype=torch.float32)
+    argv = ["--quantized-model-path", str(opt_dir), *flags]
+    if mod is test_model:
+        argv += ["--prompt-ids", "1,2"]
+    if torch.cuda.device_count() >= 4:
+        pytest.skip("four cards are visible: --tp 4 runs")
+    with pytest.raises(exc, match=match):
+        mod.main(argv, compute_dtype=torch.float32, kv_dtype=torch.float32)
 
 
 SERVED = {
