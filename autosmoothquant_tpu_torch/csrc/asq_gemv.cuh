@@ -86,18 +86,17 @@ __device__ __forceinline__ void cp_async16_l2(uint32_t dst, const void* src, boo
 // Op: Acc (the accumulator type), step(acc, w_g, w_g8, x_g) (one 64-byte
 // K step: the lane's 16 bytes of weight rows g and g + 8 and of x row g
 // into the tensor cores) and value(acc) (the sum as asq_store takes it: the
-// exact int32 for K1, f32 for K4).
-// Four blocks an SM (<= 64 registers, 53 KB of shared memory each).
+// exact int32 for K1, f32 for K4). gemv_mma_block is one block's work, the
+// 16 weight rows from n0; both kernels below run it. Four blocks an SM (<= 64
+// registers, 53 KB of shared memory each).
 template <class Op>
-__global__ void __launch_bounds__(kGemvThreads, 4)
-    gemv_mma_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w, int M, int N,
-                    int K, AsqEpilogue e) {
+__device__ __forceinline__ void gemv_mma_block(const uint8_t* __restrict__ x,
+                                               const uint8_t* __restrict__ w, int M, int N, int K,
+                                               const AsqEpilogue& e, int n0, uint8_t* gemv_ring,
+                                               typename Op::Acc (*red)[32][4]) {
   using Acc = typename Op::Acc;
-  extern __shared__ __align__(16) uint8_t gemv_ring[];
-  __shared__ __align__(16) Acc red[kGemvWarps][32][4];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const int n0 = blockIdx.x * kGemvRows;
   const int steps = (K + kGemvStep - 1) / kGemvStep;
   const int mine = (steps - warp + kGemvWarps - 1) / kGemvWarps;  // steps warp + 8 j
   const bool x_on = g < M, w0_on = n0 + g < N, w1_on = n0 + g + 8 < N;
@@ -151,6 +150,16 @@ __global__ void __launch_bounds__(kGemvThreads, 4)
   }
 }
 
+// Every N, block by block.
+template <class Op>
+__global__ void __launch_bounds__(kGemvThreads, 4)
+    gemv_mma_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w, int M, int N,
+                    int K, AsqEpilogue e) {
+  extern __shared__ __align__(16) uint8_t gemv_ring[];
+  __shared__ __align__(16) typename Op::Acc red[kGemvWarps][32][4];
+  gemv_mma_block<Op>(x, w, M, N, K, e, blockIdx.x * kGemvRows, gemv_ring, red);
+}
+
 // The launch: M <= 8, K % 16 == 0 and 16-byte aligned x and w (each
 // 16-byte copy then lies inside one row); blocks of 16 weight rows that
 // cover all N.
@@ -170,6 +179,127 @@ int launch_gemv_mma(const void* x, const void* w, int M, int N, int K, int block
   kernel<<<blocks, kGemvThreads, kGemvRingBytes, s>>>(
       static_cast<const uint8_t*>(x), static_cast<const uint8_t*>(w), M, N, K, e);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The expert-indexed GEMV (Mixtral's routed decode): for the M <= 8 rows of
+// a decode step and each expert e that a row picked (ids [M, topk] on the
+// device), e's projection over all M rows,
+//
+//   out[e, m, n] = epilogue_e(sum_k x_e[m, k] * w[e, n, k]),
+//
+// and zeros in out[e] of every other expert. x_e is one x for all experts
+// (x_estride 0: w1's and w3's shared input) or expert e's own rows (w2's);
+// the epilogue's row and column scales are expert e's (rs + e rs_estride,
+// cs + e cs_estride). A second projection of the same shape on the same x
+// and row scales (w3 beside w1: w_b, cs_b, out_b) runs in the same launch
+// as the grid's z = 1. The grid is fixed, (blocks of 16 weight rows, slots,
+// projections), slots = min(E, M topk): every warp reads the ids (a few
+// cached loads) and forms the set of picked experts; block (x, s) runs
+// gemv_mma_block for the s-th picked expert in ascending order, or nothing
+// where fewer were picked, and stores the zeros of the u-th unpicked expert
+// for u % slots == s over its 16 columns. So a picked expert's weights are
+// read once whatever the number of rows that picked it, an unpicked one's
+// not at all, and the host reads nothing: a CUDA graph replays it with other
+// ids. A picked expert's block is gemv_mma_kernel's, sums and epilogue
+// alike: its outputs have the bits of K1's or K4's "gemv" route on that
+// expert. Why slots and not a block column an expert (blocks, E): at b1
+// that grid launches 4x the blocks, 6 of every 8 storing zeros alone;
+// ranking the picked experts on the device puts every block but a few zero
+// stores on weight bytes, with the grid still fixed by M and topk alone.
+// ---------------------------------------------------------------------------
+
+struct AsqExperts {
+  const int64_t* ids;  // [M, topk]; ids outside [0, E) pick nothing
+  int topk, E;         // E <= 64
+  int x_estride;       // bytes between experts' x (0: one x for all)
+  int rs_estride;      // floats between experts' row scales
+  int cs_estride;      // floats between experts' column scales
+  int out_bytes;       // bytes of an output element
+  const uint8_t* w_b;  // the grid's z = 1: a second [E, N, K] weight,
+  const float* cs_b;   // its column scales (as cs) and its
+  void* out_b;         // [E, M, N] output
+};
+
+constexpr int kGemvMaxExperts = 64;
+
+__device__ __forceinline__ void gemv_store_zero(const AsqEpilogue& e, size_t idx) {
+  if (e.out_kind == ASQ_OUT_BF16) {
+    static_cast<__nv_bfloat16*>(e.out)[idx] = __float2bfloat16_rn(0.f);
+  } else if (e.out_kind == ASQ_OUT_I8) {
+    static_cast<int8_t*>(e.out)[idx] = 0;
+  } else {
+    static_cast<int*>(e.out)[idx] = 0;  // f32 and int32 zeros share their bits
+  }
+}
+
+template <class Op>
+__global__ void __launch_bounds__(kGemvThreads, 4)
+    gemv_mma_expert_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
+                           int M, int N, int K, AsqEpilogue e, AsqExperts ex) {
+  extern __shared__ __align__(16) uint8_t gemv_ring[];
+  __shared__ __align__(16) typename Op::Acc red[kGemvWarps][32][4];
+  unsigned long long mine = 0ull;
+  for (int i = threadIdx.x % 32; i < M * ex.topk; i += 32) {
+    const long long id = ex.ids[i];
+    if (id >= 0 && id < ex.E) mine |= 1ull << id;
+  }
+  const unsigned lo = __reduce_or_sync(0xffffffffu, static_cast<unsigned>(mine));
+  const unsigned hi = __reduce_or_sync(0xffffffffu, static_cast<unsigned>(mine >> 32));
+  const unsigned long long picked = static_cast<unsigned long long>(hi) << 32 | lo;
+  const int slot = blockIdx.y, slots = gridDim.y;
+  const int n0 = blockIdx.x * kGemvRows;
+  AsqEpilogue eo = e;
+  if (blockIdx.z == 1) {
+    w = ex.w_b;
+    eo.cs = ex.cs_b;
+    eo.out = ex.out_b;
+  }
+  for (int ei = 0, u = 0; ei < ex.E; ++ei) {
+    if (picked >> ei & 1ull) continue;
+    if (u++ % slots != slot) continue;
+    for (int i = threadIdx.x; i < M * kGemvRows; i += kGemvThreads) {
+      const int m = i / kGemvRows, n = n0 + i % kGemvRows;
+      if (n < N) gemv_store_zero(eo, (static_cast<size_t>(ei) * M + m) * N + n);
+    }
+  }
+  if (slot >= __popcll(picked)) return;
+  unsigned long long rest = picked;
+  for (int i = 0; i < slot; ++i) rest &= rest - 1;
+  const int ei = __ffsll(static_cast<long long>(rest)) - 1;
+  if (eo.rs != nullptr) eo.rs += static_cast<size_t>(ei) * ex.rs_estride;
+  if (eo.cs != nullptr) eo.cs += static_cast<size_t>(ei) * ex.cs_estride;
+  eo.out = static_cast<uint8_t*>(eo.out) + static_cast<size_t>(ei) * M * N * ex.out_bytes;
+  gemv_mma_block<Op>(x + static_cast<size_t>(ei) * ex.x_estride,
+                     w + static_cast<size_t>(ei) * N * K, M, N, K, eo, n0, gemv_ring, red);
+}
+
+// The launch: as launch_gemv_mma's, w (and w_b where given) [E, N, K] and
+// x_estride a multiple of 16 bytes; slots in [1, E].
+template <class Op>
+int launch_gemv_mma_experts(const void* x, const void* w, int M, int N, int K, int blocks,
+                            int slots, const AsqEpilogue& e, const AsqExperts& ex,
+                            cudaStream_t s) {
+  const uintptr_t align = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+                          reinterpret_cast<uintptr_t>(ex.w_b);
+  if (ex.w_b != nullptr && ex.out_b == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (M < 1 || M > 8 || K % 16 != 0 || align % 16 != 0 || ex.x_estride % 16 != 0 ||
+      static_cast<long long>(blocks) * kGemvRows < N || ex.E < 1 ||
+      ex.E > kGemvMaxExperts || slots < 1 || slots > ex.E || ex.topk < 1 ||
+      ex.ids == nullptr || ex.out_bytes < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = gemv_mma_expert_kernel<Op>;
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemvRingBytes);
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  kernel<<<dim3(blocks, slots, ex.w_b != nullptr ? 2 : 1), kGemvThreads, kGemvRingBytes, s>>>(
+      static_cast<const uint8_t*>(x), static_cast<const uint8_t*>(w), M, N, K, e, ex);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bytes of an output element of out_kind (AsqOutKind).
+inline int asq_out_bytes(int out_kind) {
+  return out_kind == ASQ_OUT_BF16 ? 2 : out_kind == ASQ_OUT_I8 ? 1 : 4;
 }
 
 }  // namespace

@@ -500,6 +500,28 @@ ASQ_EXPORT int asq_fp8_gemv(const void* x, const void* w_t, const void* row_scal
                   : launch_gemv_mma<Fp8Gemv<__NV_E5M2>>(x, w_t, M, N, K, blocks, e, s);
 }
 
+// The expert-indexed "gemv" route: arguments as asq_int8_expert_gemv, plus
+// fmt (0 e4m3, 1 e5m2); out_kind f32 or bf16.
+ASQ_EXPORT int asq_fp8_expert_gemv(const void* x, int x_estride, const void* w_t,
+                                   const void* ids, int topk, int E, const void* row_scale,
+                                   int rs_estride, int rs_stride, const void* col_scale,
+                                   int cs_estride, int cs_stride, void* out, const void* w_b,
+                                   const void* col_scale_b, void* out_b, int M, int N, int K,
+                                   int fmt, int out_kind, int blocks, int slots,
+                                   void* stream) {
+  AsqEpilogue e{static_cast<const float*>(row_scale), rs_stride,
+                static_cast<const float*>(col_scale), cs_stride, nullptr, ASQ_ACT_NONE,
+                out_kind, out};
+  AsqExperts ex{static_cast<const int64_t*>(ids), topk, E, x_estride, rs_estride, cs_estride,
+                asq_out_bytes(out_kind), static_cast<const uint8_t*>(w_b),
+                static_cast<const float*>(col_scale_b), out_b};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return fmt == 0 ? launch_gemv_mma_experts<Fp8Gemv<__NV_E4M3>>(x, w_t, M, N, K, blocks, slots,
+                                                                 e, ex, s)
+                  : launch_gemv_mma_experts<Fp8Gemv<__NV_E5M2>>(x, w_t, M, N, K, blocks, slots,
+                                                                 e, ex, s);
+}
+
 // The tensor-core route: arguments as asq_fp8_gemm, plus split (K splits;
 // ws holds split * M * N f32 where split > 1). Needs M > 8, K % 16 == 0 and
 // 16-byte aligned x and w_t.

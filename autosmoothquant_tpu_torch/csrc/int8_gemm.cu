@@ -376,6 +376,33 @@ ASQ_EXPORT int asq_int8_gemv(const void* x, const void* w_t, const void* row_sca
                                    static_cast<cudaStream_t>(stream));
 }
 
+// The expert-indexed "gemv" route (asq_gemv.cuh: gemv_mma_expert_kernel):
+// for each expert that ids (int64 [M, topk], on the device) names, out[e] =
+// epilogue(x_e @ w_t[e].T), zeros in out[e] of every other expert. x [M, K]
+// for every expert (x_estride 0) or [E, M, K] (x_estride M * K); w_t [E, N,
+// K]; row_scale + e * rs_estride (rs_stride 0: one value, 1: [M]; null: 1);
+// col_scale + e * cs_estride (cs_stride 0: one value, 1: [N]; null: 1); out
+// [E, M, N] of out_kind (no bias, no activation); w_b, col_scale_b and out_b,
+// where w_b is not null, a second projection of w_t's shape on the same x
+// and row scales, in the same launch (w1 and w3); blocks as asq_int8_gemv;
+// slots = min(E, M * topk). Needs M <= 8, K % 16 == 0, E <= 64 and 16-byte
+// aligned x and weights.
+ASQ_EXPORT int asq_int8_expert_gemv(const void* x, int x_estride, const void* w_t,
+                                    const void* ids, int topk, int E, const void* row_scale,
+                                    int rs_estride, int rs_stride, const void* col_scale,
+                                    int cs_estride, int cs_stride, void* out, const void* w_b,
+                                    const void* col_scale_b, void* out_b, int M, int N, int K,
+                                    int out_kind, int blocks, int slots, void* stream) {
+  AsqEpilogue e{static_cast<const float*>(row_scale), rs_stride,
+                static_cast<const float*>(col_scale), cs_stride, nullptr, ASQ_ACT_NONE,
+                out_kind, out};
+  AsqExperts ex{static_cast<const int64_t*>(ids), topk, E, x_estride, rs_estride, cs_estride,
+                asq_out_bytes(out_kind), static_cast<const uint8_t*>(w_b),
+                static_cast<const float*>(col_scale_b), out_b};
+  return launch_gemv_mma_experts<Int8Gemv>(x, w_t, M, N, K, blocks, slots, e, ex,
+                                           static_cast<cudaStream_t>(stream));
+}
+
 // The tensor-core route: arguments as asq_int8_gemm, plus split (K splits;
 // ws holds split * M * N int32 where split > 1). Needs M > 8, K % 16 == 0
 // and 16-byte aligned x and w_t.

@@ -26,17 +26,19 @@ def launch_counters() -> Counters:
     K2's and K6's vector routes, ``rmsnorm_quant_norm`` the norm's mode
     without the quantize (the final norm) and ``decode_attention_paged``
     decode attention through a page table (each also in its kernel's
-    count)."""
+    count). ``moe_route`` counts Mixtral's routing kernel and
+    ``expert_gemv`` its expert-indexed GEMV (K1's and K4's alike)."""
     from .attention import decode_attention, flash_attention, flash_attention_banded
     from .fp8 import fp8_matmul
     from .fused import fused_add_layernorm_quant, fused_add_rmsnorm_quant, rmsnorm_quant
     from .gemm import int8_matmul
     from .int4 import int4_matmul
-    from .moe import router_logits
+    from .moe import expert_gemv, moe_route
 
     wrappers = (int8_matmul, fused_add_rmsnorm_quant, flash_attention,
                 flash_attention_banded, fp8_matmul, int4_matmul,
-                fused_add_layernorm_quant, rmsnorm_quant, decode_attention, router_logits)
+                fused_add_layernorm_quant, rmsnorm_quant, decode_attention, moe_route,
+                expert_gemv)
     counters = {w.__name__: (w, "launches") for w in wrappers}
     for w, route in ((int8_matmul, "tc"), (fp8_matmul, "tc"), (int4_matmul, "tc"),
                      (int8_matmul, "i32"), (int4_matmul, "scale"),

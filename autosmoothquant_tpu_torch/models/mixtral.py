@@ -26,21 +26,28 @@ per-tensor int8), w2 has one a expert; calibration routes every token to
 every expert (``CALIBRATION_FORWARD_KWARGS``); routing is a softmax over
 the E router logits in f32, the top k, renormalized.
 
-The experts' two routes, JAX's rule (``_moe_block``): T >= 4 E tokens and no
+The experts' routes. JAX's rule (``_moe_block``): T >= 4 E tokens and no
 statistics take the sparse route (each expert over its capacity bucket of
 ``expert_capacity`` rows, gathered through static [E, C] tables; overflow is
 dropped, as JAX's ``mode="drop"`` scatter drops it), anything else the dense
 route (every expert over all T rows, weight 0 for a token it does not
-serve). Both are free of host reads and data-dependent shapes, so a decode
-step (dense) and a speculative verify (either) capture as CUDA graphs; a
-dropped pair lands in a scratch column of the tables, never past a buffer.
-Both combine in f32 in ascending expert order, element by element, so a
-token's output is the same bits on either route (unless dropped) and in any
-batch. The second norm runs through ``rmsnorm_quant`` unquantized (its f32
-output feeds the router, and the experts' int8 input is rounded from it),
-the router through the port's own row-alone GEMV (``kernels/moe.py``);
-under per-tensor int8 the first norm is the RMSNorm + int8 kernel, as in
-``models/baichuan.py``.
+serve). Where the dense route would run a step of T <= 8 rows in W8A8 or
+dynamic fp8 on one card, the port takes the routed route instead
+(:func:`use_routed`): only the experts the rows picked, each over all T
+rows as the dense route runs it, two expert-indexed GEMV launches a layer
+(w1 with w3, then w2) that read 2 of 8 experts at b1, with the dense
+route's bits: bucket padding, JAX's reason for the dense route at small T,
+is a cost of the TPU mechanism and not of the contract. Every route is free
+of host reads and data-dependent shapes, so a decode step (routed or dense)
+and a speculative verify (any) capture as CUDA graphs; a dropped pair lands
+in a scratch column of the tables, never past a buffer. All combine in f32 in
+ascending expert order, element by element, so a token's output is the
+same bits on any route (unless dropped) and in any batch. The second norm
+runs through ``rmsnorm_quant`` unquantized (its f32 output feeds the router,
+and the experts' int8 input is rounded from it), the routing through the
+port's own one-launch kernel (``kernels/moe.py:moe_route``: logits, softmax,
+top k, weights; a row's bits alone as in a batch); under per-tensor int8
+the first norm is the RMSNorm + int8 kernel, as in ``models/baichuan.py``.
 """
 
 from __future__ import annotations
@@ -54,8 +61,8 @@ import torch.nn.functional as F
 
 from ..kernels.fp8 import fp8_matmul
 from ..kernels.fused import rmsnorm_quant
-from ..kernels.gemm import int8_matmul
-from ..kernels.moe import router_logits
+from ..kernels.gemm import GEMV_MAX_M, int8_matmul
+from ..kernels.moe import combine_operands, expert_gemv, moe_route
 from ..quant import math as qmath
 from ..quant.config import PER_TENSOR, PER_TOKEN, QuantConfig
 from ..runtime import resolve_device
@@ -187,11 +194,9 @@ def route(x2: torch.Tensor, router: torch.Tensor, k: int):
     the router's f32 logits, a softmax over the experts, the top k
     (descending; of equal probabilities the lower expert first, as
     ``lax.top_k`` takes them: a probability that underflows to 0 ties),
-    renormalized."""
-    probs = torch.softmax(router_logits(x2, router), dim=-1)
-    top_w, top_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    top_w, top_idx = top_w[:, :k], top_idx[:, :k]
-    return top_w / top_w.sum(dim=-1, keepdim=True), top_idx
+    renormalized: ``kernels/moe.py:moe_route``, one launch on the card."""
+    r = moe_route(x2, router, k)
+    return r.top_w, r.top_idx
 
 
 def dispatch_indices(top_idx: torch.Tensor, T: int, E: int, K: int, C: int):
@@ -376,6 +381,84 @@ def moe_sparse(x2, mp, cfg: MixtralConfig, qcfg, compute_dtype, top_w, top_idx,
     return acc if keep_f32 else acc.to(compute_dtype)
 
 
+def _routed_input(act: torch.Tensor, p: dict, qcfg: QuantConfig, gran: str):
+    """w2's quantized input of every expert's silu(w1) * w3 [E, M, inter] at
+    once, each expert's as :func:`_proj` quantizes it alone (per token, with
+    its static scale, or per tensor over its own M rows): (operand, row
+    scale [E, M or 1, 1] or None)."""
+    E = act.shape[0]
+    if qcfg.type == "int8":
+        if gran == PER_TOKEN:
+            return qmath.quantize_act_per_token(act)
+        return qmath.quantize_act_static(act, p["quant_scale"].reshape(E, 1, 1)), None
+    if qcfg.type == "fp8_e5m2":
+        return act.to(torch.float8_e5m2), None
+    if gran == PER_TOKEN:
+        return qmath.quantize_fp8_per_token(act)
+    amax = act.abs().amax(dim=(1, 2), keepdim=True).float()
+    return qmath.quantize_fp8_per_tensor(act, amax=amax)
+
+
+def _col_scale(p: dict, qcfg: QuantConfig):
+    """An expert projection's [E] column scales (None: e5m2 is scale-free)."""
+    return p["dequant_scale"] if qcfg.type == "int8" else p.get("w_scale")
+
+
+def routed_format(qcfg: Optional[QuantConfig], mp: dict) -> bool:
+    """Whether the experts' format takes :func:`moe_routed`: int8 (any
+    granularity), fp8 e4m3 with dynamic activations and e5m2, every expert
+    projection quantized, widths that K1's and K4's GEMV takes (multiples of
+    16). int4 (K5 has no expert-indexed GEMV), float experts and fp8 e4m3
+    with static scales (an input scale a expert) stay dense."""
+    if qcfg is None or qcfg.is_int4 or not all(is_quantized(mp[k]) for k in _EXPERTS):
+        return False
+    if qcfg.type == "fp8_e4m3" and any(_fp8_static(qcfg, mp[k]) for k in _EXPERTS):
+        return False
+    return all(mp[k]["w"].shape[-1] % 16 == 0 for k in _EXPERTS)
+
+
+def use_routed(T: int, qcfg, mp: dict, capture: bool, all_experts: bool, plan=None) -> bool:
+    """The routed route wherever the dense one would run at T <= 8 rows, in
+    a format that takes it, on one card or a plan that splits no expert
+    (neither over the expert axis nor their inner dimensions over "model");
+    never under statistics capture or all-experts calibration. The rule
+    reads shapes and the format alone, so the CPU (plain versions) and the
+    card take the same route."""
+    return (not capture and not all_experts and T <= GEMV_MAX_M
+            and (plan is None or (plan.experts == 1 and not plan.expert_mlp))
+            and routed_format(qcfg, mp))
+
+
+def moe_routed(x2, mp, cfg: MixtralConfig, qcfg, compute_dtype, top_w, top_idx, combine=None,
+               keep_f32=False):
+    """The dense route's bits from the experts a step's M <= 8 rows picked:
+    w1 and w3 as one expert-indexed GEMV launch (``kernels/moe.py:
+    expert_gemv``: each picked expert over all M rows, from the shared
+    quantized input, zeros for the rest), silu(w1) * w3 and w2's input
+    quantization once over [E, M, inter] with each expert's scale, w2 as a
+    second launch; then each token gathers its K experts' rows in ascending
+    expert order (``combine``: the routing's (combine_rows, combine_w), or
+    their torch ops here) and sums weight x output in f32 in that order, as
+    :func:`moe_sparse` combines. Each
+    picked expert runs over every row, as the dense route runs it, so a
+    per-tensor fp8 scale of w2's input is the dense route's too."""
+    gran1, gran2 = qcfg.fc1, qcfg.fc2
+    q, rs = _shared_input(x2, mp["w1"], qcfg, gran1, False)
+    g, u = expert_gemv(q, (mp["w1"]["w"], mp["w3"]["w"]), top_idx, rs,
+                       (_col_scale(mp["w1"], qcfg), _col_scale(mp["w3"], qcfg)),
+                       out_dtype=compute_dtype)
+    act = (F.silu(g.float()) * u.float()).to(compute_dtype)
+    q2, rs2 = _routed_input(act, mp["w2"], qcfg, gran2)
+    down = expert_gemv(q2, mp["w2"]["w"], top_idx, rs2, _col_scale(mp["w2"], qcfg),
+                       out_dtype=compute_dtype)
+    rows, w = combine_operands(top_w, top_idx) if combine is None else combine
+    terms = down.reshape(-1, down.shape[-1])[rows].float() * w[..., None]   # [T, K, D]
+    acc = terms[:, 0]
+    for k in range(1, top_idx.shape[1]):
+        acc = acc + terms[:, k]
+    return acc if keep_f32 else acc.to(compute_dtype)
+
+
 def use_sparse(T: int, E: int, capture: bool, all_experts: bool) -> bool:
     """JAX's route rule without its ASQ_MOE override: the sparse route at
     T >= 4 E tokens, never under statistics capture or all-experts
@@ -385,8 +468,10 @@ def use_sparse(T: int, E: int, capture: bool, all_experts: bool) -> bool:
 
 def moe_block(x2, mp, cfg: MixtralConfig, qcfg, compute_dtype, *, all_experts=False,
               stats=None, plan=None, mesh=None):
-    """The MoE block of the norm output x2 (f32 [T, D]): route, then the
-    route :func:`use_sparse` picks. Returns [T, D] in compute_dtype.
+    """The MoE block of the norm output x2 (f32 [T, D]): route (one launch on
+    the card), then the experts' route: :func:`moe_routed` where
+    :func:`use_routed` says (a decode step), else the one :func:`use_sparse`
+    picks. Returns [T, D] in compute_dtype.
 
     Under a mesh (``plan``): the router is whole on every rank, so every
     rank routes every token alike; a rank runs the experts it holds (its
@@ -396,9 +481,13 @@ def moe_block(x2, mp, cfg: MixtralConfig, qcfg, compute_dtype, *, all_experts=Fa
     routed experts, so that sum is the one-card a + b, bit for bit; int4
     experts run whole on each rank (JAX ``_moe_int4_sharded``)."""
     E = cfg.num_local_experts
-    top_w, top_idx = route(x2, mp["router"]["w"], E if all_experts else cfg.num_experts_per_tok)
+    r = moe_route(x2, mp["router"]["w"], E if all_experts else cfg.num_experts_per_tok)
+    top_w, top_idx = r.top_w, r.top_idx
     row_mesh = mesh if plan is not None and plan.expert_mlp else None
-    if use_sparse(x2.shape[0], E, stats is not None, all_experts):
+    if use_routed(x2.shape[0], qcfg, mp, stats is not None, all_experts, plan):
+        out = moe_routed(x2, mp, cfg, qcfg, compute_dtype, top_w, top_idx,
+                         (r.combine_rows, r.combine_w), keep_f32=True)
+    elif use_sparse(x2.shape[0], E, stats is not None, all_experts):
         out = moe_sparse(x2, mp, cfg, qcfg, compute_dtype, top_w, top_idx, plan=plan,
                          row_mesh=row_mesh, keep_f32=True)
     else:

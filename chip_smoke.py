@@ -20,9 +20,11 @@ final norm (and, in W8A8, each layer's first norm with its int8 quantize)
 the port's own RMSNorm + int8 kernel. The block-paged engine
 (``PagedEngine``, explicit prefixes) serves the W8A8 TinyLlama too. The
 Baichuan (ALiBi: K3 and decode attention with per-head slopes), Gemma
-(head dim 256) and Mixtral (top-2 routed experts, one K1 or K4 launch an
-expert projection, the router on the port's own kernel) families run at
-full width in the families phase.
+(head dim 256) and Mixtral (top-2 routed experts: the routing one launch of
+the port's own kernel; at prefill one K1 or K4 launch an expert projection,
+at decode the routed route's two launches a layer of K1's or K4's
+expert-indexed GEMV, reading only the picked experts) families run at full
+width in the families phase.
 
 Phases (any failure ends the run with a nonzero exit code):
   device   the card's name and power limit
@@ -36,8 +38,14 @@ Phases (any failure ends the run with a nonzero exit code):
            2-13B's 40 heads, causal, banded and the f32 route) too;
            K1 at Mixtral-8x7B's expert shapes (M 1 and a bucket of 64);
            rmsnorm_quant bit-equal
-           in both modes (T 1 / 8 / 128, D 2048 / 4096); router_logits
-           within ROUTER_TOL at D 4096, E 8; decode_attention
+           in both modes (T 1 / 8 / 128, D 2048 / 4096); moe_route at D
+           4096, E 8 and 12, T 1 / 8 / 128 / 300, f32 and bf16 routers
+           (logits within ROUTER_TOL, ids and weights against the plain
+           routing, a planted tie, alone = in a batch); expert_gemv at
+           Mixtral-8x7B's w1 | w3 and w2, M 1-8, int8 bit-equal and fp8
+           e4m3 within the f32 bound, each picked expert equal to K1's or
+           K4's GEMV, unpicked zero, in a CUDA graph replayed with other
+           ids; decode_attention
            contiguous and paged, bf16, f32 and int8 caches, f32 q, a sliding
            window, kv_valid, B 1 / 8 / 16 at kv_window 256 / 512, a row at
            the cluster's span, 8K and 16K columns, Gemma's heads at D 256,
@@ -52,7 +60,8 @@ Phases (any failure ends the run with a nonzero exit code):
            width; Baichuan-2-13B width (ALiBi) in W8A8 and fp8 e4m3, Gemma-2B
            width (head dim 256) in W8A8; Mixtral at hidden 1024 (8 experts
            of 3584, top 2) in W8A8, fp8 e4m3 and int4, a prefill on the
-           sparse route and decode on the dense one. Prefill logits agree
+           sparse route and decode on the routed one (int4: dense). Prefill
+           logits agree
            within the stated limits and greedy tokens are equal up to any
            near-tie
   serve    the 22-layer TinyLlama-1.1B model serves Engine.generate in W8A8,
@@ -152,8 +161,10 @@ Phases (any failure ends the run with a nonzero exit code):
            fit) at full width and depth, one model at a time: Engine.generate b1,
            prompt 128, 64 decode steps, greedy, a CUDA graph; host launches
            and a replay's device launches exact (family_counts); tok/s,
-           replay ms, idle share and the step's byte bound (Mixtral: the
-           dense step's, beside a routed-only step's); then the first 4
+           replay ms, idle share and the step's byte bound (Mixtral: its
+           decode on the routed route, its share of the dense step's bound
+           and of the routed step's, and a dense twin: tokens equal, last
+           logits bit-equal, its replay ms beside); then the first 4
            layers of the Mixtral-8x7B W8A8 draw and a 4-layer
            Baichuan-2-13B W8A8 (ALiBi) through ContinuousEngine and
            PagedEngine, graph and eager: tokens equal the static b1
@@ -176,7 +187,9 @@ Phases (any failure ends the run with a nonzero exit code):
            (K1 and K4 at M = 1, 2, 4 and 8 on their GEMV too; K2, K5 and K6
            beside their earlier designs, the rows / tiles routes, and K5 up
            to 4 rows beside its GEMV; K1 at Mixtral-8x7B's expert shapes;
-           the router at T 1 / 8 / 128; K3 at D = 80 beside what padded copies
+           the routing at T 1 / 8 / 128 beside torch.mm's logits; the
+           expert GEMV at Mixtral-8x7B's shapes, M 1 and 8, beside K1's or
+           K4's GEMV once a picked expert; K3 at D = 80 beside what padded copies
            of its operands would cost); prefill time; decode tok/s at b1,
            prompt 128, s_max 512, graph and eager in paired turns: TinyLlama
            W8A8, fp8, int4 and bf16, and OPT-6.7B W8A8 and bf16, each graph
@@ -1242,10 +1255,22 @@ def check_rmsnorm_quant(torch, results, gen):
     results["rmsnorm_quant"]["max_abs_err"] = worst
 
 
-# the router's f32 logits against its plain version (cuBLAS's f32 product):
+# the routing kernel's f32 logits against the plain product (cuBLAS's f32):
 # both sum in f32 in their own orders, so a logit may move by a few ulps of
 # sum_k |x_k w_ke|; this is the bound per logit as a share of that sum
 ROUTER_TOL = 1e-5
+# its softmax, top k and renormalized weights against torch's ops on its own
+# logits: expf and the division round apart by an ulp or two, so ids must
+# be equal wherever the k-th and (k+1)-th probabilities part by more than
+# ROUTE_OWN_MARGIN, and weights within ROUTE_OWN_TOL (absolute)
+ROUTE_OWN_MARGIN = 1e-6
+ROUTE_OWN_TOL = 1e-6
+# against the whole plain routing (cuBLAS logits): ids equal wherever the
+# plain k-th and (k+1)-th probabilities part by more than ROUTE_TIE_MARGIN
+# (a logit error within ROUTER_TOL moves a probability by far less), and
+# weights within ROUTE_W_TOL on rows whose ids agree
+ROUTE_TIE_MARGIN = 1e-4
+ROUTE_W_TOL = 1e-5
 
 
 def router_case(torch, t, d, e, wdt, gen):
@@ -1256,31 +1281,212 @@ def router_case(torch, t, d, e, wdt, gen):
     return x, w
 
 
+def route_of_logits(torch, logits, k):
+    """torch's softmax, stable descending sort and renormalization of given
+    logits: (weights, ids, the probabilities sorted)."""
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return top_p[:, :k] / top_p[:, :k].sum(-1, keepdim=True), top_i[:, :k], top_p
+
+
 def check_router(torch, results, gen):
-    """router_logits at Mixtral-8x7B's D 4096 and E 8 (T 1, 8, 64, 128, 300;
-    f32 and bf16 router weights; and 12 experts, two blocks a row): within
-    ROUTER_TOL of its plain version, and a row's bits the same alone as in
-    the batch (what it exists for)."""
-    from autosmoothquant_tpu_torch.kernels.moe import router_logits, router_logits_plain
+    """moe_route at Mixtral-8x7B's D 4096, E 8 and 12 (T 1, 8, 128, 300; f32
+    and bf16 router weights; top 2): its logits within ROUTER_TOL of the
+    plain product; its ids and weights against torch's routing of its own
+    logits (ROUTE_OWN_*) and against the whole plain routing
+    (ROUTE_TIE_MARGIN, ROUTE_W_TOL); its combine operands against its ids
+    and weights; a planted tie (two experts given one
+    router column: equal logits, the lower expert first); every output of a
+    row the same bits alone as in the batch; top k = E (the calibration's)
+    a permutation."""
+    from autosmoothquant_tpu_torch.kernels.moe import (
+        moe_route, moe_route_plain, router_logits_plain)
 
     worst = 0.0
-    for t, e in ((1, 8), (8, 8), (64, 8), (128, 8), (300, 8), (9, 12)):
+    for t, e in ((1, 8), (8, 8), (128, 8), (300, 8), (9, 12), (128, 12)):
         for wdt in (torch.float32, torch.bfloat16):
             x, w = router_case(torch, t, 4096, e, wdt, gen)
-            out = router_logits(x, w)
+            if t == 8:
+                w[:, 3] = w[:, 1]  # the planted tie
+            got = moe_route(x, w, 2, with_logits=True)
+            plain = moe_route_plain(x, w, 2)
             ref = router_logits_plain(x, w)
             rows = sorted({0, t // 2, t - 1})
-            alone = [router_logits(x[r:r + 1], w)[0] for r in rows]
+            alone = [moe_route(x[r:r + 1], w, 2, with_logits=True) for r in rows]
+            every = moe_route(x, w, e)
             torch.cuda.synchronize()
-            diff = (out.double() - ref.double()).abs()
+            diff = (got.logits.double() - ref.double()).abs()
             excess = float((diff / (ROUTER_TOL * (x.abs() @ w.float().abs()).double())).max())
-            exact = all(torch.equal(a, out[r]) for a, r in zip(alone, rows))
-            worst = max(worst, float(diff.max()))
-            log(f"  router_logits T={t:<4d} D=4096 E={e:<2d} w {str(wdt).split('.')[-1]:8s}: "
-                f"max |diff| {float(diff.max()):.3g} ({excess:.3g} of ROUTER_TOL x sum|x||w|); "
-                f"rows alone = rows of T={t} {exact} {'ok' if excess <= 1 and exact else 'FAIL'}")
-            require(excess <= 1 and exact, f"router_logits disagrees at T={t} E={e} {wdt}")
-    results["router_logits"]["max_abs_err"] = worst
+            own_w, own_i, own_p = route_of_logits(torch, got.logits, 2)
+            clear = own_p[:, 1] - own_p[:, 2] > ROUTE_OWN_MARGIN
+            own_ok = (torch.equal(got.top_idx[clear], own_i[clear])
+                      and float((got.top_w - own_w).abs().max()) <= ROUTE_OWN_TOL)
+            plain_p = torch.sort(torch.softmax(ref, -1), -1, descending=True).values
+            near = plain_p[:, 1] - plain_p[:, 2] <= ROUTE_TIE_MARGIN
+            same = (got.top_idx == plain.top_idx).all(-1)
+            ids_ok = bool((same | near).all())
+            w_err = float((got.top_w - plain.top_w).abs()[same].max()) if same.any() else 0.0
+            rows_of = torch.arange(t, device="cuda")[:, None]
+            asc = (got.combine_rows - rows_of) // t
+            order_ok = (bool((asc[:, 1] > asc[:, 0]).all())
+                        and torch.equal((got.combine_rows - rows_of) % t, torch.zeros_like(asc))
+                        and torch.equal(asc.sort(-1).values, got.top_idx.sort(-1).values)
+                        and torch.equal(got.combine_w,
+                                        got.top_w.gather(1, got.top_idx.argsort(-1))))
+            exact = all(torch.equal(getattr(al, f)[0], getattr(got, f)[r])
+                        for al, r in zip(alone, rows)
+                        for f in ("top_w", "top_idx", "combine_w", "logits"))
+            perm = torch.equal(every.top_idx.sort(-1).values,
+                               torch.arange(e, device="cuda").expand(t, e))
+            tie_ok = True
+            if t == 8:
+                tie_ok = torch.equal(got.logits[:, 1], got.logits[:, 3]) and all(
+                    3 not in row or row == [1, 3] for row in got.top_idx.tolist())
+            ok = (excess <= 1 and own_ok and ids_ok and w_err <= ROUTE_W_TOL and order_ok
+                  and exact and perm and tie_ok)
+            worst = max(worst, float(diff.max()), w_err)
+            log(f"  moe_route T={t:<4d} D=4096 E={e:<2d} w {str(wdt).split('.')[-1]:8s}: "
+                f"logits max |diff| {float(diff.max()):.3g} ({excess:.3g} of ROUTER_TOL x "
+                f"sum|x||w|); ids = plain on {int(same.sum())}/{t} rows (the rest at a plain "
+                f"top-2 margin <= {ROUTE_TIE_MARGIN}: {ids_ok}), weights max |diff| "
+                f"{w_err:.3g}; against its own logits' routing {own_ok}; combine {order_ok}; "
+                f"rows alone = rows of T={t} {exact}; top {e} a permutation {perm}"
+                + (f"; planted tie (experts 1 and 3) {tie_ok}" if t == 8 else "")
+                + f" {'ok' if ok else 'FAIL'}")
+            require(ok, f"moe_route disagrees at T={t} E={e} {wdt}")
+    results["moe_route"]["max_abs_err"] = worst
+
+
+# the expert GEMV's cases: Mixtral-8x7B's w1 | w3 (K 4096 -> N 14336, one
+# shared input) and w2 (K 14336 -> N 4096, each expert's own rows), 8
+# experts, M 1-8 decode rows; each row's top 2 drawn on the card
+EXPERT_SHAPES = (("w1|w3", 4096, 14336, True), ("w2", 14336, 4096, False))
+EXPERT_FORMATS = ("int8", "e4m3")
+
+
+def expert_ids(torch, m, e, gen, k=2):
+    """int64 [m, k] distinct experts a row, drawn on the card."""
+    return torch.rand(m, e, device="cuda", generator=gen).argsort(-1)[:, :k].contiguous()
+
+
+def expert_case(torch, fmt, k, n, shared, m, gen, e=8):
+    """(x, w, row scale, column scales) of an expert GEMV: int8 (uniform) or
+    fp8 e4m3 (N(0, 1) through the port's quantizer) weights [e, n, k]; x
+    [m, k] (shared: w1's per-tensor input, row scale one value) or [e, m, k]
+    (w2's: row scales [e, m, 1]); column scales [e]."""
+    from autosmoothquant_tpu_torch.quant import math as Q
+
+    lead = (m, k) if shared else (e, m, k)
+    if fmt == "int8":
+        w = torch.randint(-127, 128, (e, n, k), dtype=torch.int8, device="cuda", generator=gen)
+        x = torch.randint(-127, 128, lead, dtype=torch.int8, device="cuda", generator=gen)
+    else:
+        w = torch.stack([Q.quantize_fp8_per_tensor(
+            torch.randn(n, k, device="cuda", generator=gen))[0] for _ in range(e)])
+        x = Q.quantize_fp8_per_tensor(torch.randn(lead, device="cuda", generator=gen))[0]
+    rs = (torch.rand((), device="cuda", generator=gen) + 0.5 if shared
+          else torch.rand(e, m, 1, device="cuda", generator=gen) + 0.5)
+    cs = (torch.rand(e, device="cuda", generator=gen) + 0.5) / (64 * math.sqrt(k))
+    return x, w, rs, cs
+
+
+def expert_tolerance(torch, x, w, rs, cs, want):
+    """K4's f32 bound of each output (fp8_tolerance's, expert by expert): 2 K
+    2**-24 sum |x||w| times the scales, plus one bf16 step of the value."""
+    e, _, k = w.shape
+    xe = x.double().abs().expand(e, *x.shape[-2:])
+    mag = torch.bmm(xe, w.double().abs().transpose(1, 2))
+    scale = rs.double().abs() if rs.ndim else rs.double()
+    return 2 * k * 2.0 ** -24 * mag * scale * cs.double()[:, None, None] + \
+        want.double().abs() * 2.0 ** -7 + 1e-6
+
+
+def expert_pair(torch, w, cs):
+    """w3 beside w1 for a paired launch: the experts' weights and column
+    scales rolled by one expert (each expert then reads other bytes; fp8
+    rolled as its bytes, which torch's roll takes on the card)."""
+    return torch.roll(w.view(torch.uint8), 1, 0).view(w.dtype), torch.roll(cs, 1, 0)
+
+
+def check_expert_gemv(torch, results, gen):
+    """expert_gemv (K1's and K4's expert-indexed GEMV) at EXPERT_SHAPES, M 1-8,
+    ids from a device tensor, bf16 out, w1 | w3 as one paired launch (the
+    routed route's), w2 alone: K1 bit-equal to its plain version, K4 within
+    the f32 sum's bound; each picked expert bit-equal to K1's or K4's own
+    GEMV on that expert (the dense route's launch); every unpicked expert's
+    outputs zero. Then one launch captured in a CUDA graph at M 1 and 8,
+    replayed with three other id sets copied into its ids buffer (one where
+    every row picks the same two experts), each replay against the plain
+    version."""
+    from autosmoothquant_tpu_torch.kernels.fp8 import fp8_matmul
+    from autosmoothquant_tpu_torch.kernels.gemm import int8_matmul
+    from autosmoothquant_tpu_torch.kernels.moe import expert_gemv, expert_gemv_plain
+
+    worst = 0.0
+    for fmt in EXPERT_FORMATS:
+        for pname, k, n, shared in EXPERT_SHAPES:
+            for m in range(1, 9):
+                x, w, rs, cs = expert_case(torch, fmt, k, n, shared, m, gen)
+                projs = [(w, cs)] + ([expert_pair(torch, w, cs)] if shared else [])
+                ids = expert_ids(torch, m, 8, gen)
+
+                def run(idv):
+                    if not shared:
+                        return [expert_gemv(x, w, idv, rs, cs, out_dtype=torch.bfloat16)]
+                    return list(expert_gemv(x, tuple(p[0] for p in projs), idv, rs,
+                                            tuple(p[1] for p in projs),
+                                            out_dtype=torch.bfloat16))
+
+                def agrees(outs, idv):
+                    picked = sorted(set(idv.reshape(-1).tolist()))
+                    zero = [i for i in range(8) if i not in picked]
+                    ok, err = True, 0.0
+                    for out, (wp, cp) in zip(outs, projs):
+                        want = expert_gemv_plain(x, wp, idv, rs, cp, out_dtype=torch.bfloat16)
+                        if fmt == "int8":
+                            close = torch.equal(out, want)
+                        else:
+                            close = bool(((out.double() - want.double()).abs()
+                                          <= expert_tolerance(torch, x, wp, rs, cp, want)).all())
+                        ok = ok and close and torch.equal(out[zero], torch.zeros_like(out[zero]))
+                        err = max(err, float((out.float() - want.float()).abs().max()))
+                    return ok, err, picked
+
+                outs = run(ids)
+                ok, err, picked = agrees(outs, ids)
+                mm = int8_matmul if fmt == "int8" else fp8_matmul
+                own = all(torch.equal(out[i], mm(x if shared else x[i], wp[i],
+                                                 rs if shared else rs[i], cp[i],
+                                                 out_dtype=torch.bfloat16))
+                          for out, (wp, cp) in zip(outs, projs) for i in picked)
+                replays = []
+                if m in (1, 8):
+                    buf = ids.clone()
+                    graph = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(graph):
+                        captured = run(buf)
+                    for new in (expert_ids(torch, m, 8, gen),
+                                torch.tensor([[6, 1]] * m, device="cuda"), ids):
+                        buf.copy_(new)
+                        graph.replay()
+                        torch.cuda.synchronize()
+                        r_ok, r_err, _ = agrees(captured, buf)
+                        replays.append(r_ok)
+                        err = max(err, r_err)
+                    del graph, captured
+                torch.cuda.synchronize()
+                good = ok and own and all(replays)
+                worst = max(worst, err)
+                log(f"  expert_gemv {fmt} {pname}{' (one launch)' if shared else ''} M={m} K={k} "
+                    f"N={n} experts {picked}: max |diff| {err:.3g} "
+                    f"({'bit-equal' if fmt == 'int8' else 'f32 bound'} {ok}); each picked expert "
+                    f"= {'K1' if fmt == 'int8' else 'K4'}'s GEMV {own}; unpicked zero"
+                    + (f"; graph replays with other ids {replays}" if replays else "")
+                    + f" {'ok' if good else 'FAIL'}")
+                require(good, f"expert_gemv disagrees: {fmt} {pname} M={m}")
+                del x, w, projs
+            torch.cuda.empty_cache()
+    results["expert_gemv"]["max_abs_err"] = worst
 
 
 def check_decode_attention(torch, results, gen):
@@ -1673,10 +1879,11 @@ def phase_kernels(torch, results):
     results["int4_matmul"]["max_abs_err"] = worst
 
     # the port's own kernels: RMSNorm + int8 (the first and final norms),
-    # decode attention and the MoE router
+    # decode attention, Mixtral's routing and its expert-indexed GEMV
     check_rmsnorm_quant(torch, results, gen)
     check_decode_attention(torch, results, gen)
     check_router(torch, results, gen)
+    check_expert_gemv(torch, results, gen)
     # the row-parallel modes (the parallel phase's): K1's int32 output and
     # K5 with a given per-token scale
     check_row_parallel_kernels(torch, results, gen)
@@ -1868,7 +2075,7 @@ E2E_FAMILY_LIMITS = {"Baichuan-2-13B W8A8": (0.15, 5e-3, E2E_TIE_MARGIN),
                      "Mixtral int4": (0.2, 7.5e-3, E2E_TIE_MARGIN)}
 FAMILY_E2E_NEW = 8  # their greedy runs' new tokens
 # the 2-layer Mixtral arms' prompts: 2 x 16 prefill tokens (T 32 = 4 E: the
-# sparse route), decode at T 2 (the dense route); the CPU's int32 expert
+# sparse route), decode at T 2 (the routed route; int4 dense); the CPU's int32 expert
 # products at this width keep each arm to a few seconds
 MIXTRAL_E2E_PROMPTS = {"ragged": (16, 11), "equal": (16, 16)}
 
@@ -1957,7 +2164,8 @@ def e2e_mixtral(torch, rng):
     """Mixtral at MIXTRAL_E2E's width in W8A8, fp8 e4m3 dynamic and int4
     (group 128, quantized from the float draw by the module's own quantize),
     card against CPU (e2e_compare): a prefill on the sparse route and decode
-    on the dense one, on both sides. Returns the limits broken."""
+    on the routed one (int4: the dense one), on both sides. Returns the
+    limits broken."""
     from autosmoothquant_tpu_torch.models import mixtral as MX
     from autosmoothquant_tpu_torch.quant.config import QuantConfig
 
@@ -2069,6 +2277,7 @@ def e2e_compare(torch, L, cfg, label, qcfg, params_cpu, limits, ragged, equal,
 
 # what each count of launch_counters() counts, for the serve phase's messages
 COUNTED = {"int8_matmul_tc": "K1's tensor-core route", "fp8_matmul_tc": "K4's tensor-core route",
+           "expert_gemv": "K1's and K4's expert-indexed GEMV",
            "int4_matmul_tc": "K5's tensor-core route", "int8_matmul_gemv": "K1's GEMV route",
            "fp8_matmul_gemv": "K4's GEMV route",
            "fused_add_rmsnorm_quant_vec": "K2's vector route",
@@ -2160,7 +2369,8 @@ DEVICE_READS = {
     "rmsnorm_quant": r"\brmsnorm_quant_kernel<",
     "rmsnorm_quant_norm": r"\brmsnorm_quant_kernel<(float, float|__nv_bfloat16, __nv_bfloat16),",
     "decode_attention": r"\bdecode_attn_kernel<",
-    "router_logits": r"\bmoe_router_kernel<",
+    "moe_route": r"\bmoe_route_kernel<",
+    "expert_gemv": r"\bgemv_mma_expert_kernel<",
 }
 
 
@@ -4958,21 +5168,27 @@ def family_gemms(family, layers, experts=8):
     return {"baichuan": 5, "gemma": 4, "mixtral": 4 + 3 * experts}[family] * layers
 
 
-def mixtral_counts(fmt, layers, experts=8):
+def mixtral_counts(fmt, layers, experts=8, routed=True):
     """(host launches of a b1 T128 prefill, launches of one decode step) of a
     Mixtral path: q, k, v and o, and w1, w3 and w2 of every expert, one
     launch each (the prefill's buckets of 64 rows and its q|k|v|o at 128 on
-    the tensor cores, a decode step's on the GEMV); the router once a layer;
-    the second norm a layer (unquantized: the router reads it) and the final
-    norm through rmsnorm_quant's norm mode, and in W8A8 the first norm with
-    its int8 too; K3 causal once a layer in the prefill, decode attention
-    once a layer a step."""
+    the tensor cores), the routing once a layer; the second norm a layer
+    (unquantized: the routing reads it) and the final norm through
+    rmsnorm_quant's norm mode, and in W8A8 the first norm with its int8 too;
+    K3 causal once a layer in the prefill, decode attention once a layer a
+    step. A decode step's q, k, v and o on the GEMV and, ``routed``, its
+    experts as 2 expert-GEMV launches a layer (w1 with w3, w2), else (the dense
+    route) one GEMV launch a expert projection."""
     gemms = family_gemms("mixtral", layers, experts)
     kernel = "int8_matmul" if fmt == "W8A8" else "fp8_matmul"
     norms = {"rmsnorm_quant": layers + 1 + (layers if fmt == "W8A8" else 0),
-             "rmsnorm_quant_norm": layers + 1, "router_logits": layers}
+             "rmsnorm_quant_norm": layers + 1, "moe_route": layers}
     prefill = {kernel: gemms, f"{kernel}_tc": gemms, "flash_attention": layers, **norms}
-    step = {kernel: gemms, f"{kernel}_gemv": gemms, "decode_attention": layers, **norms}
+    step_gemms = 4 * layers if routed else gemms
+    step = {kernel: step_gemms, f"{kernel}_gemv": step_gemms, "decode_attention": layers,
+            **norms}
+    if routed:
+        step["expert_gemv"] = 2 * layers
     return prefill, step
 
 
@@ -5027,12 +5243,12 @@ def phase_families(torch, results, paths=FAMILY_PATHS):
     profiler over 5) and the step's byte bound. Mixtral-8x7B (its experts on
     K1 or K4, one launch an expert projection; the router on its own kernel)
     in W8A8 and fp8 e4m3, each about 47 GB (bf16, about 93 GB, does not fit
-    the card): its b1 decode step takes the dense route, reading every
-    expert (the bound), where a routed-only step would read 2 of 8 (printed
-    beside it). Then the correctness arms (family_batching_arm): Mixtral-8x7B
+    the card): its b1 decode step takes the routed route, reading 2 of the 8
+    experts (both byte bounds printed), and its dense twin (dense_twin) the
+    dense one. Then the correctness arms (family_batching_arm): Mixtral-8x7B
     W8A8's first FAMILY_ARM_LAYERS layers, of the same draw (prefill chunks
-    on the sparse route, decode on the dense one), and Baichuan-2-13B's width
-    (ALiBi)."""
+    on the sparse route, decode on the routed one), and Baichuan-2-13B's
+    width (ALiBi)."""
     from autosmoothquant_tpu_torch.serve.engine import Engine, GenerationConfig
 
     rng = torch.Generator().manual_seed(29)
@@ -5050,6 +5266,7 @@ def phase_families(torch, results, paths=FAMILY_PATHS):
         reset_counts(counters)
         toks = eng.generate(prompt, GenerationConfig(max_new_tokens=FAMILY_NEW + 1))[0]
         counts = read_counts(counters)
+        last_logits = eng.last_logits
         prefill, step = family_counts(family, fmt, layers)
         want = serve_counts(prefill, step, 2)
         (captured,) = eng.graphs.values()
@@ -5082,14 +5299,17 @@ def phase_families(torch, results, paths=FAMILY_PATHS):
                         "device launches a replay": per_replay}))
         routed = ""
         if family == "mixtral":
-            # a routed-only step reads 2 of the 8 experts' bytes
+            # the routed step reads 2 of the 8 experts' bytes
             experts = sum(t.numel() * t.element_size() for lp in params["layers"]
                           for k in ("w1", "w3", "w2") for t in lp["moe"][k].values())
             r_bytes = nbytes - experts * (1 - cfg.num_experts_per_tok / cfg.num_local_experts)
             r_ms = r_bytes / HBM_BYTES_PER_S * 1e3
-            routed = (f"; experts {experts / 1e9:.3f} GB of it (dense route: all "
-                      f"{cfg.num_local_experts} a step); a routed-only step {r_bytes / 1e9:.3f} "
-                      f"GB, bound {r_ms:.3f} ms, {1e3 / r_ms:.1f} tok/s")
+            routed = (f"; experts {experts / 1e9:.3f} GB of it (the dense route reads all "
+                      f"{cfg.num_local_experts} a step); the routed step {r_bytes / 1e9:.3f} GB, "
+                      f"bound {r_ms:.3f} ms, {1e3 / r_ms:.1f} tok/s (achieved "
+                      f"{r_ms / replay_ms:.3f} of it); {tps:.2f} tok/s is "
+                      f"{tps * b_ms / 1e3:.3f} of the dense bound's "
+                      f"tok/s and {tps * r_ms / 1e3:.3f} of the routed one's")
         kernel = {"W8A8": "int8_matmul", "fp8 e4m3": "fp8_matmul"}.get(fmt)
         log(f"  families {name}: {layers} layers, drawn in {drawn:.1f} s; b1 prompt "
             f"{FAMILY_PROMPT}, {FAMILY_NEW} steps, graph: {tps:.2f} tok/s; a replay "
@@ -5105,13 +5325,17 @@ def phase_families(torch, results, paths=FAMILY_PATHS):
             per_replay["decode_attention"]
         if family == "mixtral":
             for key in (kernel, "flash_attention", "rmsnorm_quant", "decode_attention",
-                        "router_logits"):
+                        "moe_route", "expert_gemv"):
                 results[key].setdefault("mixtral_launches", {})[name] = {
                     "prefill": prefill.get(key, 0),
                     "replay": per_replay[FLASH if key == "flash_attention" else key]}
-            if results["router_logits"]["launches"] is None:  # the first Mixtral path
-                results["router_logits"]["launches"] = counts["router_logits"]
-                results["router_logits"]["launches_a_replay"] = per_replay["router_logits"]
+            for key in ("moe_route", "expert_gemv"):
+                if results[key]["launches"] is None:  # the first Mixtral path
+                    require(counts[key] > 0, f"{name}: {key} was not launched")
+                    results[key]["launches"] = counts[key]
+                    results[key]["launches_a_replay"] = per_replay[key]
+            dense_twin(torch, M, cfg, qcfg, params, prompt, toks, last_logits, name, replay_ms,
+                       b_ms, r_ms)
         del eng, captured
         if (family, fmt) == ("mixtral", "W8A8"):
             # the arm takes the first layers of this draw
@@ -5125,6 +5349,46 @@ def phase_families(torch, results, paths=FAMILY_PATHS):
         family_batching_arm(torch, *family_model(torch, "baichuan", "W8A8", FAMILY_ARM_LAYERS,
                                                  seed=9),
                             f"ALiBi arm ({FAMILY_ARM_LAYERS}-layer Baichuan-2-13B W8A8)")
+
+
+def dense_twin(torch, M, cfg, qcfg, params, prompt, toks, last_logits, name, replay_ms, b_ms,
+               r_ms):
+    """The families path's dense twin: the same params and prompt through a
+    second Engine with every decode step on the dense route (``M.use_routed``
+    answering False while it runs): host launches exactly the dense
+    path's (every expert projection a GEMV launch); greedy tokens equal the
+    routed engine's and its last logits bit-equal; the twin's replay ms
+    (CUDA events over 50) beside the routed one's, each with its share of
+    the dense and the routed step's byte bounds."""
+    from autosmoothquant_tpu_torch.serve.engine import Engine, GenerationConfig
+
+    counters = launch_counters()
+    use_routed = M.use_routed
+    M.use_routed = lambda *a, **kw: False
+    try:
+        twin = Engine(M, params, cfg, qcfg, max_batch=1, max_seq=512,
+                      kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16, device="cuda")
+        reset_counts(counters)
+        twin_toks = twin.generate(prompt, GenerationConfig(max_new_tokens=FAMILY_NEW + 1))[0]
+        counts = read_counts(counters)
+        (captured,) = twin.graphs.values()
+        twin_ms = timed_replays(torch, captured.graph)
+    finally:
+        M.use_routed = use_routed
+    fmt = "W8A8" if qcfg.is_int8 else "fp8 e4m3"
+    prefill, step = mixtral_counts(fmt, cfg.num_hidden_layers, routed=False)
+    want = serve_counts(prefill, step, 2)
+    got = {k: v for k, v in counts.items() if v}
+    same_logits = torch.equal(twin.last_logits, last_logits)
+    log(f"  families {name} dense twin: replay {twin_ms:.3f} ms ({b_ms / twin_ms:.3f} of the "
+        f"dense bound, {r_ms / twin_ms:.3f} of the routed one) against the routed "
+        f"{replay_ms:.3f} ms ({b_ms / replay_ms:.3f}, {r_ms / replay_ms:.3f}): routed / dense "
+        f"speed {twin_ms / replay_ms:.3f}; tokens equal {twin_toks == toks}, last logits "
+        f"bit-equal {same_logits}; host launches {got}")
+    require(got == want, f"{name} dense twin: launches {got} != {want}")
+    require(twin_toks == toks and same_logits,
+            f"{name}: the routed engine's tokens or last logits differ from the dense twin's")
+    del twin, captured
 
 
 class SparseDrops:
@@ -5217,7 +5481,8 @@ def moe_routes_agree(torch, M, cfg, qcfg, params, what, rows=64):
     """The first layer's MoE block over ``rows`` independent norm outputs
     (int8 units: N(0, ACT_RMS^2)) on the dense and on the sparse route: no
     expert past its capacity, and the same bits (both combine in f32 in
-    ascending expert order; every product is K1's, exact)."""
+    ascending expert order; every product is K1's, exact); and on the
+    routed route over its first 1, 2, 5 and 8 rows, the dense route's bits."""
     gen = torch.Generator(device="cuda").manual_seed(37)
     x2 = torch.randn(rows, cfg.hidden_size, generator=gen, device="cuda") * ACT_RMS
     mp = params["layers"][0]["moe"]
@@ -5227,10 +5492,18 @@ def moe_routes_agree(torch, M, cfg, qcfg, params, what, rows=64):
     dense = M.moe_dense(x2, mp, cfg, qcfg, torch.bfloat16, top_w, top_idx)
     sparse = M.moe_sparse(x2, mp, cfg, qcfg, torch.bfloat16, top_w, top_idx)
     same = torch.equal(dense, sparse)
+    # the routed route on decode-sized slices of the same rows (its ids read
+    # on the card)
+    routed = all(torch.equal(
+        M.moe_routed(x2[:t], mp, cfg, qcfg, torch.bfloat16, top_w[:t], top_idx[:t]),
+        M.moe_dense(x2[:t], mp, cfg, qcfg, torch.bfloat16, top_w[:t], top_idx[:t]))
+        for t in (1, 2, 5, 8))
     log(f"  families {what}: the MoE block over {rows} independent rows, dense and sparse "
-        f"routes: expert loads {load.tolist()} (capacity {cap}), bit-equal {same}")
-    require(int(load.max()) <= cap and same,
-            f"{what}: the dense and sparse routes differ ({same}) or an expert overflowed")
+        f"routes: expert loads {load.tolist()} (capacity {cap}), bit-equal {same}; the "
+        f"routed route on its first 1, 2, 5 and 8 rows bit-equal to the dense one {routed}")
+    require(int(load.max()) <= cap and same and routed,
+            f"{what}: the dense, sparse and routed routes differ ({same}, {routed}) or an "
+            f"expert overflowed")
 
 
 def family_batching_runs(torch, M, cfg, qcfg, params, what, drops):
@@ -6040,7 +6313,7 @@ def parallel_arms(torch, results, smi_line, during=None):
         got = rank["mixtral"]
         require(got["tokens"] == want["tokens"],
                 f"parallel mixtral rank {r}: tokens differ from the one-card twin's")
-        prefill, step = mixtral_counts("W8A8", MIXTRAL_TP_LAYERS, experts=4)
+        prefill, step = mixtral_counts("W8A8", MIXTRAL_TP_LAYERS, experts=4, routed=False)
         wanted = {k: prefill.get(k, 0) + (MIXTRAL_TP_NEW - 1) * step.get(k, 0)
                   for k in set(prefill) | set(step)}
         wanted["int8_matmul_i32"] = 5 * MIXTRAL_TP_LAYERS * MIXTRAL_TP_NEW
@@ -6310,24 +6583,79 @@ def phase_timing(torch, results, engines):
             if (t, quantize) == (1, True):
                 results["rmsnorm_quant"].update(row, shape="decode T=1 D=2048 bf16 int8")
 
-    # the MoE router at Mixtral-8x7B's D 4096 and E 8 (f32 router weights): a
-    # decode step (T 1), the continuous engine's b8 and a T 128 prefill.
-    # Library: the cuBLAS f32 product x @ w (what the plain version runs)
-    from autosmoothquant_tpu_torch.kernels.moe import router_logits, router_logits_plain
+    # Mixtral's routing at Mixtral-8x7B's D 4096 and E 8 (f32 router weights),
+    # top 2: a decode step (T 1), the continuous engine's b8 and a T 128
+    # prefill. Plain: the routing in torch ops (cuBLAS logits, softmax, sort,
+    # renormalization); library: the cuBLAS f32 logits x @ w alone (what the
+    # kernel must beat while it does the whole routing)
+    from autosmoothquant_tpu_torch.kernels.moe import (
+        expert_gemv, expert_gemv_plain, moe_route, moe_route_plain)
 
     for t in (1, 8, 128):
         x, w = router_case(torch, t, 4096, 8, torch.float32, gen)
-        ms = timer.ms(lambda: router_logits(x, w))
-        plain_ms = timer.ms(lambda: router_logits_plain(x, w))
+        ms = timer.ms(lambda: moe_route(x, w, 2))
+        plain_ms = timer.ms(lambda: moe_route_plain(x, w, 2))
         lib_ms = timer.ms(lambda: torch.mm(x, w))
-        b_ms, b_by = bound(4 * (t * 4096 + 4096 * 8 + t * 8), 2 * t * 4096 * 8, "f32")
-        log(f"    router_logits T={t:<4d} D=4096 E=8 f32 kernel {ms:.4f} plain {plain_ms:.4f} "
-            f"library {lib_ms:.4f} bound {b_ms:.5f} ({b_by}); launch floor {floor_ms:.4f}")
-        row = dict(shape=f"T={t} D=4096 E=8 f32", ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   bound_ms=b_ms, bound_by=b_by)
-        results["router_logits"].setdefault("rows", []).append(row)
+        b_ms, b_by = bound(4 * (t * 4096 + 4096 * 8) + t * 2 * (4 + 8 + 8),
+                           2 * t * 4096 * 8 + 8 * t * 8, "f32")
+        log(f"    moe_route T={t:<4d} D=4096 E=8 f32 top 2 kernel {ms:.4f} plain {plain_ms:.4f} "
+            f"library {lib_ms:.4f} (torch.mm, the logits alone) bound {b_ms:.5f} ({b_by}); "
+            f"launch floor {floor_ms:.4f}")
+        row = dict(shape=f"T={t} D=4096 E=8 f32 top 2", ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        results["moe_route"].setdefault("rows", []).append(row)
         if t == 1:
-            results["router_logits"].update(row, shape="decode T=1 D=4096 E=8 f32")
+            results["moe_route"].update(row, shape="decode T=1 D=4096 E=8 f32 top 2")
+
+    # the expert GEMV at Mixtral-8x7B's w1 | w3 (one paired launch, as the
+    # routed route runs them) and w2, 8 experts, bf16 out, int8 and fp8 e4m3,
+    # at M 1 (2 experts picked) and M 8 (each row's top 2 drawn: the distinct
+    # experts read); bound: those experts' weights, x, the scales and the
+    # [8, M, N] outputs (zeros included) once. Beside it, the dense way to the
+    # same outputs: K1's or K4's GEMV once a picked expert and projection
+    # (printed, not the library call: no one PyTorch call computes an
+    # expert-indexed product, library null)
+    from autosmoothquant_tpu_torch.kernels.fp8 import fp8_matmul
+    from autosmoothquant_tpu_torch.kernels.gemm import int8_matmul
+
+    for fmt in EXPERT_FORMATS:
+        mm = int8_matmul if fmt == "int8" else fp8_matmul
+        for pname, k, n, shared in EXPERT_SHAPES:
+            for m in (1, 8):
+                x, w, rs, cs = expert_case(torch, fmt, k, n, shared, m, gen)
+                projs = [(w, cs)] + ([expert_pair(torch, w, cs)] if shared else [])
+                ws, css = tuple(p[0] for p in projs), tuple(p[1] for p in projs)
+                if not shared:
+                    ws, css = ws[0], css[0]
+                ids = expert_ids(torch, m, 8, gen)
+                picked = sorted(set(ids.reshape(-1).tolist()))
+                ms = timer.ms(lambda: expert_gemv(x, ws, ids, rs, css, out_dtype=torch.bfloat16))
+                plain_ms = timer.ms(lambda: [expert_gemv_plain(x, wp, ids, rs, cp,
+                                                               out_dtype=torch.bfloat16)
+                                             for wp, cp in projs], iters=5)
+                per = timer.ms(lambda: [mm(x if shared else x[i], wp[i],
+                                           rs if shared else rs[i], cp[i],
+                                           out_dtype=torch.bfloat16)
+                                        for wp, cp in projs for i in picked])
+                nbytes = len(projs) * (len(picked) * n * k + 8 * m * n * 2 + 4 * cs.numel()) + (
+                    x.numel() + 4 * rs.numel())
+                b_ms, b_by = bound(nbytes, 2 * len(projs) * len(picked) * m * n * k,
+                                   "int8" if fmt == "int8" else "fp8")
+                what = f"{fmt} {pname}{' (one launch)' if shared else ''}"
+                log(f"    expert_gemv {what} M={m} K={k} N={n} {len(picked)} experts kernel "
+                    f"{ms:.4f} plain {plain_ms:.4f} library null bound {b_ms:.5f} ({b_by}; "
+                    f"{b_ms / ms:.3f} of it); {'K1' if fmt == 'int8' else 'K4'}'s GEMV once a "
+                    f"picked expert{' and projection' if shared else ''} {per:.4f}")
+                row = dict(shape=f"{what} M={m} K={k} N={n} E=8, {len(picked)} picked",
+                           ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                           bound_by=b_by, per_expert_gemv_ms=per)
+                results["expert_gemv"].setdefault("rows", []).append(row)
+                if (fmt, pname, m) == ("int8", "w1|w3", 1):
+                    results["expert_gemv"].update(
+                        row, shape=f"decode M=1 int8 w1|w3 (one launch) K={k} N={n} E=8, "
+                                   f"2 picked")
+                del x, w, projs, ws
+            torch.cuda.empty_cache()
 
     # decode attention at DECODE_TIMING_CASES. Library: one
     # F.scaled_dot_product_attention (q length 1, enable_gqa, the bool mask
@@ -6820,8 +7148,12 @@ def kernel_results():
                           f"{PKG}/csrc/rmsnorm_quant.cu"),
         "decode_attention": ("autosmoothquant_tpu/models/common.py:1255",
                              f"{PKG}/csrc/decode_attn.cu"),
-        "router_logits": ("autosmoothquant_tpu/models/mixtral.py:383",
-                          f"{PKG}/csrc/moe_router.cu"),
+        "moe_route": ("autosmoothquant_tpu/models/mixtral.py:383",
+                      f"{PKG}/csrc/moe_router.cu"),
+        # the expert-indexed route of K1's and K4's GEMV (Mixtral's routed
+        # decode), one template in asq_gemv.cuh for both
+        "expert_gemv": ("autosmoothquant_tpu/kernels/gemm.py:57",
+                        f"{PKG}/csrc/asq_gemv.cuh"),
         # K1's int32 output and K5's given per-token scale (the row-parallel
         # partials of the parallel phase): the TPU kernels' own accumulators
         "int8_matmul_i32": ("autosmoothquant_tpu/kernels/gemm.py:57",

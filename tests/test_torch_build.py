@@ -37,6 +37,8 @@ BINDINGS = [
     ("decode_attn", "asq_decode_attention", attention._DECODE_ARGTYPES),
     ("decode_attn", "asq_decode_keeps_scores", attention._DECODE_KEEPS_ARGTYPES),
     ("moe_router", "asq_moe_router", moe._ARGTYPES),
+    ("int8_gemm", "asq_int8_expert_gemv", moe._EXPERT_ARGTYPES),
+    ("fp8_gemm", "asq_fp8_expert_gemv", moe._FP8_EXPERT_ARGTYPES),
 ]
 
 _EXPORT = re.compile(r"ASQ_EXPORT\s+int\s+(\w+)\s*\(([^)]*)\)", re.S)

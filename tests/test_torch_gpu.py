@@ -1797,30 +1797,108 @@ def test_decode_attention_alibi_over_16k_columns(cuda_device, heads, paged):
     assert torch.equal(run(recompute, b, s), out)
 
 
-# --- the MoE router (kernels/moe.py) and the Mixtral model on the card
+# --- the MoE routing and the expert GEMV (kernels/moe.py) and the Mixtral
+# model on the card
 
 
 @pytest.mark.parametrize("rows,d,e,wdt", [(1, 4096, 8, torch.float32), (128, 4096, 8, torch.float32),
                                           (37, 1024, 8, torch.bfloat16), (5, 64, 4, torch.float32),
                                           (9, 4096, 12, torch.float32)])
 def test_router_logits_kernel_matches_plain_and_is_batch_invariant(cuda_device, rows, d, e, wdt):
-    """The router's f32 GEMV against its plain version (relative 1e-5 of
-    sum |x||w|: f32 sums in another order), and each row's bits the same
-    alone as in the batch (the cuBLAS product differs there)."""
+    """The routing kernel's f32 logits against the plain product (relative
+    1e-5 of sum |x||w|: f32 sums in another order); its top 2 against the
+    plain routing of its own logits (ids equal, weights within 1e-6: the
+    softmax's exp and division, ulps apart); and each row's bits, logits,
+    weights, ids and combine weights, the same alone as in the batch (the
+    cuBLAS product differs there)."""
     from autosmoothquant_tpu_torch.kernels import moe
 
     g = _gen(rows + d + e)
     x = torch.randn(rows, d, device=cuda_device, generator=g) * 30
-    w = (torch.randn(d, e, device=cuda_device, generator=g) / math.sqrt(d)).to(wdt)
-    before = moe.router_logits.launches
-    got = moe.router_logits(x, w)
+    w = (torch.randn(d, e, device=cuda_device, generator=g) / (30 * math.sqrt(d))).to(wdt)
+    before = moe.moe_route.launches
+    got = moe.moe_route(x, w, 2, with_logits=True)
     torch.cuda.synchronize()
-    assert moe.router_logits.launches == before + 1
+    assert moe.moe_route.launches == before + 1
     ref = moe.router_logits_plain(x, w)
     scale = (x.abs() @ w.float().abs()).double()
-    assert bool(((got.double() - ref.double()).abs() <= 1e-5 * scale + 1e-30).all())
+    assert bool(((got.logits.double() - ref.double()).abs() <= 1e-5 * scale + 1e-30).all())
+    probs = torch.softmax(got.logits, -1)
+    top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    margin = top_p[:, 1] - top_p[:, 2] if e > 2 else torch.ones(rows, device=cuda_device)
+    clear = margin > 1e-6
+    assert torch.equal(got.top_idx[clear], top_i[clear, :2])
+    want_w = top_p[:, :2] / top_p[:, :2].sum(-1, keepdim=True)
+    assert float((got.top_w - want_w).abs().max()) <= 1e-6
     for r in {0, rows // 2, rows - 1}:
-        assert torch.equal(moe.router_logits(x[r:r + 1], w)[0], got[r])
+        alone = moe.moe_route(x[r:r + 1], w, 2, with_logits=True)
+        for f in ("top_w", "top_idx", "combine_w", "logits"):
+            assert torch.equal(getattr(alone, f)[0], getattr(got, f)[r])
+        assert torch.equal(alone.combine_rows[0] * rows + r, got.combine_rows[r])
+
+
+@pytest.mark.parametrize("fmt", ["int8", "e4m3"])
+@pytest.mark.parametrize("m", [1, 2, 5, 8])
+def test_expert_gemv_matches_plain_and_replays_with_other_ids(cuda_device, fmt, m):
+    """The expert-indexed GEMV at a Mixtral-like width (K 1024, N 1536, 8
+    experts) against its plain version: K1 bit-equal, K4 within the f32
+    sum's bound; unpicked experts' outputs zero; a w1 / w3 pair in one
+    launch equal to two launches; then one launch captured in a CUDA graph,
+    replayed with other ids written into its ids buffer (the zeros of an
+    expert no longer picked included)."""
+    from autosmoothquant_tpu_torch.kernels import moe
+
+    E, K, N = 8, 1024, 1536
+    g = _gen(m + 100 * len(fmt))
+    if fmt == "int8":
+        w = torch.randint(-127, 128, (E, N, K), device=cuda_device, dtype=torch.int8, generator=g)
+        x = torch.randint(-127, 128, (E, m, K), device=cuda_device, dtype=torch.int8, generator=g)
+    else:
+        w = (torch.randn(E, N, K, device=cuda_device, generator=g) * 8).to(torch.float8_e4m3fn)
+        x = (torch.randn(E, m, K, device=cuda_device, generator=g) * 8).to(torch.float8_e4m3fn)
+    cs = torch.rand(E, device=cuda_device, generator=g) + 0.5
+    rs = torch.rand(E, m, 1, device=cuda_device, generator=g) + 0.5
+    def check(got, want, xin, row):
+        if fmt == "int8":
+            assert torch.equal(got, want)
+            return
+        # the f32 sum's bound (the plain version sums in float64) and the
+        # epilogue's two roundings
+        xe = xin.float().abs().expand(E, m, K)
+        f32 = 2 * K * 2.0**-24 * torch.bmm(xe, w.float().abs().transpose(1, 2))
+        bound = f32 * row * cs[:, None, None] + 2.0**-22 * want.abs()
+        assert bool(((got - want).abs() <= bound).all())
+
+    ids_sets = [torch.tensor([[(3 * r) % E, (3 * r + 5) % E] for r in range(m)]),
+                torch.tensor([[6, 1]] * m), torch.tensor([[r % E, (r + 1) % E] for r in range(m)])]
+    ids = ids_sets[0].to(cuda_device)
+    for shared in (True, False):
+        xin = x[0] if shared else x
+        row = rs[0] if shared else rs
+        got = moe.expert_gemv(xin, w, ids, row, cs)
+        want = moe.expert_gemv_plain(xin, w, ids, row, cs)
+        torch.cuda.synchronize()
+        check(got, want, xin, row)
+    # w1 and w3 as one launch: each projection's single-launch bits
+    w3 = torch.roll(w.view(torch.uint8), 1, 0).view(w.dtype)  # fp8 rolled as bytes
+    cs3 = torch.roll(cs, 1, 0)
+    g, u = moe.expert_gemv(x[0], (w, w3), ids, rs[0], (cs, cs3))
+    assert torch.equal(g, moe.expert_gemv(x[0], w, ids, rs[0], cs))
+    assert torch.equal(u, moe.expert_gemv(x[0], w3, ids, rs[0], cs3))
+    buf = ids.clone()
+    moe.expert_gemv(x, w, buf, rs, cs)  # first use outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = moe.expert_gemv(x, w, buf, rs, cs)
+    for new in ids_sets[1:] + ids_sets[:1]:
+        buf.copy_(new.to(cuda_device))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = moe.expert_gemv_plain(x, w, buf, rs, cs)
+        check(out, want, x, rs)
+        unpicked = sorted(set(range(E)) - set(new.reshape(-1).tolist()))
+        assert torch.equal(out[unpicked], torch.zeros_like(out[unpicked]))
 
 
 @pytest.mark.parametrize("quant", ["int8", "fp8_e4m3", "int4"])
@@ -1828,8 +1906,10 @@ def test_mixtral_card_matches_cpu_on_both_routes(cuda_device, quant):
     """A tiny Mixtral (hidden 256, 8 experts of 512, top 2) quantized on the
     CPU: card against CPU logits of a T 48 prefill (the sparse route) and a
     b3 decode step (the dense route), max 0.2 and mean 1e-2 (a W8A8 model's
-    card-vs-CPU bar); each route's K1 / K4 / K5 launches one a expert
-    projection."""
+    card-vs-CPU bar); the prefill's K1 / K4 / K5 launches one a expert
+    projection, the decode step's 2 expert-GEMV launches a layer in W8A8 and
+    fp8 (the routed route) and one K5 launch a expert projection in int4
+    (the dense route); one routing launch a layer a forward."""
     from autosmoothquant_tpu_torch.kernels.counters import launch_counters, read_counts
     from autosmoothquant_tpu_torch.models import mixtral as MX
     from autosmoothquant_tpu_torch.quant.config import QuantConfig
@@ -1861,10 +1941,13 @@ def test_mixtral_card_matches_cpu_on_both_routes(cuda_device, quant):
             after = read_counts(counters)
         out[dev] = (MX.logits(p, h).cpu(), MX.logits(p, h2).cpu())
         if dev == "cuda":
-            # 4 attention projections and 3 a expert, every layer, both routes
+            # 4 attention projections and 3 a expert, every layer (prefill);
+            # at decode the experts as 2 expert-GEMV launches a layer (routed)
+            routed = quant != "int4"
             assert pre[kernel] - before[kernel] == 2 * (4 + 3 * 8)
-            assert after[kernel] - pre[kernel] == 2 * (4 + 3 * 8)
-            assert after["router_logits"] - before["router_logits"] == 4
+            assert after[kernel] - pre[kernel] == 2 * (4 + (0 if routed else 3 * 8))
+            assert after["expert_gemv"] - pre["expert_gemv"] == (2 * 2 if routed else 0)
+            assert after["moe_route"] - before["moe_route"] == 4
     for a, b in zip(out["cuda"], out["cpu"]):
         diff = (a - b).abs()
         assert float(diff.max()) <= 0.2 and float(diff.mean()) <= 1e-2, quant

@@ -7,7 +7,9 @@ from JAX's ``init_params``.
 JAX's route rule is the port's: the sparse (capacity-bucketed) route at T >=
 4 E = 16 tokens, the dense route below; the JAX side forces its mode as
 tests/test_mixtral_sparse.py does (``runtime.override(moe=...)``), so each
-case names the route both sides take.
+case names the route both sides take. Where JAX runs a dense step of T <= 8
+rows in W8A8 or fp8 e4m3 dynamic, the port runs its routed route, the dense
+route's bits from the picked experts alone (tests/test_torch_moe_routed.py).
 
 Tolerances (max |port - JAX|): logits in every format rtol 2e-4 / atol 2e-4,
 the JAX suite's own dense-against-sparse bar (measured: float 5e-7, int8
@@ -312,12 +314,19 @@ def test_dense_and_sparse_routes_give_the_same_bits(models, quant):
 
 
 @pytest.mark.parametrize("quant", list(QUANT))
-def test_forward_matches_jax(models, quant):
+def test_forward_matches_jax(models, quant, monkeypatch):
     """Prefill of 2 x 12 tokens (T 24: the sparse route) and one decode step
-    (T 2: the dense route), f32 KV cache: the logits of both; the float and
-    int8 models also at a prefill of 2 x 6 (T 12: dense). JAX runs its own
-    rule ("auto"), which picks these routes too."""
+    (T 2: JAX's dense route; the port's routed route in W8A8 and fp8 e4m3
+    dynamic, dense in the others), f32 KV cache: the logits of both; the
+    float and int8 models also at a prefill of 2 x 6 (T 12: dense). JAX runs
+    its own rule ("auto"), which picks these routes too."""
     cfg, tcfg, jp, tp, qcfg, tq, _ = models(quant)
+    routed_calls = []
+    moe_routed = TM.moe_routed
+    monkeypatch.setattr(TM, "moe_routed", lambda x2, *a, **kw: (
+        routed_calls.append(x2.shape[0]), moe_routed(x2, *a, **kw))[1])
+    routed = quant in ("int8", "int8_mixed", "int8_per_token", "fp8_e4m3")
+    assert TM.routed_format(tq, tp["layers"][0]["moe"]) == routed
     rng = np.random.default_rng(32)
     lengths = (12, 6) if quant in ("float", "int8") else (12,)
     for t in lengths:
@@ -325,7 +334,10 @@ def test_forward_matches_jax(models, quant):
         assert TM.use_sparse(2 * t, 4, False, False) == (t == 12)
         with jrt.override(moe="auto", clear_caches=False):
             j_pre, j_dec, tok = run_jax_cached(JM, cfg, jp, qcfg, ids, jnp.float32)
+        del routed_calls[:]
         t_pre, t_dec = run_port_cached(TM, tcfg, tp, tq, ids, torch.float32, tok)
+        # the decode step's two layers, and nothing of the prefill
+        assert routed_calls == ([2, 2] if routed else []), (quant, routed_calls)
         np.testing.assert_allclose(t_pre, j_pre, **TOL)
         np.testing.assert_allclose(t_dec, j_dec, **TOL)
 
