@@ -23,8 +23,11 @@ def launch_counters() -> Counters:
     ``int8_matmul_i32`` K1's int32 output and ``int4_matmul_scale`` K5 with a
     given per-token scale (the row-parallel partials, any route),
     ``fused_add_rmsnorm_quant_vec`` and ``fused_add_layernorm_quant_vec``
-    K2's and K6's vector routes, ``rmsnorm_quant_norm`` the norm's mode
-    without the quantize (the final norm) and ``decode_attention_paged``
+    K2's and K6's vector routes, ``rmsnorm_quant_norm`` the norm's
+    outputs without the quantize (f32 or bf16: the final norm, and every
+    norm whose consumer is not a prescaled int8 GEMM), ``rmsnorm_quant_res``
+    its residual mode (the add before the norm folded in) and
+    ``decode_attention_paged``
     decode attention through a page table (each also in its kernel's
     count). ``moe_route`` counts Mixtral's routing kernel and
     ``expert_gemv`` its expert-indexed GEMV (K1's and K4's alike)."""
@@ -44,7 +47,8 @@ def launch_counters() -> Counters:
                      (int8_matmul, "i32"), (int4_matmul, "scale"),
                      (int8_matmul, "gemv"), (fp8_matmul, "gemv"),
                      (fused_add_rmsnorm_quant, "vec"), (fused_add_layernorm_quant, "vec"),
-                     (rmsnorm_quant, "norm"), (decode_attention, "paged")):
+                     (rmsnorm_quant, "norm"), (rmsnorm_quant, "res"),
+                     (decode_attention, "paged")):
         counters[f"{w.__name__}_{route}"] = (w, f"{route}_launches")
     return counters
 

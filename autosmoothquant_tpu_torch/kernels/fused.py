@@ -1,9 +1,11 @@
 """Fused residual-add + norm + int8 quantize: the port of
 ``autosmoothquant_tpu/kernels/fused.py`` (``fused_add_rmsnorm_quant`` for the
 Llama family, ``fused_add_layernorm_quant`` for OPT), and the port's own
-RMSNorm + int8 quantize without the add (``rmsnorm_quant``: the first norm
-of a Llama layer and, without the quantize, the final norm; the JAX package
-leaves these to XLA).
+RMSNorm (``rmsnorm_quant``: every RMSNorm of the Llama, Gemma, Baichuan and
+Mixtral forwards that K2 does not run, the final norm included, but those
+before int4 projections, with the residual add before it folded in and its
+output int8, f32 or bf16 as its consumer reads it; the JAX package leaves
+these ops to XLA).
 
 CUDA tensors launch ``csrc/add_rmsnorm_quant.cu`` (K2) or
 ``csrc/add_layernorm_quant.cu`` (K6), each on the route :func:`norm_route`
@@ -128,9 +130,11 @@ def fused_add_layernorm_quant(h: torch.Tensor, x: torch.Tensor,
                    (gamma, beta), eps)
 
 
-# x, gamma, out, rows, D, eps, is_bf16, quantize, stream
-_RMS_ARGTYPES = (_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                 ctypes.c_int, _P)
+# x, r, gamma, s, out, rows, D, eps, is_bf16, out_kind, stream
+_RMS_ARGTYPES = (_P,) * 5 + (ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                             ctypes.c_int, _P)
+# rmsnorm_quant's outputs by csrc/asq_common.cuh:AsqOutKind
+_RMS_OUT_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -142,49 +146,76 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     return xf * recip_sqrt_rn(var + eps) * weight.float()
 
 
+def _rms_out_kind(dt: torch.dtype) -> int:
+    """rmsnorm_quant's output dtype as ``csrc/asq_common.cuh:AsqOutKind``."""
+    if dt not in _RMS_OUT_KINDS:
+        raise TypeError(f"rmsnorm_quant writes int8, f32 or bf16, not {dt}")
+    return _RMS_OUT_KINDS[dt]
+
+
 def rmsnorm_quant_plain(x: torch.Tensor, gamma: torch.Tensor, *, eps: float = 1e-6,
-                        quantize: bool = True) -> torch.Tensor:
-    """The two ops it fuses, as JAX and the port ran them before
-    (:func:`rms_norm`, then ``quantize_act_prescaled``): int8 of
-    round-half-even(rms_norm(x)) clamped (``quantize``), else the norm in x's
-    dtype. The kernel sums the squares in an order of its own (set by D
+                        out_dtype: torch.dtype = torch.int8, residual=None):
+    """The ops it fuses, as JAX and the port ran them before: with
+    ``residual``, s = x + residual in x's dtype (the f32 sum rounded once, a
+    torch add's bits); then :func:`rms_norm` of s (or x), then
+    ``quantize_act_prescaled`` (int8 of round-half-even, clamped) or the
+    cast to ``out_dtype``. Returns the output, or with ``residual`` (s,
+    output). The kernel sums the squares in an order of its own (set by D
     alone), so its int8 may sit one step from this where y lies within a
     last bit of a rounding boundary."""
+    _rms_out_kind(out_dtype)
+    if residual is not None:
+        x = (x.float() + residual.float()).to(x.dtype)
     y = rms_norm(x, gamma, eps)
-    if quantize:
-        return torch.clamp(torch.round(y), -128, 127).to(torch.int8)
-    return y.to(x.dtype)
+    out = (torch.clamp(torch.round(y), -128, 127).to(torch.int8) if out_dtype == torch.int8
+           else y.to(out_dtype))
+    return out if residual is None else (x, out)
 
 
 def rmsnorm_quant(x: torch.Tensor, gamma: torch.Tensor, *, eps: float = 1e-6,
-                  quantize: bool = True) -> torch.Tensor:
+                  out_dtype: torch.dtype = torch.int8, residual=None):
     """x: [T, D] (f32 or bf16); gamma: f32 [D] (with the per-tensor input
-    scale folded in where the output feeds an int8 GEMM). Returns int8 [T, D]
-    of round(rmsnorm(x) * gamma) (``quantize``), or rmsnorm(x) * gamma in
-    x's dtype. A row's bits do not depend on T. CUDA tensors launch
-    ``csrc/rmsnorm_quant.cu`` (D % 8 == 0, D <= 12288; anything else raises);
-    counted in ``launches``, the unquantized mode in ``norm_launches`` too."""
+    scale folded in where the output feeds an int8 GEMM); ``residual``: None,
+    or [T, D] in x's dtype, added first (s = x + residual, rounded to x's
+    dtype, and the norm is of s). The output: int8 [T, D] of
+    round(rmsnorm * gamma) (``out_dtype`` int8), else rmsnorm * gamma in
+    ``out_dtype`` (f32 or bf16).
+    Returns the output, or with ``residual`` (s, output). A row's bits do
+    not depend on T. CUDA tensors launch ``csrc/rmsnorm_quant.cu`` (D % 8 ==
+    0, D <= 12288; anything else raises); counted in ``launches``, the
+    unquantized outputs in ``norm_launches`` too and the residual mode in
+    ``res_launches`` too."""
     if x.ndim != 2 or gamma.shape != (x.shape[1],):
         raise ValueError(f"shapes x {tuple(x.shape)}, gamma {tuple(gamma.shape)}")
+    if residual is not None and (residual.shape != x.shape or residual.dtype != x.dtype):
+        raise ValueError(f"residual {tuple(residual.shape)} {residual.dtype} is not x's "
+                         f"{tuple(x.shape)} {x.dtype}")
     if not x.is_cuda:
-        return rmsnorm_quant_plain(x, gamma, eps=eps, quantize=quantize)
+        return rmsnorm_quant_plain(x, gamma, eps=eps, out_dtype=out_dtype, residual=residual)
     t, d = x.shape
+    kind = _rms_out_kind(out_dtype)
     if x.dtype not in (torch.float32, torch.bfloat16) or gamma.dtype != torch.float32:
         raise TypeError(f"x must be f32 or bf16 and gamma f32, got {x.dtype}/{gamma.dtype}")
     if d % 8 or d > _MAX_D:
         raise ValueError(f"D={d}: the kernel takes D % 8 == 0 up to {_MAX_D}")
     # contiguous, with 16-byte aligned bases (a fresh allocation is aligned)
-    x, gamma = (v.contiguous() if v.data_ptr() % 16 == 0 else v.clone(
-        memory_format=torch.contiguous_format) for v in (x, gamma))
-    out = torch.empty((t, d), dtype=torch.int8 if quantize else x.dtype, device=x.device)
+    x, gamma, residual = (None if v is None else v.contiguous() if v.data_ptr() % 16 == 0
+                          else v.clone(memory_format=torch.contiguous_format)
+                          for v in (x, gamma, residual))
+    out = torch.empty((t, d), dtype=out_dtype, device=x.device)
+    s = None if residual is None else torch.empty_like(x)
     fn = _build.function("rmsnorm_quant", "asq_rmsnorm_quant", _RMS_ARGTYPES)
-    rc = fn(x.data_ptr(), gamma.data_ptr(), out.data_ptr(), t, d, float(eps),
-            int(x.dtype == torch.bfloat16), int(quantize), _build.stream_ptr(x))
+    rc = fn(x.data_ptr(), None if residual is None else residual.data_ptr(), gamma.data_ptr(),
+            None if s is None else s.data_ptr(), out.data_ptr(), t, d, float(eps),
+            int(x.dtype == torch.bfloat16), kind, _build.stream_ptr(x))
     _build.check("rmsnorm_quant", rc, "rmsnorm_quant")
     rmsnorm_quant.launches += 1
-    if not quantize:
+    if out_dtype != torch.int8:
         rmsnorm_quant.norm_launches += 1
-    return out
+    if s is None:
+        return out
+    rmsnorm_quant.res_launches += 1
+    return s, out
 
 
 # launches of the CUDA kernels (plain CPU calls do not count), and of the
@@ -194,3 +225,4 @@ for _wrapper in (fused_add_rmsnorm_quant, fused_add_layernorm_quant):
     _wrapper.vec_launches = 0
 rmsnorm_quant.launches = 0
 rmsnorm_quant.norm_launches = 0
+rmsnorm_quant.res_launches = 0

@@ -25,11 +25,12 @@ logical key position). Heads are not grouped (Hq = Hkv).
 
 Per layer, as JAX: RMSNorm -> W_pack -> (RoPE) -> attention -> o_proj ->
 residual -> RMSNorm -> gate, up -> silu(gate) * up -> down -> residual. Each
-norm before a per-tensor int8 projection runs as one RMSNorm + int8 kernel a
-row (``kernels/fused.py:rmsnorm_quant``: the two ops JAX runs, rms_norm then
-the prescaled quantize), the final norm through the same kernel unquantized,
-as in ``models/llama.py``. The residual add stays apart (JAX adds before
-its second norm; the fused add + norm + int8 kernel K2 is Llama's).
+norm, the final one included, is one ``kernels/fused.py:rmsnorm_quant``
+launch with the residual add before it folded in (the ops JAX runs: the add,
+rms_norm, and before a per-tensor int8 projection the prescaled quantize),
+as in ``models/llama.py`` (before int4 projections the torch ops:
+``models/common.py:norm_dtype``); the fused add + norm + int8 kernel K2,
+which normalises the unrounded sum, is Llama's alone.
 """
 
 from __future__ import annotations
@@ -40,13 +41,13 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from ..kernels.fused import rmsnorm_quant
 from ..quant import math as qmath
 from ..quant.config import PER_TENSOR, QuantConfig
 from ..runtime import resolve_device
 from .common import (
     LinearKind,
     absmax_ch,
+    add_rms_norm,
     add_static_fp8_scales,
     apply_rope,
     as_tensor,
@@ -56,10 +57,10 @@ from .common import (
     linear_prequant,
     lm_logits,
     make_kv_cache,
+    norm_dtype,
     pack_fp8,
     pack_int4,
     pack_int8,
-    rms_norm,
     rope_cos_sin,
     row_linear,
     scales_on,
@@ -190,25 +191,30 @@ def _prescaled(qcfg: Optional[QuantConfig], gran: Optional[str], p) -> bool:
 
 
 def _layer_forward(h, lp, cfg: BaichuanConfig, qcfg: Optional[QuantConfig], cos, sin,
-                   mask, cache, cache_index, compute_dtype, slopes, *,
+                   mask, cache, cache_index, compute_dtype, slopes, *, pending=None,
                    plain_causal=False, chunk0=False, banded=False, banded_starts=None,
                    kv_window=None, stats=None, plan=None, mesh=None):
-    """One decoder layer; h: [B, T, D] in compute_dtype. The cache (if any)
-    is written in place; ``stats``, a dict, receives the layer's calibration
-    statistics (JAX ``_layer_forward``'s). Under a mesh (``plan``) W_pack
-    holds the rank's q | k | v sections and ``slopes`` its heads' slopes; o
-    and down sum over "model"."""
+    """One decoder layer; h: [B, T, D] in compute_dtype, ``pending`` the
+    previous layer's MLP output not yet added to h (None: h is whole). The
+    cache (if any) is written in place. Each norm is one ``rmsnorm_quant``
+    launch with the add before it folded in (the torch ops before int4
+    projections: ``common.py:norm_dtype``); returns (h, down) as
+    ``models/llama.py:_layer_forward`` does, and under calibration capture
+    (``stats``, a dict, receives JAX ``_layer_forward``'s statistics; the
+    adds and norms are torch ops) (h + down, None). Under a mesh (``plan``)
+    W_pack holds the rank's q | k | v sections and ``slopes`` its heads'
+    slopes; o and down sum over "model"."""
     b, t, d = h.shape
     hd, n_h = cfg.head_dim, plan.q_heads
     capture = stats is not None
     wpack = lp["attn"]["wpack"]
-    if not capture and _prescaled(qcfg, qcfg and qcfg.qkv, wpack):
-        x_q = rmsnorm_quant(h.reshape(b * t, d), lp["ln1"]["w"], eps=cfg.rms_norm_eps)
-        proj = linear_prequant(x_q, wpack, compute_dtype).reshape(b, t, -1)
+    h, x = add_rms_norm(h, pending, lp["ln1"]["w"], cfg.rms_norm_eps, None if capture else
+                        norm_dtype(_prescaled(qcfg, qcfg and qcfg.qkv, wpack), [wpack]))
+    if capture:
+        stats["qkv_in_ch_absmax"] = absmax_ch(x)
+    if x.dtype == torch.int8:
+        proj = linear_prequant(x.reshape(b * t, d), wpack, compute_dtype).reshape(b, t, -1)
     else:
-        x = rms_norm(h, lp["ln1"]["w"], cfg.rms_norm_eps)
-        if capture:
-            stats["qkv_in_ch_absmax"] = absmax_ch(x)
         proj = linear(x, wpack, qcfg, qcfg.qkv if qcfg else PER_TENSOR,
                       LinearKind.POST_NORM, out_dtype=compute_dtype)
     if capture:
@@ -229,18 +235,18 @@ def _layer_forward(h, lp, cfg: BaichuanConfig, qcfg: Optional[QuantConfig], cos,
     if capture:
         stats["o_in_ch_absmax"] = absmax_ch(ctx)
         stats["o_out_absmax"] = attn_out.abs().amax()
-    h = h + attn_out
 
     mlp = lp["mlp"]
     fc1 = qcfg.fc1 if qcfg else PER_TENSOR
-    if not capture and _prescaled(qcfg, fc1, mlp["gate"]) and _prescaled(qcfg, fc1, mlp["up"]):
-        x2_q = rmsnorm_quant(h.reshape(b * t, d), lp["ln2"]["w"], eps=cfg.rms_norm_eps)
-        gate, up = (linear_prequant(x2_q, mlp[n], compute_dtype).reshape(b, t, -1)
+    prescaled = _prescaled(qcfg, fc1, mlp["gate"]) and _prescaled(qcfg, fc1, mlp["up"])
+    h, x2 = add_rms_norm(h, attn_out, lp["ln2"]["w"], cfg.rms_norm_eps, None if capture
+                         else norm_dtype(prescaled, [mlp["gate"], mlp["up"]]))
+    if capture:
+        stats["gate_in_ch_absmax"] = absmax_ch(x2)
+    if x2.dtype == torch.int8:
+        gate, up = (linear_prequant(x2.reshape(b * t, d), mlp[n], compute_dtype).reshape(b, t, -1)
                     for n in ("gate", "up"))
     else:
-        x2 = rms_norm(h, lp["ln2"]["w"], cfg.rms_norm_eps)
-        if capture:
-            stats["gate_in_ch_absmax"] = absmax_ch(x2)
         gate = linear(x2, mlp["gate"], qcfg, fc1, LinearKind.POST_NORM, out_dtype=compute_dtype)
         up = linear(x2, mlp["up"], qcfg, fc1, LinearKind.POST_NORM, out_dtype=compute_dtype)
     act = (torch.nn.functional.silu(gate.float()) * up.float()).to(compute_dtype)
@@ -251,7 +257,8 @@ def _layer_forward(h, lp, cfg: BaichuanConfig, qcfg: Optional[QuantConfig], cos,
         stats["up_out_absmax"] = up.abs().amax()
         stats["down_in_ch_absmax"] = absmax_ch(act)
         stats["down_out_absmax"] = down.abs().amax()
-    return h + down
+        return h + down, None
+    return h, down
 
 
 def forward(params, input_ids: torch.Tensor, cfg: BaichuanConfig,
@@ -286,16 +293,17 @@ def forward(params, input_ids: torch.Tensor, cfg: BaichuanConfig,
     if cfg.position_embedding == "ROPE":
         cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     slopes = plan.slopes(slopes_on(cfg, dev))
-    per_layer = []
+    per_layer, pending = [], None
     for i, lp in enumerate(params["layers"]):
         stats = {} if capture_stats else None
-        h = _layer_forward(
+        h, pending = _layer_forward(
             h, lp, cfg, quant_config, cos, sin, mask,
             kv_cache[i] if kv_cache is not None else None, cache_index, compute_dtype,
-            slopes, plain_causal=plain_causal, chunk0=chunk0, banded=chunkN,
+            slopes, pending=pending, plain_causal=plain_causal, chunk0=chunk0, banded=chunkN,
             banded_starts=pad_starts, kv_window=kv_window, stats=stats, plan=plan, mesh=mesh)
         per_layer.append(stats)
-    h = stage_output(h, lambda x: head(params, x, cfg, compute_dtype), mesh)
+    h = stage_output(h, lambda x, r: head(params, x, cfg, compute_dtype, pending=r), mesh,
+                     pending)
     if capture_stats:
         return h, kv_cache, {k: torch.stack([st[k] for st in per_layer]) for k in STAT_KEYS}
     return h, kv_cache

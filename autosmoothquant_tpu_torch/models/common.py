@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from ..kernels.attention import (alibi_bias, decode_attention, flash_attention,
                                  flash_attention_banded, gather_pages)
 from ..kernels.fp8 import fp8_matmul
-from ..kernels.fused import rms_norm, rmsnorm_quant  # noqa: F401  (the families' norm)
+from ..kernels.fused import rms_norm, rmsnorm_quant  # noqa: F401  (the families' rms_norm)
 from ..kernels.gemm import epilogue, int8_matmul
 from ..kernels.int4 import _A8_MAX_M, int4_matmul
 from ..quant import math as qmath
@@ -208,16 +208,27 @@ def stage_input(embed, mesh: Optional[Mesh], shape, dtype, device) -> torch.Tens
     return st.recv(shape, dtype, device, st.index - 1)
 
 
-def stage_output(h: torch.Tensor, head, mesh: Optional[Mesh]) -> torch.Tensor:
-    """``head(h)`` on the last stage (or without a stage axis): the model's
-    final hidden state. An earlier stage sends ``h`` to the next one, waits
-    until it has left, and returns it as it is (its own layers' output)."""
+def stage_output(h: torch.Tensor, head, mesh: Optional[Mesh],
+                 pending: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``head(h, pending)`` on the last stage (or without a stage axis): the
+    model's final hidden state; ``pending`` is the last layer's branch
+    output not yet added to h (:func:`complete`; None where the layers leave
+    none), which the head's norm adds. An earlier stage sends the completed
+    stream h + pending to the next one, waits until it has left, and
+    returns it (its own layers' output)."""
     st = axis_of(mesh, "stage")
     if st.index == st.size - 1:
-        return head(h)
+        return head(h, pending)
+    h = complete(h, pending)
     st.send(h, st.index + 1)
     st.wait_sends()
     return h
+
+
+def complete(h: torch.Tensor, pending: Optional[torch.Tensor]) -> torch.Tensor:
+    """The residual stream h + pending in h's dtype (a torch add), or h where
+    nothing is pending."""
+    return h if pending is None else h + pending
 
 
 def embed_tokens(params, input_ids: torch.Tensor, cfg, compute_dtype) -> torch.Tensor:
@@ -226,12 +237,59 @@ def embed_tokens(params, input_ids: torch.Tensor, cfg, compute_dtype) -> torch.T
     return params["embed"]["w"][input_ids].to(compute_dtype)
 
 
-def final_rms_norm(params, h: torch.Tensor, cfg, compute_dtype) -> torch.Tensor:
-    """The final norm in one kernel a row (``rmsnorm_quant``, unquantized),
-    in h's dtype: the last stage's part of those forwards (their ``head``)."""
-    lead = h.shape[:-1]
-    return rmsnorm_quant(h.reshape(-1, h.shape[-1]), params["final_norm"]["w"],
-                         eps=cfg.rms_norm_eps, quantize=False).reshape(*lead, -1)
+def final_rms_norm(params, h: torch.Tensor, cfg, compute_dtype,
+                   pending: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The final norm of h + pending (the last layer's MLP output, folded
+    in; None: of h) in one ``rmsnorm_quant`` launch, in h's dtype: the last
+    stage's part of those forwards (their ``head``)."""
+    return add_rms_norm(h, pending, params["final_norm"]["w"], cfg.rms_norm_eps, h.dtype)[1]
+
+
+def add_rms_norm(h: torch.Tensor, pending: Optional[torch.Tensor], weight: torch.Tensor,
+                 eps: float, out_dtype: Optional[torch.dtype]):
+    """One RMSNorm of the Llama, Gemma, Baichuan and Mixtral forwards in one
+    ``rmsnorm_quant`` launch over h's rows, with the add before it folded in:
+    (s, the norm of s in ``out_dtype``, :func:`norm_dtype`), each h's shape,
+    where s = h + pending rounded to h's dtype (a torch add's bits), or h
+    itself where nothing is pending. ``out_dtype`` None: the torch ops
+    instead (:func:`complete`, then ``rms_norm``: f32)."""
+    if out_dtype is None:
+        h = complete(h, pending)
+        return h, rms_norm(h, weight, eps)
+    rows = h.reshape(-1, h.shape[-1])
+    if pending is None:
+        return h, rmsnorm_quant(rows, weight, eps=eps, out_dtype=out_dtype).reshape(h.shape)
+    s, y = rmsnorm_quant(rows, weight, eps=eps, out_dtype=out_dtype,
+                         residual=pending.reshape(rows.shape))
+    return s.reshape(h.shape), y.reshape(h.shape)
+
+
+def norm_dtype(prescaled: bool, projs) -> Optional[torch.dtype]:
+    """The dtype a norm's output is written in for the projections ``projs``
+    that read it: int8 where they take per-tensor int8 with the input scale
+    folded into the norm (``prescaled``: ``quantize_act_prescaled`` is then
+    the kernel's own rounding); bf16 where every one is a float projection
+    with bf16 weights (``matmul_f32``'s first op casts to bf16: the same f32
+    value rounded once, one launch fewer); None where one is int4 (W4A8);
+    else f32, ``rms_norm``'s own dtype, which the fp8 and per-token
+    quantizers read.
+
+    None keeps the torch ops (:func:`add_rms_norm`), so that the norms
+    before int4 q, k, v and gate, up (Llama, Gemma, Baichuan, and Mixtral's
+    first norm) keep the card bits they had as torch ops. Moved onto the
+    kernel, whose sum order differs from torch's mean in the last bit, they
+    part int4 card decode from the CPU's at a top-2 margin (0.0497) above
+    the near-tie margin ``chip_smoke.py`` holds int4 decode to (0.02), a
+    margin not yet read against W4A8 decode noise (PERF.md §7, ROADMAP
+    Queue 3). This is not a property of W4A8: Mixtral's second norm, which
+    feeds its int4 experts, was the kernel before and stays the kernel."""
+    if prescaled:
+        return torch.int8
+    if any(p["w"].dtype == torch.uint8 for p in projs):
+        return None
+    if all(not is_quantized(p) and p["w"].dtype == torch.bfloat16 for p in projs):
+        return torch.bfloat16
+    return torch.float32
 
 
 def global_rows(m: int, mesh: Optional[Mesh]) -> int:

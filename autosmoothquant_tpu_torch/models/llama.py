@@ -33,7 +33,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from ..kernels.fused import fused_add_rmsnorm_quant, rmsnorm_quant
+from ..kernels.fused import fused_add_rmsnorm_quant
 from ..quant import math as qmath
 from ..quant.config import PER_TENSOR, QuantConfig
 from ..runtime import resolve_device
@@ -46,6 +46,7 @@ from .common import (
     fp8_observer_scales_of,
     fused_block_enabled,
     absmax_ch,
+    add_rms_norm,
     add_static_fp8_scales,
     as_tensor,
     is_quantized,
@@ -53,10 +54,10 @@ from .common import (
     linear_prequant,
     lm_logits,
     make_kv_cache,
+    norm_dtype,
     pack_fp8,
     pack_int4,
     pack_int8,
-    rms_norm,
     rope_cos_sin,
     row_linear,
     scales_on,
@@ -126,52 +127,52 @@ config_from_hf = LlamaConfig.from_hf
 
 def _qkv_prescaled(qcfg: Optional[QuantConfig], attn) -> bool:
     """Whether q|k|v take per-tensor int8 whose input scale is folded into
-    ln1 (the default QuantConfig): the first norm then runs as one
-    RMSNorm + int8 kernel a row (``kernels/fused.py:rmsnorm_quant``)."""
+    ln1 (the default QuantConfig): the first norm then writes their int8
+    input (``kernels/fused.py:rmsnorm_quant``)."""
     proj = attn["qkv"] if "qkv" in attn else attn["q"]
     return (qcfg is not None and qcfg.is_int8 and qcfg.qkv == PER_TENSOR
             and proj["w"].dtype == torch.int8)
 
 
 def _layer_forward(h, lp, cfg: LlamaConfig, qcfg: Optional[QuantConfig], cos,
-                   sin, mask, cache, cache_index, compute_dtype, *,
+                   sin, mask, cache, cache_index, compute_dtype, *, pending=None,
                    plain_causal=False, chunk0=False, banded=False,
                    banded_starts=None, kv_window=None, stats=None, plan=None, mesh=None):
-    """One decoder layer; h: [B, T, D] in compute_dtype. The cache (if any)
-    is written in place. ``stats``, a dict, receives the layer's calibration
-    statistics (JAX ``_layer_forward``'s); capture takes no fused route, so
-    every norm output and projection is seen on its own. Under a mesh
-    (``plan``, ``shard/sharding.py:tp_plan``) the layer holds its rank's
-    heads and MLP columns, and o and down sum over "model"."""
+    """One decoder layer; h: [B, T, D] in compute_dtype, and ``pending`` the
+    previous layer's MLP output not yet added to h (None: h is whole). The
+    cache (if any) is written in place. Each norm is one ``rmsnorm_quant``
+    launch with the add before it folded in (the first norm adds
+    ``pending``, the second the attention output), or K2 where the fused
+    block runs, or the torch ops before int4 projections
+    (``common.py:norm_dtype``). Returns (h, down): the stream after attention's add and
+    this layer's MLP output, which the next norm adds (the next layer's
+    first norm, or the final norm). ``stats``, a dict, receives the layer's
+    calibration statistics (JAX ``_layer_forward``'s); capture runs the adds
+    and norms as torch ops and takes no fused route, so every norm output
+    and projection is seen on its own, and returns (h + down, None). Under
+    a mesh (``plan``, ``shard/sharding.py:tp_plan``) the layer holds its
+    rank's heads and MLP columns, and o and down sum over "model"."""
     b, t, d = h.shape
     hd = cfg.head_dim
     n_q, n_kv = plan.q_heads, plan.kv_heads
     qkv_gran = qcfg.qkv if qcfg else PER_TENSOR
     capture = stats is not None
+    attn, mlp = lp["attn"], lp["mlp"]
+    qkv_names = ("qkv",) if "qkv" in attn else ("q", "k", "v")
 
-    if not capture and _qkv_prescaled(qcfg, lp["attn"]):
-        # RMSNorm + int8 quantize in one kernel, feeding q|k|v their int8
-        # input directly
-        x_q = rmsnorm_quant(h.reshape(b * t, d), lp["ln1"]["w"], eps=cfg.rms_norm_eps)
-        if "qkv" in lp["attn"]:
-            proj = linear_prequant(x_q, lp["attn"]["qkv"], compute_dtype).reshape(b, t, -1)
-            q, k, v = proj.split([n_q * hd, n_kv * hd, n_kv * hd], dim=-1)
-        else:
-            q, k, v = (linear_prequant(x_q, lp["attn"][name], compute_dtype).reshape(b, t, -1)
-                       for name in ("q", "k", "v"))
+    h, x = add_rms_norm(h, pending, lp["ln1"]["w"], cfg.rms_norm_eps, None if capture else
+                        norm_dtype(_qkv_prescaled(qcfg, attn), [attn[n] for n in qkv_names]))
+    if capture:
+        stats["qkv_in_ch_absmax"] = absmax_ch(x)
+    if x.dtype == torch.int8:
+        # the norm wrote q|k|v's int8 input directly
+        outs = [linear_prequant(x.reshape(b * t, d), attn[n], compute_dtype).reshape(b, t, -1)
+                for n in qkv_names]
     else:
-        x = rms_norm(h, lp["ln1"]["w"], cfg.rms_norm_eps)
-        if capture:
-            stats["qkv_in_ch_absmax"] = absmax_ch(x)
-        if "qkv" in lp["attn"]:
-            # one GEMM over q|k|v; its dequant_scale is a per-column vector
-            proj = linear(x, lp["attn"]["qkv"], qcfg, qkv_gran, LinearKind.POST_NORM,
-                          out_dtype=compute_dtype)
-            q, k, v = proj.split([n_q * hd, n_kv * hd, n_kv * hd], dim=-1)
-        else:
-            q, k, v = (linear(x, lp["attn"][name], qcfg, qkv_gran,
-                              LinearKind.POST_NORM, out_dtype=compute_dtype)
-                       for name in ("q", "k", "v"))
+        # q|k|v as one GEMM where fused; its dequant_scale is a per-column vector
+        outs = [linear(x, attn[n], qcfg, qkv_gran, LinearKind.POST_NORM, out_dtype=compute_dtype)
+                for n in qkv_names]
+    q, k, v = outs[0].split([n_q * hd, n_kv * hd, n_kv * hd], dim=-1) if len(outs) == 1 else outs
     if capture:
         for name, y in (("q", q), ("k", k), ("v", v)):
             stats[f"{name}_out_absmax"] = y.abs().amax()
@@ -185,50 +186,46 @@ def _layer_forward(h, lp, cfg: LlamaConfig, qcfg: Optional[QuantConfig], cos,
                             banded=banded, banded_starts=banded_starts,
                             kv_window=kv_window, sliding_window=cfg.sliding_window)
     ctx = ctx.reshape(b, t, n_q * hd)
-    attn_out = row_linear(ctx, lp["attn"]["o"], qcfg, qcfg.out if qcfg else PER_TENSOR,
+    attn_out = row_linear(ctx, attn["o"], qcfg, qcfg.out if qcfg else PER_TENSOR,
                           LinearKind.SCALED, compute_dtype, mesh if plan.attn else None)
     if capture:
         stats["o_in_ch_absmax"] = absmax_ch(ctx)
         stats["o_out_absmax"] = attn_out.abs().amax()
 
     inter = cfg.intermediate_size // (plan.model if plan.mlp else 1)
-    if fused_block_enabled(qcfg, capture) and is_quantized(lp["attn"]["o"]):
+    if fused_block_enabled(qcfg, capture) and is_quantized(attn["o"]):
         # residual add + RMSNorm + int8 quantize in one kernel, feeding the
         # gate|up GEMM its int8 input directly
         h2, x2_q = fused_add_rmsnorm_quant(h.reshape(b * t, d),
                                            attn_out.reshape(b * t, d),
                                            lp["ln2"]["w"], eps=cfg.rms_norm_eps)
         h = h2.reshape(b, t, d)
-        if "gateup" in lp["mlp"]:
-            proj = linear_prequant(x2_q, lp["mlp"]["gateup"], compute_dtype)
+        if "gateup" in mlp:
+            proj = linear_prequant(x2_q, mlp["gateup"], compute_dtype)
             gate, up = proj.reshape(b, t, 2 * inter).split([inter, inter], -1)
         else:
-            gate = linear_prequant(x2_q, lp["mlp"]["gate"], compute_dtype).reshape(b, t, -1)
-            up = linear_prequant(x2_q, lp["mlp"]["up"], compute_dtype).reshape(b, t, -1)
+            gate = linear_prequant(x2_q, mlp["gate"], compute_dtype).reshape(b, t, -1)
+            up = linear_prequant(x2_q, mlp["up"], compute_dtype).reshape(b, t, -1)
     else:
-        h = h + attn_out
-        x2 = rms_norm(h, lp["ln2"]["w"], cfg.rms_norm_eps)
+        gateup_names = ("gateup",) if "gateup" in mlp else ("gate", "up")
+        h, x2 = add_rms_norm(h, attn_out, lp["ln2"]["w"], cfg.rms_norm_eps, None if capture
+                             else norm_dtype(False, [mlp[n] for n in gateup_names]))
         if capture:
             stats["gate_in_ch_absmax"] = absmax_ch(x2)
         fc1 = qcfg.fc1 if qcfg else PER_TENSOR
-        if "gateup" in lp["mlp"]:
-            proj = linear(x2, lp["mlp"]["gateup"], qcfg, fc1, LinearKind.POST_NORM,
-                          out_dtype=compute_dtype)
-            gate, up = proj.split([inter, inter], dim=-1)
-        else:
-            gate = linear(x2, lp["mlp"]["gate"], qcfg, fc1, LinearKind.POST_NORM,
-                          out_dtype=compute_dtype)
-            up = linear(x2, lp["mlp"]["up"], qcfg, fc1, LinearKind.POST_NORM,
-                        out_dtype=compute_dtype)
+        outs = [linear(x2, mlp[n], qcfg, fc1, LinearKind.POST_NORM, out_dtype=compute_dtype)
+                for n in gateup_names]
+        gate, up = outs[0].split([inter, inter], dim=-1) if len(outs) == 1 else outs
     act = (activation(gate.float(), cfg.hidden_act) * up.float()).to(compute_dtype)
-    down = row_linear(act, lp["mlp"]["down"], qcfg, qcfg.fc2 if qcfg else PER_TENSOR,
+    down = row_linear(act, mlp["down"], qcfg, qcfg.fc2 if qcfg else PER_TENSOR,
                       LinearKind.SCALED, compute_dtype, mesh if plan.mlp else None)
     if capture:
         stats["gate_out_absmax"] = gate.abs().amax()
         stats["up_out_absmax"] = up.abs().amax()
         stats["down_in_ch_absmax"] = absmax_ch(act)
         stats["down_out_absmax"] = down.abs().amax()
-    return h + down
+        return h + down, None
+    return h, down
 
 
 def forward(params, input_ids: torch.Tensor, cfg: LlamaConfig,
@@ -274,17 +271,18 @@ def forward(params, input_ids: torch.Tensor, cfg: LlamaConfig,
         positions, mask, plain_causal = uncached_mask_and_positions(
             b, t, positions, attention_mask, cfg.sliding_window, dev)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
-    per_layer = []
+    per_layer, pending = [], None
     for i, lp in enumerate(params["layers"]):
         stats = {} if capture_stats else None
-        h = _layer_forward(
+        h, pending = _layer_forward(
             h, lp, cfg, quant_config, cos, sin, mask,
             kv_cache[i] if kv_cache is not None else None, cache_index,
-            compute_dtype, plain_causal=plain_causal, chunk0=chunk0,
+            compute_dtype, pending=pending, plain_causal=plain_causal, chunk0=chunk0,
             banded=chunkN, banded_starts=pad_starts, kv_window=kv_window, stats=stats,
             plan=plan, mesh=mesh)
         per_layer.append(stats)
-    h = stage_output(h, lambda x: head(params, x, cfg, compute_dtype), mesh)
+    h = stage_output(h, lambda x, r: head(params, x, cfg, compute_dtype, pending=r), mesh,
+                     pending)
     if capture_stats:
         return h, kv_cache, {k: torch.stack([st[k] for st in per_layer]) for k in STAT_KEYS}
     return h, kv_cache

@@ -42,12 +42,13 @@ of host reads and data-dependent shapes, so a decode step (routed or dense)
 and a speculative verify (any) capture as CUDA graphs; a dropped pair lands
 in a scratch column of the tables, never past a buffer. All combine in f32 in
 ascending expert order, element by element, so a token's output is the
-same bits on any route (unless dropped) and in any batch. The second norm
-runs through ``rmsnorm_quant`` unquantized (its f32 output feeds the router,
-and the experts' int8 input is rounded from it), the routing through the
-port's own one-launch kernel (``kernels/moe.py:moe_route``: logits, softmax,
-top k, weights; a row's bits alone as in a batch); under per-tensor int8
-the first norm is the RMSNorm + int8 kernel, as in ``models/baichuan.py``.
+same bits on any route (unless dropped) and in any batch. Each norm is one
+``rmsnorm_quant`` launch with the residual add before it folded in, as in
+``models/llama.py``: the second writes f32 (the router reads it, and the
+experts' int8 input is rounded from it), the first int8 under per-tensor
+int8 q|k|v (torch ops before int4 ones); the routing runs through the port's
+own one-launch kernel (``kernels/moe.py:moe_route``: logits, softmax, top k,
+weights; a row's bits alone as in a batch).
 """
 
 from __future__ import annotations
@@ -60,7 +61,6 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.fp8 import fp8_matmul
-from ..kernels.fused import rmsnorm_quant
 from ..kernels.gemm import GEMV_MAX_M, int8_matmul
 from ..kernels.moe import combine_operands, expert_gemv, moe_route
 from ..quant import math as qmath
@@ -70,6 +70,7 @@ from ..shard.mesh import axis_of
 from .common import (
     LinearKind,
     absmax_ch,
+    add_rms_norm,
     apply_rope,
     as_tensor,
     cache_mask_and_routing,
@@ -79,10 +80,10 @@ from .common import (
     linear_prequant,
     lm_logits,
     make_kv_cache,
+    norm_dtype,
     pack_fp8,
     pack_int4,
     pack_int8,
-    rms_norm,
     rope_cos_sin,
     row_linear,
     scales_on,
@@ -511,25 +512,32 @@ def _qkv_prescaled(qcfg: Optional[QuantConfig], attn) -> bool:
 
 
 def _layer_forward(h, lp, cfg: MixtralConfig, qcfg: Optional[QuantConfig], cos, sin,
-                   mask, cache, cache_index, compute_dtype, *, plain_causal=False,
+                   mask, cache, cache_index, compute_dtype, *, pending=None, plain_causal=False,
                    chunk0=False, banded=False, banded_starts=None, kv_window=None,
                    all_experts=False, stats=None, plan=None, mesh=None):
-    """One decoder layer; h: [B, T, D] in compute_dtype. The cache (if any)
-    is written in place; ``stats``, a dict, receives the layer's calibration
-    statistics (JAX ``_layer_forward``'s and ``_moe_block``'s)."""
+    """One decoder layer; h: [B, T, D] in compute_dtype, ``pending`` the
+    previous layer's MoE output not yet added to h (None: h is whole). The
+    cache (if any) is written in place. Each norm is one ``rmsnorm_quant``
+    launch with the add before it folded in (the first norm the torch ops
+    before int4 q, k, v: ``common.py:norm_dtype``); returns (h, moe) as
+    ``models/llama.py:_layer_forward`` does. ``stats``, a dict, receives the
+    layer's calibration statistics (JAX ``_layer_forward``'s and
+    ``_moe_block``'s); capture runs the adds and the first norm as torch ops
+    (the second norm reads the sum, as the router does in every mode) and
+    returns (h + moe, None)."""
     b, t, d = h.shape
     hd = cfg.head_dim
     n_q, n_kv = plan.q_heads, plan.kv_heads
     capture = stats is not None
     attn = lp["attn"]
-    if not capture and _qkv_prescaled(qcfg, attn):
-        x_q = rmsnorm_quant(h.reshape(b * t, d), lp["ln1"]["w"], eps=cfg.rms_norm_eps)
-        q, k, v = (linear_prequant(x_q, attn[n], compute_dtype).reshape(b, t, -1)
+    h, x = add_rms_norm(h, pending, lp["ln1"]["w"], cfg.rms_norm_eps, None if capture else
+                        norm_dtype(_qkv_prescaled(qcfg, attn), [attn[n] for n in "qkv"]))
+    if capture:
+        stats["qkv_in_ch_absmax"] = absmax_ch(x)
+    if x.dtype == torch.int8:
+        q, k, v = (linear_prequant(x.reshape(b * t, d), attn[n], compute_dtype).reshape(b, t, -1)
                    for n in ("q", "k", "v"))
     else:
-        x = rms_norm(h, lp["ln1"]["w"], cfg.rms_norm_eps)
-        if capture:
-            stats["qkv_in_ch_absmax"] = absmax_ch(x)
         gran = qcfg.qkv if qcfg else PER_TENSOR
         q, k, v = (linear(x, attn[n], qcfg, gran, LinearKind.POST_NORM, out_dtype=compute_dtype)
                    for n in ("q", "k", "v"))
@@ -548,14 +556,15 @@ def _layer_forward(h, lp, cfg: MixtralConfig, qcfg: Optional[QuantConfig], cos, 
     if capture:
         stats["o_in_ch_absmax"] = absmax_ch(ctx)
         stats["o_out_absmax"] = attn_out.abs().amax()
-    h = h + attn_out
+        h, attn_out = h + attn_out, None
     # the second norm in f32 (JAX's rms_norm output), read by the router and
     # rounded to the experts' int8 input
-    x2 = rmsnorm_quant(h.reshape(b * t, d).float(), lp["ln2"]["w"], eps=cfg.rms_norm_eps,
-                       quantize=False)
-    moe = moe_block(x2, lp["moe"], cfg, qcfg, compute_dtype, all_experts=all_experts,
-                    stats=stats, plan=plan, mesh=mesh)
-    return h + moe.reshape(b, t, d)
+    h, x2 = add_rms_norm(h, attn_out, lp["ln2"]["w"], cfg.rms_norm_eps, torch.float32)
+    moe = moe_block(x2.reshape(b * t, d), lp["moe"], cfg, qcfg, compute_dtype,
+                    all_experts=all_experts, stats=stats, plan=plan, mesh=mesh).reshape(b, t, d)
+    if capture:
+        return h + moe, None
+    return h, moe
 
 
 def forward(params, input_ids: torch.Tensor, cfg: MixtralConfig,
@@ -590,17 +599,18 @@ def forward(params, input_ids: torch.Tensor, cfg: MixtralConfig,
         positions, mask, plain_causal = uncached_mask_and_positions(
             b, t, positions, attention_mask, 0, dev)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
-    per_layer = []
+    per_layer, pending = [], None
     for i, lp in enumerate(params["layers"]):
         stats = {} if capture_stats else None
-        h = _layer_forward(
+        h, pending = _layer_forward(
             h, lp, cfg, quant_config, cos, sin, mask,
             kv_cache[i] if kv_cache is not None else None, cache_index, compute_dtype,
-            plain_causal=plain_causal, chunk0=chunk0, banded=chunkN, banded_starts=pad_starts,
-            kv_window=kv_window, all_experts=calibrate_all_experts, stats=stats, plan=plan,
-            mesh=mesh)
+            pending=pending, plain_causal=plain_causal, chunk0=chunk0, banded=chunkN,
+            banded_starts=pad_starts, kv_window=kv_window, all_experts=calibrate_all_experts,
+            stats=stats, plan=plan, mesh=mesh)
         per_layer.append(stats)
-    h = stage_output(h, lambda x: head(params, x, cfg, compute_dtype), mesh)
+    h = stage_output(h, lambda x, r: head(params, x, cfg, compute_dtype, pending=r), mesh,
+                     pending)
     if capture_stats:
         return h, kv_cache, {k: torch.stack([st[k] for st in per_layer]) for k in STAT_KEYS}
     return h, kv_cache

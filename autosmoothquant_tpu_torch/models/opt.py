@@ -51,6 +51,7 @@ from .common import (
     add_static_fp8_scales,
     as_tensor,
     cache_mask_and_routing,
+    complete,
     forward_plan,
     fp8_observer_scales_of,
     fused_block_enabled,
@@ -238,7 +239,7 @@ def forward(params, input_ids: torch.Tensor, cfg: OPTConfig,
             banded=chunkN, banded_starts=pad_starts, kv_window=kv_window, stats=stats,
             plan=plan, mesh=mesh)
         per_layer.append(stats)
-    h = stage_output(h, lambda x: head(params, x, cfg, compute_dtype), mesh)
+    h = stage_output(h, lambda x, r: head(params, x, cfg, compute_dtype, pending=r), mesh)
     if capture_stats:
         return h, kv_cache, {k: torch.stack([st[k] for st in per_layer]) for k in STAT_KEYS}
     return h, kv_cache
@@ -257,9 +258,12 @@ def embed(params, input_ids: torch.Tensor, cfg, compute_dtype, positions=None
     return h + params["embed_pos"]["w"][positions.long() + POS_OFFSET].to(compute_dtype)
 
 
-def head(params, h: torch.Tensor, cfg, compute_dtype) -> torch.Tensor:
+def head(params, h: torch.Tensor, cfg, compute_dtype, pending=None) -> torch.Tensor:
     """The last stage's output: the final LayerNorm (pre-LN models), the
-    cast to compute_dtype and ``project_out`` where the model has one."""
+    cast to compute_dtype and ``project_out`` where the model has one.
+    ``pending``: a branch output not yet added to h, as the other families'
+    heads take it (OPT's layers leave none: None)."""
+    h = complete(h, pending)
     if cfg.do_layer_norm_before and "final_norm" in params:
         h = layer_norm(h, params["final_norm"]["w"], params["final_norm"]["b"],
                        cfg.layer_norm_eps)

@@ -10,12 +10,15 @@ each rank is one stage, at its coordinate s on the mesh's "stage" axis
 
   - M microbatches finish in M + S - 1 ticks: at tick t stage s runs
     microbatch t - s where 0 <= t - s < M, through its layers one at a
-    time (the family's ``_layer_forward``, plain causal, no cache), and
-    posts the result to stage s + 1 (``Axis.send``, which returns at once,
-    so a stage computes its next microbatch while the last one travels);
+    time (the family's ``_layer_forward``, plain causal, no cache: a
+    Llama-family layer hands the next its MLP output still to add, which
+    the next norm folds in), and posts the completed sum to stage s + 1
+    (``Axis.send``, which returns at once, so a stage computes its next
+    microbatch while the last one travels);
   - stage 0 embeds (the family's ``embed``: OPT's ``project_in`` and learned
     positions too); the last stage applies the head (the family's ``head``:
-    the final norm, OPT's ``project_out``) and returns the final hidden
+    the final norm, with the last layer's add folded in, OPT's
+    ``project_out``) and returns the final hidden
     state, which the other stages do not have (they return None);
   - every rank of a stage line posts the same sends and receives in the
     same order (stage s sends M tensors to s + 1, which receives M), so no
@@ -62,26 +65,31 @@ def stage_stack(layers, num_stages: int) -> List[list]:
 
 def pipeline_layers(feed: Callable[[int], torch.Tensor], microbatches: int, layers,
                     step_fn: Callable, mesh: Optional[Mesh], shape, dtype,
-                    device) -> List[Optional[torch.Tensor]]:
+                    device) -> List[Optional[tuple]]:
     """Run this rank's part of the GPipe schedule. ``feed(i)``: microbatch
     i's input (called on the first stage only); ``layers``: this rank's
-    layers; ``step_fn(h, lp)`` applies one layer; ``shape`` and ``dtype``:
-    a microbatch's hidden state, as a later stage receives it. Returns the
-    M microbatches' outputs on the last stage, None elsewhere."""
+    layers; ``step_fn(h, pending, lp)`` applies one layer and returns (h,
+    pending), ``pending`` a branch output not yet added to h (None: h is
+    whole); ``shape`` and ``dtype``: a microbatch's hidden state, as a later
+    stage receives it (the completed sum h + pending). Returns the M
+    microbatches' (h, pending) on the last stage, None elsewhere."""
+    from ..models.common import complete
+
     st = axis_of(mesh, "stage")
     s, n = st.index, st.size
-    outs: List[Optional[torch.Tensor]] = [None] * microbatches
+    outs: List[Optional[tuple]] = [None] * microbatches
     for tick in range(microbatches + n - 1):
         i = tick - s
         if not 0 <= i < microbatches:
             continue
         h = feed(i) if s == 0 else st.recv(shape, dtype, device, s - 1)
+        pending = None
         for lp in layers:
-            h = step_fn(h, lp)
+            h, pending = step_fn(h, pending, lp)
         if s < n - 1:
-            st.send(h, s + 1)
+            st.send(complete(h, pending), s + 1)
         else:
-            outs[i] = h
+            outs[i] = (h, pending)
     st.wait_sends()
     return outs
 
@@ -100,9 +108,9 @@ def _rope_step(mod, cfg, qcfg, mb, t, compute_dtype, plan, mesh, device):
     positions, mask, plain = _uncached(mb, t, device, getattr(cfg, "sliding_window", 0))
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
 
-    def step(h, lp):
+    def step(h, pending, lp):
         return mod._layer_forward(h, lp, cfg, qcfg, cos, sin, mask, None, None, compute_dtype,
-                                  plain_causal=plain, plan=plan, mesh=mesh)
+                                  pending=pending, plain_causal=plain, plan=plan, mesh=mesh)
 
     return step
 
@@ -116,9 +124,10 @@ def _baichuan_step(mod, cfg, qcfg, mb, t, compute_dtype, plan, mesh, device):
         cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     slopes = plan.slopes(mod.slopes_on(cfg, device))
 
-    def step(h, lp):
+    def step(h, pending, lp):
         return mod._layer_forward(h, lp, cfg, qcfg, cos, sin, mask, None, None, compute_dtype,
-                                  slopes, plain_causal=plain, plan=plan, mesh=mesh)
+                                  slopes, pending=pending, plain_causal=plain, plan=plan,
+                                  mesh=mesh)
 
     return step
 
@@ -126,9 +135,9 @@ def _baichuan_step(mod, cfg, qcfg, mb, t, compute_dtype, plan, mesh, device):
 def _opt_step(mod, cfg, qcfg, mb, t, compute_dtype, plan, mesh, device):
     _, mask, plain = _uncached(mb, t, device)
 
-    def step(h, lp):
+    def step(h, pending, lp):  # OPT's layer completes its own sum
         return mod._layer_forward(h, lp, cfg, qcfg, mask, None, None, compute_dtype,
-                                  plain_causal=plain, plan=plan, mesh=mesh)
+                                  plain_causal=plain, plan=plan, mesh=mesh), None
 
     return step
 
@@ -183,5 +192,5 @@ def pipelined_forward(model, params, input_ids: torch.Tensor, cfg, quant_config=
                            compute_dtype, dev)
     if st.index < st.size - 1:
         return None
-    return torch.cat([dax.all_gather(model.head(params, h, cfg, compute_dtype), dim=0)
-                      for h in outs])
+    heads = [model.head(params, h, cfg, compute_dtype, pending=pending) for h, pending in outs]
+    return torch.cat([dax.all_gather(x, dim=0) for x in heads])

@@ -15,9 +15,11 @@ W4A8 int4 (K5 int4 GEMM at M <= 64: its one-launch GEMV at decode, its
 tensor-core route at a prefill of <= 64 tokens in all; K3); and OPT-6.7B
 W8A8 generation (K1, K6 add+LayerNorm+quant, K3). Decode replays a CUDA
 graph of one step (``Engine``'s default on the card), in which every layer's
-attention is the port's own decode-attention kernel, and a Llama model's
-final norm (and, in W8A8, each layer's first norm with its int8 quantize)
-the port's own RMSNorm + int8 kernel. The block-paged engine
+attention is the port's own decode-attention kernel, and every RMSNorm of a
+Llama-family model that K2 does not run (the final norm included; not the
+layers' norms before int4 projections, which stay torch ops) one launch of
+the port's own RMSNorm kernel, with the residual add before it folded in
+and its output int8, f32 or bf16 as its consumer reads it. The block-paged engine
 (``PagedEngine``, explicit prefixes) serves the W8A8 TinyLlama too. The
 Baichuan (ALiBi: K3 and decode attention with per-head slopes), Gemma
 (head dim 256) and Mixtral (top-2 routed experts: the routing one launch of
@@ -38,7 +40,9 @@ Phases (any failure ends the run with a nonzero exit code):
            2-13B's 40 heads, causal, banded and the f32 route) too;
            K1 at Mixtral-8x7B's expert shapes (M 1 and a bucket of 64);
            rmsnorm_quant bit-equal
-           in both modes (T 1 / 8 / 128, D 2048 / 4096); moe_route at D
+           in both modes (T 1 / 8 / 128, D 2048 / 4096) and in its residual
+           mode in every output form (T 1 / 8 / 128 / 512, D 2048-8192) to
+           the torch add + the launch it replaces; moe_route at D
            4096, E 8 and 12, T 1 / 8 / 128 / 300, f32 and bf16 routers
            (logits within ROUTER_TOL, ids and weights against the plain
            routing, a planted tie, alone = in a batch); expert_gemv at
@@ -190,7 +194,8 @@ Phases (any failure ends the run with a nonzero exit code):
            the routing at T 1 / 8 / 128 beside torch.mm's logits; the
            expert GEMV at Mixtral-8x7B's shapes, M 1 and 8, beside K1's or
            K4's GEMV once a picked expert; K3 at D = 80 beside what padded copies
-           of its operands would cost); prefill time; decode tok/s at b1,
+           of its operands would cost; rmsnorm_quant's residual mode beside
+           the torch add + launch it replaced); prefill time; decode tok/s at b1,
            prompt 128, s_max 512, graph and eager in paired turns: TinyLlama
            W8A8, fp8, int4 and bf16, and OPT-6.7B W8A8 and bf16, each graph
            turn with its replay ms and the speed it ran at; device busy
@@ -1195,22 +1200,33 @@ def row_sum_squares(x):
     return total
 
 
-def rmsnorm_quant_ordered(x, gamma, *, eps=1e-6, quantize=True):
+def rmsnorm_quant_ordered(x, gamma, *, eps=1e-6, out_dtype=None, residual=None):
     """``csrc/rmsnorm_quant.cu``'s arithmetic in torch ops, bit for bit (D % 8
-    == 0): y = x * (1 / sqrt(sum(x^2) / D + eps)) * gamma in f32, the sum in
-    :func:`row_sum_squares`' order, each product and sum rounded once; int8
-    of round-half-even(y) clamped (``quantize``), else y in x's dtype. The
-    oracle the kernel is held to bit for bit."""
+    == 0): with ``residual``, s = x + residual in f32 rounded once to x's
+    dtype, and the norm is of s; y = x * (1 / sqrt(sum(x^2) / D + eps)) *
+    gamma in f32, the sum in :func:`row_sum_squares`' order, each product
+    and sum rounded once; int8 of round-half-even(y) clamped (``out_dtype``
+    int8, the default), else y in ``out_dtype`` (f32 or bf16). Returns the
+    output, or with ``residual`` (s, output). The oracle the kernel is held
+    to bit for bit."""
     import torch
 
     from autosmoothquant_tpu_torch.quant.math import true_div
 
+    dt = out_dtype or torch.int8
+    if residual is not None:
+        x = (x.float() + residual.float()).to(x.dtype)
     xf = x.float()
     mean = true_div(row_sum_squares(xf)[:, None], x.shape[-1])
     y = xf * torch.reciprocal(torch.sqrt(mean + eps)) * gamma.float()
-    if quantize:
-        return torch.clamp(torch.round(y), -128, 127).to(torch.int8)
-    return y.to(x.dtype)
+    out = torch.clamp(torch.round(y), -128, 127).to(torch.int8) if dt == torch.int8 else y.to(dt)
+    return out if residual is None else (x, out)
+
+
+# the residual mode's cases in the kernels phase: Llama-2-7B's, Baichuan-2-13B's
+# and Llama-2-70B's widths beside TinyLlama's, and a b4 prefill's 512 rows
+RMSNORM_RES_T = (1, 8, 128, 512)
+RMSNORM_RES_D = (2048, 4096, 5120, 8192)
 
 
 def check_rmsnorm_quant(torch, results, gen):
@@ -1219,8 +1235,25 @@ def check_rmsnorm_quant(torch, results, gen):
     rmsnorm_quant_ordered (its arithmetic in torch ops, the squares summed in
     its order), and a row's bits the same at T = 8 and alone (the batch
     invariance it exists for); against its plain version (the two ops it
-    fuses) within RMSNORM_TOL."""
+    fuses) within RMSNORM_TOL. Then its residual mode in every output form
+    (int8, f32, bf16) from bf16 and f32 x at RMSNORM_RES_T x RMSNORM_RES_D:
+    s and the output bit-equal to the composition it replaces (a torch add
+    in x's dtype, then the launch without the residual), to
+    rmsnorm_quant_ordered, and row 0 alone to row 0 of the batch; against
+    the plain version within the same limits."""
     from autosmoothquant_tpu_torch.kernels.fused import rmsnorm_quant, rmsnorm_quant_plain
+
+    def against_plain(out, ref, dt):
+        """(within the limits, max |diff|, what) of an output against plain."""
+        diff = (out.float() - ref.float()).abs()
+        err = float(diff.max())
+        if dt == torch.int8:
+            frac = float((diff > 0).float().mean())
+            return (err <= 1 and frac <= 1e-3, err,
+                    f"int8 max |diff| {err:g} on {frac:.3%} (<= 1 on <= 0.1%)")
+        rtol = RMSNORM_TOL[str(dt)]
+        return (bool((diff <= rtol * ref.float().abs()).all()), err,
+                f"norm max |diff| {err:g} (rtol {rtol:g})")
 
     worst = 0.0
     for d in (2048, 4096):
@@ -1228,22 +1261,14 @@ def check_rmsnorm_quant(torch, results, gen):
             for dt in (torch.bfloat16, torch.float32):
                 x, _, gamma = rmsnorm_case(torch, t, d, dt, gen)
                 for quantize in (True, False):
-                    out = rmsnorm_quant(x, gamma, eps=1e-5, quantize=quantize)
-                    ordered = rmsnorm_quant_ordered(x, gamma, eps=1e-5, quantize=quantize)
-                    ref = rmsnorm_quant_plain(x, gamma, eps=1e-5, quantize=quantize)
-                    alone = rmsnorm_quant(x[:1], gamma, eps=1e-5, quantize=quantize)
+                    kw = dict(eps=1e-5, out_dtype=torch.int8 if quantize else dt)
+                    out = rmsnorm_quant(x, gamma, **kw)
+                    ordered = rmsnorm_quant_ordered(x, gamma, **kw)
+                    ref = rmsnorm_quant_plain(x, gamma, **kw)
+                    alone = rmsnorm_quant(x[:1], gamma, **kw)
                     torch.cuda.synchronize()
-                    diff = (out.float() - ref.float()).abs()
-                    err = float(diff.max())
+                    close, err, what = against_plain(out, ref, kw["out_dtype"])
                     worst = max(worst, err)
-                    if quantize:
-                        frac = float((diff > 0).float().mean())
-                        close = err <= 1 and frac <= 1e-3
-                        what = f"int8 max |diff| {err:g} on {frac:.3%} (<= 1 on <= 0.1%)"
-                    else:
-                        rtol = RMSNORM_TOL[str(dt)]
-                        close = bool((diff <= rtol * ref.float().abs()).all())
-                        what = f"norm max |diff| {err:g} (rtol {rtol:g})"
                     exact = torch.equal(out, ordered) and torch.equal(alone[0], out[0])
                     log(f"  rmsnorm_quant T={t:<4d} D={d} {str(dt).split('.')[-1]:8s} "
                         f"{'int8' if quantize else 'norm'}: bit-equal to ordered "
@@ -1252,6 +1277,42 @@ def check_rmsnorm_quant(torch, results, gen):
                         f"{'ok' if exact and close else 'FAIL'}")
                     require(exact and close, f"rmsnorm_quant disagrees at T={t} D={d} {dt} "
                                              f"quantize={quantize}")
+    cases = 0
+    for d in RMSNORM_RES_D:
+        for t in RMSNORM_RES_T:
+            for dt in (torch.bfloat16, torch.float32):
+                x, r, gamma = rmsnorm_case(torch, t, d, dt, gen)
+                for out_dt in (torch.int8, torch.float32, torch.bfloat16):
+                    kw = dict(eps=1e-5, out_dtype=out_dt)
+                    before = rmsnorm_quant.res_launches
+                    s, out = rmsnorm_quant(x, gamma, residual=r, **kw)
+                    launched = rmsnorm_quant.res_launches - before
+                    summed = x + r
+                    composed = rmsnorm_quant(summed, gamma, **kw)
+                    s_ord, ordered = rmsnorm_quant_ordered(x, gamma, residual=r, **kw)
+                    s_ref, ref = rmsnorm_quant_plain(x, gamma, residual=r, **kw)
+                    s_one, alone = rmsnorm_quant(x[:1], gamma, residual=r[:1], **kw)
+                    torch.cuda.synchronize()
+                    close, err, what = against_plain(out, ref, out_dt)
+                    worst = max(worst, err)
+                    same = {"composition": torch.equal(s, summed) and torch.equal(out, composed),
+                            "ordered": torch.equal(s, s_ord) and torch.equal(out, ordered),
+                            "plain s": torch.equal(s, s_ref),
+                            "alone": torch.equal(s_one[0], s[0]) and torch.equal(alone[0],
+                                                                                 out[0])}
+                    ok = all(same.values()) and close and launched == 1
+                    cases += 1
+                    if not ok or (t, out_dt) in ((1, torch.int8), (512, torch.float32)):
+                        log(f"  rmsnorm_quant residual T={t:<4d} D={d} "
+                            f"{str(dt).split('.')[-1]:8s} -> {str(out_dt).split('.')[-1]:8s}: "
+                            + ", ".join(f"{k} {v}" for k, v in same.items())
+                            + f"; against plain {what}; counted {launched} "
+                            f"{'ok' if ok else 'FAIL'}")
+                    require(ok, f"rmsnorm_quant's residual mode disagrees at T={t} D={d} {dt} "
+                                f"-> {out_dt}: {same}, {what}, counted {launched}")
+    log(f"  rmsnorm_quant residual mode: {cases} cases (T {RMSNORM_RES_T}, D {RMSNORM_RES_D}, "
+        f"bf16 and f32 x, int8 / f32 / bf16 out) bit-equal to the torch add + the launch "
+        f"without it, to rmsnorm_quant_ordered and alone as in the batch")
     results["rmsnorm_quant"]["max_abs_err"] = worst
 
 
@@ -2282,6 +2343,8 @@ COUNTED = {"int8_matmul_tc": "K1's tensor-core route", "fp8_matmul_tc": "K4's te
            "fp8_matmul_gemv": "K4's GEMV route",
            "fused_add_rmsnorm_quant_vec": "K2's vector route",
            "fused_add_layernorm_quant_vec": "K6's vector route",
+           "rmsnorm_quant_norm": "rmsnorm_quant's f32 and bf16 outputs",
+           "rmsnorm_quant_res": "rmsnorm_quant's residual mode",
            FLASH: "K3, both wrappers"}
 
 
@@ -2303,32 +2366,55 @@ def reset_counts(counters):
 # (SHORT_PROMPTS, 4 x 16 = 64 rows: every prefill GEMM on K5's tensor
 # cores, banded flash); its decode forwards (M = 4) take K5's GEMV on the
 # f32 inputs of q|k|v and gate|up and its columns on the bf16 inputs of o
-# and down, one count a GEMM. Every TinyLlama forward ends in the final norm
-# (rmsnorm_quant without the quantize); W8A8 runs its first norm a layer
-# through rmsnorm_quant too (22 + 1 a forward). Every decode forward runs
+# and down, one count a GEMM. Every TinyLlama forward runs its norms through
+# rmsnorm_quant (norm_counts): W8A8 the first norm a layer with its int8 and
+# the final norm (K2 runs the second), fp8 both norms a layer and the final
+# norm, unquantized (f32 out); every one but layer 0's first norm folds the
+# add before it. int4 runs its layers' norms as torch ops (before W4A8:
+# models/common.py:norm_dtype) and only the final norm, the last add folded
+# in, through rmsnorm_quant. Every decode forward runs
 # decode attention once a layer. OPT-6.7B (32 layers) runs unfused: 6
 # GEMMs and one K6 a layer per forward. The host launches two decode forwards, for the
 # path's one graph key: the warm-up step and the capture, which records the
 # step. The replays launch the rest without Python; a profile of replays
 # reads the device's launches of one (replay_counts)
 SHORT_PROMPTS = (16, 12, 9, 5)
+
+
+def norm_counts(layers, int8_norms=0, k2=False, forwards=1, w4a8=False):
+    """rmsnorm_quant's launches in ``forwards`` forwards (no statistics
+    capture, one stage) of a Llama, Gemma, Baichuan or Mixtral model at
+    ``layers`` layers: both norms a layer (the second in K2 where ``k2``;
+    neither where ``w4a8``: those norms are torch ops before int4
+    projections) and the final norm, ``int8_norms`` of them a forward
+    writing int8 (the rest f32 or bf16: rmsnorm_quant_norm), every one but
+    layer 0's first norm with the add before it folded in
+    (rmsnorm_quant_res)."""
+    if w4a8:
+        return {"rmsnorm_quant": forwards, "rmsnorm_quant_norm": forwards,
+                "rmsnorm_quant_res": forwards}
+    n = 2 * layers + 1 - (layers if k2 else 0)
+    return {"rmsnorm_quant": forwards * n, "rmsnorm_quant_norm": forwards * (n - int8_norms),
+            "rmsnorm_quant_res": forwards * (n - 1)}
+
+
 SERVE_PATHS = {
     "W8A8": (32, {"int8_matmul": 88 * 2, "int8_matmul_tc": 88 * 2,
                   "fused_add_rmsnorm_quant": 22 * 2, "fused_add_rmsnorm_quant_vec": 22 * 2,
-                  "rmsnorm_quant": 23 * 2, "rmsnorm_quant_norm": 2,
+                  **norm_counts(22, 22, k2=True, forwards=2),
                   "flash_attention": 22, "flash_attention_banded": 22},
              {"int8_matmul": 88, "int8_matmul_gemv": 88,
               "fused_add_rmsnorm_quant": 22, "fused_add_rmsnorm_quant_vec": 22,
-              "rmsnorm_quant": 23, "rmsnorm_quant_norm": 1, "decode_attention": 22}, False),
+              **norm_counts(22, 22, k2=True), "decode_attention": 22}, False),
     "fp8 e4m3 dynamic": (16, {"fp8_matmul": 88 * 2, "fp8_matmul_tc": 88 * 2,
-                              "rmsnorm_quant": 2, "rmsnorm_quant_norm": 2,
+                              **norm_counts(22, forwards=2),
                               "flash_attention": 22, "flash_attention_banded": 22},
-                         {"fp8_matmul": 88, "fp8_matmul_gemv": 88, "rmsnorm_quant": 1,
-                          "rmsnorm_quant_norm": 1, "decode_attention": 22}, False),
-    "int4": (16, {"int4_matmul": 88, "int4_matmul_tc": 88, "rmsnorm_quant": 3,
-                  "rmsnorm_quant_norm": 3, "flash_attention": 22, "flash_attention_banded": 2 * 22},
-             {"int4_matmul": 88, "rmsnorm_quant": 1, "rmsnorm_quant_norm": 1,
-              "decode_attention": 22}, True),
+                         {"fp8_matmul": 88, "fp8_matmul_gemv": 88, **norm_counts(22),
+                          "decode_attention": 22}, False),
+    "int4": (16, {"int4_matmul": 88, "int4_matmul_tc": 88,
+                  **norm_counts(22, forwards=3, w4a8=True),
+                  "flash_attention": 22, "flash_attention_banded": 2 * 22},
+             {"int4_matmul": 88, **norm_counts(22, w4a8=True), "decode_attention": 22}, True),
     "OPT-6.7B W8A8": (32, {"int8_matmul": 192 * 2, "int8_matmul_tc": 192 * 2,
                            "fused_add_layernorm_quant": 32 * 2,
                            "fused_add_layernorm_quant_vec": 32 * 2,
@@ -2367,7 +2453,8 @@ DEVICE_READS = {
     "fused_add_layernorm_quant_vec": r"\badd_layernorm_quant_vec_kernel<",
     FLASH: r"\bflash_(tc_)?kernel<",
     "rmsnorm_quant": r"\brmsnorm_quant_kernel<",
-    "rmsnorm_quant_norm": r"\brmsnorm_quant_kernel<(float, float|__nv_bfloat16, __nv_bfloat16),",
+    "rmsnorm_quant_norm": r"\brmsnorm_quant_kernel<(float|__nv_bfloat16), (float|__nv_bfloat16),",
+    "rmsnorm_quant_res": r"\brmsnorm_quant_kernel<[^>]*, true>",
     "decode_attention": r"\bdecode_attn_kernel<",
     "moe_route": r"\bmoe_route_kernel<",
     "expert_gemv": r"\bgemv_mma_expert_kernel<",
@@ -2375,12 +2462,13 @@ DEVICE_READS = {
 
 
 # a TinyLlama W8A8 decode replay's device launches (22 layers): K1's four
-# GEMMs (on ``k1_route``), K2, the first norm (rmsnorm_quant) and decode
-# attention a layer, and the final norm
+# GEMMs (on ``k1_route``), K2, the first norm (rmsnorm_quant, the add before
+# it folded in from layer 1 on) and decode attention a layer, and the final
+# norm (the last add folded in)
 def w8a8_replay(k1_route="gemv"):
     return {**dict.fromkeys(DEVICE_READS, 0), "int8_matmul": 88, f"int8_matmul_{k1_route}": 88,
             "fused_add_rmsnorm_quant": 22, "fused_add_rmsnorm_quant_vec": 22,
-            "rmsnorm_quant": 23, "rmsnorm_quant_norm": 1, "decode_attention": 22}
+            **norm_counts(22, 22, k2=True), "decode_attention": 22}
 
 
 def replay_counts(torch, graph, reps=5, attempts=3, lm_heads=1):
@@ -2459,7 +2547,7 @@ def as_device_reads(counts):
 
 def serve_model(torch, label):
     """(family module, config, QuantConfig, params on the card) of a serve
-    path."""
+    path (or of the bf16 TinyLlama, "bf16": QuantConfig None)."""
     from autosmoothquant_tpu_torch.models import llama as L
     from autosmoothquant_tpu_torch.models import opt as O
     from autosmoothquant_tpu_torch.quant.config import QuantConfig
@@ -2468,6 +2556,8 @@ def serve_model(torch, label):
         cfg = O.OPTConfig(**OPT_6_7B)
         return O, cfg, QuantConfig(type="int8"), draw_opt_w8a8(cfg, seed=3, device="cuda")
     cfg = tinyllama(L, 22)
+    if label == "bf16":
+        return L, cfg, None, draw_float(cfg, seed=3, device="cuda")
     qcfg = {"W8A8": QuantConfig(type="int8"),
             "fp8 e4m3 dynamic": QuantConfig(type="fp8_e4m3"),
             "int4": QuantConfig(type="int4")}[label]
@@ -2672,7 +2762,7 @@ def batching_counts(reqs, graphs, layers=22):
     layer (causal or banded); each captured key's warm-up step and capture
     record one decode step at M = 8 (K1's GEMV, K2, decode attention); every
     forward runs the first norm a layer and the final norm through
-    rmsnorm_quant."""
+    rmsnorm_quant (norm_counts)."""
     routes = ["flash_attention"]  # the registration
     for _, prompt, kw in reqs:
         if kw.get("prefix") is None:
@@ -2686,7 +2776,7 @@ def batching_counts(reqs, graphs, layers=22):
             "int8_matmul_gemv": 4 * layers * steps,
             "fused_add_rmsnorm_quant": layers * (fwd + steps),
             "fused_add_rmsnorm_quant_vec": layers * (fwd + steps),
-            "rmsnorm_quant": (layers + 1) * (fwd + steps), "rmsnorm_quant_norm": fwd + steps,
+            **norm_counts(layers, layers, k2=True, forwards=fwd + steps),
             "decode_attention": layers * steps,
             "flash_attention": layers * routes.count("flash_attention"),
             "flash_attention_banded": layers * routes.count("flash_attention_banded")}
@@ -2920,13 +3010,13 @@ def phase_batching(torch, results, engines):
 
 
 # where a row's decode step depends on the batch: the ops of a Llama decoder
-# layer by the names models/llama.py calls them (rmsnorm_quant also the final
-# norm), and decode_attention, which update_and_attend calls in
+# layer by the names models/llama.py calls them, and rmsnorm_quant (each
+# norm's launch, the final norm's too), rms_norm (a norm's torch ops) and
+# decode_attention, which add_rms_norm and update_and_attend call in
 # models/common.py
-VARIANCE_PROBES = {"llama": ("rmsnorm_quant", "rms_norm", "linear", "linear_prequant",
-                             "apply_rope", "update_and_attend", "fused_add_rmsnorm_quant",
-                             "activation"),
-                   "common": ("decode_attention",)}
+VARIANCE_PROBES = {"llama": ("add_rms_norm", "linear", "linear_prequant", "apply_rope",
+                             "update_and_attend", "fused_add_rmsnorm_quant", "activation"),
+                   "common": ("rmsnorm_quant", "rms_norm", "decode_attention")}
 VARIANCE_SLOTS = (100, 37, 250, 5, 180, 64, 128, 12)   # each row's cache slot
 
 
@@ -3313,7 +3403,7 @@ def spec_replay(k1_route, g=SPEC_GAMMA, rounds=1, draft=None):
         for name, n in (("int8_matmul", 4 * draft), ("int8_matmul_gemv", 4 * draft),
                         ("fused_add_rmsnorm_quant", draft),
                         ("fused_add_rmsnorm_quant_vec", draft),
-                        ("rmsnorm_quant", draft + 1), ("rmsnorm_quant_norm", 1),
+                        *norm_counts(draft, draft, k2=True).items(),
                         ("decode_attention", draft)):
             out[name] += steps * n
         heads += steps
@@ -4810,12 +4900,13 @@ def ppl_launches(layers, forwards, w8a8):
     """The host launches of ``forwards`` perplexity forwards of the TinyLlama
     at ``layers`` layers, unfused: 7 K1 GEMMs, one K2, one rmsnorm_quant
     (the first norm and its int8) and one causal K3 a layer, plus the final
-    norm; a float model runs only K3 and the final norm."""
-    n = {"flash_attention": layers, "rmsnorm_quant": 1, "rmsnorm_quant_norm": 1}
+    norm; a float model runs K3 and both norms a layer and the final norm
+    through rmsnorm_quant (bf16 out), its GEMMs the library's (norm_counts)."""
+    n = {"flash_attention": layers, **norm_counts(layers)}
     if w8a8:
         n.update(int8_matmul=7 * layers, int8_matmul_tc=7 * layers,
                  fused_add_rmsnorm_quant=layers, fused_add_rmsnorm_quant_vec=layers,
-                 rmsnorm_quant=layers + 1)
+                 **norm_counts(layers, layers, k2=True))
     return {k: forwards * v for k, v in n.items()}
 
 
@@ -5108,7 +5199,8 @@ def eval_stages(art, ckpt, held, ppl_q, n_windows, layers, smi_line):
     stage_rel = abs(ppl_s - ppl_q) / ppl_q
     forwards = EVAL_BATCH_WINDOWS * -(-n_windows // EVAL_BATCH_WINDOWS)
     want = ppl_launches(layers // 2, forwards, True)
-    want["rmsnorm_quant"] -= forwards
+    want["rmsnorm_quant"] -= forwards       # no final norm on stage 0
+    want["rmsnorm_quant_res"] -= forwards
     del want["rmsnorm_quant_norm"]
     got = report["launches"]["ppl"]
     log(f"  eval_model W8A8 --stages 2 (2 gloo ranks on cuda:0) in its own process: "
@@ -5172,17 +5264,16 @@ def mixtral_counts(fmt, layers, experts=8, routed=True):
     """(host launches of a b1 T128 prefill, launches of one decode step) of a
     Mixtral path: q, k, v and o, and w1, w3 and w2 of every expert, one
     launch each (the prefill's buckets of 64 rows and its q|k|v|o at 128 on
-    the tensor cores), the routing once a layer; the second norm a layer
-    (unquantized: the routing reads it) and the final norm through
-    rmsnorm_quant's norm mode, and in W8A8 the first norm with its int8 too;
+    the tensor cores), the routing once a layer; both norms a layer and the
+    final norm through rmsnorm_quant (norm_counts), the second in f32 (the
+    routing reads it), the first with its int8 in W8A8;
     K3 causal once a layer in the prefill, decode attention once a layer a
     step. A decode step's q, k, v and o on the GEMV and, ``routed``, its
     experts as 2 expert-GEMV launches a layer (w1 with w3, w2), else (the dense
     route) one GEMV launch a expert projection."""
     gemms = family_gemms("mixtral", layers, experts)
     kernel = "int8_matmul" if fmt == "W8A8" else "fp8_matmul"
-    norms = {"rmsnorm_quant": layers + 1 + (layers if fmt == "W8A8" else 0),
-             "rmsnorm_quant_norm": layers + 1, "moe_route": layers}
+    norms = {**norm_counts(layers, layers if fmt == "W8A8" else 0), "moe_route": layers}
     prefill = {kernel: gemms, f"{kernel}_tc": gemms, "flash_attention": layers, **norms}
     step_gemms = 4 * layers if routed else gemms
     step = {kernel: step_gemms, f"{kernel}_gemv": step_gemms, "decode_attention": layers,
@@ -5195,19 +5286,21 @@ def mixtral_counts(fmt, layers, experts=8, routed=True):
 def family_counts(family, fmt, layers):
     """(host launches of a b1 T128 prefill, launches of one decode step) of a
     families path. Baichuan runs 5 GEMMs a layer (W_pack, o, gate, up, down;
-    its gate and up unfused, as JAX runs them) and, in W8A8, both norms of a
-    layer through rmsnorm_quant; Gemma (the Llama module) fuses q|k|v and
-    gate|up (4 GEMMs a layer) and runs its second norm in K2 (W8A8). Every
-    forward's final norm is rmsnorm_quant's norm mode; prefill runs K3
-    causal once a layer, a decode step decode attention once a layer; bf16
-    projections are library GEMMs. Mixtral: mixtral_counts."""
+    its gate and up unfused, as JAX runs them); Gemma (the Llama module)
+    fuses q|k|v and gate|up (4 GEMMs a layer) and runs its second norm in K2
+    (W8A8). Every other norm, the final one included, is one rmsnorm_quant
+    launch (norm_counts): int8 out before W8A8's projections (both of a
+    Baichuan layer's norms, Gemma's first), else f32 (fp8) or bf16 (bf16);
+    prefill runs K3 causal once a layer, a decode step decode attention once
+    a layer; bf16 projections are library GEMMs. Mixtral: mixtral_counts."""
     if family == "mixtral":
         return mixtral_counts(fmt, layers)
     gemms = family_gemms(family, layers)
     prefill, step = {"flash_attention": layers}, {"decode_attention": layers}
-    norms = {"rmsnorm_quant": 1, "rmsnorm_quant_norm": 1}
+    norms = norm_counts(layers)
     if fmt == "W8A8":
-        norms["rmsnorm_quant"] += (2 if family == "baichuan" else 1) * layers
+        baichuan = family == "baichuan"
+        norms = norm_counts(layers, (2 if baichuan else 1) * layers, k2=not baichuan)
         prefill.update(int8_matmul=gemms, int8_matmul_tc=gemms)
         step.update(int8_matmul=gemms, int8_matmul_gemv=gemms)
         if family == "gemma":
@@ -5707,7 +5800,8 @@ def run_arm(torch, out, counters, arm, fn, eng, inner=None):
     out[arm] = dict(tokens=tokens, hidden=tap.hidden, margins=tap.margins, logits=logits,
                     last=tap.last if arm == "int4" else None, counts=counts,
                     collectives=dict(COLLECTIVES),
-                    forwards=counts["rmsnorm_quant_norm"] or len(tap.hidden),
+                    forwards=(counts["rmsnorm_quant"] - counts["rmsnorm_quant_res"]
+                              or len(tap.hidden)),
                     wall=time.perf_counter() - t0,
                     peak=torch.cuda.max_memory_allocated() - start_mem,
                     weights=params_bytes(inner.params))
@@ -6401,6 +6495,8 @@ def report_stages(torch, twin, ranks, label, smi_line):
                     summed[k] = summed.get(k, 0) + v
             summed = {k: v for k, v in summed.items() if v}
             wanted = {k: v * mbs for k, v in want["counts"].items() if v}
+            # stage 1's first norm reads the completed sum stage 0 sent
+            wanted["rmsnorm_quant_res"] -= forwards
             if model2:
                 wanted["int8_matmul_i32"] = 2 * 22 * forwards
             require(summed == wanted, f"{label} {arm} stage line {line}: launches summed over "
@@ -6556,15 +6652,22 @@ def phase_timing(torch, results, engines):
     # decode (T = 1) and prefill (T = 128), TinyLlama's D = 2048, bf16. No
     # library call computes the int8 mode (library null); the norm mode is
     # torch.nn.functional.rms_norm, timed on bf16 x with gamma in bf16 (one
-    # call; the kernel reads gamma in f32)
+    # call; the kernel reads gamma in f32). Then the residual mode, the
+    # launch of every norm but a forward's first: int8 out (W8A8's first
+    # norm), f32 (fp8's and Mixtral's second) and bf16 (bf16's) at T 1 / 8 / 128, D
+    # 2048 and 4096, beside the composition it replaced (a torch add, then
+    # the launch without the residual); no library call computes it. The
+    # headline stays the int8 mode at T 1 without the residual, so that the
+    # kernels line compares across commits; the residual mode's T 1 int8 row
+    # rides beside it as residual_ms / residual_bound_ms
     from autosmoothquant_tpu_torch.kernels.fused import rmsnorm_quant, rmsnorm_quant_plain
 
     for t in (1, 8, 128):
         for quantize in (True, False):
             x, _, gamma = rmsnorm_case(torch, t, 2048, torch.bfloat16, gen)
-            ms = timer.ms(lambda: rmsnorm_quant(x, gamma, eps=1e-5, quantize=quantize))
-            plain_ms = timer.ms(lambda: rmsnorm_quant_plain(x, gamma, eps=1e-5,
-                                                            quantize=quantize), iters=10)
+            kw = dict(eps=1e-5, out_dtype=torch.int8 if quantize else x.dtype)
+            ms = timer.ms(lambda: rmsnorm_quant(x, gamma, **kw))
+            plain_ms = timer.ms(lambda: rmsnorm_quant_plain(x, gamma, **kw), iters=10)
             lib_ms = None
             if not quantize:
                 gamma_bf16 = gamma.to(torch.bfloat16)
@@ -6582,6 +6685,29 @@ def phase_timing(torch, results, engines):
             results["rmsnorm_quant"].setdefault("rows", []).append(row)
             if (t, quantize) == (1, True):
                 results["rmsnorm_quant"].update(row, shape="decode T=1 D=2048 bf16 int8")
+    out_bytes = {torch.int8: 1, torch.float32: 4, torch.bfloat16: 2}
+    for d in (2048, 4096):
+        for t in (1, 8, 128):
+            x, r, gamma = rmsnorm_case(torch, t, d, torch.bfloat16, gen)
+            for out_dt in (torch.int8, torch.float32, torch.bfloat16):
+                kw = dict(eps=1e-5, out_dtype=out_dt)
+                ms = timer.ms(lambda: rmsnorm_quant(x, gamma, residual=r, **kw))
+                composed_ms = timer.ms(lambda: rmsnorm_quant(x + r, gamma, **kw))
+                plain_ms = timer.ms(lambda: rmsnorm_quant_plain(x, gamma, residual=r, **kw),
+                                    iters=10)
+                # x and r read, s and the output written, gamma read once
+                b_ms, b_by = bound(t * d * (2 + 2 + 2 + out_bytes[out_dt]) + d * 4,
+                                   6 * t * d, "f32")
+                form = str(out_dt).split(".")[-1]
+                log(f"    rmsnorm_quant residual T={t:<4d} D={d} bf16 -> {form:8s} kernel "
+                    f"{ms:.4f} (torch add + launch {composed_ms:.4f}) plain {plain_ms:.4f} "
+                    f"library null bound {b_ms:.5f} ({b_by}); launch floor {floor_ms:.4f}")
+                row = dict(shape=f"T={t} D={d} bf16 residual -> {form}", ms=ms,
+                           plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                           composed_ms=composed_ms)
+                results["rmsnorm_quant"].setdefault("rows", []).append(row)
+                if (t, d, out_dt) == (1, 2048, torch.int8):
+                    results["rmsnorm_quant"].update(residual_ms=ms, residual_bound_ms=b_ms)
 
     # Mixtral's routing at Mixtral-8x7B's D 4096 and E 8 (f32 router weights),
     # top 2: a decode step (T 1), the continuous engine's b8 and a T 128

@@ -111,3 +111,28 @@ def test_every_wrapper_call_names_a_bound_entry_point():
     for lib, entries in fused._ENTRIES.items():
         for entry in entries.values():
             assert (lib, entry) in bound
+
+
+def test_rmsnorm_quant_instantiates_every_output_the_wrapper_asks_for():
+    """Each output dtype rmsnorm_quant's wrapper passes (_RMS_OUT_KINDS) is
+    the AsqOutKind value whose case in csrc/rmsnorm_quant.cu launches the
+    kernel writing that C type, with and without the residual and from both
+    input types: the 12 (input, output, residual) instances, each at every
+    row shape's V."""
+    import torch
+
+    common = (_build.CSRC / "asq_common.cuh").read_text()
+    enum = re.search(r"enum AsqOutKind \{([^}]*)\}", common).group(1)
+    kinds = {name: int(v) for name, v in re.findall(r"(ASQ_OUT_\w+)\s*=\s*(\d+)", enum)}
+    text = (_build.CSRC / "rmsnorm_quant.cu").read_text()
+    cases = dict(re.findall(r"case (ASQ_OUT_\w+): return launch<T, ([\w:]+), Res>", text))
+    c_type = {torch.int8: "int8_t", torch.float32: "float", torch.bfloat16: "__nv_bfloat16"}
+    assert set(fused._RMS_OUT_KINDS) == set(c_type)
+    for dtype, kind in fused._RMS_OUT_KINDS.items():
+        (name,) = [n for n, v in kinds.items() if v == kind]
+        assert cases[name] == c_type[dtype], (dtype, name)
+    for t in ("__nv_bfloat16", "float"):
+        for res in ("true", "false"):
+            assert f"launch_out<{t}, {res}>(a, out_kind, st)" in text
+    for v in (1, 2, 3):
+        assert f"rmsnorm_quant_kernel<T, Out, {v}, Res>" in text

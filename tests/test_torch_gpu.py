@@ -1156,7 +1156,8 @@ def test_continuous_graph_decode_equals_eager(cuda_device, max_batch):
     equal tokens, bit-equal last logits. A replay launches one step's port
     kernels on the device: 8 int8 GEMMs (the GEMV at max_batch 4, the tensor
     cores at 16, where the step's M is 16), 2 K2, 2 decode attention and 3
-    rmsnorm_quant (each layer's first norm, and the final norm)."""
+    rmsnorm_quant (each layer's first norm, and the final norm; all but
+    layer 0's first with the add before it folded in)."""
     import chip_smoke
 
     prefix, reqs = _continuous_requests(max_batch + 3)
@@ -1169,7 +1170,8 @@ def test_continuous_graph_decode_equals_eager(cuda_device, max_batch):
     route = "int8_matmul_gemv" if max_batch <= 8 else "int8_matmul_tc"
     want = {**dict.fromkeys(chip_smoke.DEVICE_READS, 0), "int8_matmul": 8, route: 8,
             "fused_add_rmsnorm_quant": 2, "fused_add_rmsnorm_quant_vec": 2,
-            "rmsnorm_quant": 3, "rmsnorm_quant_norm": 1, "decode_attention": 2}
+            "rmsnorm_quant": 3, "rmsnorm_quant_norm": 1, "rmsnorm_quant_res": 2,
+            "decode_attention": 2}
     chip_smoke.park(eng)
     for captured in eng.graphs.values():
         assert chip_smoke.replay_counts(torch, captured.graph) == want
@@ -1249,15 +1251,46 @@ def test_rmsnorm_quant_kernel_bit_equal_to_its_ordered_arithmetic(cuda_device, t
         for dt in (torch.bfloat16, torch.float32):
             x = (torch.randn(t, d, device="cuda", generator=g) * 2).to(dt)
             gamma = 32 * (1 + 0.1 * torch.randn(d, device="cuda", generator=g))
-            for quantize in (True, False):
-                out = F.rmsnorm_quant(x, gamma, eps=1e-5, quantize=quantize)
+            for out_dtype in (torch.int8, dt):
+                out = F.rmsnorm_quant(x, gamma, eps=1e-5, out_dtype=out_dtype)
                 assert torch.equal(out, rmsnorm_quant_ordered(x, gamma, eps=1e-5,
-                                                              quantize=quantize))
+                                                              out_dtype=out_dtype))
                 assert torch.equal(out[:1], F.rmsnorm_quant(x[:1], gamma, eps=1e-5,
-                                                            quantize=quantize))
+                                                            out_dtype=out_dtype))
             q = F.rmsnorm_quant(x, gamma, eps=1e-5)
             diff = (q.int() - F.rmsnorm_quant_plain(x, gamma, eps=1e-5).int()).abs()
             assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) <= 1e-3
+
+
+@pytest.mark.parametrize("t", [1, 8, 128, 512])
+def test_rmsnorm_quant_residual_mode_bit_equal(cuda_device, t):
+    """The residual mode (the add before the norm folded in) in every output
+    form (int8, f32, bf16) from bf16 and f32 x, at D 2048 / 4096 / 5120 /
+    8192: s and the output bit-equal to the composition it replaces (a torch
+    add in x's dtype, then the launch without the residual) and to
+    chip_smoke.rmsnorm_quant_ordered, row 0 alone equal to row 0 of the
+    batch, one launch counted in res_launches."""
+    from chip_smoke import rmsnorm_quant_ordered
+
+    g = _gen(100 + t)
+    for d in (2048, 4096, 5120, 8192):
+        for dt in (torch.bfloat16, torch.float32):
+            x = (torch.randn(t, d, device="cuda", generator=g) * 2).to(dt)
+            r = torch.randn(t, d, device="cuda", generator=g).to(dt)
+            gamma = 32 * (1 + 0.1 * torch.randn(d, device="cuda", generator=g))
+            for out_dt in (torch.int8, torch.float32, torch.bfloat16):
+                kw = dict(eps=1e-5, out_dtype=out_dt)
+                before = F.rmsnorm_quant.res_launches
+                s, out = F.rmsnorm_quant(x, gamma, residual=r, **kw)
+                assert F.rmsnorm_quant.res_launches == before + 1
+                assert out.dtype == out_dt and s.dtype == dt
+                summed = x + r
+                assert torch.equal(s, summed)
+                assert torch.equal(out, F.rmsnorm_quant(summed, gamma, **kw))
+                s_ord, ordered = rmsnorm_quant_ordered(x, gamma, residual=r, **kw)
+                assert torch.equal(s, s_ord) and torch.equal(out, ordered)
+                s_one, alone = F.rmsnorm_quant(x[:1], gamma, residual=r[:1], **kw)
+                assert torch.equal(s_one[0], s[0]) and torch.equal(alone[0], out[0])
 
 
 @pytest.mark.parametrize("paged", [False, True])

@@ -37,7 +37,9 @@ def _old_route(x, g, eps):
 
 
 def _run(fn, x, g, eps, quantize=True):
-    return fn(torch.from_numpy(x), torch.from_numpy(g), eps=eps, quantize=quantize).numpy()
+    """fn's int8 (``quantize``), or its row in x's dtype."""
+    out_dtype = torch.int8 if quantize else torch.from_numpy(x).dtype
+    return fn(torch.from_numpy(x), torch.from_numpy(g), eps=eps, out_dtype=out_dtype).numpy()
 
 
 def _within_one_step(got, ref):
@@ -90,7 +92,7 @@ def test_random_rows_against_jax_and_the_old_route(d):
 def test_norm_mode_writes_the_input_dtype():
     x = torch.randn(5, 256, generator=torch.Generator().manual_seed(3)).to(torch.bfloat16)
     g = torch.rand(256, generator=torch.Generator().manual_seed(4)) + 0.5
-    out = rmsnorm_quant(x, g, eps=1e-5, quantize=False)
+    out = rmsnorm_quant(x, g, eps=1e-5, out_dtype=x.dtype)
     assert out.dtype == torch.bfloat16
     assert torch.equal(out, rms_norm(x, g, 1e-5).to(torch.bfloat16))
 
@@ -102,11 +104,11 @@ def test_the_kernels_order_does_not_depend_on_the_row_count():
     x = torch.from_numpy((rng.normal(size=(8, 2048)) * 3).astype(np.float32))
     g = torch.from_numpy((rng.random(2048) * 40 + 5).astype(np.float32))
     assert torch.equal(row_sum_squares(x)[1:2], row_sum_squares(x[1:2]))
-    for quantize in (True, False):
-        batch = rmsnorm_quant_ordered(x, g, eps=1e-6, quantize=quantize)
+    for out_dtype in (torch.int8, x.dtype):
+        batch = rmsnorm_quant_ordered(x, g, eps=1e-6, out_dtype=out_dtype)
         for r in (0, 5):
             assert torch.equal(batch[r:r + 1], rmsnorm_quant_ordered(
-                x[r:r + 1], g, eps=1e-6, quantize=quantize))
+                x[r:r + 1], g, eps=1e-6, out_dtype=out_dtype))
 
 
 def test_row_sum_squares_is_the_sum():

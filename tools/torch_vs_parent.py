@@ -3,7 +3,8 @@
 against another checkout's, for example the parent commit unpacked with
 ``git archive``, in one process on one NVIDIA GPU.
 
-    python3 tools/torch_vs_parent.py --parent DIR [--out FILE]
+    python3 tools/torch_vs_parent.py --parent DIR [--out FILE] [--decode LABELS]
+                                     [--skip-kernels]
 
 DIR's ``autosmoothquant_tpu_torch`` is imported under another name, so each
 checkout builds its kernels from its own sources and runs its own wrappers
@@ -15,15 +16,21 @@ kernels  K1 at TinyLlama-1.1B's four and OPT-6.7B's three projections, K4 at
          against the plain version (K1 bit-equal; K4 within the f32 sum's
          bound), then timed in turns: other, this, this, other.
 decode   TinyLlama-1.1B W8A8 and fp8 e4m3 dynamic (22 layers) and OPT-6.7B
-         W8A8 (32 layers), one set of weights for both engines: greedy
-         tokens compared (W8A8 must agree: K1 is exact); b1 decode tok/s
+         W8A8 (32 layers), or the labels ``--decode`` lists (comma-separated:
+         those, "int4" and "bf16", the TinyLlama in W4A8 and bf16), one set of
+         weights for both engines: greedy tokens compared (W8A8 must agree:
+         K1 is exact); b1 decode tok/s
          (prompt 128, s_max 512, 64 steps, best of 3) in 10 pairs of turns,
          other first in every other pair, with the medians, the quartiles
          and the pairs this checkout won; the profiler's device-busy ms of one decode
-         step and the ms of its GEMV kernels (every kernel named "gemv").
+         step and the ms of its GEMV kernels (every kernel named "gemv"); the
+         engine's captured b1 decode graph: ms a replay (CUDA events over 50
+         replays, in turns other, this, this, other), and the profiler's
+         device kernels and device-busy ms a replay.
 
 Every line is printed; ``--out`` (default ``build/vs_parent.json``, a
-gitignored directory) gets the results as JSON. Needs one card, and nvcc for the builds.
+gitignored directory) gets the results as JSON; ``--skip-kernels`` leaves the
+kernels part out. Needs one card, and nvcc for the builds.
 """
 
 from __future__ import annotations
@@ -181,13 +188,29 @@ def step_profile(torch, model, cfg, eng, reps=5):
     return busy, gemv, len(events) / reps
 
 
+def replay_profile(torch, graph, reps=5):
+    """(device-busy ms, device kernels) of one replay of ``graph``, from the
+    profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    graph.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            graph.replay()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    return sum(e.time_range.elapsed_us() for e in events) / reps / 1e3, len(events) / reps
+
+
 def compare_decode(torch, label):
     """Both checkouts' b1 engines on one set of ``label``'s weights."""
     model, cfg, qcfg, params = S.serve_model(torch, label)
     family = model.__name__.rsplit(".", 1)[1]
     models = modules(f"models.{family}")
     qcfgs = {"this": qcfg,
-             "other": same_fields(modules("quant.config")["other"].QuantConfig, qcfg)}
+             "other": None if qcfg is None else same_fields(
+                 modules("quant.config")["other"].QuantConfig, qcfg)}
     cfgs = {"this": cfg, "other": same_fields(getattr(models["other"], type(cfg).__name__), cfg)}
     engines = {tree: E.Engine(models[tree], params, cfgs[tree], qcfgs[tree], max_batch=1,
                               max_seq=512, kv_dtype=torch.bfloat16,
@@ -209,19 +232,32 @@ def compare_decode(torch, label):
     quart = {tree: statistics.quantiles(v, n=4) for tree, v in tps.items()}
     prof = {tree: step_profile(torch, models[tree], cfgs[tree], engines[tree])
             for tree in ("other", "this")}
+    graphs = {tree: next(iter(e.graphs.values())).graph for tree, e in engines.items()}
+    replay_ms = {"this": [], "other": []}
+    for tree in TURNS[:4]:
+        replay_ms[tree].append(S.timed_replays(torch, graphs[tree]))
+    replay = {tree: replay_profile(torch, graphs[tree]) for tree in ("other", "this")}
     row = dict(config=label, tokens_equal=f"{same}/{len(tokens['this'])}",
                tps=tps["this"], other_tps=tps["other"], pairs_won=wins,
                tps_quartiles=quart["this"], other_tps_quartiles=quart["other"],
                busy_ms=prof["this"][0], gemv_ms=prof["this"][1],
                kernels=prof["this"][2], other_busy_ms=prof["other"][0],
-               other_gemv_ms=prof["other"][1], other_kernels=prof["other"][2])
+               other_gemv_ms=prof["other"][1], other_kernels=prof["other"][2],
+               replay_ms=replay_ms["this"], other_replay_ms=replay_ms["other"],
+               replay_busy_ms=replay["this"][0], replay_kernels=replay["this"][1],
+               other_replay_busy_ms=replay["other"][0], other_replay_kernels=replay["other"][1])
     S.log(f"  {label}: greedy tokens equal {row['tokens_equal']}; b1 tok/s this "
           f"{tps['this']} other {tps['other']}; quartiles this {quart['this']} other "
           f"{quart['other']}; this won {wins} of {len(tps['this'])} pairs; "
           f"decode step device busy this "
           f"{row['busy_ms']:.3f} other {row['other_busy_ms']:.3f} ms, GEMV this "
           f"{row['gemv_ms']:.3f} other {row['other_gemv_ms']:.3f} ms, device kernels "
-          f"this {row['kernels']:.1f} other {row['other_kernels']:.1f}")
+          f"this {row['kernels']:.1f} other {row['other_kernels']:.1f}; graph replay ms this "
+          + " / ".join(f"{t:.4f}" for t in replay_ms["this"]) + " other "
+          + " / ".join(f"{t:.4f}" for t in replay_ms["other"])
+          + f", a replay's device busy this {replay['this'][0]:.3f} other "
+          f"{replay['other'][0]:.3f} ms, device kernels this {replay['this'][1]:.1f} other "
+          f"{replay['other'][1]:.1f}")
     del engines
     torch.cuda.empty_cache()
     return row
@@ -231,6 +267,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True, help="the other checkout's root")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "vs_parent.json"))
+    ap.add_argument("--decode", default="W8A8,fp8 e4m3 dynamic,OPT-6.7B W8A8",
+                    help="comma-separated configurations to decode (chip_smoke.serve_model's "
+                         "labels, and bf16)")
+    ap.add_argument("--skip-kernels", action="store_true", help="time no kernels")
     args = ap.parse_args()
 
     import torch
@@ -246,11 +286,12 @@ def main():
     S.log(f"built both checkouts in {time.perf_counter() - t0:.1f} s")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
-    S.log("== kernels (ms)")
-    kernels = compare_kernels(torch, S.Timer(torch), gen)
+    kernels = None
+    if not args.skip_kernels:
+        S.log("== kernels (ms)")
+        kernels = compare_kernels(torch, S.Timer(torch), gen)
     S.log("== decode")
-    decode = [compare_decode(torch, label)
-              for label in ("W8A8", "fp8 e4m3 dynamic", "OPT-6.7B W8A8")]
+    decode = [compare_decode(torch, label) for label in args.decode.split(",")]
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump({"device": name, "nvidia_smi": smi, "kernels": kernels,
